@@ -9,10 +9,17 @@ Phases, in order; any failure exits non-zero before the last line:
    reports them. Without a CUDA device the script exits 1 at once.
 2. Build: every CUDA source under featurenet_tpu_torch/ops/csrc is
    compiled with nvcc into build/kernels/ (one nvcc each, in parallel).
-3. Kernels against their plain versions, on the card: conv3d_fwd at
-   sprint64's three stride-1 3³ shapes at batch 64 and at pod64's 5³ conv2
-   (batch 8), each with its error, its time, the plain version's time, the
-   F.conv3d time (a yardstick the port never calls) and the bound.
+3. Kernels against their plain versions, on the card, each row with its
+   error, its time, the plain version's time, one library call's time (a
+   yardstick the port never calls) and the bound:
+   - conv3d_fwd at sprint64's three stride-1 3³ forward shapes at batch 64
+     (a serving bucket) and 256 (a train step), at the three dx shapes of a
+     train step (channels swapped: 32←32, 64→32, 64→64), and at pod64's 5³
+     conv2 (batch 8, off the main path); yardstick F.conv3d;
+   - conv3d_dw (fp32) and conv_dw_folded (bf16, and fp32 off the main
+     path) at the three batch-256 weight-gradient shapes and at pod64's
+     conv2; yardstick cuDNN's weight gradient
+     (aten.convolution_backward) in the kernel's input type.
 4. Serve path: the sprint64 Predictor at full width (R=64, features
    32/32/64/64, hidden 128, 24 classes) from seeded weights, behind the
    InferenceService (buckets 1,4,16,64) and its HTTP server. STL parts go to
@@ -20,7 +27,20 @@ Phases, in order; any failure exits non-zero before the last line:
    voxel grids to POST /predict_voxels. Every answer must be a 200 with a
    class; the kernel's launch count must be 3 per dispatch; the served
    probabilities must match the same weights run through the plain conv.
-5. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+5. Train path, once per conv backend (pallas, hybrid_dw): the sprint64
+   Trainer at full width and batch 256 from a seed, dropout 0.5, a few
+   steps on synthetic parts, then one eval batch. Every loss must be
+   finite; parameters and batch-norm statistics must move; every kernel
+   of the backend must launch exactly its count per step (pallas: 6
+   conv3d_fwd, 3 conv3d_dw + 3 slab sums; hybrid_dw: 3 conv_dw_folded + 3
+   slab sums, no conv3d_fwd; plus 3 conv3d_fwd per pallas eval batch).
+   Then, from the trained state and one batch on the card with dropout off,
+   one step through the kernels must match the same step through the plain
+   versions. Device ms per step (CUDA events; alone, and while the
+   producer threads generate), samples/s with the data wait, and the
+   data-wait share are printed; before the train phases, the parts/s that
+   one host thread generates and that the Prefetcher delivers.
+6. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
@@ -41,26 +61,64 @@ import threading
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32
-# outside the tensor cores, and HBM3 bandwidth.
+# outside the tensor cores, bf16 dense tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel vs plain: both sum K³·Cin fp32 products (up to 1728 here) in
 # different orders, so they differ by rounding, ~sqrt(n)·2^-24 of the
 # output's scale. Held to 1e-5 of the largest |output|.
 KERNEL_REL_TOL = 1e-5
+# Weight gradient vs plain: a sum over up to 256·16³ ≈ 1M positions per
+# output. The kernels add each slab's ~8k products in order and then ~132
+# slab partials; cuBLAS blocks its own way. Random-walk rounding of such
+# sums is ~1e-6 of the output's scale; held to 2e-5. (A bf16 product is
+# exact in fp32, so the bf16 rows have the same tolerance.)
+DW_REL_TOL = 2e-5
 # Served probabilities vs the plain-conv forward of the same weights: the
 # conv outputs differ by fp32 rounding, and a few of them then round to a
 # neighbouring bf16 value (the model's activation dtype, 2^-8 relative);
 # that moves probabilities by far less than 2e-3.
 PROB_ATOL = 2e-3
+# One train step through the kernels vs through the plain versions, from
+# one state and batch, dropout off; gradients and batch-norm statistics
+# are compared leaf by leaf as ||kernel - plain|| / ||plain||.
+# - fp32 model: the conv outputs differ by fp32 rounding (~1e-6 of their
+#   scale); ReLU and max-pool are not smooth, so an activation next to 0 or
+#   a max-pool window with two near-equal values can switch sides and move
+#   a gradient entry. Measured up to ~1e-3 per leaf; held to 1e-2.
+# - bf16 model (the trained dtype): the same fp32 differences turn a few
+#   activations into the neighbouring bf16 value (2^-8 relative, ~5e-4 of
+#   them per conv), and with bf16's coarse values many max-pool windows
+#   hold ties that one such step breaks, re-routing a whole gradient entry.
+#   Measured ~1e-2 per leaf and varying with the state; held to 1e-1, which
+#   a wrong tap, channel or slab in a kernel (an O(1) difference) exceeds.
+# The loss is a forward quantity: 1e-4 (fp32) and 5e-3 (bf16). Updated
+# parameters: Adam's step is lr·m̂/(√v̂+eps), and an entry whose gradient is
+# rounding noise can move the other way, so they agree to 2·lr (plus 1e-6
+# for the weight decay and fp32 rounding of the update).
+STEP_TOL = {"fp32": {"loss": 1e-4, "grad": 1e-2},
+            "bf16": {"loss": 5e-3, "grad": 1e-1}}
 
-CONV_SHAPES = [  # (batch, grid, cin, cout, k, on the main path)
-    (64, 16, 32, 32, 3, True),
-    (64, 16, 32, 64, 3, True),
-    (64, 16, 64, 64, 3, True),
-    (8, 32, 32, 32, 5, False),  # pod64's conv2
-]
+SPRINT_BLOCKS = [(32, 32), (32, 64), (64, 64)]  # cin, cout of the 3³ blocks
+TRAIN_BATCH = 256
+TRAIN_STEPS = 5
+EVAL_BATCHES = 1
+# Producer threads: one per host core, at most 8 (the chip machine has 8).
+TRAIN_WORKERS = min(8, len(os.sched_getaffinity(0)))
+
+# (name, batch, grid, cin, cout, k, on the main path)
+FWD_SHAPES = (
+    [("serve", 64, 16, ci, co, 3, True) for ci, co in SPRINT_BLOCKS]
+    + [("train fwd", TRAIN_BATCH, 16, ci, co, 3, True) for ci, co in SPRINT_BLOCKS]
+    + [("train dx", TRAIN_BATCH, 16, co, ci, 3, True) for ci, co in SPRINT_BLOCKS]
+    + [("pod64 conv2", 8, 32, 32, 32, 5, False)]
+)
+DW_SHAPES = (
+    [("train dW", TRAIN_BATCH, 16, ci, co, 3, True) for ci, co in SPRINT_BLOCKS]
+    + [("pod64 conv2", 8, 32, 32, 32, 5, False)]
+)
 
 
 def fail(msg: str):
@@ -83,46 +141,92 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def conv_bound_ms(b, r, cin, cout, k):
-    flops = 2.0 * b * r ** 3 * cout * k ** 3 * cin
-    nbytes = 4.0 * (b * r ** 3 * cin + k ** 3 * cin * cout + b * r ** 3 * cout)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+def bound_ms(flops: float, nbytes: float, peak_flops: float):
+    """The least time for the work: the larger of operations over the
+    peak rate and bytes (each input read once, each output written once)
+    over the memory rate."""
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_kernels(torch, seed: int) -> list[dict]:
+def _row(torch, kernel, what, shape, kernel_fn, plain_fn, lib_fn, flops,
+         nbytes, peak, tol, main) -> dict:
+    got = kernel_fn()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.abs().max())
+    if not (err <= tol * scale):
+        fail(f"{kernel} {what} {shape}: max abs err {err} > {tol} x {scale}")
+    ms = time_ms(torch, kernel_fn)
+    plain_ms = time_ms(torch, plain_fn, reps=10)
+    lib_ms = time_ms(torch, lib_fn)
+    bound, bound_by = bound_ms(flops, nbytes, peak)
+    row = {"what": what, "shape": shape, "main_path": main,
+           "max_abs_err": err, "max_rel_err": err / scale,
+           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound, "bound_by": bound_by,
+           "tflops": flops / ms / 1e9}
+    print(kernel, json.dumps(row), flush=True)
+    return row
+
+
+def check_kernels(torch, seed: int) -> dict[str, list[dict]]:
     import torch.nn.functional as F
 
-    from featurenet_tpu_torch.ops import conv3d
+    from featurenet_tpu_torch.ops import conv3d, conv_dw
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    rows = []
-    for b, r, cin, cout, k, main in CONV_SHAPES:
+    rows = {"conv3d_fwd": [], "conv3d_dw": [], "conv_dw_folded": []}
+    for what, b, r, cin, cout, k, main in FWD_SHAPES:
         x = torch.randn((b, r, r, r, cin), device="cuda", generator=g)
         w = torch.randn((k, k, k, cin, cout), device="cuda", generator=g)
         w /= (k ** 3 * cin) ** 0.5
-        got = conv3d.conv3d_p(x, w)
-        want = conv3d.conv3d_plain(x, w)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        if not (err <= KERNEL_REL_TOL * scale):
-            fail(f"conv3d_fwd {x.shape}->{cout} K={k}: max abs err {err} > "
-                 f"{KERNEL_REL_TOL} x {scale}")
         x_ncdhw = x.permute(0, 4, 1, 2, 3)  # channels-last view, no copy
         w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous(
             memory_format=torch.channels_last_3d)
-        ms = time_ms(torch, lambda: conv3d.conv3d_p(x, w))
-        plain_ms = time_ms(torch, lambda: conv3d.conv3d_plain(x, w))
-        lib_ms = time_ms(torch, lambda: F.conv3d(x_ncdhw, w_oidhw, padding=(k - 1) // 2))
-        bound, bound_by = conv_bound_ms(b, r, cin, cout, k)
-        row = {"shape": [b, r, r, r, cin], "cout": cout, "k": k, "main_path": main,
-               "max_abs_err": err, "max_rel_err": err / scale,
-               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound, "bound_by": bound_by,
-               "tflops": 2.0 * b * r ** 3 * cout * k ** 3 * cin / ms / 1e9}
-        print("conv3d_fwd", json.dumps(row), flush=True)
-        rows.append(row)
+        n = b * r ** 3
+        rows["conv3d_fwd"].append(_row(
+            torch, "conv3d_fwd", what, [b, r, r, r, cin, cout, k],
+            lambda: conv3d.conv3d_fwd(x, w), lambda: conv3d.conv3d_plain(x, w),
+            lambda: F.conv3d(x_ncdhw, w_oidhw, padding=(k - 1) // 2),
+            2.0 * n * cout * k ** 3 * cin,
+            4.0 * (n * cin + k ** 3 * cin * cout + n * cout),
+            PEAK_FP32_FLOPS, KERNEL_REL_TOL, main))
+        del x, w, x_ncdhw, w_oidhw
+    for what, b, r, cin, cout, k, main in DW_SHAPES:
+        for name, dtype in (("conv3d_dw", torch.float32),
+                            ("conv_dw_folded", torch.bfloat16),
+                            ("conv_dw_folded", torch.float32)):
+            x = torch.randn((b, r, r, r, cin), device="cuda", generator=g).to(dtype)
+            gy = torch.randn((b, r, r, r, cout), device="cuda", generator=g).to(dtype)
+            w = torch.empty((cout, cin, k, k, k), device="cuda", dtype=dtype,
+                            memory_format=torch.channels_last_3d)
+            p = (k - 1) // 2
+            fn = conv3d.conv3d_dw if name == "conv3d_dw" else conv_dw.conv_dw_folded
+
+            def library(x=x, gy=gy, w=w, p=p):
+                return torch.ops.aten.convolution_backward(
+                    gy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3), w,
+                    None, [1, 1, 1], [p, p, p], [1, 1, 1], False, [0, 0, 0], 1,
+                    [False, True, False])[1]
+
+            n = b * r ** 3
+            size = x.element_size()
+            bf16 = dtype == torch.bfloat16
+            rows[name].append(_row(
+                torch, name, f"{what} {'bf16' if bf16 else 'fp32'}",
+                [b, r, r, r, cin, cout, k],
+                lambda: fn(x, gy, k), lambda: conv_dw.conv_dw_plain(x, gy, k),
+                library, 2.0 * n * cout * k ** 3 * cin,
+                size * n * (cin + cout) + 4.0 * k ** 3 * cin * cout,
+                PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS, DW_REL_TOL,
+                # The main path runs conv_dw_folded in bf16 (hybrid_dw).
+                main and (name == "conv3d_dw" or bf16)))
+            rows[name][-1]["dtype"] = "bf16" if bf16 else "fp32"
+            del x, gy, w
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -227,7 +331,7 @@ def serve_phase(torch, seed: int) -> dict:
         fail(f"drain: {drained}")
 
     # The same weights through the plain conv on the card.
-    plain = build_model(cfg, conv=conv3d.conv3d_plain)
+    plain = build_model(cfg, plain=True)
     plain.load_state_dict(pred.model.state_dict())
     plain = plain.to("cuda")
     x = torch.from_numpy(np.stack(grids)[..., None]).cuda()
@@ -260,6 +364,215 @@ def serve_phase(torch, seed: int) -> dict:
     }
     print("serve", json.dumps(out), flush=True)
     return out
+
+
+def _reset_counts():
+    from featurenet_tpu_torch.ops import conv3d, conv_dw
+
+    conv3d.conv3d_fwd_launches = 0
+    conv3d.conv3d_dw_launches = conv3d.conv3d_dw_sum_launches = 0
+    conv_dw.conv_dw_folded_launches = conv_dw.conv_dw_folded_sum_launches = 0
+
+
+def _read_counts() -> dict[str, int]:
+    from featurenet_tpu_torch.ops import conv3d, conv_dw
+
+    return {"conv3d_fwd": conv3d.conv3d_fwd_launches,
+            "conv3d_dw": conv3d.conv3d_dw_launches,
+            "conv3d_dw_sum": conv3d.conv3d_dw_sum_launches,
+            "conv_dw_folded": conv_dw.conv_dw_folded_launches,
+            "conv_dw_folded_sum": conv_dw.conv_dw_folded_sum_launches}
+
+
+def _one_step(torch, trainer, snapshot, batch, plain: bool, dtype):
+    """One train step from ``snapshot`` (model state + optimizer moments
+    and count) on ``batch``, dropout off, with activations in ``dtype``,
+    through the kernels or their plain versions; returns (loss, grads,
+    new state_dict)."""
+    import dataclasses
+
+    from featurenet_tpu_torch.models.featurenet import FeatureNet
+    from featurenet_tpu_torch.train.steps import loss_and_grads, make_optimizer, unpack_voxels
+
+    cfg = trainer.cfg
+    arch = dataclasses.replace(cfg.arch, dropout=0.0)
+    model = FeatureNet(arch, cfg.resolution, dtype=dtype, plain=plain).to("cuda")
+    model.load_state_dict(snapshot["model"])
+    opt = make_optimizer(cfg, model.parameters())
+    opt.count = snapshot["count"]
+    for dst, src in zip(opt.mu + opt.nu, snapshot["mu"] + snapshot["nu"]):
+        dst.copy_(src)
+    grads, metrics = loss_and_grads(model, unpack_voxels(batch["voxels"]),
+                                    batch["label"], cfg.label_smoothing)
+    opt.update(grads)
+    names = [n for n, _ in model.named_parameters()]
+    return float(metrics["loss"].detach()), dict(zip(names, grads)), model.state_dict()
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / max(float(b.float().norm()), 1e-30))
+
+
+def step_vs_plain(torch, trainer, snapshot, batch, backend) -> dict:
+    """The kernel step against the plain step in fp32 and bf16 (STEP_TOL)."""
+    lr = trainer.state.optimizer.schedule(snapshot["count"])
+    out = {"lr": lr}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        loss_k, grads_k, state_k = _one_step(torch, trainer, snapshot, batch, False, dtype)
+        loss_p, grads_p, state_p = _one_step(torch, trainer, snapshot, batch, True, dtype)
+        stats = [k for k in state_p if k.endswith((".mean", ".var"))]
+        grad = {n: _rel(grads_k[n], grads_p[n]) for n in grads_p}
+        r = {"loss_abs_err": abs(loss_k - loss_p),
+             "grad_rel_err": max(grad.values()),
+             "worst_leaf": max(grad, key=grad.get),
+             "bn_stat_rel_err": max(_rel(state_k[k], state_p[k]) for k in stats),
+             "param_abs_err": max(float((state_k[n] - state_p[n]).abs().max())
+                                  for n in grads_p)}
+        out[tag] = r
+        tol = STEP_TOL[tag]
+        if not (r["loss_abs_err"] <= tol["loss"] and r["grad_rel_err"] <= tol["grad"]
+                and r["bn_stat_rel_err"] <= tol["grad"]
+                and r["param_abs_err"] <= 2 * lr + 1e-6):
+            fail(f"train {backend}: {tag} kernel step vs plain step {r} "
+                 f"exceeds {tol} (params: 2 x lr {lr})")
+    return out
+
+
+def host_generation(torch, seed: int, workers: int) -> dict:
+    """Synthetic 64³ parts per second (generate_batch + to_wire) that one
+    host thread makes, and that the trainer's Prefetcher with ``workers``
+    threads delivers to the card from its start through 3·workers batches
+    of TRAIN_BATCH: the input rate a train step cannot outrun."""
+    import numpy as np
+
+    from featurenet_tpu_torch.data.dataset import Prefetcher, SyntheticVoxelDataset
+    from featurenet_tpu_torch.data.synthetic import generate_batch, to_wire
+
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    to_wire(generate_batch(rng, 64, 64))
+    one = 64 / (time.perf_counter() - t0)
+    n = 3 * workers
+    t0 = time.perf_counter()
+    feed = Prefetcher(SyntheticVoxelDataset(64, TRAIN_BATCH, seed=seed), "cuda",
+                      num_workers=workers)
+    try:
+        for _ in range(n):
+            next(feed)
+        torch.cuda.synchronize()
+    finally:
+        feed.close()
+    out = {"one_thread_parts_per_sec": one, "workers": workers,
+           "prefetcher_parts_per_sec": n * TRAIN_BATCH / (time.perf_counter() - t0),
+           "cpus": len(os.sched_getaffinity(0))}
+    print("data", json.dumps(out), flush=True)
+    return out
+
+
+def train_phase(torch, seed: int, backend: str) -> dict:
+    import dataclasses
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.dataset import Prefetcher
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cfg = get_config("sprint64", seed=seed, total_steps=TRAIN_STEPS,
+                     global_batch=TRAIN_BATCH, log_every=1,
+                     eval_every=TRAIN_STEPS, eval_batches=EVAL_BATCHES,
+                     data_workers=TRAIN_WORKERS)
+    cfg = dataclasses.replace(cfg, arch=dataclasses.replace(
+        cfg.arch, conv_backend=backend))
+    a = cfg.arch
+    if (cfg.resolution, cfg.global_batch, tuple(a.features), a.hidden,
+            a.num_classes, a.dropout) != (64, TRAIN_BATCH, (32, 32, 64, 64), 128,
+                                          24, 0.5):
+        fail(f"sprint64 training is not at full width: {cfg}")
+    with open(os.devnull, "w") as sink:
+        trainer = Trainer(cfg, device="cuda", stream=sink)
+        before = {k: v.clone() for k, v in trainer.state.model.state_dict().items()}
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = _read_counts()
+    steps = TRAIN_STEPS
+    want = ({"conv3d_fwd": 6 * steps + 3 * EVAL_BATCHES, "conv3d_dw": 3 * steps,
+             "conv3d_dw_sum": 3 * steps, "conv_dw_folded": 0,
+             "conv_dw_folded_sum": 0} if backend == "pallas" else
+            {"conv3d_fwd": 0, "conv3d_dw": 0, "conv3d_dw_sum": 0,
+             "conv_dw_folded": 3 * steps, "conv_dw_folded_sum": 3 * steps})
+    if counts != want:
+        fail(f"train {backend}: launches {counts} != {want}")
+    hist = [r for r in trainer.logger.history if r["kind"] == "train"]
+    losses = [r["loss"] for r in hist]
+    if len(losses) != steps or not all(map(lambda v: v == v and abs(v) < 1e30, losses)):
+        fail(f"train {backend}: losses {losses}")
+    after = trainer.state.model.state_dict()
+    moved = {k: float((after[k] - before[k]).abs().max()) for k in before}
+    params = [n for n, _ in trainer.state.model.named_parameters()]
+    stats = [k for k in before if k.endswith((".mean", ".var"))]
+    if not all(moved[k] > 0 for k in params + stats):
+        fail(f"train {backend}: some parameters or BN stats did not move: {moved}")
+    evals = [r for r in trainer.logger.history if r["kind"] == "eval"]
+    if len(evals) != 1 or not 0.0 <= evals[0]["accuracy"] <= 1.0:
+        fail(f"train {backend}: eval records {evals}")
+
+    # Device time of one step on a batch already on the card.
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             next(trainer.train_data.worker_iter(0)).items()}
+    snapshot = {"model": {k: v.clone() for k, v in after.items()},
+                "count": trainer.state.optimizer.count,
+                "mu": [t.clone() for t in trainer.state.optimizer.mu],
+                "nu": [t.clone() for t in trainer.state.optimizer.nu]}
+    step_ms = time_ms(torch, lambda: trainer.step(batch), reps=5, warmup=1)
+    # The same while the producer threads generate: they share the GIL
+    # with the thread that launches the step.
+    feed = Prefetcher(trainer.train_data, "cuda", num_workers=cfg.data_workers)
+    try:
+        busy_ms = time_ms(torch, lambda: trainer.step(batch), reps=5, warmup=1)
+    finally:
+        feed.close()
+
+    # One step through the kernels vs the plain versions, same state/batch.
+    versus = step_vs_plain(torch, trainer, snapshot, batch, backend)
+    t = trainer.timing
+    out = {
+        "backend": backend, "steps": steps, "global_batch": cfg.global_batch,
+        "data_workers": cfg.data_workers, "losses": losses,
+        "eval_accuracy": evals[0]["accuracy"], "launches": counts,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "run_s": run_s, "device_step_ms": step_ms,
+        "device_step_ms_producers_busy": busy_ms,
+        "samples_per_sec_with_data_wait": steps * cfg.global_batch / t["wall_s"],
+        "data_wait_share": t["data_wait_s"] / t["wall_s"],
+        # Host seconds of the steps themselves (launch, sync, logging),
+        # first-use set-up included: wall minus data wait.
+        "step_wall_s": t["wall_s"] - t["data_wait_s"],
+        "step_vs_plain": versus,
+    }
+    print("train", json.dumps(out), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernel_entry(name, source, replaces, rows, launches_by_path):
+    main = [r for r in rows if r["main_path"]]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in main),
+        "ms": sum(r["kernel_ms"] for r in main),
+        "plain_ms": sum(r["plain_ms"] for r in main),
+        "bound_ms": sum(r["bound_ms"] for r in main),
+        "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                        for r in main) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in main),
+        "shapes": rows,
+    }
 
 
 def main() -> int:
@@ -296,25 +609,32 @@ def main() -> int:
         print(f"build {kname}: {r['seconds']:.2f} s; " + " | ".join(info), flush=True)
 
     rows = check_kernels(torch, args.seed)
+    _reset_counts()
     serve = serve_phase(torch, args.seed)
+    host_generation(torch, args.seed, TRAIN_WORKERS)
+    train = {b: train_phase(torch, args.seed, b) for b in ("pallas", "hybrid_dw")}
 
-    main_rows = [r for r in rows if r["main_path"]]
-    kernels = [{
-        "name": "conv3d_fwd", "route": "cuda",
-        "source": "featurenet_tpu_torch/ops/csrc/conv3d_fwd.cu",
-        "replaces": "featurenet_tpu/ops/conv3d.py:160",
-        "launches": serve["conv3d_fwd_launches"],
-        # Summed over sprint64's three stride-1 blocks at batch 64: one
-        # bucket-64 forward's worth of this kernel's work.
-        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        "ms": sum(r["kernel_ms"] for r in main_rows),
-        "plain_ms": sum(r["plain_ms"] for r in main_rows),
-        "bound_ms": sum(r["bound_ms"] for r in main_rows),
-        "bound_by": "operations" if all(r["bound_by"] == "operations"
-                                        for r in main_rows) else "bytes",
-        "library_ms": sum(r["library_ms"] for r in main_rows),
-        "shapes": rows,
-    }]
+    # ms, plain_ms, library_ms and bound_ms sum one train step's shapes
+    # (batch 256): conv3d_fwd its 3 forward + 3 dx convs, conv3d_dw and
+    # conv_dw_folded (bf16) their 3 weight gradients. Launches are the
+    # counts of each main-path run.
+    fwd_train = [dict(r, main_path=r["main_path"] and r["what"] != "serve")
+                 for r in rows["conv3d_fwd"]]
+    tp, th = train["pallas"]["launches"], train["hybrid_dw"]["launches"]
+    kernels = [
+        _kernel_entry("conv3d_fwd", "featurenet_tpu_torch/ops/csrc/conv3d_fwd.cu",
+                      "featurenet_tpu/ops/conv3d.py:160", fwd_train,
+                      {"serve": serve["conv3d_fwd_launches"],
+                       "train_pallas": tp["conv3d_fwd"],
+                       "train_hybrid_dw": th["conv3d_fwd"]}),
+        _kernel_entry("conv3d_dw", "featurenet_tpu_torch/ops/csrc/conv3d_dw.cu",
+                      "featurenet_tpu/ops/conv3d.py:192", rows["conv3d_dw"],
+                      {"train_pallas": tp["conv3d_dw"]}),
+        _kernel_entry("conv_dw_folded",
+                      "featurenet_tpu_torch/ops/csrc/conv_dw_folded.cu",
+                      "featurenet_tpu/ops/conv_dw.py:163", rows["conv_dw_folded"],
+                      {"train_hybrid_dw": th["conv_dw_folded"]}),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,17 @@
     python -m featurenet_tpu_torch.cli serve --config sprint64 --seed 0 \
         --buckets 1,4,16,64 --port 0 --device cuda
     python -m featurenet_tpu_torch.cli serve --weights w.npz --port 0
+    python -m featurenet_tpu_torch.cli train --config sprint64 --device cuda \
+        [--total-steps N --global-batch B --eval-batches E \
+         --conv-backend pallas|hybrid_dw --seed S]
 
 ``--weights`` reads a file written by ``convert.save_npz``. ``serve``
 prints one ``{"serving": {...}}`` banner line with the bound port once the
 service is warm, serves until SIGTERM/SIGINT (or ``--duration-s``), then
 drains and prints ``{"serve_stats": {...}}``.
+
+``train`` prints one ``{"config": {...}}`` line, then the Trainer's JSON
+records (``setup``, ``train`` every ``log_every`` steps, ``eval``).
 """
 
 from __future__ import annotations
@@ -44,7 +50,38 @@ def _parser() -> argparse.ArgumentParser:
                        help="cuda (default) or cpu")
     p_srv.add_argument("--duration-s", type=float, default=None, dest="duration_s",
                        help="stop after this many seconds (default: until signalled)")
+
+    p_tr = sub.add_parser("train", help="train a classify preset on "
+                                        "synthetic parts")
+    p_tr.add_argument("--config", default="sprint64", choices=sorted(PRESETS))
+    p_tr.add_argument("--total-steps", type=int, dest="total_steps")
+    p_tr.add_argument("--global-batch", type=int, dest="global_batch")
+    p_tr.add_argument("--eval-batches", type=int, dest="eval_batches")
+    p_tr.add_argument("--data-workers", type=int, dest="data_workers")
+    p_tr.add_argument("--conv-backend", choices=("pallas", "hybrid_dw"),
+                      dest="conv_backend")
+    p_tr.add_argument("--seed", type=int)
+    p_tr.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
+
+
+def _train(args) -> int:
+    import dataclasses
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    overrides = {k: getattr(args, k) for k in
+                 ("total_steps", "global_batch", "eval_batches",
+                  "data_workers", "seed") if getattr(args, k) is not None}
+    cfg = get_config(args.config, **overrides)
+    if args.conv_backend:
+        cfg = dataclasses.replace(cfg, arch=dataclasses.replace(
+            cfg.arch, conv_backend=args.conv_backend))
+    print(json.dumps({"config": dataclasses.asdict(cfg)}, default=str),
+          flush=True)
+    Trainer(cfg, device=args.device).run()
+    return 0
 
 
 def _serve(args) -> int:
@@ -96,7 +133,8 @@ def _serve(args) -> int:
 
 
 def main(argv=None) -> int:
-    return _serve(_parser().parse_args(argv))
+    args = _parser().parse_args(argv)
+    return _train(args) if args.cmd == "train" else _serve(args)
 
 
 if __name__ == "__main__":

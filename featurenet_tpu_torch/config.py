@@ -1,21 +1,30 @@
-"""Serving configuration and the classify presets (port of the parts of
-``featurenet_tpu/config.py`` the serving path reads).
+"""Configuration and the classify presets (port of the parts of
+``featurenet_tpu/config.py`` that serving and training read).
 
-Only the fields that path reads are kept: ``name``, ``task``,
-``resolution``, ``arch``, ``serve_precision`` and ``seed``. The presets
-are the JAX package's classify presets with the same architectures;
-``seg64`` waits for the segmenter's port.
+Kept: the model identity (``name``, ``task``, ``resolution``, ``arch``),
+``serve_precision``, ``seed``, and the training recipe -- batch, data
+workers, eval batches, optimizer, schedule, label smoothing, clipping,
+``train_precision`` and the log/eval cadence -- with the JAX presets'
+values. ``data_cache``, ``hbm_cache``, ``augment_affine``,
+``augment_noise`` and ``steps_per_dispatch`` are carried so that a preset
+that sets them (robust64) is refused for training by
+``validate_training`` instead of training without them; the cache-backed
+data, in-step augmentation and fused dispatch they select are not ported
+yet. ``seg64`` waits for the segmenter's port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from featurenet_tpu_torch.models.featurenet import (
     FeatureNetArch,
     deep_arch,
     tiny_arch,
 )
+
+OPTIMIZERS = ("adamw", "adam", "sgd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +39,32 @@ class Config:
     serve_precision: str = "fp32"
     seed: int = 0
 
+    # Data: synthetic parts generated on the host (data/dataset.py).
+    global_batch: int = 96
+    num_features: int = 1
+    eval_batches: int = 8
+    data_workers: int = 2
+    # Not ported; carried so training can refuse a preset that sets them.
+    data_cache: Optional[str] = None
+    hbm_cache: bool = False
+    augment_affine: bool = False
+    augment_noise: float = 0.0
+    steps_per_dispatch: int = 1
+
+    # Optimization (train/steps.py).
+    optimizer: str = "adamw"
+    peak_lr: float = 1e-3
+    weight_decay: float = 1e-4
+    warmup_steps: int = 100
+    total_steps: int = 3000
+    label_smoothing: float = 0.0
+    grad_clip: float = 0.0
+    # Only "fp32" is ported: fp32 masters and fp32 gradients through the
+    # step (the model computes in its bf16 activation dtype).
+    train_precision: str = "fp32"
+    log_every: int = 50
+    eval_every: int = 500
+
     def validate(self) -> "Config":
         if self.task != "classify":
             raise ValueError(
@@ -40,8 +75,46 @@ class Config:
                 f"serve_precision {self.serve_precision!r} is not ported; "
                 "only 'fp32' is"
             )
+        if self.train_precision != "fp32":
+            raise ValueError(
+                f"train_precision {self.train_precision!r} is not ported; "
+                "only 'fp32' is"
+            )
         if self.resolution < 1:
             raise ValueError(f"resolution must be >= 1, got {self.resolution}")
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(
+                f"unknown optimizer {self.optimizer!r}; one of {OPTIMIZERS}"
+            )
+        for name in ("global_batch", "num_features", "eval_batches",
+                     "data_workers", "log_every", "eval_every"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.warmup_steps < 0 or self.total_steps < 0:
+            raise ValueError("warmup_steps and total_steps must be >= 0")
+        return self
+
+    def validate_training(self) -> "Config":
+        """``validate`` plus a refusal of what the port cannot train yet."""
+        self.validate()
+        unported = [
+            name for name, off in (
+                ("data_cache", None), ("hbm_cache", False),
+                ("augment_affine", False), ("augment_noise", 0.0),
+                ("steps_per_dispatch", 1),
+            ) if getattr(self, name) != off
+        ]
+        if unported:
+            raise ValueError(
+                f"{', '.join(unported)} set in config {self.name!r}: not "
+                "ported for training yet (synthetic host data, one step "
+                "per dispatch, no in-step augmentation)"
+            )
+        if self.resolution % 8:
+            raise ValueError(
+                "resolution must be divisible by 8 (the wire format "
+                "bit-packs voxels along the W axis)"
+            )
         return self
 
 
@@ -49,34 +122,46 @@ def _replace_arch(**kw) -> FeatureNetArch:
     return dataclasses.replace(FeatureNetArch(), **kw)
 
 
+_FAST = dict(global_batch=256, peak_lr=3e-4, warmup_steps=200)
+
 PRESETS = {
-    "smoke16": lambda: Config(name="smoke16", resolution=16, arch=tiny_arch()),
-    "xla32": lambda: Config(name="xla32", resolution=32),
-    "pod64": lambda: Config(name="pod64", resolution=64),
+    "smoke16": lambda: Config(
+        name="smoke16", resolution=16, arch=tiny_arch(), global_batch=32,
+        peak_lr=3e-3, warmup_steps=10, total_steps=200, log_every=20,
+        eval_every=100, eval_batches=2,
+    ),
+    "xla32": lambda: Config(name="xla32", resolution=32, global_batch=64,
+                            total_steps=2000),
+    "pod64": lambda: Config(name="pod64", resolution=64, global_batch=128,
+                            total_steps=5000, peak_lr=3e-4, warmup_steps=200),
     "fast64": lambda: Config(
-        name="fast64", resolution=64, arch=_replace_arch(kernels=(7, 3, 3, 3))
+        name="fast64", resolution=64, total_steps=4000, **_FAST,
+        arch=_replace_arch(kernels=(7, 3, 3, 3)),
     ),
     "turbo64": lambda: Config(
-        name="turbo64", resolution=64,
+        name="turbo64", resolution=64, total_steps=4000, **_FAST,
         arch=_replace_arch(kernels=(7, 3, 3, 3),
                            pool_after=(True, False, False, True)),
     ),
     "warp64": lambda: Config(
-        name="warp64", resolution=64,
+        name="warp64", resolution=64, total_steps=8000, **_FAST,
         arch=_replace_arch(kernels=(7, 3, 3, 3), strides=(4, 1, 1, 1),
                            pool_after=(False, False, False, True)),
     ),
     "sprint64": lambda: Config(
-        name="sprint64", resolution=64,
+        name="sprint64", resolution=64, total_steps=8000, **_FAST,
         arch=_replace_arch(kernels=(5, 3, 3, 3), strides=(4, 1, 1, 1),
                            pool_after=(False, False, False, True)),
     ),
     "robust64": lambda: Config(
-        name="robust64", resolution=64,
+        name="robust64", resolution=64, total_steps=16000, **_FAST,
         arch=_replace_arch(kernels=(5, 3, 3, 3), strides=(4, 1, 1, 1),
                            pool_after=(False, False, False, True)),
+        data_cache=".data/cls64_cache", hbm_cache=True, steps_per_dispatch=8,
+        augment_affine=True, augment_noise=0.005,
     ),
-    "abc128": lambda: Config(name="abc128", resolution=128, arch=deep_arch()),
+    "abc128": lambda: Config(name="abc128", resolution=128, arch=deep_arch(),
+                             global_batch=32, total_steps=8000, peak_lr=3e-4),
 }
 
 

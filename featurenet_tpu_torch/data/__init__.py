@@ -1,1 +1,2 @@
-"""Voxel data: STL parsing, voxelization, mesh emitters, class names."""
+"""Voxel data: STL parsing, voxelization, mesh emitters, the synthetic
+part generator and its threaded input pipeline."""

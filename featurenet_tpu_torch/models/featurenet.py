@@ -1,5 +1,5 @@
 """The FeatureNet 3D-CNN voxel classifier in PyTorch (port of
-``featurenet_tpu/models/featurenet.py``, eval mode).
+``featurenet_tpu/models/featurenet.py``).
 
 The JAX model's layout and precision are kept, so bridged weights give the
 same logits:
@@ -11,10 +11,23 @@ same logits:
   ``(x - mean) * (rsqrt(var + 1e-5) * scale) + bias``, then ReLU, then a
   cast to ``dtype``. Logits come out fp32.
 - Strided blocks go through the space-to-depth stem (``ops/stem.py``),
-  numerically the JAX ``stem_s2d`` path; every stride-1 block goes through
-  ``PallasConv``, i.e. the ``conv3d_p`` kernel (the JAX
-  ``conv_backend="pallas"`` path, without its VMEM fallback).
-- Dropout is the identity in eval mode and is not applied.
+  numerically the JAX ``stem_s2d`` path. Every stride-1 block goes
+  through the arch's ``conv_backend``: ``"pallas"`` runs ``PallasConv``
+  (the ``conv3d_p`` kernels for forward, dx and dW), ``"hybrid_dw"`` runs
+  ``HybridConv`` (``F.conv3d`` forward and dx, the ``conv_dw_folded``
+  kernel for dW). Neither keeps the JAX VMEM fallback.
+- ``forward(voxels, train=...)`` takes the mode explicitly, as the JAX
+  ``apply(..., train=...)`` does; ``nn.Module.training`` is not read.
+  In train mode batch norm normalises with the batch's statistics, in
+  fp32 with the biased variance ``mean(x²) - mean(x)²`` (Flax's
+  ``use_fast_variance``), and moves the running statistics as
+  ``0.9·running + 0.1·batch``; ``torch.nn.BatchNorm3d`` differs on both
+  counts and is not used. Dropout applies after FC-128 with the
+  caller's ``torch.Generator`` (Flax's mask: keep with probability
+  ``1-rate``, scale kept values by ``1/(1-rate)``).
+- The 2³ max pool is ``F.max_pool3d`` on a channels-first view: its
+  gradient goes to the first maximum of each window, as XLA's
+  select-and-scatter does, where ``amax`` would split it among ties.
 """
 
 from __future__ import annotations
@@ -28,10 +41,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from featurenet_tpu_torch.data.synthetic import NUM_CLASSES
-from featurenet_tpu_torch.ops.conv3d import PallasConv, conv3d_p
+from featurenet_tpu_torch.ops.conv3d import (
+    HybridConv,
+    PallasConv,
+    conv3d_hybrid,
+    conv3d_hybrid_plain,
+    conv3d_p,
+    conv3d_plain,
+)
 from featurenet_tpu_torch.ops.stem import SpaceToDepthConv
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9
+
+# conv_backend -> (block module, kernel conv, plain conv).
+CONV_BACKENDS = {
+    "pallas": (PallasConv, conv3d_p, conv3d_plain),
+    "hybrid_dw": (HybridConv, conv3d_hybrid, conv3d_hybrid_plain),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,11 +76,20 @@ class FeatureNetArch:
     num_classes: int = NUM_CLASSES
     head_gap: bool = False
     residual: bool = False
+    # Backend of the stride-1 blocks: "pallas" or "hybrid_dw" (see the
+    # module docstring). The JAX package's "xla" and "fused33" are not
+    # ported.
+    conv_backend: str = "pallas"
 
     def __post_init__(self):
         n = len(self.features)
         if not (len(self.kernels) == len(self.strides) == len(self.pool_after) == n):
             raise ValueError("arch lists must have equal length")
+        if self.conv_backend not in CONV_BACKENDS:
+            raise ValueError(
+                f"conv_backend {self.conv_backend!r} is not ported; one of "
+                f"{sorted(CONV_BACKENDS)}"
+            )
 
 
 def tiny_arch(num_classes: int = NUM_CLASSES) -> FeatureNetArch:
@@ -79,16 +115,24 @@ def deep_arch(num_classes: int = NUM_CLASSES) -> FeatureNetArch:
 
 def max_pool2(x: torch.Tensor) -> torch.Tensor:
     """2³/stride-2 VALID max pool over an NDHWC tensor."""
-    b, d, h, w, c = x.shape
-    x = x[:, : d // 2 * 2, : h // 2 * 2, : w // 2 * 2]
-    return x.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4, 6))
+    y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), kernel_size=2, stride=2)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None):
+    """Flax's dropout: keep with probability ``1-rate``, scale by its inverse."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class ConvBNRelu(nn.Module):
-    """conv → batch norm (eval, fp32) → ReLU → cast to ``dtype``."""
+    """conv → batch norm (fp32) → ReLU → cast to ``dtype``."""
 
     def __init__(self, cin: int, features: int, kernel: int, stride: int,
-                 dtype: torch.dtype, conv):
+                 dtype: torch.dtype, backend: str, plain: bool):
         super().__init__()
         if stride > 1:
             if kernel < stride:
@@ -97,36 +141,48 @@ class ConvBNRelu(nn.Module):
                 )
             self.conv = SpaceToDepthConv(cin, features, kernel, stride, dtype)
         else:
-            self.conv = PallasConv(cin, features, kernel, dtype, conv=conv)
+            block, conv, plain_conv = CONV_BACKENDS[backend]
+            self.conv = block(cin, features, kernel, dtype,
+                              conv=plain_conv if plain else conv)
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x).float() - self.mean
-        y = y * (torch.rsqrt(self.var + BN_EPS) * self.scale) + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = self.conv(x).float()
+        if train:
+            axes = (0, 1, 2, 3)
+            mean = y.mean(dim=axes)
+            var = torch.clamp((y * y).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
+                self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (y - mean) * (torch.rsqrt(var + BN_EPS) * self.scale) + self.bias
         return F.relu(y).to(self.dtype)
 
 
 class FeatureNet(nn.Module):
     """24-class voxel classifier: ``[B, R, R, R, 1]`` occupancy → fp32 logits.
 
-    ``conv`` is the stride-1 conv function, ``conv3d_p`` (the kernel) by
-    default; passing ``conv3d_plain`` gives the same model through the
-    plain version, for comparison.
+    The stride-1 blocks run the kernels of ``arch.conv_backend``;
+    ``plain=True`` gives the same model with every kernel replaced by its
+    plain version, for comparison on the card.
     """
 
     def __init__(self, arch: FeatureNetArch, resolution: int,
-                 dtype: torch.dtype = torch.bfloat16, conv=conv3d_p):
+                 dtype: torch.dtype = torch.bfloat16, plain: bool = False):
         super().__init__()
         self.arch = arch
         self.dtype = dtype
         blocks, cin, r = [], 1, resolution
         for f, k, s, p in zip(arch.features, arch.kernels, arch.strides,
                               arch.pool_after):
-            blocks.append(ConvBNRelu(cin, f, k, s, dtype, conv))
+            blocks.append(ConvBNRelu(cin, f, k, s, dtype, arch.conv_backend,
+                                     plain))
             cin = f
             if r % s:
                 raise ValueError(f"grid {r} not divisible by stride {s}")
@@ -140,12 +196,15 @@ class FeatureNet(nn.Module):
         self.dense0 = nn.Linear(flat, arch.hidden)
         self.dense1 = nn.Linear(arch.hidden, arch.num_classes)
 
-    def forward(self, voxels: torch.Tensor) -> torch.Tensor:
+    def forward(self, voxels: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits; ``train=True`` uses and updates batch statistics and
+        applies dropout with ``generator``."""
         a = self.arch
         x = voxels.to(self.dtype)
         for block, f, s, p in zip(self.blocks, a.features, a.strides,
                                   a.pool_after):
-            y = block(x)
+            y = block(x, train)
             if a.residual and s == 1 and x.shape[-1] == f:
                 y = y + x  # identity skip; pooling stays outside the branch
             x = max_pool2(y) if p else y
@@ -155,6 +214,8 @@ class FeatureNet(nn.Module):
             x = x.reshape(x.shape[0], -1)
         x = F.relu(F.linear(x, self.dense0.weight.to(self.dtype),
                             self.dense0.bias.to(self.dtype)))
+        if train:
+            x = dropout(x, a.dropout, generator)
         x = F.linear(x, self.dense1.weight.to(self.dtype),
                      self.dense1.bias.to(self.dtype))
         return x.float()

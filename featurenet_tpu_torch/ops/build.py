@@ -29,7 +29,11 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # Kernel name -> source file under csrc/.
-SOURCES = {"conv3d_fwd": "conv3d_fwd.cu"}
+SOURCES = {
+    "conv3d_fwd": "conv3d_fwd.cu",
+    "conv3d_dw": "conv3d_dw.cu",
+    "conv_dw_folded": "conv_dw_folded.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,24 +1,35 @@
-"""Stride-1 SAME 3D convolution, odd K: the port of ``conv3d_p``.
+"""Stride-1 SAME 3D convolution, odd K: the port of ``conv3d_p`` and
+``conv3d_hybrid`` with their gradients.
 
-``conv3d_p(x, w)`` takes ``x [B,D,H,W,Cin]`` (NDHWC) and ``w
-[K,K,K,Cin,Cout]`` (DHWIO), both fp32, and returns ``[B,D,H,W,Cout]`` fp32
--- the function ``featurenet_tpu/ops/conv3d.py::conv3d_p`` computes.
+Layouts are the JAX ones: activations NDHWC ``[B,D,H,W,C]``, kernels DHWIO
+``[K,K,K,Cin,Cout]``.
 
-- On a CUDA tensor it launches the hand-written kernel in
-  ``csrc/conv3d_fwd.cu`` (built with ``nvcc`` at first use, see
-  ``ops/build.py``) or raises; there is no fallback.
-- On a CPU tensor it runs ``conv3d_plain``, the K³ tap-shift sum in
-  PyTorch with fp32 accumulation. The tests hold it against the JAX
-  kernel, and ``chip_smoke.py`` holds the CUDA kernel against it.
+- ``conv3d_fwd(x, w)``: the forward, fp32. On a CUDA tensor it launches the
+  hand-written kernel in ``csrc/conv3d_fwd.cu`` (built with ``nvcc`` at
+  first use, see ``ops/build.py``) or raises; on a CPU tensor it runs
+  ``conv3d_plain``, the K³ tap-shift sum in fp32.
+- ``conv3d_dw(x, g, k)``: the weight gradient, fp32. On a CUDA tensor it
+  launches ``csrc/conv3d_dw.cu`` (partial tiles over slabs of positions,
+  then a slab sum in fixed order) or raises; on a CPU tensor it runs
+  ``conv_dw_plain`` (``ops/conv_dw.py``).
+- ``conv3d_p``: a ``torch.autograd.Function`` like the JAX ``custom_vjp``
+  (``_vjp_bwd``): forward ``conv3d_fwd``; dx is ``conv3d_fwd`` of the
+  cotangent with the kernel flipped in (z,y,x) and Cin↔Cout swapped
+  (stride-1 SAME odd-K is its own transpose); dW is ``conv3d_dw``.
+- ``conv3d_hybrid``: forward and dx through ``F.conv3d`` in the activation
+  dtype, as the JAX package hands them to XLA; dW through the
+  ``conv_dw_folded`` kernel (``ops/conv_dw.py``).
+- ``conv3d_plain`` and ``conv3d_hybrid_plain`` compute the same functions
+  with every kernel replaced by its plain version (gradients by autograd);
+  ``chip_smoke.py`` holds the kernels' training step against them.
 
-``conv3d_fwd_launches`` counts the kernel's launches (one per call on a
-CUDA tensor), so a run can show that its forward went through the kernel.
-The serving path launches from the batcher's single dispatch thread.
+``conv3d_fwd_launches``, ``conv3d_dw_launches`` and
+``conv3d_dw_sum_launches`` count kernel launches (one per call on a CUDA
+tensor), so a run can show that its convolutions went through the kernels.
 
-The TPU kernel's VMEM plan (``_pick_tz``, ``pallas_conv_supported``) is a
-TPU limit and is not carried over: every stride-1 odd-K block runs this
-kernel. Under pod64 the port therefore runs it on the 5³ conv2 at 32³,
-where the JAX package falls back to XLA's conv -- the same function.
+The TPU kernel's VMEM plan (``_pick_tz``, ``pallas_conv_supported``,
+``dw_folded_supported``) is a TPU limit and is not carried over: every
+stride-1 odd-K block runs the kernels.
 """
 
 from __future__ import annotations
@@ -30,8 +41,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from featurenet_tpu_torch.ops import build
+from featurenet_tpu_torch.ops.conv_dw import (
+    TILE_AREA,
+    check_dw_args,
+    check_launch_args,
+    conv_dw_folded,
+    conv_dw_plain,
+    plan_slabs,
+)
 
 conv3d_fwd_launches = 0
+conv3d_dw_launches = 0
+conv3d_dw_sum_launches = 0
 
 _INT_LIMIT = 2 ** 31 - 1
 
@@ -102,14 +123,124 @@ def _kernel():
     return fn
 
 
-def conv3d_p(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Stride-1 SAME 3D conv, odd K: ``[B,D,H,W,Cin] x [K,K,K,Cin,Cout]``."""
+def conv3d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stride-1 SAME 3D conv, odd K, no gradient: the forward kernel."""
     _check(x, w)
     if x.device.type == "cpu":
         return conv3d_plain(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_p: no kernel for device {x.device}")
     return _launch(x, w)
+
+
+def _launch_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    global conv3d_dw_launches, conv3d_dw_sum_launches
+    check_launch_args("conv3d_dw", x, g, (torch.float32,))
+    b, d, h, w, cin = x.shape
+    cout = g.shape[-1]
+    bn = 32 if cout <= 32 else 64
+    bm = TILE_AREA // bn
+    tiles = -(-(k ** 3 * cin) // bm) * -(-cout // bn)
+    slabs, slab_len = plan_slabs(b * d * h * w, tiles)
+    part = torch.empty((slabs, k ** 3 * cin * cout), dtype=torch.float32,
+                       device=x.device)
+    out = torch.empty((k, k, k, cin, cout), dtype=torch.float32, device=x.device)
+    fn = _kernel_dw()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(),
+                b, d, h, w, cin, cout, k, bn, slabs, slab_len, stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3d_dw_f32 launch failed: cudaError {rc}")
+    conv3d_dw_launches += 1
+    conv3d_dw_sum_launches += 1
+    return out
+
+
+def _kernel_dw():
+    lib = build.load("conv3d_dw")
+    fn = lib.conv3d_dw_f32
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def conv3d_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """Weight grad of ``conv3d_p``: ``[k,k,k,Cin,Cout]`` fp32 from fp32
+    ``x [B,D,H,W,Cin]`` and cotangent ``g [B,D,H,W,Cout]``."""
+    check_dw_args("conv3d_dw", x, g, k)
+    if x.device.type == "cpu":
+        return conv_dw_plain(x, g, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_dw: no kernel for device {x.device}")
+    return _launch_dw(x, g, k)
+
+
+def _flip(w: torch.Tensor) -> torch.Tensor:
+    """The dx kernel: ``w`` flipped in (kz,ky,kx), Cin and Cout swapped."""
+    return w.flip(0, 1, 2).transpose(3, 4).contiguous()
+
+
+class _Conv3dP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv3d_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = conv3d_fwd(g, _flip(w)) if ctx.needs_input_grad[0] else None
+        dw = conv3d_dw(x, g, w.shape[0]) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def conv3d_p(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stride-1 SAME 3D conv, odd K: ``[B,D,H,W,Cin] x [K,K,K,Cin,Cout]``,
+    fp32, differentiable through the kernels."""
+    _check(x, w)
+    return _Conv3dP.apply(x, w)
+
+
+def _library_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The stride-1 SAME conv as ``F.conv3d`` on NDHWC views, in x's dtype."""
+    p = (w.shape[0] - 1) // 2
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype).permute(4, 3, 0, 1, 2),
+                 padding=p)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class _Conv3dHybrid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, weight_grad):
+        ctx.save_for_backward(x, w)
+        ctx.weight_grad = weight_grad
+        return _library_conv(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = _library_conv(g, _flip(w)) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = ctx.weight_grad(x, g, w.shape[0]).to(w.dtype)
+        return dx, dw, None
+
+
+def conv3d_hybrid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stride-1 SAME conv in x's dtype: ``F.conv3d`` forward and input
+    grad, weight grad through the ``conv_dw_folded`` kernel (fp32)."""
+    _check(x, w)
+    return _Conv3dHybrid.apply(x.contiguous(), w, conv_dw_folded)
+
+
+def conv3d_hybrid_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``conv3d_hybrid`` with the weight grad through ``conv_dw_plain``."""
+    _check(x, w)
+    return _Conv3dHybrid.apply(x.contiguous(), w, conv_dw_plain)
 
 
 class PallasConv(nn.Module):
@@ -133,3 +264,26 @@ class PallasConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x.float().contiguous(), self.kernel).to(self.dtype)
+
+
+class HybridConv(nn.Module):
+    """Stride-1 SAME conv block backed by ``conv3d_hybrid`` (no bias).
+
+    Activations stay in ``dtype`` and the fp32 kernel is cast to it, as the
+    JAX module's ``_xla_conv`` does; the weight gradient comes back fp32.
+    ``conv`` is ``conv3d_hybrid`` unless a caller passes
+    ``conv3d_hybrid_plain``.
+    """
+
+    def __init__(self, cin: int, features: int, kernel_size: int,
+                 dtype: torch.dtype = torch.bfloat16, conv=conv3d_hybrid):
+        super().__init__()
+        if kernel_size % 2 == 0:
+            raise ValueError(f"HybridConv needs an odd kernel, got {kernel_size}")
+        k = kernel_size
+        self.kernel = nn.Parameter(torch.empty((k, k, k, cin, features)))
+        self.dtype = dtype
+        self.conv = conv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x.to(self.dtype), self.kernel)

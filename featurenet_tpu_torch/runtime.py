@@ -12,7 +12,6 @@ import torch
 
 from featurenet_tpu_torch.config import Config
 from featurenet_tpu_torch.models.featurenet import FeatureNet, init_weights
-from featurenet_tpu_torch.ops.conv3d import conv3d_p
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -29,11 +28,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def build_model(cfg: Config, seed: int | None = None, conv=conv3d_p) -> FeatureNet:
+def build_model(cfg: Config, seed: int | None = None,
+                plain: bool = False) -> FeatureNet:
     """The classifier a config serves, on the CPU, in eval mode; random
     weights from ``seed`` when given (else the module's placeholders,
-    to be overwritten by ``load_state_dict``)."""
-    model = FeatureNet(cfg.arch, cfg.resolution, conv=conv)
+    to be overwritten by ``load_state_dict``). ``plain=True`` builds it
+    with the kernels' plain versions."""
+    model = FeatureNet(cfg.arch, cfg.resolution, plain=plain)
     if seed is not None:
         init_weights(model, seed)
     return model.eval()

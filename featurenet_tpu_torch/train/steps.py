@@ -1,0 +1,201 @@
+"""Train and eval steps, loss, learning-rate schedule and optimizers (port
+of ``featurenet_tpu/train/steps.py``, classify task, fp32 policy).
+
+PyTorch runs eagerly, so a step is a plain function that runs forward,
+backward and the update on the state's model in place. The optimizers are
+written out by hand to follow optax's update order exactly (the port does
+not use optax):
+
+- ``adamw``: ``p ← p − lr·(m̂/(√v̂ + eps) + wd·p)`` on every parameter,
+  batch-norm scale/bias and biases included (optax applies no mask);
+  b1 0.9, b2 0.999, eps 1e-8.
+- ``adam``: the same without decay; ``sgd``: momentum 0.9,
+  ``t ← g + 0.9·t``, ``p ← p − lr·t``.
+- ``grad_clip > 0`` first scales the gradients to that global norm when
+  they exceed it (``optax.clip_by_global_norm``).
+
+The schedule is ``optax.warmup_cosine_decay_schedule`` with init 0, end
+``peak·0.01`` and ``decay_steps = max(total, warmup + 1)``; at step 0 the
+rate is 0, so the first update moves no parameter.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+SGD_MOMENTUM = 0.9
+
+
+def unpack_voxels(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``data.synthetic.pack_voxels`` on the device:
+    ``[B, R, R, R/8] uint8`` → ``[B, R, R, R, 1] float32``, MSB first."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed.unsqueeze(-1) >> shifts) & 1
+    b, d, h, w8 = packed.shape
+    return bits.reshape(b, d, h, w8 * 8, 1).float()
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
+                        label_smoothing: float = 0.0):
+    """Mean softmax cross-entropy (labels smoothed toward uniform by
+    ``label_smoothing``) and accuracy; returns ``(loss, metrics)``."""
+    labels = labels.long()
+    loss = F.cross_entropy(logits, labels, label_smoothing=label_smoothing)
+    acc = (logits.argmax(dim=-1) == labels).float().mean()
+    return loss, {"loss": loss, "accuracy": acc}
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``sqrt(Σ x²)`` over every element of every tensor (optax's)."""
+    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+
+
+def make_lr_schedule(peak_lr: float, warmup_steps: int,
+                     total_steps: int) -> Callable[[int], float]:
+    """Linear warmup from 0 to ``peak_lr``, then cosine decay to
+    ``peak_lr·0.01`` at ``max(total_steps, warmup_steps + 1)``."""
+    decay_steps = max(total_steps, warmup_steps + 1) - warmup_steps
+    end = peak_lr * 0.01
+    alpha = 0.0 if peak_lr == 0.0 else end / peak_lr
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return peak_lr * step / warmup_steps
+        t = min(step - warmup_steps, decay_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / decay_steps))
+        return peak_lr * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+class Optimizer:
+    """optax's ``adamw``/``adam``/``sgd(momentum=0.9)``, optionally after
+    ``clip_by_global_norm``, over a fixed list of parameters.
+
+    ``mu``/``nu`` are Adam's moments (``mu`` is SGD's trace), one tensor per
+    parameter; ``count`` is the number of updates applied, which is also
+    the schedule's step.
+    """
+
+    def __init__(self, params: Sequence[torch.Tensor], kind: str,
+                 schedule: Callable[[int], float], weight_decay: float = 0.0,
+                 grad_clip: float = 0.0):
+        if kind not in ("adamw", "adam", "sgd"):
+            raise ValueError(f"unknown optimizer {kind!r}")
+        self.params = list(params)
+        self.kind = kind
+        self.schedule = schedule
+        self.weight_decay = weight_decay if kind == "adamw" else 0.0
+        self.grad_clip = grad_clip
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = ([torch.zeros_like(p) for p in self.params]
+                   if kind != "sgd" else [])
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]) -> None:
+        """Apply one update from ``grads`` (one per parameter) in place."""
+        grads = list(grads)
+        if self.grad_clip > 0.0:
+            norm = global_norm(grads)
+            keep = norm < self.grad_clip
+            grads = [torch.where(keep, g, g / norm * self.grad_clip)
+                     for g in grads]
+        lr = self.schedule(self.count)
+        self.count += 1
+        if self.kind == "sgd":
+            for p, g, t in zip(self.params, grads, self.mu):
+                t.copy_(g + SGD_MOMENTUM * t)
+                p.add_(t * (-lr))
+            return
+        c1 = 1.0 - ADAM_B1 ** self.count
+        c2 = 1.0 - ADAM_B2 ** self.count
+        for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
+            m.copy_((1.0 - ADAM_B1) * g + ADAM_B1 * m)
+            v.copy_((1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v)
+            u = (m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            p.add_(u * (-lr))
+
+
+def make_optimizer(cfg, params: Sequence[torch.Tensor]) -> Optimizer:
+    sched = make_lr_schedule(cfg.peak_lr, cfg.warmup_steps, cfg.total_steps)
+    return Optimizer(params, cfg.optimizer, sched,
+                     weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip)
+
+
+def loss_and_grads(model, voxels: torch.Tensor, labels: torch.Tensor,
+                   label_smoothing: float = 0.0,
+                   generator: torch.Generator | None = None):
+    """Train-mode forward (batch statistics move) and the gradient of the
+    loss for every parameter, in ``model.parameters()`` order."""
+    logits = model(voxels, train=True, generator=generator)
+    loss, metrics = classification_loss(logits, labels, label_smoothing)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return grads, metrics
+
+
+def make_train_step(label_smoothing: float = 0.0) -> Callable:
+    """``step(state, batch, generator) -> metrics``: one update of ``state``
+    (``train/state.py``) in place from a wire batch (bit-packed voxels
+    unpacked on the device). Metrics are device scalars: ``loss``,
+    ``accuracy`` and ``grad_norm``, the global norm of the gradients."""
+
+    def train_step(state, batch: dict, generator=None) -> dict:
+        voxels = unpack_voxels(batch["voxels"])
+        grads, metrics = loss_and_grads(state.model, voxels, batch["label"],
+                                        label_smoothing, generator)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads)
+        state.apply_gradients(grads)
+        return metrics
+
+    return train_step
+
+
+@torch.no_grad()
+def eval_step(model, batch: dict) -> dict:
+    """Eval sums (not means) of one wire batch, so batches add up exactly:
+    ``correct``, ``loss_sum``, ``count`` and ``confusion`` [true, pred]."""
+    logits = model(unpack_voxels(batch["voxels"]), train=False)
+    labels = batch["label"].long()
+    mask = batch["mask"].float()
+    pred = logits.argmax(dim=-1)
+    n = logits.shape[-1]
+    loss = F.cross_entropy(logits, labels, reduction="none")
+    confusion = (F.one_hot(labels, n).float()[:, :, None]
+                 * F.one_hot(pred, n).float()[:, None, :]
+                 * mask[:, None, None]).sum(0)
+    return {
+        "correct": ((pred == labels).float() * mask).sum(),
+        "loss_sum": (loss * mask).sum(),
+        "count": mask.sum(),
+        "confusion": confusion,
+    }
+
+
+def aggregate_eval(metric_list: list[dict]) -> dict:
+    """Host-side exact aggregation of per-batch eval sums."""
+    total: dict = {}
+    for m in metric_list:
+        for k, v in m.items():
+            total[k] = total.get(k, 0) + v.detach().cpu().double().numpy()
+    out = {
+        "accuracy": float(total["correct"] / total["count"]),
+        "loss": float(total["loss_sum"] / total["count"]),
+    }
+    conf = total["confusion"]
+    row = conf.sum(axis=1)
+    per_class = np.where(row > 0, np.diag(conf) / np.maximum(row, 1), 0.0)
+    seen = row > 0
+    out["per_class_accuracy"] = per_class.round(4).tolist()
+    out["mean_class_accuracy"] = float(per_class[seen].mean() if seen.any() else 0.0)
+    out["confusion"] = conf.astype(int).tolist()
+    return out

@@ -1,6 +1,7 @@
-"""``python -m featurenet_tpu_torch.cli serve`` end to end on the CPU: it
+"""``python -m featurenet_tpu_torch.cli`` end to end on the CPU: ``serve``
 loads a weight file (or seeds weights), prints its banner with the bound
-port, answers over HTTP, and drains on SIGTERM."""
+port, answers over HTTP, and drains on SIGTERM; ``train`` prints its config
+and JSON records with a finite loss."""
 
 import http.client
 import json
@@ -65,3 +66,28 @@ def test_cli_serve_refuses_missing_card():
     out, err = proc.communicate(timeout=120)
     assert proc.returncode != 0 and "no CUDA device" in err
     assert "serving" not in out
+
+
+def test_cli_train_smoke16_on_cpu():
+    proc = _cli("train", "--config", "smoke16", "--device", "cpu",
+                "--total-steps", "3")
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err
+    records = [json.loads(line) for line in out.strip().splitlines()]
+    cfg = records[0]["config"]
+    assert cfg["name"] == "smoke16" and cfg["total_steps"] == 3
+    assert cfg["arch"]["conv_backend"] == "pallas"
+    kinds = [r["kind"] for r in records[1:]]
+    assert kinds == ["setup", "train", "eval"]
+    train = records[2]
+    assert train["step"] == 3 and np.isfinite(train["loss"])
+    assert np.isfinite(train["grad_norm"]) and train["samples_per_sec"] > 0
+    assert 0.0 <= records[3]["accuracy"] <= 1.0
+
+
+def test_cli_train_refuses_missing_card():
+    proc = _cli("train", "--config", "smoke16", "--total-steps", "1",
+                env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    out, err = proc.communicate(timeout=120)
+    assert proc.returncode != 0 and "no CUDA device" in err
+    assert '"kind"' not in out

@@ -66,10 +66,10 @@ def test_pallas_conv_module_keeps_cast_order():
 def test_kernel_build_targets_hopper():
     """The build line asks nvcc for sm_90a, and the library name follows
     the source, so an edited kernel rebuilds. Nothing is built here."""
-    cmd = build.nvcc_command("nvcc", "conv3d_fwd", build.library_path("conv3d_fwd"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[-1].endswith("csrc/conv3d_fwd.cu")
-    assert build.library_path("conv3d_fwd").parent == build.BUILD_DIR
-    assert set(build.SOURCES) == {"conv3d_fwd"}
-    for src in build.SOURCES.values():
+    assert set(build.SOURCES) == {"conv3d_fwd", "conv3d_dw", "conv_dw_folded"}
+    for name, src in build.SOURCES.items():
+        cmd = build.nvcc_command("nvcc", name, build.library_path(name))
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert cmd[-1].endswith(f"csrc/{src}")
+        assert build.library_path(name).parent == build.BUILD_DIR
         assert (build.SRC_DIR / src).is_file()

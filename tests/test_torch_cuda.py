@@ -1,8 +1,10 @@
-"""The CUDA kernel on the card: ``conv3d_p`` against ``conv3d_plain`` at
-ragged shapes (channel counts that are not multiples of the kernel's
-16-channel chunk or 32/64-channel tile, position counts that are not
-multiples of its row tile, K from 1 to 7), the wrapper's checks, and the
-Predictor on the card against the same weights on the CPU.
+"""The CUDA kernels on the card: ``conv3d_p`` against ``conv3d_plain``,
+``conv3d_dw`` and ``conv_dw_folded`` (fp32 and bf16) against
+``conv_dw_plain``, at ragged shapes (channel counts that are not multiples
+of the kernels' 16-row chunk or 32/64/128-wide tiles, position counts that
+are not multiples of a row tile or of a slab, K from 1 to 7); the weight
+gradients' bitwise repeatability; the wrappers' checks; the Predictor and
+a smoke16 train step on the card against the same on the CPU.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -11,7 +13,8 @@ there without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: kernel and plain version sum the same fp32 products in other
-orders (TF32 off), so they agree to 1e-5 of the output's scale.
+orders (TF32 off; a bf16 product is exact in fp32), so they agree to 1e-5
+of the output's scale.
 """
 
 import numpy as np
@@ -79,3 +82,138 @@ def test_predictor_on_card_matches_cpu(cuda):
     # bf16 activations: a conv output on either side of a bf16 rounding
     # boundary moves a probability by a few 1e-4 at most.
     np.testing.assert_allclose(on_card, on_cpu, atol=2e-3)
+
+
+DW_SHAPES = [  # b, d, h, w, cin, cout, k
+    (1, 5, 6, 7, 3, 5, 3),
+    (2, 8, 8, 8, 17, 33, 3),
+    (3, 4, 9, 5, 40, 70, 5),
+    (1, 6, 6, 6, 16, 32, 1),
+    (2, 9, 9, 9, 8, 96, 7),
+    (3, 5, 7, 9, 33, 65, 3),  # 945 positions: the last slab is short
+    (16, 16, 16, 16, 64, 64, 3),
+]
+
+
+def _dw_inputs(cuda, b, d, h, w, cin, cout, dtype=torch.float32):
+    g = torch.Generator(device=cuda).manual_seed(b * d + cin + cout)
+    x = torch.randn((b, d, h, w, cin), device=cuda, generator=g).to(dtype)
+    gy = torch.randn((b, d, h, w, cout), device=cuda, generator=g).to(dtype)
+    return x, gy
+
+
+@pytest.mark.parametrize("b,d,h,w,cin,cout,k", DW_SHAPES)
+@pytest.mark.parametrize("kernel", ["conv3d_dw", "folded_f32", "folded_bf16"])
+def test_dw_kernels_match_plain(cuda, kernel, b, d, h, w, cin, cout, k):
+    from featurenet_tpu_torch.ops import conv3d, conv_dw
+
+    dtype = torch.bfloat16 if kernel == "folded_bf16" else torch.float32
+    x, gy = _dw_inputs(cuda, b, d, h, w, cin, cout, dtype)
+    if kernel == "conv3d_dw":
+        before = conv3d.conv3d_dw_launches
+        got = conv3d.conv3d_dw(x, gy, k)
+        launched = conv3d.conv3d_dw_launches - before
+    else:
+        before = conv_dw.conv_dw_folded_launches
+        got = conv_dw.conv_dw_folded(x, gy, k)
+        launched = conv_dw.conv_dw_folded_launches - before
+    want = conv_dw.conv_dw_plain(x, gy, k)
+    torch.cuda.synchronize()
+    assert launched == 1
+    assert got.dtype == torch.float32 and got.shape == (k, k, k, cin, cout)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("fn,plain", [("conv3d_p", "conv3d_plain"),
+                                       ("conv3d_hybrid", "conv3d_hybrid_plain")])
+@pytest.mark.parametrize("cin,cout", [(32, 64), (64, 32)])
+def test_conv_autograd_on_card_matches_plain(cuda, fn, plain, cin, cout):
+    """dx and dW of the autograd functions through the kernels against
+    autograd through the plain versions, fp32."""
+    from featurenet_tpu_torch.ops import conv3d
+
+    g = torch.Generator(device=cuda).manual_seed(cin + cout)
+    x = torch.randn((8, 16, 16, 16, cin), device=cuda, generator=g)
+    w = torch.randn((3, 3, 3, cin, cout), device=cuda, generator=g) / (27 * cin) ** 0.5
+    gy = torch.randn((8, 16, 16, 16, cout), device=cuda, generator=g)
+    grads = []
+    for f in (getattr(conv3d, fn), getattr(conv3d, plain)):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        (f(xr, wr) * gy).sum().backward()
+        grads.append((xr.grad, wr.grad))
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("kernel", ["conv3d_dw", "folded_f32", "folded_bf16"])
+def test_dw_kernels_are_bitwise_repeatable(cuda, kernel):
+    from featurenet_tpu_torch.ops import conv3d, conv_dw
+
+    dtype = torch.bfloat16 if kernel == "folded_bf16" else torch.float32
+    x, gy = _dw_inputs(cuda, 32, 16, 16, 16, 32, 64, dtype)
+    fn = conv3d.conv3d_dw if kernel == "conv3d_dw" else conv_dw.conv_dw_folded
+    first = fn(x, gy, 3)
+    second = fn(x, gy, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kernel", ["conv3d_dw", "conv_dw_folded"])
+def test_dw_wrappers_refuse_what_the_kernels_do_not_take(cuda, kernel):
+    from featurenet_tpu_torch.ops import conv3d, conv_dw
+
+    fn = conv3d.conv3d_dw if kernel == "conv3d_dw" else conv_dw.conv_dw_folded
+    x = torch.zeros((1, 4, 4, 4, 8), device=cuda)
+    gy = torch.zeros((1, 4, 4, 4, 8), device=cuda)
+    with pytest.raises(TypeError):
+        fn(x.half(), gy.half(), 3)
+    with pytest.raises(TypeError):
+        fn(x.bfloat16(), gy, 3)  # mixed types
+    if kernel == "conv3d_dw":
+        with pytest.raises(TypeError):
+            fn(x.bfloat16(), gy.bfloat16(), 3)  # fp32 only, like the TPU kernel
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(x.transpose(1, 2), gy, 3)
+    with pytest.raises(ValueError):
+        fn(x, gy.cpu(), 3)
+    with pytest.raises(ValueError):
+        fn(x, gy, 2)
+
+
+def test_smoke16_train_step_on_card_matches_cpu(cuda):
+    """Three steps of the smoke16 trainer (bf16 model, dropout off, warmup
+    1 so steps 1 and 2 move the weights) from one state on one batch, on
+    the card and on the CPU. The two differ where a conv output lands on
+    the other side of a bf16 rounding boundary (2^-8 relative); losses
+    agree to 1e-2 and gradient norms to 2 %. Adam's early updates are
+    near lr·sign(g), so a weight whose gradient is rounding noise may move
+    the other way: parameters agree to 2·lr per moving step."""
+    import dataclasses
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.dataset import SyntheticVoxelDataset
+    from featurenet_tpu_torch.runtime import build_model
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cfg = get_config("smoke16", global_batch=8, warmup_steps=1)
+    cfg = dataclasses.replace(cfg, arch=dataclasses.replace(cfg.arch, dropout=0.0))
+    state = build_model(cfg, seed=0).state_dict()
+    batch = {k: torch.from_numpy(v) for k, v in
+             next(iter(SyntheticVoxelDataset(16, 8, seed=3))).items()}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(cfg, device=dev, state=state)
+        on = {k: v.to(dev) for k, v in batch.items()}
+        metrics = [{k: float(v) for k, v in tr.step(on).items()} for _ in range(3)]
+        runs[dev] = (metrics, {k: v.cpu() for k, v in
+                               tr.state.model.state_dict().items()})
+    (m_card, s_card), (m_cpu, s_cpu) = runs["cuda"], runs["cpu"]
+    for a, b in zip(m_card, m_cpu):
+        assert abs(a["loss"] - b["loss"]) <= 1e-2
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= 2e-2 * b["grad_norm"]
+    lr = tr.state.optimizer.schedule
+    tol = 2 * (lr(1) + lr(2)) + 1e-6
+    for k in s_cpu:
+        assert float((s_card[k] - s_cpu[k]).abs().max()) <= tol, k

@@ -59,6 +59,8 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
     from featurenet_tpu_torch.infer import Predictor
     from featurenet_tpu_torch.runtime import build_model, resolve_device
 
+    from featurenet_tpu_torch.train.loop import Trainer
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("smoke16")
     state = build_model(cfg, seed=0).state_dict()
@@ -66,6 +68,11 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
         Predictor(state, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Predictor.from_seed(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, state=state)
+    assert Trainer(cfg, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
