@@ -16,10 +16,10 @@ Phases, in order; any failure exits non-zero before the last line:
      (a serving bucket) and 256 (a train step), at the three dx shapes of a
      train step (channels swapped: 32←32, 64→32, 64→64), and at pod64's 5³
      conv2 (batch 8, off the main path); yardstick F.conv3d;
-   - conv3d_dw (fp32) and conv_dw_folded (bf16, and fp32 off the main
-     path) at the three batch-256 weight-gradient shapes and at pod64's
-     conv2; yardstick cuDNN's weight gradient
-     (aten.convolution_backward) in the kernel's input type.
+   - conv3d_dw (fp32) and conv_dw_folded (bf16 on the tensor cores, and
+     fp32 in SIMT off the main path) at the three batch-256
+     weight-gradient shapes and at pod64's conv2; yardstick cuDNN's weight
+     gradient (aten.convolution_backward) in the kernel's input type.
 4. Serve path: the sprint64 Predictor at full width (R=64, features
    32/32/64/64, hidden 128, 24 classes) from seeded weights, behind the
    InferenceService (buckets 1,4,16,64) and its HTTP server. STL parts go to
@@ -74,7 +74,10 @@ KERNEL_REL_TOL = 1e-5
 # output. The kernels add each slab's ~8k products in order and then ~132
 # slab partials; cuBLAS blocks its own way. Random-walk rounding of such
 # sums is ~1e-6 of the output's scale; held to 2e-5. (A bf16 product is
-# exact in fp32, so the bf16 rows have the same tolerance.)
+# exact in fp32, so the bf16 rows have the same tolerance: the tensor-core
+# kernel sums 16 products per mma from zero and adds each such sum to its
+# fp32 total rounded to nearest: 0.85-1.3e-6 measured at the batch-256
+# shapes.)
 DW_REL_TOL = 2e-5
 # Served probabilities vs the plain-conv forward of the same weights: the
 # conv outputs differ by fp32 rounding, and a few of them then round to a

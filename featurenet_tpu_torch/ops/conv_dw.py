@@ -9,7 +9,8 @@ cotangent ``g [B,D,H,W,Cout]`` (both bf16 or both fp32) and returns
 
 - On a CUDA tensor it launches ``csrc/conv_dw_folded.cu`` (the folded
   product ``[k²·Cin, rows]ᵀ·[rows, k·Cout]`` in slabs, then a slab sum that
-  un-folds) or raises; there is no fallback.
+  un-folds) or raises; there is no fallback. bf16 runs the product on the
+  tensor cores (``mma.sync``, fp32 sum), fp32 in SIMT FMAs.
 - On a CPU tensor it runs ``conv_dw_plain``: the k³ shifted ``xᵀ·g``
   products in fp32, bf16 inputs upcast first.
 
@@ -39,22 +40,23 @@ TARGET_BLOCKS = 4 * 132
 # Fewest summed rows a slab is given, so a slab's partial tile is not
 # dominated by its write.
 MIN_SLAB = 256
-# Positions per shared-memory chunk in the kernels (kBK); slabs are cut
-# on chunk boundaries.
+# Positions per shared-memory chunk in the kernels (kBK; kMmaBK in the bf16
+# tensor-core kernel); slabs are cut on chunk boundaries.
 CHUNK = 16
+MMA_CHUNK = 32
 # Threads per block x outputs per thread in the kernels: BM·BN.
 TILE_AREA = 256 * 8 * 4
 
 _INT_LIMIT = 2 ** 31 - 1
 
 
-def plan_slabs(length: int, tiles: int) -> tuple[int, int]:
+def plan_slabs(length: int, tiles: int, chunk: int = CHUNK) -> tuple[int, int]:
     """``(slabs, slab_len)`` for a sum over ``length`` rows into ``tiles``
     output tiles: about ``TARGET_BLOCKS`` blocks in all, each slab a
-    multiple of ``CHUNK`` rows and at least ``MIN_SLAB`` long (or the whole
+    multiple of ``chunk`` rows and at least ``MIN_SLAB`` long (or the whole
     sum), the last one non-empty."""
     want = max(1, min(-(-TARGET_BLOCKS // tiles), length // MIN_SLAB))
-    slab_len = -(-(-(-length // want)) // CHUNK) * CHUNK
+    slab_len = -(-(-(-length // want)) // chunk) * chunk
     return -(-length // slab_len), slab_len
 
 
@@ -112,15 +114,25 @@ def check_launch_args(name: str, x: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"{name}: dimension too large in {tuple(x.shape)}")
 
 
-def _launch(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
-    global conv_dw_folded_launches, conv_dw_folded_sum_launches
-    check_launch_args("conv_dw_folded", x, g, (torch.float32, torch.bfloat16))
+def folded_plan(x: torch.Tensor, g: torch.Tensor, k: int) -> tuple[int, int, int]:
+    """``(bn, slabs, slab_len)`` the folded kernel is launched with: the
+    column tile, and slabs cut on its chunk (32 q-rows for bf16, 16 for
+    fp32)."""
     b, d, h, w, cin = x.shape
     cout = g.shape[-1]
     bn = folded_tile(k, cin, cout)
     bm = TILE_AREA // bn
     tiles = -(-(k * k * cin) // bm) * -(-(k * cout) // bn)
-    slabs, slab_len = plan_slabs(b * d * h * (w + k - 1), tiles)
+    chunk = MMA_CHUNK if x.dtype == torch.bfloat16 else CHUNK
+    return (bn, *plan_slabs(b * d * h * (w + k - 1), tiles, chunk))
+
+
+def _launch(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    global conv_dw_folded_launches, conv_dw_folded_sum_launches
+    check_launch_args("conv_dw_folded", x, g, (torch.float32, torch.bfloat16))
+    b, d, h, w, cin = x.shape
+    cout = g.shape[-1]
+    bn, slabs, slab_len = folded_plan(x, g, k)
     part = torch.empty((slabs, k ** 3 * cin * cout), dtype=torch.float32,
                        device=x.device)
     out = torch.empty((k, k, k, cin, cout), dtype=torch.float32, device=x.device)

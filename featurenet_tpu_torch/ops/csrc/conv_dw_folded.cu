@@ -22,19 +22,36 @@
 // - A block owns a BM x BN tile of dWf (BN = 32, 64 or 128 columns, BM =
 //   8192/BN rows; the caller picks the pair that pads dWf least) and one
 //   slab of the sum; S slabs are chosen by the caller to fill 132 SMs.
-// - The sum is walked in chunks of BK = 16 q-rows through shared memory,
-//   with both operands converted to fp32 on the way in; the halo in z, y
-//   (A) and x (Bm) is bounds checks, so no padded or restacked copy of x
-//   is made in device memory.
+// - The halo in z, y (A) and x (Bm) is bounds checks, so no padded or
+//   restacked copy of x is made in device memory.
 // - Each block writes its partial tile; a second kernel sums the S
 //   partials in slab order and un-folds into [K,K,K,Cin,Cout] in the same
 //   pass. Two runs give the same bits.
 //
-// Plain, not fast yet: SIMT fp32 FMAs (no wgmma on the bf16 path), no
-// cp.async/TMA pipelining.
+// bf16 (the main path, hybrid_dw): tensor cores, as the MXU runs it. The
+// sum is walked in chunks of 32 q-rows; both operands are staged into
+// shared memory as bf16, K-contiguous (As[m][k], Bs[n][k], rows padded to
+// 40 values so the fragment reads hit 32 distinct banks). Each of the 8
+// warps owns a 32x32 sub-tile and issues 2x4 mma.sync.m16n8k16 (bf16 in,
+// fp32 result) per 16 q-rows. Each mma starts from zero, and its 16-product
+// sum is added to the running fp32 sum in registers, rounded to nearest.
+// Chained through the mma's accumulator operand instead, the tensor core's
+// additions, which do not round to nearest, drift over a slab's hundreds
+// to thousands of steps: 1-4e-5 of the output's scale on the H100 against
+// ~1e-6 this way, for about 1 % more time.
+//
+// What bounds the bf16 path now is the staging, not the products: every
+// element is a 2-byte gather behind its own halo check, through plain loads
+// and stores, and the block waits at a barrier for each chunk's gathers
+// with nothing to overlap them (no cp.async, ldmatrix, wgmma or TMA yet).
+//
+// fp32 (off the main path): SIMT FMAs over an 8x4 micro-tile per thread,
+// chunks of 16 q-rows staged as fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -44,15 +61,14 @@ constexpr int kTN = 4;
 constexpr int kBK = 16;
 constexpr int kAPad = 4;
 constexpr int kOutside = -(1 << 28);
+// bf16 tensor-core path: q-rows per chunk, and the row padding (in bf16
+// values) of the K-contiguous shared tiles: an 80-byte row stride.
+constexpr int kMmaBK = 32;
+constexpr int kMmaPad = 8;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T, int BN>
+template <int BN>
 __global__ void __launch_bounds__(kThreads)
-dw_folded_partial(const T* __restrict__ x, const T* __restrict__ g,
+dw_folded_partial(const float* __restrict__ x, const float* __restrict__ g,
                   float* __restrict__ part, int B, int D, int H, int W,
                   int Cin, int Cout, int K, long long slab_len) {
   constexpr int BM = kThreads * kTM * kTN / BN;  // 256, 128 or 64
@@ -123,7 +139,7 @@ dw_folded_partial(const T* __restrict__ x, const T* __restrict__ g,
       float v = 0.f;
       if (row_ok && (unsigned)zz < (unsigned)D && (unsigned)yy < (unsigned)H &&
           (unsigned)xx < (unsigned)W)
-        v = to_f32(x[(s_pos[k] + xx) * Cin + a_off]);
+        v = x[(s_pos[k] + xx) * Cin + a_off];
       As[k][a_r] = v;
     }
 #pragma unroll
@@ -132,7 +148,7 @@ dw_folded_partial(const T* __restrict__ x, const T* __restrict__ g,
       const int xx = s_u[k] - tx;
       float v = 0.f;
       if (col_ok && s_pos[k] >= 0 && (unsigned)xx < (unsigned)W)
-        v = to_f32(g[(s_pos[k] + xx) * Cout + co]);
+        v = g[(s_pos[k] + xx) * Cout + co];
       Bs[k][b_n] = v;
     }
     __syncthreads();
@@ -164,6 +180,172 @@ dw_folded_partial(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+__device__ __forceinline__ unsigned ld_shared_u32(const unsigned short* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// d = a * b on the tensor cores, from a zero accumulator: a 16x16 bf16 A
+// fragment, a 16x8 bf16 B fragment, a 16x8 fp32 result (PTX ISA layout for
+// m16n8k16).
+__device__ __forceinline__ void mma_bf16_m16n8k16(float (&d)[4],
+                                                  const unsigned (&a)[4],
+                                                  const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// The bf16 partial product on the tensor cores; x and g are bf16 bits.
+// Same tile, slab and halo as dw_folded_partial; each warp owns a 32x32
+// sub-tile (8x1 warps for BN=32, 4x2 for 64, 2x4 for 128). A thread stages
+// pairs of q-rows of one A row (or Bm column) and stores each pair as one
+// 32-bit word, the lower q in the low half, as the fragments want it.
+template <int BN>
+__global__ void __launch_bounds__(kThreads)
+dw_folded_partial_mma(const unsigned short* __restrict__ x,
+                      const unsigned short* __restrict__ g,
+                      float* __restrict__ part, int B, int D, int H, int W,
+                      int Cin, int Cout, int K, long long slab_len) {
+  constexpr int BM = kThreads * kTM * kTN / BN;  // 256, 128 or 64
+  constexpr int WN = BN / 32;                    // warps across the columns
+  constexpr int LD = kMmaBK + kMmaPad;
+  constexpr int PAIRS = kMmaBK / 2;
+  constexpr int A_STEP = kThreads / BM;
+  constexpr int A_PAIRS = PAIRS / A_STEP;
+  constexpr int B_STEP = kThreads / BN;
+  constexpr int B_PAIRS = PAIRS / B_STEP;
+
+  __shared__ __align__(16) unsigned short As[BM][LD];
+  __shared__ __align__(16) unsigned short Bs[BN][LD];
+  __shared__ long long s_pos[kMmaBK];  // ((b*D+z)*H+y)*W; -1 past the slab
+  __shared__ int s_z[kMmaBK], s_y[kMmaBK], s_u[kMmaBK];
+
+  const int tid = threadIdx.x;
+  const int p = (K - 1) / 2;
+  const int Wp = W + 2 * p;
+  const int rows = K * K * Cin;
+  const int cols = K * Cout;
+  const int r0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const long long Q = (long long)B * D * H * Wp;
+  const long long q_begin = (long long)blockIdx.z * slab_len;
+  const long long q_end = q_begin + slab_len < Q ? q_begin + slab_len : Q;
+
+  // This thread's staged A row (tz, ty, ci) and Bm column (tx, co).
+  const int a_r = tid % BM, a_k0 = tid / BM;
+  const int row = r0 + a_r;
+  const bool row_ok = row < rows;
+  const int ci = row_ok ? row % Cin : 0;
+  const int dz = (row_ok ? row / Cin / K : 0) - p;
+  const int dy = (row_ok ? row / Cin % K : 0) - p;
+  const long long a_off = ((long long)dz * H + dy) * W * Cin + ci;
+  const int b_n = tid % BN, b_k0 = tid / BN;
+  const int col = n0 + b_n;
+  const bool col_ok = col < cols;
+  const int tx = col_ok ? col / Cout : 0;
+  const int co = col_ok ? col % Cout : 0;
+
+  // This thread's place in the fragments: group gq, thread-in-group tq.
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = (warp / WN) * 32, wn = (warp % WN) * 32;
+  float acc[2][4][4] = {};
+
+  for (long long c0 = q_begin; c0 < q_end; c0 += kMmaBK) {
+    if (tid < kMmaBK) {
+      const long long q = c0 + tid;
+      if (q < q_end) {
+        long long t = q;
+        s_u[tid] = (int)(t % Wp);
+        t /= Wp;
+        s_y[tid] = (int)(t % H);
+        t /= H;
+        s_z[tid] = (int)(t % D);
+        s_pos[tid] = (q / Wp) * W;
+      } else {
+        s_u[tid] = s_y[tid] = s_z[tid] = kOutside;
+        s_pos[tid] = -1;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < A_PAIRS; ++i) {
+      const int k = 2 * (a_k0 + i * A_STEP);
+      unsigned v[2] = {0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int zz = s_z[k + j] + dz, yy = s_y[k + j] + dy;
+        const int xx = s_u[k + j] - p;
+        if (row_ok && (unsigned)zz < (unsigned)D &&
+            (unsigned)yy < (unsigned)H && (unsigned)xx < (unsigned)W)
+          v[j] = x[(s_pos[k + j] + xx) * Cin + a_off];
+      }
+      *reinterpret_cast<unsigned*>(&As[a_r][k]) = v[0] | (v[1] << 16);
+    }
+#pragma unroll
+    for (int i = 0; i < B_PAIRS; ++i) {
+      const int k = 2 * (b_k0 + i * B_STEP);
+      unsigned v[2] = {0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int xx = s_u[k + j] - tx;
+        if (col_ok && s_pos[k + j] >= 0 && (unsigned)xx < (unsigned)W)
+          v[j] = g[(s_pos[k + j] + xx) * Cout + co];
+      }
+      *reinterpret_cast<unsigned*>(&Bs[b_n][k]) = v[0] | (v[1] << 16);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kMmaBK; ks += 16) {
+      unsigned a[2][4], b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const unsigned short* s0 = &As[wm + mi * 16 + gq][ks + 2 * tq];
+        a[mi][0] = ld_shared_u32(s0);               // m = g,   k = 2t, 2t+1
+        a[mi][1] = ld_shared_u32(s0 + 8 * LD);      // m = g+8
+        a[mi][2] = ld_shared_u32(s0 + 8);           // m = g,   k = 2t+8, 2t+9
+        a[mi][3] = ld_shared_u32(s0 + 8 * LD + 8);  // m = g+8
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const unsigned short* s0 = &Bs[wn + ni * 8 + gq][ks + 2 * tq];
+        b[ni][0] = ld_shared_u32(s0);      // n = g, k = 2t, 2t+1
+        b[ni][1] = ld_shared_u32(s0 + 8);  // n = g, k = 2t+8, 2t+9
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          float d[4];
+          mma_bf16_m16n8k16(d, a[mi], b[ni]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += d[e];
+        }
+    }
+    // Two barriers per chunk suffice; see conv3d_dw.cu.
+  }
+
+  // acc[mi][ni][2h+e] is (m = g + 8h, n = 2t + e) of the 16x8 tile (mi, ni).
+  float* out = part + (long long)blockIdx.z * rows * cols;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + wm + mi * 16 + gq + 8 * h;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn + ni * 8 + 2 * tq + e;
+          if (n < cols) out[(long long)r * cols + n] = acc[mi][ni][2 * h + e];
+        }
+    }
+}
+
 // dW[tz,ty,tx,ci,co] = sum over s = 0..S-1, in that order, of
 // part[s][(tz*K+ty)*Cin+ci][tx*Cout+co].
 __global__ void __launch_bounds__(kThreads)
@@ -193,9 +375,15 @@ void launch_partial(const void* x, const void* g, float* part, int B, int D,
   const int rows = K * K * Cin, cols = K * Cout;
   const dim3 grid((unsigned)((rows + BM - 1) / BM),
                   (unsigned)((cols + BN - 1) / BN), (unsigned)S);
-  dw_folded_partial<T, BN><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), part, B, D, H, W,
-      Cin, Cout, K, slab_len);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    dw_folded_partial_mma<BN><<<grid, kThreads, 0, stream>>>(
+        static_cast<const unsigned short*>(x),
+        static_cast<const unsigned short*>(g), part, B, D, H, W, Cin, Cout, K,
+        slab_len);
+  else
+    dw_folded_partial<BN><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), part, B, D,
+        H, W, Cin, Cout, K, slab_len);
 }
 
 template <typename T>
@@ -219,7 +407,8 @@ int launch_typed(const void* x, const void* g, float* part, int B, int D,
 // when 0. `part` is caller-allocated scratch of S * K^3 * Cin * Cout
 // floats; slab s covers q-rows [s*slab_len, min((s+1)*slab_len,
 // B*D*H*(W+K-1))). `bn` (32, 64 or 128) is the column tile the caller
-// planned S with. Launches the partial kernel, then the slab sum, on
+// planned S with; the caller cuts slabs on the chunk depth (32 q-rows for
+// bf16, 16 for fp32). Launches the partial kernel, then the slab sum, on
 // `stream`; does not synchronise, allocates nothing; returns
 // cudaGetLastError() so the caller sees a refused launch.
 extern "C" int conv_dw_folded(const void* x, const void* g, float* part,

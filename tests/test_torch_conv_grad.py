@@ -6,7 +6,8 @@
   Both sum the same fp32 products in other orders: rtol/atol 1e-4, as
   ``tests/test_ops.py::test_pallas_conv_vjp``.
 - ``conv_dw_folded`` against the JAX ``conv_dw_folded`` in fp32 and bf16,
-  at ``test_conv_dw_folded_matches_xla_vjp``'s shapes: both form exact
+  at ``test_conv_dw_folded_matches_xla_vjp``'s shapes and at a sprint64
+  block's channels: both form exact
   products (a bf16 product is exact in fp32) and sum in fp32, to 1e-5 of
   the largest entry.
 - ``conv3d_hybrid`` forward and both gradients against the JAX
@@ -69,6 +70,7 @@ def test_conv3d_p_grads_match_jax_vjp(shape, k, cin, cout):
 @pytest.mark.parametrize("b,d,h,w,ci,co,k", [
     (2, 8, 8, 8, 8, 16, 3),
     (2, 8, 8, 16, 32, 32, 5),
+    (1, 8, 8, 8, 32, 64, 3),  # a sprint64 block's channels (32→64)
 ])
 def test_conv_dw_folded_matches_jax(dtype, b, d, h, w, ci, co, k):
     rng = np.random.default_rng(0)
@@ -110,18 +112,36 @@ def test_conv3d_hybrid_matches_jax():
     np.testing.assert_array_equal(gw_p, gw)
 
 
+@pytest.mark.parametrize("chunk", [port_dw.CHUNK, port_dw.MMA_CHUNK])
 @pytest.mark.parametrize("length,tiles", [
     (945, 2), (1, 1), (16, 528), (256 * 16 ** 3, 4), (256 * 16 ** 3, 14),
     (256 * 16 * 16 * 18, 6), (100_000, 1000),
 ])
-def test_slab_plan_covers_the_sum(length, tiles):
-    """Slabs are whole chunks, cover the sum exactly once, none is empty,
+def test_slab_plan_covers_the_sum(length, tiles, chunk):
+    """Slabs are whole chunks (16 q-rows for the SIMT kernels, 32 for the
+    bf16 tensor-core kernel), cover the sum exactly once, none is empty,
     and the launch stays near the block target."""
-    slabs, slab_len = port_dw.plan_slabs(length, tiles)
-    assert slab_len % port_dw.CHUNK == 0 and slabs >= 1
+    slabs, slab_len = port_dw.plan_slabs(length, tiles, chunk)
+    assert slab_len % chunk == 0 and slabs >= 1
     assert (slabs - 1) * slab_len < length <= slabs * slab_len
     assert slabs == 1 or slab_len >= port_dw.MIN_SLAB
     assert slabs * tiles <= 2 * max(port_dw.TARGET_BLOCKS, tiles)
+
+
+@pytest.mark.parametrize("cin,cout,plan", [
+    (32, 32, (132, 7952)), (32, 64, (76, 13808)), (64, 64, (38, 27600)),
+])
+def test_conv3d_dw_slab_plan_is_unchanged(cin, cout, plan):
+    """The default chunk keeps ``conv3d_dw``'s plan at sprint64's batch-256
+    shapes (tiles as ``ops/conv3d.py`` counts them) as it was with 16-row
+    chunks only."""
+    bn = 32 if cout <= 32 else 64
+    bm = port_dw.TILE_AREA // bn
+    tiles = -(-(27 * cin) // bm) * -(-cout // bn)
+    length = 256 * 16 ** 3
+    assert port_dw.plan_slabs(length, tiles) == plan
+    assert port_dw.plan_slabs(length, tiles) == port_dw.plan_slabs(
+        length, tiles, port_dw.CHUNK)
 
 
 @pytest.mark.parametrize("k,cin,cout,bn", [

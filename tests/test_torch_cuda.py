@@ -1,8 +1,9 @@
 """The CUDA kernels on the card: ``conv3d_p`` against ``conv3d_plain``,
 ``conv3d_dw`` and ``conv_dw_folded`` (fp32 and bf16) against
 ``conv_dw_plain``, at ragged shapes (channel counts that are not multiples
-of the kernels' 16-row chunk or 32/64/128-wide tiles, position counts that
-are not multiples of a row tile or of a slab, K from 1 to 7); the weight
+of the kernels' 16- or 32-row chunks or 32/64/128-wide tiles, position
+counts that are not multiples of a row tile or of a slab, an output
+smaller than one m16 x n8 tensor-core fragment, K from 1 to 7); the weight
 gradients' bitwise repeatability; the wrappers' checks; the Predictor and
 a smoke16 train step on the card against the same on the CPU.
 
@@ -13,8 +14,8 @@ there without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: kernel and plain version sum the same fp32 products in other
-orders (TF32 off; a bf16 product is exact in fp32), so they agree to 1e-5
-of the output's scale.
+orders (TF32 off; a bf16 product is exact in fp32, on the tensor cores as
+in SIMT), so they agree to 1e-5 of the output's scale.
 """
 
 import numpy as np
@@ -91,6 +92,8 @@ DW_SHAPES = [  # b, d, h, w, cin, cout, k
     (1, 6, 6, 6, 16, 32, 1),
     (2, 9, 9, 9, 8, 96, 7),
     (3, 5, 7, 9, 33, 65, 3),  # 945 positions: the last slab is short
+    (1, 3, 3, 3, 3, 5, 1),  # 3 x 5 output: inside one m16 x n8 fragment
+    (16, 16, 16, 16, 32, 32, 3),
     (16, 16, 16, 16, 64, 64, 3),
 ]
 
@@ -152,12 +155,14 @@ def test_dw_kernels_are_bitwise_repeatable(cuda, kernel):
     from featurenet_tpu_torch.ops import conv3d, conv_dw
 
     dtype = torch.bfloat16 if kernel == "folded_bf16" else torch.float32
-    x, gy = _dw_inputs(cuda, 32, 16, 16, 16, 32, 64, dtype)
     fn = conv3d.conv3d_dw if kernel == "conv3d_dw" else conv_dw.conv_dw_folded
-    first = fn(x, gy, 3)
-    second = fn(x, gy, 3)
-    torch.cuda.synchronize()
-    assert torch.equal(first, second)
+    # 32→64 (column tile 64) and sprint64's 32→32 at batch 16 (tile 128).
+    for b, cin, cout in ((32, 32, 64), (16, 32, 32)):
+        x, gy = _dw_inputs(cuda, b, 16, 16, 16, cin, cout, dtype)
+        first = fn(x, gy, 3)
+        second = fn(x, gy, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), (cin, cout)
 
 
 @pytest.mark.parametrize("kernel", ["conv3d_dw", "conv_dw_folded"])

@@ -1,9 +1,12 @@
 """The port stands alone: no file of ``featurenet_tpu_torch/`` (or the
-port's ``chip_smoke.py``) imports JAX, Flax or the JAX package, the whole
-port imports with those blocked, and its entry points refuse to run
-silently on the CPU when asked for the card that is not there."""
+port's card scripts ``chip_smoke.py`` and ``ab_conv_dw_folded.py``)
+imports JAX, Flax or the JAX package, the whole port imports with those
+blocked, its entry points refuse to run silently on the CPU when asked for
+the card that is not there, and the card scripts exit non-zero without
+one."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -14,10 +17,11 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "featurenet_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "featurenet_tpu"}
+CARD_SCRIPTS = ("chip_smoke.py", "ab_conv_dw_folded.py")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / s for s in CARD_SCRIPTS]
 
 
 def _imported_roots(path):
@@ -45,7 +49,7 @@ def test_port_imports_with_jax_blocked():
         "import featurenet_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'featurenet_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, ab_conv_dw_folded\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -83,4 +87,14 @@ def test_chip_smoke_refuses_without_a_card():
                          capture_output=True, text=True, timeout=120,
                          env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("script", CARD_SCRIPTS)
+def test_card_scripts_exit_nonzero_without_a_card(script):
+    out = subprocess.run([sys.executable, script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
     assert '"ok": true' not in out.stdout
