@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Time variants of the conv_dw_folded CUDA source's bf16 path against each
-other on one NVIDIA GPU, in turns, at sprint64's three batch-256
-weight-gradient shapes.
+"""Time variants of a weight-gradient CUDA source against each other on one
+NVIDIA GPU, in turns, at sprint64's three batch-256 weight-gradient shapes.
 
-    python3 ab_conv_dw_folded.py [VARIANT.cu ...]
+    python3 ab_conv_dw_folded.py [--kernel conv_dw_folded|conv3d_dw] [VARIANT.cu ...]
 
-Each variant is a copy of ``featurenet_tpu_torch/ops/csrc/conv_dw_folded.cu``
-with the same C entry, edited; the checkout's own source is always timed as
-``repo``. Every source is built with the flags of ``ops/build.py`` (one nvcc
-each, in parallel) into ``build/ab/``; ptxas's register and spill lines are
-printed per source. Each variant runs with the wrapper's plan
-(``conv_dw.folded_plan``) on the same bf16 inputs, is held against
+``--kernel conv_dw_folded`` (the default) times copies of
+``featurenet_tpu_torch/ops/csrc/conv_dw_folded.cu`` on its bf16 path,
+planned by ``conv_dw.folded_plan``; ``--kernel conv3d_dw`` times copies of
+``csrc/conv3d_dw.cu`` in fp32, planned by ``conv3d.dw_plan``. Each variant
+keeps the source's C entry; the checkout's own source is always timed as
+``repo``. A conv3d_dw variant whose tiles or occupancy differ may carry one
+line ``// ab-plan: {"tile_area": 16384, "chunk": 32, "blocks_per_sm": 1}``
+(any of ``dw_plan``'s keywords), and is then planned with them.
+
+Every source is built with the flags of ``ops/build.py`` (one nvcc each,
+in parallel) into ``build/ab/``; ptxas's register and spill lines are
+printed per source. Each variant runs on the same inputs, is held against
 ``conv_dw_plain`` (its max error over the largest |output| is printed, not
 judged), and is timed as ``chip_smoke.py`` times a kernel (median of 20
 calls) in the order A, B, ..., repo, repo, ..., B, A per shape. Prints one
@@ -31,17 +36,22 @@ from pathlib import Path
 SHAPES = [(32, 32), (32, 64), (64, 64)]  # cin, cout of sprint64's 3³ blocks
 BATCH, GRID, K = 256, 16, 3
 
+# kernel -> (C entry, ints between the four pointers and slab_len)
+ENTRIES = {"conv_dw_folded": ("conv_dw_folded", 10),
+           "conv3d_dw": ("conv3d_dw_f32", 11)}
 
-def _build(names_sources: dict[str, Path]) -> dict:
+
+def _build(kernel: str, names_sources: dict[str, Path]) -> dict:
     from featurenet_tpu_torch.ops import build
 
     out_dir = build.BUILD_DIR.parent / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = build.find_nvcc()
     procs = {n: subprocess.Popen(
-        [nvcc, *build.NVCC_FLAGS, "-o", str(out_dir / f"{n}.so"), str(src)],
+        [nvcc, *build.NVCC_FLAGS, "-o", str(out_dir / f"{kernel}-{n}.so"), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for n, src in names_sources.items()}
+    symbol, ints = ENTRIES[kernel]
     fns = {}
     for n, proc in procs.items():
         log, _ = proc.communicate()
@@ -50,24 +60,38 @@ def _build(names_sources: dict[str, Path]) -> dict:
         print(f"build {n}: " + " | ".join(
             ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln),
             flush=True)
-        fn = ctypes.CDLL(str(out_dir / f"{n}.so")).conv_dw_folded
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+        fn = getattr(ctypes.CDLL(str(out_dir / f"{kernel}-{n}.so")), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
                        + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[n] = fn
     return fns
 
 
-def _call(torch, fn, x, g):
-    from featurenet_tpu_torch.ops import conv_dw
+def _ab_plan(src: Path) -> dict:
+    for line in src.read_text().splitlines():
+        if line.startswith("// ab-plan:"):
+            return json.loads(line.split(":", 1)[1])
+    return {}
 
-    b, d, h, w, cin = x.shape
-    cout = g.shape[-1]
-    bn, slabs, slab_len = conv_dw.folded_plan(x, g, K)
-    part = torch.empty((slabs, K ** 3 * cin * cout), device=x.device)
+
+def _plan(kernel: str, x, g, overrides: dict) -> tuple:
+    from featurenet_tpu_torch.ops import conv3d, conv_dw
+
+    if kernel == "conv_dw_folded":
+        return (1, *x.shape, g.shape[-1], K, *conv_dw.folded_plan(x, g, K))
+    return (*x.shape, g.shape[-1], K,
+            *conv3d.dw_plan(x.shape, g.shape[-1], K, x.data_ptr(), g.data_ptr(),
+                            **overrides))
+
+
+def _call(torch, fn, x, g, args: tuple):
+    """One launch with the C entry's integer arguments ``args`` (the slab
+    count second to last)."""
+    cin, cout = x.shape[-1], g.shape[-1]
+    part = torch.empty((args[-2], K ** 3 * cin * cout), device=x.device)
     out = torch.empty((K, K, K, cin, cout), device=x.device)
-    rc = fn(x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(), 1,
-            b, d, h, w, cin, cout, K, bn, slabs, slab_len,
+    rc = fn(x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(), *args,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch failed: cudaError {rc}")
@@ -76,6 +100,7 @@ def _call(torch, fn, x, g):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=sorted(ENTRIES), default="conv_dw_folded")
     ap.add_argument("variants", nargs="*", type=Path)
     args = ap.parse_args()
 
@@ -84,6 +109,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_conv_dw_folded: no CUDA device", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
     from chip_smoke import time_ms
     from featurenet_tpu_torch.ops import build, conv_dw
 
@@ -92,31 +118,37 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
     sources = {p.stem: p for p in args.variants}
-    sources["repo"] = build.SRC_DIR / build.SOURCES["conv_dw_folded"]
-    fns = _build(sources)
+    sources["repo"] = build.SRC_DIR / build.SOURCES[args.kernel]
+    overrides = {n: _ab_plan(p) if args.kernel == "conv3d_dw" else {}
+                 for n, p in sources.items()}
+    fns = _build(args.kernel, sources)
     others = [n for n in fns if n != "repo"]
     order = others + ["repo", "repo"] + others[::-1]
+    dtype = torch.bfloat16 if args.kernel == "conv_dw_folded" else torch.float32
     gen = torch.Generator(device="cuda").manual_seed(0)
     times: dict[str, list[float]] = {n: [] for n in fns}
     for cin, cout in SHAPES:
         x = torch.randn((BATCH, GRID, GRID, GRID, cin), device="cuda",
-                        generator=gen).bfloat16()
+                        generator=gen).to(dtype)
         g = torch.randn((BATCH, GRID, GRID, GRID, cout), device="cuda",
-                        generator=gen).bfloat16()
+                        generator=gen).to(dtype)
         want = conv_dw.conv_dw_plain(x, g, K)
         scale = float(want.abs().max())
         flops = 2.0 * BATCH * GRID ** 3 * K ** 3 * cin * cout
         for n in order:
-            got = _call(torch, fns[n], x, g)
+            plan = _plan(args.kernel, x, g, overrides[n])
+            got = _call(torch, fns[n], x, g, plan)
             err = float((got - want).abs().max()) / scale
-            ms = time_ms(torch, lambda: _call(torch, fns[n], x, g))
+            ms = time_ms(torch, lambda: _call(torch, fns[n], x, g, plan))
             times[n].append(ms)
-            print(json.dumps({"source": n, "cin": cin, "cout": cout,
-                              "ms": ms, "tflops": flops / ms / 1e9,
-                              "max_rel_err": err}), flush=True)
+            print(json.dumps({"kernel": args.kernel, "source": n, "cin": cin,
+                              "cout": cout, "launch": plan, "ms": ms,
+                              "tflops": flops / ms / 1e9, "max_rel_err": err}),
+                  flush=True)
         del x, g, want
     turns = {n: order.count(n) for n in fns}
-    print(json.dumps({"summed_ms": {n: sum(v) / turns[n] for n, v in times.items()},
+    print(json.dumps({"kernel": args.kernel,
+                      "summed_ms": {n: sum(v) / turns[n] for n, v in times.items()},
                       "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 

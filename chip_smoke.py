@@ -39,7 +39,9 @@ Phases, in order; any failure exits non-zero before the last line:
    versions. Device ms per step (CUDA events; alone, and while the
    producer threads generate), samples/s with the data wait, and the
    data-wait share are printed; before the train phases, the parts/s that
-   one host thread generates and that the Prefetcher delivers.
+   one host thread generates and that the Prefetcher delivers. Then 3
+   steps on the card's batch under torch.profiler print a `profile` line:
+   the top 8 CUDA kernels by device time and the device-busy share.
 6. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line: {"ok": true, "device": {...}}.
 
@@ -472,6 +474,46 @@ def host_generation(torch, seed: int, workers: int) -> dict:
     return out
 
 
+def profile_steps(torch, trainer, batch, backend: str, steps: int = 3) -> dict:
+    """``steps`` train steps on a batch already on the card under
+    torch.profiler (CPU and CUDA activity): the top CUDA kernels by total
+    device time, and the device-busy share of the window from the first
+    device event's start to the last one's end (the union of device event
+    intervals over that span)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    device_us = sum(e.self_device_time_total for e in kernels)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    window_us = spans[-1][1] - spans[0][0] if spans else 0.0
+    out = {"backend": backend, "steps": steps, "wall_ms_profiled": wall_ms,
+           "device_ms_per_step": device_us / 1e3 / steps,
+           "device_window_ms": window_us / 1e3,
+           "device_busy_share": busy_us / window_us if window_us else None,
+           "top_kernels": [{"name": e.key[:120], "calls": e.count,
+                            "device_ms_per_step": e.self_device_time_total / 1e3 / steps,
+                            "share": e.self_device_time_total / device_us if device_us else None}
+                           for e in kernels[:8]]}
+    if device_us == 0:
+        out["device_time"] = "key_averages() recorded no device time"
+    print("profile", json.dumps(out), flush=True)
+    return out
+
+
 def train_phase(torch, seed: int, backend: str) -> dict:
     import dataclasses
 
@@ -537,6 +579,8 @@ def train_phase(torch, seed: int, backend: str) -> dict:
         busy_ms = time_ms(torch, lambda: trainer.step(batch), reps=5, warmup=1)
     finally:
         feed.close()
+
+    profile_steps(torch, trainer, batch, backend)
 
     # One step through the kernels vs the plain versions, same state/batch.
     versus = step_vs_plain(torch, trainer, snapshot, batch, backend)

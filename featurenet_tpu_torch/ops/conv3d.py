@@ -10,8 +10,8 @@ Layouts are the JAX ones: activations NDHWC ``[B,D,H,W,C]``, kernels DHWIO
   ``conv3d_plain``, the K³ tap-shift sum in fp32.
 - ``conv3d_dw(x, g, k)``: the weight gradient, fp32. On a CUDA tensor it
   launches ``csrc/conv3d_dw.cu`` (partial tiles over slabs of positions,
-  then a slab sum in fixed order) or raises; on a CPU tensor it runs
-  ``conv_dw_plain`` (``ops/conv_dw.py``).
+  then a slab sum in fixed order) with the launch ``dw_plan`` gives, or
+  raises; on a CPU tensor it runs ``conv_dw_plain`` (``ops/conv_dw.py``).
 - ``conv3d_p``: a ``torch.autograd.Function`` like the JAX ``custom_vjp``
   (``_vjp_bwd``): forward ``conv3d_fwd``; dx is ``conv3d_fwd`` of the
   cotangent with the kernel flipped in (z,y,x) and Cin↔Cout swapped
@@ -35,6 +35,7 @@ stride-1 odd-K block runs the kernels.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +43,6 @@ from torch import nn
 
 from featurenet_tpu_torch.ops import build
 from featurenet_tpu_torch.ops.conv_dw import (
-    TILE_AREA,
     check_dw_args,
     check_launch_args,
     conv_dw_folded,
@@ -55,6 +55,14 @@ conv3d_dw_launches = 0
 conv3d_dw_sum_launches = 0
 
 _INT_LIMIT = 2 ** 31 - 1
+
+# csrc/conv3d_dw.cu's launch: BM·BN = threads (256) x outputs per thread
+# (kTM·kTN = 8x8), kBK positions per chunk, and the resident blocks per SM
+# its launch bounds ask for (kMinBlocks), on an H100's 132 SMs.
+DW_TILE_AREA = 256 * 8 * 8
+DW_CHUNK = 16
+DW_BLOCKS_PER_SM = 2
+SMS = 132
 
 
 def conv3d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -133,23 +141,54 @@ def conv3d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _launch(x, w)
 
 
+class DwPlan(NamedTuple):
+    """How ``csrc/conv3d_dw.cu`` is launched: output tile ``bm x bn``,
+    copy width ``vec`` (floats per ``cp.async``), and the slabs."""
+    bm: int
+    bn: int
+    vec: int
+    slabs: int
+    slab_len: int
+
+
+def dw_plan(x_shape, cout: int, k: int, x_ptr: int, g_ptr: int, *,
+            tile_area: int = DW_TILE_AREA, chunk: int = DW_CHUNK,
+            blocks_per_sm: int = DW_BLOCKS_PER_SM) -> DwPlan:
+    """The launch of ``conv3d_dw`` for ``x [B,D,H,W,Cin]``, ``Cout`` and
+    ``k``, as a function of the shapes and the two base addresses only.
+
+    16-byte copies need Cin and Cout multiples of 4 (4 channels of one tap
+    at one position, never across a tap) and both bases 16-byte aligned;
+    anything else takes 4-byte copies. Slabs fill whole waves of
+    ``blocks_per_sm`` resident blocks on each of ``SMS`` SMs: at most one
+    wave unless the tiles alone are more, cut on ``chunk``. The keywords
+    let ``ab_conv_dw_folded.py`` plan a variant source's own tiles."""
+    b, d, h, w, cin = x_shape
+    bn = 32 if cout <= 32 else 64
+    bm = tile_area // bn
+    vec = 4 if (cin % 4 == 0 and cout % 4 == 0 and x_ptr % 16 == 0
+                and g_ptr % 16 == 0) else 1
+    tiles = -(-(k ** 3 * cin) // bm) * -(-cout // bn)
+    per_wave = max(1, SMS * blocks_per_sm // tiles)
+    slabs, slab_len = plan_slabs(b * d * h * w, tiles, chunk,
+                                 target=per_wave * tiles)
+    return DwPlan(bm, bn, vec, slabs, slab_len)
+
+
 def _launch_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     global conv3d_dw_launches, conv3d_dw_sum_launches
     check_launch_args("conv3d_dw", x, g, (torch.float32,))
     b, d, h, w, cin = x.shape
     cout = g.shape[-1]
-    bn = 32 if cout <= 32 else 64
-    bm = TILE_AREA // bn
-    tiles = -(-(k ** 3 * cin) // bm) * -(-cout // bn)
-    slabs, slab_len = plan_slabs(b * d * h * w, tiles)
-    part = torch.empty((slabs, k ** 3 * cin * cout), dtype=torch.float32,
+    plan = dw_plan(x.shape, cout, k, x.data_ptr(), g.data_ptr())
+    part = torch.empty((plan.slabs, k ** 3 * cin * cout), dtype=torch.float32,
                        device=x.device)
     out = torch.empty((k, k, k, cin, cout), dtype=torch.float32, device=x.device)
     fn = _kernel_dw()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(),
-                b, d, h, w, cin, cout, k, bn, slabs, slab_len, stream)
+                b, d, h, w, cin, cout, k, *plan, stream)
     if rc != 0:
         raise RuntimeError(f"conv3d_dw_f32 launch failed: cudaError {rc}")
     conv3d_dw_launches += 1
@@ -160,7 +199,7 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
 def _kernel_dw():
     lib = build.load("conv3d_dw")
     fn = lib.conv3d_dw_f32
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                    + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

@@ -20,7 +20,8 @@ CUDA tensor).
 
 ``plan_slabs`` splits a kernel's sum into slabs so that output tiles ×
 slabs fill the card; it depends only on the shapes, so the result is the
-same bits on every run. ``ops/conv3d.py``'s ``conv3d_dw`` shares it.
+same bits on every run. ``ops/conv3d.py``'s ``conv3d_dw`` shares it with
+its own block target.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from featurenet_tpu_torch.ops import build
 conv_dw_folded_launches = 0
 conv_dw_folded_sum_launches = 0
 
-# Blocks a weight-gradient launch aims for: four per SM of an H100 (132).
+# Blocks the folded kernel's launch aims for: four per SM of an H100 (132).
+# ``conv3d_dw`` plans on its own target (``ops/conv3d.py``).
 TARGET_BLOCKS = 4 * 132
 # Fewest summed rows a slab is given, so a slab's partial tile is not
 # dominated by its write.
@@ -44,18 +46,19 @@ MIN_SLAB = 256
 # tensor-core kernel); slabs are cut on chunk boundaries.
 CHUNK = 16
 MMA_CHUNK = 32
-# Threads per block x outputs per thread in the kernels: BM·BN.
+# Threads per block x outputs per thread in the folded kernels: BM·BN.
 TILE_AREA = 256 * 8 * 4
 
 _INT_LIMIT = 2 ** 31 - 1
 
 
-def plan_slabs(length: int, tiles: int, chunk: int = CHUNK) -> tuple[int, int]:
+def plan_slabs(length: int, tiles: int, chunk: int = CHUNK,
+               target: int = TARGET_BLOCKS) -> tuple[int, int]:
     """``(slabs, slab_len)`` for a sum over ``length`` rows into ``tiles``
-    output tiles: about ``TARGET_BLOCKS`` blocks in all, each slab a
-    multiple of ``chunk`` rows and at least ``MIN_SLAB`` long (or the whole
-    sum), the last one non-empty."""
-    want = max(1, min(-(-TARGET_BLOCKS // tiles), length // MIN_SLAB))
+    output tiles: about ``target`` blocks in all (``ceil(target/tiles)``
+    slabs at most), each slab a multiple of ``chunk`` rows and at least
+    ``MIN_SLAB`` long (or the whole sum), the last one non-empty."""
+    want = max(1, min(-(-target // tiles), length // MIN_SLAB))
     slab_len = -(-(-(-length // want)) // chunk) * chunk
     return -(-length // slab_len), slab_len
 

@@ -129,19 +129,63 @@ def test_slab_plan_covers_the_sum(length, tiles, chunk):
 
 
 @pytest.mark.parametrize("cin,cout,plan", [
-    (32, 32, (132, 7952)), (32, 64, (76, 13808)), (64, 64, (38, 27600)),
+    (32, 32, (512, 32, 4, 132, 7952)), (32, 64, (256, 64, 4, 66, 15888)),
+    (64, 64, (256, 64, 4, 37, 28352)),
 ])
 def test_conv3d_dw_slab_plan_is_unchanged(cin, cout, plan):
-    """The default chunk keeps ``conv3d_dw``'s plan at sprint64's batch-256
-    shapes (tiles as ``ops/conv3d.py`` counts them) as it was with 16-row
-    chunks only."""
-    bn = 32 if cout <= 32 else 64
-    bm = port_dw.TILE_AREA // bn
-    tiles = -(-(27 * cin) // bm) * -(-cout // bn)
-    length = 256 * 16 ** 3
-    assert port_dw.plan_slabs(length, tiles) == plan
-    assert port_dw.plan_slabs(length, tiles) == port_dw.plan_slabs(
-        length, tiles, port_dw.CHUNK)
+    """``conv3d_dw``'s launch at sprint64's batch-256 shapes: 16-byte copies,
+    and slabs that fill one wave of 2 blocks on each of 132 SMs
+    (264, 264 and 259 blocks)."""
+    got = port.dw_plan((256, 16, 16, 16, cin), cout, 3, 0, 256)
+    assert tuple(got) == plan
+    tiles = -(-(27 * cin) // got.bm) * -(-cout // got.bn)
+    assert tiles * got.slabs <= port.SMS * port.DW_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("cin,cout,x_ptr,g_ptr,vec", [
+    (32, 64, 0, 16, 4), (8, 12, 4096, 64, 4),
+    (32, 64, 4, 16, 1), (32, 64, 0, 8, 1),  # a base off 16-byte alignment
+    (33, 64, 0, 0, 1), (32, 65, 0, 0, 1), (3, 5, 0, 0, 1),  # a channel count
+    (6, 8, 0, 0, 1), (8, 2, 0, 0, 1),
+])
+def test_conv3d_dw_copy_width(cin, cout, x_ptr, g_ptr, vec):
+    """16-byte copies only when Cin and Cout are multiples of 4 and both
+    bases are 16-byte aligned; a function of the shapes and addresses."""
+    assert port.dw_plan((2, 4, 4, 4, cin), cout, 3, x_ptr, g_ptr).vec == vec
+
+
+@pytest.mark.parametrize("shape,cout,k", [
+    ((256, 16, 16, 16, 32), 32, 3), ((256, 16, 16, 16, 64), 64, 3),
+    ((8, 32, 32, 32, 32), 32, 5), ((3, 5, 7, 9, 33), 65, 3),
+    ((1, 3, 5, 7, 4), 8, 3), ((2, 3, 4, 1, 8), 12, 3), ((1, 1, 1, 1, 3), 5, 1),
+    ((64, 16, 16, 16, 64), 96, 7),
+])
+def test_conv3d_dw_plan_covers_the_sum(shape, cout, k):
+    """Slabs are whole 16-position chunks, cover the positions exactly once,
+    none is empty, the tiles are those the kernel instantiates, and the
+    launch stays within one wave unless the tiles alone are more."""
+    plan = port.dw_plan(shape, cout, k, 0, 0)
+    length = shape[0] * shape[1] * shape[2] * shape[3]
+    assert (plan.bm, plan.bn) in ((512, 32), (256, 64))
+    assert plan.bn == (32 if cout <= 32 else 64)
+    assert plan.slab_len % port.DW_CHUNK == 0 and plan.slabs >= 1
+    assert (plan.slabs - 1) * plan.slab_len < length <= plan.slabs * plan.slab_len
+    tiles = -(-(k ** 3 * shape[-1]) // plan.bm) * -(-cout // plan.bn)
+    assert tiles * plan.slabs <= max(port.SMS * port.DW_BLOCKS_PER_SM, tiles)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("cin,cout,plan", [
+    (32, 32, (128, 106, 11136)), (32, 64, (64, 59, 20000)),
+    (64, 64, (64, 36, 32768)),
+])
+def test_folded_plan_is_unchanged(dtype, cin, cout, plan):
+    """``conv_dw_folded``'s launch at sprint64's batch-256 shapes stays as
+    it was before ``plan_slabs`` took a block target for ``conv3d_dw``."""
+    dt = getattr(torch, dtype)
+    x = torch.empty((256, 16, 16, 16, cin), dtype=dt, device="meta")
+    g = torch.empty((256, 16, 16, 16, cout), dtype=dt, device="meta")
+    assert port_dw.folded_plan(x, g, 3) == plan
 
 
 @pytest.mark.parametrize("k,cin,cout,bn", [

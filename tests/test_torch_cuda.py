@@ -4,7 +4,8 @@
 of the kernels' 16- or 32-row chunks or 32/64/128-wide tiles, position
 counts that are not multiples of a row tile or of a slab, an output
 smaller than one m16 x n8 tensor-core fragment, K from 1 to 7); the weight
-gradients' bitwise repeatability; the wrappers' checks; the Predictor and
+gradients' bitwise repeatability; ``conv3d_dw`` on inputs 4 bytes off
+16-byte alignment; the wrappers' checks; the Predictor and
 a smoke16 train step on the card against the same on the CPU.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
@@ -95,6 +96,9 @@ DW_SHAPES = [  # b, d, h, w, cin, cout, k
     (1, 3, 3, 3, 3, 5, 1),  # 3 x 5 output: inside one m16 x n8 fragment
     (16, 16, 16, 16, 32, 32, 3),
     (16, 16, 16, 16, 64, 64, 3),
+    (2, 3, 4, 1, 8, 12, 3),  # W=1: the halo on both sides of one 16-byte copy
+    (1, 3, 5, 7, 4, 8, 3),  # 105 positions: the last 16-position chunk is partial
+    (3, 5, 7, 9, 32, 64, 3),  # 945 positions through 16-byte copies
 ]
 
 
@@ -163,6 +167,29 @@ def test_dw_kernels_are_bitwise_repeatable(cuda, kernel):
         second = fn(x, gy, 3)
         torch.cuda.synchronize()
         assert torch.equal(first, second), (cin, cout)
+
+
+@pytest.mark.parametrize("which", ["x", "g"])
+def test_conv3d_dw_takes_inputs_off_16_byte_alignment(cuda, which):
+    """A contiguous view at storage offset 1 lies 4 bytes off 16-byte
+    alignment: the wrapper plans 4-byte copies for it before the launch, and
+    the kernel matches the plain version."""
+    from featurenet_tpu_torch.ops import conv3d, conv_dw
+
+    x, gy = _dw_inputs(cuda, 2, 6, 5, 4, 8, 12)
+    t = x if which == "x" else gy
+    flat = torch.empty(t.numel() + 1, device=cuda)
+    flat[1:] = t.reshape(-1)
+    shifted = flat[1:].view(t.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    x, gy = (shifted, gy) if which == "x" else (x, shifted)
+    assert conv3d.dw_plan(x.shape, 12, 3, x.data_ptr(), gy.data_ptr()).vec == 1
+    before = conv3d.conv3d_dw_launches
+    got = conv3d.conv3d_dw(x, gy, 3)
+    want = conv_dw.conv_dw_plain(x, gy, 3)
+    torch.cuda.synchronize()
+    assert conv3d.conv3d_dw_launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("kernel", ["conv3d_dw", "conv_dw_folded"])
