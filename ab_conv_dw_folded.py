@@ -1,27 +1,33 @@
 #!/usr/bin/env python3
-"""Time variants of a weight-gradient CUDA source against each other on one
-NVIDIA GPU, in turns, at sprint64's three batch-256 weight-gradient shapes.
+"""Time variants of a conv CUDA source against each other on one NVIDIA
+GPU, in turns, at sprint64's shapes.
 
-    python3 ab_conv_dw_folded.py [--kernel conv_dw_folded|conv3d_dw] [VARIANT.cu ...]
+    python3 ab_conv_dw_folded.py [--kernel conv_dw_folded|conv3d_dw|conv3d_fwd] [VARIANT.cu ...]
 
 ``--kernel conv_dw_folded`` (the default) times copies of
 ``featurenet_tpu_torch/ops/csrc/conv_dw_folded.cu`` on its bf16 path,
-planned by ``conv_dw.folded_plan``; ``--kernel conv3d_dw`` times copies of
-``csrc/conv3d_dw.cu`` in fp32, planned by ``conv3d.dw_plan``. Each variant
-keeps the source's C entry; the checkout's own source is always timed as
-``repo``. A conv3d_dw variant whose tiles or occupancy differ may carry one
-line ``// ab-plan: {"tile_area": 16384, "chunk": 32, "blocks_per_sm": 1}``
-(any of ``dw_plan``'s keywords), and is then planned with them.
+planned by ``conv_dw.folded_plan``, at the three batch-256 weight-gradient
+shapes; ``--kernel conv3d_dw`` times copies of ``csrc/conv3d_dw.cu`` in
+fp32 at the same shapes, planned by ``conv3d.dw_plan``; ``--kernel
+conv3d_fwd`` times copies of ``csrc/conv3d_fwd.cu`` in fp32, planned by
+``conv3d.fwd_plan``, at the six shapes of a batch-256 train step (3
+forward, 3 dx), the three serving shapes at batch 64 and, apart, at
+batch 1. Each variant keeps the source's C entry; the checkout's own
+source is always timed as ``repo``. A conv3d_dw or conv3d_fwd variant
+whose tiles or occupancy differ may carry one line
+``// ab-plan: {"tile_area": 16384, "chunk": 32, "blocks_per_sm": 1}``
+(any of ``dw_plan``'s or ``fwd_plan``'s keywords), and is then planned
+with them.
 
 Every source is built with the flags of ``ops/build.py`` (one nvcc each,
 in parallel) into ``build/ab/``; ptxas's register and spill lines are
 printed per source. Each variant runs on the same inputs, is held against
-``conv_dw_plain`` (its max error over the largest |output| is printed, not
-judged), and is timed as ``chip_smoke.py`` times a kernel (median of 20
-calls) in the order A, B, ..., repo, repo, ..., B, A per shape. Prints one
-JSON line per (shape, source) and a last line with each source's
-per-shape times summed, averaged over its turns. Exits 1 without a CUDA
-device.
+the plain version (``conv_dw_plain`` or ``conv3d_plain``; its max error
+over the largest |output| is printed, not judged), and is timed as
+``chip_smoke.py`` times a kernel (median of 20 calls) in the order A, B,
+..., repo, repo, ..., B, A per shape. Prints one JSON line per (shape,
+source) and a last line with each source's per-shape times summed per
+group of shapes, averaged over its turns. Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,12 +39,20 @@ import subprocess
 import sys
 from pathlib import Path
 
-SHAPES = [(32, 32), (32, 64), (64, 64)]  # cin, cout of sprint64's 3³ blocks
 BATCH, GRID, K = 256, 16, 3
+SPRINT_BLOCKS = [(32, 32), (32, 64), (64, 64)]  # cin, cout of sprint64's 3³ blocks
+# (what, batch, cin, cout)
+DW_SHAPES = [("train dW", BATCH, ci, co) for ci, co in SPRINT_BLOCKS]
+FWD_SHAPES = ([("train fwd", BATCH, ci, co) for ci, co in SPRINT_BLOCKS]
+              + [("train dx", BATCH, co, ci) for ci, co in SPRINT_BLOCKS]
+              + [("serve", 64, ci, co) for ci, co in SPRINT_BLOCKS]
+              + [("serve b1", 1, ci, co) for ci, co in SPRINT_BLOCKS])
 
-# kernel -> (C entry, ints between the four pointers and slab_len)
-ENTRIES = {"conv_dw_folded": ("conv_dw_folded", 10),
-           "conv3d_dw": ("conv3d_dw_f32", 11)}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# kernel -> (C entry, its argument types)
+ENTRIES = {"conv_dw_folded": ("conv_dw_folded", [_P] * 4 + [_I] * 10 + [_L, _P]),
+           "conv3d_dw": ("conv3d_dw_f32", [_P] * 4 + [_I] * 11 + [_L, _P]),
+           "conv3d_fwd": ("conv3d_fwd_f32", [_P] * 3 + [_I] * 10 + [_P])}
 
 
 def _build(kernel: str, names_sources: dict[str, Path]) -> dict:
@@ -51,7 +65,7 @@ def _build(kernel: str, names_sources: dict[str, Path]) -> dict:
         [nvcc, *build.NVCC_FLAGS, "-o", str(out_dir / f"{kernel}-{n}.so"), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for n, src in names_sources.items()}
-    symbol, ints = ENTRIES[kernel]
+    symbol, argtypes = ENTRIES[kernel]
     fns = {}
     for n, proc in procs.items():
         log, _ = proc.communicate()
@@ -61,8 +75,7 @@ def _build(kernel: str, names_sources: dict[str, Path]) -> dict:
             ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln),
             flush=True)
         fn = getattr(ctypes.CDLL(str(out_dir / f"{kernel}-{n}.so")), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
-                       + [ctypes.c_longlong, ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[n] = fn
     return fns
@@ -80,22 +93,46 @@ def _plan(kernel: str, x, g, overrides: dict) -> tuple:
 
     if kernel == "conv_dw_folded":
         return (1, *x.shape, g.shape[-1], K, *conv_dw.folded_plan(x, g, K))
+    if kernel == "conv3d_fwd":
+        return (*x.shape, g.shape[-1], K,
+                *conv3d.fwd_plan(x.shape, g.shape[-1], x.data_ptr(), g.data_ptr(),
+                                 **overrides))
     return (*x.shape, g.shape[-1], K,
             *conv3d.dw_plan(x.shape, g.shape[-1], K, x.data_ptr(), g.data_ptr(),
                             **overrides))
 
 
-def _call(torch, fn, x, g, args: tuple):
-    """One launch with the C entry's integer arguments ``args`` (the slab
-    count second to last)."""
+def _call(torch, kernel: str, fn, x, g, args: tuple):
+    """One launch with the C entry's integer arguments ``args``: ``g`` is
+    the cotangent of a weight gradient (the slab count second to last in
+    ``args``) or the weights of the forward."""
     cin, cout = x.shape[-1], g.shape[-1]
-    part = torch.empty((args[-2], K ** 3 * cin * cout), device=x.device)
-    out = torch.empty((K, K, K, cin, cout), device=x.device)
-    rc = fn(x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(), *args,
-            torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "conv3d_fwd":
+        out = torch.empty((*x.shape[:-1], cout), device=x.device)
+        rc = fn(x.data_ptr(), g.data_ptr(), out.data_ptr(), *args, stream)
+    else:
+        part = torch.empty((args[-2], K ** 3 * cin * cout), device=x.device)
+        out = torch.empty((K, K, K, cin, cout), device=x.device)
+        rc = fn(x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(), *args,
+                stream)
     if rc != 0:
         raise RuntimeError(f"launch failed: cudaError {rc}")
     return out
+
+
+def _inputs(torch, kernel: str, gen, b: int, cin: int, cout: int):
+    """Inputs of one shape and the plain version's output on them."""
+    from featurenet_tpu_torch.ops import conv3d, conv_dw
+
+    dtype = torch.bfloat16 if kernel == "conv_dw_folded" else torch.float32
+    x = torch.randn((b, GRID, GRID, GRID, cin), device="cuda", generator=gen).to(dtype)
+    if kernel == "conv3d_fwd":
+        w = torch.randn((K, K, K, cin, cout), device="cuda", generator=gen)
+        w /= (K ** 3 * cin) ** 0.5
+        return x, w, conv3d.conv3d_plain(x, w)
+    g = torch.randn((b, GRID, GRID, GRID, cout), device="cuda", generator=gen).to(dtype)
+    return x, g, conv_dw.conv_dw_plain(x, g, K)
 
 
 def main() -> int:
@@ -111,7 +148,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     from chip_smoke import time_ms
-    from featurenet_tpu_torch.ops import build, conv_dw
+    from featurenet_tpu_torch.ops import build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -119,36 +156,35 @@ def main() -> int:
     print(f"nvidia-smi: {smi}", flush=True)
     sources = {p.stem: p for p in args.variants}
     sources["repo"] = build.SRC_DIR / build.SOURCES[args.kernel]
-    overrides = {n: _ab_plan(p) if args.kernel == "conv3d_dw" else {}
+    overrides = {n: _ab_plan(p) if args.kernel != "conv_dw_folded" else {}
                  for n, p in sources.items()}
     fns = _build(args.kernel, sources)
     others = [n for n in fns if n != "repo"]
     order = others + ["repo", "repo"] + others[::-1]
-    dtype = torch.bfloat16 if args.kernel == "conv_dw_folded" else torch.float32
+    shapes = FWD_SHAPES if args.kernel == "conv3d_fwd" else DW_SHAPES
     gen = torch.Generator(device="cuda").manual_seed(0)
-    times: dict[str, list[float]] = {n: [] for n in fns}
-    for cin, cout in SHAPES:
-        x = torch.randn((BATCH, GRID, GRID, GRID, cin), device="cuda",
-                        generator=gen).to(dtype)
-        g = torch.randn((BATCH, GRID, GRID, GRID, cout), device="cuda",
-                        generator=gen).to(dtype)
-        want = conv_dw.conv_dw_plain(x, g, K)
+    times: dict[str, dict[str, list[float]]] = {}
+    for what, b, cin, cout in shapes:
+        x, g, want = _inputs(torch, args.kernel, gen, b, cin, cout)
         scale = float(want.abs().max())
-        flops = 2.0 * BATCH * GRID ** 3 * K ** 3 * cin * cout
+        flops = 2.0 * b * GRID ** 3 * K ** 3 * cin * cout
+        group = "train" if what.startswith("train") else what
         for n in order:
             plan = _plan(args.kernel, x, g, overrides[n])
-            got = _call(torch, fns[n], x, g, plan)
+            got = _call(torch, args.kernel, fns[n], x, g, plan)
             err = float((got - want).abs().max()) / scale
-            ms = time_ms(torch, lambda: _call(torch, fns[n], x, g, plan))
-            times[n].append(ms)
-            print(json.dumps({"kernel": args.kernel, "source": n, "cin": cin,
-                              "cout": cout, "launch": plan, "ms": ms,
+            ms = time_ms(torch, lambda: _call(torch, args.kernel, fns[n], x, g, plan))
+            times.setdefault(group, {m: [] for m in fns})[n].append(ms)
+            print(json.dumps({"kernel": args.kernel, "what": what, "source": n,
+                              "batch": b, "cin": cin, "cout": cout,
+                              "launch": plan, "ms": ms,
                               "tflops": flops / ms / 1e9, "max_rel_err": err}),
                   flush=True)
         del x, g, want
     turns = {n: order.count(n) for n in fns}
     print(json.dumps({"kernel": args.kernel,
-                      "summed_ms": {n: sum(v) / turns[n] for n, v in times.items()},
+                      "summed_ms": {grp: {n: sum(v) / turns[n] for n, v in t.items()}
+                                    for grp, t in times.items()},
                       "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 

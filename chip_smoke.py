@@ -14,8 +14,10 @@ Phases, in order; any failure exits non-zero before the last line:
    yardstick the port never calls) and the bound:
    - conv3d_fwd at sprint64's three stride-1 3³ forward shapes at batch 64
      (a serving bucket) and 256 (a train step), at the three dx shapes of a
-     train step (channels swapped: 32←32, 64→32, 64→64), and at pod64's 5³
-     conv2 (batch 8, off the main path); yardstick F.conv3d;
+     train step (channels swapped: 32←32, 64→32, 64→64), at batch 1
+     (serving's smallest bucket, where the kernel takes its small tiles;
+     off the summed figures), and at pod64's 5³ conv2 (batch 8, off the
+     main path); yardstick F.conv3d;
    - conv3d_dw (fp32) and conv_dw_folded (bf16 on the tensor cores, and
      fp32 in SIMT off the main path) at the three batch-256
      weight-gradient shapes and at pod64's conv2; yardstick cuDNN's weight
@@ -118,6 +120,7 @@ FWD_SHAPES = (
     [("serve", 64, 16, ci, co, 3, True) for ci, co in SPRINT_BLOCKS]
     + [("train fwd", TRAIN_BATCH, 16, ci, co, 3, True) for ci, co in SPRINT_BLOCKS]
     + [("train dx", TRAIN_BATCH, 16, co, ci, 3, True) for ci, co in SPRINT_BLOCKS]
+    + [("serve b1", 1, 16, ci, co, 3, True) for ci, co in SPRINT_BLOCKS]
     + [("pod64 conv2", 8, 32, 32, 32, 5, False)]
 )
 DW_SHAPES = (
@@ -662,10 +665,10 @@ def main() -> int:
     train = {b: train_phase(torch, args.seed, b) for b in ("pallas", "hybrid_dw")}
 
     # ms, plain_ms, library_ms and bound_ms sum one train step's shapes
-    # (batch 256): conv3d_fwd its 3 forward + 3 dx convs, conv3d_dw and
-    # conv_dw_folded (bf16) their 3 weight gradients. Launches are the
-    # counts of each main-path run.
-    fwd_train = [dict(r, main_path=r["main_path"] and r["what"] != "serve")
+    # (batch 256): conv3d_fwd its 3 forward + 3 dx convs (not the serving
+    # rows), conv3d_dw and conv_dw_folded (bf16) their 3 weight gradients.
+    # Launches are the counts of each main-path run.
+    fwd_train = [dict(r, main_path=r["main_path"] and not r["what"].startswith("serve"))
                  for r in rows["conv3d_fwd"]]
     tp, th = train["pallas"]["launches"], train["hybrid_dw"]["launches"]
     kernels = [

@@ -6,8 +6,9 @@ Layouts are the JAX ones: activations NDHWC ``[B,D,H,W,C]``, kernels DHWIO
 
 - ``conv3d_fwd(x, w)``: the forward, fp32. On a CUDA tensor it launches the
   hand-written kernel in ``csrc/conv3d_fwd.cu`` (built with ``nvcc`` at
-  first use, see ``ops/build.py``) or raises; on a CPU tensor it runs
-  ``conv3d_plain``, the K³ tap-shift sum in fp32.
+  first use, see ``ops/build.py``) with the launch ``fwd_plan`` gives, or
+  raises; on a CPU tensor it runs ``conv3d_plain``, the K³ tap-shift sum
+  in fp32.
 - ``conv3d_dw(x, g, k)``: the weight gradient, fp32. On a CUDA tensor it
   launches ``csrc/conv3d_dw.cu`` (partial tiles over slabs of positions,
   then a slab sum in fixed order) with the launch ``dw_plan`` gives, or
@@ -55,6 +56,12 @@ conv3d_dw_launches = 0
 conv3d_dw_sum_launches = 0
 
 _INT_LIMIT = 2 ** 31 - 1
+
+# csrc/conv3d_fwd.cu's launch: BM·BN = threads x outputs per thread, 256
+# threads of 8x8; a grid of fewer blocks than SMs takes the small tile, 128
+# threads of 8x4, which gives twice the threads for the same work.
+FWD_TILE_AREA = 256 * 8 * 8
+FWD_SMALL_TILE_AREA = 128 * 8 * 4
 
 # csrc/conv3d_dw.cu's launch: BM·BN = threads (256) x outputs per thread
 # (kTM·kTN = 8x8), kBK positions per chunk, and the resident blocks per SM
@@ -112,21 +119,54 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv3d_p: dimension too large in {tuple(x.shape)}")
     out = torch.empty((b, d, h, wd, cout), dtype=torch.float32,
                       device=x.device)
+    plan = fwd_plan(x.shape, cout, x.data_ptr(), w.data_ptr())
     fn = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                b, d, h, wd, cin, cout, k, stream)
+                b, d, h, wd, cin, cout, k, *plan, stream)
     if rc != 0:
         raise RuntimeError(f"conv3d_fwd_f32 launch failed: cudaError {rc}")
     conv3d_fwd_launches += 1
     return out
 
 
+class FwdPlan(NamedTuple):
+    """How ``csrc/conv3d_fwd.cu`` is launched: output tile ``bm x bn`` and
+    copy width ``vec`` (floats per ``cp.async``)."""
+    bm: int
+    bn: int
+    vec: int
+
+
+def fwd_plan(x_shape, cout: int, x_ptr: int, w_ptr: int, *,
+             tile_area: int = FWD_TILE_AREA,
+             small_tile_area: int = FWD_SMALL_TILE_AREA) -> FwdPlan:
+    """The launch of ``conv3d_fwd`` for ``x [B,D,H,W,Cin]`` and ``Cout``, as
+    a function of the shapes and the two base addresses only (the kernel
+    size does not change it).
+
+    The tile is ``bn`` = 32 columns for Cout ≤ 32, else 64, and ``bm`` =
+    ``tile_area / bn`` rows; where that gives fewer blocks than ``SMS``
+    (serving's small buckets), ``small_tile_area / bn`` rows. 16-byte
+    copies need Cin and Cout multiples of 4 (4 channels of one position in
+    one tap, and 4 columns of one weight row) and both bases 16-byte
+    aligned; anything else takes 4-byte copies. The keywords let
+    ``ab_conv_dw_folded.py`` plan a variant source's own tiles."""
+    b, d, h, w, cin = x_shape
+    bn = 32 if cout <= 32 else 64
+    bm = tile_area // bn
+    if -(-(b * d * h * w) // bm) * -(-cout // bn) < SMS:
+        bm = small_tile_area // bn
+    vec = 4 if (cin % 4 == 0 and cout % 4 == 0 and x_ptr % 16 == 0
+                and w_ptr % 16 == 0) else 1
+    return FwdPlan(bm, bn, vec)
+
+
 def _kernel():
     lib = build.load("conv3d_fwd")
     fn = lib.conv3d_fwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

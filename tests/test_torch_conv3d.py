@@ -73,3 +73,53 @@ def test_kernel_build_targets_hopper():
         assert cmd[-1].endswith(f"csrc/{src}")
         assert build.library_path(name).parent == build.BUILD_DIR
         assert (build.SRC_DIR / src).is_file()
+
+
+@pytest.mark.parametrize("shape,cout,plan", [
+    ((256, 16, 16, 16, 32), 32, (512, 32, 4)),  # sprint64 train fwd / dx
+    ((256, 16, 16, 16, 32), 64, (256, 64, 4)),
+    ((256, 16, 16, 16, 64), 32, (512, 32, 4)),
+    ((64, 16, 16, 16, 64), 64, (256, 64, 4)),  # serving's bucket 64
+    ((8, 32, 32, 32, 32), 32, (512, 32, 4)),  # pod64's 5³ conv2
+    ((2, 9, 9, 9, 8), 96, (64, 64, 4)),  # 6 x 2 column tiles: small
+    ((1, 16, 16, 16, 32), 32, (128, 32, 4)),  # bucket 1: 8 blocks, small
+    ((1, 16, 16, 16, 64), 64, (64, 64, 4)),
+    ((16, 16, 16, 16, 32), 32, (128, 32, 4)),  # bucket 16: 128 blocks < 132
+    ((16, 16, 16, 16, 64), 64, (256, 64, 4)),  # 256 blocks
+    ((1, 5, 6, 7, 3), 5, (128, 32, 1)),
+])
+def test_fwd_plan_tile(shape, cout, plan):
+    """The output tile follows Cout (≤32 columns → 512×32, else 256×64),
+    a quarter the size (128 threads of 8×4 outputs) where the full one
+    gives fewer blocks than SMs."""
+    got = port.fwd_plan(shape, cout, 0, 256)
+    assert tuple(got) == plan
+    assert (got.bm, got.bn) in ((512, 32), (256, 64), (128, 32), (64, 64))
+    full = port.FWD_TILE_AREA // got.bn
+    blocks = -(-(shape[0] * shape[1] * shape[2] * shape[3]) // full)
+    blocks *= -(-cout // got.bn)
+    assert (got.bm == full) == (blocks >= port.SMS)
+
+
+@pytest.mark.parametrize("cin,cout,x_ptr,w_ptr,vec", [
+    (32, 64, 0, 16, 4), (4, 8, 4096, 64, 4), (12, 20, 0, 0, 4),
+    (32, 64, 4, 16, 1), (32, 64, 0, 8, 1),  # a base off 16-byte alignment
+    (33, 64, 0, 0, 1), (32, 65, 0, 0, 1), (3, 5, 0, 0, 1),  # a channel count
+    (6, 8, 0, 0, 1), (8, 2, 0, 0, 1),
+])
+def test_fwd_plan_copy_width(cin, cout, x_ptr, w_ptr, vec):
+    """16-byte copies only when Cin and Cout are multiples of 4 and both
+    bases are 16-byte aligned."""
+    assert port.fwd_plan((2, 4, 4, 4, cin), cout, x_ptr, w_ptr).vec == vec
+
+
+def test_fwd_plan_is_a_function_of_shapes_and_addresses():
+    """Same shapes and addresses, same plan, whatever was planned before;
+    only an address's alignment, not its value, moves the copy width."""
+    args = [((b, 16, 16, 16, c), co, xp, wp) for b in (1, 16, 256)
+            for c, co in ((32, 32), (64, 32), (3, 5)) for xp, wp in ((0, 0), (4, 16))]
+    first = [port.fwd_plan(*a) for a in args]
+    assert [port.fwd_plan(*a) for a in reversed(args)] == first[::-1]
+    for shape, cout, xp, wp in args:
+        assert port.fwd_plan(shape, cout, xp + 4096, wp + 1 << 20) == \
+            port.fwd_plan(shape, cout, xp, wp)

@@ -4,8 +4,10 @@
 of the kernels' 16- or 32-row chunks or 32/64/128-wide tiles, position
 counts that are not multiples of a row tile or of a slab, an output
 smaller than one m16 x n8 tensor-core fragment, K from 1 to 7); the weight
-gradients' bitwise repeatability; ``conv3d_dw`` on inputs 4 bytes off
-16-byte alignment; the wrappers' checks; the Predictor and
+gradients' bitwise repeatability; ``conv3d_p`` (forward and dx) and
+``conv3d_dw`` on inputs 4 bytes off 16-byte alignment; the wrappers'
+checks and the forward's C entry refusing a launch it cannot run; the
+Predictor and
 a smoke16 train step on the card against the same on the CPU.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
@@ -42,6 +44,12 @@ def cuda():
     (1, 6, 6, 6, 16, 32, 1),
     (2, 9, 9, 9, 8, 96, 7),
     (64, 16, 16, 16, 64, 64, 3),
+    (2, 3, 4, 1, 8, 12, 3),  # W=1: the halo on both sides of every row
+    (1, 5, 6, 7, 4, 8, 3),  # 16-byte copies, a quarter of a 16-channel chunk
+    (2, 6, 5, 4, 12, 20, 3),  # 16-byte copies, three quarters of a chunk
+    (1, 16, 16, 16, 32, 32, 3),  # serving's bucket 1: the small tiles
+    (1, 16, 16, 16, 64, 64, 3),
+    (256, 16, 16, 16, 32, 32, 3),  # sprint64's first block at batch 256
 ])
 def test_kernel_matches_plain(cuda, b, d, h, w, cin, cout, k):
     from featurenet_tpu_torch.ops import conv3d
@@ -56,6 +64,82 @@ def test_kernel_matches_plain(cuda, b, d, h, w, cin, cout, k):
     assert conv3d.conv3d_fwd_launches == before + 1
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("b,cin,cout", [
+    (8, 32, 32), (8, 32, 64), (8, 64, 64), (2, 12, 8), (2, 3, 5),
+])
+def test_conv3d_p_dx_runs_the_kernel_with_the_flipped_weights(cuda, b, cin, cout):
+    """dx of ``conv3d_p`` is one forward launch with the kernel flipped in
+    (z,y,x) and Cin, Cout swapped (sprint64's dx shapes, and ragged ones
+    through 16- and 4-byte copies), against the plain conv of the same."""
+    from featurenet_tpu_torch.ops import conv3d
+
+    g = torch.Generator(device=cuda).manual_seed(b + cin + cout)
+    x = torch.randn((b, 16, 16, 16, cin), device=cuda, generator=g)
+    w = torch.randn((3, 3, 3, cin, cout), device=cuda, generator=g) / (27 * cin) ** 0.5
+    gy = torch.randn((b, 16, 16, 16, cout), device=cuda, generator=g)
+    xr = x.clone().requires_grad_()
+    out = conv3d.conv3d_p(xr, w)
+    before = conv3d.conv3d_fwd_launches
+    out.backward(gy)
+    want = conv3d.conv3d_plain(gy, w.flip(0, 1, 2).transpose(3, 4))
+    torch.cuda.synchronize()
+    assert conv3d.conv3d_fwd_launches == before + 1
+    assert float((xr.grad - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("which", ["x", "w"])
+def test_conv3d_fwd_takes_inputs_off_16_byte_alignment(cuda, which):
+    """A contiguous view at storage offset 1 lies 4 bytes off 16-byte
+    alignment: the wrapper plans 4-byte copies for it before the launch, and
+    the kernel matches the plain version."""
+    from featurenet_tpu_torch.ops import conv3d
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((2, 6, 5, 4, 8), device=cuda, generator=g)
+    w = torch.randn((3, 3, 3, 8, 12), device=cuda, generator=g)
+    t = x if which == "x" else w
+    flat = torch.empty(t.numel() + 1, device=cuda)
+    flat[1:] = t.reshape(-1)
+    shifted = flat[1:].view(t.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    x, w = (shifted, w) if which == "x" else (x, shifted)
+    assert conv3d.fwd_plan(x.shape, 12, x.data_ptr(), w.data_ptr()).vec == 1
+    before = conv3d.conv3d_fwd_launches
+    got = conv3d.conv3d_fwd(x, w)
+    want = conv3d.conv3d_plain(x, w)
+    torch.cuda.synchronize()
+    assert conv3d.conv3d_fwd_launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_conv3d_fwd_entry_refuses_a_launch_it_cannot_run(cuda):
+    """The C entry refuses 16-byte copies for a channel count that is not a
+    multiple of 4 or a base off 16-byte alignment, an unknown copy width
+    and a tile it has no instance of; it returns the error, launches
+    nothing, and leaves the output as it was."""
+    from featurenet_tpu_torch.ops import conv3d
+
+    fn = conv3d._kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(cin, cout, bm, bn, vec, x_off=0):
+        x = torch.ones(2 * 4 ** 3 * cin + 4, device=cuda)
+        w = torch.ones((3, 3, 3, cin, cout), device=cuda)
+        out = torch.full((2, 4, 4, 4, cout), 7.0, device=cuda)
+        rc = fn(x.data_ptr() + 4 * x_off, w.data_ptr(), out.data_ptr(),
+                2, 4, 4, 4, cin, cout, 3, bm, bn, vec, stream)
+        torch.cuda.synchronize()
+        return rc, bool((out == 7.0).all())
+
+    assert call(8, 8, 128, 32, 4) == (0, False)  # a launch it can run
+    assert call(8, 8, 128, 32, 1, x_off=1) == (0, False)
+    for cin, cout, bm, bn, vec, x_off in [
+            (6, 8, 128, 32, 4, 0), (8, 6, 128, 32, 4, 0), (8, 8, 128, 32, 4, 1),
+            (8, 8, 128, 32, 2, 0), (8, 8, 256, 32, 1, 0), (8, 8, 512, 64, 1, 0)]:
+        rc, untouched = call(cin, cout, bm, bn, vec, x_off)
+        assert rc != 0 and untouched, (cin, cout, bm, bn, vec, x_off)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -98,3 +98,12 @@ def test_card_scripts_exit_nonzero_without_a_card(script):
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
     assert '"ok": true' not in out.stdout
+
+
+def test_ab_tool_forward_mode_exits_nonzero_without_a_card():
+    out = subprocess.run([sys.executable, "ab_conv_dw_folded.py", "--kernel",
+                          "conv3d_fwd", "build/none.cu"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode == 1
+    assert "no CUDA device" in out.stderr
