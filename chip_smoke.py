@@ -29,22 +29,40 @@ Phases, in order; any failure exits non-zero before the last line:
    voxel grids to POST /predict_voxels. Every answer must be a 200 with a
    class; the kernel's launch count must be 3 per dispatch; the served
    probabilities must match the same weights run through the plain conv.
-5. Train path, once per conv backend (pallas, hybrid_dw): the sprint64
+5. Train path, once per conv backend (pallas, hybrid_dw, xla): the sprint64
    Trainer at full width and batch 256 from a seed, dropout 0.5, a few
    steps on synthetic parts, then one eval batch. Every loss must be
    finite; parameters and batch-norm statistics must move; every kernel
    of the backend must launch exactly its count per step (pallas: 6
    conv3d_fwd, 3 conv3d_dw + 3 slab sums; hybrid_dw: 3 conv_dw_folded + 3
-   slab sums, no conv3d_fwd; plus 3 conv3d_fwd per pallas eval batch).
-   Then, from the trained state and one batch on the card with dropout off,
-   one step through the kernels must match the same step through the plain
-   versions. Device ms per step (CUDA events; alone, and while the
+   slab sums, no conv3d_fwd; xla, the JAX default lowering through
+   F.conv3d: none of the three kernels; plus 3 conv3d_fwd per pallas eval
+   batch). Then, from the trained state and one batch on the card with
+   dropout off, one step through the kernels must match the same step
+   through the plain versions (not under xla, whose "kernel" and plain
+   versions are the same library call). Device ms per step (CUDA events;
+   alone, and while the
    producer threads generate), samples/s with the data wait, and the
    data-wait share are printed; before the train phases, the parts/s that
    one host thread generates and that the Prefetcher delivers. Then 3
    steps on the card's batch under torch.profiler print a `profile` line:
    the top 8 CUDA kernels by device time and the device-busy share.
-6. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
+6. Checkpoint path, under pallas at the same full width: the Trainer takes
+   3 steps saving each into a temporary directory; a fresh Trainer resumes
+   at step 3 with model, Adam moments, count and step bitwise equal; both
+   take one step on one batch (cuDNN deterministic) and stay bitwise equal;
+   one byte of step 3 is damaged and a restore walks back to step 2 (an
+   explicit step 3 raises); Predictor.from_checkpoint serves parts from
+   step 2 at 3 conv3d_fwd launches per dispatch with the labels of the
+   restored model. The host ms of each save (snapshot and enqueue) are
+   printed beside the pallas device step ms, with the writer's ms per save,
+   the restore ms and the bytes of one step; launches are exact throughout.
+7. Command line, as a user runs it on the card: `cli train --config
+   sprint64 --checkpoint-dir D` (3 steps at batch 256, saving each), then
+   `cli serve --checkpoint-dir D` answering voxel grids over HTTP until
+   SIGTERM; the train run's `checkpoint` record (host ms per save, writer
+   ms per save, bytes) is printed.
+8. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
    line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
@@ -57,6 +75,7 @@ import argparse
 import http.client
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -546,11 +565,7 @@ def train_phase(torch, seed: int, backend: str) -> dict:
         run_s = time.perf_counter() - t0
         counts = _read_counts()
     steps = TRAIN_STEPS
-    want = ({"conv3d_fwd": 6 * steps + 3 * EVAL_BATCHES, "conv3d_dw": 3 * steps,
-             "conv3d_dw_sum": 3 * steps, "conv_dw_folded": 0,
-             "conv_dw_folded_sum": 0} if backend == "pallas" else
-            {"conv3d_fwd": 0, "conv3d_dw": 0, "conv3d_dw_sum": 0,
-             "conv_dw_folded": 3 * steps, "conv_dw_folded_sum": 3 * steps})
+    want = _want_counts(backend, steps, EVAL_BATCHES)
     if counts != want:
         fail(f"train {backend}: launches {counts} != {want}")
     hist = [r for r in trainer.logger.history if r["kind"] == "train"]
@@ -585,8 +600,10 @@ def train_phase(torch, seed: int, backend: str) -> dict:
 
     profile_steps(torch, trainer, batch, backend)
 
-    # One step through the kernels vs the plain versions, same state/batch.
-    versus = step_vs_plain(torch, trainer, snapshot, batch, backend)
+    # One step through the kernels vs the plain versions, same state/batch
+    # (xla runs the same library call both ways).
+    versus = (step_vs_plain(torch, trainer, snapshot, batch, backend)
+              if backend != "xla" else None)
     t = trainer.timing
     out = {
         "backend": backend, "steps": steps, "global_batch": cfg.global_batch,
@@ -605,6 +622,241 @@ def train_phase(torch, seed: int, backend: str) -> dict:
     print("train", json.dumps(out), flush=True)
     del trainer
     torch.cuda.empty_cache()
+    return out
+
+
+def _want_counts(backend: str, steps: int, eval_batches: int) -> dict[str, int]:
+    """Kernel launches of ``steps`` train steps and ``eval_batches`` eval
+    batches under ``backend``."""
+    want = dict.fromkeys(("conv3d_fwd", "conv3d_dw", "conv3d_dw_sum",
+                          "conv_dw_folded", "conv_dw_folded_sum"), 0)
+    if backend == "pallas":
+        want.update(conv3d_fwd=6 * steps + 3 * eval_batches,
+                    conv3d_dw=3 * steps, conv3d_dw_sum=3 * steps)
+    elif backend == "hybrid_dw":
+        want.update(conv_dw_folded=3 * steps, conv_dw_folded_sum=3 * steps)
+    return want
+
+
+def _train_state(trainer) -> dict:
+    """Model state, Adam moments by parameter name, count and step."""
+    opt = trainer.state.optimizer
+    names = [n for n, _ in trainer.state.model.named_parameters()]
+    return {"model": dict(trainer.state.model.state_dict()),
+            "mu": dict(zip(names, opt.mu)), "nu": dict(zip(names, opt.nu)),
+            "count": opt.count, "step": trainer.state.step}
+
+
+def _bitwise_equal(torch, a: dict, b: dict) -> bool:
+    return ((a["count"], a["step"]) == (b["count"], b["step"])
+            and all(set(a[g]) == set(b[g]) and
+                    all(torch.equal(a[g][k], b[g][k]) for k in a[g])
+                    for g in ("model", "mu", "nu")))
+
+
+def checkpoint_phase(torch, seed: int, device_step_ms: float, smi_line: str) -> dict:
+    """Train with checkpoints, resume, walk back past a damaged step and
+    serve from the checkpoint directory, all at sprint64's full width."""
+    import numpy as np
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.runtime import serve_forward
+    from featurenet_tpu_torch.train import checkpoint
+    from featurenet_tpu_torch.train.loop import Trainer
+    from featurenet_tpu_torch.train.steps import unpack_voxels
+
+    steps, parts, bucket = 3, 40, 16
+    counts = dict.fromkeys(_read_counts(), 0)
+
+    def add(got: dict, want: dict, what: str):
+        if got != want:
+            fail(f"checkpoint {what}: launches {got} != {want}")
+        for k, v in got.items():
+            counts[k] += v
+
+    with tempfile.TemporaryDirectory() as tmp, open(os.devnull, "w") as sink:
+        ck = os.path.join(tmp, "ck")
+        cfg = get_config("sprint64", seed=seed, total_steps=steps,
+                         global_batch=TRAIN_BATCH, log_every=1, eval_every=steps,
+                         eval_batches=EVAL_BATCHES, data_workers=TRAIN_WORKERS,
+                         checkpoint_dir=ck, checkpoint_every=1)
+        a = cfg.arch
+        if (cfg.resolution, tuple(a.features), a.hidden, a.num_classes,
+                a.conv_backend) != (64, (32, 32, 64, 64), 128, 24, "pallas"):
+            fail(f"checkpoint phase is not sprint64 at full width: {cfg}")
+        first = Trainer(cfg, device="cuda", stream=sink)
+        torch.cuda.synchronize()
+        _reset_counts()
+        first.run()
+        torch.cuda.synchronize()
+        add(_read_counts(), _want_counts("pallas", steps, EVAL_BATCHES), "run")
+        if first.ckpt.all_steps() != [1, 2, 3]:
+            fail(f"checkpoint steps on disk {first.ckpt.all_steps()}")
+
+        second = Trainer(cfg, device="cuda", stream=sink)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if second.resume_if_available() != steps:
+            fail(f"resumed at step {second.state.step}, not {steps}")
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if not _bitwise_equal(torch, _train_state(first), _train_state(second)):
+            fail("the resumed state differs from the trained one")
+
+        # One more step each on one batch: cuDNN (the stem's conv) picks
+        # deterministic algorithms here, so the two must stay bitwise equal.
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 next(first.train_data.worker_iter(0)).items()}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            _reset_counts()
+            first.step(batch)
+            second.step(batch)
+            torch.cuda.synchronize()
+            add(_read_counts(), _want_counts("pallas", 2, 0), "resumed step")
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        if not _bitwise_equal(torch, _train_state(first), _train_state(second)):
+            fail("one step after the resume differs from the same step of the "
+                 "run that never stopped")
+
+        # Damage one byte of the newest step: a restore walks back.
+        path = os.path.join(ck, checkpoint.step_filename(steps))
+        with open(path, "r+b") as fh:
+            fh.seek(os.path.getsize(path) // 2)
+            byte = fh.read(1)
+            fh.seek(-1, os.SEEK_CUR)
+            fh.write(bytes([byte[0] ^ 0xFF]))
+        mgr = checkpoint.CheckpointManager(ck)
+        try:
+            mgr.restore(second.state, step=steps)
+            fail("an explicit restore of the damaged step did not raise")
+        except checkpoint.ChecksumMismatch:
+            pass
+        mgr.restore(second.state)
+        if (mgr.restored_step, second.state.step) != (steps - 1, steps - 1):
+            fail(f"walk-back restored step {mgr.restored_step}")
+
+        # Serve from the checkpoint directory: step 2, through the kernel.
+        pred = Predictor.from_checkpoint(ck, batch=bucket, device="cuda")
+        if not pred.model_version.startswith(f"ck@{steps - 1}-"):
+            fail(f"model_version {pred.model_version}")
+        packed = next(first.eval_data.worker_iter(0))["voxels"][:parts]
+        grids = unpack_voxels(torch.from_numpy(packed)).numpy()
+        _reset_counts()
+        labels, probs = pred.predict_voxels(grids)
+        torch.cuda.synchronize()
+        dispatches = -(-parts // bucket)
+        add(_read_counts(), dict(_want_counts("xla", 0, 0),
+                                 conv3d_fwd=3 * dispatches), "serving")
+        x = torch.from_numpy(grids).cuda()
+        want = torch.cat([serve_forward(second.state.model, x[i:i + bucket])
+                          for i in range(0, parts, bucket)]).cpu().numpy()
+        if not np.array_equal(labels, want.argmax(-1)):
+            fail("labels served from the checkpoint differ from the restored "
+                 "model's")
+        prob_err = float(np.abs(probs - want).max())
+
+        # Saves back to back, one per step on a batch already on the card:
+        # the third save waits for a free snapshot slot.
+        back = []
+        for _ in range(5):
+            first.step(batch)
+            t0 = time.perf_counter()
+            first.ckpt.save(first.state)
+            back.append((time.perf_counter() - t0) * 1e3)
+        first.ckpt.wait()
+        t = first.timing
+        w = first.ckpt.timing
+        out = {
+            "steps": steps, "steps_on_disk": [1, 2, 3], "resumed_step": steps,
+            "resume_bitwise": True, "resumed_step_bitwise": True,
+            "walked_back_to": mgr.restored_step,
+            "served_parts": parts, "dispatches": dispatches,
+            "model_version": pred.model_version, "max_prob_err": prob_err,
+            "launches": counts,
+            "save_ms_mean_in_run": t["save_s"] / t["saves"] * 1e3,
+            "saves_in_run": t["saves"],
+            "save_ms_back_to_back": back,
+            "device_step_ms_pallas": device_step_ms,
+            "writer_ms_per_save": w["write_s"] / w["writes"] * 1e3,
+            "writes": w["writes"],
+            "restore_ms": restore_ms,
+            "checkpoint_bytes": w["bytes"],
+            "nvidia_smi": smi_line,
+        }
+        first.ckpt.close()
+        second.ckpt.close()
+    print("checkpoint", json.dumps(out), flush=True)
+    del first, second, pred
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_phase(seed: int) -> dict:
+    """``cli train --checkpoint-dir D`` then ``cli serve --checkpoint-dir
+    D`` in subprocesses on the card; every process is stopped on the way
+    out."""
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "featurenet_tpu_torch.cli"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        tr = subprocess.run(cli + ["train", "--config", "sprint64", "--seed",
+                                   str(seed), "--total-steps", "3",
+                                   "--checkpoint-dir", ck, "--checkpoint-every",
+                                   "1", "--eval-batches", "1"],
+                            cwd=root, capture_output=True, text=True, timeout=600)
+        train_s = time.perf_counter() - t0
+        if tr.returncode != 0:
+            fail(f"cli train exited {tr.returncode}: {tr.stderr[-2000:]}")
+        records = [json.loads(line) for line in tr.stdout.splitlines()]
+        saved = [r for r in records if r.get("kind") == "checkpoint"]
+        if len(saved) != 1 or saved[0]["saves"] != 3:
+            fail(f"cli train saved {saved}")
+        t0 = time.perf_counter()
+        srv = subprocess.Popen(cli + ["serve", "--checkpoint-dir", ck, "--port",
+                                      "0", "--duration-s", "300"],
+                               cwd=root, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)
+        try:
+            banner = json.loads(srv.stdout.readline())["serving"]
+            ready_s = time.perf_counter() - t0
+            if not banner["model_version"].startswith("ck@3-"):
+                fail(f"cli serve banner {banner}")
+            rng = np.random.default_rng(seed)
+            conn = http.client.HTTPConnection("127.0.0.1", banner["port"],
+                                              timeout=120)
+            answers = []
+            for _ in range(4):
+                grid = np.zeros((64, 64, 64), "<f4")
+                lo = rng.integers(4, 24, 3)
+                hi = lo + rng.integers(12, 36, 3)
+                grid[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = 1.0
+                status, body, _ = _post(conn, "/predict_voxels", grid.tobytes())
+                if status != 200 or "class_name" not in body:
+                    fail(f"cli serve answered {status}: {body}")
+                answers.append(body["class_name"])
+            conn.close()
+            srv.send_signal(signal.SIGTERM)
+            out, err = srv.communicate(timeout=120)
+        finally:
+            if srv.poll() is None:
+                srv.kill()
+                srv.communicate()
+        if srv.returncode != 0:
+            fail(f"cli serve exited {srv.returncode}: {err[-2000:]}")
+        stats = json.loads(out.strip().splitlines()[-1])["serve_stats"]
+        if stats["served"] != len(answers):
+            fail(f"cli serve stats {stats}")
+    out = {"train_s": train_s, "checkpoint_record": saved[0],
+           "serve_ready_s": ready_s, "model_version": banner["model_version"],
+           "served": stats["served"], "labels": answers}
+    print("cli", json.dumps(out), flush=True)
     return out
 
 
@@ -662,7 +914,11 @@ def main() -> int:
     _reset_counts()
     serve = serve_phase(torch, args.seed)
     host_generation(torch, args.seed, TRAIN_WORKERS)
-    train = {b: train_phase(torch, args.seed, b) for b in ("pallas", "hybrid_dw")}
+    train = {b: train_phase(torch, args.seed, b)
+             for b in ("pallas", "hybrid_dw", "xla")}
+    ckpt = checkpoint_phase(torch, args.seed, train["pallas"]["device_step_ms"],
+                            smi_line)
+    cli_phase(args.seed)
 
     # ms, plain_ms, library_ms and bound_ms sum one train step's shapes
     # (batch 256): conv3d_fwd its 3 forward + 3 dx convs (not the serving
@@ -671,19 +927,26 @@ def main() -> int:
     fwd_train = [dict(r, main_path=r["main_path"] and not r["what"].startswith("serve"))
                  for r in rows["conv3d_fwd"]]
     tp, th = train["pallas"]["launches"], train["hybrid_dw"]["launches"]
+    tx, tc = train["xla"]["launches"], ckpt["launches"]
     kernels = [
         _kernel_entry("conv3d_fwd", "featurenet_tpu_torch/ops/csrc/conv3d_fwd.cu",
                       "featurenet_tpu/ops/conv3d.py:160", fwd_train,
                       {"serve": serve["conv3d_fwd_launches"],
                        "train_pallas": tp["conv3d_fwd"],
-                       "train_hybrid_dw": th["conv3d_fwd"]}),
+                       "train_hybrid_dw": th["conv3d_fwd"],
+                       "train_xla": tx["conv3d_fwd"],
+                       "checkpoint": tc["conv3d_fwd"]}),
         _kernel_entry("conv3d_dw", "featurenet_tpu_torch/ops/csrc/conv3d_dw.cu",
                       "featurenet_tpu/ops/conv3d.py:192", rows["conv3d_dw"],
-                      {"train_pallas": tp["conv3d_dw"]}),
+                      {"train_pallas": tp["conv3d_dw"],
+                       "train_xla": tx["conv3d_dw"],
+                       "checkpoint": tc["conv3d_dw"]}),
         _kernel_entry("conv_dw_folded",
                       "featurenet_tpu_torch/ops/csrc/conv_dw_folded.cu",
                       "featurenet_tpu/ops/conv_dw.py:163", rows["conv_dw_folded"],
-                      {"train_hybrid_dw": th["conv_dw_folded"]}),
+                      {"train_hybrid_dw": th["conv_dw_folded"],
+                       "train_xla": tx["conv_dw_folded"],
+                       "checkpoint": tc["conv_dw_folded"]}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)

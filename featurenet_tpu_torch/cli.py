@@ -1,32 +1,59 @@
 """Command line for the PyTorch port.
 
+    python -m featurenet_tpu_torch.cli train --config sprint64 --device cuda \
+        [--checkpoint-dir CK --checkpoint-every N --keep-checkpoints K \
+         --init-from OTHER_CK --total-steps N --global-batch B \
+         --eval-batches E --conv-backend pallas|hybrid_dw|xla --seed S]
+    python -m featurenet_tpu_torch.cli serve --checkpoint-dir CK --port 0
     python -m featurenet_tpu_torch.cli serve --config sprint64 --seed 0 \
         --buckets 1,4,16,64 --port 0 --device cuda
     python -m featurenet_tpu_torch.cli serve --weights w.npz --port 0
-    python -m featurenet_tpu_torch.cli train --config sprint64 --device cuda \
-        [--total-steps N --global-batch B --eval-batches E \
-         --conv-backend pallas|hybrid_dw --seed S]
+    python -m featurenet_tpu_torch.cli eval --checkpoint-dir CK
+    python -m featurenet_tpu_torch.cli infer --checkpoint-dir CK part.stl ...
 
-``--weights`` reads a file written by ``convert.save_npz``. ``serve``
-prints one ``{"serving": {...}}`` banner line with the bound port once the
-service is warm, serves until SIGTERM/SIGINT (or ``--duration-s``), then
-drains and prints ``{"serve_stats": {...}}``.
+Every subcommand runs on the card unless ``--device cpu`` is given.
 
 ``train`` prints one ``{"config": {...}}`` line, then the Trainer's JSON
-records (``setup``, ``train`` every ``log_every`` steps, ``eval``).
+records (``setup``, ``train`` every ``log_every`` steps, ``eval``). With
+``--checkpoint-dir`` it saves there; a directory that already holds a
+checkpoint resumes from its newest good step and takes its config from the
+``config.json`` beside it, with the policy flags given applied on top
+(``--config`` naming another preset is refused).
+
+``serve``, ``eval`` and ``infer`` read a checkpoint directory read-only and
+configure themselves from its ``config.json``; ``--conv-backend`` picks
+another lowering of the same model. ``--weights`` reads a file written by
+``convert.save_npz``. ``serve`` prints one ``{"serving": {...}}`` banner
+line with the bound port once the service is warm, serves until
+SIGTERM/SIGINT (or ``--duration-s``), then drains and prints
+``{"serve_stats": {...}}``. ``eval`` prints one ``{"eval": {...}}`` line
+over ``eval_batches`` batches of the held-out synthetic stream; ``infer``
+one JSON line per STL part.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import signal
 import sys
 import threading
 
+DEFAULT_PRESET = "sprint64"
+
 
 def _parser() -> argparse.ArgumentParser:
     from featurenet_tpu_torch.config import PRESETS
+    from featurenet_tpu_torch.models.featurenet import CONV_BACKENDS
+
+    def common(p, config_help):
+        p.add_argument("--config", choices=sorted(PRESETS), help=config_help)
+        p.add_argument("--conv-backend", choices=sorted(CONV_BACKENDS),
+                       dest="conv_backend",
+                       help="lowering of the stride-1 conv blocks (not part "
+                            "of a checkpoint's identity)")
+        p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     ap = argparse.ArgumentParser(prog="featurenet_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -34,11 +61,13 @@ def _parser() -> argparse.ArgumentParser:
     p_srv = sub.add_parser("serve", help="HTTP/1.1 inference service over a "
                                          "continuous batcher")
     src = p_srv.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint-dir", dest="checkpoint_dir",
+                     help="serve the newest verified step of this run")
     src.add_argument("--weights", help="port weight file (convert.save_npz); "
                                        "carries its config")
     src.add_argument("--seed", type=int, help="serve random weights from this seed")
-    p_srv.add_argument("--config", default="sprint64", choices=sorted(PRESETS),
-                       help="preset served with --seed (default sprint64)")
+    common(p_srv, f"preset served with --seed (default {DEFAULT_PRESET}); "
+                  "with --checkpoint-dir it must be the run's")
     p_srv.add_argument("--buckets", default="1,4,16,64",
                        help="comma list of dispatch batch sizes (default 1,4,16,64)")
     p_srv.add_argument("--max-wait-ms", type=float, default=5.0, dest="max_wait_ms")
@@ -46,46 +75,130 @@ def _parser() -> argparse.ArgumentParser:
     p_srv.add_argument("--host", default="127.0.0.1")
     p_srv.add_argument("--port", type=int, default=8000,
                        help="HTTP port (0 = ephemeral; printed in the banner)")
-    p_srv.add_argument("--device", default="cuda",
-                       help="cuda (default) or cpu")
     p_srv.add_argument("--duration-s", type=float, default=None, dest="duration_s",
                        help="stop after this many seconds (default: until signalled)")
 
     p_tr = sub.add_parser("train", help="train a classify preset on "
                                         "synthetic parts")
-    p_tr.add_argument("--config", default="sprint64", choices=sorted(PRESETS))
+    common(p_tr, f"preset to train (default {DEFAULT_PRESET}); a resumed "
+                 "run takes its checkpoint's")
     p_tr.add_argument("--total-steps", type=int, dest="total_steps")
     p_tr.add_argument("--global-batch", type=int, dest="global_batch")
     p_tr.add_argument("--eval-batches", type=int, dest="eval_batches")
     p_tr.add_argument("--data-workers", type=int, dest="data_workers")
-    p_tr.add_argument("--conv-backend", choices=("pallas", "hybrid_dw"),
-                      dest="conv_backend")
     p_tr.add_argument("--seed", type=int)
-    p_tr.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p_tr.add_argument("--checkpoint-dir", dest="checkpoint_dir",
+                      help="save checkpoints here; resume from the newest "
+                           "good one if there is one")
+    p_tr.add_argument("--checkpoint-every", type=int, dest="checkpoint_every")
+    p_tr.add_argument("--keep-checkpoints", type=int, dest="keep_checkpoints")
+    p_tr.add_argument("--init-from", dest="init_from",
+                      help="warm start: weights from this checkpoint "
+                           "directory, step 0, fresh optimizer moments")
+
+    p_ev = sub.add_parser("eval", help="evaluate a checkpoint on the held-out "
+                                       "synthetic stream")
+    p_ev.add_argument("--checkpoint-dir", dest="checkpoint_dir", required=True)
+    common(p_ev, "must be the run's preset when given")
+    p_ev.add_argument("--eval-batches", type=int, dest="eval_batches")
+    p_ev.add_argument("--global-batch", type=int, dest="global_batch")
+
+    p_inf = sub.add_parser("infer", help="classify STL parts with a checkpoint")
+    p_inf.add_argument("--checkpoint-dir", dest="checkpoint_dir", required=True)
+    common(p_inf, "must be the run's preset when given")
+    p_inf.add_argument("paths", nargs="+", help="STL files")
     return ap
 
 
-def _train(args) -> int:
-    import dataclasses
+def _with_backend(cfg, backend):
+    if not backend:
+        return cfg
+    return dataclasses.replace(cfg, arch=dataclasses.replace(
+        cfg.arch, conv_backend=backend))
 
+
+def _policy(args, names) -> dict:
+    return {k: getattr(args, k) for k in names if getattr(args, k) is not None}
+
+
+def _cfg_from_checkpoint(saved, args, **policy):
+    """The config persisted with a run, with run-policy overrides and the
+    conv backend from the flags. A ``--config`` naming another preset would
+    restore the weights into another model, so it is refused."""
+    if args.config and args.config != saved.name:
+        raise SystemExit(
+            f"flags contradict the config persisted with this checkpoint: "
+            f"--config {args.config} (checkpoint: {saved.name}) -- drop the "
+            "flag (the checkpoint self-configures), or point at a run "
+            "trained with these settings"
+        )
+    return _with_backend(dataclasses.replace(saved, **policy),
+                         args.conv_backend).validate()
+
+
+def _saved_config(directory: str):
+    from featurenet_tpu_torch.train.checkpoint import load_run_config
+
+    saved = load_run_config(directory)
+    if saved is None:
+        raise SystemExit(f"{directory!r} holds no config.json; not a port "
+                         "checkpoint directory")
+    return saved
+
+
+def _train(args) -> int:
     from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.train.checkpoint import load_run_config
     from featurenet_tpu_torch.train.loop import Trainer
 
-    overrides = {k: getattr(args, k) for k in
-                 ("total_steps", "global_batch", "eval_batches",
-                  "data_workers", "seed") if getattr(args, k) is not None}
-    cfg = get_config(args.config, **overrides)
-    if args.conv_backend:
-        cfg = dataclasses.replace(cfg, arch=dataclasses.replace(
-            cfg.arch, conv_backend=args.conv_backend))
+    policy = _policy(args, ("total_steps", "global_batch", "eval_batches",
+                            "data_workers", "seed", "checkpoint_dir",
+                            "checkpoint_every", "keep_checkpoints",
+                            "init_from"))
+    saved = load_run_config(args.checkpoint_dir) if args.checkpoint_dir else None
+    if saved is not None:
+        cfg = _cfg_from_checkpoint(saved, args, **policy)
+    else:
+        cfg = _with_backend(get_config(args.config or DEFAULT_PRESET, **policy),
+                            args.conv_backend)
     print(json.dumps({"config": dataclasses.asdict(cfg)}, default=str),
           flush=True)
     Trainer(cfg, device=args.device).run()
     return 0
 
 
+def _eval(args) -> int:
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.train.loop import eval_dataset, evaluate
+
+    cfg = _cfg_from_checkpoint(_saved_config(args.checkpoint_dir), args,
+                               **_policy(args, ("eval_batches", "global_batch")))
+    pred = Predictor.from_checkpoint(args.checkpoint_dir, config=cfg,
+                                     batch=cfg.global_batch, device=args.device)
+    ev = evaluate(pred.model, eval_dataset(cfg), cfg.eval_batches, pred.device)
+    print(json.dumps({"eval": {
+        "config": cfg.name, "model_version": pred.model_version,
+        "batches": cfg.eval_batches,
+        **{k: v for k, v in ev.items() if k != "confusion"}}}), flush=True)
+    return 0
+
+
+def _infer(args) -> int:
+    from featurenet_tpu_torch.infer import Predictor
+
+    cfg = _cfg_from_checkpoint(_saved_config(args.checkpoint_dir), args)
+    pred = Predictor.from_checkpoint(args.checkpoint_dir, config=cfg,
+                                     batch=min(len(args.paths), 32),
+                                     device=args.device)
+    for p in pred.predict_stl(args.paths):
+        print(json.dumps({**dataclasses.asdict(p),
+                          "model_version": pred.model_version}), flush=True)
+    return 0
+
+
 def _serve(args) -> int:
     from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.convert import load_npz
     from featurenet_tpu_torch.infer import Predictor
     from featurenet_tpu_torch.serve.batcher import normalize_buckets
     from featurenet_tpu_torch.serve.http import ENDPOINTS, make_server
@@ -100,12 +213,20 @@ def _serve(args) -> int:
             f"serve: --buckets must be comma-separated batch sizes >= 1, "
             f"got {args.buckets!r}"
         )
-    if args.weights:
-        pred = Predictor.from_npz(args.weights, batch=max(buckets),
-                                  device=args.device)
+    if args.checkpoint_dir:
+        cfg = _cfg_from_checkpoint(_saved_config(args.checkpoint_dir), args)
+        pred = Predictor.from_checkpoint(args.checkpoint_dir, config=cfg,
+                                         batch=max(buckets), device=args.device)
+    elif args.weights:
+        state, cfg = load_npz(args.weights)
+        pred = Predictor(state, _with_backend(cfg, args.conv_backend),
+                         batch=max(buckets), device=args.device,
+                         model_version=args.weights)
     else:
-        pred = Predictor.from_seed(get_config(args.config), args.seed,
-                                   batch=max(buckets), device=args.device)
+        cfg = _with_backend(get_config(args.config or DEFAULT_PRESET),
+                            args.conv_backend)
+        pred = Predictor.from_seed(cfg, args.seed, batch=max(buckets),
+                                   device=args.device)
     service = InferenceService(pred, buckets=buckets,
                                max_wait_ms=args.max_wait_ms,
                                queue_limit=args.queue_limit)
@@ -117,8 +238,9 @@ def _serve(args) -> int:
         "host": srv.server_address[0], "port": srv.server_address[1],
         "buckets": list(buckets), "max_wait_ms": args.max_wait_ms,
         "queue_limit": args.queue_limit, "precision": pred.precision,
-        "config": pred.cfg.name, "device": str(pred.device),
-        "model_version": pred.model_version, "endpoints": ENDPOINTS,
+        "config": pred.cfg.name, "conv_backend": pred.cfg.arch.conv_backend,
+        "device": str(pred.device), "model_version": pred.model_version,
+        "endpoints": ENDPOINTS,
     }}), flush=True)
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -134,7 +256,8 @@ def _serve(args) -> int:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    return _train(args) if args.cmd == "train" else _serve(args)
+    return {"train": _train, "serve": _serve, "eval": _eval,
+            "infer": _infer}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -2,10 +2,15 @@
 ``featurenet_tpu/config.py`` that serving and training read).
 
 Kept: the model identity (``name``, ``task``, ``resolution``, ``arch``),
-``serve_precision``, ``seed``, and the training recipe -- batch, data
+``serve_precision``, ``seed``, the training recipe -- batch, data
 workers, eval batches, optimizer, schedule, label smoothing, clipping,
 ``train_precision`` and the log/eval cadence -- with the JAX presets'
-values. ``data_cache``, ``hbm_cache``, ``augment_affine``,
+values, and the checkpoint fields (``checkpoint_dir``,
+``checkpoint_every``, ``keep_checkpoints``, ``init_from``). A
+``config.json`` that the JAX package writes beside its checkpoints loads
+through ``config_from_dict`` (the fields the port lacks are dropped), and
+``check_identity`` holds a requested config to a persisted one as the
+JAX package's does. ``data_cache``, ``hbm_cache``, ``augment_affine``,
 ``augment_noise`` and ``steps_per_dispatch`` are carried so that a preset
 that sets them (robust64) is refused for training by
 ``validate_training`` instead of training without them; the cache-backed
@@ -65,6 +70,16 @@ class Config:
     log_every: int = 50
     eval_every: int = 500
 
+    # Checkpoints (train/checkpoint.py): saved every checkpoint_every steps
+    # and at the end when checkpoint_dir is set, the newest
+    # keep_checkpoints kept. init_from is a warm start: weights and
+    # batch-norm statistics from that checkpoint directory, step 0 and
+    # fresh optimizer moments; a checkpoint in checkpoint_dir still wins.
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 500
+    keep_checkpoints: int = 3
+    init_from: Optional[str] = None
+
     def validate(self) -> "Config":
         if self.task != "classify":
             raise ValueError(
@@ -87,7 +102,8 @@ class Config:
                 f"unknown optimizer {self.optimizer!r}; one of {OPTIMIZERS}"
             )
         for name in ("global_batch", "num_features", "eval_batches",
-                     "data_workers", "log_every", "eval_every"):
+                     "data_workers", "log_every", "eval_every",
+                     "checkpoint_every", "keep_checkpoints"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         if self.warmup_steps < 0 or self.total_steps < 0:
@@ -128,7 +144,7 @@ PRESETS = {
     "smoke16": lambda: Config(
         name="smoke16", resolution=16, arch=tiny_arch(), global_batch=32,
         peak_lr=3e-3, warmup_steps=10, total_steps=200, log_every=20,
-        eval_every=100, eval_batches=2,
+        eval_every=100, eval_batches=2, checkpoint_every=100,
     ),
     "xla32": lambda: Config(name="xla32", resolution=32, global_batch=64,
                             total_steps=2000),
@@ -180,8 +196,9 @@ def config_to_dict(cfg: Config) -> dict:
 
 
 def config_from_dict(d: dict) -> Config:
-    """Rebuild a ``Config`` from ``config_to_dict`` output; unknown keys are
-    dropped and JSON lists come back as the tuples the arch expects."""
+    """Rebuild a ``Config`` from ``config_to_dict`` output, the port's or
+    the JAX package's; unknown keys are dropped and JSON lists come back as
+    the tuples the arch expects."""
     known = {f.name for f in dataclasses.fields(Config)}
     kw = {k: v for k, v in d.items() if k in known}
     if "arch" in kw:
@@ -191,3 +208,36 @@ def config_from_dict(d: dict) -> Config:
             for k, v in kw["arch"].items() if k in known_a
         })
     return Config(**kw).validate()
+
+
+# Fields that define the trained artifact: a checkpoint restores only under
+# these values. The rest (schedule, data, cadence, paths) is run policy.
+IDENTITY_FIELDS = ("task", "resolution", "arch")
+
+
+def _identity_view(cfg: Config, field: str):
+    """The identity-relevant value of ``field``. ``arch.conv_backend``
+    selects a lowering, not a model (every backend holds the same
+    ``[K,K,K,Cin,Cout]`` kernel), so a checkpoint restores under any."""
+    v = getattr(cfg, field)
+    if field == "arch":
+        v = dataclasses.replace(v, conv_backend="xla")
+    return v
+
+
+def check_identity(saved: Config, requested: Config) -> None:
+    """Raise ``ValueError`` when ``requested`` disagrees with the identity
+    persisted with a checkpoint."""
+    bad = [f for f in IDENTITY_FIELDS
+           if _identity_view(saved, f) != _identity_view(requested, f)]
+    if bad:
+        detail = "; ".join(
+            f"{f}: checkpoint={_identity_view(saved, f)!r} "
+            f"requested={_identity_view(requested, f)!r}"
+            for f in bad
+        )
+        raise ValueError(
+            "explicit flags contradict the config persisted with this "
+            f"checkpoint ({detail}) -- drop the flags to use the persisted "
+            "config, or point at a checkpoint trained with these settings"
+        )

@@ -14,6 +14,11 @@ dict of numpy arrays ``jax.device_get(model.init(...))`` gives -- into a
 - ``params/Dense_j/{kernel,bias}`` → ``dense{j}.{weight,bias}``; the Flax
   kernel is ``[in, out]`` and is transposed for ``F.linear``.
 
+``opt_from_optax`` maps the state of optax's ``adam``/``adamw`` (or either
+after ``clip_by_global_norm``), as ``jax.device_get`` gives it, to the
+port optimizer's moments keyed by parameter name and its ``count``; with
+both, a JAX run resumes in the port (``export_jax_checkpoint.py``).
+
 The port never imports JAX; only the tests build the Flax side.
 
 ``save_npz``/``load_npz`` store a port ``state_dict`` with its ``Config``
@@ -45,27 +50,60 @@ def _conv_kernel(scope: dict, name: str) -> np.ndarray:
     return scope[found[0]]["kernel"]
 
 
-def from_flax(variables: dict, arch: FeatureNetArch) -> dict[str, torch.Tensor]:
-    """Port ``state_dict`` (fp32 tensors) from JAX ``FeatureNet`` variables."""
-    params, stats = variables["params"], variables["batch_stats"]
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
 
-    def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32))
 
+def _from_params(params: dict, arch: FeatureNetArch) -> dict[str, torch.Tensor]:
+    """The parameters of a ``params``-shaped tree, in port names."""
     out = {}
     for i in range(len(arch.features)):
         name = f"ConvBNRelu_{i}"
-        out[f"blocks.{i}.conv.kernel"] = t(_conv_kernel(params[name], name))
-        bn, bs = params[name]["BatchNorm_0"], stats[name]["BatchNorm_0"]
-        out[f"blocks.{i}.scale"] = t(bn["scale"])
-        out[f"blocks.{i}.bias"] = t(bn["bias"])
-        out[f"blocks.{i}.mean"] = t(bs["mean"])
-        out[f"blocks.{i}.var"] = t(bs["var"])
+        out[f"blocks.{i}.conv.kernel"] = _t(_conv_kernel(params[name], name))
+        bn = params[name]["BatchNorm_0"]
+        out[f"blocks.{i}.scale"] = _t(bn["scale"])
+        out[f"blocks.{i}.bias"] = _t(bn["bias"])
     for j in range(2):
         dense = params[f"Dense_{j}"]
-        out[f"dense{j}.weight"] = t(dense["kernel"]).T.contiguous()
-        out[f"dense{j}.bias"] = t(dense["bias"])
+        out[f"dense{j}.weight"] = _t(dense["kernel"]).T.contiguous()
+        out[f"dense{j}.bias"] = _t(dense["bias"])
     return out
+
+
+def from_flax(variables: dict, arch: FeatureNetArch) -> dict[str, torch.Tensor]:
+    """Port ``state_dict`` (fp32 tensors) from JAX ``FeatureNet`` variables."""
+    out = _from_params(variables["params"], arch)
+    for i in range(len(arch.features)):
+        bs = variables["batch_stats"][f"ConvBNRelu_{i}"]["BatchNorm_0"]
+        out[f"blocks.{i}.mean"] = _t(bs["mean"])
+        out[f"blocks.{i}.var"] = _t(bs["var"])
+    return out
+
+
+def _adam_states(tree):
+    """The nodes of an optax state tree that carry Adam's ``mu``, ``nu``
+    and ``count`` (``ScaleByAdamState``), found by their fields."""
+    if all(hasattr(tree, f) for f in ("mu", "nu", "count")):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for node in tree:
+            yield from _adam_states(node)
+
+
+def opt_from_optax(opt_state, arch: FeatureNetArch) -> dict:
+    """``{"mu": {name: tensor}, "nu": {name: tensor}, "count": int}`` for
+    the port's ``Optimizer`` from the numpy state of optax's ``adam`` or
+    ``adamw`` over a JAX ``FeatureNet``'s params (the tree ``from_flax``
+    walks; dense moments transposed as the kernels are)."""
+    found = list(_adam_states(opt_state))
+    if len(found) != 1:
+        raise ValueError(
+            f"expected one Adam state (mu, nu, count) in the optax state, "
+            f"found {len(found)}; only adam and adamw are mapped"
+        )
+    adam = found[0]
+    return {"mu": _from_params(adam.mu, arch), "nu": _from_params(adam.nu, arch),
+            "count": int(np.asarray(adam.count))}
 
 
 def save_npz(path: str, state: dict[str, torch.Tensor], cfg: Config) -> None:

@@ -2,7 +2,8 @@
 (port of ``featurenet_tpu/infer.py``'s ``Predictor``, fp32 serving).
 
 Usage:
-    p = Predictor.from_npz("w.npz")                  # on the card
+    p = Predictor.from_checkpoint("runs/ck")         # on the card
+    p = Predictor(*load_npz("w.npz"))                # a convert.save_npz file
     labels, probs = p.predict_voxels(grids)          # [N,R,R,R] occupancy
     results = p.predict_stl(["part.stl", ...])       # end-to-end
 
@@ -14,17 +15,38 @@ bf16/int8 weights and hot swaps are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from featurenet_tpu_torch.config import Config
-from featurenet_tpu_torch.convert import load_npz
+from featurenet_tpu_torch.config import Config, check_identity, get_config
 from featurenet_tpu_torch.data.stl import load_stl
 from featurenet_tpu_torch.data.synthetic import CLASS_NAMES
 from featurenet_tpu_torch.data.voxelize import voxelize
 from featurenet_tpu_torch.runtime import build_model, resolve_device, serve_forward
+from featurenet_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    checksum_path,
+    load_run_config,
+)
+from featurenet_tpu_torch.train.state import TrainState
+
+
+def checkpoint_version(checkpoint_dir: str, step: int) -> str:
+    """The ``model_version`` tag of a checkpoint step:
+    ``<dirname>@<step>-<sha256 prefix of its checksum sidecar>``, so two
+    directories with the same step number and other bytes get other tags;
+    ``<dirname>@<step>`` for a step without a sidecar."""
+    base = os.path.basename(os.path.normpath(os.path.abspath(checkpoint_dir)))
+    tag = f"{base}@{int(step)}"
+    try:
+        with open(checksum_path(checkpoint_dir, step), "rb") as fh:
+            return f"{tag}-{hashlib.sha256(fh.read()).hexdigest()[:8]}"
+    except OSError:
+        return tag
 
 
 @dataclasses.dataclass
@@ -61,9 +83,35 @@ class Predictor:
         self.model = model.to(self.device)
 
     @classmethod
-    def from_npz(cls, path: str, batch: int = 32, device="cuda") -> "Predictor":
-        state, cfg = load_npz(path)
-        return cls(state, cfg, batch=batch, device=device, model_version=path)
+    def from_checkpoint(cls, checkpoint_dir: str,
+                        config: Config | str | None = None, batch: int = 32,
+                        device="cuda") -> "Predictor":
+        """Weights from the newest verified step of a checkpoint directory
+        (read-only: a step that fails is walked past, never deleted).
+
+        ``config=None`` takes the ``config.json`` persisted with the run;
+        an explicit config (or preset name) must agree with its identity
+        (``config.check_identity``), and may pick another
+        ``conv_backend``."""
+        dev = resolve_device(device)
+        saved = load_run_config(checkpoint_dir)
+        if config is None:
+            if saved is None:
+                raise FileNotFoundError(
+                    f"{checkpoint_dir!r} has no config.json; pass config="
+                )
+            cfg = saved
+        else:
+            cfg = get_config(config) if isinstance(config, str) else config
+            if saved is not None:
+                check_identity(saved, cfg)
+        model = build_model(cfg)
+        mgr = CheckpointManager(checkpoint_dir)
+        mgr.restore_init(TrainState(model, optimizer=None))
+        mgr.close()
+        return cls(model.state_dict(), cfg, batch=batch, device=dev,
+                   model_version=checkpoint_version(checkpoint_dir,
+                                                    mgr.restored_step))
 
     @classmethod
     def from_seed(cls, cfg: Config, seed: int, batch: int = 32,

@@ -15,7 +15,10 @@ same logits:
   through the arch's ``conv_backend``: ``"pallas"`` runs ``PallasConv``
   (the ``conv3d_p`` kernels for forward, dx and dW), ``"hybrid_dw"`` runs
   ``HybridConv`` (``F.conv3d`` forward and dx, the ``conv_dw_folded``
-  kernel for dW). Neither keeps the JAX VMEM fallback.
+  kernel for dW); neither keeps the JAX VMEM fallback. ``"xla"``, the JAX
+  default lowering (``nn.Conv``), runs ``HybridConv`` over ``conv3d_xla``:
+  ``F.conv3d`` in the activation dtype with autograd, no kernel of this
+  package.
 - ``forward(voxels, train=...)`` takes the mode explicitly, as the JAX
   ``apply(..., train=...)`` does; ``nn.Module.training`` is not read.
   In train mode batch norm normalises with the batch's statistics, in
@@ -48,6 +51,7 @@ from featurenet_tpu_torch.ops.conv3d import (
     conv3d_hybrid_plain,
     conv3d_p,
     conv3d_plain,
+    conv3d_xla,
 )
 from featurenet_tpu_torch.ops.stem import SpaceToDepthConv
 
@@ -58,6 +62,7 @@ BN_MOMENTUM = 0.9
 CONV_BACKENDS = {
     "pallas": (PallasConv, conv3d_p, conv3d_plain),
     "hybrid_dw": (HybridConv, conv3d_hybrid, conv3d_hybrid_plain),
+    "xla": (HybridConv, conv3d_xla, conv3d_xla),
 }
 
 
@@ -76,9 +81,11 @@ class FeatureNetArch:
     num_classes: int = NUM_CLASSES
     head_gap: bool = False
     residual: bool = False
-    # Backend of the stride-1 blocks: "pallas" or "hybrid_dw" (see the
-    # module docstring). The JAX package's "xla" and "fused33" are not
-    # ported.
+    # Backend of the stride-1 blocks: "pallas", "hybrid_dw" or "xla" (see
+    # the module docstring). The port's presets keep "pallas", so its entry
+    # points run the hand-written kernels by default; the JAX presets
+    # default to "xla", which loads and runs here too. The JAX package's
+    # "fused33" is not ported (ROADMAP.md, Queue A.3).
     conv_backend: str = "pallas"
 
     def __post_init__(self):
@@ -87,8 +94,8 @@ class FeatureNetArch:
             raise ValueError("arch lists must have equal length")
         if self.conv_backend not in CONV_BACKENDS:
             raise ValueError(
-                f"conv_backend {self.conv_backend!r} is not ported; one of "
-                f"{sorted(CONV_BACKENDS)}"
+                f"conv_backend {self.conv_backend!r} is not ported (see "
+                f"ROADMAP.md, Queue A.3); one of {sorted(CONV_BACKENDS)}"
             )
 
 

@@ -20,6 +20,9 @@ Layouts are the JAX ones: activations NDHWC ``[B,D,H,W,C]``, kernels DHWIO
 - ``conv3d_hybrid``: forward and dx through ``F.conv3d`` in the activation
   dtype, as the JAX package hands them to XLA; dW through the
   ``conv_dw_folded`` kernel (``ops/conv_dw.py``).
+- ``conv3d_xla``: the JAX ``conv_backend="xla"`` lowering, a library conv
+  the JAX package leaves to XLA: ``F.conv3d`` in the activation dtype,
+  dx and dW by autograd. It runs no kernel of this package.
 - ``conv3d_plain`` and ``conv3d_hybrid_plain`` compute the same functions
   with every kernel replaced by its plain version (gradients by autograd);
   ``chip_smoke.py`` holds the kernels' training step against them.
@@ -322,6 +325,13 @@ def conv3d_hybrid_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _Conv3dHybrid.apply(x.contiguous(), w, conv_dw_plain)
 
 
+def conv3d_xla(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stride-1 SAME conv in x's dtype through ``F.conv3d``, the fp32
+    kernel cast to it (the JAX ``nn.Conv`` path); gradients by autograd."""
+    _check(x, w)
+    return _library_conv(x, w)
+
+
 class PallasConv(nn.Module):
     """Stride-1 SAME conv block backed by ``conv3d_p`` (no bias).
 
@@ -346,12 +356,13 @@ class PallasConv(nn.Module):
 
 
 class HybridConv(nn.Module):
-    """Stride-1 SAME conv block backed by ``conv3d_hybrid`` (no bias).
+    """Stride-1 SAME conv block in the activation dtype (no bias), backed
+    by ``conv3d_hybrid`` or, for ``conv_backend="xla"``, ``conv3d_xla``.
 
     Activations stay in ``dtype`` and the fp32 kernel is cast to it, as the
-    JAX module's ``_xla_conv`` does; the weight gradient comes back fp32.
-    ``conv`` is ``conv3d_hybrid`` unless a caller passes
-    ``conv3d_hybrid_plain``.
+    JAX module's ``_xla_conv`` and ``nn.Conv`` do; the weight gradient comes
+    back fp32. ``conv`` is ``conv3d_hybrid`` unless a caller passes
+    ``conv3d_hybrid_plain`` or ``conv3d_xla``.
     """
 
     def __init__(self, cin: int, features: int, kernel_size: int,

@@ -1,10 +1,15 @@
 """``python -m featurenet_tpu_torch.cli`` end to end on the CPU: ``serve``
-loads a weight file (or seeds weights), prints its banner with the bound
-port, answers over HTTP, and drains on SIGTERM; ``train`` prints its config
-and JSON records with a finite loss."""
+loads a weight file or a checkpoint directory (or seeds weights), prints
+its banner with the bound port, answers over HTTP, and drains on SIGTERM;
+``train`` prints its config and JSON records with a finite loss, saves
+checkpoints and resumes from them; ``eval`` and ``infer`` read a
+checkpoint directory. Left without ``--device``, every command refuses to
+run where there is no card."""
 
 import http.client
 import json
+import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -25,13 +30,35 @@ def _cli(*args, **kw):
                             text=True, **kw)
 
 
-@pytest.mark.parametrize("source", ["seed", "weights"])
-def test_cli_serve_round_trip(tmp_path, source):
+TRAIN = ("--config", "smoke16", "--device", "cpu", "--global-batch", "8",
+         "--eval-batches", "1", "--data-workers", "1")
+
+
+def _records(out: str) -> list[dict]:
+    return [json.loads(line) for line in out.strip().splitlines()]
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """A smoke16 run of 2 steps, checkpointed at each, and its records."""
+    ck = str(tmp_path_factory.mktemp("run") / "ck")
+    proc = _cli("train", *TRAIN, "--total-steps", "2", "--checkpoint-dir", ck,
+                "--checkpoint-every", "1")
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err
+    return ck, _records(out)
+
+
+@pytest.mark.parametrize("source", ["seed", "weights", "checkpoint"])
+def test_cli_serve_round_trip(tmp_path, source, request):
     if source == "weights":
         path = str(tmp_path / "w.npz")
         cfg = get_config("smoke16")
         save_npz(path, build_model(cfg, seed=3).state_dict(), cfg)
         src = ["--weights", path]
+    elif source == "checkpoint":
+        src = ["--checkpoint-dir", request.getfixturevalue("trained")[0],
+               "--conv-backend", "xla"]
     else:
         src = ["--seed", "3", "--config", "smoke16"]
     proc = _cli("serve", *src, "--device", "cpu", "--port", "0",
@@ -39,6 +66,9 @@ def test_cli_serve_round_trip(tmp_path, source):
     try:
         banner = json.loads(proc.stdout.readline())["serving"]
         assert banner["config"] == "smoke16" and banner["device"] == "cpu"
+        if source == "checkpoint":
+            assert banner["model_version"].startswith("ck@2-")
+            assert banner["conv_backend"] == "xla"
         assert banner["buckets"] == [1, 4] and banner["port"] > 0
         conn = http.client.HTTPConnection("127.0.0.1", banner["port"], timeout=60)
         grid = np.zeros((16, 16, 16), "<f4")
@@ -91,3 +121,72 @@ def test_cli_train_refuses_missing_card():
     out, err = proc.communicate(timeout=120)
     assert proc.returncode != 0 and "no CUDA device" in err
     assert '"kind"' not in out
+
+
+def test_cli_train_checkpoints_then_resumes(trained, tmp_path):
+    ck = str(tmp_path / "ck")
+    shutil.copytree(trained[0], ck)  # resuming adds steps; keep the fixture's
+    assert sorted(os.listdir(ck)) == ["checksum.1.json", "checksum.2.json",
+                                      "config.json", "step_1.pt", "step_2.pt"]
+    # No --config: the run takes the config persisted with the checkpoint.
+    proc = _cli("train", "--device", "cpu", "--checkpoint-dir", ck,
+                "--total-steps", "3")
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err
+    again = _records(out)
+    cfg = again[0]["config"]
+    assert cfg["name"] == "smoke16" and cfg["total_steps"] == 3
+    assert cfg["global_batch"] == 8
+    assert [(r["kind"], r["step"]) for r in again[1:]] == [
+        ("setup", 2), ("train", 3), ("eval", 3), ("checkpoint", 3)]
+    assert again[-1]["saves"] == 1 and again[-1]["bytes"] > 0
+    assert "step_3.pt" in os.listdir(ck)
+    proc = _cli("train", "--config", "sprint64", "--device", "cpu",
+                "--checkpoint-dir", ck, "--total-steps", "4")
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode != 0 and "contradict" in err
+
+
+def test_cli_eval_reproduces_the_train_time_eval(tmp_path):
+    ck = str(tmp_path / "ck")
+    proc = _cli("train", *TRAIN, "--total-steps", "2", "--checkpoint-dir", ck)
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err
+    want = [r for r in _records(out)[1:] if r["kind"] == "eval"][-1]
+    proc = _cli("eval", "--device", "cpu", "--checkpoint-dir", ck)
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err
+    got = _records(out)[-1]["eval"]
+    assert got["config"] == "smoke16" and got["model_version"].startswith("ck@2-")
+    assert (got["accuracy"], got["loss"]) == (want["accuracy"], want["loss"])
+
+
+def test_cli_infer_classifies_stl_parts(trained, tmp_path):
+    from featurenet_tpu_torch.data.mesh_primitives import mesh_box
+    from featurenet_tpu_torch.data.stl import save_stl
+
+    paths = []
+    for i, hi in enumerate([(0.8, 0.6, 0.4), (0.5, 0.9, 0.7)]):
+        paths.append(str(tmp_path / f"part{i}.stl"))
+        save_stl(paths[-1], mesh_box((0.1, 0.1, 0.1), hi))
+    proc = _cli("infer", "--device", "cpu", "--checkpoint-dir", trained[0], *paths)
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err
+    rows = _records(out)
+    assert [r["path"] for r in rows] == paths
+    for r in rows:
+        assert 0 <= r["label"] < 24 and 0 < r["prob"] <= 1 and len(r["top3"]) == 3
+        assert r["model_version"].startswith("ck@2-")
+
+
+@pytest.mark.parametrize("cmd", ["eval", "infer", "serve"])
+def test_cli_checkpoint_commands_refuse_missing_card(trained, cmd):
+    args = [cmd, "--checkpoint-dir", trained[0]]
+    if cmd == "infer":
+        args.append("part.stl")
+    if cmd == "serve":
+        args += ["--port", "0", "--duration-s", "1"]
+    proc = _cli(*args, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    out, err = proc.communicate(timeout=120)
+    assert proc.returncode != 0 and "no CUDA device" in err
+    assert "serving" not in out and '"eval"' not in out

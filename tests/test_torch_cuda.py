@@ -8,7 +8,8 @@ gradients' bitwise repeatability; ``conv3d_p`` (forward and dx) and
 ``conv3d_dw`` on inputs 4 bytes off 16-byte alignment; the wrappers'
 checks and the forward's C entry refusing a launch it cannot run; the
 Predictor and
-a smoke16 train step on the card against the same on the CPU.
+a smoke16 train step on the card against the same on the CPU; a checkpoint
+saved while steps run, and restored onto the card.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -333,3 +334,82 @@ def test_smoke16_train_step_on_card_matches_cpu(cuda):
     tol = 2 * (lr(1) + lr(2)) + 1e-6
     for k in s_cpu:
         assert float((s_card[k] - s_cpu[k]).abs().max()) <= tol, k
+
+
+def _card_trainer(cuda, ckpt):
+    import io
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cfg = get_config("smoke16", global_batch=8, warmup_steps=1, eval_batches=1,
+                     data_workers=1, checkpoint_dir=str(ckpt))
+    tr = Trainer(cfg, device=cuda, stream=io.StringIO())
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in next(tr.train_data.worker_iter(0)).items()}
+    return tr, batch
+
+
+def test_checkpoint_snapshot_is_the_saved_step_while_steps_run(cuda, tmp_path,
+                                                               monkeypatch):
+    """``save`` returns at once; the next steps rewrite the live tensors in
+    place while the writer is still asleep; the step on disk is still the
+    one saved, bitwise."""
+    import time
+
+    from featurenet_tpu_torch.train import checkpoint
+
+    tr, batch = _card_trainer(cuda, tmp_path / "ck")
+    for _ in range(2):
+        tr.step(batch)
+    want = {k: v.clone() for k, v in tr.state.model.state_dict().items()}
+    want_mu = [t.clone() for t in tr.state.optimizer.mu]
+    to_host = checkpoint.CheckpointManager._to_host
+
+    def late(self, snap, event):
+        time.sleep(0.5)
+        return to_host(self, snap, event)
+
+    monkeypatch.setattr(checkpoint.CheckpointManager, "_to_host", late)
+    tr.ckpt.save(tr.state)
+    for _ in range(3):
+        tr.step(batch)
+    tr.ckpt.wait()
+    saved = torch.load(str(tmp_path / "ck" / "step_2.pt"), weights_only=True)
+    assert (saved["step"], saved["count"]) == (2, 2)
+    for k, v in want.items():
+        assert torch.equal(saved["model"][k], v.cpu()), k
+    names = [n for n, _ in tr.state.model.named_parameters()]
+    for n, v in zip(names, want_mu):
+        assert torch.equal(saved["mu"][n], v.cpu()), n
+    assert not torch.equal(tr.state.model.dense1.weight, want["dense1.weight"])
+
+
+def test_restore_onto_the_card_from_a_checkpoint_written_there(cuda, tmp_path):
+    """A fresh card trainer resumes the card run's newest step onto the
+    card, bitwise, and its next step updates the restored tensors as the
+    first run's does (cuDNN set deterministic for the comparison)."""
+    tr, batch = _card_trainer(cuda, tmp_path / "ck")
+    for _ in range(2):
+        tr.step(batch)
+        tr.ckpt.save(tr.state)
+    tr.ckpt.close()
+    again, _ = _card_trainer(cuda, tmp_path / "ck")
+    assert again.resume_if_available() == 2
+    assert again.state.optimizer.count == 2
+    live = {k: v.clone() for k, v in again.state.model.state_dict().items()}
+    for k, v in tr.state.model.state_dict().items():
+        assert live[k].device.type == "cuda" and torch.equal(live[k], v), k
+    for a, b in zip(again.state.optimizer.mu + again.state.optimizer.nu,
+                    tr.state.optimizer.mu + tr.state.optimizer.nu):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr.step(batch)
+        again.step(batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for k, v in tr.state.model.state_dict().items():
+        assert torch.equal(again.state.model.state_dict()[k], v), k
+    assert not torch.equal(again.state.model.dense1.weight, live["dense1.weight"])

@@ -65,14 +65,15 @@ def _jax_variables(model, x, seed):
     return v
 
 
-def _logits_both(arch_kw, backend, jdtype, tdtype, seed=0):
+def _logits_both(arch_kw, backend, jdtype, tdtype, seed=0,
+                 port_backend="pallas"):
     rng = np.random.default_rng(seed)
     x = (rng.random((3, R, R, R, 1)) > 0.5).astype(np.float32)
     jmodel = JaxFeatureNet(arch=JaxArch(conv_backend=backend, **arch_kw),
                            dtype=jdtype)
     v = _jax_variables(jmodel, x, seed)
     want = np.asarray(jmodel.apply(v, jnp.asarray(x), train=False))
-    arch = FeatureNetArch(**arch_kw)
+    arch = FeatureNetArch(conv_backend=port_backend, **arch_kw)
     tmodel = FeatureNet(arch, R, dtype=tdtype)
     tmodel.load_state_dict(convert.from_flax(v, arch))
     with torch.no_grad():
@@ -98,6 +99,18 @@ def test_bf16_logits_match_jax():
     got, want = _logits_both(SPRINT, "pallas", jnp.bfloat16, torch.bfloat16)
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("arch_kw", [SPRINT, POD, GAP], ids=["sprint", "pod", "gap"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_xla_logits_match_jax_xla(arch_kw, dtype):
+    """The port's ``xla`` lowering (``F.conv3d`` in the activation dtype)
+    against the JAX default (``nn.Conv``), with the tolerances above."""
+    jdtype, tdtype, tol = {"fp32": (jnp.float32, torch.float32, 1e-4),
+                           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}[dtype]
+    got, want = _logits_both(arch_kw, "xla", jdtype, tdtype, port_backend="xla")
+    assert got.dtype == np.float32 and got.shape == want.shape == (3, 24)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
 
 def test_flatten_order_is_ndhwc():
@@ -177,7 +190,8 @@ def test_presets_match_jax(name):
     """Every ported preset serves the JAX preset's model identity and
     carries its training recipe. ``arch.conv_backend`` is left out: the
     JAX package itself does not count it as identity (a lowering, not a
-    model; ``config._identity_view``), and the port has no "xla" backend."""
+    model; ``config._identity_view``), and the port's presets keep
+    "pallas" where the JAX ones say "xla"."""
     from featurenet_tpu.config import get_config as jax_get_config
 
     j, t = jax_get_config(name), get_config(name)
@@ -196,5 +210,6 @@ def test_presets_match_jax(name):
                   "warmup_steps", "total_steps", "label_smoothing",
                   "grad_clip", "train_precision", "log_every", "eval_every",
                   "data_cache", "hbm_cache", "augment_affine",
-                  "augment_noise", "steps_per_dispatch"):
+                  "augment_noise", "steps_per_dispatch", "checkpoint_dir",
+                  "checkpoint_every", "keep_checkpoints", "init_from"):
         assert getattr(t, field) == getattr(j, field), field

@@ -262,7 +262,7 @@ def _close_per_leaf(got: dict, want: dict, rel: float, keys=None):
         assert float(np.abs(g - w).max()) <= rel * scale, (k, float(np.abs(g - w).max()), scale)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "hybrid_dw"])
+@pytest.mark.parametrize("backend", ["pallas", "hybrid_dw", "xla"])
 def test_train_steps_match_jax(backend):
     jmodel, jstate, arch, tstate, batches = _setup(backend)
     jstep = jax.jit(jax_steps.make_train_step(jmodel, packed=True))
@@ -352,6 +352,6 @@ def test_training_refuses_what_is_not_ported():
         get_config("robust64").validate_training()
     with pytest.raises(ValueError, match="not ported"):
         get_config("sprint64", train_precision="bf16_master")
-    with pytest.raises(ValueError, match="not ported"):
-        dataclasses.replace(get_config("sprint64").arch, conv_backend="xla")
+    with pytest.raises(ValueError, match="not ported.*ROADMAP"):
+        dataclasses.replace(get_config("sprint64").arch, conv_backend="fused33")
     get_config("sprint64").validate_training()
