@@ -62,8 +62,25 @@ Phases, in order; any failure exits non-zero before the last line:
    `cli serve --checkpoint-dir D` answering voxel grids over HTTP until
    SIGTERM; the train run's `checkpoint` record (host ms per save, writer
    ms per save, bytes) is printed.
-8. One JSON line of per-kernel numbers, the nvidia-smi line, and the last
-   line: {"ok": true, "device": {...}}.
+8. Cache path: the port's export_synthetic_cache writes the reference's
+   24 x 1000 benchmark at R=64 into a temporary directory under .data/
+   (export wall time and parts/s printed). sprint64 at batch 256 then
+   trains from it for 50 steps under pallas and xla, once resident on the
+   card (hbm_cache: the train split uploaded once, rows drawn there) and
+   once streamed by the Prefetcher's threads, rotating 8 cube-group poses
+   per batch in the step; then one exact eval pass over the 4,800 held-out
+   rows. Per run (`cache_run` line): samples/s with the data wait, the
+   data-wait share, device ms per step (CUDA events), the resident MB, and
+   launches exact over the run and for one more step. Then the resident
+   path is held against itself: the card's draw of a fixed index vector
+   against the host gather of the same samples, and the 24 rotations on
+   the card against the CPU's, bitwise; one resident step (drawn rows,
+   rotated) through the kernels against the plain versions (STEP_TOL).
+   Last, `cli train --config sprint64 --data-cache D --hbm-cache` runs 3
+   steps in a subprocess on the card.
+9. One JSON line of per-kernel numbers (launches by path, the cache runs'
+   included), the nvidia-smi line, and the last line: {"ok": true,
+   "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
 yardstick here is full fp32.
@@ -133,6 +150,11 @@ TRAIN_STEPS = 5
 EVAL_BATCHES = 1
 # Producer threads: one per host core, at most 8 (the chip machine has 8).
 TRAIN_WORKERS = min(8, len(os.sched_getaffinity(0)))
+# The cache phase: the reference's 24 x 1000 benchmark scale at R=64, and
+# 50 steps per run; the rotation check takes the first 64 drawn rows.
+CACHE_PER_CLASS = 1000
+CACHE_STEPS = 50
+ROTATION_CHECK_ROWS = 64
 
 # (name, batch, grid, cin, cout, k, on the main path)
 FWD_SHAPES = (
@@ -411,15 +433,15 @@ def _read_counts() -> dict[str, int]:
             "conv_dw_folded_sum": conv_dw.conv_dw_folded_sum_launches}
 
 
-def _one_step(torch, trainer, snapshot, batch, plain: bool, dtype):
+def _one_step(torch, trainer, snapshot, voxels, labels, plain: bool, dtype):
     """One train step from ``snapshot`` (model state + optimizer moments
-    and count) on ``batch``, dropout off, with activations in ``dtype``,
-    through the kernels or their plain versions; returns (loss, grads,
-    new state_dict)."""
+    and count) on float ``voxels`` and ``labels``, dropout off, with
+    activations in ``dtype``, through the kernels or their plain versions;
+    returns (loss, grads, new state_dict)."""
     import dataclasses
 
     from featurenet_tpu_torch.models.featurenet import FeatureNet
-    from featurenet_tpu_torch.train.steps import loss_and_grads, make_optimizer, unpack_voxels
+    from featurenet_tpu_torch.train.steps import loss_and_grads, make_optimizer
 
     cfg = trainer.cfg
     arch = dataclasses.replace(cfg.arch, dropout=0.0)
@@ -429,8 +451,7 @@ def _one_step(torch, trainer, snapshot, batch, plain: bool, dtype):
     opt.count = snapshot["count"]
     for dst, src in zip(opt.mu + opt.nu, snapshot["mu"] + snapshot["nu"]):
         dst.copy_(src)
-    grads, metrics = loss_and_grads(model, unpack_voxels(batch["voxels"]),
-                                    batch["label"], cfg.label_smoothing)
+    grads, metrics = loss_and_grads(model, voxels, labels, cfg.label_smoothing)
     opt.update(grads)
     names = [n for n, _ in model.named_parameters()]
     return float(metrics["loss"].detach()), dict(zip(names, grads)), model.state_dict()
@@ -440,13 +461,15 @@ def _rel(a, b) -> float:
     return float((a.float() - b.float()).norm() / max(float(b.float().norm()), 1e-30))
 
 
-def step_vs_plain(torch, trainer, snapshot, batch, backend) -> dict:
+def step_vs_plain(torch, trainer, snapshot, voxels, labels, backend) -> dict:
     """The kernel step against the plain step in fp32 and bf16 (STEP_TOL)."""
     lr = trainer.state.optimizer.schedule(snapshot["count"])
     out = {"lr": lr}
     for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        loss_k, grads_k, state_k = _one_step(torch, trainer, snapshot, batch, False, dtype)
-        loss_p, grads_p, state_p = _one_step(torch, trainer, snapshot, batch, True, dtype)
+        loss_k, grads_k, state_k = _one_step(torch, trainer, snapshot, voxels,
+                                             labels, False, dtype)
+        loss_p, grads_p, state_p = _one_step(torch, trainer, snapshot, voxels,
+                                             labels, True, dtype)
         stats = [k for k in state_p if k.endswith((".mean", ".var"))]
         grad = {n: _rel(grads_k[n], grads_p[n]) for n in grads_p}
         r = {"loss_abs_err": abs(loss_k - loss_p),
@@ -542,6 +565,7 @@ def train_phase(torch, seed: int, backend: str) -> dict:
     from featurenet_tpu_torch.config import get_config
     from featurenet_tpu_torch.data.dataset import Prefetcher
     from featurenet_tpu_torch.train.loop import Trainer
+    from featurenet_tpu_torch.train.steps import unpack_voxels
 
     cfg = get_config("sprint64", seed=seed, total_steps=TRAIN_STEPS,
                      global_batch=TRAIN_BATCH, log_every=1,
@@ -602,7 +626,8 @@ def train_phase(torch, seed: int, backend: str) -> dict:
 
     # One step through the kernels vs the plain versions, same state/batch
     # (xla runs the same library call both ways).
-    versus = (step_vs_plain(torch, trainer, snapshot, batch, backend)
+    versus = (step_vs_plain(torch, trainer, snapshot, unpack_voxels(batch["voxels"]),
+                            batch["label"], backend)
               if backend != "xla" else None)
     t = trainer.timing
     out = {
@@ -860,6 +885,188 @@ def cli_phase(seed: int) -> dict:
     return out
 
 
+def _cache_run(torch, seed: int, cache: str, backend: str, resident: bool):
+    """sprint64 at batch 256 for CACHE_STEPS steps from ``cache`` under
+    ``backend``, resident on the card or streamed by TRAIN_WORKERS
+    producer threads, rotating in the step; then one eval pass over the
+    held-out split. Returns the run's record and the trainer."""
+    import dataclasses
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cfg = get_config("sprint64", seed=seed, total_steps=CACHE_STEPS,
+                     global_batch=TRAIN_BATCH, log_every=CACHE_STEPS // 2,
+                     eval_every=CACHE_STEPS, data_workers=TRAIN_WORKERS,
+                     data_cache=cache, hbm_cache=resident)
+    cfg = dataclasses.replace(cfg, arch=dataclasses.replace(
+        cfg.arch, conv_backend=backend))
+    a = cfg.arch
+    if (cfg.resolution, tuple(a.features), a.hidden, a.num_classes, a.dropout,
+            cfg.device_augment, cfg.augment_groups) != \
+            (64, (32, 32, 64, 64), 128, 24, 0.5, True, 8):
+        fail(f"cache run is not sprint64 at full width with in-step rotation: {cfg}")
+    mode = "hbm" if resident else "cache"
+    with open(os.devnull, "w") as sink:
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device="cuda", stream=sink)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        if resident and not (trainer._data.is_cuda and trainer._labels.is_cuda):
+            fail("the resident split is not on the card")
+        eval_batches = -(-len(trainer.eval_data) // TRAIN_BATCH)
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = _read_counts()
+    want = _want_counts(backend, CACHE_STEPS, eval_batches)
+    if counts != want:
+        fail(f"train {mode} {backend}: launches {counts} != {want}")
+    hist = trainer.logger.history
+    windows = [r for r in hist if r["kind"] == "train"]
+    losses = [r["loss"] for r in windows]
+    evals = [r for r in hist if r["kind"] == "eval"]
+    if len(losses) != 2 or not all(v == v and abs(v) < 1e30 for v in losses):
+        fail(f"train {mode} {backend}: losses {losses}")
+    if len(evals) != 1 or evals[0]["samples"] != len(trainer.eval_data):
+        fail(f"train {mode} {backend}: eval records {evals}")
+    # Launches of exactly one more step, and device ms per step (CUDA
+    # events): on rows drawn from the resident split, or on a batch already
+    # on the card; both rotate in the step.
+    batch = None if resident else {
+        k: torch.from_numpy(v).cuda()
+        for k, v in next(trainer.train_data.worker_iter(0)).items()}
+    torch.cuda.synchronize()
+    _reset_counts()
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    per_step = _read_counts()
+    if per_step != _want_counts(backend, 1, 0):
+        fail(f"train {mode} {backend}: one step launched {per_step}")
+    step_ms = time_ms(torch, lambda: trainer.step(batch), reps=5, warmup=1)
+    t = trainer.timing
+    out = {
+        "mode": mode, "backend": backend, "steps": CACHE_STEPS,
+        "global_batch": cfg.global_batch,
+        "data_workers": 0 if resident else cfg.data_workers,
+        "setup_s": setup_s, "run_s": run_s, "losses": losses,
+        "eval_samples": evals[0]["samples"], "eval_batches": eval_batches,
+        "eval_accuracy": evals[0]["accuracy"],
+        "launches": counts, "launches_per_step": per_step,
+        "device_step_ms": step_ms,
+        "samples_per_sec_with_data_wait": CACHE_STEPS * cfg.global_batch / t["wall_s"],
+        # The logger's rate over each half of the run: the first half pays
+        # the run's first-use costs, the second is steady.
+        "samples_per_sec_by_half": [r["samples_per_sec"] for r in windows],
+        "data_wait_share": t["data_wait_s"] / t["wall_s"],
+        "samples_per_sec_device_bound": cfg.global_batch / step_ms * 1e3,
+        **trainer.resident,
+    }
+    print("cache_run", json.dumps(out), flush=True)
+    return out, trainer
+
+
+def cache_checks(torch, seed: int, trainer) -> dict:
+    """The resident path held against itself: the card's draw of a fixed
+    index vector against the host gather of the same samples, the card's
+    cube rotations against the CPU's, and one resident step (the drawn
+    rows, rotated) through the kernels against the plain versions."""
+    import numpy as np
+
+    from featurenet_tpu_torch.ops.augment import draw_codes, rotate_grids
+    from featurenet_tpu_torch.train.steps import gather_rows, step_voxels, unpack_bits
+
+    data = trainer.train_data
+    idx = np.random.default_rng(seed).integers(0, len(data), TRAIN_BATCH)
+    got = gather_rows(trainer._data, trainer._labels, torch.from_numpy(idx).cuda())
+    samples = data.resident_order()[idx]
+    if not (np.array_equal(got["voxels"].cpu().numpy(), data._gather(samples))
+            and np.array_equal(got["label"].cpu().numpy(), data.labels[samples])):
+        fail("the card's draw differs from the host gather of the same samples")
+    grids = unpack_bits(got["voxels"][:ROTATION_CHECK_ROWS])
+    host = grids.cpu()
+    for code in range(24):
+        if not torch.equal(rotate_grids(grids, code).cpu(), rotate_grids(host, code)):
+            fail(f"cube rotation {code} differs between the card and the CPU")
+    codes = draw_codes(torch.Generator().manual_seed(seed), TRAIN_BATCH,
+                       trainer.cfg.augment_groups)
+    opt = trainer.state.optimizer
+    snapshot = {"model": {k: v.clone() for k, v in
+                          trainer.state.model.state_dict().items()},
+                "count": opt.count, "mu": [t.clone() for t in opt.mu],
+                "nu": [t.clone() for t in opt.nu]}
+    versus = step_vs_plain(torch, trainer, snapshot,
+                           step_voxels(got["voxels"], codes), got["label"],
+                           "pallas resident")
+    return {"draw_rows": TRAIN_BATCH, "draw_bitwise": True,
+            "rotation_codes": 24, "rotation_rows": ROTATION_CHECK_ROWS,
+            "rotation_bitwise": True, "step_codes": codes,
+            "resident_step_vs_plain": versus}
+
+
+def cache_cli(seed: int, cache: str, eval_samples: int) -> dict:
+    """``cli train --config sprint64 --data-cache D --hbm-cache`` in a
+    subprocess on the card, 3 steps: its records must show the resident
+    split and one exact eval pass over ``eval_samples`` rows."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    tr = subprocess.run([sys.executable, "-m", "featurenet_tpu_torch.cli", "train",
+                         "--config", "sprint64", "--seed", str(seed),
+                         "--data-cache", cache, "--hbm-cache", "--total-steps", "3"],
+                        cwd=root, capture_output=True, text=True, timeout=600)
+    train_s = time.perf_counter() - t0
+    if tr.returncode != 0:
+        fail(f"cli train --hbm-cache exited {tr.returncode}: {tr.stderr[-2000:]}")
+    records = [json.loads(line) for line in tr.stdout.splitlines()]
+    kinds = {r.get("kind"): r for r in records}
+    if not (records[0]["config"]["hbm_cache"] and kinds["setup"].get("hbm_resident_rows")
+            and kinds["train"]["step"] == 3 and kinds["eval"]["samples"] == eval_samples):
+        fail(f"cli train --hbm-cache records {records[1:]}")
+    return {"train_s": train_s, "setup": kinds["setup"],
+            "loss": kinds["train"]["loss"], "eval_samples": kinds["eval"]["samples"]}
+
+
+def cache_phase(torch, seed: int, smi_line: str) -> dict:
+    """Export the synthetic parts at the reference's 24 x 1000 scale into a
+    packed cache, then train sprint64 from it under pallas and xla,
+    resident and streamed, and hold the resident path against itself."""
+    from featurenet_tpu_torch.data.offline import export_synthetic_cache
+
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".data")
+    os.makedirs(data_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=data_dir) as tmp:
+        cache = os.path.join(tmp, "cls64")
+        t0 = time.perf_counter()
+        index = export_synthetic_cache(cache, per_class=CACHE_PER_CLASS,
+                                       resolution=64, seed=seed)
+        export_s = time.perf_counter() - t0
+        parts = sum(index["counts"].values())
+        runs, checks = {}, None
+        for backend in ("pallas", "xla"):
+            for resident in (True, False):
+                run, trainer = _cache_run(torch, seed, cache, backend, resident)
+                runs[f"train_{run['mode']}_{backend}"] = run
+                if resident and backend == "pallas":
+                    checks = cache_checks(torch, seed, trainer)
+                del trainer
+                torch.cuda.empty_cache()
+        cli = cache_cli(seed, cache, runs["train_hbm_pallas"]["eval_samples"])
+    out = {"per_class": CACHE_PER_CLASS, "parts": parts, "resolution": 64,
+           "cut": None, "export_s": export_s, "export_parts_per_sec": parts / export_s,
+           "cache_mb": parts * 64 ** 3 / 8 / 1e6,
+           "hbm_resident_mb": runs["train_hbm_pallas"]["hbm_resident_mb"],
+           "hbm_resident_rows": runs["train_hbm_pallas"]["hbm_resident_rows"],
+           **{f"{k}_{m}": runs[k][m] for k in runs
+              for m in ("samples_per_sec_with_data_wait", "data_wait_share",
+                        "device_step_ms")},
+           "launches_per_step": {k: runs[k]["launches_per_step"] for k in runs},
+           "checks": checks, "cli": cli, "nvidia_smi": smi_line}
+    print("cache", json.dumps(out), flush=True)
+    return {"runs": runs, **out}
+
+
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
     main = [r for r in rows if r["main_path"]]
     return {
@@ -919,6 +1126,7 @@ def main() -> int:
     ckpt = checkpoint_phase(torch, args.seed, train["pallas"]["device_step_ms"],
                             smi_line)
     cli_phase(args.seed)
+    cache = cache_phase(torch, args.seed, smi_line)["runs"]
 
     # ms, plain_ms, library_ms and bound_ms sum one train step's shapes
     # (batch 256): conv3d_fwd its 3 forward + 3 dx convs (not the serving
@@ -928,6 +1136,7 @@ def main() -> int:
                  for r in rows["conv3d_fwd"]]
     tp, th = train["pallas"]["launches"], train["hybrid_dw"]["launches"]
     tx, tc = train["xla"]["launches"], ckpt["launches"]
+    cached = {k: cache[k]["launches"] for k in cache}
     kernels = [
         _kernel_entry("conv3d_fwd", "featurenet_tpu_torch/ops/csrc/conv3d_fwd.cu",
                       "featurenet_tpu/ops/conv3d.py:160", fwd_train,
@@ -935,18 +1144,21 @@ def main() -> int:
                        "train_pallas": tp["conv3d_fwd"],
                        "train_hybrid_dw": th["conv3d_fwd"],
                        "train_xla": tx["conv3d_fwd"],
-                       "checkpoint": tc["conv3d_fwd"]}),
+                       "checkpoint": tc["conv3d_fwd"],
+                       **{k: v["conv3d_fwd"] for k, v in cached.items()}}),
         _kernel_entry("conv3d_dw", "featurenet_tpu_torch/ops/csrc/conv3d_dw.cu",
                       "featurenet_tpu/ops/conv3d.py:192", rows["conv3d_dw"],
                       {"train_pallas": tp["conv3d_dw"],
                        "train_xla": tx["conv3d_dw"],
-                       "checkpoint": tc["conv3d_dw"]}),
+                       "checkpoint": tc["conv3d_dw"],
+                       **{k: v["conv3d_dw"] for k, v in cached.items()}}),
         _kernel_entry("conv_dw_folded",
                       "featurenet_tpu_torch/ops/csrc/conv_dw_folded.cu",
                       "featurenet_tpu/ops/conv_dw.py:163", rows["conv_dw_folded"],
                       {"train_hybrid_dw": th["conv_dw_folded"],
                        "train_xla": tx["conv_dw_folded"],
-                       "checkpoint": tc["conv_dw_folded"]}),
+                       "checkpoint": tc["conv_dw_folded"],
+                       **{k: v["conv_dw_folded"] for k, v in cached.items()}}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)

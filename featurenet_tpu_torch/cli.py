@@ -1,6 +1,9 @@
 """Command line for the PyTorch port.
 
+    python -m featurenet_tpu_torch.cli export-data --out .data/c \
+        [--per-class 1000 --resolution 64 --seed 0]
     python -m featurenet_tpu_torch.cli train --config sprint64 --device cuda \
+        [--data-cache .data/c [--hbm-cache]] \
         [--checkpoint-dir CK --checkpoint-every N --keep-checkpoints K \
          --init-from OTHER_CK --total-steps N --global-batch B \
          --eval-batches E --conv-backend pallas|hybrid_dw|xla --seed S]
@@ -11,14 +14,19 @@
     python -m featurenet_tpu_torch.cli eval --checkpoint-dir CK
     python -m featurenet_tpu_torch.cli infer --checkpoint-dir CK part.stl ...
 
-Every subcommand runs on the card unless ``--device cpu`` is given.
+Every subcommand but ``export-data`` runs on the card unless ``--device
+cpu`` is given. ``export-data`` writes the synthetic parts into a packed
+voxel cache (``data/offline.py``) and prints ``{"exported": {class:
+count}, ...}``.
 
 ``train`` prints one ``{"config": {...}}`` line, then the Trainer's JSON
 records (``setup``, ``train`` every ``log_every`` steps, ``eval``). With
 ``--checkpoint-dir`` it saves there; a directory that already holds a
 checkpoint resumes from its newest good step and takes its config from the
 ``config.json`` beside it, with the policy flags given applied on top
-(``--config`` naming another preset is refused).
+(``--config`` naming another preset is refused). ``--data-cache`` trains
+from a cache and evaluates on its held-out split; ``--hbm-cache`` uploads
+the train split to the card once and draws every batch there.
 
 ``serve``, ``eval`` and ``infer`` read a checkpoint directory read-only and
 configure themselves from its ``config.json``; ``--conv-backend`` picks
@@ -27,8 +35,9 @@ another lowering of the same model. ``--weights`` reads a file written by
 line with the bound port once the service is warm, serves until
 SIGTERM/SIGINT (or ``--duration-s``), then drains and prints
 ``{"serve_stats": {...}}``. ``eval`` prints one ``{"eval": {...}}`` line
-over ``eval_batches`` batches of the held-out synthetic stream; ``infer``
-one JSON line per STL part.
+over one pass of the cache's held-out split when the run's config names
+a cache, else over ``eval_batches`` batches of the held-out synthetic
+stream; ``infer`` one JSON line per STL part.
 """
 
 from __future__ import annotations
@@ -79,7 +88,7 @@ def _parser() -> argparse.ArgumentParser:
                        help="stop after this many seconds (default: until signalled)")
 
     p_tr = sub.add_parser("train", help="train a classify preset on "
-                                        "synthetic parts")
+                                        "synthetic parts or a voxel cache")
     common(p_tr, f"preset to train (default {DEFAULT_PRESET}); a resumed "
                  "run takes its checkpoint's")
     p_tr.add_argument("--total-steps", type=int, dest="total_steps")
@@ -95,6 +104,19 @@ def _parser() -> argparse.ArgumentParser:
     p_tr.add_argument("--init-from", dest="init_from",
                       help="warm start: weights from this checkpoint "
                            "directory, step 0, fresh optimizer moments")
+    p_tr.add_argument("--data-cache", dest="data_cache",
+                      help="train from this packed voxel cache (export-data)")
+    p_tr.add_argument("--hbm-cache", dest="hbm_cache", action="store_true",
+                      default=None,
+                      help="upload the cache's train split to the device once "
+                           "and draw every batch there")
+
+    p_exp = sub.add_parser("export-data", help="write the synthetic parts "
+                                               "into a packed voxel cache")
+    p_exp.add_argument("--out", required=True)
+    p_exp.add_argument("--per-class", type=int, default=1000, dest="per_class")
+    p_exp.add_argument("--resolution", type=int, default=64)
+    p_exp.add_argument("--seed", type=int, default=0)
 
     p_ev = sub.add_parser("eval", help="evaluate a checkpoint on the held-out "
                                        "synthetic stream")
@@ -154,7 +176,7 @@ def _train(args) -> int:
     policy = _policy(args, ("total_steps", "global_batch", "eval_batches",
                             "data_workers", "seed", "checkpoint_dir",
                             "checkpoint_every", "keep_checkpoints",
-                            "init_from"))
+                            "init_from", "data_cache", "hbm_cache"))
     saved = load_run_config(args.checkpoint_dir) if args.checkpoint_dir else None
     if saved is not None:
         cfg = _cfg_from_checkpoint(saved, args, **policy)
@@ -164,6 +186,18 @@ def _train(args) -> int:
     print(json.dumps({"config": dataclasses.asdict(cfg)}, default=str),
           flush=True)
     Trainer(cfg, device=args.device).run()
+    return 0
+
+
+def _export_data(args) -> int:
+    from featurenet_tpu_torch.data.offline import export_synthetic_cache
+
+    index = export_synthetic_cache(args.out, per_class=args.per_class,
+                                   resolution=args.resolution, seed=args.seed)
+    print(json.dumps({"exported": index["counts"],
+                      "param_range": index["param_range"],
+                      "mesh_pose": index["mesh_pose"],
+                      "margin_jitter": index["margin_jitter"]}), flush=True)
     return 0
 
 
@@ -178,7 +212,6 @@ def _eval(args) -> int:
     ev = evaluate(pred.model, eval_dataset(cfg), cfg.eval_batches, pred.device)
     print(json.dumps({"eval": {
         "config": cfg.name, "model_version": pred.model_version,
-        "batches": cfg.eval_batches,
         **{k: v for k, v in ev.items() if k != "confusion"}}}), flush=True)
     return 0
 
@@ -257,7 +290,7 @@ def _serve(args) -> int:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     return {"train": _train, "serve": _serve, "eval": _eval,
-            "infer": _infer}[args.cmd](args)
+            "infer": _infer, "export-data": _export_data}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -10,12 +10,17 @@ values, and the checkpoint fields (``checkpoint_dir``,
 ``config.json`` that the JAX package writes beside its checkpoints loads
 through ``config_from_dict`` (the fields the port lacks are dropped), and
 ``check_identity`` holds a requested config to a persisted one as the
-JAX package's does. ``data_cache``, ``hbm_cache``, ``augment_affine``,
-``augment_noise`` and ``steps_per_dispatch`` are carried so that a preset
-that sets them (robust64) is refused for training by
-``validate_training`` instead of training without them; the cache-backed
-data, in-step augmentation and fused dispatch they select are not ported
-yet. ``seg64`` waits for the segmenter's port.
+JAX package's does.
+
+Data: synthetic parts streamed from the host, or a packed voxel cache
+(``data_cache``, ``data/offline.py``), streamed or, with ``hbm_cache``,
+resident on the device. ``augment``/``augment_device``/``augment_groups``
+select the cube-group pose augmentation as the reference's fields do
+(``device_augment``). ``augment_affine``, ``augment_noise`` and
+``steps_per_dispatch`` are carried so that a preset that sets them
+(robust64) is refused for training by ``validate_training`` instead of
+training without them; the affine warp, the occupancy noise and fused
+dispatch are not ported yet. ``seg64`` waits for the segmenter's port.
 """
 
 from __future__ import annotations
@@ -44,14 +49,25 @@ class Config:
     serve_precision: str = "fp32"
     seed: int = 0
 
-    # Data: synthetic parts generated on the host (data/dataset.py).
+    # Data: synthetic parts generated on the host (data/dataset.py), or a
+    # packed voxel cache (data/offline.py) whose train split is streamed
+    # or, with hbm_cache, uploaded to the device once and drawn from there.
+    # A cache holds out test_fraction of each class for eval.
     global_batch: int = 96
     num_features: int = 1
     eval_batches: int = 8
     data_workers: int = 2
-    # Not ported; carried so training can refuse a preset that sets them.
     data_cache: Optional[str] = None
     hbm_cache: bool = False
+    test_fraction: float = 0.2
+    # Cube-group pose augmentation of cache-backed training (ops/augment.py);
+    # synthetic streaming already randomizes pose at generation.
+    # augment_device rotates inside the train step, augment_groups poses
+    # per batch; else the cache's host workers rotate each sample.
+    augment: bool = True
+    augment_device: bool = True
+    augment_groups: int = 8
+    # Not ported; carried so training can refuse a preset that sets them.
     augment_affine: bool = False
     augment_noise: float = 0.0
     steps_per_dispatch: int = 1
@@ -79,6 +95,18 @@ class Config:
     checkpoint_every: int = 500
     keep_checkpoints: int = 3
     init_from: Optional[str] = None
+
+    @property
+    def device_augment(self) -> bool:
+        """Whether pose augmentation runs inside the train step rather than
+        in the host workers: always when augmenting a resident split (it
+        has no host pass), and for a streamed cache with
+        ``augment_device``; never for synthetic streaming."""
+        if not (self.augment and self.augment_groups > 0):
+            return False
+        if self.hbm_cache:
+            return True
+        return bool(self.data_cache and self.augment_device)
 
     def validate(self) -> "Config":
         if self.task != "classify":
@@ -108,23 +136,44 @@ class Config:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         if self.warmup_steps < 0 or self.total_steps < 0:
             raise ValueError("warmup_steps and total_steps must be >= 0")
+        if self.hbm_cache:
+            if not self.data_cache:
+                raise ValueError(
+                    "hbm_cache requires data_cache (the split that gets "
+                    "uploaded is the offline cache's train split)"
+                )
+            if self.augment and self.augment_groups < 1:
+                raise ValueError(
+                    "hbm_cache with augment=True needs augment_groups >= 1: "
+                    "the resident dataset's only augmentation path is the "
+                    "in-step device rotation"
+                )
+            if self.augment and not self.augment_device:
+                raise ValueError(
+                    "hbm_cache with augment=True requires device "
+                    "augmentation (augment_device=True): the resident "
+                    "dataset has no host-side augmentation path, so "
+                    "augment=True would otherwise be silently ignored -- "
+                    "pass augment=False to train unaugmented"
+                )
         return self
 
     def validate_training(self) -> "Config":
         """``validate`` plus a refusal of what the port cannot train yet."""
         self.validate()
-        unported = [
-            name for name, off in (
-                ("data_cache", None), ("hbm_cache", False),
-                ("augment_affine", False), ("augment_noise", 0.0),
-                ("steps_per_dispatch", 1),
+        unported = {
+            name: what for name, off, what in (
+                ("augment_affine", False, "the affine warp of ops/augment.py"),
+                ("augment_noise", 0.0, "the occupancy noise of ops/augment.py"),
+                ("steps_per_dispatch", 1, "fused multi-step dispatch"),
             ) if getattr(self, name) != off
-        ]
+        }
         if unported:
             raise ValueError(
                 f"{', '.join(unported)} set in config {self.name!r}: not "
-                "ported for training yet (synthetic host data, one step "
-                "per dispatch, no in-step augmentation)"
+                f"ported for training yet ({'; '.join(unported.values())}; "
+                "the port trains one step per dispatch with the cube-group "
+                "rotation only)"
             )
         if self.resolution % 8:
             raise ValueError(

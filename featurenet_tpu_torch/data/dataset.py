@@ -68,7 +68,9 @@ class SyntheticVoxelDataset:
 
 class Prefetcher:
     """Iterator of batches on ``device``, generated ahead by
-    ``num_workers`` threads.
+    ``num_workers`` threads from ``source``, any object whose
+    ``worker_iter(worker_id)`` gives one worker's stream of numpy wire
+    batches (``SyntheticVoxelDataset``, ``offline.VoxelCacheDataset``).
 
     Each worker turns its numpy batch into tensors in pinned host memory
     (when ``device`` is CUDA); the consumer takes batches in ticket order
@@ -78,7 +80,7 @@ class Prefetcher:
     consumer as ``ProducerError``. ``close()`` stops the workers.
     """
 
-    def __init__(self, source: SyntheticVoxelDataset, device,
+    def __init__(self, source, device,
                  num_workers: int = 1):
         self.device = torch.device(device)
         self._pin = self.device.type == "cuda"

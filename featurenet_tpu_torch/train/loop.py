@@ -1,21 +1,35 @@
-"""The Trainer: config → model → train state → synthetic stream → run loop
-(port of ``featurenet_tpu/train/loop.py``, one device).
+"""The Trainer: config → model → train state → data → run loop (port of
+``featurenet_tpu/train/loop.py``, one device).
 
 ``Trainer(cfg, device="cuda")`` builds the model from ``cfg.seed`` (or
 from a port ``state_dict``, e.g. one bridged from a JAX run by
-``convert.from_flax``), its optimizer, and the seeded synthetic train and
-eval streams. ``run(num_steps=None)`` first resumes from the newest good
+``convert.from_flax``), its optimizer, and the train and eval data:
+
+- synthetic parts streamed from the host (the default);
+- with ``cfg.data_cache``, the cache's train split streamed by the
+  ``Prefetcher``, and its held-out split evaluated as one exact pass;
+- with ``cfg.hbm_cache`` as well, the train split uploaded to the device
+  once (``materialize_split``); every step draws its rows there, and no
+  producer thread runs. A failed upload or draw raises; nothing falls
+  back to host streaming.
+
+With ``cfg.device_augment`` the step rotates each batch by cube-group
+codes. Dropout, the rotation codes and the resident draw each have their
+own generator, seeded from ``(seed, step)`` before every step, so a
+resumed run draws what the unbroken run drew.
+
+``run(num_steps=None)`` first resumes from the newest good
 checkpoint in ``cfg.checkpoint_dir``, if there is one, then runs to step
 ``num_steps`` (default ``cfg.total_steps``) one step per dispatch: it logs
 every ``log_every`` steps and at the end, evaluates every ``eval_every``
 steps and at the end, saves every ``checkpoint_every`` steps and at the
 end, waits for the writes, and returns the last record, as the JAX loop
 does. ``cfg.init_from`` warm-starts the weights from another run's
-checkpoint (identity checked). After a resume the synthetic stream starts
+checkpoint (identity checked). After a resume a streamed source starts
 again at its seed, as the JAX loop's does.
 
-Not ported yet: the supervisor and preemption exits, obs events,
-HBM-resident data and fused multi-step dispatch.
+Not ported yet: the supervisor and preemption exits, obs events and fused
+multi-step dispatch.
 
 ``timing`` keeps the wall seconds of the run's steps, how many of them the
 loop spent waiting for the next batch (``data_wait_s``), so the data wait
@@ -29,36 +43,69 @@ from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from featurenet_tpu_torch.config import Config, check_identity
 from featurenet_tpu_torch.data.dataset import Prefetcher, SyntheticVoxelDataset
+from featurenet_tpu_torch.data.offline import VoxelCacheDataset
 from featurenet_tpu_torch.models.featurenet import FeatureNet, init_weights
+from featurenet_tpu_torch.ops.augment import draw_codes
 from featurenet_tpu_torch.runtime import resolve_device
 from featurenet_tpu_torch.train.checkpoint import CheckpointManager, load_run_config
 from featurenet_tpu_torch.train.state import TrainState, create_state, param_count
-from featurenet_tpu_torch.train.steps import aggregate_eval, eval_step, make_train_step
+from featurenet_tpu_torch.train.steps import (
+    aggregate_eval,
+    draw_rows,
+    eval_step,
+    make_resident_train_step,
+    make_train_step,
+)
 from featurenet_tpu_torch.utils.logging import MetricLogger
 
 EVAL_SEED_OFFSET = 10_000
+# Stream constants of the per-step generators besides dropout's; the draw's
+# is the reference's fold for its resident draw.
+ROTATION_STREAM = 0xA06
+DRAW_STREAM = 0x5A11
 
 
-def eval_dataset(cfg: Config) -> SyntheticVoxelDataset:
-    """The held-out synthetic stream a run of ``cfg`` evaluates on."""
+def _stream_seed(seed: int, step: int, stream: int) -> int:
+    """A 64-bit generator seed for one stream of one step."""
+    return int(np.random.SeedSequence([seed, step, stream]).generate_state(1, np.uint64)[0])
+
+
+def eval_dataset(cfg: Config):
+    """The held-out data a run of ``cfg`` evaluates on: the cache's test
+    split, or the held-out synthetic stream."""
+    if cfg.data_cache:
+        return VoxelCacheDataset(cfg.data_cache, cfg.global_batch, "test",
+                                 cfg.test_fraction,
+                                 seed=cfg.seed + EVAL_SEED_OFFSET)
     return SyntheticVoxelDataset(cfg.resolution, cfg.global_batch,
                                  cfg.num_features,
                                  seed=cfg.seed + EVAL_SEED_OFFSET)
 
 
-def evaluate(model, data: SyntheticVoxelDataset, batches: int, device) -> dict:
-    """Eval metrics of ``model`` over the first ``batches`` batches of
-    ``data``."""
-    stream = Prefetcher(data, device, num_workers=1)
-    try:
-        sums = [eval_step(model, next(stream)) for _ in range(batches)]
-    finally:
-        stream.close()
-    return aggregate_eval(sums)
+def evaluate(model, data, batches: int, device) -> dict:
+    """Eval metrics of ``model``: over one exact pass of a cache split
+    (``batches`` is not read), or over the first ``batches`` batches of a
+    synthetic stream. ``batches`` and ``samples`` in the result count what
+    was evaluated."""
+    if isinstance(data, VoxelCacheDataset):
+        sums = [eval_step(model, {k: torch.from_numpy(v).to(device)
+                                  for k, v in batch.items()})
+                for batch in data.epoch_batches(data.global_batch)]
+    else:
+        stream = Prefetcher(data, device, num_workers=1)
+        try:
+            sums = [eval_step(model, next(stream)) for _ in range(batches)]
+        finally:
+            stream.close()
+    out = aggregate_eval(sums)
+    out["batches"] = len(sums)
+    out["samples"] = int(sum(float(s["count"]) for s in sums))
+    return out
 
 
 class Trainer:
@@ -84,20 +131,60 @@ class Trainer:
                                        config=cfg)
                      if cfg.checkpoint_dir else None)
         self.logger = MetricLogger(stream)
-        self.train_data = SyntheticVoxelDataset(
-            cfg.resolution, cfg.global_batch, cfg.num_features, seed=cfg.seed,
-        )
         self.eval_data = eval_dataset(cfg)
-        self._train_step = make_train_step(cfg.label_smoothing)
+        if cfg.data_cache:
+            self.train_data = VoxelCacheDataset(
+                cfg.data_cache, cfg.global_batch, "train", cfg.test_fraction,
+                seed=cfg.seed, augment=cfg.augment and not cfg.device_augment)
+            # A label the head cannot express would train silently wrong.
+            top = int(max(self.train_data.labels.max(), self.eval_data.labels.max()))
+            if top >= cfg.arch.num_classes:
+                raise ValueError(
+                    f"cache {cfg.data_cache!r} contains label id {top} but "
+                    f"the model head has num_classes={cfg.arch.num_classes}"
+                )
+        else:
+            self.train_data = SyntheticVoxelDataset(
+                cfg.resolution, cfg.global_batch, cfg.num_features, seed=cfg.seed,
+            )
+        self._groups = cfg.augment_groups if cfg.device_augment else 0
+        self._train_step = make_train_step(cfg.label_smoothing, self._groups)
         self._generator = torch.Generator(device=self.device)
+        self._rotation_generator = torch.Generator()
+        self.resident: dict = {}
+        if cfg.hbm_cache:
+            voxels, labels, rows = self.train_data.materialize_split()
+            self._data = torch.from_numpy(voxels).to(self.device)
+            self._labels = torch.from_numpy(labels).to(self.device)
+            self._draw_generator = torch.Generator(device=self.device)
+            self._resident_step = make_resident_train_step(cfg.label_smoothing,
+                                                           self._groups)
+            self.resident = {"hbm_resident_rows": rows,
+                             "hbm_resident_mb": round(voxels.nbytes / 1e6, 1)}
         self.timing = {"steps": 0, "wall_s": 0.0, "data_wait_s": 0.0,
                        "saves": 0, "save_s": 0.0}
 
-    def step(self, batch: dict) -> dict:
-        """One train step on a wire batch already on the device; dropout
-        draws from a generator seeded by (seed, step)."""
-        self._generator.manual_seed((self.cfg.seed + 1) * 2 ** 32 + self.state.step)
-        return self._train_step(self.state, batch, self._generator)
+    def step(self, batch: dict | None = None) -> dict:
+        """One train step: on a wire batch already on the device, or, with
+        no batch, on rows drawn from the resident split. Dropout, the
+        rotation codes and the draw come from generators seeded by (seed,
+        step)."""
+        cfg, step = self.cfg, self.state.step
+        self._generator.manual_seed((cfg.seed + 1) * 2 ** 32 + step)
+        codes = None
+        if self._groups:
+            self._rotation_generator.manual_seed(
+                _stream_seed(cfg.seed, step, ROTATION_STREAM))
+            b = cfg.global_batch if batch is None else batch["voxels"].shape[0]
+            codes = draw_codes(self._rotation_generator, b, self._groups)
+        if batch is not None:
+            return self._train_step(self.state, batch, self._generator, codes)
+        if not self.resident:
+            raise ValueError("no batch given and no resident split (hbm_cache)")
+        self._draw_generator.manual_seed(_stream_seed(cfg.seed, step, DRAW_STREAM))
+        idx = draw_rows(self._draw_generator, self._data.shape[0], cfg.global_batch)
+        return self._resident_step(self.state, self._data, self._labels, idx,
+                                   self._generator, codes)
 
     def resume_if_available(self) -> int:
         """Restore the newest good checkpoint of ``cfg.checkpoint_dir``, if
@@ -108,8 +195,7 @@ class Trainer:
         return self.state.step
 
     def evaluate(self) -> dict:
-        """Eval over ``eval_batches`` batches of the held-out stream (the
-        same batches at every call)."""
+        """Eval over the held-out data (the same batches at every call)."""
         return evaluate(self.state.model, self.eval_data,
                         self.cfg.eval_batches, self.device)
 
@@ -117,17 +203,17 @@ class Trainer:
         cfg = self.cfg
         total = num_steps if num_steps is not None else cfg.total_steps
         start = self.resume_if_available()
-        self.logger.log(start, {"params": self.params_n, "devices": 1},
-                        prefix="setup")
-        stream = Prefetcher(self.train_data, self.device,
-                            num_workers=cfg.data_workers)
+        self.logger.log(start, {"params": self.params_n, "devices": 1,
+                                **self.resident}, prefix="setup")
+        stream = None if self.resident else Prefetcher(
+            self.train_data, self.device, num_workers=cfg.data_workers)
         self.logger.start_window()
         last: dict = {}
         try:
             step = start
             while step < total:
                 t0 = time.perf_counter()
-                batch = next(stream)
+                batch = next(stream) if stream else None
                 t1 = time.perf_counter()
                 metrics = self.step(batch)
                 new_step = step + 1
@@ -159,7 +245,8 @@ class Trainer:
                     self.timing["save_s"] += time.perf_counter() - t2
                 step = new_step
         finally:
-            stream.close()
+            if stream:
+                stream.close()
         if self.ckpt:
             self.ckpt.wait()
             t, w = self.timing, self.ckpt.timing

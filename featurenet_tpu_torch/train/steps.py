@@ -17,6 +17,14 @@ not use optax):
 The schedule is ``optax.warmup_cosine_decay_schedule`` with init 0, end
 ``peak·0.01`` and ``decay_steps = max(total, warmup + 1)``; at step 0 the
 rate is 0, so the first update moves no parameter.
+
+With ``augment_groups > 0`` the step rotates the unpacked voxels by the
+cube-group codes the caller drew (``ops/augment.py``), as the reference's
+``make_train_step`` does with its ``aug_rng``. The resident step
+(``make_resident_train_step``, the reference's
+``make_hbm_multi_train_step`` at one step per dispatch) gathers its batch
+from a split that lives on the device, at row indices the caller drew
+there (``draw_rows``), and runs the same step.
 """
 
 from __future__ import annotations
@@ -28,17 +36,33 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from featurenet_tpu_torch.ops.augment import group_count, rotate_groups
+
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 SGD_MOMENTUM = 0.9
 
 
-def unpack_voxels(packed: torch.Tensor) -> torch.Tensor:
+def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     """Inverse of ``data.synthetic.pack_voxels`` on the device:
-    ``[B, R, R, R/8] uint8`` → ``[B, R, R, R, 1] float32``, MSB first."""
+    ``[B, R, R, R/8] uint8`` → ``[B, R, R, R, 1] uint8`` of 0/1, MSB first."""
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
     bits = (packed.unsqueeze(-1) >> shifts) & 1
     b, d, h, w8 = packed.shape
-    return bits.reshape(b, d, h, w8 * 8, 1).float()
+    return bits.reshape(b, d, h, w8 * 8, 1)
+
+
+def unpack_voxels(packed: torch.Tensor) -> torch.Tensor:
+    """``unpack_bits`` as ``float32``."""
+    return unpack_bits(packed).float()
+
+
+def step_voxels(packed: torch.Tensor, codes=None) -> torch.Tensor:
+    """The float voxels a train step computes on: unpacked, then, with
+    ``codes``, rotated group by group (before the cast, on 0/1 bytes)."""
+    bits = unpack_bits(packed)
+    if codes is not None:
+        bits = rotate_groups(bits, codes)
+    return bits.float()
 
 
 def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -142,14 +166,26 @@ def loss_and_grads(model, voxels: torch.Tensor, labels: torch.Tensor,
     return grads, metrics
 
 
-def make_train_step(label_smoothing: float = 0.0) -> Callable:
-    """``step(state, batch, generator) -> metrics``: one update of ``state``
-    (``train/state.py``) in place from a wire batch (bit-packed voxels
-    unpacked on the device). Metrics are device scalars: ``loss``,
+def make_train_step(label_smoothing: float = 0.0,
+                    augment_groups: int = 0) -> Callable:
+    """``step(state, batch, generator, codes) -> metrics``: one update of
+    ``state`` (``train/state.py``) in place from a wire batch (bit-packed
+    voxels unpacked on the device); dropout draws from ``generator``. With
+    ``augment_groups > 0``, ``codes`` are the cube-group codes of the
+    batch's ``group_count(B, augment_groups)`` slices
+    (``augment.draw_codes``). Metrics are device scalars: ``loss``,
     ``accuracy`` and ``grad_norm``, the global norm of the gradients."""
 
-    def train_step(state, batch: dict, generator=None) -> dict:
-        voxels = unpack_voxels(batch["voxels"])
+    def train_step(state, batch: dict, generator=None, codes=None) -> dict:
+        if augment_groups:
+            groups = group_count(batch["voxels"].shape[0], augment_groups)
+            if codes is None or len(codes) != groups:
+                raise ValueError(f"the step rotates {groups} groups; got "
+                                 f"rotation codes {codes}")
+        elif codes is not None:
+            raise ValueError("rotation codes given to a step built without "
+                             "augment_groups")
+        voxels = step_voxels(batch["voxels"], codes)
         grads, metrics = loss_and_grads(state.model, voxels, batch["label"],
                                         label_smoothing, generator)
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -158,6 +194,35 @@ def make_train_step(label_smoothing: float = 0.0) -> Callable:
         return metrics
 
     return train_step
+
+
+def draw_rows(generator: torch.Generator, rows: int, batch: int) -> torch.Tensor:
+    """``batch`` row indices drawn uniformly from ``[0, rows)`` on the
+    generator's device."""
+    return torch.randint(0, rows, (batch,), generator=generator,
+                         device=generator.device)
+
+
+def gather_rows(data: torch.Tensor, labels: torch.Tensor,
+                idx: torch.Tensor) -> dict:
+    """The wire batch of resident rows ``idx``: packed voxels of ``data``
+    ``uint8 [N, R, R, R/8]`` and labels of ``labels`` ``int32 [N]``."""
+    return {"voxels": data.index_select(0, idx),
+            "label": labels.index_select(0, idx)}
+
+
+def make_resident_train_step(label_smoothing: float = 0.0,
+                             augment_groups: int = 0) -> Callable:
+    """``step(state, data, labels, idx, generator, codes) -> metrics``: the
+    train step of ``make_train_step`` on the rows ``idx`` of a split that
+    lives on the device (``draw_rows`` draws them there; the reference's
+    ``make_hbm_multi_train_step`` with ``num_steps=1`` on one device)."""
+    step = make_train_step(label_smoothing, augment_groups)
+
+    def resident_step(state, data, labels, idx, generator=None, codes=None) -> dict:
+        return step(state, gather_rows(data, labels, idx), generator, codes)
+
+    return resident_step
 
 
 @torch.no_grad()

@@ -9,7 +9,8 @@ gradients' bitwise repeatability; ``conv3d_p`` (forward and dx) and
 checks and the forward's C entry refusing a launch it cannot run; the
 Predictor and
 a smoke16 train step on the card against the same on the CPU; a checkpoint
-saved while steps run, and restored onto the card.
+saved while steps run, and restored onto the card; the resident split's
+draw against the host gather and the cube rotations against the CPU.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -413,3 +414,46 @@ def test_restore_onto_the_card_from_a_checkpoint_written_there(cuda, tmp_path):
     for k, v in tr.state.model.state_dict().items():
         assert torch.equal(again.state.model.state_dict()[k], v), k
     assert not torch.equal(again.state.model.dense1.weight, live["dense1.weight"])
+
+
+def test_resident_draw_on_card_equals_host_gather(cuda, tmp_path):
+    """A Trainer with ``hbm_cache`` holds the cache's train split on the
+    card; rows drawn there and gathered by the resident step's
+    ``gather_rows`` are, bitwise, what the dataset gathers on the host for
+    the same samples. Its run draws every batch on the card."""
+    import io
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.offline import export_synthetic_cache
+    from featurenet_tpu_torch.train.loop import Trainer
+    from featurenet_tpu_torch.train.steps import draw_rows, gather_rows
+
+    cache = str(tmp_path / "c")
+    export_synthetic_cache(cache, per_class=4, resolution=16, seed=2)
+    cfg = get_config("smoke16", data_cache=cache, hbm_cache=True, global_batch=8,
+                     total_steps=2, eval_every=100)
+    tr = Trainer(cfg, device=cuda, stream=io.StringIO())
+    assert tr._data.is_cuda and tr._labels.is_cuda
+    idx = draw_rows(torch.Generator(device=cuda).manual_seed(1), tr._data.shape[0], 64)
+    assert idx.is_cuda
+    got = gather_rows(tr._data, tr._labels, idx)
+    samples = tr.train_data.resident_order()[idx.cpu().numpy()]
+    np.testing.assert_array_equal(got["voxels"].cpu().numpy(),
+                                  tr.train_data._gather(samples))
+    np.testing.assert_array_equal(got["label"].cpu().numpy(),
+                                  tr.train_data.labels[samples])
+    assert np.isfinite(tr.run()["loss"]) and tr.state.step == 2
+
+
+def test_rotation_on_card_equals_cpu(cuda):
+    """Each of the 24 cube rotations, and a batch rotated group by group,
+    are bitwise the same on the card and on the CPU."""
+    from featurenet_tpu_torch.ops.augment import rotate_grids, rotate_groups
+
+    x = (torch.rand((8, 16, 16, 16, 1), generator=torch.Generator().manual_seed(0))
+         < 0.4).to(torch.uint8)
+    on = x.to(cuda)
+    for code in range(24):
+        assert torch.equal(rotate_grids(on, code).cpu(), rotate_grids(x, code)), code
+    codes = [5, 23, 0, 11]
+    assert torch.equal(rotate_groups(on, codes).cpu(), rotate_groups(x, codes))

@@ -348,10 +348,34 @@ def test_trainer_runs_and_logs_on_cpu():
 
 
 def test_training_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="not ported for training"):
+    with pytest.raises(ValueError, match="not ported for training.*affine warp"
+                                         ".*occupancy noise.*multi-step"):
         get_config("robust64").validate_training()
+    with pytest.raises(ValueError, match="steps_per_dispatch.*not ported for training"):
+        get_config("sprint64", steps_per_dispatch=8).validate_training()
+    with pytest.raises(ValueError, match="augment_noise.*not ported for training"):
+        get_config("sprint64", augment_noise=0.005).validate_training()
     with pytest.raises(ValueError, match="not ported"):
         get_config("sprint64", train_precision="bf16_master")
     with pytest.raises(ValueError, match="not ported.*ROADMAP"):
         dataclasses.replace(get_config("sprint64").arch, conv_backend="fused33")
     get_config("sprint64").validate_training()
+    cached = get_config("sprint64", data_cache=".data/c", hbm_cache=True)
+    assert cached.validate_training() is cached and cached.device_augment
+    assert not get_config("sprint64").device_augment
+
+
+@pytest.mark.parametrize("overrides,match", [
+    (dict(hbm_cache=True), "requires data_cache"),
+    (dict(data_cache="x", hbm_cache=True, augment_device=False), "silently ignored"),
+    (dict(data_cache="x", hbm_cache=True, augment_groups=0), "augment_groups >= 1"),
+])
+def test_hbm_cache_config_guards(overrides, match):
+    """The reference's hbm_cache guards (its spatial-sharding guard aside:
+    the port has no mesh), at validate time."""
+    with pytest.raises(ValueError, match=match):
+        get_config("pod64", **overrides)
+    # Each guard names a fix that then validates.
+    fixed = dict(overrides, data_cache="x", augment=False)
+    assert get_config("pod64", **fixed).hbm_cache
+
