@@ -78,9 +78,28 @@ Phases, in order; any failure exits non-zero before the last line:
    rotated) through the kernels against the plain versions (STEP_TOL).
    Last, `cli train --config sprint64 --data-cache D --hbm-cache` runs 3
    steps in a subprocess on the card.
-9. One JSON line of per-kernel numbers (launches by path, the cache runs'
-   included), the nvidia-smi line, and the last line: {"ok": true,
-   "device": {...}}.
+9. Precision ladder and fused33 (`precision_*` lines), sprint64 at full
+   width. Serving: the Predictor at bf16 and at int8 behind the
+   InferenceService (buckets 1/4/16/64) answers a burst of 85 voxel grids;
+   every dispatch launches exactly 3 conv3d_fwd; the served probabilities
+   match the same precision through the plain conv (2e-3); the int8
+   weights sit on the card as int8 and the fp32 parameters leave it; per
+   precision (fp32 too) the resident weight bytes, the device ms of a
+   bucket-64 and a bucket-1 forward, and top-1 agreement with fp32 on 256
+   synthetic parts (printed, not gated: the weights are random). Training
+   at batch 256 from one batch on the card, under bf16_master and
+   fp16_scaled, each with pallas and hybrid_dw: 3 steps (up to 6, until
+   two updates applied), finite losses, every parameter and batch-norm
+   statistic moved, the masters fp32, exact launches per step, device ms
+   per step beside fp32's, and one step through the kernels against the
+   plain versions (STEP_TOL, bf16 model). An fp16_scaled step at loss
+   scale 2^30 is skipped bitwise on the card (masters, moments, count, BN
+   statistics), its step advanced and its scale halved. fused33: 3 steps,
+   no kernel of the package launched, device ms per step beside xla's, and
+   logits within 2e-2 of xla's on the same weights.
+10. The wall time of every phase, one JSON line of per-kernel numbers
+   (launches by path, the cache and precision runs' included), the
+   nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
 yardstick here is full fp32.
@@ -141,8 +160,22 @@ PROB_ATOL = 2e-3
 # parameters: Adam's step is lr·m̂/(√v̂+eps), and an entry whose gradient is
 # rounding noise can move the other way, so they agree to 2·lr (plus 1e-6
 # for the weight decay and fp32 rounding of the update).
+# - bf16_master and fp16_scaled (bf16 model): the working copy is the same
+#   cast of the same masters on both sides; the gradients are stored at the
+#   working dtype, so an entry whose fp32 values straddle a rounding
+#   boundary lands one ulp (2^-8 in bf16, 2^-11 in fp16) apart, far inside
+#   the bf16 model's tolerance, which they are held to.
 STEP_TOL = {"fp32": {"loss": 1e-4, "grad": 1e-2},
             "bf16": {"loss": 5e-3, "grad": 1e-1}}
+# fp16_scaled's step against the plain step runs at this loss scale, well
+# inside fp16's range for a step at batch 256 (an overflow fails the check).
+RUNG_LOSS_SCALE = 2.0 ** 10
+# The precision phase: training steps per run, serving parts per burst, the
+# parts its agreement with fp32 is measured on, and the fused33 logits batch.
+RUNG_STEPS = 3
+RUNG_BURST = 85  # 64 + 16 + 4 + 1: every bucket when the queue drains
+AGREEMENT_PARTS = 256
+FUSED33_LOGITS_BATCH = 16
 
 SPRINT_BLOCKS = [(32, 32), (32, 64), (64, 64)]  # cin, cout of the 3³ blocks
 TRAIN_BATCH = 256
@@ -433,14 +466,17 @@ def _read_counts() -> dict[str, int]:
             "conv_dw_folded_sum": conv_dw.conv_dw_folded_sum_launches}
 
 
-def _one_step(torch, trainer, snapshot, voxels, labels, plain: bool, dtype):
+def _one_step(torch, trainer, snapshot, voxels, labels, plain: bool, dtype,
+              precision: str = "fp32"):
     """One train step from ``snapshot`` (model state + optimizer moments
     and count) on float ``voxels`` and ``labels``, dropout off, with
-    activations in ``dtype``, through the kernels or their plain versions;
-    returns (loss, grads, new state_dict)."""
+    activations in ``dtype`` and the working copy of ``precision``
+    (fp16_scaled at a loss scale of RUNG_LOSS_SCALE), through the kernels
+    or their plain versions; returns (loss, grads, new state_dict)."""
     import dataclasses
 
     from featurenet_tpu_torch.models.featurenet import FeatureNet
+    from featurenet_tpu_torch.train.precision import get_policy
     from featurenet_tpu_torch.train.steps import loss_and_grads, make_optimizer
 
     cfg = trainer.cfg
@@ -451,7 +487,16 @@ def _one_step(torch, trainer, snapshot, voxels, labels, plain: bool, dtype):
     opt.count = snapshot["count"]
     for dst, src in zip(opt.mu + opt.nu, snapshot["mu"] + snapshot["nu"]):
         dst.copy_(src)
-    grads, metrics = loss_and_grads(model, voxels, labels, cfg.label_smoothing)
+    policy = get_policy(precision)
+    scale = (torch.tensor(RUNG_LOSS_SCALE, device="cuda")
+             if policy.loss_scaling else None)
+    grads, metrics = loss_and_grads(model, voxels, labels, cfg.label_smoothing,
+                                    policy=policy, loss_scale=scale)
+    grads = policy.master_grads(grads)
+    if scale is not None:
+        grads = [g * (1.0 / scale) for g in grads]
+        if not all(bool(torch.isfinite(g).all()) for g in grads):
+            fail(f"{precision} step at loss scale {RUNG_LOSS_SCALE} overflowed")
     opt.update(grads)
     names = [n for n, _ in model.named_parameters()]
     return float(metrics["loss"].detach()), dict(zip(names, grads)), model.state_dict()
@@ -461,15 +506,22 @@ def _rel(a, b) -> float:
     return float((a.float() - b.float()).norm() / max(float(b.float().norm()), 1e-30))
 
 
-def step_vs_plain(torch, trainer, snapshot, voxels, labels, backend) -> dict:
-    """The kernel step against the plain step in fp32 and bf16 (STEP_TOL)."""
+def step_vs_plain(torch, trainer, snapshot, voxels, labels, backend,
+                  precision: str = "fp32") -> dict:
+    """The kernel step against the plain step (STEP_TOL): in fp32 and bf16
+    under the fp32 policy; a reduced ``precision`` with the bf16 model
+    only, the dtype it trains."""
     lr = trainer.state.optimizer.schedule(snapshot["count"])
     out = {"lr": lr}
-    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    models = [("fp32", torch.float32), ("bf16", torch.bfloat16)]
+    if precision != "fp32":
+        models = models[1:]
+    for tag, dtype in models:
+        name = tag if precision == "fp32" else precision
         loss_k, grads_k, state_k = _one_step(torch, trainer, snapshot, voxels,
-                                             labels, False, dtype)
+                                             labels, False, dtype, precision)
         loss_p, grads_p, state_p = _one_step(torch, trainer, snapshot, voxels,
-                                             labels, True, dtype)
+                                             labels, True, dtype, precision)
         stats = [k for k in state_p if k.endswith((".mean", ".var"))]
         grad = {n: _rel(grads_k[n], grads_p[n]) for n in grads_p}
         r = {"loss_abs_err": abs(loss_k - loss_p),
@@ -478,12 +530,12 @@ def step_vs_plain(torch, trainer, snapshot, voxels, labels, backend) -> dict:
              "bn_stat_rel_err": max(_rel(state_k[k], state_p[k]) for k in stats),
              "param_abs_err": max(float((state_k[n] - state_p[n]).abs().max())
                                   for n in grads_p)}
-        out[tag] = r
+        out[name] = r
         tol = STEP_TOL[tag]
         if not (r["loss_abs_err"] <= tol["loss"] and r["grad_rel_err"] <= tol["grad"]
                 and r["bn_stat_rel_err"] <= tol["grad"]
                 and r["param_abs_err"] <= 2 * lr + 1e-6):
-            fail(f"train {backend}: {tag} kernel step vs plain step {r} "
+            fail(f"train {backend}: {name} kernel step vs plain step {r} "
                  f"exceeds {tol} (params: 2 x lr {lr})")
     return out
 
@@ -1067,6 +1119,286 @@ def cache_phase(torch, seed: int, smi_line: str) -> dict:
     return {"runs": runs, **out}
 
 
+def _rung_serving(torch, seed: int, precision: str, grids, fp32_pred) -> dict:
+    """sprint64 served at ``precision`` behind the InferenceService (buckets
+    1/4/16/64): a burst of voxel grids, 3 conv3d_fwd per dispatch, the
+    served probabilities against the same precision through the plain conv,
+    the resident weight bytes, bucket-64 and bucket-1 device ms, and top-1
+    agreement with fp32 on AGREEMENT_PARTS parts (printed, not gated)."""
+    import numpy as np
+
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.runtime import build_model, serve_forward
+    from featurenet_tpu_torch.serve.service import InferenceService
+    from featurenet_tpu_torch.train.precision import serve_params_cast
+
+    cfg = fp32_pred.cfg
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    pred = Predictor.from_seed(cfg, seed, batch=64, device="cuda",
+                               precision=precision)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base
+    if precision == "int8":
+        ints = [t for t in pred._qparams.values() if t.dtype == torch.int8]
+        if len(ints) != 6 or not all(t.is_cuda for t in ints):
+            fail(f"int8 weights are not resident as int8 on the card: "
+                 f"{[(t.dtype, t.device) for t in pred._qparams.values()]}")
+    if not all(p.is_meta for p in pred.model.parameters()):
+        fail(f"{precision}: the fp32 parameters stayed on the card")
+    service = InferenceService(pred, buckets=(1, 4, 16, 64),
+                               queue_limit=2 * RUNG_BURST)
+    batches0 = service.stats()["batches"]
+    _reset_counts()
+    futs = [service.submit_voxels(g) for g in grids]
+    rows = np.stack([f.result(timeout=120) for f in futs])
+    launches = _read_counts()
+    st = service.stats()
+    drained = service.drain()
+    dispatches = st["batches"] - batches0
+    want = dict(_want_counts("xla", 0, 0), conv3d_fwd=3 * dispatches)
+    if dispatches < 1 or launches != want or st["precision"] != precision:
+        fail(f"serve {precision}: launches {launches} != {want} "
+             f"({dispatches} dispatches), stats {st}")
+    if drained["exit_code"] != 0:
+        fail(f"serve {precision}: drain {drained}")
+    plain = build_model(cfg, seed=seed, plain=True).to("cuda")
+    params = serve_params_cast({k: v.detach() for k, v in plain.named_parameters()},
+                               precision)
+    x = torch.from_numpy(np.stack(grids)[..., None]).cuda()
+    ref = torch.cat([serve_forward(plain, x[i:i + 64], params)
+                     for i in range(0, len(x), 64)]).cpu().numpy()
+    prob_err = float(np.abs(rows - ref).max())
+    if not (np.isfinite(rows).all() and prob_err <= PROB_ATOL):
+        fail(f"serve {precision}: probabilities differ from the plain conv "
+             f"by {prob_err}")
+    x64, x1 = x[:64].contiguous(), x[:1].contiguous()
+    with torch.inference_mode():
+        ms64 = time_ms(torch, lambda: pred.forward(x64))
+        ms1 = time_ms(torch, lambda: pred.forward(x1))
+    agree = pred.agreement(n=AGREEMENT_PARTS, seed=seed)
+    out = {"precision": precision, "requests": len(grids),
+           "dispatches": dispatches, "by_bucket": st["by_bucket"],
+           "conv3d_fwd_launches": launches["conv3d_fwd"],
+           "max_prob_err_vs_plain": prob_err,
+           "resident_weight_bytes": pred.resident_weight_bytes,
+           "fp32_resident_weight_bytes": fp32_pred.resident_weight_bytes,
+           "cuda_bytes_allocated_by_predictor": allocated,
+           "device_ms_bucket64": ms64, "device_ms_bucket1": ms1,
+           "top1_agreement_vs_fp32": agree, "agreement_parts": AGREEMENT_PARTS}
+    print("precision_serve", json.dumps(out), flush=True)
+    del service, pred, plain
+    return out
+
+
+def _rung_trainer(torch, seed: int, backend: str, precision: str):
+    import dataclasses
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cfg = get_config("sprint64", seed=seed, global_batch=TRAIN_BATCH,
+                     data_workers=1, train_precision=precision)
+    cfg = dataclasses.replace(cfg, arch=dataclasses.replace(
+        cfg.arch, conv_backend=backend))
+    a = cfg.arch
+    if (cfg.resolution, tuple(a.features), a.hidden, a.num_classes,
+            a.dropout) != (64, (32, 32, 64, 64), 128, 24, 0.5):
+        fail(f"precision phase is not sprint64 at full width: {cfg}")
+    with open(os.devnull, "w") as sink:
+        return Trainer(cfg, device="cuda", stream=sink)
+
+
+def _rung_training(torch, seed: int, backend: str, precision: str, batch,
+                   fp32_step_ms: float) -> dict:
+    """sprint64 at batch 256 under ``backend`` and ``precision``: RUNG_STEPS
+    steps from one batch on the card (more, up to 2·RUNG_STEPS, until two
+    updates applied), exact launches, finite losses, every parameter and
+    batch-norm statistic moved, device ms per step, and one step through
+    the kernels against the plain versions (STEP_TOL)."""
+    from featurenet_tpu_torch.train.steps import unpack_voxels
+
+    trainer = _rung_trainer(torch, seed, backend, precision)
+    state, opt = trainer.state, trainer.state.optimizer
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    torch.cuda.synchronize()
+    _reset_counts()
+    metrics = []
+    while len(metrics) < RUNG_STEPS or (opt.count < 2 and len(metrics) < 2 * RUNG_STEPS):
+        metrics.append({k: float(v) for k, v in trainer.step(batch).items()})
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    steps = len(metrics)
+    want = _want_counts(backend, steps, 0)
+    if counts != want:
+        fail(f"train {backend} {precision}: launches {counts} != {want}")
+    losses = [m["loss"] for m in metrics]
+    if not all(v == v and abs(v) < 1e30 for v in losses):
+        fail(f"train {backend} {precision}: losses {losses}")
+    after = state.model.state_dict()
+    moved = {k: float((after[k] - before[k]).abs().max()) for k in before}
+    if opt.count < 2 or not all(v > 0 for v in moved.values()):
+        fail(f"train {backend} {precision}: {opt.count} updates; moved {moved}")
+    if not all(p.dtype == torch.float32 for p in state.model.parameters()):
+        fail(f"train {backend} {precision}: the masters are not fp32")
+    snapshot = {"model": {k: v.clone() for k, v in after.items()},
+                "count": opt.count, "mu": [t.clone() for t in opt.mu],
+                "nu": [t.clone() for t in opt.nu]}
+    step_ms = time_ms(torch, lambda: trainer.step(batch), reps=5, warmup=1)
+    versus = step_vs_plain(torch, trainer, snapshot, unpack_voxels(batch["voxels"]),
+                           batch["label"], f"{backend} {precision}",
+                           precision=precision)
+    out = {"backend": backend, "precision": precision, "steps": steps,
+           "global_batch": TRAIN_BATCH, "losses": losses,
+           "grads_finite": [m.get("grads_finite") for m in metrics],
+           "loss_scale": [m.get("loss_scale") for m in metrics],
+           "updates": snapshot["count"], "launches": counts,
+           "launches_per_step": {k: v / steps for k, v in counts.items()},
+           "device_step_ms": step_ms, "fp32_device_step_ms": fp32_step_ms,
+           "samples_per_sec_device_bound": TRAIN_BATCH / step_ms * 1e3,
+           "fp32_samples_per_sec_device_bound": TRAIN_BATCH / fp32_step_ms * 1e3,
+           "step_vs_plain": versus}
+    print("precision_train", json.dumps(out), flush=True)
+    return out, trainer
+
+
+def _overflow_skip(torch, trainer, batch) -> dict:
+    """An fp16_scaled step at loss scale 2^30 on the card: skipped bitwise
+    (masters, moments, count, BN statistics), step + 1, scale halved."""
+    state, opt = trainer.state, trainer.state.optimizer
+    state.loss_scale.fill_(2.0 ** 30)
+    before = ([v.clone() for v in state.model.state_dict().values()]
+              + [t.clone() for t in opt.mu + opt.nu])
+    count, step = opt.count, state.step
+    torch.cuda.synchronize()
+    _reset_counts()
+    m = trainer.step(batch)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    after = list(state.model.state_dict().values()) + list(opt.mu + opt.nu)
+    bitwise = all(torch.equal(a, b) for a, b in zip(before, after))
+    out = {"grads_finite": float(m["grads_finite"]),
+           "loss_scale": float(state.loss_scale),
+           "good_steps": int(state.good_steps), "count_unchanged": opt.count == count,
+           "step_advanced": state.step == step + 1, "bitwise": bitwise,
+           "launches": counts}
+    if not (out["grads_finite"] == 0.0 and out["loss_scale"] == 2.0 ** 29
+            and out["good_steps"] == 0 and out["count_unchanged"]
+            and out["step_advanced"] and bitwise
+            and counts == _want_counts("pallas", 1, 0)):
+        fail(f"the fp16 overflow step was not skipped bitwise: {out}")
+    print("precision_overflow", json.dumps(out), flush=True)
+    return out
+
+
+def _fused33(torch, seed: int, batch, xla_step_ms: float) -> dict:
+    """sprint64 under fused33 at batch 256: RUNG_STEPS steps (no kernel of
+    the package launches), device ms per step beside xla's, and the logits
+    against the xla backend's on the same weights (2e-2)."""
+    import dataclasses
+
+    from featurenet_tpu_torch.models.featurenet import FeatureNet
+    from featurenet_tpu_torch.train.steps import unpack_voxels
+
+    trainer = _rung_trainer(torch, seed, "fused33", "fp32")
+    before = {k: v.clone() for k, v in trainer.state.model.state_dict().items()}
+    torch.cuda.synchronize()
+    _reset_counts()
+    losses = [float(trainer.step(batch)["loss"]) for _ in range(RUNG_STEPS)]
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    if counts != _want_counts("fused33", RUNG_STEPS, 0):
+        fail(f"train fused33: launches {counts}")
+    after = trainer.state.model.state_dict()
+    if not (all(v == v and abs(v) < 1e30 for v in losses)
+            and all(not torch.equal(after[k], before[k]) for k in before)):
+        fail(f"train fused33: losses {losses}, or a tensor did not move")
+    step_ms = time_ms(torch, lambda: trainer.step(batch), reps=5, warmup=1)
+    cfg = trainer.cfg
+    x = unpack_voxels(batch["voxels"][:FUSED33_LOGITS_BATCH])
+    logits = {}
+    for backend in ("fused33", "xla"):
+        arch = dataclasses.replace(cfg.arch, conv_backend=backend)
+        model = FeatureNet(arch, cfg.resolution).to("cuda")
+        model.load_state_dict(trainer.state.model.state_dict())
+        with torch.inference_mode():
+            logits[backend] = model(x).float()
+    err = (logits["fused33"] - logits["xla"]).abs()
+    bound = 2e-2 + 2e-2 * logits["xla"].abs()
+    if not bool((err <= bound).all()):
+        fail(f"fused33 logits differ from xla's by {float(err.max())}")
+    out = {"backend": "fused33", "steps": RUNG_STEPS, "losses": losses,
+           "launches": counts, "device_step_ms": step_ms,
+           "xla_device_step_ms": xla_step_ms,
+           "logits_max_abs_err_vs_xla": float(err.max()),
+           "logits_batch": FUSED33_LOGITS_BATCH}
+    print("precision_fused33", json.dumps(out), flush=True)
+    del trainer
+    return out
+
+
+def precision_phase(torch, seed: int, train: dict, smi_line: str) -> dict:
+    """The precision ladder and fused33 at sprint64's full width: serving at
+    bf16 and int8, training under bf16_master and fp16_scaled with pallas
+    and hybrid_dw, an fp16 overflow skipped on the card, and fused33 beside
+    xla. Returns the per-path launch counts and the records."""
+    import numpy as np
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.dataset import SyntheticVoxelDataset
+    from featurenet_tpu_torch.data.synthetic import generate_batch
+    from featurenet_tpu_torch.infer import Predictor
+
+    cfg = get_config("sprint64")
+    grids = list(generate_batch(np.random.default_rng(seed + 1), RUNG_BURST,
+                                cfg.resolution)["voxels"][..., 0])
+    fp32_pred = Predictor.from_seed(cfg, seed, batch=64, device="cuda")
+    x = torch.from_numpy(np.stack(grids)[..., None]).cuda()
+    with torch.inference_mode():
+        fp32_ms = {"device_ms_bucket64": time_ms(torch, lambda: fp32_pred.forward(x[:64])),
+                   "device_ms_bucket1": time_ms(torch, lambda: fp32_pred.forward(x[:1]))}
+    serve = {"fp32": {**fp32_ms, "resident_weight_bytes": fp32_pred.resident_weight_bytes}}
+    print("precision_serve", json.dumps({"precision": "fp32", **serve["fp32"]}),
+          flush=True)
+    for p in ("bf16", "int8"):
+        serve[p] = _rung_serving(torch, seed, p, grids, fp32_pred)
+    del fp32_pred
+    torch.cuda.empty_cache()
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(
+        SyntheticVoxelDataset(64, TRAIN_BATCH, seed=seed).worker_iter(0)).items()}
+    runs, overflow = {}, None
+    for backend in ("pallas", "hybrid_dw"):
+        for p in ("bf16_master", "fp16_scaled"):
+            run, trainer = _rung_training(torch, seed, backend, p, batch,
+                                          train[backend]["device_step_ms"])
+            runs[f"train_{backend}_{p}"] = run
+            if backend == "pallas" and p == "fp16_scaled":
+                overflow = _overflow_skip(torch, trainer, batch)
+            del trainer
+            torch.cuda.empty_cache()
+    fused = _fused33(torch, seed, batch, train["xla"]["device_step_ms"])
+    torch.cuda.empty_cache()
+    launches = {f"serve_{p}": {"conv3d_fwd": serve[p]["conv3d_fwd_launches"]}
+                for p in ("bf16", "int8")}
+    launches.update({k: r["launches"] for k, r in runs.items()})
+    launches["train_pallas_fp16_scaled_overflow"] = overflow["launches"]
+    launches["train_fused33"] = fused["launches"]
+    out = {"serve": {p: {k: v for k, v in r.items() if k in (
+               "resident_weight_bytes", "device_ms_bucket64", "device_ms_bucket1",
+               "top1_agreement_vs_fp32", "max_prob_err_vs_plain")}
+               for p, r in serve.items()},
+           "train_device_step_ms": {k: r["device_step_ms"] for k, r in runs.items()},
+           "train_fp32_device_step_ms": {b: train[b]["device_step_ms"]
+                                         for b in ("pallas", "hybrid_dw", "xla")},
+           "overflow_skip_bitwise": overflow["bitwise"],
+           "fused33_device_step_ms": fused["device_step_ms"],
+           "fused33_logits_max_abs_err_vs_xla": fused["logits_max_abs_err_vs_xla"],
+           "nvidia_smi": smi_line}
+    print("precision", json.dumps(out), flush=True)
+    return {"launches": launches, **out}
+
+
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
     main = [r for r in rows if r["main_path"]]
     return {
@@ -1117,16 +1449,28 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln or ln == "cached"]
         print(f"build {kname}: {r['seconds']:.2f} s; " + " | ".join(info), flush=True)
 
-    rows = check_kernels(torch, args.seed)
+    walls = {}
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        result = fn(*a)
+        walls[name] = time.perf_counter() - t
+        print(f"phase {name}: {walls[name]:.1f} s", flush=True)
+        return result
+
+    rows = phase("kernels", check_kernels, torch, args.seed)
     _reset_counts()
-    serve = serve_phase(torch, args.seed)
-    host_generation(torch, args.seed, TRAIN_WORKERS)
-    train = {b: train_phase(torch, args.seed, b)
+    serve = phase("serve", serve_phase, torch, args.seed)
+    phase("data", host_generation, torch, args.seed, TRAIN_WORKERS)
+    train = {b: phase(f"train_{b}", train_phase, torch, args.seed, b)
              for b in ("pallas", "hybrid_dw", "xla")}
-    ckpt = checkpoint_phase(torch, args.seed, train["pallas"]["device_step_ms"],
-                            smi_line)
-    cli_phase(args.seed)
-    cache = cache_phase(torch, args.seed, smi_line)["runs"]
+    ckpt = phase("checkpoint", checkpoint_phase, torch, args.seed,
+                 train["pallas"]["device_step_ms"], smi_line)
+    phase("cli", cli_phase, args.seed)
+    cache = phase("cache", cache_phase, torch, args.seed, smi_line)["runs"]
+    rungs = phase("precision", precision_phase, torch, args.seed, train,
+                  smi_line)["launches"]
+    print("phase_walls", json.dumps(walls), flush=True)
 
     # ms, plain_ms, library_ms and bound_ms sum one train step's shapes
     # (batch 256): conv3d_fwd its 3 forward + 3 dx convs (not the serving
@@ -1145,20 +1489,25 @@ def main() -> int:
                        "train_hybrid_dw": th["conv3d_fwd"],
                        "train_xla": tx["conv3d_fwd"],
                        "checkpoint": tc["conv3d_fwd"],
-                       **{k: v["conv3d_fwd"] for k, v in cached.items()}}),
+                       **{k: v["conv3d_fwd"] for k, v in cached.items()},
+                       **{k: v["conv3d_fwd"] for k, v in rungs.items()}}),
         _kernel_entry("conv3d_dw", "featurenet_tpu_torch/ops/csrc/conv3d_dw.cu",
                       "featurenet_tpu/ops/conv3d.py:192", rows["conv3d_dw"],
                       {"train_pallas": tp["conv3d_dw"],
                        "train_xla": tx["conv3d_dw"],
                        "checkpoint": tc["conv3d_dw"],
-                       **{k: v["conv3d_dw"] for k, v in cached.items()}}),
+                       **{k: v["conv3d_dw"] for k, v in cached.items()},
+                       **{k: v["conv3d_dw"] for k, v in rungs.items()
+                          if k.startswith("train")}}),
         _kernel_entry("conv_dw_folded",
                       "featurenet_tpu_torch/ops/csrc/conv_dw_folded.cu",
                       "featurenet_tpu/ops/conv_dw.py:163", rows["conv_dw_folded"],
                       {"train_hybrid_dw": th["conv_dw_folded"],
                        "train_xla": tx["conv_dw_folded"],
                        "checkpoint": tc["conv_dw_folded"],
-                       **{k: v["conv_dw_folded"] for k, v in cached.items()}}),
+                       **{k: v["conv_dw_folded"] for k, v in cached.items()},
+                       **{k: v["conv_dw_folded"] for k, v in rungs.items()
+                          if k.startswith("train")}}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)

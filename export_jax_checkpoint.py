@@ -8,7 +8,9 @@ Reads the newest good step (or ``--step``) of a run that
 ``CheckpointManager``, and writes one step of the same number through the
 port's ``CheckpointManager``: the weights and batch-norm statistics
 (``convert.from_flax``), the Adam moments and count
-(``convert.opt_from_optax``), the step, and the run's ``config.json``. The
+(``convert.opt_from_optax``), the step, the loss-scale state
+(``convert.scale_state_from_jax``; a JAX ``fp16_scaled`` run resumes with
+its adapted scale), and the run's ``config.json``. The
 port then resumes the run (``cli train --checkpoint-dir``) or serves,
 evaluates and classifies from it (``cli serve|eval|infer
 --checkpoint-dir``). The JAX run's ``conv_backend`` (``"xla"`` for every
@@ -79,6 +81,8 @@ def export(src: str, dst: str, step: int | None = None) -> int:
             t.copy_(opt[key][n])
     state.optimizer.count = opt["count"]
     state.step = int(jstate.step)
+    for key, t in convert.scale_state_from_jax(jstate).items():
+        getattr(state, key).copy_(t)
     out = CheckpointManager(dst, keep=cfg.keep_checkpoints, config=cfg)
     out.save(state)
     out.close()

@@ -6,13 +6,18 @@
         [--data-cache .data/c [--hbm-cache]] \
         [--checkpoint-dir CK --checkpoint-every N --keep-checkpoints K \
          --init-from OTHER_CK --total-steps N --global-batch B \
-         --eval-batches E --conv-backend pallas|hybrid_dw|xla --seed S]
-    python -m featurenet_tpu_torch.cli serve --checkpoint-dir CK --port 0
+         --eval-batches E --conv-backend pallas|hybrid_dw|xla|fused33 \
+         --train-precision fp32|bf16_master|fp16_scaled \
+         --serve-precision fp32|bf16|int8 --seed S]
+    python -m featurenet_tpu_torch.cli serve --checkpoint-dir CK --port 0 \
+        [--precision fp32|bf16|int8]
     python -m featurenet_tpu_torch.cli serve --config sprint64 --seed 0 \
         --buckets 1,4,16,64 --port 0 --device cuda
     python -m featurenet_tpu_torch.cli serve --weights w.npz --port 0
-    python -m featurenet_tpu_torch.cli eval --checkpoint-dir CK
-    python -m featurenet_tpu_torch.cli infer --checkpoint-dir CK part.stl ...
+    python -m featurenet_tpu_torch.cli eval --checkpoint-dir CK \
+        [--serve-precision fp32|bf16|int8]
+    python -m featurenet_tpu_torch.cli infer --checkpoint-dir CK \
+        [--precision fp32|bf16|int8] part.stl ...
 
 Every subcommand but ``export-data`` runs on the card unless ``--device
 cpu`` is given. ``export-data`` writes the synthetic parts into a packed
@@ -28,9 +33,18 @@ checkpoint resumes from its newest good step and takes its config from the
 from a cache and evaluates on its held-out split; ``--hbm-cache`` uploads
 the train split to the card once and draws every batch there.
 
+``--train-precision`` picks the training precision policy (fp32 masters
+under each; ``bf16_master`` and ``fp16_scaled`` differentiate a reduced
+working copy, the latter with dynamic loss scaling) and
+``--serve-precision`` the precision the run's eval (and, through its
+``config.json``, its serving) runs at; both are run policy, so a resumed
+run may change them.
+
 ``serve``, ``eval`` and ``infer`` read a checkpoint directory read-only and
 configure themselves from its ``config.json``; ``--conv-backend`` picks
-another lowering of the same model. ``--weights`` reads a file written by
+another lowering of the same model, ``--precision`` (``serve``, ``infer``)
+and ``--serve-precision`` (``eval``) another serving precision of the
+same weights (default: the config's ``serve_precision``). ``--weights`` reads a file written by
 ``convert.save_npz``. ``serve`` prints one ``{"serving": {...}}`` banner
 line with the bound port once the service is warm, serves until
 SIGTERM/SIGINT (or ``--duration-s``), then drains and prints
@@ -55,6 +69,15 @@ DEFAULT_PRESET = "sprint64"
 def _parser() -> argparse.ArgumentParser:
     from featurenet_tpu_torch.config import PRESETS
     from featurenet_tpu_torch.models.featurenet import CONV_BACKENDS
+    from featurenet_tpu_torch.train.precision import (
+        SERVE_PRECISIONS,
+        TRAIN_PRECISIONS,
+    )
+
+    def precision(p, flag, dest, choices, what):
+        p.add_argument(flag, choices=choices, dest=dest,
+                       help=f"{what} (default: the config's; see "
+                            "featurenet_tpu_torch.train.precision)")
 
     def common(p, config_help):
         p.add_argument("--config", choices=sorted(PRESETS), help=config_help)
@@ -77,6 +100,8 @@ def _parser() -> argparse.ArgumentParser:
     src.add_argument("--seed", type=int, help="serve random weights from this seed")
     common(p_srv, f"preset served with --seed (default {DEFAULT_PRESET}); "
                   "with --checkpoint-dir it must be the run's")
+    precision(p_srv, "--precision", "precision", SERVE_PRECISIONS,
+              "serving weight precision")
     p_srv.add_argument("--buckets", default="1,4,16,64",
                        help="comma list of dispatch batch sizes (default 1,4,16,64)")
     p_srv.add_argument("--max-wait-ms", type=float, default=5.0, dest="max_wait_ms")
@@ -91,6 +116,10 @@ def _parser() -> argparse.ArgumentParser:
                                         "synthetic parts or a voxel cache")
     common(p_tr, f"preset to train (default {DEFAULT_PRESET}); a resumed "
                  "run takes its checkpoint's")
+    precision(p_tr, "--train-precision", "train_precision", TRAIN_PRECISIONS,
+              "training precision policy")
+    precision(p_tr, "--serve-precision", "serve_precision", SERVE_PRECISIONS,
+              "precision of the run's eval and serving")
     p_tr.add_argument("--total-steps", type=int, dest="total_steps")
     p_tr.add_argument("--global-batch", type=int, dest="global_batch")
     p_tr.add_argument("--eval-batches", type=int, dest="eval_batches")
@@ -122,12 +151,16 @@ def _parser() -> argparse.ArgumentParser:
                                        "synthetic stream")
     p_ev.add_argument("--checkpoint-dir", dest="checkpoint_dir", required=True)
     common(p_ev, "must be the run's preset when given")
+    precision(p_ev, "--serve-precision", "serve_precision", SERVE_PRECISIONS,
+              "precision of the evaluated forward")
     p_ev.add_argument("--eval-batches", type=int, dest="eval_batches")
     p_ev.add_argument("--global-batch", type=int, dest="global_batch")
 
     p_inf = sub.add_parser("infer", help="classify STL parts with a checkpoint")
     p_inf.add_argument("--checkpoint-dir", dest="checkpoint_dir", required=True)
     common(p_inf, "must be the run's preset when given")
+    precision(p_inf, "--precision", "precision", SERVE_PRECISIONS,
+              "serving weight precision")
     p_inf.add_argument("paths", nargs="+", help="STL files")
     return ap
 
@@ -176,7 +209,8 @@ def _train(args) -> int:
     policy = _policy(args, ("total_steps", "global_batch", "eval_batches",
                             "data_workers", "seed", "checkpoint_dir",
                             "checkpoint_every", "keep_checkpoints",
-                            "init_from", "data_cache", "hbm_cache"))
+                            "init_from", "data_cache", "hbm_cache",
+                            "train_precision", "serve_precision"))
     saved = load_run_config(args.checkpoint_dir) if args.checkpoint_dir else None
     if saved is not None:
         cfg = _cfg_from_checkpoint(saved, args, **policy)
@@ -206,12 +240,18 @@ def _eval(args) -> int:
     from featurenet_tpu_torch.train.loop import eval_dataset, evaluate
 
     cfg = _cfg_from_checkpoint(_saved_config(args.checkpoint_dir), args,
-                               **_policy(args, ("eval_batches", "global_batch")))
+                               **_policy(args, ("eval_batches", "global_batch",
+                                                "serve_precision")))
+    # The masters, as the train-time eval reads them; the eval step casts
+    # them to the serving precision.
     pred = Predictor.from_checkpoint(args.checkpoint_dir, config=cfg,
-                                     batch=cfg.global_batch, device=args.device)
-    ev = evaluate(pred.model, eval_dataset(cfg), cfg.eval_batches, pred.device)
+                                     batch=cfg.global_batch, device=args.device,
+                                     precision="fp32")
+    ev = evaluate(pred.model, eval_dataset(cfg), cfg.eval_batches, pred.device,
+                  cfg.serve_precision)
     print(json.dumps({"eval": {
         "config": cfg.name, "model_version": pred.model_version,
+        "serve_precision": cfg.serve_precision,
         **{k: v for k, v in ev.items() if k != "confusion"}}}), flush=True)
     return 0
 
@@ -222,9 +262,10 @@ def _infer(args) -> int:
     cfg = _cfg_from_checkpoint(_saved_config(args.checkpoint_dir), args)
     pred = Predictor.from_checkpoint(args.checkpoint_dir, config=cfg,
                                      batch=min(len(args.paths), 32),
-                                     device=args.device)
+                                     device=args.device,
+                                     precision=args.precision)
     for p in pred.predict_stl(args.paths):
-        print(json.dumps({**dataclasses.asdict(p),
+        print(json.dumps({**dataclasses.asdict(p), "precision": pred.precision,
                           "model_version": pred.model_version}), flush=True)
     return 0
 
@@ -249,17 +290,18 @@ def _serve(args) -> int:
     if args.checkpoint_dir:
         cfg = _cfg_from_checkpoint(_saved_config(args.checkpoint_dir), args)
         pred = Predictor.from_checkpoint(args.checkpoint_dir, config=cfg,
-                                         batch=max(buckets), device=args.device)
+                                         batch=max(buckets), device=args.device,
+                                         precision=args.precision)
     elif args.weights:
         state, cfg = load_npz(args.weights)
         pred = Predictor(state, _with_backend(cfg, args.conv_backend),
                          batch=max(buckets), device=args.device,
-                         model_version=args.weights)
+                         model_version=args.weights, precision=args.precision)
     else:
         cfg = _with_backend(get_config(args.config or DEFAULT_PRESET),
                             args.conv_backend)
         pred = Predictor.from_seed(cfg, args.seed, batch=max(buckets),
-                                   device=args.device)
+                                   device=args.device, precision=args.precision)
     service = InferenceService(pred, buckets=buckets,
                                max_wait_ms=args.max_wait_ms,
                                queue_limit=args.queue_limit)

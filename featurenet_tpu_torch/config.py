@@ -2,10 +2,11 @@
 ``featurenet_tpu/config.py`` that serving and training read).
 
 Kept: the model identity (``name``, ``task``, ``resolution``, ``arch``),
-``serve_precision``, ``seed``, the training recipe -- batch, data
-workers, eval batches, optimizer, schedule, label smoothing, clipping,
-``train_precision`` and the log/eval cadence -- with the JAX presets'
-values, and the checkpoint fields (``checkpoint_dir``,
+``serve_precision`` (``fp32``, ``bf16``, ``int8``), ``seed``, the training
+recipe -- batch, data workers, eval batches, optimizer, schedule, label
+smoothing, clipping, ``train_precision`` (``fp32``, ``bf16_master``,
+``fp16_scaled``; ``train/precision.py``) and the log/eval cadence -- with
+the JAX presets' values, and the checkpoint fields (``checkpoint_dir``,
 ``checkpoint_every``, ``keep_checkpoints``, ``init_from``). A
 ``config.json`` that the JAX package writes beside its checkpoints loads
 through ``config_from_dict`` (the fields the port lacks are dropped), and
@@ -33,6 +34,7 @@ from featurenet_tpu_torch.models.featurenet import (
     deep_arch,
     tiny_arch,
 )
+from featurenet_tpu_torch.train.precision import SERVE_PRECISIONS, TRAIN_PRECISIONS
 
 OPTIMIZERS = ("adamw", "adam", "sgd")
 
@@ -43,9 +45,10 @@ class Config:
     task: str = "classify"
     resolution: int = 64
     arch: FeatureNetArch = dataclasses.field(default_factory=FeatureNetArch)
-    # Serving weight precision. Only "fp32" is ported: the fp32 masters
-    # are what the forward reads (the model still computes in its bf16
-    # activation dtype, as in the JAX package).
+    # Serving weight precision (train/precision.py serve_params_cast):
+    # "fp32" masters, a "bf16" working copy, or "int8" per-channel
+    # quantized weights; the model computes in its bf16 activation dtype
+    # under each, as in the JAX package. Eval runs the same forward.
     serve_precision: str = "fp32"
     seed: int = 0
 
@@ -80,8 +83,9 @@ class Config:
     total_steps: int = 3000
     label_smoothing: float = 0.0
     grad_clip: float = 0.0
-    # Only "fp32" is ported: fp32 masters and fp32 gradients through the
-    # step (the model computes in its bf16 activation dtype).
+    # Training precision policy (train/precision.py): fp32 masters under
+    # each; "bf16_master" and "fp16_scaled" differentiate a bf16 or fp16
+    # working copy, "fp16_scaled" with dynamic loss scaling.
     train_precision: str = "fp32"
     log_every: int = 50
     eval_every: int = 500
@@ -113,15 +117,15 @@ class Config:
             raise ValueError(
                 f"task {self.task!r} is not ported; only 'classify' is"
             )
-        if self.serve_precision != "fp32":
+        if self.serve_precision not in SERVE_PRECISIONS:
             raise ValueError(
-                f"serve_precision {self.serve_precision!r} is not ported; "
-                "only 'fp32' is"
+                f"unknown serve_precision {self.serve_precision!r}; one of "
+                f"{', '.join(SERVE_PRECISIONS)}"
             )
-        if self.train_precision != "fp32":
+        if self.train_precision not in TRAIN_PRECISIONS:
             raise ValueError(
-                f"train_precision {self.train_precision!r} is not ported; "
-                "only 'fp32' is"
+                f"unknown train_precision {self.train_precision!r}; one of "
+                f"{', '.join(TRAIN_PRECISIONS)}"
             )
         if self.resolution < 1:
             raise ValueError(f"resolution must be >= 1, got {self.resolution}")

@@ -18,6 +18,9 @@ dict of numpy arrays ``jax.device_get(model.init(...))`` gives -- into a
 after ``clip_by_global_norm``), as ``jax.device_get`` gives it, to the
 port optimizer's moments keyed by parameter name and its ``count``; with
 both, a JAX run resumes in the port (``export_jax_checkpoint.py``).
+``scale_state_from_jax`` carries the loss-scale state (``loss_scale``,
+``good_steps``) of a JAX ``TrainState``, so a JAX ``fp16_scaled`` run
+resumes with its adapted scale.
 
 The port never imports JAX; only the tests build the Flax side.
 
@@ -104,6 +107,14 @@ def opt_from_optax(opt_state, arch: FeatureNetArch) -> dict:
     adam = found[0]
     return {"mu": _from_params(adam.mu, arch), "nu": _from_params(adam.nu, arch),
             "count": int(np.asarray(adam.count))}
+
+
+def scale_state_from_jax(state) -> dict[str, torch.Tensor]:
+    """``{"loss_scale": fp32, "good_steps": int32}`` 0-d tensors from the
+    leaves of a JAX ``TrainState`` (or anything with those two fields), as
+    ``jax.device_get`` gives them."""
+    return {"loss_scale": torch.tensor(np.asarray(state.loss_scale, np.float32)),
+            "good_steps": torch.tensor(np.asarray(state.good_steps, np.int32))}
 
 
 def save_npz(path: str, state: dict[str, torch.Tensor], cfg: Config) -> None:

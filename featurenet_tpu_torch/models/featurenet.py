@@ -18,7 +18,15 @@ same logits:
   kernel for dW); neither keeps the JAX VMEM fallback. ``"xla"``, the JAX
   default lowering (``nn.Conv``), runs ``HybridConv`` over ``conv3d_xla``:
   ``F.conv3d`` in the activation dtype with autograd, no kernel of this
-  package.
+  package. ``"fused33"`` runs its 3³ blocks through ``Fused33Conv``
+  (``ops/conv33.py``, 27 tap-shifted channel matmuls summed in fp32) and
+  any other stride-1 block through the ``xla`` block, as the JAX
+  ``ConvBNRelu`` does.
+- Parameters are fp32 masters; a reduced working copy (bf16, fp16, a
+  dequantized int8 tree; ``train/precision.py``) can stand in for them
+  through ``torch.func.functional_call``: each block casts what it reads
+  as the JAX modules do, and batch norm computes in fp32 whatever the
+  dtype of its ``scale`` and ``bias``.
 - ``forward(voxels, train=...)`` takes the mode explicitly, as the JAX
   ``apply(..., train=...)`` does; ``nn.Module.training`` is not read.
   In train mode batch norm normalises with the batch's statistics, in
@@ -53,6 +61,7 @@ from featurenet_tpu_torch.ops.conv3d import (
     conv3d_plain,
     conv3d_xla,
 )
+from featurenet_tpu_torch.ops.conv33 import Fused33Conv, fused33_conv
 from featurenet_tpu_torch.ops.stem import SpaceToDepthConv
 
 BN_EPS = 1e-5
@@ -63,6 +72,7 @@ CONV_BACKENDS = {
     "pallas": (PallasConv, conv3d_p, conv3d_plain),
     "hybrid_dw": (HybridConv, conv3d_hybrid, conv3d_hybrid_plain),
     "xla": (HybridConv, conv3d_xla, conv3d_xla),
+    "fused33": (Fused33Conv, fused33_conv, fused33_conv),
 }
 
 
@@ -81,11 +91,11 @@ class FeatureNetArch:
     num_classes: int = NUM_CLASSES
     head_gap: bool = False
     residual: bool = False
-    # Backend of the stride-1 blocks: "pallas", "hybrid_dw" or "xla" (see
-    # the module docstring). The port's presets keep "pallas", so its entry
-    # points run the hand-written kernels by default; the JAX presets
-    # default to "xla", which loads and runs here too. The JAX package's
-    # "fused33" is not ported (ROADMAP.md, Queue A.3).
+    # Backend of the stride-1 blocks: "pallas", "hybrid_dw", "xla" or
+    # "fused33" (see the module docstring). The port's presets keep
+    # "pallas", so its entry points run the hand-written kernels by
+    # default; the JAX presets default to "xla", which loads and runs here
+    # too.
     conv_backend: str = "pallas"
 
     def __post_init__(self):
@@ -94,8 +104,8 @@ class FeatureNetArch:
             raise ValueError("arch lists must have equal length")
         if self.conv_backend not in CONV_BACKENDS:
             raise ValueError(
-                f"conv_backend {self.conv_backend!r} is not ported (see "
-                f"ROADMAP.md, Queue A.3); one of {sorted(CONV_BACKENDS)}"
+                f"unknown conv_backend {self.conv_backend!r}; one of "
+                f"{sorted(CONV_BACKENDS)}"
             )
 
 
@@ -148,6 +158,8 @@ class ConvBNRelu(nn.Module):
                 )
             self.conv = SpaceToDepthConv(cin, features, kernel, stride, dtype)
         else:
+            if backend == "fused33" and kernel != 3:
+                backend = "xla"  # the 3³ specialization only; as in JAX
             block, conv, plain_conv = CONV_BACKENDS[backend]
             self.conv = block(cin, features, kernel, dtype,
                               conv=plain_conv if plain else conv)

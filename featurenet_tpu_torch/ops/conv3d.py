@@ -337,8 +337,12 @@ class PallasConv(nn.Module):
 
     Keeps the JAX module's cast order: activations go to fp32, through the
     kernel, and back to the model dtype. ``kernel`` is ``[K,K,K,Cin,Cout]``
-    fp32, as in the JAX module. ``conv`` is the function applied, the
-    kernel's wrapper unless a caller passes ``conv3d_plain``.
+    fp32, as in the JAX module; a reduced working copy of it (bf16, fp16 or
+    dequantized int8, ``train/precision.py``) is widened to fp32 by a
+    differentiable cast, so the fp32 kernels see its values and its weight
+    gradient comes back at its dtype, as the JAX ``_vjp_bwd`` returns
+    ``dw.astype(w.dtype)``. ``conv`` is the function applied, the kernel's
+    wrapper unless a caller passes ``conv3d_plain``.
     """
 
     def __init__(self, cin: int, features: int, kernel_size: int,
@@ -352,16 +356,18 @@ class PallasConv(nn.Module):
         self.conv = conv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x.float().contiguous(), self.kernel).to(self.dtype)
+        return self.conv(x.float().contiguous(),
+                         self.kernel.float()).to(self.dtype)
 
 
 class HybridConv(nn.Module):
     """Stride-1 SAME conv block in the activation dtype (no bias), backed
     by ``conv3d_hybrid`` or, for ``conv_backend="xla"``, ``conv3d_xla``.
 
-    Activations stay in ``dtype`` and the fp32 kernel is cast to it, as the
-    JAX module's ``_xla_conv`` and ``nn.Conv`` do; the weight gradient comes
-    back fp32. ``conv`` is ``conv3d_hybrid`` unless a caller passes
+    Activations stay in ``dtype`` and the kernel is cast to it, as the JAX
+    module's ``_xla_conv`` and ``nn.Conv`` do; the weight gradient comes
+    back at the kernel's dtype (fp32 for the masters, the working dtype for
+    a reduced working copy). ``conv`` is ``conv3d_hybrid`` unless a caller passes
     ``conv3d_hybrid_plain`` or ``conv3d_xla``.
     """
 

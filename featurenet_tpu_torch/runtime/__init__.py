@@ -1,9 +1,11 @@
 """Model construction and the serving forward (port of
 ``featurenet_tpu/runtime/registry.py``'s ``build_model`` and ``_serve_fn``).
 
-The JAX registry compiles one program per batch shape; PyTorch runs
-eagerly, so here the serving forward is a plain function:
-logits → fp32 softmax.
+The JAX registry compiles one program per batch shape and precision;
+PyTorch runs eagerly, so here the serving forward is a plain function:
+logits → fp32 softmax, over the model's own parameters or over a working
+copy of them (``train/precision.py``). ``runtime/quantize.py`` holds the
+int8 quantizer and the agreement gate.
 """
 
 from __future__ import annotations
@@ -40,7 +42,20 @@ def build_model(cfg: Config, seed: int | None = None,
     return model.eval()
 
 
+def forward_with(model: FeatureNet, params: dict[str, torch.Tensor] | None,
+                 voxels: torch.Tensor, **kw) -> torch.Tensor:
+    """``model``'s logits with ``params`` (name → tensor, e.g. a bf16 or
+    dequantized working copy) in place of its parameters; its buffers, the
+    batch-norm statistics, are its own. ``params=None`` runs the model as
+    it is."""
+    if params is None:
+        return model(voxels, **kw)
+    return torch.func.functional_call(model, params, (voxels,), kw)
+
+
 @torch.inference_mode()
-def serve_forward(model: FeatureNet, voxels: torch.Tensor) -> torch.Tensor:
-    """``[B,R,R,R,1]`` voxels → fp32 class probabilities ``[B, classes]``."""
-    return torch.softmax(model(voxels), dim=-1)
+def serve_forward(model: FeatureNet, voxels: torch.Tensor,
+                  params: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
+    """``[B,R,R,R,1]`` voxels → fp32 class probabilities ``[B, classes]``,
+    with ``params`` in place of the model's parameters when given."""
+    return torch.softmax(forward_with(model, params, voxels), dim=-1)

@@ -5,6 +5,8 @@ plane, flight recorder, incidents, fault sites and weight reloads).
 - **Warmup**: construction runs one forward per bucket, so the kernels are
   built and loaded and every shape the batcher can dispatch has run once
   before the first request.
+- **Precision**: the service serves its ``Predictor``'s precision
+  (``fp32``, ``bf16``, ``int8``), which ``stats`` (``GET /stats``) reports.
 - **The upload path**: ``submit_stl_bytes`` parses and voxelizes raw STL
   bytes in the caller's thread (an HTTP worker), never the dispatch
   thread, then enqueues the grid.
@@ -44,6 +46,9 @@ class InferenceService:
                  batch_queue_limit: Optional[int] = None):
         self.predictor = predictor
         self.cfg = predictor.cfg
+        # The Predictor's serving precision (None for a predictor that
+        # names none).
+        self.precision = getattr(predictor, "precision", None)
         self.buckets = normalize_buckets(buckets)
         self._t_start = time.perf_counter()
         self._ready = False
@@ -98,7 +103,8 @@ class InferenceService:
 
     # -- lifecycle -----------------------------------------------------------
     def stats(self) -> dict:
-        return self.batcher.stats()
+        """The batcher's counters and the Predictor's serving precision."""
+        return {**self.batcher.stats(), "precision": self.precision}
 
     def ready(self) -> bool:
         """True between warmup completing and drain beginning."""

@@ -4,8 +4,15 @@
 A step is everything a run needs to resume: the model's ``state_dict``
 (fp32 master parameters and the batch-norm ``mean``/``var`` buffers), the
 optimizer's kind, moments ``mu`` and ``nu`` keyed by parameter name, its
-``count`` (the schedule's step), and ``TrainState.step`` (the dropout
-seed's step). Layout of a checkpoint directory:
+``count`` (the schedule's step), ``TrainState.step`` (the dropout seed's
+step), and the loss-scale state ``loss_scale`` and ``good_steps`` (inert
+outside ``fp16_scaled``). The masters are fp32 under every precision
+policy, so a step restores into a run of any ``train_precision``, with its
+scale state: fp16_scaled → fp32 → fp16_scaled keeps the adapted scale. A
+step saved before the scale state was kept has neither key; it restores
+with the live state's scale state standing in (a fresh state's: 1.0 and
+0, or ``LOSS_SCALE_INIT`` and 0 under ``fp16_scaled``), as the
+reference's ``legacy_abstract`` does. Layout of a checkpoint directory:
 
 - ``step_<n>.pt``: one step, a ``torch.save`` of plain tensors, ints and
   strings, written as ``step_<n>.pt.tmp`` and renamed once whole. It is
@@ -35,8 +42,8 @@ What the reference's manager guarantees, this one keeps:
 - Restores copy into the live tensors (``copy_``), so the optimizer, which
   holds the parameter tensors, keeps updating the model's parameters.
 
-Not ported: the fault-injection sites (``faults.py``), the multi-process
-lockstep save, and the loss-scale state (``fp16_scaled`` is not ported).
+Not ported: the fault-injection sites (``faults.py``) and the
+multi-process lockstep save.
 """
 
 from __future__ import annotations
@@ -58,6 +65,9 @@ from featurenet_tpu_torch.config import Config, config_from_dict, config_to_dict
 CONFIG_FILENAME = "config.json"
 
 _STEP_RE = re.compile(r"^step_(\d+)\.pt$")
+# The tensor groups of a step, and its loose tensors.
+_GROUPS = ("model", "mu", "nu")
+_SCALE_KEYS = ("loss_scale", "good_steps")
 
 
 def load_run_config(directory: str) -> Optional[Config]:
@@ -120,6 +130,7 @@ def _snapshot(state) -> dict:
         "model": {k: v.detach().clone() for k, v in model.state_dict().items()},
         "mu": {n: t.detach().clone() for n, t in zip(names, opt.mu)},
         "nu": {n: t.detach().clone() for n, t in zip(names, opt.nu)},
+        **{k: getattr(state, k).detach().clone() for k in _SCALE_KEYS},
     }
 
 
@@ -158,6 +169,9 @@ def _apply(state, payload: dict, optimizer: bool) -> None:
                 t.copy_(payload[key][n])
         opt.count = int(payload["count"])
         state.step = int(payload["step"])
+        for k in _SCALE_KEYS:
+            if k in payload:
+                getattr(state, k).copy_(payload[k])
 
 
 class CheckpointManager:
@@ -280,14 +294,18 @@ class CheckpointManager:
             self._stream = torch.cuda.Stream(
                 next(iter(snap["model"].values())).device)
         out = dict(snap)
+
+        def pinned(v):
+            host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host.copy_(v, non_blocking=True)
+            return host
+
         with torch.cuda.stream(self._stream):
             self._stream.wait_event(event)
-            for key in ("model", "mu", "nu"):
-                host = {}
-                for k, v in snap[key].items():
-                    host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                    host[k].copy_(v, non_blocking=True)
-                out[key] = host
+            for key in _GROUPS:
+                out[key] = {k: pinned(v) for k, v in snap[key].items()}
+            for key in _SCALE_KEYS:
+                out[key] = pinned(snap[key])
         self._stream.synchronize()
         return out
 
@@ -380,8 +398,8 @@ class CheckpointManager:
 
     def restore(self, state, step: Optional[int] = None,
                 cleanup: bool = False):
-        """Restore ``state`` (model, optimizer moments and count, step) in
-        place from ``step``, or from the newest step that verifies; returns
+        """Restore ``state`` (model, optimizer moments and count, step,
+        loss-scale state) in place from ``step``, or from the newest step that verifies; returns
         ``state``. ``cleanup`` also deletes the newer steps that failed:
         only the caller that owns the directory and re-saves those steps
         (``Trainer.resume_if_available``) passes it."""

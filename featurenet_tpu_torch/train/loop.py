@@ -13,6 +13,11 @@ from a port ``state_dict``, e.g. one bridged from a JAX run by
   producer thread runs. A failed upload or draw raises; nothing falls
   back to host streaming.
 
+The state trains under ``cfg.train_precision`` (``train/precision.py``:
+fp32 masters, a bf16 or fp16 working copy, loss scaling under
+``fp16_scaled``, whose ``loss_scale`` and ``grads_finite`` are logged with
+the loss), and eval runs the forward of ``cfg.serve_precision``.
+
 With ``cfg.device_augment`` the step rotates each batch by cube-group
 codes. Dropout, the rotation codes and the resident draw each have their
 own generator, seeded from ``(seed, step)`` before every step, so a
@@ -87,19 +92,21 @@ def eval_dataset(cfg: Config):
                                  seed=cfg.seed + EVAL_SEED_OFFSET)
 
 
-def evaluate(model, data, batches: int, device) -> dict:
-    """Eval metrics of ``model``: over one exact pass of a cache split
-    (``batches`` is not read), or over the first ``batches`` batches of a
-    synthetic stream. ``batches`` and ``samples`` in the result count what
-    was evaluated."""
+def evaluate(model, data, batches: int, device,
+             serve_precision: str = "fp32") -> dict:
+    """Eval metrics of ``model`` at ``serve_precision``: over one exact
+    pass of a cache split (``batches`` is not read), or over the first
+    ``batches`` batches of a synthetic stream. ``batches`` and ``samples``
+    in the result count what was evaluated."""
     if isinstance(data, VoxelCacheDataset):
         sums = [eval_step(model, {k: torch.from_numpy(v).to(device)
-                                  for k, v in batch.items()})
+                                  for k, v in batch.items()}, serve_precision)
                 for batch in data.epoch_batches(data.global_batch)]
     else:
         stream = Prefetcher(data, device, num_workers=1)
         try:
-            sums = [eval_step(model, next(stream)) for _ in range(batches)]
+            sums = [eval_step(model, next(stream), serve_precision)
+                    for _ in range(batches)]
         finally:
             stream.close()
     out = aggregate_eval(sums)
@@ -195,9 +202,11 @@ class Trainer:
         return self.state.step
 
     def evaluate(self) -> dict:
-        """Eval over the held-out data (the same batches at every call)."""
+        """Eval over the held-out data (the same batches at every call), at
+        ``cfg.serve_precision``."""
         return evaluate(self.state.model, self.eval_data,
-                        self.cfg.eval_batches, self.device)
+                        self.cfg.eval_batches, self.device,
+                        self.cfg.serve_precision)
 
     def run(self, num_steps: int | None = None) -> dict:
         cfg = self.cfg

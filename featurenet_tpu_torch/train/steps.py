@@ -1,5 +1,5 @@
 """Train and eval steps, loss, learning-rate schedule and optimizers (port
-of ``featurenet_tpu/train/steps.py``, classify task, fp32 policy).
+of ``featurenet_tpu/train/steps.py``, classify task).
 
 PyTorch runs eagerly, so a step is a plain function that runs forward,
 backward and the update on the state's model in place. The optimizers are
@@ -25,6 +25,27 @@ cube-group codes the caller drew (``ops/augment.py``), as the reference's
 ``make_hbm_multi_train_step`` at one step per dispatch) gathers its batch
 from a split that lives on the device, at row indices the caller drew
 there (``draw_rows``), and runs the same step.
+
+The step follows the state's precision policy (``train/precision.py``):
+under ``bf16_master`` and ``fp16_scaled`` the forward runs on a working
+copy of the parameters (``torch.func.functional_call``) and the gradients
+are taken with respect to that copy, so they are stored, rounded and, in
+fp16, overflow at the working dtype, as the JAX step's do; they are upcast
+to fp32 before the update. ``fp16_scaled`` is the port of the reference's
+``_scaled_update``: the loss is scaled by ``state.loss_scale``, the
+gradients upcast and then unscaled, one finiteness verdict taken over all
+of them, and a non-finite step skipped bitwise: parameters, moments, the
+optimizer's count and the batch-norm statistics (which the forward moves
+in place, so they are restored from a snapshot with ``torch.where``) keep
+their bits; only ``state.step`` advances and the scale halves. The
+verdict is read on the host once per ``fp16_scaled`` step (one
+synchronisation): the learning rate comes from the optimizer's count on
+the host, which a skipped step must leave as it was. ``fp32`` and
+``bf16_master`` steps do not synchronise.
+
+``eval_step`` applies the serving precision's cast (``serve_params_cast``)
+before its forward, as the reference's ``make_eval_step`` does, so
+held-out eval measures the forward serving runs.
 """
 
 from __future__ import annotations
@@ -37,6 +58,15 @@ import torch
 import torch.nn.functional as F
 
 from featurenet_tpu_torch.ops.augment import group_count, rotate_groups
+from featurenet_tpu_torch.runtime import forward_with
+from featurenet_tpu_torch.train.precision import (
+    LOSS_SCALE_GROWTH_INTERVAL,
+    LOSS_SCALE_MAX,
+    LOSS_SCALE_MIN,
+    POLICIES,
+    PrecisionPolicy,
+    serve_params_cast,
+)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 SGD_MOMENTUM = 0.9
@@ -157,13 +187,63 @@ def make_optimizer(cfg, params: Sequence[torch.Tensor]) -> Optimizer:
 
 def loss_and_grads(model, voxels: torch.Tensor, labels: torch.Tensor,
                    label_smoothing: float = 0.0,
-                   generator: torch.Generator | None = None):
+                   generator: torch.Generator | None = None,
+                   policy: PrecisionPolicy = POLICIES["fp32"],
+                   loss_scale: torch.Tensor | None = None):
     """Train-mode forward (batch statistics move) and the gradient of the
-    loss for every parameter, in ``model.parameters()`` order."""
-    logits = model(voxels, train=True, generator=generator)
+    loss (times ``loss_scale`` when given) for every parameter, in
+    ``model.parameters()`` order, with respect to ``policy``'s working
+    copy: the masters under ``fp32``, else a cast of them, whose gradients
+    come back at the working dtype. Metrics hold the unscaled loss."""
+    if policy.working_dtype is None:
+        logits = model(voxels, train=True, generator=generator)
+        leaves = list(model.parameters())
+    else:
+        work = policy.working_params(dict(model.named_parameters()))
+        logits = forward_with(model, work, voxels, train=True,
+                              generator=generator)
+        leaves = list(work.values())
     loss, metrics = classification_loss(logits, labels, label_smoothing)
-    grads = torch.autograd.grad(loss, list(model.parameters()))
+    target = loss if loss_scale is None else loss * loss_scale
+    grads = torch.autograd.grad(target, leaves)
     return grads, metrics
+
+
+def _scaled_update(state, voxels, labels, label_smoothing, generator) -> dict:
+    """The ``fp16_scaled`` step (the reference's ``_scaled_update``): scale
+    the loss, upcast then unscale the gradients, one finiteness verdict;
+    apply, or skip bitwise with the batch-norm statistics put back; grow
+    the scale after ``LOSS_SCALE_GROWTH_INTERVAL`` finite steps in a row,
+    halve it on a non-finite one."""
+    model, policy, scale = state.model, state.policy, state.loss_scale
+    stats = [b.detach().clone() for b in model.buffers()]
+    grads, metrics = loss_and_grads(model, voxels, labels, label_smoothing,
+                                    generator, policy, loss_scale=scale)
+    # Upcast first, then unscale: dividing in fp16 would overflow again.
+    inv = 1.0 / scale
+    grads = [g * inv for g in policy.master_grads(grads)]
+    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    with torch.no_grad():
+        for b, old in zip(model.buffers(), stats):
+            b.copy_(torch.where(finite, b, old))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["grad_norm"] = global_norm(grads)
+    if bool(finite):  # the one host read of the step
+        state.apply_gradients(grads)
+    else:
+        state.step += 1
+    good = torch.where(finite, state.good_steps + 1,
+                       torch.zeros_like(state.good_steps))
+    grow = good >= LOSS_SCALE_GROWTH_INTERVAL
+    new_scale = torch.where(
+        finite,
+        torch.where(grow, torch.clamp(scale * 2.0, max=LOSS_SCALE_MAX), scale),
+        torch.clamp(scale * 0.5, min=LOSS_SCALE_MIN))
+    state.good_steps.copy_(torch.where(grow, torch.zeros_like(good), good))
+    state.loss_scale.copy_(new_scale)
+    metrics["loss_scale"] = new_scale
+    metrics["grads_finite"] = finite.float()
+    return metrics
 
 
 def make_train_step(label_smoothing: float = 0.0,
@@ -174,7 +254,9 @@ def make_train_step(label_smoothing: float = 0.0,
     ``augment_groups > 0``, ``codes`` are the cube-group codes of the
     batch's ``group_count(B, augment_groups)`` slices
     (``augment.draw_codes``). Metrics are device scalars: ``loss``,
-    ``accuracy`` and ``grad_norm``, the global norm of the gradients."""
+    ``accuracy`` and ``grad_norm``, the global norm of the gradients, and
+    under ``fp16_scaled`` ``loss_scale`` (after the verdict) and
+    ``grads_finite`` (1.0 or 0.0)."""
 
     def train_step(state, batch: dict, generator=None, codes=None) -> dict:
         if augment_groups:
@@ -186,8 +268,13 @@ def make_train_step(label_smoothing: float = 0.0,
             raise ValueError("rotation codes given to a step built without "
                              "augment_groups")
         voxels = step_voxels(batch["voxels"], codes)
+        policy = state.policy
+        if policy.loss_scaling:
+            return _scaled_update(state, voxels, batch["label"],
+                                  label_smoothing, generator)
         grads, metrics = loss_and_grads(state.model, voxels, batch["label"],
-                                        label_smoothing, generator)
+                                        label_smoothing, generator, policy)
+        grads = policy.master_grads(grads)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
         state.apply_gradients(grads)
@@ -226,10 +313,15 @@ def make_resident_train_step(label_smoothing: float = 0.0,
 
 
 @torch.no_grad()
-def eval_step(model, batch: dict) -> dict:
+def eval_step(model, batch: dict, serve_precision: str = "fp32") -> dict:
     """Eval sums (not means) of one wire batch, so batches add up exactly:
-    ``correct``, ``loss_sum``, ``count`` and ``confusion`` [true, pred]."""
-    logits = model(unpack_voxels(batch["voxels"]), train=False)
+    ``correct``, ``loss_sum``, ``count`` and ``confusion`` [true, pred].
+    The forward reads ``serve_params_cast(params, serve_precision)`` of the
+    model's parameters (the masters as they are under ``fp32``)."""
+    params = (None if serve_precision == "fp32" else
+              serve_params_cast(dict(model.named_parameters()), serve_precision))
+    logits = forward_with(model, params, unpack_voxels(batch["voxels"]),
+                          train=False)
     labels = batch["label"].long()
     mask = batch["mask"].float()
     pred = logits.argmax(dim=-1)

@@ -251,3 +251,76 @@ def test_predictor_from_checkpoint_serves_the_trained_weights(tmp_path):
         want = torch.softmax(tr.state.model(torch.from_numpy(grids[..., None])), -1)
     np.testing.assert_array_equal(probs, want.numpy())
     np.testing.assert_array_equal(labels, want.argmax(-1).numpy())
+
+
+def _run(tmp_path, precision, steps, batches):
+    tr = _trainer(_cfg(tmp_path / "ck", train_precision=precision))
+    tr.resume_if_available()
+    for b in batches[tr.state.step:steps]:
+        tr.step(b)
+    tr.ckpt.save(tr.state)
+    tr.ckpt.close()
+    return tr
+
+
+def test_loss_scale_state_round_trips_across_precisions(tmp_path):
+    """fp16_scaled → fp32 → fp16_scaled, as the reference's
+    ``test_loss_scale_state_survives_checkpoint_and_cross_precision``:
+    the masters bitwise throughout, the adapted scale and streak carried
+    through the fp32 run untouched, and the resumed fp16 run continuing
+    from them instead of ``LOSS_SCALE_INIT``."""
+    from featurenet_tpu_torch.train.precision import LOSS_SCALE_INIT
+
+    batches = _batches(4)
+    first = _run(tmp_path, "fp16_scaled", 2, batches)
+    # An adapted state, as an overflow and a streak would leave it.
+    first.state.loss_scale.fill_(LOSS_SCALE_INIT / 4)
+    first.state.good_steps.fill_(7)
+    first.ckpt.save(first.state)
+    first.ckpt.close()
+    saved = _state(first)
+
+    as32 = _trainer(_cfg(tmp_path / "ck", train_precision="fp32"))
+    assert as32.resume_if_available() == 2
+    assert as32.state.precision == "fp32"
+    _assert_equal(_state(as32), saved)
+    assert float(as32.state.loss_scale) == LOSS_SCALE_INIT / 4
+    assert int(as32.state.good_steps) == 7
+    as32.step(batches[2])  # an fp32 step leaves the scale state alone
+    assert float(as32.state.loss_scale) == LOSS_SCALE_INIT / 4
+    as32.ckpt.save(as32.state)
+    as32.ckpt.close()
+
+    back = _trainer(_cfg(tmp_path / "ck", train_precision="fp16_scaled"))
+    assert back.resume_if_available() == 3
+    _assert_equal(_state(back), _state(as32))
+    assert (float(back.state.loss_scale), int(back.state.good_steps)) == \
+        (LOSS_SCALE_INIT / 4, 7)
+    m = back.step(batches[3])
+    assert float(m["grads_finite"]) == 1.0
+    assert int(back.state.good_steps) == 8
+    assert float(back.state.loss_scale) == LOSS_SCALE_INIT / 4
+    assert back.state.loss_scale.dtype == torch.float32
+    assert back.state.good_steps.dtype == torch.int32
+
+
+@pytest.mark.parametrize("precision,scale", [("fp32", 1.0),
+                                             ("fp16_scaled", 2.0 ** 15)])
+def test_checkpoint_without_the_scale_state_restores(tmp_path, precision, scale):
+    """A step written before the scale state was kept (no ``loss_scale``
+    or ``good_steps``) restores with the live state's standing in, as the
+    reference's ``legacy_abstract`` does: a fresh state's 1.0 and 0, or
+    ``LOSS_SCALE_INIT`` and 0 under fp16_scaled."""
+    tr, states = _saved_steps(tmp_path, steps=2)
+    path = os.path.join(tmp_path / "ck", checkpoint.step_filename(2))
+    payload = torch.load(path, weights_only=True)
+    assert {"loss_scale", "good_steps"} <= set(payload)
+    for k in ("loss_scale", "good_steps"):
+        del payload[k]
+    torch.save(payload, path)
+    os.unlink(checkpoint.checksum_path(str(tmp_path / "ck"), 2))
+    fresh = _trainer(_cfg(tmp_path / "ck", train_precision=precision))
+    assert fresh.resume_if_available() == 2
+    _assert_equal(_state(fresh), states[2])
+    assert float(fresh.state.loss_scale) == scale
+    assert int(fresh.state.good_steps) == 0

@@ -190,3 +190,82 @@ def test_cli_checkpoint_commands_refuse_missing_card(trained, cmd):
     out, err = proc.communicate(timeout=120)
     assert proc.returncode != 0 and "no CUDA device" in err
     assert "serving" not in out and '"eval"' not in out
+
+
+def test_cli_train_eval_and_infer_at_the_rungs(tmp_path):
+    """``--train-precision fp16_scaled --serve-precision int8 --conv-backend
+    fused33`` on ``train``: the config carries them, the records the scale,
+    and the train-time eval runs at int8; ``eval`` reproduces it from the
+    checkpoint and ``--serve-precision bf16`` evaluates another rung;
+    ``infer --precision bf16`` classifies at bf16."""
+    from featurenet_tpu_torch.data.mesh_primitives import mesh_box
+    from featurenet_tpu_torch.data.stl import save_stl
+
+    ck = str(tmp_path / "ck")
+    proc = _cli("train", *TRAIN, "--total-steps", "2", "--checkpoint-dir", ck,
+                "--train-precision", "fp16_scaled", "--serve-precision", "int8",
+                "--conv-backend", "fused33")
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err
+    records = _records(out)
+    cfg = records[0]["config"]
+    assert (cfg["train_precision"], cfg["serve_precision"],
+            cfg["arch"]["conv_backend"]) == ("fp16_scaled", "int8", "fused33")
+    train = [r for r in records[1:] if r["kind"] == "train"][-1]
+    assert train["loss_scale"] > 0 and train["grads_finite"] == 1.0
+    want = [r for r in records[1:] if r["kind"] == "eval"][-1]
+    proc = _cli("eval", "--device", "cpu", "--checkpoint-dir", ck)
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err
+    got = _records(out)[-1]["eval"]
+    assert got["serve_precision"] == "int8"
+    assert (got["accuracy"], got["loss"]) == (want["accuracy"], want["loss"])
+    proc = _cli("eval", "--device", "cpu", "--checkpoint-dir", ck,
+                "--serve-precision", "bf16")
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err
+    assert _records(out)[-1]["eval"]["serve_precision"] == "bf16"
+    path = str(tmp_path / "part.stl")
+    save_stl(path, mesh_box((0.1, 0.1, 0.1), (0.8, 0.6, 0.4)))
+    proc = _cli("infer", "--device", "cpu", "--checkpoint-dir", ck,
+                "--precision", "bf16", path)
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err
+    row = _records(out)[-1]
+    assert row["precision"] == "bf16" and 0 <= row["label"] < 24
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+def test_cli_serve_at_a_precision_reports_it(precision):
+    proc = _cli("serve", "--seed", "3", "--config", "smoke16", "--device", "cpu",
+                "--port", "0", "--buckets", "1,4", "--duration-s", "120",
+                "--precision", precision)
+    try:
+        banner = json.loads(proc.stdout.readline())["serving"]
+        assert banner["precision"] == precision
+        conn = http.client.HTTPConnection("127.0.0.1", banner["port"], timeout=60)
+        grid = np.zeros((16, 16, 16), "<f4")
+        grid[4:12, 4:12, 4:12] = 1.0
+        conn.request("POST", "/predict_voxels", body=grid.tobytes())
+        resp = conn.getresponse()
+        assert resp.status == 200 and 0 < json.loads(resp.read())["prob"] <= 1
+        conn.request("GET", "/stats")
+        resp = conn.getresponse()
+        assert json.loads(resp.read())["precision"] == precision
+        conn.close()
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+
+
+def test_cli_refuses_an_unknown_precision():
+    for args in (("train", "--train-precision", "fp8"),
+                 ("serve", "--seed", "0", "--precision", "fp16"),
+                 ("eval", "--checkpoint-dir", "x", "--serve-precision", "int4")):
+        proc = _cli(*args, "--device", "cpu")
+        out, err = proc.communicate(timeout=120)
+        assert proc.returncode == 2 and "invalid choice" in err

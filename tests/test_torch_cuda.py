@@ -10,7 +10,9 @@ checks and the forward's C entry refusing a launch it cannot run; the
 Predictor and
 a smoke16 train step on the card against the same on the CPU; a checkpoint
 saved while steps run, and restored onto the card; the resident split's
-draw against the host gather and the cube rotations against the CPU.
+draw against the host gather and the cube rotations against the CPU; an
+``fp16_scaled`` step that overflows skipped bitwise on the card; the int8
+Predictor's weights resident on the card as int8.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -457,3 +459,72 @@ def test_rotation_on_card_equals_cpu(cuda):
         assert torch.equal(rotate_grids(on, code).cpu(), rotate_grids(x, code)), code
     codes = [5, 23, 0, 11]
     assert torch.equal(rotate_groups(on, codes).cpu(), rotate_groups(x, codes))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "hybrid_dw"])
+def test_fp16_overflow_skip_is_bitwise_on_card(cuda, backend):
+    """An ``fp16_scaled`` smoke16 step on the card at loss scale 2^30
+    overflows and is skipped bitwise (parameters, Adam moments, count,
+    batch-norm statistics), the step advances and the scale halves; the
+    kernels ran for it. A bf16_master step through the kernels moves the
+    masters, which stay fp32."""
+    import dataclasses
+    import io
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.ops import conv3d, conv_dw
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cfg = get_config("smoke16", global_batch=8, warmup_steps=1,
+                     train_precision="fp16_scaled")
+    cfg = dataclasses.replace(cfg, arch=dataclasses.replace(cfg.arch,
+                                                            conv_backend=backend))
+    tr = Trainer(cfg, device=cuda, stream=io.StringIO())
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in next(tr.train_data.worker_iter(0)).items()}
+    for _ in range(2):
+        tr.step(batch)
+    tr.state.loss_scale.fill_(2.0 ** 30)
+    opt = tr.state.optimizer
+    before = ([v.clone() for v in tr.state.model.state_dict().values()]
+              + [t.clone() for t in opt.mu + opt.nu])
+    count, step = opt.count, tr.state.step
+    fwd, dw = conv3d.conv3d_fwd_launches, conv_dw.conv_dw_folded_launches
+    m = tr.step(batch)
+    assert float(m["grads_finite"]) == 0.0
+    assert (float(tr.state.loss_scale), int(tr.state.good_steps)) == (2.0 ** 29, 0)
+    assert (opt.count, tr.state.step) == (count, step + 1)
+    after = ([v for v in tr.state.model.state_dict().values()]
+             + list(opt.mu + opt.nu))
+    for a, b in zip(before, after):
+        assert torch.equal(a, b)
+    if backend == "pallas":
+        # 2 forward, 1 dx: the first block's input (the voxels) needs none.
+        assert conv3d.conv3d_fwd_launches == fwd + 3
+    else:
+        assert conv_dw.conv_dw_folded_launches == dw + 2
+
+
+def test_int8_predictor_keeps_int8_on_card(cuda):
+    """The int8 Predictor's weights sit on the card as int8 (plus fp32
+    scales, biases and batch-norm vectors), a quarter of the fp32 bytes
+    and then some; its module parameters hold no device memory; it serves
+    through the forward kernel."""
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.ops import conv3d
+
+    cfg = get_config("smoke16")
+    full = Predictor.from_seed(cfg, 0, batch=4, device=cuda)
+    q = Predictor.from_seed(cfg, 0, batch=4, device=cuda, precision="int8")
+    ints = [t for t in q._qparams.values() if t.dtype == torch.int8]
+    assert ints and all(t.is_cuda for t in ints)
+    assert all(t.is_cuda for t in q._scales.values())
+    assert all(p.is_meta for p in q.model.parameters())
+    assert q.resident_weight_bytes < 0.3 * full.resident_weight_bytes
+    x = np.zeros((4, 16, 16, 16, 1), np.float32)
+    x[:, 4:12, 4:12, 4:12] = 1.0
+    n = conv3d.conv3d_fwd_launches
+    probs = q.forward_padded(x)
+    assert conv3d.conv3d_fwd_launches == n + 2
+    np.testing.assert_allclose(probs, full.forward_padded(x), atol=5e-2)

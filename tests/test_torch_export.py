@@ -173,3 +173,62 @@ def test_exported_jax_run_resumes_in_the_port(tmp_path):
         diff = (got[k] - want[k]).abs()
         assert float(diff.max()) <= bound, k
         assert float((diff <= 1e-5).float().mean()) >= 0.99, k
+
+
+def test_exported_fp16_scaled_run_resumes_with_its_scale(tmp_path):
+    """A JAX ``fp16_scaled`` run, exported, resumes in the port with its
+    loss-scale state (``convert.scale_state_from_jax``), the masters and
+    moments bitwise, and takes the same next step: the same scale verdict
+    and, within ``tests/test_torch_precision.py``'s tolerances, the same
+    loss."""
+    jck, pck = str(tmp_path / "jax"), str(tmp_path / "port")
+    arch = JaxArch(features=(8, 8, 16, 16), kernels=(5, 3, 3, 3),
+                   strides=(4, 1, 1, 1), pool_after=(False, False, False, True),
+                   hidden=32, dropout=0.0)
+    jcfg = jax_get_config("smoke16", arch=arch, global_batch=8, total_steps=2,
+                          eval_batches=1, data_workers=1, checkpoint_dir=jck,
+                          checkpoint_every=1, log_every=1,
+                          train_precision="fp16_scaled")
+    jtrainer = JaxTrainer(jcfg)
+    jtrainer.run()
+    jscale = float(jtrainer.state.loss_scale)
+    jgood = int(jtrainer.state.good_steps)
+    assert export_jax_checkpoint.export(jck, pck) == 2
+
+    cfg = load_run_config(pck)
+    assert cfg.train_precision == "fp16_scaled"
+    port = Trainer(cfg, device="cpu")
+    assert port.resume_if_available() == 2
+    assert port.state.precision == "fp16_scaled"
+    assert float(port.state.loss_scale) == jscale
+    assert int(port.state.good_steps) == jgood
+    want = convert.from_flax(_np({"params": jtrainer.state.params,
+                                  "batch_stats": jtrainer.state.batch_stats}),
+                             cfg.arch)
+    for k, v in port.state.model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+
+    r = cfg.resolution
+    jmodel = JaxFeatureNet(arch=jcfg.arch, dtype=jnp.float32)
+    template = jax_create_state(jmodel, jax_steps.make_optimizer(jcfg),
+                                jnp.zeros((1, r, r, r, 1)), jax.random.key(9),
+                                precision="fp16_scaled")
+    mgr = JaxManager(jck)
+    jstate = mgr.restore(template)
+    mgr.close()
+    model = FeatureNet(cfg.arch, r, dtype=torch.float32)
+    state = create_state(model, cfg)
+    CheckpointManager(pck).restore(state)
+    assert float(state.loss_scale) == float(jstate.loss_scale) == jscale
+    batch = synthetic.to_wire(synthetic.generate_batch(
+        np.random.default_rng(5), 8, r))
+    jstep = jax.jit(jax_steps.make_train_step(jmodel, packed=True))
+    jstate, jm = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch),
+                       jax.random.key(1))
+    tm = steps.make_train_step()(state, {k: torch.from_numpy(v)
+                                         for k, v in batch.items()})
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
+    assert float(tm["grads_finite"]) == float(jm["grads_finite"])
+    assert float(state.loss_scale) == float(jstate.loss_scale)
+    assert int(state.good_steps) == int(jstate.good_steps)
+    assert state.step == int(jstate.step) == 3

@@ -355,10 +355,16 @@ def test_training_refuses_what_is_not_ported():
         get_config("sprint64", steps_per_dispatch=8).validate_training()
     with pytest.raises(ValueError, match="augment_noise.*not ported for training"):
         get_config("sprint64", augment_noise=0.005).validate_training()
-    with pytest.raises(ValueError, match="not ported"):
-        get_config("sprint64", train_precision="bf16_master")
-    with pytest.raises(ValueError, match="not ported.*ROADMAP"):
-        dataclasses.replace(get_config("sprint64").arch, conv_backend="fused33")
+    # The precision rungs and the fused33 lowering are ported; an unknown
+    # name of either still raises.
+    for prec in ("bf16_master", "fp16_scaled"):
+        get_config("sprint64", train_precision=prec).validate_training()
+    with pytest.raises(ValueError, match="unknown train_precision"):
+        get_config("sprint64", train_precision="fp8")
+    arch = dataclasses.replace(get_config("sprint64").arch, conv_backend="fused33")
+    assert arch.conv_backend == "fused33"
+    with pytest.raises(ValueError, match="unknown conv_backend"):
+        dataclasses.replace(arch, conv_backend="fused55")
     get_config("sprint64").validate_training()
     cached = get_config("sprint64", data_cache=".data/c", hbm_cache=True)
     assert cached.validate_training() is cached and cached.device_augment
