@@ -24,12 +24,29 @@ Phases, in order; any failure exits non-zero before the last line:
      gradient (aten.convolution_backward) in the kernel's input type.
 4. Serve path: the sprint64 Predictor at full width (R=64, features
    32/32/64/64, hidden 128, 24 classes) from seeded weights, behind the
-   InferenceService (buckets 1,4,16,64) and its HTTP server. STL parts go to
-   POST /predict over one keep-alive connection, then a concurrent burst of
-   voxel grids to POST /predict_voxels. Every answer must be a 200 with a
-   class; the kernel's launch count must be 3 per dispatch; the served
-   probabilities must match the same weights run through the plain conv.
-5. Train path, once per conv backend (pallas, hybrid_dw, xla): the sprint64
+   InferenceService (buckets 1,4,16,64) and its HTTP server. The service's
+   warmup captures one CUDA graph per bucket: each must capture exactly 3
+   conv3d_fwd launches (one per 3³ block), and the traffic must launch none
+   (every dispatch replays a graph: the Predictor's replay count must equal
+   the batcher's dispatches). STL parts go to POST /predict over one
+   keep-alive connection, then a concurrent burst of voxel grids to POST
+   /predict_voxels. Every answer must be a 200 with a class; the served
+   probabilities must match the same weights run through the plain conv;
+   under torch.profiler each replay must run 3 conv3d_fwd_kernel on the
+   card.
+5. Graphs (`graphs` line): per serving precision (fp32, bf16, int8) a fresh
+   sprint64 Predictor captures every bucket; per bucket the graphed
+   probabilities must be bitwise the eager forward's on the same input,
+   and the device ms of both, the capture seconds and the memory the
+   generation reserves are printed.
+6. Reload (`reload` line): sprint64 served from one checkpoint over HTTP
+   while keep-alive clients post voxel grids; mid-burst a corrupted
+   candidate must get 409 with the old version still serving, then POST
+   /admin/reload swaps to a second checkpoint. Every request must be
+   answered 200 with one of the two generations' eager probabilities
+   (PROB_ATOL), the old one's before the swap and the new one's after it,
+   /healthz must name the new version, and no request may launch a kernel.
+7. Train path, once per conv backend (pallas, hybrid_dw, xla): the sprint64
    Trainer at full width and batch 256 from a seed, dropout 0.5, a few
    steps on synthetic parts, then one eval batch. Every loss must be
    finite; parameters and batch-norm statistics must move; every kernel
@@ -40,29 +57,32 @@ Phases, in order; any failure exits non-zero before the last line:
    batch). Then, from the trained state and one batch on the card with
    dropout off, one step through the kernels must match the same step
    through the plain versions (not under xla, whose "kernel" and plain
-   versions are the same library call). Device ms per step (CUDA events;
-   alone, and while the
-   producer threads generate), samples/s with the data wait, and the
+   versions are the same library call; the bf16 model's gradients against
+   the kernels' forward with the plain backward, see STEP_TOL). Device ms
+   per step (CUDA events; alone, and while the producer threads generate), samples/s with the data wait, and the
    data-wait share are printed; before the train phases, the parts/s that
    one host thread generates and that the Prefetcher delivers. Then 3
    steps on the card's batch under torch.profiler print a `profile` line:
-   the top 8 CUDA kernels by device time and the device-busy share.
-6. Checkpoint path, under pallas at the same full width: the Trainer takes
+   the top 8 CUDA kernels by device time, the device-busy share, and the
+   device ms per step inside the port's profiler ranges (optimizer,
+   bn_relu, casts).
+8. Checkpoint path, under pallas at the same full width: the Trainer takes
    3 steps saving each into a temporary directory; a fresh Trainer resumes
    at step 3 with model, Adam moments, count and step bitwise equal; both
    take one step on one batch (cuDNN deterministic) and stay bitwise equal;
    one byte of step 3 is damaged and a restore walks back to step 2 (an
    explicit step 3 raises); Predictor.from_checkpoint serves parts from
-   step 2 at 3 conv3d_fwd launches per dispatch with the labels of the
-   restored model. The host ms of each save (snapshot and enqueue) are
+   step 2 with the labels of the restored model, on the graph its first
+   dispatch captures (3 conv3d_fwd), one replay per dispatch. The host ms
+   of each save (snapshot and enqueue) are
    printed beside the pallas device step ms, with the writer's ms per save,
    the restore ms and the bytes of one step; launches are exact throughout.
-7. Command line, as a user runs it on the card: `cli train --config
+9. Command line, as a user runs it on the card: `cli train --config
    sprint64 --checkpoint-dir D` (3 steps at batch 256, saving each), then
    `cli serve --checkpoint-dir D` answering voxel grids over HTTP until
    SIGTERM; the train run's `checkpoint` record (host ms per save, writer
    ms per save, bytes) is printed.
-8. Cache path: the port's export_synthetic_cache writes the reference's
+10. Cache path: the port's export_synthetic_cache writes the reference's
    24 x 1000 benchmark at R=64 into a temporary directory under .data/
    (export wall time and parts/s printed). sprint64 at batch 256 then
    trains from it for 50 steps under pallas and xla, once resident on the
@@ -78,26 +98,28 @@ Phases, in order; any failure exits non-zero before the last line:
    rotated) through the kernels against the plain versions (STEP_TOL).
    Last, `cli train --config sprint64 --data-cache D --hbm-cache` runs 3
    steps in a subprocess on the card.
-9. Precision ladder and fused33 (`precision_*` lines), sprint64 at full
+11. Precision ladder and fused33 (`precision_*` lines), sprint64 at full
    width. Serving: the Predictor at bf16 and at int8 behind the
-   InferenceService (buckets 1/4/16/64) answers a burst of 85 voxel grids;
-   every dispatch launches exactly 3 conv3d_fwd; the served probabilities
-   match the same precision through the plain conv (2e-3); the int8
-   weights sit on the card as int8 and the fp32 parameters leave it; per
-   precision (fp32 too) the resident weight bytes, the device ms of a
-   bucket-64 and a bucket-1 forward, and top-1 agreement with fp32 on 256
-   synthetic parts (printed, not gated: the weights are random). Training
-   at batch 256 from one batch on the card, under bf16_master and
-   fp16_scaled, each with pallas and hybrid_dw: 3 steps (up to 6, until
-   two updates applied), finite losses, every parameter and batch-norm
-   statistic moved, the masters fp32, exact launches per step, device ms
-   per step beside fp32's, and one step through the kernels against the
-   plain versions (STEP_TOL, bf16 model). An fp16_scaled step at loss
-   scale 2^30 is skipped bitwise on the card (masters, moments, count, BN
-   statistics), its step advanced and its scale halved. fused33: 3 steps,
+   InferenceService (buckets 1/4/16/64) answers a burst of 85 voxel grids
+   on its graphs, with the serve path's launch facts; the served
+   probabilities match the same precision through the plain conv (2e-3);
+   the int8 weights sit on the card as int8 and the fp32 parameters leave
+   it; per precision (fp32 too) the resident weight bytes, the graphed
+   and eager device ms at buckets 64 and 1 (from the `graphs` line), and
+   top-1 agreement with fp32 on 256 synthetic parts (printed, not gated:
+   the weights are random). Training at batch 256 from one batch on the
+   card, under bf16_master and fp16_scaled, each with pallas and
+   hybrid_dw: 3 steps (up to 6, until two updates applied), each under
+   torch.cuda.set_sync_debug_mode("error") (a host synchronisation in the
+   step raises), finite losses, every parameter and batch-norm statistic
+   moved, the masters fp32, exact launches per step, device ms per step
+   beside fp32's, and one step through the kernels against the plain
+   versions (STEP_TOL, bf16 model). An fp16_scaled step at loss scale 2^30
+   is skipped bitwise on the card under the same mode (masters, moments,
+   count, BN statistics), its step advanced and its scale halved. fused33: 3 steps,
    no kernel of the package launched, device ms per step beside xla's, and
    logits within 2e-2 of xla's on the same weights.
-10. The wall time of every phase, one JSON line of per-kernel numbers
+12. The wall time of every phase, one JSON line of per-kernel numbers
    (launches by path, the cache and precision runs' included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
@@ -153,9 +175,20 @@ PROB_ATOL = 2e-3
 # - bf16 model (the trained dtype): the same fp32 differences turn a few
 #   activations into the neighbouring bf16 value (2^-8 relative, ~5e-4 of
 #   them per conv), and with bf16's coarse values many max-pool windows
-#   hold ties that one such step breaks, re-routing a whole gradient entry.
-#   Measured ~1e-2 per leaf and varying with the state; held to 1e-1, which
-#   a wrong tap, channel or slab in a kernel (an O(1) difference) exceeds.
+#   hold ties that one such step breaks, re-routing a whole gradient entry;
+#   where batch norm's backward leaves a leaf's gradient mostly cancelled
+#   (the stem's kernel), that moves the leaf by up to ~1e-1 and varies with
+#   the state, and the plain step with its taps summed in the other order
+#   (`grad_rel_err_plain_reordered`, printed) moves as far from the plain
+#   step. Against the plain step the gradients cannot tell a fault from
+#   rounding, so that error is printed (`grad_rel_err_vs_plain_step`), and
+#   the gradients are held instead against the step that runs the kernels'
+#   forward and the plain versions' backward (`forward_shared`): the same
+#   activations and max-pool routes on both sides, so only the backward's
+#   fp32 rounding and its bf16 casts differ. Held to 1e-1, which a wrong
+#   tap, channel or slab in a backward kernel (an O(1) difference) exceeds;
+#   a forward fault moves the loss and the batch-norm statistics, which are
+#   held against the plain step.
 # The loss is a forward quantity: 1e-4 (fp32) and 5e-3 (bf16). Updated
 # parameters: Adam's step is lr·m̂/(√v̂+eps), and an entry whose gradient is
 # rounding noise can move the other way, so they agree to 2·lr (plus 1e-6
@@ -176,6 +209,15 @@ RUNG_STEPS = 3
 RUNG_BURST = 85  # 64 + 16 + 4 + 1: every bucket when the queue drains
 AGREEMENT_PARTS = 256
 FUSED33_LOGITS_BATCH = 16
+# Serving: the service's buckets (one CUDA graph each per precision), and
+# the replays of each bucket profiled to count the forward kernel in them.
+SERVE_BUCKETS = (1, 4, 16, 64)
+REPLAY_PROFILE_REPS = 3
+# The reload phase: keep-alive clients posting in a loop, over these grids.
+RELOAD_CLIENTS = 16
+RELOAD_GRIDS = 64
+# The port's record_function ranges whose device ms the profile line splits.
+PROFILE_RANGES = ("optimizer", "bn_relu", "casts")
 
 SPRINT_BLOCKS = [(32, 32), (32, 64), (64, 64)]  # cin, cout of the 3³ blocks
 TRAIN_BATCH = 256
@@ -329,7 +371,6 @@ def serve_phase(torch, seed: int) -> dict:
     from featurenet_tpu_torch.data.synthetic import CLASS_NAMES
     from featurenet_tpu_torch.data.voxelize import voxelize
     from featurenet_tpu_torch.infer import Predictor
-    from featurenet_tpu_torch.ops import conv3d
     from featurenet_tpu_torch.runtime import build_model, serve_forward
     from featurenet_tpu_torch.serve.http import make_server
     from featurenet_tpu_torch.serve.service import InferenceService
@@ -341,7 +382,11 @@ def serve_phase(torch, seed: int) -> dict:
         fail(f"sprint64 is not at full width: {cfg}")
     R = cfg.resolution
     pred = Predictor.from_seed(cfg, seed, batch=64, device="cuda")
-    service = InferenceService(pred, buckets=(1, 4, 16, 64))
+    # The main path's run: the service's warmup captures one graph per
+    # bucket (after WARMUP_ITERS eager runs each), then traffic replays them.
+    _reset_counts()
+    service = InferenceService(pred, buckets=SERVE_BUCKETS)
+    warmup = _check_warmup(pred, "serve fp32")
     srv = make_server(service, port=0)
     th = threading.Thread(target=srv.serve_forever, name="serve-http", daemon=True)
     th.start()
@@ -361,8 +406,7 @@ def serve_phase(torch, seed: int) -> dict:
             burst = [voxelize(mesh_box(tuple(lo), tuple(lo + ext)), R).astype("<f4")
                      for lo, ext in zip(rng.uniform(0.0, 0.3, (64, 3)),
                                         rng.uniform(0.2, 0.7, (64, 3)))]
-        conv3d.conv3d_fwd_launches = 0
-        batches0 = service.stats()["batches"]
+        batches0, replays0 = service.stats()["batches"], pred.replays
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
         sock = None
         for data in parts:
@@ -393,8 +437,9 @@ def serve_phase(torch, seed: int) -> dict:
             t.join(180)
         if any(t.is_alive() for t in threads) or any(r is None for r in results):
             fail("burst clients did not all finish")
-        launches = conv3d.conv3d_fwd_launches
+        launches = _read_counts()
         st = service.stats()
+        replays = pred.replays - replays0
     finally:
         srv.shutdown()
         srv.server_close()
@@ -407,8 +452,10 @@ def serve_phase(torch, seed: int) -> dict:
     for status, body in answers:
         if status != 200 or not {"label", "class_name", "prob", "top3"} <= set(body):
             fail(f"bad answer {status}: {body}")
-    if dispatches < 1 or launches != 3 * dispatches:
-        fail(f"conv3d_fwd launches {launches} != 3 x {dispatches} dispatches")
+    if dispatches < 1 or launches != warmup or replays != dispatches:
+        fail(f"serve: launches {launches} after warmup's {warmup} (a replay "
+             f"launches none); {replays} replays for {dispatches} dispatches")
+    events = replay_kernel_events(torch, pred, "serve fp32")
     if drained["exit_code"] != 0 or drained["served"] != len(answers):
         fail(f"drain: {drained}")
 
@@ -428,9 +475,9 @@ def serve_phase(torch, seed: int) -> dict:
                        *(abs(p - float(row[index[n]])) for n, p in body["top3"]))
     if prob_err > PROB_ATOL:
         fail(f"served probabilities differ from the plain-conv forward by {prob_err}")
-    # One full bucket through both paths, compared whole.
+    # One full bucket through the graph and the plain conv, compared whole.
+    kern = pred.forward(x[:64])
     with torch.inference_mode():
-        kern = serve_forward(pred.model, x[:64])
         base = serve_forward(plain, x[:64])
     bucket_err = float((kern - base).abs().max())
     if bucket_err > PROB_ATOL:
@@ -438,7 +485,12 @@ def serve_phase(torch, seed: int) -> dict:
     out = {
         "requests": len(answers), "stl_requests": len(parts),
         "voxel_burst": len(burst), "dispatches": dispatches,
-        "by_bucket": st["by_bucket"], "conv3d_fwd_launches": launches,
+        "by_bucket": st["by_bucket"],
+        "conv3d_fwd_launches": warmup["conv3d_fwd"],
+        "capture_launches_per_graph": {b: pred.program_for(b).capture_launches["conv3d_fwd"]
+                                       for b in SERVE_BUCKETS},
+        "launches_during_traffic": launches["conv3d_fwd"] - warmup["conv3d_fwd"],
+        "replays": replays, "conv3d_fwd_kernel_events_per_replay": events,
         "p50_ms_stl": statistics.median(lat_stl),
         "p50_ms_burst": statistics.median(lat_burst),
         "max_prob_err_vs_plain": prob_err, "bucket64_prob_err": bucket_err,
@@ -448,40 +500,404 @@ def serve_phase(torch, seed: int) -> dict:
     return out
 
 
-def _reset_counts():
-    from featurenet_tpu_torch.ops import conv3d, conv_dw
+def graphs_phase(torch, seed: int, smi_line: str) -> dict:
+    """sprint64 at full width, per serving precision: capture every bucket's
+    graph on a fresh Predictor (the largest first), then per bucket the
+    graphed probabilities must be bitwise the eager forward's on the same
+    input, and the device ms of both (CUDA events: copy-in, replay and
+    clone-out against the eager forward) are printed, with the capture
+    seconds, the conv3d_fwd launches each graph captured, the kernel's
+    device events per replay, and the memory the generation reserves."""
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.train.precision import SERVE_PRECISIONS
 
-    conv3d.conv3d_fwd_launches = 0
-    conv3d.conv3d_dw_launches = conv3d.conv3d_dw_sum_launches = 0
-    conv_dw.conv_dw_folded_launches = conv_dw.conv_dw_folded_sum_launches = 0
+    cfg = get_config("sprint64")
+    R = cfg.resolution
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = {b: (torch.rand((b, R, R, R, 1), device="cuda", generator=g) > 0.7).float()
+          for b in SERVE_BUCKETS}
+    out = {}
+    for precision in SERVE_PRECISIONS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        pred = Predictor.from_seed(cfg, seed, batch=64, device="cuda",
+                                   precision=precision)
+        torch.cuda.synchronize()
+        weights_mb = (torch.cuda.memory_reserved() - base) / 1e6
+        t0 = time.perf_counter()
+        progs = {b: pred.program_for(b) for b in sorted(SERVE_BUCKETS, reverse=True)}
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()  # the eager warmups' blocks, not the graphs'
+        generation_mb = (torch.cuda.memory_reserved() - base) / 1e6
+        buckets = {}
+        for b in SERVE_BUCKETS:
+            x = xs[b]
+            graphed = pred.forward(x)
+            with torch.inference_mode():
+                eager = pred.forward_eager(x)
+            if not torch.equal(graphed, eager):
+                fail(f"graphs {precision} bucket {b}: graphed probabilities differ "
+                     f"from the eager forward's by {float((graphed - eager).abs().max())}")
+            with torch.inference_mode():
+                eager_ms = time_ms(torch, lambda: pred.forward_eager(x))
+            buckets[b] = {"graphed_ms": time_ms(torch, lambda: pred.forward(x)),
+                          "eager_ms": eager_ms, "bitwise_eager": True,
+                          "capture_s": progs[b].capture_s,
+                          "capture_conv3d_fwd": progs[b].capture_launches["conv3d_fwd"]}
+        events = replay_kernel_events(torch, pred, f"graphs {precision}")
+        out[precision] = {"buckets": buckets, "build_s": build_s,
+                          "capture_s": sum(p.capture_s for p in progs.values()),
+                          "weights_reserved_mb": weights_mb,
+                          "generation_reserved_mb": generation_mb,
+                          "conv3d_fwd_kernel_events_per_replay": events}
+        del pred, progs
+    print("graphs", json.dumps({**out, "nvidia_smi": smi_line}), flush=True)
+    return out
+
+
+def _seeded_checkpoint(path: str, cfg, seed: int) -> str:
+    """A one-step checkpoint directory of ``cfg``'s model from ``seed``,
+    written by the port's CheckpointManager."""
+    from featurenet_tpu_torch.runtime import build_model
+    from featurenet_tpu_torch.train.checkpoint import CheckpointManager
+    from featurenet_tpu_torch.train.state import create_state
+
+    state = create_state(build_model(cfg, seed=seed), cfg)
+    state.step = 1
+    mgr = CheckpointManager(path, config=cfg)
+    mgr.save(state)
+    mgr.close()
+    return path
+
+
+def _get(port: int, path: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _prob_err(body: dict, row, index: dict) -> float:
+    """How far one answer (prob and top 3) is from a probability row."""
+    return max(abs(body["prob"] - float(row.max())),
+               *(abs(p - float(row[index[n]])) for n, p in body["top3"]))
+
+
+def reload_phase(torch, seed: int, smi_line: str) -> dict:
+    """sprint64 at full width served from checkpoint ``a`` over HTTP while
+    RELOAD_CLIENTS keep-alive clients post voxel grids; mid-burst a
+    corrupted copy of checkpoint ``b`` is refused with 409 (``a`` still
+    serving), then ``POST /admin/reload`` swaps to ``b``. Every request must
+    be answered 200 with one generation's eager forward (PROB_ATOL): ``a``'s
+    before the swap began, ``b``'s after it returned; /healthz names ``b``
+    after the flip. Prints the swap ms, the capture seconds and the memory
+    reserved with one and with two generations resident."""
+    import shutil
+
+    import numpy as np
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.synthetic import CLASS_NAMES, generate_batch
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.runtime.registry import WARMUP_ITERS
+    from featurenet_tpu_torch.serve.http import make_server
+    from featurenet_tpu_torch.serve.service import InferenceService
+    from featurenet_tpu_torch.train import checkpoint
+
+    cfg = get_config("sprint64")
+    R = cfg.resolution
+    grids = generate_batch(np.random.default_rng(seed + 2), RELOAD_GRIDS,
+                           R)["voxels"][..., 0].astype("<f4")
+    index = {n: i for i, n in enumerate(CLASS_NAMES)}
+    with tempfile.TemporaryDirectory() as tmp:
+        a = _seeded_checkpoint(os.path.join(tmp, "a"), cfg, seed)
+        b = _seeded_checkpoint(os.path.join(tmp, "b"), cfg, seed + 1)
+        bad = os.path.join(tmp, "bad")
+        shutil.copytree(b, bad)
+        step = os.path.join(bad, checkpoint.step_filename(1))
+        with open(step, "r+b") as fh:
+            fh.seek(os.path.getsize(step) // 2)
+            byte = fh.read(1)
+            fh.seek(-1, os.SEEK_CUR)
+            fh.write(bytes([byte[0] ^ 0xFF]))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        pred = Predictor.from_checkpoint(a, batch=64, device="cuda")
+        _reset_counts()
+        service = InferenceService(pred, buckets=SERVE_BUCKETS)
+        _check_warmup(pred, "reload a")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        one_mb = (torch.cuda.memory_reserved() - base) / 1e6
+        version_a = pred.model_version
+        srv = make_server(service, port=0)
+        threading.Thread(target=srv.serve_forever, name="serve-http",
+                         daemon=True).start()
+        port = srv.server_address[1]
+        stop = threading.Event()
+        answers, lock = [], threading.Lock()
+
+        def client(i):
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            try:
+                k = i
+                while not stop.is_set():
+                    g = k % RELOAD_GRIDS
+                    t0 = time.perf_counter()
+                    status, body, _ = _post(c, "/predict_voxels", grids[g].tobytes())
+                    with lock:
+                        answers.append((t0, time.perf_counter(), g, status, body))
+                    k += RELOAD_CLIENTS
+            finally:
+                c.close()
+
+        def answered():
+            with lock:
+                return len(answers)
+
+        def wait_for(n):
+            deadline = time.perf_counter() + 120
+            while answered() < n and time.perf_counter() < deadline:
+                time.sleep(0.005)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(RELOAD_CLIENTS)]
+        reserved_peak = None
+        try:
+            for t in threads:
+                t.start()
+            wait_for(RELOAD_CLIENTS)
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            refused = _post(conn, "/admin/reload",
+                            json.dumps({"checkpoint_dir": bad}).encode())
+            health_refused = _get(port, "/healthz")
+            wait_for(answered() + RELOAD_CLIENTS)
+            torch.cuda.reset_peak_memory_stats()
+            t_swap = time.perf_counter()
+            swapped = _post(conn, "/admin/reload",
+                            json.dumps({"checkpoint_dir": b}).encode())
+            t_flip = time.perf_counter()
+            conn.close()
+            reserved_peak = (torch.cuda.max_memory_reserved() - base) / 1e6
+            health = _get(port, "/healthz")
+            wait_for(answered() + 2 * RELOAD_CLIENTS)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(180)
+            srv.shutdown()
+            srv.server_close()
+        drained = service.drain()
+        launches = _read_counts()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        after_mb = (torch.cuda.memory_reserved() - base) / 1e6
+        capture_s = sum(pred.program_for(k).capture_s for k in SERVE_BUCKETS)
+        captured_b = pred.program_for(1).capture_launches
+        if any(pred.program_for(k).capture_launches != captured_b
+               for k in SERVE_BUCKETS):
+            fail("reload: b's graphs captured different launches")
+        x = torch.from_numpy(grids[..., None]).cuda()
+        with torch.inference_mode():
+            ref_b = pred.forward_eager(x).cpu().numpy()
+            old = Predictor.from_checkpoint(a, batch=64, device="cuda")
+            ref_a = old.forward_eager(x).cpu().numpy()
+        del old
+    if any(t.is_alive() for t in threads):
+        fail("reload: burst clients did not all finish")
+    status, body, _ = refused
+    if status != 409 or body.get("error") != "swap_refused" \
+            or body.get("model_version") != version_a \
+            or health_refused[1].get("model_version") != version_a:
+        fail(f"reload: the corrupted candidate got {status} {body}; "
+             f"healthz {health_refused}")
+    status, body, swap_wall_ms = swapped
+    if status != 200 or not body.get("model_version", "").startswith("b@1-"):
+        fail(f"reload: /admin/reload to b answered {status} {body}")
+    version_b = body["model_version"]
+    status, h = health
+    if not (status == 200 and h["ready"] and h["model_version"] == version_b
+            and h["checkpoint_dir"] == b):
+        fail(f"reload: /healthz after the flip {health}")
+    # Two warmups (a's at start-up, b's in the swap), and no launch from
+    # the traffic: every dispatch replayed a graph.
+    want = dict(_want_counts("xla", 0, 0),
+                conv3d_fwd=2 * 3 * (WARMUP_ITERS + 1) * len(SERVE_BUCKETS))
+    if launches != want or captured_b != dict(_want_counts("xla", 0, 0), conv3d_fwd=3):
+        fail(f"reload: launches {launches}, not {want}; b's graphs captured "
+             f"{captured_b}")
+    if drained["exit_code"] != 0 or drained["served"] != len(answers):
+        fail(f"reload: drain {drained} for {len(answers)} answers")
+    gap = float(np.abs(ref_a - ref_b).max())
+    by_gen, worst = {"a": 0, "b": 0}, 0.0
+    for t0, t1, g, status, body in answers:
+        if status != 200:
+            fail(f"reload: a request was answered {status}: {body}")
+        err = {"a": _prob_err(body, ref_a[g], index), "b": _prob_err(body, ref_b[g], index)}
+        gen = min(err, key=err.get)
+        if err[gen] > PROB_ATOL or (t1 < t_swap and gen != "a") \
+                or (t0 > t_flip and gen != "b"):
+            fail(f"reload: an answer ({t0:.3f}-{t1:.3f} s; swap {t_swap:.3f}-"
+                 f"{t_flip:.3f} s) matches a by {err['a']}, b by {err['b']}")
+        by_gen[gen] += 1
+        worst = max(worst, err[gen])
+    if by_gen["a"] == 0 or by_gen["b"] == 0:
+        fail(f"reload: answers by generation {by_gen}; the swap was not mid-burst")
+    out = {"requests": len(answers), "clients": RELOAD_CLIENTS,
+           "answers_by_generation": by_gen, "max_prob_err_vs_eager": worst,
+           "generations_max_prob_gap": gap,
+           "refused": {"status": refused[0], "kind": refused[1].get("kind")},
+           "from_version": version_a, "to_version": version_b,
+           "swap_ms": swapped[1]["swap_ms"], "swap_wall_ms": swap_wall_ms,
+           "capture_s_new_generation": capture_s,
+           "reserved_mb_one_generation": one_mb,
+           "reserved_mb_peak_during_swap": reserved_peak,
+           "reserved_mb_after_swap": after_mb,
+           "launches": launches, "nvidia_smi": smi_line}
+    print("reload", json.dumps(out), flush=True)
+    return out
+
+
+def _reset_counts():
+    from featurenet_tpu_torch.ops import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def _read_counts() -> dict[str, int]:
-    from featurenet_tpu_torch.ops import conv3d, conv_dw
+    from featurenet_tpu_torch.ops import launch_counts
 
-    return {"conv3d_fwd": conv3d.conv3d_fwd_launches,
-            "conv3d_dw": conv3d.conv3d_dw_launches,
-            "conv3d_dw_sum": conv3d.conv3d_dw_sum_launches,
-            "conv_dw_folded": conv_dw.conv_dw_folded_launches,
-            "conv_dw_folded_sum": conv_dw.conv_dw_folded_sum_launches}
+    return launch_counts()
 
 
-def _one_step(torch, trainer, snapshot, voxels, labels, plain: bool, dtype,
+def _check_warmup(pred, what: str) -> dict[str, int]:
+    """The launches of a service's warmup, counted from 0: every bucket's
+    graph captured exactly 3 conv3d_fwd (one per 3³ block) and nothing
+    else, after WARMUP_ITERS eager runs. Returns the counts."""
+    from featurenet_tpu_torch.runtime.registry import WARMUP_ITERS
+
+    counts = _read_counts()
+    per_graph = dict(_want_counts("xla", 0, 0), conv3d_fwd=3)
+    for b in SERVE_BUCKETS:
+        prog = pred.program_for(b)
+        if prog.graph is None or prog.capture_launches != per_graph:
+            fail(f"{what}: bucket {b}'s graph captured {prog.capture_launches}, "
+                 f"not {per_graph}")
+    want = dict(_want_counts("xla", 0, 0),
+                conv3d_fwd=3 * (WARMUP_ITERS + 1) * len(SERVE_BUCKETS))
+    if counts != want:
+        fail(f"{what}: warmup launched {counts}, not {want}")
+    return counts
+
+
+def replay_kernel_events(torch, pred, what: str) -> float:
+    """Under torch.profiler, REPLAY_PROFILE_REPS replays of every bucket's
+    graph: the device events of conv3d_fwd_kernel per replay, which must be
+    3 (the hand-written kernel runs inside each replay)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    R = pred.cfg.resolution
+    xs = [torch.zeros((b, R, R, R, 1), device="cuda") for b in SERVE_BUCKETS]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for x in xs:
+            for _ in range(REPLAY_PROFILE_REPS):
+                pred.forward(x)
+        torch.cuda.synchronize()
+    hits = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "conv3d_fwd_kernel" in e.name)
+    per_replay = hits / (REPLAY_PROFILE_REPS * len(xs))
+    if per_replay != 3:
+        fail(f"{what}: {hits} conv3d_fwd_kernel device events in "
+             f"{REPLAY_PROFILE_REPS * len(xs)} replays, not 3 each")
+    return per_replay
+
+
+def _forward_shared_conv(torch):
+    """``conv3d_p`` with the kernel's forward and the plain version's
+    backward (autograd through ``conv3d_plain`` at the same inputs)."""
+    from featurenet_tpu_torch.ops import conv3d
+
+    class Conv(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            ctx.save_for_backward(x, w)
+            return conv3d.conv3d_fwd(x, w)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w = ctx.saved_tensors
+            with torch.enable_grad():
+                xd, wd = x.detach().requires_grad_(), w.detach().requires_grad_()
+                y = conv3d.conv3d_plain(xd, wd)
+            return torch.autograd.grad(y, (xd, wd), g)
+
+    return Conv.apply
+
+
+def _plain_reordered_conv(torch):
+    """``conv3d_plain`` with its taps summed in the reverse order: another
+    fp32 rounding of the same plain conv."""
+    import torch.nn.functional as F
+
+    def conv(x, w):
+        k, cout = w.shape[0], w.shape[-1]
+        p = (k - 1) // 2
+        b, d, h, wd, _ = x.shape
+        xp = F.pad(x.float(), (0, 0, p, p, p, p, p, p))
+        wf = w.float()
+        out = torch.zeros((b, d, h, wd, cout), dtype=torch.float32, device=x.device)
+        for kz in reversed(range(k)):
+            for ky in reversed(range(k)):
+                for kx in reversed(range(k)):
+                    out = out + xp[:, kz:kz + d, ky:ky + h, kx:kx + wd, :] @ wf[kz, ky, kx]
+        return out
+
+    return conv
+
+
+def _one_step(torch, trainer, snapshot, voxels, labels, convs: str, dtype,
               precision: str = "fp32"):
     """One train step from ``snapshot`` (model state + optimizer moments
     and count) on float ``voxels`` and ``labels``, dropout off, with
     activations in ``dtype`` and the working copy of ``precision``
-    (fp16_scaled at a loss scale of RUNG_LOSS_SCALE), through the kernels
-    or their plain versions; returns (loss, grads, new state_dict)."""
+    (fp16_scaled at a loss scale of RUNG_LOSS_SCALE), with ``convs``: the
+    ``kernel``s, their ``plain`` versions, the kernels' forward and the
+    plain backward (``forward_shared``), or the plain conv with its taps
+    reordered (``plain_reordered``; the pallas blocks only); returns
+    (loss, grads, new state_dict)."""
     import dataclasses
 
     from featurenet_tpu_torch.models.featurenet import FeatureNet
+    from featurenet_tpu_torch.ops.conv3d import (
+        HybridConv,
+        PallasConv,
+        conv3d_hybrid,
+        conv3d_hybrid_plain,
+    )
     from featurenet_tpu_torch.train.precision import get_policy
     from featurenet_tpu_torch.train.steps import loss_and_grads, make_optimizer
 
     cfg = trainer.cfg
     arch = dataclasses.replace(cfg.arch, dropout=0.0)
-    model = FeatureNet(arch, cfg.resolution, dtype=dtype, plain=plain).to("cuda")
+    model = FeatureNet(arch, cfg.resolution, dtype=dtype,
+                       plain=convs in ("plain", "plain_reordered")).to("cuda")
+    if convs in ("forward_shared", "plain_reordered"):
+        pallas = (_forward_shared_conv(torch) if convs == "forward_shared"
+                  else _plain_reordered_conv(torch))
+        for m in model.modules():
+            if isinstance(m, PallasConv):
+                m.conv = pallas
+            elif isinstance(m, HybridConv) and m.conv is conv3d_hybrid:
+                m.conv = conv3d_hybrid_plain  # its forward is the library's
     model.load_state_dict(snapshot["model"])
     opt = make_optimizer(cfg, model.parameters())
     opt.count = snapshot["count"]
@@ -511,25 +927,38 @@ def step_vs_plain(torch, trainer, snapshot, voxels, labels, backend,
     """The kernel step against the plain step (STEP_TOL): in fp32 and bf16
     under the fp32 policy; a reduced ``precision`` with the bf16 model
     only, the dtype it trains."""
-    lr = trainer.state.optimizer.schedule(snapshot["count"])
+    lr = float(trainer.state.optimizer.schedule(snapshot["count"]))
     out = {"lr": lr}
     models = [("fp32", torch.float32), ("bf16", torch.bfloat16)]
     if precision != "fp32":
         models = models[1:]
     for tag, dtype in models:
         name = tag if precision == "fp32" else precision
-        loss_k, grads_k, state_k = _one_step(torch, trainer, snapshot, voxels,
-                                             labels, False, dtype, precision)
-        loss_p, grads_p, state_p = _one_step(torch, trainer, snapshot, voxels,
-                                             labels, True, dtype, precision)
+
+        def run(convs):
+            return _one_step(torch, trainer, snapshot, voxels, labels, convs,
+                             dtype, precision)
+
+        def worst(grads, ref):
+            err = {n: _rel(grads[n], ref[n]) for n in ref}
+            return max(err.values()), max(err, key=err.get)
+
+        loss_k, grads_k, state_k = run("kernel")
+        loss_p, grads_p, state_p = run("plain")
         stats = [k for k in state_p if k.endswith((".mean", ".var"))]
-        grad = {n: _rel(grads_k[n], grads_p[n]) for n in grads_p}
+        vs_plain, leaf = worst(grads_k, grads_p)
         r = {"loss_abs_err": abs(loss_k - loss_p),
-             "grad_rel_err": max(grad.values()),
-             "worst_leaf": max(grad, key=grad.get),
+             "grad_rel_err": vs_plain, "worst_leaf": leaf,
              "bn_stat_rel_err": max(_rel(state_k[k], state_p[k]) for k in stats),
              "param_abs_err": max(float((state_k[n] - state_p[n]).abs().max())
                                   for n in grads_p)}
+        if tag == "bf16":  # see STEP_TOL: held against the forward-shared step
+            r["grad_rel_err_vs_plain_step"] = vs_plain
+            r["worst_leaf_vs_plain_step"] = leaf
+            r["grad_rel_err"], r["worst_leaf"] = worst(grads_k, run("forward_shared")[1])
+            if backend.startswith("pallas"):
+                r["grad_rel_err_plain_reordered"] = worst(
+                    run("plain_reordered")[1], grads_p)[0]
         out[name] = r
         tol = STEP_TOL[tag]
         if not (r["loss_abs_err"] <= tol["loss"] and r["grad_rel_err"] <= tol["grad"]
@@ -574,11 +1003,16 @@ def host_generation(torch, seed: int, workers: int) -> dict:
 def profile_steps(torch, trainer, batch, backend: str, steps: int = 3) -> dict:
     """``steps`` train steps on a batch already on the card under
     torch.profiler (CPU and CUDA activity): the top CUDA kernels by total
-    device time, and the device-busy share of the window from the first
+    device time, the device-busy share of the window from the first
     device event's start to the last one's end (the union of device event
-    intervals over that span)."""
+    intervals over that span), and the device ms per step of the kernels
+    launched inside each of the port's PROFILE_RANGES (the optimizer
+    update, the forward's batch-norm and ReLU epilogues, its casts)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def is_kernel(e):  # record_function ranges also appear on the device side
+        return e.device_type == DeviceType.CUDA and not e.is_user_annotation
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -587,11 +1021,15 @@ def profile_steps(torch, trainer, batch, backend: str, steps: int = 3) -> dict:
             trainer.step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    averages = prof.key_averages()
+    kernels = sorted((e for e in averages if is_kernel(e)),
                      key=lambda e: e.self_device_time_total, reverse=True)
     device_us = sum(e.self_device_time_total for e in kernels)
+    ranges = {name: sum(e.device_time_total for e in averages
+                        if e.key == name and e.device_type == DeviceType.CPU)
+              / 1e3 / steps for name in PROFILE_RANGES}
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   if is_kernel(e))
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         busy_us += max(0.0, b - max(a, end))
@@ -601,6 +1039,9 @@ def profile_steps(torch, trainer, batch, backend: str, steps: int = 3) -> dict:
            "device_ms_per_step": device_us / 1e3 / steps,
            "device_window_ms": window_us / 1e3,
            "device_busy_share": busy_us / window_us if window_us else None,
+           # Forward ranges only: the backward's kernels run on autograd's
+           # thread, outside them.
+           "range_device_ms_per_step": ranges,
            "top_kernels": [{"name": e.key[:120], "calls": e.count,
                             "device_ms_per_step": e.self_device_time_total / 1e3 / steps,
                             "share": e.self_device_time_total / device_us if device_us else None}
@@ -721,7 +1162,7 @@ def _train_state(trainer) -> dict:
     names = [n for n, _ in trainer.state.model.named_parameters()]
     return {"model": dict(trainer.state.model.state_dict()),
             "mu": dict(zip(names, opt.mu)), "nu": dict(zip(names, opt.nu)),
-            "count": opt.count, "step": trainer.state.step}
+            "count": int(opt.count), "step": trainer.state.step}
 
 
 def _bitwise_equal(torch, a: dict, b: dict) -> bool:
@@ -739,6 +1180,7 @@ def checkpoint_phase(torch, seed: int, device_step_ms: float, smi_line: str) -> 
     from featurenet_tpu_torch.config import get_config
     from featurenet_tpu_torch.infer import Predictor
     from featurenet_tpu_torch.runtime import serve_forward
+    from featurenet_tpu_torch.runtime.registry import WARMUP_ITERS
     from featurenet_tpu_torch.train import checkpoint
     from featurenet_tpu_torch.train.loop import Trainer
     from featurenet_tpu_torch.train.steps import unpack_voxels
@@ -816,7 +1258,9 @@ def checkpoint_phase(torch, seed: int, device_step_ms: float, smi_line: str) -> 
         if (mgr.restored_step, second.state.step) != (steps - 1, steps - 1):
             fail(f"walk-back restored step {mgr.restored_step}")
 
-        # Serve from the checkpoint directory: step 2, through the kernel.
+        # Serve from the checkpoint directory: step 2, through the kernel,
+        # on the graph the first dispatch captures (after WARMUP_ITERS
+        # eager runs), which every dispatch replays.
         pred = Predictor.from_checkpoint(ck, batch=bucket, device="cuda")
         if not pred.model_version.startswith(f"ck@{steps - 1}-"):
             fail(f"model_version {pred.model_version}")
@@ -827,7 +1271,11 @@ def checkpoint_phase(torch, seed: int, device_step_ms: float, smi_line: str) -> 
         torch.cuda.synchronize()
         dispatches = -(-parts // bucket)
         add(_read_counts(), dict(_want_counts("xla", 0, 0),
-                                 conv3d_fwd=3 * dispatches), "serving")
+                                 conv3d_fwd=3 * (WARMUP_ITERS + 1)), "serving")
+        if (pred.replays, pred.program_for(bucket).capture_launches["conv3d_fwd"]) \
+                != (dispatches, 3):
+            fail(f"checkpoint serving: {pred.replays} replays for {dispatches} "
+                 f"dispatches; {pred.program_for(bucket).capture_launches}")
         x = torch.from_numpy(grids).cuda()
         want = torch.cat([serve_forward(second.state.model, x[i:i + bucket])
                           for i in range(0, parts, bucket)]).cpu().numpy()
@@ -1119,12 +1567,16 @@ def cache_phase(torch, seed: int, smi_line: str) -> dict:
     return {"runs": runs, **out}
 
 
-def _rung_serving(torch, seed: int, precision: str, grids, fp32_pred) -> dict:
+def _rung_serving(torch, seed: int, precision: str, grids, fp32_pred,
+                  graphs: dict) -> dict:
     """sprint64 served at ``precision`` behind the InferenceService (buckets
-    1/4/16/64): a burst of voxel grids, 3 conv3d_fwd per dispatch, the
-    served probabilities against the same precision through the plain conv,
-    the resident weight bytes, bucket-64 and bucket-1 device ms, and top-1
-    agreement with fp32 on AGREEMENT_PARTS parts (printed, not gated)."""
+    SERVE_BUCKETS, one graph each): a burst of voxel grids; the warmup
+    captures 3 conv3d_fwd per graph and the traffic launches none, one
+    replay per dispatch, 3 conv3d_fwd_kernel device events per replay; the
+    served probabilities against the same precision through the plain
+    conv, the resident weight bytes, and top-1 agreement with fp32 on
+    AGREEMENT_PARTS parts (printed, not gated). The device ms per bucket
+    come from the ``graphs`` line."""
     import numpy as np
 
     from featurenet_tpu_torch.infer import Predictor
@@ -1146,22 +1598,25 @@ def _rung_serving(torch, seed: int, precision: str, grids, fp32_pred) -> dict:
                  f"{[(t.dtype, t.device) for t in pred._qparams.values()]}")
     if not all(p.is_meta for p in pred.model.parameters()):
         fail(f"{precision}: the fp32 parameters stayed on the card")
-    service = InferenceService(pred, buckets=(1, 4, 16, 64),
-                               queue_limit=2 * RUNG_BURST)
-    batches0 = service.stats()["batches"]
     _reset_counts()
+    service = InferenceService(pred, buckets=SERVE_BUCKETS,
+                               queue_limit=2 * RUNG_BURST)
+    warmup = _check_warmup(pred, f"serve {precision}")
+    batches0, replays0 = service.stats()["batches"], pred.replays
     futs = [service.submit_voxels(g) for g in grids]
     rows = np.stack([f.result(timeout=120) for f in futs])
     launches = _read_counts()
     st = service.stats()
+    replays = pred.replays - replays0
     drained = service.drain()
     dispatches = st["batches"] - batches0
-    want = dict(_want_counts("xla", 0, 0), conv3d_fwd=3 * dispatches)
-    if dispatches < 1 or launches != want or st["precision"] != precision:
-        fail(f"serve {precision}: launches {launches} != {want} "
-             f"({dispatches} dispatches), stats {st}")
+    if (dispatches < 1 or launches != warmup or replays != dispatches
+            or st["precision"] != precision):
+        fail(f"serve {precision}: launches {launches} after warmup's {warmup}, "
+             f"{replays} replays for {dispatches} dispatches, stats {st}")
     if drained["exit_code"] != 0:
         fail(f"serve {precision}: drain {drained}")
+    events = replay_kernel_events(torch, pred, f"serve {precision}")
     plain = build_model(cfg, seed=seed, plain=True).to("cuda")
     params = serve_params_cast({k: v.detach() for k, v in plain.named_parameters()},
                                precision)
@@ -1172,19 +1627,21 @@ def _rung_serving(torch, seed: int, precision: str, grids, fp32_pred) -> dict:
     if not (np.isfinite(rows).all() and prob_err <= PROB_ATOL):
         fail(f"serve {precision}: probabilities differ from the plain conv "
              f"by {prob_err}")
-    x64, x1 = x[:64].contiguous(), x[:1].contiguous()
-    with torch.inference_mode():
-        ms64 = time_ms(torch, lambda: pred.forward(x64))
-        ms1 = time_ms(torch, lambda: pred.forward(x1))
     agree = pred.agreement(n=AGREEMENT_PARTS, seed=seed)
+    ms = graphs[precision]["buckets"]
     out = {"precision": precision, "requests": len(grids),
            "dispatches": dispatches, "by_bucket": st["by_bucket"],
-           "conv3d_fwd_launches": launches["conv3d_fwd"],
+           "conv3d_fwd_launches": warmup["conv3d_fwd"],
+           "launches_during_traffic": launches["conv3d_fwd"] - warmup["conv3d_fwd"],
+           "replays": replays, "conv3d_fwd_kernel_events_per_replay": events,
            "max_prob_err_vs_plain": prob_err,
            "resident_weight_bytes": pred.resident_weight_bytes,
            "fp32_resident_weight_bytes": fp32_pred.resident_weight_bytes,
            "cuda_bytes_allocated_by_predictor": allocated,
-           "device_ms_bucket64": ms64, "device_ms_bucket1": ms1,
+           "device_ms_bucket64": ms[64]["graphed_ms"],
+           "device_ms_bucket1": ms[1]["graphed_ms"],
+           "eager_device_ms_bucket64": ms[64]["eager_ms"],
+           "eager_device_ms_bucket1": ms[1]["eager_ms"],
            "top1_agreement_vs_fp32": agree, "agreement_parts": AGREEMENT_PARTS}
     print("precision_serve", json.dumps(out), flush=True)
     del service, pred, plain
@@ -1213,9 +1670,10 @@ def _rung_training(torch, seed: int, backend: str, precision: str, batch,
                    fp32_step_ms: float) -> dict:
     """sprint64 at batch 256 under ``backend`` and ``precision``: RUNG_STEPS
     steps from one batch on the card (more, up to 2·RUNG_STEPS, until two
-    updates applied), exact launches, finite losses, every parameter and
-    batch-norm statistic moved, device ms per step, and one step through
-    the kernels against the plain versions (STEP_TOL)."""
+    updates applied), each under torch.cuda.set_sync_debug_mode("error")
+    (no step reads the card on the host), exact launches, finite losses,
+    every parameter and batch-norm statistic moved, device ms per step, and
+    one step through the kernels against the plain versions (STEP_TOL)."""
     from featurenet_tpu_torch.train.steps import unpack_voxels
 
     trainer = _rung_trainer(torch, seed, backend, precision)
@@ -1223,9 +1681,10 @@ def _rung_training(torch, seed: int, backend: str, precision: str, batch,
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     torch.cuda.synchronize()
     _reset_counts()
-    metrics = []
-    while len(metrics) < RUNG_STEPS or (opt.count < 2 and len(metrics) < 2 * RUNG_STEPS):
-        metrics.append({k: float(v) for k, v in trainer.step(batch).items()})
+    raw = []
+    while len(raw) < RUNG_STEPS or (int(opt.count) < 2 and len(raw) < 2 * RUNG_STEPS):
+        raw.append(_step_without_sync(torch, trainer, batch))
+    metrics = [{k: float(v) for k, v in m.items()} for m in raw]
     torch.cuda.synchronize()
     counts = _read_counts()
     steps = len(metrics)
@@ -1237,8 +1696,8 @@ def _rung_training(torch, seed: int, backend: str, precision: str, batch,
         fail(f"train {backend} {precision}: losses {losses}")
     after = state.model.state_dict()
     moved = {k: float((after[k] - before[k]).abs().max()) for k in before}
-    if opt.count < 2 or not all(v > 0 for v in moved.values()):
-        fail(f"train {backend} {precision}: {opt.count} updates; moved {moved}")
+    if int(opt.count) < 2 or not all(v > 0 for v in moved.values()):
+        fail(f"train {backend} {precision}: {int(opt.count)} updates; moved {moved}")
     if not all(p.dtype == torch.float32 for p in state.model.parameters()):
         fail(f"train {backend} {precision}: the masters are not fp32")
     snapshot = {"model": {k: v.clone() for k, v in after.items()},
@@ -1252,7 +1711,8 @@ def _rung_training(torch, seed: int, backend: str, precision: str, batch,
            "global_batch": TRAIN_BATCH, "losses": losses,
            "grads_finite": [m.get("grads_finite") for m in metrics],
            "loss_scale": [m.get("loss_scale") for m in metrics],
-           "updates": snapshot["count"], "launches": counts,
+           "updates": int(snapshot["count"]), "launches": counts,
+           "sync_debug_mode": "error",
            "launches_per_step": {k: v / steps for k, v in counts.items()},
            "device_step_ms": step_ms, "fp32_device_step_ms": fp32_step_ms,
            "samples_per_sec_device_bound": TRAIN_BATCH / step_ms * 1e3,
@@ -1262,9 +1722,21 @@ def _rung_training(torch, seed: int, backend: str, precision: str, batch,
     return out, trainer
 
 
+def _step_without_sync(torch, trainer, batch) -> dict:
+    """One ``trainer.step`` under torch.cuda.set_sync_debug_mode("error"): a
+    host synchronisation inside the step raises. Returns its metrics, still
+    on the card."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return trainer.step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def _overflow_skip(torch, trainer, batch) -> dict:
-    """An fp16_scaled step at loss scale 2^30 on the card: skipped bitwise
-    (masters, moments, count, BN statistics), step + 1, scale halved."""
+    """An fp16_scaled step at loss scale 2^30 on the card, under sync-debug
+    "error": skipped bitwise (masters, moments, count, BN statistics),
+    step + 1, scale halved."""
     state, opt = trainer.state, trainer.state.optimizer
     state.loss_scale.fill_(2.0 ** 30)
     before = ([v.clone() for v in state.model.state_dict().values()]
@@ -1272,14 +1744,15 @@ def _overflow_skip(torch, trainer, batch) -> dict:
     count, step = opt.count, state.step
     torch.cuda.synchronize()
     _reset_counts()
-    m = trainer.step(batch)
+    m = _step_without_sync(torch, trainer, batch)
     torch.cuda.synchronize()
     counts = _read_counts()
     after = list(state.model.state_dict().values()) + list(opt.mu + opt.nu)
     bitwise = all(torch.equal(a, b) for a, b in zip(before, after))
     out = {"grads_finite": float(m["grads_finite"]),
            "loss_scale": float(state.loss_scale),
-           "good_steps": int(state.good_steps), "count_unchanged": opt.count == count,
+           "good_steps": int(state.good_steps),
+           "count_unchanged": torch.equal(opt.count, count),
            "step_advanced": state.step == step + 1, "bitwise": bitwise,
            "launches": counts}
     if not (out["grads_finite"] == 0.0 and out["loss_scale"] == 2.0 ** 29
@@ -1337,7 +1810,8 @@ def _fused33(torch, seed: int, batch, xla_step_ms: float) -> dict:
     return out
 
 
-def precision_phase(torch, seed: int, train: dict, smi_line: str) -> dict:
+def precision_phase(torch, seed: int, train: dict, graphs: dict,
+                    smi_line: str) -> dict:
     """The precision ladder and fused33 at sprint64's full width: serving at
     bf16 and int8, training under bf16_master and fp16_scaled with pallas
     and hybrid_dw, an fp16 overflow skipped on the card, and fused33 beside
@@ -1353,15 +1827,16 @@ def precision_phase(torch, seed: int, train: dict, smi_line: str) -> dict:
     grids = list(generate_batch(np.random.default_rng(seed + 1), RUNG_BURST,
                                 cfg.resolution)["voxels"][..., 0])
     fp32_pred = Predictor.from_seed(cfg, seed, batch=64, device="cuda")
-    x = torch.from_numpy(np.stack(grids)[..., None]).cuda()
-    with torch.inference_mode():
-        fp32_ms = {"device_ms_bucket64": time_ms(torch, lambda: fp32_pred.forward(x[:64])),
-                   "device_ms_bucket1": time_ms(torch, lambda: fp32_pred.forward(x[:1]))}
-    serve = {"fp32": {**fp32_ms, "resident_weight_bytes": fp32_pred.resident_weight_bytes}}
+    ms = graphs["fp32"]["buckets"]
+    serve = {"fp32": {"device_ms_bucket64": ms[64]["graphed_ms"],
+                      "device_ms_bucket1": ms[1]["graphed_ms"],
+                      "eager_device_ms_bucket64": ms[64]["eager_ms"],
+                      "eager_device_ms_bucket1": ms[1]["eager_ms"],
+                      "resident_weight_bytes": fp32_pred.resident_weight_bytes}}
     print("precision_serve", json.dumps({"precision": "fp32", **serve["fp32"]}),
           flush=True)
     for p in ("bf16", "int8"):
-        serve[p] = _rung_serving(torch, seed, p, grids, fp32_pred)
+        serve[p] = _rung_serving(torch, seed, p, grids, fp32_pred, graphs)
     del fp32_pred
     torch.cuda.empty_cache()
 
@@ -1386,6 +1861,7 @@ def precision_phase(torch, seed: int, train: dict, smi_line: str) -> dict:
     launches["train_fused33"] = fused["launches"]
     out = {"serve": {p: {k: v for k, v in r.items() if k in (
                "resident_weight_bytes", "device_ms_bucket64", "device_ms_bucket1",
+               "eager_device_ms_bucket64", "eager_device_ms_bucket1",
                "top1_agreement_vs_fp32", "max_prob_err_vs_plain")}
                for p, r in serve.items()},
            "train_device_step_ms": {k: r["device_step_ms"] for k, r in runs.items()},
@@ -1461,6 +1937,8 @@ def main() -> int:
     rows = phase("kernels", check_kernels, torch, args.seed)
     _reset_counts()
     serve = phase("serve", serve_phase, torch, args.seed)
+    graphs = phase("graphs", graphs_phase, torch, args.seed, smi_line)
+    reload = phase("reload", reload_phase, torch, args.seed, smi_line)
     phase("data", host_generation, torch, args.seed, TRAIN_WORKERS)
     train = {b: phase(f"train_{b}", train_phase, torch, args.seed, b)
              for b in ("pallas", "hybrid_dw", "xla")}
@@ -1469,7 +1947,7 @@ def main() -> int:
     phase("cli", cli_phase, args.seed)
     cache = phase("cache", cache_phase, torch, args.seed, smi_line)["runs"]
     rungs = phase("precision", precision_phase, torch, args.seed, train,
-                  smi_line)["launches"]
+                  graphs, smi_line)["launches"]
     print("phase_walls", json.dumps(walls), flush=True)
 
     # ms, plain_ms, library_ms and bound_ms sum one train step's shapes
@@ -1485,6 +1963,7 @@ def main() -> int:
         _kernel_entry("conv3d_fwd", "featurenet_tpu_torch/ops/csrc/conv3d_fwd.cu",
                       "featurenet_tpu/ops/conv3d.py:160", fwd_train,
                       {"serve": serve["conv3d_fwd_launches"],
+                       "reload": reload["launches"]["conv3d_fwd"],
                        "train_pallas": tp["conv3d_fwd"],
                        "train_hybrid_dw": th["conv3d_fwd"],
                        "train_xla": tx["conv3d_fwd"],

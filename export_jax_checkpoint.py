@@ -35,6 +35,7 @@ def export(src: str, dst: str, step: int | None = None) -> int:
     port checkpoint directory ``dst``; returns the step."""
     import jax
     import numpy as np
+    import torch
 
     from featurenet_tpu.config import config_to_dict as jax_config_to_dict
     from featurenet_tpu.runtime import build_model as jax_build_model
@@ -79,7 +80,7 @@ def export(src: str, dst: str, step: int | None = None) -> int:
     for dst_t, key in ((state.optimizer.mu, "mu"), (state.optimizer.nu, "nu")):
         for t, n in zip(dst_t, names):
             t.copy_(opt[key][n])
-    state.optimizer.count = opt["count"]
+    state.optimizer.count = torch.tensor(opt["count"], dtype=torch.int32)
     state.step = int(jstate.step)
     for key, t in convert.scale_state_from_jax(jstate).items():
         getattr(state, key).copy_(t)

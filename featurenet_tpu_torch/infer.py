@@ -7,31 +7,46 @@ Usage:
     p = Predictor.from_checkpoint("runs/ck", precision="int8")
     labels, probs = p.predict_voxels(grids)          # [N,R,R,R] occupancy
     results = p.predict_stl(["part.stl", ...])       # end-to-end
+    p.swap_params("runs/ck2")                        # hot swap, zero downtime
     p.agreement()                                    # top-1 vs fp32 serving
 
 Inputs are padded to the compile batch as in the JAX package, so every
-dispatch has one of a few shapes.
+dispatch has one of a few shapes, and each shape has its serving program
+(``runtime/registry.py``): on the card a CUDA graph captured at first use
+(the service captures every bucket at warmup), replayed by every dispatch;
+on the CPU the eager forward.
 
 ``precision`` (default: the config's ``serve_precision``) is the serving
 weight precision. ``fp32`` serves the masters. ``bf16`` casts a bf16
-working copy of every parameter once, at construction, and keeps it on the
-device. ``int8`` quantizes the weights once, at construction
+working copy of every parameter once, when a generation is built, and
+keeps it on the device. ``int8`` quantizes the weights once
 (``runtime/quantize.py``), keeps the int8 tensors and their scales on the
-device and dequantizes them for each dispatch, so int8 is what sits in
-device memory. Under both reduced rungs the model's own parameters leave
-the device (``meta`` placeholders, which a forward without the working
-copy cannot read); the batch-norm statistics stay fp32 on the device, and
-the fp32 masters stay on the host for ``agreement``.
+device and dequantizes them inside each dispatch's program, so int8 is
+what sits in device memory. Under both reduced rungs the model's own
+parameters leave the device (``meta`` placeholders, which a forward
+without the working copy cannot read); the batch-norm statistics stay fp32
+on the device, and the fp32 masters stay on the host for ``agreement``.
 ``resident_weight_bytes`` counts the parameter bytes the device holds.
 
-Canonicalization, test-time rotations and hot swaps are not ported yet.
+Weight generations: everything one set of weights serves with (its device
+module with its batch-norm statistics, its working copy or int8 tensors,
+its ``model_version`` and ``checkpoint_dir``, its programs) is one
+``_Weights`` bundle. A dispatch reads the live bundle once, and
+``swap_params`` builds a new bundle on the caller's thread, captures its
+programs for every batch the old one had, and then flips one reference:
+dispatches in flight finish on the old generation, the next one runs the
+new, and a swap that fails raises before the flip.
+
+Canonicalization and test-time rotations are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import os
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -48,6 +63,7 @@ from featurenet_tpu_torch.runtime.quantize import (
     quantize_tree,
     tree_bytes,
 )
+from featurenet_tpu_torch.runtime.registry import ServeProgram, ServePrograms
 from featurenet_tpu_torch.train.precision import SERVE_PRECISIONS, serve_params_cast
 from featurenet_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -91,21 +107,82 @@ def _drop_parameters(model: torch.nn.Module) -> None:
                     torch.empty_like(p, device="meta"), requires_grad=False)
 
 
+def _restore_for_serving(checkpoint_dir: str, config: Config | str | None = None):
+    """The weights of the newest verified step of ``checkpoint_dir`` (a
+    step that fails is walked past, never deleted), for a cold start
+    (``Predictor.from_checkpoint``) and a hot swap (``swap_params``, whose
+    ``config`` is the live one, so a candidate of another identity raises
+    before anything changes). Returns ``(state_dict, cfg, model_version)``."""
+    saved = load_run_config(checkpoint_dir)
+    if config is None:
+        if saved is None:
+            raise FileNotFoundError(
+                f"{checkpoint_dir!r} has no config.json; pass config="
+            )
+        cfg = saved
+    else:
+        cfg = get_config(config) if isinstance(config, str) else config
+        if saved is not None:
+            check_identity(saved, cfg)
+    model = build_model(cfg)
+    mgr = CheckpointManager(checkpoint_dir)
+    mgr.restore_init(TrainState(model, optimizer=None))
+    mgr.close()
+    return (model.state_dict(), cfg,
+            checkpoint_version(checkpoint_dir, mgr.restored_step))
+
+
+def _dispatch_params(serve_params: dict | None, qparams: dict | None,
+                     scales: dict | None) -> dict | None:
+    """The parameters of one dispatch: the bf16 working copy, the int8
+    tensors dequantized, or ``None`` (the model's own fp32 parameters)."""
+    return serve_params if qparams is None else dequantize_tree(qparams, scales)
+
+
+def _serve_weights(model: torch.nn.Module, serve_params: dict | None,
+                   qparams: dict | None, scales: dict | None,
+                   voxels: torch.Tensor) -> torch.Tensor:
+    """One generation's eager serving forward, the body its programs
+    capture."""
+    return serve_forward(model, voxels,
+                         _dispatch_params(serve_params, qparams, scales))
+
+
+@dataclasses.dataclass(eq=False)
+class _Weights:
+    """One generation of serving weights, bundled so a hot swap is a single
+    reference flip: a dispatch reads ``Predictor._weights`` once and takes
+    everything it runs from that one read, so a swap landing between two
+    dispatches never mixes generations within one forward."""
+
+    model: torch.nn.Module            # its own device module, BN buffers included
+    masters: dict[str, torch.Tensor]  # fp32, on the host (agreement)
+    serve_params: dict | None         # the resident bf16 working copy
+    qparams: dict | None              # int8 only: the int8 tensors ...
+    scales: dict | None               # ... and their scales
+    version: str
+    checkpoint_dir: str | None
+    programs: ServePrograms | None = None  # their ``body`` is the eager forward
+
+
 class Predictor:
     """Eval-mode ``FeatureNet`` on one device, fed padded fixed-shape
-    batches, at one serving precision (see the module docstring).
+    batches through one serving program per batch, at one serving
+    precision (see the module docstring).
 
     ``state`` is a port ``state_dict`` (``convert.from_flax``,
     ``convert.load_npz``); ``device`` defaults to ``"cuda"`` and raises
     when there is no card, unless the caller asks for ``"cpu"``;
     ``precision`` defaults to ``cfg.serve_precision``, and an unknown one
-    raises ``ValueError``.
+    raises ``ValueError``. ``replays`` counts the dispatches a CUDA graph
+    answered.
     """
 
     def __init__(self, state: dict[str, torch.Tensor], cfg: Config,
                  batch: int = 32, device="cuda",
                  model_version: str = "unversioned",
-                 precision: str | None = None):
+                 precision: str | None = None,
+                 checkpoint_dir: str | None = None):
         cfg.validate()
         precision = cfg.serve_precision if precision is None else precision
         if precision not in SERVE_PRECISIONS:
@@ -117,29 +194,73 @@ class Predictor:
         if self.batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
         self.precision = precision
-        self.model_version = model_version
-        model = build_model(cfg)
+        self.replays = 0
+        self._replay_lock = threading.Lock()
+        self._weights = self._build_weights(state, model_version, checkpoint_dir)
+
+    def _build_weights(self, state: dict[str, torch.Tensor], version: str,
+                       checkpoint_dir: str | None) -> _Weights:
+        """One generation on the device at this Predictor's precision, with
+        no program built yet: the construction path and the swap path."""
+        model = build_model(self.cfg)
         model.load_state_dict(state)
-        self._masters = {k: v.detach().clone()
-                         for k, v in model.named_parameters()}
-        self.model = model.to(self.device)
-        on_device = {k: v.detach() for k, v in self.model.named_parameters()}
-        # What each dispatch reads: the model's own parameters (fp32), a
-        # resident bf16 copy, or resident int8 tensors and their scales.
-        self._serve_params = self._qparams = self._scales = None
-        if precision == "bf16":
-            self._serve_params = serve_params_cast(on_device, "bf16")
-        elif precision == "int8":
-            self._qparams, self._scales = quantize_tree(on_device)
-        if precision != "fp32":
+        masters = {k: v.detach().clone() for k, v in model.named_parameters()}
+        model = model.to(self.device)
+        on_device = {k: v.detach() for k, v in model.named_parameters()}
+        serve_params = qparams = scales = None
+        if self.precision == "bf16":
+            serve_params = serve_params_cast(on_device, "bf16")
+        elif self.precision == "int8":
+            qparams, scales = quantize_tree(on_device)
+        if self.precision != "fp32":
             del on_device
-            _drop_parameters(self.model)
+            _drop_parameters(model)
+        w = _Weights(model, masters, serve_params, qparams, scales, version,
+                     checkpoint_dir)
+        # The body is a function of the tensors, not of the bundle: no
+        # cycle, so a retired generation (its graphs and their memory pool
+        # included) is freed as soon as no dispatch holds it.
+        body = functools.partial(_serve_weights, model, serve_params, qparams,
+                                 scales)
+        w.programs = ServePrograms(self.precision, body, self.cfg.resolution,
+                                   self.device)
+        return w
+
+    # The live generation's parts, read through the one bundle, so every
+    # reader follows a swap.
+    @property
+    def model(self) -> torch.nn.Module:
+        return self._weights.model
+
+    @property
+    def model_version(self) -> str:
+        return self._weights.version
+
+    @property
+    def checkpoint_dir(self) -> str | None:
+        return self._weights.checkpoint_dir
+
+    @property
+    def _masters(self):
+        return self._weights.masters
+
+    @property
+    def _serve_params(self):
+        return self._weights.serve_params
+
+    @property
+    def _qparams(self):
+        return self._weights.qparams
+
+    @property
+    def _scales(self):
+        return self._weights.scales
 
     @property
     def resident_weight_bytes(self) -> int:
-        """The parameter bytes this Predictor keeps on its device: fp32
-        masters, the bf16 copy, or the int8 tensors (biases and batch-norm
-        vectors fp32) with their scales."""
+        """The parameter bytes the live generation keeps on its device:
+        fp32 masters, the bf16 copy, or the int8 tensors (biases and
+        batch-norm vectors fp32) with their scales."""
         if self.precision == "bf16":
             return tree_bytes(self._serve_params)
         if self.precision == "int8":
@@ -148,11 +269,8 @@ class Predictor:
 
     def _dispatch_params(self):
         """The parameters of one dispatch (``None``: the model's own)."""
-        if self.precision == "bf16":
-            return self._serve_params
-        if self.precision == "int8":
-            return dequantize_tree(self._qparams, self._scales)
-        return None
+        w = self._weights
+        return _dispatch_params(w.serve_params, w.qparams, w.scales)
 
     @classmethod
     def from_checkpoint(cls, checkpoint_dir: str,
@@ -167,25 +285,9 @@ class Predictor:
         (``config.check_identity``), and may pick another
         ``conv_backend``."""
         dev = resolve_device(device)
-        saved = load_run_config(checkpoint_dir)
-        if config is None:
-            if saved is None:
-                raise FileNotFoundError(
-                    f"{checkpoint_dir!r} has no config.json; pass config="
-                )
-            cfg = saved
-        else:
-            cfg = get_config(config) if isinstance(config, str) else config
-            if saved is not None:
-                check_identity(saved, cfg)
-        model = build_model(cfg)
-        mgr = CheckpointManager(checkpoint_dir)
-        mgr.restore_init(TrainState(model, optimizer=None))
-        mgr.close()
-        return cls(model.state_dict(), cfg, batch=batch, device=dev,
-                   model_version=checkpoint_version(checkpoint_dir,
-                                                    mgr.restored_step),
-                   precision=precision)
+        state, cfg, version = _restore_for_serving(checkpoint_dir, config)
+        return cls(state, cfg, batch=batch, device=dev, model_version=version,
+                   precision=precision, checkpoint_dir=checkpoint_dir)
 
     @classmethod
     def from_seed(cls, cfg: Config, seed: int, batch: int = 32,
@@ -194,6 +296,21 @@ class Predictor:
         state = build_model(cfg, seed=seed).state_dict()
         return cls(state, cfg, batch=batch, device=device,
                    model_version=f"seed{seed}", precision=precision)
+
+    def swap_params(self, checkpoint_dir: str) -> str:
+        """Hot-swap the serving weights to another checkpoint of the same
+        model identity with zero downtime: restore, cast or quantize, and
+        capture the new generation's programs for every batch the live one
+        has, all on the caller's thread while the live generation keeps
+        serving; then flip one reference. Raises before the flip (identity
+        mismatch, a missing or unreadable checkpoint, a failed capture), so
+        a failed swap leaves the old generation serving. Returns the new
+        ``model_version``."""
+        state, _, version = _restore_for_serving(checkpoint_dir, self.cfg)
+        new = self._build_weights(state, version, checkpoint_dir)
+        new.programs.build(self._weights.programs.batches())
+        self._weights = new
+        return version
 
     def agreement(self, n: int = 48, seed: int = 0,
                   reference_precision: str = "fp32",
@@ -214,6 +331,13 @@ class Predictor:
         """The int8 rung of ``agreement``."""
         return self.agreement(n=n, seed=seed, candidate_precision="int8")
 
+    def program_for(self, batch: int) -> ServeProgram:
+        """The ``serve``/``serve_bf16``/``serve_int8`` program at this batch
+        on the live generation (``registry.serve_program_name``), built at
+        first use and memoized: building one per bucket before traffic is
+        the serving warmup, after which no request shape captures."""
+        return self._weights.programs.get(batch)
+
     def forward_padded(self, voxels: np.ndarray, batch: int | None = None) -> np.ndarray:
         """Probabilities for an already padded ``[batch, R, R, R, 1]`` array,
         read back to the host. The continuous batcher calls this once per
@@ -221,12 +345,23 @@ class Predictor:
         if batch is not None and voxels.shape[0] != batch:
             raise ValueError(f"padded batch {voxels.shape[0]} != bucket {batch}")
         x = torch.from_numpy(np.ascontiguousarray(voxels, dtype=np.float32))
-        return self.forward(x.to(self.device)).cpu().numpy()
+        return self.forward(x).cpu().numpy()
 
     def forward(self, voxels: torch.Tensor) -> torch.Tensor:
-        """Probabilities on the device for ``[B, R, R, R, 1]`` voxels already
-        there: one dispatch at this Predictor's precision."""
-        return serve_forward(self.model, voxels, self._dispatch_params())
+        """Probabilities on the device for ``[B, R, R, R, 1]`` voxels (on the
+        device or the host): one dispatch, the program at batch ``B`` of the
+        live generation, read once."""
+        w = self._weights
+        out = w.programs.get(voxels.shape[0])(voxels)
+        if self.device.type == "cuda":
+            with self._replay_lock:
+                self.replays += 1
+        return out
+
+    def forward_eager(self, voxels: torch.Tensor) -> torch.Tensor:
+        """The live generation's eager forward of ``voxels`` on the device:
+        what its programs captured, for comparing and timing the two."""
+        return self._weights.programs.body(voxels)
 
     def predict_voxels(self, grids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Classify ``[N, R, R, R]`` (or ``[N,R,R,R,1]``) occupancy grids.

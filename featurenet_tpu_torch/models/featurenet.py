@@ -39,6 +39,10 @@ same logits:
 - The 2³ max pool is ``F.max_pool3d`` on a channels-first view: its
   gradient goes to the first maximum of each window, as XLA's
   select-and-scatter does, where ``amax`` would split it among ties.
+- The forward's dtype casts run inside the profiler range ``casts`` and
+  batch norm with its ReLU inside ``bn_relu`` (``record_function``; with
+  no profiler running they cost a few µs of host time), so a profile
+  splits PyTorch's elementwise device time by op.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from featurenet_tpu_torch.data.synthetic import NUM_CLASSES
 from featurenet_tpu_torch.ops.conv3d import (
@@ -170,18 +175,23 @@ class ConvBNRelu(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = self.conv(x).float()
-        if train:
-            axes = (0, 1, 2, 3)
-            mean = y.mean(dim=axes)
-            var = torch.clamp((y * y).mean(dim=axes) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
-                self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
-        else:
-            mean, var = self.mean, self.var
-        y = (y - mean) * (torch.rsqrt(var + BN_EPS) * self.scale) + self.bias
-        return F.relu(y).to(self.dtype)
+        y = self.conv(x)
+        with record_function("casts"):
+            y = y.float()
+        with record_function("bn_relu"):
+            if train:
+                axes = (0, 1, 2, 3)
+                mean = y.mean(dim=axes)
+                var = torch.clamp((y * y).mean(dim=axes) - mean * mean, min=0.0)
+                with torch.no_grad():
+                    self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
+                    self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+            else:
+                mean, var = self.mean, self.var
+            y = (y - mean) * (torch.rsqrt(var + BN_EPS) * self.scale) + self.bias
+            y = F.relu(y)
+        with record_function("casts"):
+            return y.to(self.dtype)
 
 
 class FeatureNet(nn.Module):
@@ -220,7 +230,8 @@ class FeatureNet(nn.Module):
         """Logits; ``train=True`` uses and updates batch statistics and
         applies dropout with ``generator``."""
         a = self.arch
-        x = voxels.to(self.dtype)
+        with record_function("casts"):
+            x = voxels.to(self.dtype)
         for block, f, s, p in zip(self.blocks, a.features, a.strides,
                                   a.pool_after):
             y = block(x, train)
@@ -231,13 +242,16 @@ class FeatureNet(nn.Module):
             x = x.float().mean(dim=(1, 2, 3)).to(self.dtype)
         else:
             x = x.reshape(x.shape[0], -1)
-        x = F.relu(F.linear(x, self.dense0.weight.to(self.dtype),
-                            self.dense0.bias.to(self.dtype)))
+        with record_function("casts"):
+            w0, b0, w1, b1 = (t.to(self.dtype) for t in (
+                self.dense0.weight, self.dense0.bias, self.dense1.weight,
+                self.dense1.bias))
+        x = F.relu(F.linear(x, w0, b0))
         if train:
             x = dropout(x, a.dropout, generator)
-        x = F.linear(x, self.dense1.weight.to(self.dtype),
-                     self.dense1.bias.to(self.dtype))
-        return x.float()
+        x = F.linear(x, w1, b1)
+        with record_function("casts"):
+            return x.float()
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator):

@@ -44,6 +44,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from featurenet_tpu_torch.ops import build
 from featurenet_tpu_torch.ops.conv_dw import (
@@ -356,8 +357,11 @@ class PallasConv(nn.Module):
         self.conv = conv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x.float().contiguous(),
-                         self.kernel.float()).to(self.dtype)
+        with record_function("casts"):
+            x, w = x.float().contiguous(), self.kernel.float()
+        y = self.conv(x, w)
+        with record_function("casts"):
+            return y.to(self.dtype)
 
 
 class HybridConv(nn.Module):
@@ -382,4 +386,6 @@ class HybridConv(nn.Module):
         self.conv = conv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x.to(self.dtype), self.kernel)
+        with record_function("casts"):
+            x = x.to(self.dtype)
+        return self.conv(x, self.kernel)

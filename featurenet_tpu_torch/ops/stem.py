@@ -16,10 +16,13 @@ padding (lo 0, hi 1), so the padding is applied with ``F.pad`` first.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 
 def _plan(resolution: int, kernel: int, stride: int):
@@ -44,19 +47,33 @@ def space_to_depth(x: torch.Tensor, s: int) -> torch.Tensor:
     return x.reshape(b, d // s, h // s, w // s, s * s * s * c)
 
 
+@functools.lru_cache(maxsize=None)
+def _scatter_index(resolution: int, kernel: int, stride: int,
+                   device: torch.device) -> tuple:
+    """``(k2, pads, index)``: where ``transform_weights`` scatters each tap,
+    as index tensors on ``device``, made once per shape and device, so a
+    forward copies nothing from the host (which would synchronise, and
+    which a CUDA graph cannot capture). Made outside inference mode, so
+    training forwards may index with them too."""
+    k, s = kernel, stride
+    k2, pads, tap, parity = _plan(resolution, k, s)
+    kz, ky, kx = np.meshgrid(np.arange(k), np.arange(k), np.arange(k),
+                             indexing="ij")
+    pchan = (parity[kz] * s + parity[ky]) * s + parity[kx]
+    with torch.inference_mode(False):
+        index = tuple(
+            torch.as_tensor(a.ravel(), device=device)
+            for a in (tap[kz], tap[ky], tap[kx], pchan)
+        )
+    return k2, pads, index
+
+
 def transform_weights(w: torch.Tensor, resolution: int, stride: int):
     """Scatter ``w[K,K,K,Cin,Cout]`` into the stride-1 weight
     ``w2[K2,K2,K2,s³·Cin,Cout]``; returns ``(w2, (lo, hi))``."""
     k, cin, cout = w.shape[0], w.shape[3], w.shape[4]
     s = stride
-    k2, pads, tap, parity = _plan(resolution, k, s)
-    kz, ky, kx = np.meshgrid(np.arange(k), np.arange(k), np.arange(k),
-                             indexing="ij")
-    pchan = (parity[kz] * s + parity[ky]) * s + parity[kx]
-    index = tuple(
-        torch.as_tensor(a.ravel(), device=w.device)
-        for a in (tap[kz], tap[ky], tap[kx], pchan)
-    )
+    k2, pads, index = _scatter_index(resolution, k, s, w.device)
     w2 = torch.zeros((k2, k2, k2, s ** 3, cin, cout), dtype=w.dtype,
                      device=w.device)
     w2[index] = w.reshape(k ** 3, cin, cout)
@@ -91,6 +108,6 @@ class SpaceToDepthConv(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return space_to_depth_conv(
-            x.to(self.dtype), self.kernel.to(self.dtype), self.stride
-        )
+        with record_function("casts"):
+            x, w = x.to(self.dtype), self.kernel.to(self.dtype)
+        return space_to_depth_conv(x, w, self.stride)

@@ -1,11 +1,12 @@
 """Model construction and the serving forward (port of
 ``featurenet_tpu/runtime/registry.py``'s ``build_model`` and ``_serve_fn``).
 
-The JAX registry compiles one program per batch shape and precision;
-PyTorch runs eagerly, so here the serving forward is a plain function:
-logits → fp32 softmax, over the model's own parameters or over a working
-copy of them (``train/precision.py``). ``runtime/quantize.py`` holds the
-int8 quantizer and the agreement gate.
+The serving forward is a plain function: logits → fp32 softmax, over the
+model's own parameters or over a working copy of them
+(``train/precision.py``). ``runtime/registry.py`` builds the serving
+programs from it, one per batch and precision (on the card a CUDA graph of
+this forward, the reference's compiled program); ``runtime/quantize.py``
+holds the int8 quantizer and the agreement gate.
 """
 
 from __future__ import annotations

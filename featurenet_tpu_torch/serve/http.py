@@ -4,8 +4,15 @@
 - ``POST /predict``: raw STL bytes in, the prediction as JSON out.
 - ``POST /predict_voxels``: raw float32 little-endian bytes of one
   ``[R,R,R]`` occupancy grid in, the same JSON out.
-- ``GET /healthz``: readiness (503 while not ready); ``GET /stats``:
+- ``GET /healthz``: readiness (503 while not ready, a reload's cordon
+  included), ``model_version`` and ``checkpoint_dir``; ``GET /stats``:
   batcher counters.
+- ``POST /admin/reload`` with ``{"checkpoint_dir": "<path>"}``: the
+  zero-downtime weight hot swap (``InferenceService.reload``). ``200``
+  with the new ``model_version``, ``from_version`` and ``swap_ms``;
+  ``400`` ``bad_json`` or ``bad_reload`` for a body that is not that
+  object; ``409`` ``swap_refused`` with the refusal's ``kind`` and
+  ``detail`` and the ``model_version`` still serving.
 
 Status codes carry the admission contract: ``200`` answered (body:
 ``InferenceService.format_row``); ``400`` unparseable STL or voxels;
@@ -31,8 +38,8 @@ from featurenet_tpu_torch.serve.batcher import OverloadError, normalize_lane
 DEFAULT_REQUEST_TIMEOUT_S = 60.0
 PRIORITY_HEADER = "X-Featurenet-Priority"
 
-ENDPOINTS = ["POST /predict", "POST /predict_voxels", "GET /stats",
-             "GET /healthz"]
+ENDPOINTS = ["POST /predict", "POST /predict_voxels", "POST /admin/reload",
+             "GET /stats", "GET /healthz"]
 
 
 def parse_voxels(data: bytes, resolution: int) -> np.ndarray:
@@ -94,6 +101,9 @@ def make_server(service, host: str = "127.0.0.1", port: int = 0,
             # Read the body first: an unread body on a keep-alive channel
             # would be parsed as the next request.
             data = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+            if self.path == "/admin/reload":
+                self._admin_reload(data)
+                return
             if self.path not in ("/predict", "/predict_voxels"):
                 self._json(404, {"error": "not_found", "endpoints": ENDPOINTS})
                 return
@@ -131,5 +141,31 @@ def make_server(service, host: str = "127.0.0.1", port: int = 0,
                 self._json(500, {"error": "forward_failed", "detail": str(e)})
                 return
             self._json(200, service.format_row(row))
+
+        def _admin_reload(self, data: bytes) -> None:
+            try:
+                payload = json.loads(data.decode("utf-8")) if data else {}
+            except ValueError as e:
+                self._json(400, {"error": "bad_json", "detail": str(e)})
+                return
+            ckpt = payload.get("checkpoint_dir") if isinstance(payload, dict) else None
+            if not isinstance(ckpt, str) or not ckpt:
+                self._json(400, {
+                    "error": "bad_reload",
+                    "detail": 'body must be {"checkpoint_dir": "<path>"}',
+                })
+                return
+            try:
+                out = service.reload(ckpt)
+            except Exception as e:  # every refusal is a 409; the old weights serve
+                self._json(409, {
+                    "error": "swap_refused",
+                    "kind": type(e).__name__,
+                    "detail": str(e),
+                    "model_version": getattr(service.predictor, "model_version",
+                                             "unversioned"),
+                })
+                return
+            self._json(200, out)
 
     return _Server((host, port), Handler)

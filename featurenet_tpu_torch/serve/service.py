@@ -1,10 +1,15 @@
 """The inference service: a ``Predictor`` behind the continuous batcher
 (port of ``featurenet_tpu/serve/service.py`` without its alerts, quality
-plane, flight recorder, incidents, fault sites and weight reloads).
+plane, flight recorder, incidents and fault sites).
 
-- **Warmup**: construction runs one forward per bucket, so the kernels are
-  built and loaded and every shape the batcher can dispatch has run once
-  before the first request.
+- **Warmup**: construction builds the Predictor's serving program for
+  every bucket (``Predictor.program_for``, the largest first), so the
+  kernels are built and loaded and every shape the batcher can dispatch is
+  a captured CUDA graph on the card before the first request.
+- **Hot swap**: ``reload`` (``POST /admin/reload``) verifies a candidate
+  checkpoint and swaps the Predictor's weight generation under traffic
+  (``Predictor.swap_params``); the replica is cordoned (not ready) while it
+  swaps, and a refusal leaves the old generation serving.
 - **Precision**: the service serves its ``Predictor``'s precision
   (``fp32``, ``bf16``, ``int8``), which ``stats`` (``GET /stats``) reports.
 - **The upload path**: ``submit_stl_bytes`` parses and voxelizes raw STL
@@ -14,6 +19,7 @@ plane, flight recorder, incidents, fault sites and weight reloads).
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -31,6 +37,7 @@ from featurenet_tpu_torch.serve.batcher import (
     normalize_buckets,
     normalize_lane,
 )
+from featurenet_tpu_torch.train.checkpoint import CheckpointManager
 
 
 class InferenceService:
@@ -52,9 +59,10 @@ class InferenceService:
         self.buckets = normalize_buckets(buckets)
         self._t_start = time.perf_counter()
         self._ready = False
-        R = self.cfg.resolution
-        for b in self.buckets:
-            predictor.forward_padded(np.zeros((b, R, R, R, 1), np.float32), batch=b)
+        self._reload_cordon = False
+        self._swap_lock = threading.Lock()
+        for b in sorted(self.buckets, reverse=True):
+            predictor.program_for(b)
         if batch_queue_limit is None:
             batch_queue_limit = max(1, queue_limit // 2)
         self.batcher = ContinuousBatcher(
@@ -107,17 +115,63 @@ class InferenceService:
         return {**self.batcher.stats(), "precision": self.precision}
 
     def ready(self) -> bool:
-        """True between warmup completing and drain beginning."""
-        return self._ready
+        """True between warmup completing and drain beginning, except while
+        ``reload`` swaps the weights (the cordon)."""
+        return self._ready and not self._reload_cordon
+
+    def reloading(self) -> bool:
+        """True while ``reload`` is mid-swap: the replica is not ready but
+        alive and answering."""
+        return self._reload_cordon
 
     def health(self) -> dict:
-        """The /healthz payload."""
-        return {
+        """The /healthz payload: readiness, uptime, queue depth, and which
+        weights this replica serves and where they came from."""
+        out = {
             "ready": self.ready(),
             "uptime_s": round(time.perf_counter() - self._t_start, 3),
             "queue_depth": self.batcher.stats()["queue_depth"],
-            "model_version": self.predictor.model_version,
+            "model_version": getattr(self.predictor, "model_version",
+                                     "unversioned"),
         }
+        ckpt = getattr(self.predictor, "checkpoint_dir", None)
+        if ckpt is not None:
+            out["checkpoint_dir"] = ckpt
+        return out
+
+    def reload(self, checkpoint_dir: str) -> dict:
+        """Zero-downtime weight hot swap (``POST /admin/reload``): verify the
+        candidate's newest step against its checksum sidecar, then swap the
+        Predictor's generation (``Predictor.swap_params``). The restore,
+        the cast and the captures run here, on the caller's thread (an HTTP
+        worker), never the dispatch thread, so requests keep being answered
+        throughout. Any failure (no step, a checksum mismatch, another
+        identity, an unreadable checkpoint, a failed capture) raises before
+        the flip and leaves the old generation serving. One swap at a
+        time."""
+        with self._swap_lock:
+            from_version = getattr(self.predictor, "model_version", "unversioned")
+            t0 = time.perf_counter()
+            self._reload_cordon = True
+            try:
+                mgr = CheckpointManager(checkpoint_dir)
+                try:
+                    step = mgr.latest_step()
+                    if step is None:
+                        raise ValueError("no finalized checkpoint step in "
+                                         f"{checkpoint_dir!r}")
+                    mgr.verify(step)
+                finally:
+                    mgr.close()
+                version = self.predictor.swap_params(checkpoint_dir)
+            finally:
+                self._reload_cordon = False
+            return {
+                "ok": True,
+                "model_version": version,
+                "from_version": from_version,
+                "swap_ms": round((time.perf_counter() - t0) * 1e3, 3),
+            }
 
     def drain(self, timeout_s: float = 30.0) -> dict:
         """Stop accepting and answer everything admitted; ``exit_code`` is

@@ -126,7 +126,9 @@ def _snapshot(state) -> dict:
     return {
         "step": int(state.step),
         "optimizer": opt.kind,
-        "count": int(opt.count),
+        # A device tensor until the writer has it on the host: reading it
+        # here would wait for the step.
+        "count": opt.count.detach().clone(),
         "model": {k: v.detach().clone() for k, v in model.state_dict().items()},
         "mu": {n: t.detach().clone() for n, t in zip(names, opt.mu)},
         "nu": {n: t.detach().clone() for n, t in zip(names, opt.nu)},
@@ -167,7 +169,8 @@ def _apply(state, payload: dict, optimizer: bool) -> None:
         for key, tensors in moments:
             for n, t in zip(names, tensors):
                 t.copy_(payload[key][n])
-        opt.count = int(payload["count"])
+        opt.count = torch.tensor(int(payload["count"]), dtype=torch.int32,
+                                 device=opt.count.device)
         state.step = int(payload["step"])
         for k in _SCALE_KEYS:
             if k in payload:
@@ -304,7 +307,7 @@ class CheckpointManager:
             self._stream.wait_event(event)
             for key in _GROUPS:
                 out[key] = {k: pinned(v) for k, v in snap[key].items()}
-            for key in _SCALE_KEYS:
+            for key in _SCALE_KEYS + ("count",):
                 out[key] = pinned(snap[key])
         self._stream.synchronize()
         return out
@@ -320,6 +323,7 @@ class CheckpointManager:
                 t0 = time.perf_counter()
                 host = self._to_host(snap, event)
                 del snap, item  # free the device copy before the slow write
+                host["count"] = int(host["count"])  # the file keeps an int
                 step = host["step"]
                 path = self._path(step)
                 _write_file(host, path)

@@ -34,6 +34,7 @@ import dataclasses
 from typing import Mapping, Optional
 
 import torch
+from torch.profiler import record_function
 
 TRAIN_PRECISIONS = ("fp32", "bf16_master", "fp16_scaled")
 SERVE_PRECISIONS = ("fp32", "bf16", "int8")
@@ -71,8 +72,9 @@ class PrecisionPolicy:
         the masters themselves under ``fp32``."""
         if self.working_dtype is None:
             return dict(params)
-        work = _cast_floating({k: v.detach() for k, v in params.items()},
-                              _DTYPES[self.working_dtype])
+        with record_function("casts"):
+            work = _cast_floating({k: v.detach() for k, v in params.items()},
+                                  _DTYPES[self.working_dtype])
         return {k: v.requires_grad_() for k, v in work.items()}
 
     def master_grads(self, grads):
@@ -80,7 +82,8 @@ class PrecisionPolicy:
         or ``grads`` as they are under ``fp32``."""
         if self.working_dtype is None:
             return list(grads)
-        return [g.float() for g in grads]
+        with record_function("casts"):
+            return [g.float() for g in grads]
 
 
 POLICIES = {

@@ -48,11 +48,14 @@ class TrainState:
     def policy(self) -> PrecisionPolicy:
         return get_policy(self.precision)
 
-    def apply_gradients(self, grads: Sequence[torch.Tensor]) -> None:
+    def apply_gradients(self, grads: Sequence[torch.Tensor],
+                        finite: Optional[torch.Tensor] = None) -> None:
         """Apply ``grads`` (fp32, one per parameter, ``model.parameters()``
-        order) to the masters; the batch statistics already moved in the
-        train-mode forward."""
-        self.optimizer.update(grads)
+        order) to the masters, only where the device verdict ``finite``
+        holds when one is given (``Optimizer.update``); the batch
+        statistics already moved in the train-mode forward. The step
+        advances either way."""
+        self.optimizer.update(grads, finite)
         self.step += 1
 
 

@@ -36,12 +36,17 @@ to fp32 before the update. ``fp16_scaled`` is the port of the reference's
 gradients upcast and then unscaled, one finiteness verdict taken over all
 of them, and a non-finite step skipped bitwise: parameters, moments, the
 optimizer's count and the batch-norm statistics (which the forward moves
-in place, so they are restored from a snapshot with ``torch.where``) keep
-their bits; only ``state.step`` advances and the scale halves. The
-verdict is read on the host once per ``fp16_scaled`` step (one
-synchronisation): the learning rate comes from the optimizer's count on
-the host, which a skipped step must leave as it was. ``fp32`` and
-``bf16_master`` steps do not synchronise.
+in place, so they are restored from a snapshot) keep their bits; only
+``state.step`` advances and the scale halves. The verdict stays on the
+device: every slot is computed as if the step applied and then merged with
+its old value by ``torch.where(finite, new, old)``, as the reference merges
+its two states with ``jnp.where``. The optimizer's ``count`` is a 0-d
+int32 tensor on the parameters' device, and the learning rate and Adam's
+bias corrections are computed from it there, so no train step reads a
+device value on the host.
+
+The update runs inside the profiler range ``optimizer``
+(``record_function``), beside the model's ``casts`` and ``bn_relu``.
 
 ``eval_step`` applies the serving precision's cast (``serve_params_cast``)
 before its forward, as the reference's ``make_eval_step`` does, so
@@ -56,6 +61,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from featurenet_tpu_torch.ops.augment import group_count, rotate_groups
 from featurenet_tpu_torch.runtime import forward_with
@@ -111,19 +117,27 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def make_lr_schedule(peak_lr: float, warmup_steps: int,
-                     total_steps: int) -> Callable[[int], float]:
-    """Linear warmup from 0 to ``peak_lr``, then cosine decay to
-    ``peak_lr·0.01`` at ``max(total_steps, warmup_steps + 1)``."""
+                     total_steps: int) -> Callable[[torch.Tensor | int], torch.Tensor]:
+    """``optax.warmup_cosine_decay_schedule``: linear warmup from 0 to
+    ``peak_lr``, then cosine decay to ``peak_lr·0.01`` at
+    ``max(total_steps, warmup_steps + 1)``. The schedule maps a count (a
+    tensor, or an int) to a 0-d fp32 tensor on the count's device,
+    evaluated in fp32 in optax's order of operations."""
     decay_steps = max(total_steps, warmup_steps + 1) - warmup_steps
     end = peak_lr * 0.01
     alpha = 0.0 if peak_lr == 0.0 else end / peak_lr
 
-    def schedule(step: int) -> float:
-        if step < warmup_steps:
-            return peak_lr * step / warmup_steps
-        t = min(step - warmup_steps, decay_steps)
-        cosine = 0.5 * (1.0 + math.cos(math.pi * t / decay_steps))
-        return peak_lr * ((1.0 - alpha) * cosine + alpha)
+    def schedule(count) -> torch.Tensor:
+        step = torch.as_tensor(count).float()
+        if warmup_steps > 0:
+            frac = 1.0 - torch.clamp(step, 0, warmup_steps) / warmup_steps
+            warm = (0.0 - peak_lr) * frac + peak_lr
+        else:
+            warm = torch.zeros_like(step)
+        t = torch.clamp(step - warmup_steps, max=decay_steps)
+        cosine = 0.5 * (1.0 + torch.cos(math.pi * t / decay_steps))
+        decayed = peak_lr * ((1.0 - alpha) * cosine + alpha)
+        return torch.where(step < warmup_steps, warm, decayed)
 
     return schedule
 
@@ -134,11 +148,12 @@ class Optimizer:
 
     ``mu``/``nu`` are Adam's moments (``mu`` is SGD's trace), one tensor per
     parameter; ``count`` is the number of updates applied, which is also
-    the schedule's step.
+    the schedule's step: a 0-d int32 tensor on the parameters' device,
+    replaced (not written in place) by each update, as optax's state is.
     """
 
     def __init__(self, params: Sequence[torch.Tensor], kind: str,
-                 schedule: Callable[[int], float], weight_decay: float = 0.0,
+                 schedule: Callable, weight_decay: float = 0.0,
                  grad_clip: float = 0.0):
         if kind not in ("adamw", "adam", "sgd"):
             raise ValueError(f"unknown optimizer {kind!r}")
@@ -147,14 +162,21 @@ class Optimizer:
         self.schedule = schedule
         self.weight_decay = weight_decay if kind == "adamw" else 0.0
         self.grad_clip = grad_clip
-        self.count = 0
+        device = self.params[0].device if self.params else None
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = ([torch.zeros_like(p) for p in self.params]
                    if kind != "sgd" else [])
 
     @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor]) -> None:
-        """Apply one update from ``grads`` (one per parameter) in place."""
+    @record_function("optimizer")
+    def update(self, grads: Sequence[torch.Tensor],
+               finite: torch.Tensor | None = None) -> None:
+        """Apply one update from ``grads`` (one per parameter) in place.
+        With ``finite`` (a 0-d bool tensor), every slot (parameters,
+        moments, count) becomes ``torch.where(finite, updated, old)``: a
+        false verdict leaves them bitwise as they were, decided on the
+        device."""
         grads = list(grads)
         if self.grad_clip > 0.0:
             norm = global_norm(grads)
@@ -162,21 +184,30 @@ class Optimizer:
             grads = [torch.where(keep, g, g / norm * self.grad_clip)
                      for g in grads]
         lr = self.schedule(self.count)
-        self.count += 1
+        count = self.count + 1
+
+        def put(dst: torch.Tensor, new: torch.Tensor) -> None:
+            dst.copy_(new if finite is None else torch.where(finite, new, dst))
+
         if self.kind == "sgd":
             for p, g, t in zip(self.params, grads, self.mu):
-                t.copy_(g + SGD_MOMENTUM * t)
-                p.add_(t * (-lr))
-            return
-        c1 = 1.0 - ADAM_B1 ** self.count
-        c2 = 1.0 - ADAM_B2 ** self.count
-        for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
-            m.copy_((1.0 - ADAM_B1) * g + ADAM_B1 * m)
-            v.copy_((1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v)
-            u = (m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
-            if self.weight_decay:
-                u = u + self.weight_decay * p
-            p.add_(u * (-lr))
+                trace = g + SGD_MOMENTUM * t
+                put(p, p + trace * (-lr))
+                put(t, trace)
+        else:
+            c1 = 1.0 - ADAM_B1 ** count
+            c2 = 1.0 - ADAM_B2 ** count
+            for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
+                m_new = (1.0 - ADAM_B1) * g + ADAM_B1 * m
+                v_new = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v
+                u = (m_new / c1) / (torch.sqrt(v_new / c2) + ADAM_EPS)
+                if self.weight_decay:
+                    u = u + self.weight_decay * p
+                put(p, p + u * (-lr))
+                put(m, m_new)
+                put(v, v_new)
+        self.count = count if finite is None else torch.where(finite, count,
+                                                              self.count)
 
 
 def make_optimizer(cfg, params: Sequence[torch.Tensor]) -> Optimizer:
@@ -228,10 +259,8 @@ def _scaled_update(state, voxels, labels, label_smoothing, generator) -> dict:
             b.copy_(torch.where(finite, b, old))
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = global_norm(grads)
-    if bool(finite):  # the one host read of the step
-        state.apply_gradients(grads)
-    else:
-        state.step += 1
+    # Applied where finite, as it was elsewhere; the step advances either way.
+    state.apply_gradients(grads, finite)
     good = torch.where(finite, state.good_steps + 1,
                        torch.zeros_like(state.good_steps))
     grow = good >= LOSS_SCALE_GROWTH_INTERVAL

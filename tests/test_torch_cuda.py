@@ -12,7 +12,11 @@ a smoke16 train step on the card against the same on the CPU; a checkpoint
 saved while steps run, and restored onto the card; the resident split's
 draw against the host gather and the cube rotations against the CPU; an
 ``fp16_scaled`` step that overflows skipped bitwise on the card; the int8
-Predictor's weights resident on the card as int8.
+Predictor's weights resident on the card as int8; the serving programs
+(one CUDA graph per bucket and precision) bitwise the eager forward, with
+the forward kernel inside each replay; ``fp16_scaled`` steps, applied and
+skipped, with no host synchronisation; a weight swap while another thread
+replays.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -524,7 +528,170 @@ def test_int8_predictor_keeps_int8_on_card(cuda):
     assert q.resident_weight_bytes < 0.3 * full.resident_weight_bytes
     x = np.zeros((4, 16, 16, 16, 1), np.float32)
     x[:, 4:12, 4:12, 4:12] = 1.0
+    # The program captures the kernel twice; replays launch nothing more.
+    assert q.program_for(4).capture_launches["conv3d_fwd"] == 2
     n = conv3d.conv3d_fwd_launches
     probs = q.forward_padded(x)
-    assert conv3d.conv3d_fwd_launches == n + 2
+    assert conv3d.conv3d_fwd_launches == n and q.replays == 1
     np.testing.assert_allclose(probs, full.forward_padded(x), atol=5e-2)
+
+
+SERVE_BUCKETS = (1, 4, 16, 64)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+def test_graphed_forward_is_bitwise_the_eager_forward(cuda, precision):
+    """sprint64 at full width: every bucket's program is a CUDA graph that
+    captured the forward kernel once per 3³ block (3), and its replay gives
+    the eager forward's probabilities bitwise on the same input, twice
+    (the static buffers are reused); a replay launches no kernel from
+    Python."""
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.ops import conv3d
+
+    cfg = get_config("sprint64")
+    pred = Predictor.from_seed(cfg, 0, batch=64, device=cuda, precision=precision)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for b in sorted(SERVE_BUCKETS, reverse=True):
+        prog = pred.program_for(b)
+        assert prog.graph is not None and prog.name == (
+            "serve" if precision == "fp32" else f"serve_{precision}")
+        assert prog.capture_launches["conv3d_fwd"] == 3, prog.capture_launches
+    for b in SERVE_BUCKETS:
+        for _ in range(2):
+            x = (torch.rand((b, 64, 64, 64, 1), device=cuda, generator=g)
+                 > 0.7).float()
+            n = conv3d.conv3d_fwd_launches
+            got = pred.forward(x)
+            assert conv3d.conv3d_fwd_launches == n
+            with torch.inference_mode():
+                want = pred.forward_eager(x)
+            assert torch.equal(got, want), (b, float((got - want).abs().max()))
+    assert pred.replays == 2 * len(SERVE_BUCKETS)
+
+
+def test_each_replay_runs_the_forward_kernel(cuda):
+    """Under the profiler, each replay of a captured sprint64 program runs
+    exactly 3 ``conv3d_fwd_kernel`` on the card: the hand-written kernel
+    launched from its library onto the capturing stream lands in the
+    graph."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.infer import Predictor
+
+    pred = Predictor.from_seed(get_config("sprint64"), 0, batch=4, device=cuda)
+    x = torch.zeros((4, 64, 64, 64, 1), device=cuda)
+    pred.forward(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            pred.forward(x)
+        torch.cuda.synchronize()
+    hits = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and "conv3d_fwd_kernel" in e.name]
+    assert len(hits) == 3 * 5, sorted({e.name for e in prof.events()
+                                       if e.device_type == DeviceType.CUDA})
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_fp16_scaled_step_makes_no_host_sync(cuda, skip):
+    """An ``fp16_scaled`` smoke16 step through the kernels, applied (at a
+    healthy scale) and skipped (at 2^30), runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: the verdict, the count and
+    the schedule stay on the card."""
+    import io
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cfg = get_config("smoke16", global_batch=8, warmup_steps=1,
+                     train_precision="fp16_scaled")
+    tr = Trainer(cfg, device=cuda, stream=io.StringIO())
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in next(tr.train_data.worker_iter(0)).items()}
+    for _ in range(2):
+        tr.step(batch)
+    tr.state.loss_scale.fill_(2.0 ** 30 if skip else 2.0 ** 10)
+    count = tr.state.optimizer.count
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = tr.step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(m["grads_finite"]) == (0.0 if skip else 1.0)
+    assert int(tr.state.optimizer.count) == int(count) + (0 if skip else 1)
+    assert tr.state.step == 3
+
+
+def _seeded_checkpoint(path, cfg, seed):
+    """A one-step checkpoint directory of ``cfg``'s model from ``seed``."""
+    from featurenet_tpu_torch.runtime import build_model
+    from featurenet_tpu_torch.train.checkpoint import CheckpointManager
+    from featurenet_tpu_torch.train.state import create_state
+
+    state = create_state(build_model(cfg, seed=seed), cfg)
+    state.step = 1
+    mgr = CheckpointManager(str(path), config=cfg)
+    mgr.save(state)
+    mgr.close()
+    return str(path)
+
+
+def test_swap_under_replay_keeps_the_old_answers_until_the_flip(cuda, tmp_path):
+    """While a thread replays bucket 16 and reads each answer back, the
+    main thread swaps to another checkpoint (restore, then captures on the
+    new generation's own stream and pool). Every answer is bitwise the old
+    or the new generation's eager forward: the old one's until the swap
+    starts, the new one's once it has returned."""
+    import threading
+    import time
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.infer import Predictor
+
+    cfg = get_config("sprint64")
+    a = _seeded_checkpoint(tmp_path / "a", cfg, 0)
+    b = _seeded_checkpoint(tmp_path / "b", cfg, 1)
+    pred = Predictor.from_checkpoint(a, batch=16, device=cuda)
+    for bucket in (16, 1):
+        pred.program_for(bucket)
+    x = (torch.rand((16, 64, 64, 64, 1), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2)) > 0.7).float()
+    with torch.inference_mode():
+        old = pred.forward_eager(x).cpu()
+    answers, stop, errors = [], threading.Event(), []
+
+    def replay():
+        try:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                out = pred.forward(x).cpu()
+                answers.append((t0, time.perf_counter(), out))
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    th = threading.Thread(target=replay)
+    th.start()
+    time.sleep(0.2)
+    t_swap = time.perf_counter()
+    version = pred.swap_params(b)
+    t_flip = time.perf_counter()
+    time.sleep(0.2)
+    stop.set()
+    th.join(60)
+    assert not errors, errors
+    assert version == pred.model_version and version.startswith("b@1-")
+    assert pred.program_for(1).graph is not None
+    with torch.inference_mode():
+        new = pred.forward_eager(x).cpu()
+    assert not torch.equal(old, new)
+    before = [o for t0, t1, o in answers if t1 < t_swap]
+    after = [o for t0, t1, o in answers if t0 > t_flip]
+    assert before and after
+    assert all(torch.equal(o, old) for o in before)
+    assert all(torch.equal(o, new) for o in after)
+    assert all(torch.equal(o, old) or torch.equal(o, new) for _, _, o in answers)

@@ -21,7 +21,11 @@ their plain versions. Tolerances, each with its reason:
   boundary of that dtype they land one of its ulps apart (2^-8 of an
   entry in bf16, 2^-11 in fp16), so the moments are held to that ulp of
   each leaf's scale plus the fp32 1e-4;
-- the skipped fp16 update and the loss-scale arithmetic: bitwise.
+- the skipped fp16 update and the loss-scale arithmetic: bitwise;
+- the device schedule against optax's: both evaluate it in fp32 in the same
+  order, and only ``cos`` may differ by an fp32 ulp, so rtol 1e-6; near the
+  decay's end ``1 + cos`` cancels, where that ulp of ``cos`` is an fp32 ulp
+  of the peak rate in absolute terms, so also atol ``2^-23·peak``.
 """
 
 import dataclasses
@@ -399,6 +403,61 @@ def test_loss_scale_skip_is_bitwise_and_scale_recovers(backend):
     if float(m["grads_finite"]) == 1.0:  # capped, never above the max
         assert float(state.loss_scale) == precision.LOSS_SCALE_MAX
     assert float(state.loss_scale) <= precision.LOSS_SCALE_MAX
+
+
+@pytest.mark.parametrize("peak,warmup,total", [(3e-4, 200, 8000), (1e-3, 10, 5),
+                                               (1e-2, 0, 50)])
+def test_device_schedule_matches_optax(peak, warmup, total):
+    """The schedule the optimizer evaluates from its device count, over every
+    warmup and decay step and past the end, against optax's
+    ``warmup_cosine_decay_schedule`` (the JAX package's) on int32 counts."""
+    counts = np.arange(total + 50, dtype=np.int32)
+    want = np.asarray(jax_steps.make_lr_schedule(peak, warmup, total)(
+        jnp.asarray(counts)))
+    got = steps.make_lr_schedule(peak, warmup, total)(torch.from_numpy(counts))
+    assert got.dtype == torch.float32 and got.shape == counts.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=2 ** -23 * peak)
+    assert float(got[0]) == (0.0 if warmup else float(np.float32(peak)))
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adam", "sgd"])
+def test_the_device_verdict_applies_or_leaves_every_slot_bitwise(kind):
+    """``Optimizer.update`` under a device verdict: ``False`` leaves the
+    parameters, the moments and the 0-d int32 count bitwise; ``True`` is the
+    update without a verdict, bitwise."""
+    rng = np.random.default_rng(0)
+    shapes = [(3, 4), (5,), (2, 3, 3)]
+
+    def make():
+        params = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  for s in shapes]
+        return steps.Optimizer(params, kind, steps.make_lr_schedule(1e-2, 1, 10),
+                               weight_decay=1e-2, grad_clip=0.5)
+
+    def grads():
+        return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                for s in shapes]
+
+    opt = make()
+    assert opt.count.dtype == torch.int32 and opt.count.dim() == 0
+    for _ in range(2):
+        opt.update(grads())  # the rate is 0 at count 0; then slots move
+    slots = lambda o: o.params + o.mu + o.nu  # noqa: E731
+    before, count = [t.clone() for t in slots(opt)], opt.count
+    opt.update(grads(), finite=torch.tensor(False))
+    assert all(torch.equal(a, b) for a, b in zip(before, slots(opt)))
+    assert torch.equal(opt.count, count) and int(opt.count) == 2
+
+    twin = make()
+    for dst, src in zip(slots(twin), before):
+        dst.copy_(src)
+    twin.count = count
+    g = grads()
+    opt.update(g, finite=torch.tensor(True))
+    twin.update(g)
+    assert all(torch.equal(a, b) for a, b in zip(slots(opt), slots(twin)))
+    assert int(opt.count) == int(twin.count) == 3
+    assert not torch.equal(opt.params[0], before[0])
 
 
 def test_bf16_master_step_does_not_touch_the_scale_state():

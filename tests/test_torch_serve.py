@@ -265,6 +265,9 @@ class _StubPredictor:
         self.entered = threading.Event()
         self.release = threading.Event()
 
+    def program_for(self, batch):
+        return None  # nothing to build ahead of traffic
+
     def forward_padded(self, voxels, batch=None):
         if self.block:
             self.entered.set()

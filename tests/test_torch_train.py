@@ -137,8 +137,9 @@ def test_classification_loss_matches_jax(smoothing):
 
 def test_lr_schedule_matches_optax():
     """optax evaluates the schedule in fp32 (the warmup as
-    ``(0 - peak)·(1 - s/w) + peak``), the port in float64: they agree to an
-    fp32 rounding of the peak."""
+    ``(0 - peak)·(1 - s/w) + peak``), and so does the port, in the same
+    order; they agree to an fp32 rounding of the peak (``cos`` may differ
+    by an ulp)."""
     for peak, warmup, total, at in ((3e-4, 200, 8000, (0, 1, 57, 200, 4100, 8000, 8500)),
                                     (1e-3, 10, 5, (0, 5, 10, 11, 20))):
         want = jax_steps.make_lr_schedule(peak, warmup, total)
