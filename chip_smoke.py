@@ -98,7 +98,31 @@ Phases, in order; any failure exits non-zero before the last line:
    rotated) through the kernels against the plain versions (STEP_TOL).
    Last, `cli train --config sprint64 --data-cache D --hbm-cache` runs 3
    steps in a subprocess on the card.
-11. Precision ladder and fused33 (`precision_*` lines), sprint64 at full
+11. Robust training (`robust_k`, `robust` lines): robust64 at full width
+   (R=64, batch 256, features 32/32/64/64, dropout 0.5; half of every
+   batch's 8 groups affine-warped in the step, 0.5 % occupancy flips, 8
+   steps per dispatch) from the cache phase's cache, under pallas. 16
+   steps at k = 8 replay one CUDA graph, and from the same seeded state 16
+   eager single steps run (the second under
+   torch.cuda.set_sync_debug_mode("error")): the states agree within
+   K_RTOL/K_ATOL (bitwise verdict printed), resident and streamed, with
+   exact launches (the warmup's 8 eager steps and the capture's 8; replays
+   none) and the memory reserved by an eager step and by the graph. Under
+   torch.profiler one replay runs 8 x (6 conv3d_fwd + 3 conv3d_dw + 3 slab
+   sums) on the card and launches none from Python; under hybrid_dw 8 x 3
+   folded weight gradients and their sums. The warp on rows drawn from the
+   resident split against its explicit-gather plain version (WARP_ATOL),
+   groups not taken bitwise, the noise flipping exactly its mask, device
+   cube codes bitwise the CPU's rotations. Device ms (CUDA events) of a
+   robust64 step and a sprint64 resident step at k = 1 and per inner step
+   at k = 8, of the warp (and its plain version) and of the noise;
+   samples/s and the data-wait share over 50 steps at k = 1 and 8,
+   resident and streamed. Last, `cli train --config robust64 --data-cache
+   D --total-steps 16 --checkpoint-dir C`, `cli recalibrate --checkpoint-dir
+   C --out-dir C2 --batches 8` and `cli eval --checkpoint-dir C2` as
+   subprocesses: the recalibrated step's batch-norm statistics moved,
+   everything else bitwise.
+12. Precision ladder and fused33 (`precision_*` lines), sprint64 at full
    width. Serving: the Predictor at bf16 and at int8 behind the
    InferenceService (buckets 1/4/16/64) answers a burst of 85 voxel grids
    on its graphs, with the serve path's launch facts; the served
@@ -119,8 +143,8 @@ Phases, in order; any failure exits non-zero before the last line:
    count, BN statistics), its step advanced and its scale halved. fused33: 3 steps,
    no kernel of the package launched, device ms per step beside xla's, and
    logits within 2e-2 of xla's on the same weights.
-12. The wall time of every phase, one JSON line of per-kernel numbers
-   (launches by path, the cache and precision runs' included), the
+13. The wall time of every phase, one JSON line of per-kernel numbers
+   (launches by path, the cache, robust and precision runs' included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
@@ -230,6 +254,38 @@ TRAIN_WORKERS = min(8, len(os.sched_getaffinity(0)))
 CACHE_PER_CLASS = 1000
 CACHE_STEPS = 50
 ROTATION_CHECK_ROWS = 64
+
+# The robust phase: robust64 (its k, 8) and sprint64 from the cache phase's
+# cache; steps held graph against eager, steps of each rate run, and the
+# command line's steps and recalibration batches.
+ROBUST_K = 8
+ROBUST_CHECK_STEPS = 16
+ROBUST_RATE_STEPS = 50
+ROBUST_CLI_STEPS = 16
+RECAL_BATCHES = 8
+# k steps replayed on one CUDA graph against k eager steps from one state:
+# the reference's k-step tolerance (tests/test_train.py). The graph runs the
+# same kernels on the same inputs, draws the same numbers (each inner step's
+# generators reseeded from (seed, step, stream) before the replay), so the
+# states are expected bitwise equal; the verdict is printed.
+K_RTOL, K_ATOL = 1e-6, 1e-7
+# The affine warp (F.grid_sample) against its explicit 8-corner gather on
+# the same draws, voxels in [0, 1] at R=64: grid_sample normalises each
+# source coordinate to [-1, 1] and back, which moves a coordinate up to ~64
+# by a few fp32 ulps (~4e-6 each), and a value by that times the largest
+# difference of neighbouring voxels (1) on each of 3 axes; the 8 terms are
+# summed in another order. Held to 2e-5.
+WARP_ATOL = 2e-5
+# The kernels' device events in one replay of a k-step graph, by kernel
+# name (a substring of the symbol), per inner step: pallas runs 6 forward /
+# dx convs, 3 weight gradients and their 3 slab sums; hybrid_dw 3 folded
+# weight gradients and their 3 sums.
+REPLAY_EVENTS = {
+    "pallas": {"conv3d_fwd_kernel": 6, "conv3d_dw_partial": 3, "sum_slabs": 3,
+               "dw_folded_partial": 0, "sum_unfold": 0},
+    "hybrid_dw": {"conv3d_fwd_kernel": 0, "conv3d_dw_partial": 0, "sum_slabs": 0,
+                  "dw_folded_partial": 3, "sum_unfold": 3},
+}
 
 # (name, batch, grid, cin, cout, k, on the main path)
 FWD_SHAPES = (
@@ -1528,31 +1584,28 @@ def cache_cli(seed: int, cache: str, eval_samples: int) -> dict:
             "loss": kinds["train"]["loss"], "eval_samples": kinds["eval"]["samples"]}
 
 
-def cache_phase(torch, seed: int, smi_line: str) -> dict:
+def cache_phase(torch, seed: int, smi_line: str, cache: str) -> dict:
     """Export the synthetic parts at the reference's 24 x 1000 scale into a
-    packed cache, then train sprint64 from it under pallas and xla,
-    resident and streamed, and hold the resident path against itself."""
+    packed cache at ``cache``, then train sprint64 from it under pallas and
+    xla, resident and streamed, and hold the resident path against
+    itself."""
     from featurenet_tpu_torch.data.offline import export_synthetic_cache
 
-    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".data")
-    os.makedirs(data_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=data_dir) as tmp:
-        cache = os.path.join(tmp, "cls64")
-        t0 = time.perf_counter()
-        index = export_synthetic_cache(cache, per_class=CACHE_PER_CLASS,
-                                       resolution=64, seed=seed)
-        export_s = time.perf_counter() - t0
-        parts = sum(index["counts"].values())
-        runs, checks = {}, None
-        for backend in ("pallas", "xla"):
-            for resident in (True, False):
-                run, trainer = _cache_run(torch, seed, cache, backend, resident)
-                runs[f"train_{run['mode']}_{backend}"] = run
-                if resident and backend == "pallas":
-                    checks = cache_checks(torch, seed, trainer)
-                del trainer
-                torch.cuda.empty_cache()
-        cli = cache_cli(seed, cache, runs["train_hbm_pallas"]["eval_samples"])
+    t0 = time.perf_counter()
+    index = export_synthetic_cache(cache, per_class=CACHE_PER_CLASS,
+                                   resolution=64, seed=seed)
+    export_s = time.perf_counter() - t0
+    parts = sum(index["counts"].values())
+    runs, checks = {}, None
+    for backend in ("pallas", "xla"):
+        for resident in (True, False):
+            run, trainer = _cache_run(torch, seed, cache, backend, resident)
+            runs[f"train_{run['mode']}_{backend}"] = run
+            if resident and backend == "pallas":
+                checks = cache_checks(torch, seed, trainer)
+            del trainer
+            torch.cuda.empty_cache()
+    cli = cache_cli(seed, cache, runs["train_hbm_pallas"]["eval_samples"])
     out = {"per_class": CACHE_PER_CLASS, "parts": parts, "resolution": 64,
            "cut": None, "export_s": export_s, "export_parts_per_sec": parts / export_s,
            "cache_mb": parts * 64 ** 3 / 8 / 1e6,
@@ -1565,6 +1618,299 @@ def cache_phase(torch, seed: int, smi_line: str) -> dict:
            "checks": checks, "cli": cli, "nvidia_smi": smi_line}
     print("cache", json.dumps(out), flush=True)
     return {"runs": runs, **out}
+
+
+def _robust_cfg(seed: int, cache: str, name: str = "robust64",
+                backend: str = "pallas", **kw):
+    """``name`` (robust64, or sprint64 resident at robust64's k) from
+    ``cache`` at full width under ``backend``; fails unless robust64 keeps
+    its recipe."""
+    import dataclasses
+
+    from featurenet_tpu_torch.config import get_config
+
+    extra = {} if name == "robust64" else dict(hbm_cache=True,
+                                               steps_per_dispatch=ROBUST_K)
+    cfg = get_config(name, seed=seed, data_cache=cache,
+                     data_workers=TRAIN_WORKERS, **{**extra, **kw})
+    cfg = dataclasses.replace(cfg, arch=dataclasses.replace(
+        cfg.arch, conv_backend=backend))
+    a = cfg.arch
+    if (cfg.resolution, cfg.global_batch, tuple(a.features), a.hidden,
+            a.num_classes, a.dropout) != (64, TRAIN_BATCH, (32, 32, 64, 64),
+                                          128, 24, 0.5):
+        fail(f"{name} is not at full width: {cfg}")
+    if name == "robust64" and (cfg.augment_affine, cfg.augment_affine_prob,
+                               cfg.augment_noise, cfg.augment_groups) != \
+            (True, 0.5, 0.005, 8):
+        fail(f"robust64 lost its recipe: {cfg}")
+    return cfg
+
+
+def _compare_states(torch, a, b) -> dict:
+    """Two trainers' states: every tensor a step writes, and the steps."""
+    pairs = list(zip(a.state.tensors(), b.state.tensors()))
+    out = {"steps": [a.state.step, b.state.step],
+           "bitwise": all(torch.equal(x, y) for x, y in pairs),
+           "max_abs_diff": max(float((x.double() - y.double()).abs().max())
+                               for x, y in pairs),
+           "within_tol": all(torch.allclose(x, y, rtol=K_RTOL, atol=K_ATOL)
+                             for x, y in pairs)}
+    if a.state.step != b.state.step or not out["within_tol"]:
+        fail(f"k steps on the graph differ from eager steps: {out}")
+    return out
+
+
+def _replay_events(torch, trainer, backend: str) -> dict:
+    """One k-step replay under torch.profiler: its kernels' device events
+    by name, which must be k times REPLAY_EVENTS[backend], with no launch
+    from Python (the wrappers' counters stay put)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = _read_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.dispatch(None, ROBUST_K)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    got = {k: sum(1 for n in names if k in n) for k in REPLAY_EVENTS[backend]}
+    want = {k: ROBUST_K * v for k, v in REPLAY_EVENTS[backend].items()}
+    if got != want or _read_counts() != before:
+        fail(f"{backend}: one replay ran {got} kernel events (want {want}); "
+             f"Python launches {before} -> {_read_counts()}")
+    return got
+
+
+def _k_against_eager(torch, seed: int, cache: str, resident: bool, sink) -> dict:
+    """robust64 for ROBUST_CHECK_STEPS steps at k = 8 through the graph and,
+    from the same seeded state, as eager single steps (the second under
+    sync-debug "error"): states within K_RTOL/K_ATOL, launches exact."""
+    import itertools
+
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    graphed = Trainer(_robust_cfg(seed, cache, hbm_cache=resident), "cuda",
+                      stream=sink)
+    eager = Trainer(_robust_cfg(seed, cache, hbm_cache=resident,
+                                steps_per_dispatch=1), "cuda", stream=sink)
+    batches = None if resident else [
+        {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+        for b in itertools.islice(graphed.train_data.worker_iter(0),
+                                  ROBUST_CHECK_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_reserved()
+    before = _read_counts()
+    for i in range(ROBUST_CHECK_STEPS):
+        batch = batches[i] if batches else None
+        if i == 1:
+            _step_without_sync(torch, eager, batch)
+        else:
+            eager.step(batch)
+    torch.cuda.synchronize()
+    eager_launches = {k: v - before[k] for k, v in _read_counts().items()}
+    k1_peak_mb = (torch.cuda.max_memory_reserved() - base) / 2 ** 20
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_reserved()
+    before = _read_counts()
+    for g in range(0, ROBUST_CHECK_STEPS, ROBUST_K):
+        graphed.dispatch(batches[g:g + ROBUST_K] if batches else None, ROBUST_K)
+    torch.cuda.synchronize()
+    graph_launches = {k: v - before[k] for k, v in _read_counts().items()}
+    k8_peak_mb = (torch.cuda.max_memory_reserved() - base) / 2 ** 20
+    torch.cuda.empty_cache()
+    k8_held_mb = (torch.cuda.memory_reserved() - base) / 2 ** 20
+    (key, prog), = graphed.programs.items()
+    # The warmup's k eager steps and the capture's k: the replays launch none.
+    want_step = _want_counts("pallas", 1, 0)
+    if (eager_launches != _want_counts("pallas", ROBUST_CHECK_STEPS, 0)
+            or graph_launches != _want_counts("pallas", 2 * ROBUST_K, 0)
+            or prog.capture_launches != _want_counts("pallas", ROBUST_K, 0)):
+        fail(f"robust launches: eager {eager_launches}, graph {graph_launches}, "
+             f"captured {prog.capture_launches}; per step {want_step}")
+    out = {"path": key[0], "k": key[1], "precision": key[2],
+           "steps": ROBUST_CHECK_STEPS, **_compare_states(torch, graphed, eager),
+           "capture_s": prog.capture_s, "capture_launches": prog.capture_launches,
+           "eager_step_sync_free": True,
+           "k1_eager_peak_reserved_mb": k1_peak_mb,
+           "k8_graph_peak_reserved_mb": k8_peak_mb,
+           "k8_graph_held_reserved_mb": k8_held_mb}
+    print("robust_k", json.dumps(out), flush=True)
+    return out, graphed, eager
+
+
+def _rate(trainer, steps: int) -> dict:
+    """``trainer.run`` for ``steps`` more steps: samples/s over the steps'
+    wall (data wait included) and the data-wait share."""
+    t = dict(trainer.timing)
+    trainer.run(num_steps=trainer.state.step + steps)
+    wall = trainer.timing["wall_s"] - t["wall_s"]
+    return {"steps": steps, "samples_per_sec": steps * trainer.cfg.global_batch / wall,
+            "data_wait_share": (trainer.timing["data_wait_s"] - t["data_wait_s"]) / wall}
+
+
+def _augment_alone(torch, trainer) -> dict:
+    """The affine warp on the card against its plain gather (WARP_ATOL) on
+    rows drawn from the resident split, groups not taken passing bitwise;
+    the noise flipping exactly its mask; the device cube codes bitwise the
+    CPU's rotations; and the device ms of the warp, its plain version and
+    the noise (draw and flip) at robust64's batch."""
+    from featurenet_tpu_torch.ops import augment
+    from featurenet_tpu_torch.train.steps import gather_rows, unpack_bits
+
+    cfg = trainer.cfg
+    g = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    idx = torch.randint(0, trainer._data.shape[0], (TRAIN_BATCH,), generator=g,
+                        device="cuda")
+    bits = unpack_bits(gather_rows(trainer._data, trainer._labels, idx)["voxels"])
+    voxels = bits.float()
+    full = augment.draw_affine(g, TRAIN_BATCH, cfg.augment_groups, prob=1.0)
+    err = float((augment.affine_warp(voxels, *full)
+                 - augment.affine_warp_plain(voxels, *full)).abs().max())
+    half = augment.draw_affine(g, TRAIN_BATCH, cfg.augment_groups,
+                               prob=cfg.augment_affine_prob)
+    warped = augment.affine_warp(voxels, *half)
+    kept = ~half.take.repeat_interleave(TRAIN_BATCH // cfg.augment_groups)
+    passed = torch.equal(warped[kept], voxels[kept])
+    flips = augment.draw_flips(g, tuple(voxels.shape), cfg.augment_noise)
+    noisy = augment.occupancy_noise(voxels, flips)
+    exact = torch.equal(noisy != voxels, flips)
+    codes = torch.randint(0, 24, (cfg.augment_groups,), generator=g, device="cuda")
+    host = bits[:ROTATION_CHECK_ROWS].cpu()
+    gathered = augment.rotate_by_codes(bits[:ROTATION_CHECK_ROWS], codes).cpu()
+    rotated = torch.equal(gathered, augment.rotate_groups(host, codes.tolist()))
+    if not (err <= WARP_ATOL and passed and exact and rotated):
+        fail(f"augment on the card: warp vs plain {err} (tol {WARP_ATOL}), "
+             f"untaken groups bitwise {passed}, flips exact {exact}, device "
+             f"codes bitwise {rotated}")
+    return {"warp_max_abs_err_vs_plain": err, "warp_tol": WARP_ATOL,
+            "taken_groups": int(half.take.sum()), "untaken_bitwise": passed,
+            "flips_exact": exact, "flipped_share": float(flips.float().mean()),
+            "device_codes_bitwise": rotated,
+            "warp_ms": time_ms(torch, lambda: augment.affine_warp(voxels, *half)),
+            "warp_plain_ms": time_ms(torch, lambda: augment.affine_warp_plain(
+                voxels, *half), reps=5),
+            "noise_ms": time_ms(torch, lambda: augment.occupancy_noise(
+                voxels, augment.draw_flips(g, tuple(voxels.shape), cfg.augment_noise)))}
+
+
+def _hybrid_replay(torch, seed: int, cache: str, sink) -> dict:
+    """robust64 under hybrid_dw, resident, at k = 8: the captured graph
+    holds 8 steps' folded weight gradients, and one replay runs them."""
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(_robust_cfg(seed, cache, backend="hybrid_dw"), "cuda",
+                      stream=sink)
+    trainer.dispatch(None, ROBUST_K)
+    (prog,) = trainer.programs.values()
+    if prog.capture_launches != _want_counts("hybrid_dw", ROBUST_K, 0):
+        fail(f"hybrid_dw graph captured {prog.capture_launches}")
+    out = {"capture_launches": prog.capture_launches,
+           "replay_events": _replay_events(torch, trainer, "hybrid_dw"),
+           "device_step_ms_k8": time_ms(torch, lambda: trainer.dispatch(
+               None, ROBUST_K), reps=3, warmup=1) / ROBUST_K}
+    del trainer
+    return out
+
+
+def robust_cli(seed: int, cache: str) -> dict:
+    """``cli train --config robust64 --data-cache D --total-steps 16
+    --checkpoint-dir C``, ``cli recalibrate --checkpoint-dir C --out-dir C2
+    --batches 8`` and ``cli eval --checkpoint-dir C2`` in subprocesses on
+    the card: the recalibrated step moves the batch-norm statistics and
+    nothing else."""
+    import torch
+
+    from featurenet_tpu_torch.train.checkpoint import step_filename
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "featurenet_tpu_torch.cli"]
+
+    def run(*args) -> list[dict]:
+        t0 = time.perf_counter()
+        p = subprocess.run([*cli, *args], cwd=root, capture_output=True,
+                           text=True, timeout=600)
+        if p.returncode != 0:
+            fail(f"cli {args[0]} exited {p.returncode}: {p.stderr[-2000:]}")
+        walls[args[0]] = time.perf_counter() - t0
+        return [json.loads(line) for line in p.stdout.splitlines()]
+
+    walls: dict[str, float] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, ck2 = os.path.join(tmp, "ck"), os.path.join(tmp, "ck2")
+        trained = run("train", "--config", "robust64", "--seed", str(seed),
+                      "--data-cache", cache, "--total-steps", str(ROBUST_CLI_STEPS),
+                      "--checkpoint-dir", ck)
+        (recal,) = run("recalibrate", "--checkpoint-dir", ck, "--out-dir", ck2,
+                       "--batches", str(RECAL_BATCHES))
+        (ev,) = run("eval", "--checkpoint-dir", ck2)
+        name = step_filename(ROBUST_CLI_STEPS)
+        a, b = (torch.load(os.path.join(d, name), map_location="cpu",
+                           weights_only=True) for d in (ck, ck2))
+    stats = [k for k in a["model"] if k.endswith((".mean", ".var"))]
+    moved = all(not torch.equal(a["model"][k], b["model"][k]) for k in stats)
+    same = (all(torch.equal(a["model"][k], b["model"][k])
+                for k in a["model"] if k not in stats)
+            and all(torch.equal(a[m][k], b[m][k]) for m in ("mu", "nu") for k in a[m])
+            and int(a["count"]) == int(b["count"]) and a["step"] == b["step"])
+    cfg = trained[0]["config"]
+    train_recs = [r for r in trained if r.get("kind") == "train"]
+    if not (moved and same and recal["from_step"] == ROBUST_CLI_STEPS
+            and cfg["steps_per_dispatch"] == ROBUST_K and cfg["augment_affine"]
+            and train_recs and train_recs[-1]["step"] == ROBUST_CLI_STEPS
+            and ev["eval"]["samples"] > 0):
+        fail(f"robust cli: stats moved {moved}, rest bitwise {same}, {recal}, "
+             f"{train_recs}, {ev}")
+    return {"walls_s": walls, "train_loss": train_recs[-1]["loss"],
+            "recalibrated": recal, "bn_stats_moved": moved,
+            "rest_bitwise": same, "eval": ev["eval"]}
+
+
+def robust_phase(torch, seed: int, cache: str, smi_line: str) -> dict:
+    """robust64 at full width from the cache phase's cache: k = 8 on one
+    CUDA graph against eager steps (resident and streamed), the kernels
+    inside a replay (pallas and hybrid_dw), the augmentation on the card,
+    device ms and samples/s at k = 1 and 8 beside sprint64's, and the
+    command line's train, recalibrate and eval."""
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    _reset_counts()
+    with open(os.devnull, "w") as sink:
+        res, graphed, eager = _k_against_eager(torch, seed, cache, True, sink)
+        events = _replay_events(torch, graphed, "pallas")
+        aug = _augment_alone(torch, graphed)
+        ms = {"robust64_k1": time_ms(torch, eager.step, reps=5, warmup=1),
+              "robust64_k8": time_ms(torch, lambda: graphed.dispatch(None, ROBUST_K),
+                                     reps=3, warmup=1) / ROBUST_K}
+        rates = {"hbm_k8": _rate(graphed, ROBUST_RATE_STEPS),
+                 "hbm_k1": _rate(eager, ROBUST_RATE_STEPS)}
+        del graphed, eager
+        torch.cuda.empty_cache()
+        streamed, graphed, eager = _k_against_eager(torch, seed, cache, False, sink)
+        rates.update(cache_k8=_rate(graphed, ROBUST_RATE_STEPS),
+                     cache_k1=_rate(eager, ROBUST_RATE_STEPS))
+        del graphed, eager
+        torch.cuda.empty_cache()
+        sprint = Trainer(_robust_cfg(seed, cache, "sprint64"), "cuda", stream=sink)
+        ms["sprint64_k1"] = time_ms(torch, sprint.step, reps=5, warmup=1)
+        ms["sprint64_k8"] = time_ms(torch, lambda: sprint.dispatch(None, ROBUST_K),
+                                    reps=3, warmup=1) / ROBUST_K
+        del sprint
+        torch.cuda.empty_cache()
+        hybrid = _hybrid_replay(torch, seed, cache, sink)
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    cli = robust_cli(seed, cache)
+    out = {"k_vs_eager_resident": res, "k_vs_eager_streamed": streamed,
+           "replay_events_pallas": events, "hybrid_dw": hybrid,
+           "augment": aug, "device_step_ms": ms, "rates": rates,
+           "launches": launches, "cli": cli, "nvidia_smi": smi_line}
+    print("robust", json.dumps(out), flush=True)
+    return out
 
 
 def _rung_serving(torch, seed: int, precision: str, grids, fp32_pred,
@@ -1945,7 +2291,14 @@ def main() -> int:
     ckpt = phase("checkpoint", checkpoint_phase, torch, args.seed,
                  train["pallas"]["device_step_ms"], smi_line)
     phase("cli", cli_phase, args.seed)
-    cache = phase("cache", cache_phase, torch, args.seed, smi_line)["runs"]
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".data")
+    os.makedirs(data_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=data_dir) as tmp:
+        cache_dir = os.path.join(tmp, "cls64")
+        cache = phase("cache", cache_phase, torch, args.seed, smi_line,
+                      cache_dir)["runs"]
+        robust = phase("robust", robust_phase, torch, args.seed, cache_dir,
+                       smi_line)["launches"]
     rungs = phase("precision", precision_phase, torch, args.seed, train,
                   graphs, smi_line)["launches"]
     print("phase_walls", json.dumps(walls), flush=True)
@@ -1969,6 +2322,7 @@ def main() -> int:
                        "train_xla": tx["conv3d_fwd"],
                        "checkpoint": tc["conv3d_fwd"],
                        **{k: v["conv3d_fwd"] for k, v in cached.items()},
+                       "robust": robust["conv3d_fwd"],
                        **{k: v["conv3d_fwd"] for k, v in rungs.items()}}),
         _kernel_entry("conv3d_dw", "featurenet_tpu_torch/ops/csrc/conv3d_dw.cu",
                       "featurenet_tpu/ops/conv3d.py:192", rows["conv3d_dw"],
@@ -1976,6 +2330,7 @@ def main() -> int:
                        "train_xla": tx["conv3d_dw"],
                        "checkpoint": tc["conv3d_dw"],
                        **{k: v["conv3d_dw"] for k, v in cached.items()},
+                       "robust": robust["conv3d_dw"],
                        **{k: v["conv3d_dw"] for k, v in rungs.items()
                           if k.startswith("train")}}),
         _kernel_entry("conv_dw_folded",
@@ -1985,6 +2340,7 @@ def main() -> int:
                        "train_xla": tx["conv_dw_folded"],
                        "checkpoint": tc["conv_dw_folded"],
                        **{k: v["conv_dw_folded"] for k, v in cached.items()},
+                       "robust": robust["conv_dw_folded"],
                        **{k: v["conv_dw_folded"] for k, v in rungs.items()
                           if k.startswith("train")}}),
     ]

@@ -3,7 +3,10 @@
     python -m featurenet_tpu_torch.cli export-data --out .data/c \
         [--per-class 1000 --resolution 64 --seed 0]
     python -m featurenet_tpu_torch.cli train --config sprint64 --device cuda \
-        [--data-cache .data/c [--hbm-cache]] \
+        [--data-cache .data/c [--hbm-cache]] [--steps-per-dispatch K] \
+        [--augment-affine [--augment-affine-prob P --augment-ramp-steps N \
+         --no-augment-affine-rotate --augment-scale-range LO HI \
+         --augment-translate-vox T]] [--augment-noise F] \
         [--checkpoint-dir CK --checkpoint-every N --keep-checkpoints K \
          --init-from OTHER_CK --total-steps N --global-batch B \
          --eval-batches E --conv-backend pallas|hybrid_dw|xla|fused33 \
@@ -18,6 +21,8 @@
         [--serve-precision fp32|bf16|int8]
     python -m featurenet_tpu_torch.cli infer --checkpoint-dir CK \
         [--precision fp32|bf16|int8] part.stl ...
+    python -m featurenet_tpu_torch.cli recalibrate --checkpoint-dir CK \
+        --out-dir CK2 [--batches 64 --data-cache D]
 
 Every subcommand but ``export-data`` runs on the card unless ``--device
 cpu`` is given. ``export-data`` writes the synthetic parts into a packed
@@ -32,6 +37,17 @@ checkpoint resumes from its newest good step and takes its config from the
 (``--config`` naming another preset is refused). ``--data-cache`` trains
 from a cache and evaluates on its held-out split; ``--hbm-cache`` uploads
 the train split to the card once and draws every batch there.
+``--steps-per-dispatch K`` runs K steps per dispatch (one CUDA graph on the
+card). ``--augment-affine`` and its knobs, and ``--augment-noise``, are the
+reference's in-step augmentation flags (``config.py``); ``robust64`` sets
+them.
+
+``recalibrate`` re-estimates the batch-norm statistics of the newest step
+in ``--checkpoint-dir`` over ``--batches`` clean training batches (train-
+mode forwards, no augmentation, no update) and saves the result at the
+same step into ``--out-dir`` with the run's config; the source is never
+modified. It prints ``{"recalibrated": OUT, "from_step": N, "batches":
+B}``.
 
 ``--train-precision`` picks the training precision policy (fp32 masters
 under each; ``bf16_master`` and ``fp16_scaled`` differentiate a reduced
@@ -139,6 +155,34 @@ def _parser() -> argparse.ArgumentParser:
                       default=None,
                       help="upload the cache's train split to the device once "
                            "and draw every batch there")
+    p_tr.add_argument("--steps-per-dispatch", type=int, dest="steps_per_dispatch",
+                      help="train steps per dispatch (one CUDA graph on the "
+                           "card; numerically k single steps)")
+    p_tr.add_argument("--augment-affine", action="store_true", default=None,
+                      dest="augment_affine",
+                      help="arbitrary-angle SO(3) rotation and scale in the "
+                           "step in place of the cube rotation")
+    p_tr.add_argument("--augment-affine-prob", type=float,
+                      dest="augment_affine_prob",
+                      help="per-group probability the affine warp applies "
+                           "(default 1.0)")
+    p_tr.add_argument("--augment-ramp-steps", type=int, dest="augment_ramp_steps",
+                      help="ramp the affine probability linearly from 0 over "
+                           "this many steps (default 0: no ramp)")
+    p_tr.add_argument("--no-augment-affine-rotate", action="store_false",
+                      default=None, dest="augment_affine_rotate",
+                      help="affine without rotation: scale and translation only")
+    p_tr.add_argument("--augment-scale-range", type=float, nargs=2,
+                      dest="augment_scale_range", metavar=("LO", "HI"),
+                      help="uniform scale window of the affine warp "
+                           "(default 0.7 1.05)")
+    p_tr.add_argument("--augment-translate-vox", type=float,
+                      dest="augment_translate_vox",
+                      help="uniform per-axis translation of the affine warp, "
+                           "in voxels (default 0)")
+    p_tr.add_argument("--augment-noise", type=float, dest="augment_noise",
+                      help="per-voxel occupancy bit-flip rate in the step "
+                           "(0 = off)")
 
     p_exp = sub.add_parser("export-data", help="write the synthetic parts "
                                                "into a packed voxel cache")
@@ -162,6 +206,20 @@ def _parser() -> argparse.ArgumentParser:
     precision(p_inf, "--precision", "precision", SERVE_PRECISIONS,
               "serving weight precision")
     p_inf.add_argument("paths", nargs="+", help="STL files")
+
+    p_rec = sub.add_parser("recalibrate",
+                           help="re-estimate a checkpoint's batch-norm "
+                                "statistics over clean training batches and "
+                                "save them as a new checkpoint")
+    p_rec.add_argument("--checkpoint-dir", dest="checkpoint_dir", required=True)
+    p_rec.add_argument("--out-dir", dest="out_dir", required=True,
+                       help="directory of the recalibrated checkpoint (the "
+                            "source is never modified)")
+    p_rec.add_argument("--batches", type=int, default=64,
+                       help="clean training batches to run (default 64)")
+    p_rec.add_argument("--data-cache", dest="data_cache",
+                       help="another path of the run's data cache")
+    p_rec.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 
 
@@ -210,7 +268,13 @@ def _train(args) -> int:
                             "data_workers", "seed", "checkpoint_dir",
                             "checkpoint_every", "keep_checkpoints",
                             "init_from", "data_cache", "hbm_cache",
-                            "train_precision", "serve_precision"))
+                            "train_precision", "serve_precision",
+                            "steps_per_dispatch", "augment_affine",
+                            "augment_affine_prob", "augment_ramp_steps",
+                            "augment_affine_rotate", "augment_scale_range",
+                            "augment_translate_vox", "augment_noise"))
+    if "augment_scale_range" in policy:
+        policy["augment_scale_range"] = tuple(policy["augment_scale_range"])
     saved = load_run_config(args.checkpoint_dir) if args.checkpoint_dir else None
     if saved is not None:
         cfg = _cfg_from_checkpoint(saved, args, **policy)
@@ -220,6 +284,46 @@ def _train(args) -> int:
     print(json.dumps({"config": dataclasses.asdict(cfg)}, default=str),
           flush=True)
     Trainer(cfg, device=args.device).run()
+    return 0
+
+
+def _recalibrate(args) -> int:
+    import os
+
+    from featurenet_tpu_torch.config import AFFINE_DEFAULTS
+    from featurenet_tpu_torch.train.checkpoint import CheckpointManager
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    if args.batches < 1:
+        raise SystemExit("recalibrate: --batches must be >= 1 (a 0-batch run "
+                         "would save an unchanged copy labeled as recalibrated)")
+    if os.path.realpath(args.out_dir) == os.path.realpath(args.checkpoint_dir):
+        raise SystemExit("recalibrate: --out-dir must differ from "
+                         "--checkpoint-dir (the source is never modified)")
+    saved = _saved_config(args.checkpoint_dir)
+    # The clean host stream of the run's data: no resident upload, no
+    # augmentation, one step per dispatch, no warm start; the checkpoint is
+    # restored read-only (a damaged newest step is walked past, not
+    # deleted).
+    cfg = dataclasses.replace(
+        saved, checkpoint_dir=None, hbm_cache=False, steps_per_dispatch=1,
+        init_from=None, augment=False, augment_affine=False,
+        augment_noise=0.0, data_cache=args.data_cache or saved.data_cache,
+        **AFFINE_DEFAULTS).validate()
+    trainer = Trainer(cfg, device=args.device)
+    try:
+        CheckpointManager(args.checkpoint_dir).restore(trainer.state)
+    except FileNotFoundError:
+        raise SystemExit("recalibrate: no checkpoint to restore")
+    at = trainer.state.step
+    trainer.recalibrate_bn(args.batches)
+    # The run's own config, so a resume from out-dir is the same run.
+    out = CheckpointManager(args.out_dir, config=dataclasses.replace(
+        saved, checkpoint_dir=args.out_dir))
+    out.save(trainer.state)
+    out.close()
+    print(json.dumps({"recalibrated": args.out_dir, "from_step": at,
+                      "batches": args.batches}), flush=True)
     return 0
 
 
@@ -332,7 +436,8 @@ def _serve(args) -> int:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     return {"train": _train, "serve": _serve, "eval": _eval,
-            "infer": _infer, "export-data": _export_data}[args.cmd](args)
+            "infer": _infer, "export-data": _export_data,
+            "recalibrate": _recalibrate}[args.cmd](args)
 
 
 if __name__ == "__main__":

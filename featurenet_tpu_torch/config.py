@@ -16,12 +16,15 @@ JAX package's does.
 Data: synthetic parts streamed from the host, or a packed voxel cache
 (``data_cache``, ``data/offline.py``), streamed or, with ``hbm_cache``,
 resident on the device. ``augment``/``augment_device``/``augment_groups``
-select the cube-group pose augmentation as the reference's fields do
-(``device_augment``). ``augment_affine``, ``augment_noise`` and
-``steps_per_dispatch`` are carried so that a preset that sets them
-(robust64) is refused for training by ``validate_training`` instead of
-training without them; the affine warp, the occupancy noise and fused
-dispatch are not ported yet. ``seg64`` waits for the segmenter's port.
+select the in-step pose augmentation as the reference's fields do
+(``device_augment``): the cube-group rotation, or with ``augment_affine``
+the affine warp (``augment_affine_prob``, ``augment_ramp_steps``,
+``augment_affine_rotate``, ``augment_scale_range``,
+``augment_translate_vox``); ``augment_noise`` flips occupancy after either
+(``ops/augment.py``). ``steps_per_dispatch`` runs k train steps per
+dispatch, one CUDA graph on the card (``train/loop.py``). The reference's
+validation of these fields is kept. ``seg64`` waits for the segmenter's
+port.
 """
 
 from __future__ import annotations
@@ -63,16 +66,27 @@ class Config:
     data_cache: Optional[str] = None
     hbm_cache: bool = False
     test_fraction: float = 0.2
-    # Cube-group pose augmentation of cache-backed training (ops/augment.py);
+    # Pose augmentation of cache-backed training (ops/augment.py);
     # synthetic streaming already randomizes pose at generation.
-    # augment_device rotates inside the train step, augment_groups poses
-    # per batch; else the cache's host workers rotate each sample.
+    # augment_device poses inside the train step, augment_groups poses per
+    # batch; else the cache's host workers rotate each sample.
     augment: bool = True
     augment_device: bool = True
     augment_groups: int = 8
-    # Not ported; carried so training can refuse a preset that sets them.
-    augment_affine: bool = False
+    # Per-voxel occupancy bit-flip rate, applied in the step after the pose.
     augment_noise: float = 0.0
+    # The affine warp in place of the cube rotation: per group, a uniform
+    # SO(3) rotation (off: scale and translation only) times a uniform scale
+    # in augment_scale_range, shifted by up to augment_translate_vox voxels
+    # per axis, taken with probability augment_affine_prob, ramped linearly
+    # from 0 over the first augment_ramp_steps steps.
+    augment_affine: bool = False
+    augment_affine_prob: float = 1.0
+    augment_ramp_steps: int = 0
+    augment_affine_rotate: bool = True
+    augment_scale_range: tuple[float, float] = (0.7, 1.05)
+    augment_translate_vox: float = 0.0
+    # Train steps per dispatch: one CUDA graph of k steps on the card.
     steps_per_dispatch: int = 1
 
     # Optimization (train/steps.py).
@@ -160,31 +174,79 @@ class Config:
                     "augment=True would otherwise be silently ignored -- "
                     "pass augment=False to train unaugmented"
                 )
+        self._validate_augment()
+        if self.steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got "
+                             f"{self.steps_per_dispatch}")
         return self
 
-    def validate_training(self) -> "Config":
-        """``validate`` plus a refusal of what the port cannot train yet."""
-        self.validate()
-        unported = {
-            name: what for name, off, what in (
-                ("augment_affine", False, "the affine warp of ops/augment.py"),
-                ("augment_noise", 0.0, "the occupancy noise of ops/augment.py"),
-                ("steps_per_dispatch", 1, "fused multi-step dispatch"),
-            ) if getattr(self, name) != off
-        }
-        if unported:
+    def _validate_augment(self) -> None:
+        """The reference's checks of the affine and noise fields."""
+        # A list-valued scale range (a hand-built Config) compares equal to
+        # the tuple default.
+        scale_range = tuple(self.augment_scale_range)
+        if scale_range != self.augment_scale_range:
+            object.__setattr__(self, "augment_scale_range", scale_range)
+        if not self.augment_affine:
+            non_default = [n for n, d in AFFINE_DEFAULTS.items()
+                           if getattr(self, n) != d]
+            if non_default:
+                raise ValueError(
+                    f"{', '.join(non_default)} configured but augment_affine "
+                    "is off -- the knobs would be silently ignored; pass "
+                    "augment_affine=True (--augment-affine)"
+                )
+        if not 0.0 < self.augment_affine_prob <= 1.0:
+            raise ValueError(f"augment_affine_prob is a per-group probability "
+                             f"in (0, 1]; got {self.augment_affine_prob}")
+        if self.augment_ramp_steps < 0:
+            raise ValueError("augment_ramp_steps must be >= 0")
+        if self.augment_translate_vox < 0:
+            raise ValueError("augment_translate_vox must be >= 0 voxels")
+        lo, hi = self.augment_scale_range
+        if not 0.0 < lo <= hi:
+            raise ValueError(f"augment_scale_range must satisfy 0 < lo <= hi; "
+                             f"got ({lo}, {hi})")
+        if (self.augment_affine and not self.augment_affine_rotate
+                and self.augment_scale_range == (1.0, 1.0)
+                and self.augment_translate_vox == 0.0):
             raise ValueError(
-                f"{', '.join(unported)} set in config {self.name!r}: not "
-                f"ported for training yet ({'; '.join(unported.values())}; "
-                "the port trains one step per dispatch with the cube-group "
-                "rotation only)"
+                "augment_affine with rotation off, scale (1,1), and translate "
+                "0 is the identity -- disable augment_affine instead of "
+                "paying the resample for nothing"
             )
+        if self.augment_affine and not self.device_augment:
+            raise ValueError(
+                "augment_affine runs inside the train step and needs device "
+                "augmentation active (augment=True, augment_groups>=1, and a "
+                "data_cache with augment_device=True or hbm_cache) -- as "
+                "configured the flag would be silently ignored"
+            )
+        if not 0.0 <= self.augment_noise < 0.5:
+            raise ValueError(
+                f"augment_noise is a per-voxel bit-flip probability in "
+                f"[0, 0.5); got {self.augment_noise} (0.01 = 1% of voxels)"
+            )
+
+    def validate_training(self) -> "Config":
+        """``validate`` plus what training alone needs."""
+        self.validate()
         if self.resolution % 8:
             raise ValueError(
                 "resolution must be divisible by 8 (the wire format "
                 "bit-packs voxels along the W axis)"
             )
         return self
+
+
+# The affine knobs' defaults: set while augment_affine is off, they refuse.
+AFFINE_DEFAULTS = {
+    "augment_affine_prob": 1.0,
+    "augment_ramp_steps": 0,
+    "augment_affine_rotate": True,
+    "augment_scale_range": (0.7, 1.05),
+    "augment_translate_vox": 0.0,
+}
 
 
 def _replace_arch(**kw) -> FeatureNetArch:
@@ -227,7 +289,7 @@ PRESETS = {
         arch=_replace_arch(kernels=(5, 3, 3, 3), strides=(4, 1, 1, 1),
                            pool_after=(False, False, False, True)),
         data_cache=".data/cls64_cache", hbm_cache=True, steps_per_dispatch=8,
-        augment_affine=True, augment_noise=0.005,
+        augment_affine=True, augment_affine_prob=0.5, augment_noise=0.005,
     ),
     "abc128": lambda: Config(name="abc128", resolution=128, arch=deep_arch(),
                              global_batch=32, total_steps=8000, peak_lr=3e-4),
@@ -251,9 +313,11 @@ def config_to_dict(cfg: Config) -> dict:
 def config_from_dict(d: dict) -> Config:
     """Rebuild a ``Config`` from ``config_to_dict`` output, the port's or
     the JAX package's; unknown keys are dropped and JSON lists come back as
-    the tuples the arch expects."""
+    the tuples the arch and ``augment_scale_range`` expect."""
     known = {f.name for f in dataclasses.fields(Config)}
     kw = {k: v for k, v in d.items() if k in known}
+    if "augment_scale_range" in kw:
+        kw["augment_scale_range"] = tuple(kw["augment_scale_range"])
     if "arch" in kw:
         known_a = {f.name for f in dataclasses.fields(FeatureNetArch)}
         kw["arch"] = FeatureNetArch(**{

@@ -1,33 +1,50 @@
-"""Pose augmentation inside the train step: the cube rotation group (port
-of the cube-group half of ``featurenet_tpu/ops/augment.py``).
+"""Pose and noise augmentation inside the train step (port of
+``featurenet_tpu/ops/augment.py`` and of the occupancy noise of
+``featurenet_tpu/train/steps.py``).
 
-The 24 rotations of the cube are axis permutations combined with axis
-flips, pure layout ops, so they run on the device as plain PyTorch
-``permute`` and ``flip``, as they run as XLA ops in the reference.
-``CUBE_GROUP`` is built in the reference's order, so code ``k`` is the
-same rotation in both packages.
+The batch is split into ``groups`` contiguous slices (``groups`` shrinks
+until it divides the batch), as the reference splits it, and each slice
+gets one pose; across steps every sample still sees uniformly random
+poses. Each augmentation is split into a draw and an apply: the draw
+functions take a ``torch.Generator`` and make their draws on its device,
+and the apply functions take the draws explicitly, so a caller (or a test
+holding the reference's draws) decides what is drawn, and a train step
+that draws on the device reads nothing back to the host.
 
-The batch is split into ``groups`` contiguous slices and each slice is
-rotated by one code (``groups`` shrinks until it divides the batch), as
-the reference's ``random_rotate_batch`` does; across steps every sample
-still sees uniformly random poses. The codes are drawn on the host from
-the caller's generator, so choosing a rotation never waits for the
-device. ``rotate_groups`` takes the codes explicitly.
-
-The train step rotates the unpacked 0/1 grid before its cast to float: a
-rotation moves values and never changes one, so the result is bitwise
-the same and the copy moves a quarter of the bytes.
-
-Not ported yet: the affine warp (``random_affine_batch*``) and the
-occupancy noise.
+- The cube rotation group: the 24 rotations are axis permutations combined
+  with axis flips. ``CUBE_GROUP`` is built in the reference's order, so
+  code ``k`` is the same rotation in both packages. ``rotate_grids`` and
+  ``rotate_groups`` apply host codes with ``permute`` and ``flip``;
+  ``rotate_by_codes`` applies device codes (``draw_code_tensor``) as one
+  gather through 24 precomputed flat index maps (``cube_index_maps``),
+  bitwise the same, with no host decision. The train step rotates the
+  unpacked 0/1 grid before its cast to float: a rotation moves values and
+  never changes one, so the result is bitwise the same and the gather
+  moves a quarter of the bytes.
+- The affine warp (``random_affine_batch_paired``, classify half):
+  ``affine_warp`` samples each output voxel ``p`` of a group at ``Rᵀ (p −
+  c − t) / s + c`` about the grid centre ``c``, trilinearly, each corner
+  outside the grid counting 0 (``map_coordinates(order=1,
+  mode="constant")``), through ``F.grid_sample`` (``align_corners=True``,
+  ``padding_mode="zeros"``); ``affine_warp_plain`` is the same warp as an
+  explicit 8-corner gather, for comparison. A group whose take flag is
+  false comes out bitwise as it went in. The step warps every group and
+  then selects (branchless on the device), where the reference warps only
+  the taken ones. ``draw_affine`` draws per group a quaternion (uniform
+  SO(3), ``quat_to_matrix``), a scale, a translation and the take flag;
+  ``affine_prob`` ramps the probability from a step count on the device.
+- Occupancy noise: ``draw_flips`` draws a Bernoulli mask the shape of the
+  voxels, and ``occupancy_noise`` flips them (``|v − flip|``).
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
+import torch.nn.functional as F
 
 # The 24 proper rotations of the cube: axis permutations of (D, H, W)
 # combined with axis flips whose overall determinant is +1.
@@ -89,3 +106,207 @@ def random_rotate_batch(voxels: torch.Tensor, generator: torch.Generator,
                         groups: int = 8) -> torch.Tensor:
     """Rotate ``[B, R, R, R, C]`` voxels, one random pose per batch group."""
     return rotate_groups(voxels, draw_codes(generator, voxels.shape[0], groups))
+
+
+def draw_code_tensor(generator: torch.Generator, batch: int,
+                     groups: int = 8) -> torch.Tensor:
+    """One code in ``[0, 24)`` per slice of a batch of ``batch``, drawn on
+    the generator's device (the values ``draw_codes`` gives on a CPU
+    generator)."""
+    n = group_count(batch, groups)
+    return torch.randint(0, len(CUBE_GROUP), (n,), generator=generator,
+                         device=generator.device)
+
+
+@functools.lru_cache(maxsize=None)
+def cube_index_maps(resolution: int, device: torch.device) -> torch.Tensor:
+    """``int64 [24, R³]``: row ``k`` holds, for each voxel of a grid
+    rotated by code ``k`` (flattened), the flat index of its source voxel.
+    Made once per size and device, outside inference mode, so a step
+    copies nothing from the host."""
+    flat = torch.arange(resolution ** 3).reshape(1, resolution, resolution,
+                                                 resolution)
+    maps = torch.stack([rotate_grids(flat, k).reshape(-1)
+                        for k in range(len(CUBE_GROUP))])
+    with torch.inference_mode(False):
+        return maps.to(device)
+
+
+def rotate_by_codes(voxels: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """``rotate_groups`` with the codes in a tensor (on the voxels'
+    device): slice ``i`` of ``len(codes)`` contiguous slices of ``[B, R, R,
+    R, C]`` voxels is gathered through ``cube_index_maps`` row
+    ``codes[i]``."""
+    b, r = voxels.shape[0], voxels.shape[1]
+    groups = codes.shape[0]
+    if groups < 1 or b % groups:
+        raise ValueError(f"{groups} rotation codes do not split a batch of {b}")
+    if tuple(voxels.shape[1:4]) != (r, r, r):
+        raise ValueError(f"cube rotations need a cubic grid, got {tuple(voxels.shape)}")
+    flat = voxels.reshape(groups, b // groups, r ** 3, -1)
+    index = cube_index_maps(r, voxels.device)[codes]
+    index = index[:, None, :, None].expand(flat.shape)
+    return flat.gather(2, index).reshape(voxels.shape)
+
+
+class AffineDraw(NamedTuple):
+    """One step's affine draw for ``G`` groups: rotations ``[G, 3, 3]``,
+    scales ``[G]``, translations in voxels ``[G, 3]`` (d, h, w) and take
+    flags ``[G]`` (bool)."""
+    rot: torch.Tensor
+    scale: torch.Tensor
+    trans: torch.Tensor
+    take: torch.Tensor
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternions ``[..., 4]`` (w, x, y, z; normalized here) → rotation
+    matrices ``[..., 3, 3]``; uniform over SO(3) for iid-normal ``q``."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q.unbind(-1)
+    rows = (
+        (1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)),
+        (2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)),
+        (2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)),
+    )
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def affine_prob(prob: float, ramp_steps: int, step: torch.Tensor):
+    """The take probability at ``step`` (a device tensor): ``prob`` ramped
+    linearly from 0 over the first ``ramp_steps`` steps, ``prob`` itself
+    without a ramp."""
+    if ramp_steps <= 0:
+        return prob
+    return prob * torch.clamp(step.float() / ramp_steps, 0.0, 1.0)
+
+
+def draw_affine(generator: torch.Generator, batch: int, groups: int = 8,
+                prob=1.0, scale_range=(0.7, 1.05), rotate: bool = True,
+                translate_vox: float = 0.0) -> AffineDraw:
+    """The affine draw of one step for a batch of ``batch`` (``group_count``
+    groups), on the generator's device: a uniform rotation (the identity
+    with ``rotate=False``), a scale uniform in ``scale_range``, a
+    translation uniform in ``[-translate_vox, translate_vox]`` per axis
+    (0 when that is 0), and a take flag true with probability ``prob`` (a
+    float or a device tensor)."""
+    n = group_count(batch, groups)
+    dev = generator.device
+    if rotate:
+        rot = quat_to_matrix(torch.randn((n, 4), generator=generator, device=dev))
+    else:
+        rot = torch.eye(3, device=dev).expand(n, 3, 3)
+    lo, hi = scale_range
+    scale = torch.rand(n, generator=generator, device=dev) * (hi - lo) + lo
+    if translate_vox > 0.0:
+        u = torch.rand((n, 3), generator=generator, device=dev)
+        trans = u * (2 * translate_vox) - translate_vox
+    else:
+        trans = torch.zeros((n, 3), device=dev)
+    take = torch.rand(n, generator=generator, device=dev) < prob
+    return AffineDraw(rot, scale, trans, take)
+
+
+def _source_coords(shape, rot: torch.Tensor, scale: torch.Tensor,
+                   trans: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Per group the source coordinates (d, h, w), each ``[G, D, H, W]``,
+    of every output voxel of a ``(D, H, W)`` grid: ``Rᵀ (p − (c + t)) / s +
+    c`` in the reference's order of operations."""
+    g = scale.shape[0]
+    centre = [(n - 1) / 2.0 for n in shape]
+    s = scale.view(g, 1, 1, 1)
+    shifted = []
+    for axis, n in enumerate(shape):
+        view = [1, 1, 1, 1]
+        view[axis + 1] = n
+        p = torch.arange(n, dtype=torch.float32, device=scale.device).view(view)
+        t = trans[:, axis].view(g, 1, 1, 1)
+        shifted.append((p - (centre[axis] + t)) / s)
+    rt = rot.transpose(1, 2).reshape(g, 3, 3, 1, 1, 1)
+    return tuple(rt[:, i, 0] * shifted[0] + rt[:, i, 1] * shifted[1]
+                 + rt[:, i, 2] * shifted[2] + centre[i] for i in range(3))
+
+
+def _by_group(voxels: torch.Tensor, groups: int) -> torch.Tensor:
+    """``[B, D, H, W, C]`` → ``[G, (B/G)·C, D, H, W]``: each group's samples
+    and channels as the channels of one grid."""
+    b, d, h, w, c = voxels.shape
+    if groups < 1 or b % groups:
+        raise ValueError(f"{groups} affine draws do not split a batch of {b}")
+    x = voxels.reshape(groups, b // groups, d, h, w, c)
+    return x.permute(0, 1, 5, 2, 3, 4).reshape(groups, -1, d, h, w)
+
+
+def _from_groups(x: torch.Tensor, shape) -> torch.Tensor:
+    b, d, h, w, c = shape
+    g = x.shape[0]
+    return x.reshape(g, b // g, c, d, h, w).permute(0, 1, 3, 4, 5, 2).reshape(shape)
+
+
+def _select_taken(voxels: torch.Tensor, warped: torch.Tensor,
+                  take: torch.Tensor) -> torch.Tensor:
+    g = take.shape[0]
+    keep = take.view(g, 1, 1, 1, 1, 1)
+    shape = (g, voxels.shape[0] // g, *voxels.shape[1:])
+    return torch.where(keep, warped.reshape(shape),
+                       voxels.reshape(shape)).reshape(voxels.shape)
+
+
+def affine_warp(voxels: torch.Tensor, rot: torch.Tensor, scale: torch.Tensor,
+                trans: torch.Tensor, take: torch.Tensor) -> torch.Tensor:
+    """Warp float ``[B, D, H, W, C]`` voxels group by group by one
+    ``AffineDraw``'s fields (trilinear, 0 outside the grid) through
+    ``F.grid_sample``; groups whose take flag is false pass through
+    bitwise."""
+    shape = tuple(voxels.shape[1:4])
+    src = _source_coords(shape, rot, scale, trans)
+    # grid_sample's last axis is (x, y, z) = (W, H, D), each normalised so
+    # that -1 and 1 are the first and last voxel centres.
+    grid = torch.stack([2.0 * src[i] / max(shape[i] - 1, 1) - 1.0
+                        for i in (2, 1, 0)], dim=-1)
+    warped = F.grid_sample(_by_group(voxels, take.shape[0]), grid,
+                           mode="bilinear", padding_mode="zeros",
+                           align_corners=True)
+    return _select_taken(voxels, _from_groups(warped, voxels.shape), take)
+
+
+def affine_warp_plain(voxels: torch.Tensor, rot: torch.Tensor,
+                      scale: torch.Tensor, trans: torch.Tensor,
+                      take: torch.Tensor) -> torch.Tensor:
+    """``affine_warp`` as an explicit gather: for each of the 8 corners of
+    each source point, its weight (the product of the per-axis linear
+    weights) times the voxel there, or 0 where the corner is outside the
+    grid, summed."""
+    shape = tuple(voxels.shape[1:4])
+    src = _source_coords(shape, rot, scale, trans)
+    grids = _by_group(voxels, take.shape[0])
+    g, ch = grids.shape[:2]
+    flat = grids.reshape(g, ch, -1)
+    lower = [torch.floor(s) for s in src]
+    frac = [s - lo for s, lo in zip(src, lower)]
+    out = torch.zeros_like(grids)
+    for corner in itertools.product((0, 1), repeat=3):
+        index = torch.zeros_like(lower[0], dtype=torch.long)
+        weight = torch.ones_like(frac[0])
+        valid = torch.ones_like(frac[0], dtype=torch.bool)
+        for axis, up in enumerate(corner):
+            i = lower[axis].long() + up
+            valid &= (i >= 0) & (i < shape[axis])
+            index = index * shape[axis] + i.clamp(0, shape[axis] - 1)
+            weight = weight * (frac[axis] if up else 1.0 - frac[axis])
+        vals = flat.gather(2, index.reshape(g, 1, -1).expand(g, ch, -1))
+        vals = torch.where(valid.reshape(g, 1, -1), vals, torch.zeros_like(vals))
+        out += (weight.reshape(g, 1, -1) * vals).reshape(grids.shape)
+    return _select_taken(voxels, _from_groups(out, voxels.shape), take)
+
+
+def draw_flips(generator: torch.Generator, shape, rate: float) -> torch.Tensor:
+    """A Bernoulli(``rate``) bool mask of ``shape`` on the generator's
+    device: the voxels ``occupancy_noise`` flips."""
+    return torch.rand(shape, generator=generator, device=generator.device) < rate
+
+
+def occupancy_noise(voxels: torch.Tensor, flips: torch.Tensor) -> torch.Tensor:
+    """Flip the occupancy of float 0/1-ish ``voxels`` where ``flips``:
+    ``|v − flip|``, in the voxels' dtype."""
+    return torch.abs(voxels - flips.to(voxels.dtype))

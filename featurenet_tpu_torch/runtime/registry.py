@@ -32,6 +32,16 @@ How a generation's programs are captured (``ServePrograms``), and why:
 A capture or replay that fails on the card raises; nothing falls back to
 the eager forward. On the CPU, which a caller must ask for, a program is
 the eager forward itself.
+
+``TrainProgram`` is the training counterpart (the reference's
+``multi_train_step`` and ``hbm_train_step`` programs): k train steps, each
+drawing on the device, captured as one CUDA graph over the live train
+state. Its warmup runs train for real, so the state is copied before the
+warmup and copied back after the capture; the capture runs on a stream of
+its own with ``capture_error_mode="thread_local"`` (the input threads and
+the checkpoint writer go on with their own CUDA calls meanwhile), and the
+step's draw generators are registered with the graph, which reads their
+seeds at each replay.
 """
 
 from __future__ import annotations
@@ -163,3 +173,60 @@ class ServePrograms:
     def batches(self) -> list[int]:
         with self.lock:
             return sorted(self._programs)
+
+
+# The eager runs of a train program's body on the capture stream before its
+# capture: one loads the kernels and sets their attributes.
+TRAIN_WARMUP_ITERS = 1
+
+
+class TrainProgram:
+    """``body`` (k train steps of ``state`` on inputs the caller holds at
+    fixed addresses; returns the last step's metrics) captured as one CUDA
+    graph on ``device``. ``generators`` are the CUDA generators ``body``
+    draws from. A call replays the graph (the caller reseeds the
+    generators and fills the inputs first) and returns a clone of its
+    metrics; ``state.step`` is the caller's to advance.
+
+    ``capture_s`` is the wall time of the warmup, the capture and the
+    state's restore; ``capture_launches`` the kernel launches recorded
+    into the graph, by kernel.
+    """
+
+    def __init__(self, name: str, body: Callable[[], dict], state,
+                 generators, device: torch.device):
+        if device.type != "cuda":
+            raise ValueError(f"{name}: a train program is a CUDA graph; on "
+                             f"{device} run the steps eagerly")
+        self.name = name
+        self.device = device
+        t0 = time.perf_counter()
+        tensors = state.tensors()
+        with torch.no_grad():
+            saved = [t.clone() for t in tensors]
+        step = state.step
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            for _ in range(TRAIN_WARMUP_ITERS):
+                body()
+        graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
+        before = launch_counts()
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self._out = body()
+        after = launch_counts()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        with torch.no_grad():
+            for t, v in zip(tensors, saved):
+                t.copy_(v)
+        state.step = step
+        self.graph = graph
+        self.capture_launches = {k: after[k] - before[k] for k in after}
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self) -> dict:
+        self.graph.replay()
+        return {k: v.clone() for k, v in self._out.items()}

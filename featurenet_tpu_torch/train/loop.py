@@ -18,23 +18,37 @@ fp32 masters, a bf16 or fp16 working copy, loss scaling under
 ``fp16_scaled``, whose ``loss_scale`` and ``grads_finite`` are logged with
 the loss), and eval runs the forward of ``cfg.serve_precision``.
 
-With ``cfg.device_augment`` the step rotates each batch by cube-group
-codes. Dropout, the rotation codes and the resident draw each have their
-own generator, seeded from ``(seed, step)`` before every step, so a
-resumed run draws what the unbroken run drew.
+With ``cfg.device_augment`` the step poses each batch in groups (the cube
+rotation, or the affine warp under ``cfg.augment_affine``), and with
+``cfg.augment_noise`` flips occupancy. Every draw of a step (dropout, the
+resident rows, the pose, the flips) is made on the device from its own
+generator, seeded from ``(seed, step, stream)`` before the step
+(``steps.StepDraws``), so a resumed run draws what the unbroken run drew,
+and k steps of one dispatch draw what k single steps draw.
 
 ``run(num_steps=None)`` first resumes from the newest good
 checkpoint in ``cfg.checkpoint_dir``, if there is one, then runs to step
-``num_steps`` (default ``cfg.total_steps``) one step per dispatch: it logs
-every ``log_every`` steps and at the end, evaluates every ``eval_every``
-steps and at the end, saves every ``checkpoint_every`` steps and at the
-end, waits for the writes, and returns the last record, as the JAX loop
-does. ``cfg.init_from`` warm-starts the weights from another run's
-checkpoint (identity checked). After a resume a streamed source starts
-again at its seed, as the JAX loop's does.
+``num_steps`` (default ``cfg.total_steps``), ``k = cfg.steps_per_dispatch``
+steps per dispatch while a whole group fits and single steps for the
+rest, as the reference's loop does. On the card a dispatch of k steps
+replays one CUDA graph (``runtime/registry.py`` ``TrainProgram``), one per
+(path, k, precision), captured at the first full group; on the CPU the k
+steps run eagerly. The metrics are the group's last step's. It logs at the
+first group boundary at or past every ``log_every`` steps and at the end,
+evaluates and saves likewise at ``eval_every`` and ``checkpoint_every``,
+waits for the writes, and returns the last record. ``cfg.init_from``
+warm-starts the weights from another run's checkpoint (identity checked).
+After a resume a streamed source starts again at its seed, as the JAX
+loop's does.
 
-Not ported yet: the supervisor and preemption exits, obs events and fused
-multi-step dispatch.
+``recalibrate_bn(batches)`` re-estimates the batch-norm statistics with
+train-mode forwards over clean training batches (no augmentation, no
+update), the reference's answer to the blended statistics that mixed
+clean and warped training leaves.
+
+Not ported yet: the supervisor and preemption exits, obs events and the
+reference's HBM clamp of k (a graph's private pool reuses each inner
+step's activations).
 
 ``timing`` keeps the wall seconds of the run's steps, how many of them the
 loop spent waiting for the next batch (``data_wait_s``), so the data wait
@@ -46,38 +60,32 @@ ms, the writer's mean ms per step written, and the bytes of a step.
 
 from __future__ import annotations
 
+import copy
 import time
 
-import numpy as np
 import torch
 
 from featurenet_tpu_torch.config import Config, check_identity
 from featurenet_tpu_torch.data.dataset import Prefetcher, SyntheticVoxelDataset
 from featurenet_tpu_torch.data.offline import VoxelCacheDataset
 from featurenet_tpu_torch.models.featurenet import FeatureNet, init_weights
-from featurenet_tpu_torch.ops.augment import draw_codes
+from featurenet_tpu_torch.ops.augment import cube_index_maps
 from featurenet_tpu_torch.runtime import resolve_device
+from featurenet_tpu_torch.runtime.registry import TrainProgram
 from featurenet_tpu_torch.train.checkpoint import CheckpointManager, load_run_config
 from featurenet_tpu_torch.train.state import TrainState, create_state, param_count
 from featurenet_tpu_torch.train.steps import (
+    StepDraws,
     aggregate_eval,
-    draw_rows,
     eval_step,
     make_resident_train_step,
     make_train_step,
+    stream_seed,
+    unpack_voxels,
 )
 from featurenet_tpu_torch.utils.logging import MetricLogger
 
 EVAL_SEED_OFFSET = 10_000
-# Stream constants of the per-step generators besides dropout's; the draw's
-# is the reference's fold for its resident draw.
-ROTATION_STREAM = 0xA06
-DRAW_STREAM = 0x5A11
-
-
-def _stream_seed(seed: int, step: int, stream: int) -> int:
-    """A 64-bit generator seed for one stream of one step."""
-    return int(np.random.SeedSequence([seed, step, stream]).generate_state(1, np.uint64)[0])
 
 
 def eval_dataset(cfg: Config):
@@ -155,43 +163,112 @@ class Trainer:
                 cfg.resolution, cfg.global_batch, cfg.num_features, seed=cfg.seed,
             )
         self._groups = cfg.augment_groups if cfg.device_augment else 0
-        self._train_step = make_train_step(cfg.label_smoothing, self._groups)
-        self._generator = torch.Generator(device=self.device)
-        self._rotation_generator = torch.Generator()
+        step_opts = (cfg.label_smoothing, self._groups, cfg.augment_affine,
+                     cfg.augment_noise)
+        self._train_step = make_train_step(*step_opts)
+        self._resident_step = make_resident_train_step(*step_opts)
         self.resident: dict = {}
+        rows = 0
         if cfg.hbm_cache:
             voxels, labels, rows = self.train_data.materialize_split()
             self._data = torch.from_numpy(voxels).to(self.device)
             self._labels = torch.from_numpy(labels).to(self.device)
-            self._draw_generator = torch.Generator(device=self.device)
-            self._resident_step = make_resident_train_step(cfg.label_smoothing,
-                                                           self._groups)
             self.resident = {"hbm_resident_rows": rows,
                              "hbm_resident_mb": round(voxels.nbytes / 1e6, 1)}
+        self._k = cfg.steps_per_dispatch
+        self._draws = StepDraws(cfg, self._k, self.device, rows)
+        if "codes" in self._draws.streams:
+            cube_index_maps(cfg.resolution, self.device)  # made before any step
+        # k-step programs by (path, k, precision); on the card only.
+        self.programs: dict[tuple, TrainProgram] = {}
+        self._static: dict[tuple, list] = {}
         self.timing = {"steps": 0, "wall_s": 0.0, "data_wait_s": 0.0,
                        "saves": 0, "save_s": 0.0}
 
-    def step(self, batch: dict | None = None) -> dict:
-        """One train step: on a wire batch already on the device, or, with
-        no batch, on rows drawn from the resident split. Dropout, the
-        rotation codes and the draw come from generators seeded by (seed,
-        step)."""
-        cfg, step = self.cfg, self.state.step
-        self._generator.manual_seed((cfg.seed + 1) * 2 ** 32 + step)
-        codes = None
-        if self._groups:
-            self._rotation_generator.manual_seed(
-                _stream_seed(cfg.seed, step, ROTATION_STREAM))
-            b = cfg.global_batch if batch is None else batch["voxels"].shape[0]
-            codes = draw_codes(self._rotation_generator, b, self._groups)
+    def _one(self, slot: int, batch: dict | None) -> dict:
+        """One train step with draw slot ``slot``: on a wire batch on the
+        device, or on rows drawn from the resident split."""
+        cfg = self.cfg
         if batch is not None:
-            return self._train_step(self.state, batch, self._generator, codes)
+            args = self._draws.step_args(slot, batch["voxels"].shape[0],
+                                         cfg.resolution)
+            return self._train_step(self.state, batch, **args)
         if not self.resident:
             raise ValueError("no batch given and no resident split (hbm_cache)")
-        self._draw_generator.manual_seed(_stream_seed(cfg.seed, step, DRAW_STREAM))
-        idx = draw_rows(self._draw_generator, self._data.shape[0], cfg.global_batch)
+        idx = self._draws.draw_rows(slot)
+        args = self._draws.step_args(slot, cfg.global_batch, cfg.resolution)
         return self._resident_step(self.state, self._data, self._labels, idx,
-                                   self._generator, codes)
+                                   **args)
+
+    def step(self, batch: dict | None = None) -> dict:
+        """One eager train step: on a wire batch already on the device, or,
+        with no batch, on rows drawn from the resident split. Every draw
+        comes from a generator seeded by (seed, step, stream)."""
+        self._draws.seed(self.state.step, 1)
+        return self._one(0, batch)
+
+    def dispatch(self, batches: list | None, take: int) -> dict:
+        """``take`` train steps from ``state.step``, on ``take`` wire
+        batches on the device or, with ``batches=None``, on the resident
+        split; returns the last step's metrics. One step runs eagerly; k
+        (``cfg.steps_per_dispatch``) replay the CUDA graph of their (path,
+        k, precision) on the card, captured at its first use, and run
+        eagerly on the CPU."""
+        if take == 1:
+            return self.step(batches[0] if batches else None)
+        if take != self._k:
+            raise ValueError(f"a dispatch takes 1 or {self._k} steps, not {take}")
+        if self.device.type != "cuda":
+            self._draws.seed(self.state.step, take)
+            for j in range(take):
+                metrics = self._one(j, batches[j] if batches else None)
+            return metrics
+        key = ("streamed" if batches else "resident", take, self.state.precision)
+        if key not in self.programs:
+            self._capture(key, batches)
+        for slot, batch in zip(self._static[key], batches or ()):
+            for k, v in slot.items():
+                v.copy_(batch[k])
+        self._draws.seed(self.state.step, take)
+        metrics = self.programs[key]()
+        self.state.step += take
+        return metrics
+
+    def _capture(self, key: tuple, batches: list | None) -> None:
+        static = [{k: b[k].clone() for k in ("voxels", "label")}
+                  for b in batches or ()]
+
+        def body() -> dict:
+            for j in range(key[1]):
+                metrics = self._one(j, static[j] if static else None)
+            return metrics
+
+        self._static[key] = static
+        self._draws.seed(self.state.step, key[1])
+        self.programs[key] = TrainProgram(
+            "multi_train_step" if static else "hbm_train_step", body,
+            self.state, self._draws.generators(), self.device)
+
+    @torch.no_grad()
+    def recalibrate_bn(self, batches: int = 64) -> None:
+        """Re-estimate the batch-norm running statistics over ``batches``
+        clean training batches: train-mode forwards of the masters, no
+        augmentation (a host-augmented cache is read through a clean
+        shallow copy) and no update; only the statistics move. Dropout
+        draws a fresh mask per batch (it sits after the last batch norm)."""
+        if batches < 1:
+            raise ValueError(f"batches must be >= 1, got {batches}")
+        data = self.train_data
+        if getattr(data, "augment", False):
+            data = copy.copy(data)
+            data.augment = False
+        it = data.worker_iter(0)
+        gen = torch.Generator(device=self.device)
+        for i in range(batches):
+            batch = next(it)
+            gen.manual_seed(stream_seed(self.cfg.seed, i, "dropout"))
+            voxels = unpack_voxels(torch.from_numpy(batch["voxels"]).to(self.device))
+            self.state.model(voxels, train=True, generator=gen)
 
     def resume_if_available(self) -> int:
         """Restore the newest good checkpoint of ``cfg.checkpoint_dir``, if
@@ -221,19 +298,20 @@ class Trainer:
         try:
             step = start
             while step < total:
+                take = self._k if self._k > 1 and step + self._k <= total else 1
                 t0 = time.perf_counter()
-                batch = next(stream) if stream else None
+                batches = [next(stream) for _ in range(take)] if stream else None
                 t1 = time.perf_counter()
-                metrics = self.step(batch)
-                new_step = step + 1
+                metrics = self.dispatch(batches, take)
+                new_step = step + take
 
                 def crossed(every: int) -> bool:
                     return (new_step // every) > (step // every)
 
-                self.logger.count_samples(cfg.global_batch)
+                self.logger.count_samples(cfg.global_batch * take)
                 if crossed(cfg.log_every) or new_step == total:
                     last = self.logger.log(new_step, metrics)
-                self.timing["steps"] += 1
+                self.timing["steps"] += take
                 self.timing["data_wait_s"] += t1 - t0
                 self.timing["wall_s"] += time.perf_counter() - t0
                 if crossed(cfg.eval_every) or new_step == total:

@@ -48,6 +48,13 @@ class TrainState:
     def policy(self) -> PrecisionPolicy:
         return get_policy(self.precision)
 
+    def tensors(self) -> list[torch.Tensor]:
+        """Every tensor a train step writes, in place: parameters and
+        batch-norm statistics, the optimizer's slots, the loss-scale
+        state."""
+        return [*self.model.state_dict().values(), *self.optimizer.tensors(),
+                self.loss_scale, self.good_steps]
+
     def apply_gradients(self, grads: Sequence[torch.Tensor],
                         finite: Optional[torch.Tensor] = None) -> None:
         """Apply ``grads`` (fp32, one per parameter, ``model.parameters()``

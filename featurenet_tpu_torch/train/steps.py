@@ -18,13 +18,20 @@ The schedule is ``optax.warmup_cosine_decay_schedule`` with init 0, end
 ``peak·0.01`` and ``decay_steps = max(total, warmup + 1)``; at step 0 the
 rate is 0, so the first update moves no parameter.
 
-With ``augment_groups > 0`` the step rotates the unpacked voxels by the
-cube-group codes the caller drew (``ops/augment.py``), as the reference's
-``make_train_step`` does with its ``aug_rng``. The resident step
-(``make_resident_train_step``, the reference's
-``make_hbm_multi_train_step`` at one step per dispatch) gathers its batch
-from a split that lives on the device, at row indices the caller drew
-there (``draw_rows``), and runs the same step.
+A step augments in the reference's order (``make_train_step``): unpack;
+with ``augment_groups > 0`` either the affine warp (``augment_affine``; in
+fp32, after the cast, under every precision policy, as the reference warps
+its float grid) or the cube rotation (on the 0/1 bytes, before the cast);
+then, with ``augment_noise``, the occupancy flips; then the update. The
+step applies the draws its caller hands it (``ops/augment.py``): the
+cube-group codes, the affine draw, the flip mask and dropout's generator.
+``StepDraws`` makes them on the device, each draw of step ``s`` from a
+generator seeded by ``(seed, s, stream)`` alone, so a step draws the same
+whether it runs alone, as one of k steps of a dispatch or after a resume.
+The resident step (``make_resident_train_step``, the reference's
+``make_hbm_multi_train_step``) gathers its batch from a split that lives
+on the device, at row indices drawn there (``draw_rows``), and runs the
+same step.
 
 The step follows the state's precision policy (``train/precision.py``):
 under ``bf16_master`` and ``fp16_scaled`` the forward runs on a working
@@ -43,7 +50,10 @@ its old value by ``torch.where(finite, new, old)``, as the reference merges
 its two states with ``jnp.where``. The optimizer's ``count`` is a 0-d
 int32 tensor on the parameters' device, and the learning rate and Adam's
 bias corrections are computed from it there, so no train step reads a
-device value on the host.
+device value on the host. Every slot a step writes (parameters, moments,
+``count``, batch-norm statistics, the loss-scale state) is written in
+place, so a CUDA graph of steps (``runtime/registry.py`` ``TrainProgram``)
+replays against the live state.
 
 The update runs inside the profiler range ``optimizer``
 (``record_function``), beside the model's ``casts`` and ``bn_relu``.
@@ -56,14 +66,24 @@ held-out eval measures the forward serving runs.
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from featurenet_tpu_torch.ops.augment import group_count, rotate_groups
+from featurenet_tpu_torch.ops.augment import (
+    AffineDraw,
+    affine_prob,
+    affine_warp,
+    draw_affine,
+    draw_code_tensor,
+    draw_flips,
+    group_count,
+    occupancy_noise,
+    rotate_by_codes,
+)
 from featurenet_tpu_torch.runtime import forward_with
 from featurenet_tpu_torch.train.precision import (
     LOSS_SCALE_GROWTH_INTERVAL,
@@ -92,13 +112,22 @@ def unpack_voxels(packed: torch.Tensor) -> torch.Tensor:
     return unpack_bits(packed).float()
 
 
-def step_voxels(packed: torch.Tensor, codes=None) -> torch.Tensor:
-    """The float voxels a train step computes on: unpacked, then, with
-    ``codes``, rotated group by group (before the cast, on 0/1 bytes)."""
+def step_voxels(packed: torch.Tensor, codes=None,
+                affine: Optional[AffineDraw] = None,
+                flips: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The float voxels a train step computes on: unpacked; with ``codes``
+    (a sequence or a tensor) rotated group by group before the cast, on the
+    0/1 bytes, or with ``affine`` cast and then warped; then, with
+    ``flips``, their occupancy flipped."""
     bits = unpack_bits(packed)
     if codes is not None:
-        bits = rotate_groups(bits, codes)
-    return bits.float()
+        bits = rotate_by_codes(bits, torch.as_tensor(codes, device=bits.device))
+    voxels = bits.float()
+    if affine is not None:
+        voxels = affine_warp(voxels, *affine)
+    if flips is not None:
+        voxels = occupancy_noise(voxels, flips)
+    return voxels
 
 
 def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -148,8 +177,10 @@ class Optimizer:
 
     ``mu``/``nu`` are Adam's moments (``mu`` is SGD's trace), one tensor per
     parameter; ``count`` is the number of updates applied, which is also
-    the schedule's step: a 0-d int32 tensor on the parameters' device,
-    replaced (not written in place) by each update, as optax's state is.
+    the schedule's step: a 0-d int32 tensor on the parameters' device.
+    Every slot is written in place by ``update`` (a CUDA graph of it reads
+    the addresses it saw at capture); ``count`` reads as a copy, a value
+    as optax's is, and assigning it copies into the live tensor.
     """
 
     def __init__(self, params: Sequence[torch.Tensor], kind: str,
@@ -163,10 +194,24 @@ class Optimizer:
         self.weight_decay = weight_decay if kind == "adamw" else 0.0
         self.grad_clip = grad_clip
         device = self.params[0].device if self.params else None
-        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self._count = torch.zeros((), dtype=torch.int32, device=device)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = ([torch.zeros_like(p) for p in self.params]
                    if kind != "sgd" else [])
+
+    @property
+    def count(self) -> torch.Tensor:
+        return self._count.clone()
+
+    @count.setter
+    def count(self, value) -> None:
+        with torch.no_grad():
+            self._count.copy_(torch.as_tensor(value))
+
+    def tensors(self) -> list[torch.Tensor]:
+        """The live slots ``update`` writes besides the parameters: the
+        moments and ``count``."""
+        return [*self.mu, *self.nu, self._count]
 
     @torch.no_grad()
     @record_function("optimizer")
@@ -183,8 +228,8 @@ class Optimizer:
             keep = norm < self.grad_clip
             grads = [torch.where(keep, g, g / norm * self.grad_clip)
                      for g in grads]
-        lr = self.schedule(self.count)
-        count = self.count + 1
+        lr = self.schedule(self._count)
+        count = self._count + 1
 
         def put(dst: torch.Tensor, new: torch.Tensor) -> None:
             dst.copy_(new if finite is None else torch.where(finite, new, dst))
@@ -206,8 +251,7 @@ class Optimizer:
                 put(p, p + u * (-lr))
                 put(m, m_new)
                 put(v, v_new)
-        self.count = count if finite is None else torch.where(finite, count,
-                                                              self.count)
+        put(self._count, count)
 
 
 def make_optimizer(cfg, params: Sequence[torch.Tensor]) -> Optimizer:
@@ -275,28 +319,41 @@ def _scaled_update(state, voxels, labels, label_smoothing, generator) -> dict:
     return metrics
 
 
-def make_train_step(label_smoothing: float = 0.0,
-                    augment_groups: int = 0) -> Callable:
-    """``step(state, batch, generator, codes) -> metrics``: one update of
-    ``state`` (``train/state.py``) in place from a wire batch (bit-packed
-    voxels unpacked on the device); dropout draws from ``generator``. With
-    ``augment_groups > 0``, ``codes`` are the cube-group codes of the
-    batch's ``group_count(B, augment_groups)`` slices
-    (``augment.draw_codes``). Metrics are device scalars: ``loss``,
-    ``accuracy`` and ``grad_norm``, the global norm of the gradients, and
-    under ``fp16_scaled`` ``loss_scale`` (after the verdict) and
-    ``grads_finite`` (1.0 or 0.0)."""
+def make_train_step(label_smoothing: float = 0.0, augment_groups: int = 0,
+                    augment_affine: bool = False,
+                    augment_noise: float = 0.0) -> Callable:
+    """``step(state, batch, generator, codes, affine, flips) -> metrics``:
+    one update of ``state`` (``train/state.py``) in place from a wire batch
+    (bit-packed voxels unpacked on the device), with the draws given
+    (``StepDraws`` makes them): dropout draws from ``generator``; with
+    ``augment_groups > 0`` the batch's ``group_count(B, augment_groups)``
+    slices are posed by ``affine`` (an ``AffineDraw``) under
+    ``augment_affine``, else rotated by the cube-group ``codes``; with
+    ``augment_noise > 0`` the voxels in ``flips`` are flipped. Metrics are
+    device scalars: ``loss``, ``accuracy`` and ``grad_norm``, the global
+    norm of the gradients, and under ``fp16_scaled`` ``loss_scale`` (after
+    the verdict) and ``grads_finite`` (1.0 or 0.0)."""
+    warp = bool(augment_affine and augment_groups)
 
-    def train_step(state, batch: dict, generator=None, codes=None) -> dict:
-        if augment_groups:
-            groups = group_count(batch["voxels"].shape[0], augment_groups)
-            if codes is None or len(codes) != groups:
-                raise ValueError(f"the step rotates {groups} groups; got "
-                                 f"rotation codes {codes}")
-        elif codes is not None:
-            raise ValueError("rotation codes given to a step built without "
-                             "augment_groups")
-        voxels = step_voxels(batch["voxels"], codes)
+    def train_step(state, batch: dict, generator=None, codes=None,
+                   affine: Optional[AffineDraw] = None,
+                   flips: Optional[torch.Tensor] = None) -> dict:
+        groups = group_count(batch["voxels"].shape[0], augment_groups) \
+            if augment_groups else 0
+        if groups and not warp and (codes is None or len(codes) != groups):
+            raise ValueError(f"the step rotates {groups} groups; got "
+                             f"rotation codes {codes}")
+        if groups and warp and (affine is None or len(affine.take) != groups):
+            raise ValueError(f"the step warps {groups} groups; got affine "
+                             f"draw {affine}")
+        if (codes is not None and (warp or not groups)) or \
+                (affine is not None and not warp):
+            raise ValueError("pose draws given to a step that does not pose "
+                             "by them")
+        if (flips is None) != (augment_noise <= 0.0):
+            raise ValueError(f"a step with augment_noise={augment_noise} "
+                             f"needs a flip mask exactly when it is > 0")
+        voxels = step_voxels(batch["voxels"], codes, affine, flips)
         policy = state.policy
         if policy.loss_scaling:
             return _scaled_update(state, voxels, batch["label"],
@@ -328,17 +385,109 @@ def gather_rows(data: torch.Tensor, labels: torch.Tensor,
 
 
 def make_resident_train_step(label_smoothing: float = 0.0,
-                             augment_groups: int = 0) -> Callable:
-    """``step(state, data, labels, idx, generator, codes) -> metrics``: the
-    train step of ``make_train_step`` on the rows ``idx`` of a split that
-    lives on the device (``draw_rows`` draws them there; the reference's
-    ``make_hbm_multi_train_step`` with ``num_steps=1`` on one device)."""
-    step = make_train_step(label_smoothing, augment_groups)
+                             augment_groups: int = 0,
+                             augment_affine: bool = False,
+                             augment_noise: float = 0.0) -> Callable:
+    """``step(state, data, labels, idx, generator, codes, affine, flips) ->
+    metrics``: the train step of ``make_train_step`` on the rows ``idx`` of
+    a split that lives on the device (``draw_rows`` draws them there; one
+    inner step of the reference's ``make_hbm_multi_train_step``)."""
+    step = make_train_step(label_smoothing, augment_groups, augment_affine,
+                           augment_noise)
 
-    def resident_step(state, data, labels, idx, generator=None, codes=None) -> dict:
-        return step(state, gather_rows(data, labels, idx), generator, codes)
+    def resident_step(state, data, labels, idx, generator=None, codes=None,
+                      affine=None, flips=None) -> dict:
+        return step(state, gather_rows(data, labels, idx), generator, codes,
+                    affine, flips)
 
     return resident_step
+
+
+# The draw streams of a train step, each with its constant; rows' and the
+# cube codes' are the reference's folds for its resident draw and the
+# constants of earlier runs.
+DRAW_STREAMS = {"dropout": 0xD20, "rows": 0x5A11, "codes": 0xA06,
+                "affine": 0xAFF1, "noise": 0xF11B}
+
+
+def stream_seed(seed: int, step: int, stream: str) -> int:
+    """The 64-bit generator seed of one draw stream at one step."""
+    return int(np.random.SeedSequence([seed, step, DRAW_STREAMS[stream]])
+               .generate_state(1, np.uint64)[0])
+
+
+class StepDraws:
+    """The random draws of a run's train steps, made on ``device``: one
+    ``torch.Generator`` per stream for each of ``slots`` inner steps of a
+    dispatch, so each of k steps captured in one CUDA graph has its own
+    (registered with the graph, ``generators``). ``seed(step, take)``
+    reseeds slot ``j`` for step ``step + j`` (every stream from
+    ``stream_seed(seed, step + j, stream)``) and writes ``step + j`` into
+    ``steps[j]``, the device step count the affine ramp reads; the host
+    does this before each dispatch, and a graph reads the generators' seeds
+    and the counts at replay.
+
+    Streams: ``dropout`` always; ``rows`` for a resident split (``rows >
+    0``); with ``cfg.device_augment`` the cube ``codes``, or under
+    ``cfg.augment_affine`` the ``affine`` draw; ``noise`` when
+    ``cfg.augment_noise > 0``.
+    """
+
+    def __init__(self, cfg, slots: int, device, rows: int = 0):
+        self.seed_value = cfg.seed
+        self.batch = cfg.global_batch
+        self.rows = rows
+        self.groups = cfg.augment_groups if cfg.device_augment else 0
+        self.affine = bool(cfg.augment_affine and self.groups)
+        self.noise = cfg.augment_noise
+        self.affine_opts = dict(scale_range=cfg.augment_scale_range,
+                                rotate=cfg.augment_affine_rotate,
+                                translate_vox=cfg.augment_translate_vox)
+        self.prob, self.ramp_steps = cfg.augment_affine_prob, cfg.augment_ramp_steps
+        streams = ["dropout"]
+        streams += ["rows"] if rows else []
+        streams += (["affine"] if self.affine else ["codes"]) if self.groups else []
+        streams += ["noise"] if self.noise > 0.0 else []
+        self.streams = tuple(streams)
+        device = torch.device(device)
+        self._gens = [{s: torch.Generator(device=device) for s in self.streams}
+                      for _ in range(slots)]
+        self._offsets = torch.arange(slots, device=device)
+        self.steps = torch.zeros(slots, dtype=torch.int64, device=device)
+
+    @property
+    def slots(self) -> int:
+        return len(self._gens)
+
+    def generators(self) -> list[torch.Generator]:
+        return [g for slot in self._gens for g in slot.values()]
+
+    def seed(self, step: int, take: int) -> None:
+        if not 1 <= take <= self.slots:
+            raise ValueError(f"{take} steps for {self.slots} draw slots")
+        for j in range(take):
+            for stream, g in self._gens[j].items():
+                g.manual_seed(stream_seed(self.seed_value, step + j, stream))
+        torch.add(self._offsets, step, out=self.steps)
+
+    def draw_rows(self, slot: int) -> torch.Tensor:
+        return draw_rows(self._gens[slot]["rows"], self.rows, self.batch)
+
+    def step_args(self, slot: int, batch: int, resolution: int) -> dict:
+        """The keyword draws of ``make_train_step``'s step for inner step
+        ``slot`` of a batch of ``batch`` at ``resolution``."""
+        gens = self._gens[slot]
+        args = {"generator": gens["dropout"]}
+        if "codes" in gens:
+            args["codes"] = draw_code_tensor(gens["codes"], batch, self.groups)
+        if "affine" in gens:
+            prob = affine_prob(self.prob, self.ramp_steps, self.steps[slot])
+            args["affine"] = draw_affine(gens["affine"], batch, self.groups,
+                                         prob, **self.affine_opts)
+        if "noise" in gens:
+            shape = (batch, resolution, resolution, resolution, 1)
+            args["flips"] = draw_flips(gens["noise"], shape, self.noise)
+        return args
 
 
 @torch.no_grad()

@@ -16,7 +16,10 @@ Predictor's weights resident on the card as int8; the serving programs
 (one CUDA graph per bucket and precision) bitwise the eager forward, with
 the forward kernel inside each replay; ``fp16_scaled`` steps, applied and
 skipped, with no host synchronisation; a weight swap while another thread
-replays.
+replays; the affine warp, the occupancy noise and the device cube codes
+on the card against the CPU; k train steps replayed as one CUDA graph
+against k eager steps, resident and streamed, with the augmented step
+making no host synchronisation.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -695,3 +698,88 @@ def test_swap_under_replay_keeps_the_old_answers_until_the_flip(cuda, tmp_path):
     assert all(torch.equal(o, old) for o in before)
     assert all(torch.equal(o, new) for o in after)
     assert all(torch.equal(o, old) or torch.equal(o, new) for _, _, o in answers)
+
+
+def test_augment_on_card_equals_cpu(cuda):
+    """The affine warp (and its plain gather) of the same voxels and draws
+    on the card and on the CPU, within 1e-5 (fp32 coordinates, another
+    order of the trilinear sum in grid_sample's kernel); the noise flips
+    exactly the mask it is given; device cube codes rotate bitwise as the
+    CPU's permute and flip."""
+    from featurenet_tpu_torch.ops import augment
+
+    g = torch.Generator().manual_seed(0)
+    x = (torch.rand((16, 16, 16, 16, 1), generator=g) < 0.4).float()
+    draw = augment.draw_affine(g, 16, 8, prob=0.5, translate_vox=1.5)
+    assert bool(draw.take.any()) and not bool(draw.take.all())
+    want = augment.affine_warp(x, *draw)
+    on = [t.to(cuda) for t in draw]
+    got = augment.affine_warp(x.to(cuda), *on).cpu()
+    plain = augment.affine_warp_plain(x.to(cuda), *on).cpu()
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float((plain - want).abs().max()) <= 1e-5
+    kept = ~draw.take.repeat_interleave(2)
+    assert torch.equal(got[kept], x[kept])
+    flips = augment.draw_flips(g, tuple(x.shape), 0.05)
+    noisy = augment.occupancy_noise(got.to(cuda), flips.to(cuda)).cpu()
+    assert torch.equal(noisy, (got - flips.float()).abs())
+    codes = torch.tensor([5, 23, 0, 11])
+    bits = x.to(torch.uint8)
+    assert torch.equal(augment.rotate_by_codes(bits.to(cuda), codes.to(cuda)).cpu(),
+                       augment.rotate_groups(bits, codes.tolist()))
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_k_step_graph_replay_equals_eager_steps(cuda, tmp_path, resident):
+    """smoke16 under the robust recipe (affine warp at prob 0.5, noise,
+    dropout 0.2) from a cache at k = 8: two dispatches replay one captured
+    CUDA graph, and land where 16 eager steps from the same state land
+    (rtol 1e-6, atol 1e-7, the reference's k-step tolerance), the graph
+    holding 8 steps' kernel launches and a replay launching none from
+    Python. An eager step of the recipe makes no host synchronisation."""
+    import io
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.offline import export_synthetic_cache
+    from featurenet_tpu_torch.ops import launch_counts
+    from featurenet_tpu_torch.runtime import build_model
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cache = str(tmp_path / "c")
+    export_synthetic_cache(cache, per_class=4, resolution=16, seed=2)
+    cfg = get_config("smoke16", data_cache=cache, hbm_cache=resident,
+                     global_batch=16, steps_per_dispatch=8, warmup_steps=2,
+                     augment_affine=True, augment_affine_prob=0.5,
+                     augment_noise=0.005)
+    weights = build_model(cfg, seed=0).state_dict()
+    graphed = Trainer(cfg, device=cuda, state=weights, stream=io.StringIO())
+    eager = Trainer(cfg, device=cuda, state=weights, stream=io.StringIO())
+    it = graphed.train_data.worker_iter(0)
+    batches = [] if resident else [
+        {k: torch.from_numpy(v).to(cuda) for k, v in next(it).items()}
+        for _ in range(16)]
+    before = launch_counts()
+    eager.step(batches[0] if batches else None)
+    per_step = {k: v - before[k] for k, v in launch_counts().items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager.step(batches[1] if batches else None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for i in range(2, 16):
+        eager.step(batches[i] if batches else None)
+    graphed.dispatch(batches[:8] or None, 8)
+    before = launch_counts()
+    metrics = graphed.dispatch(batches[8:] or None, 8)
+    torch.cuda.synchronize()
+    assert launch_counts() == before
+    (prog,) = graphed.programs.values()
+    assert prog.capture_launches == {k: 8 * v for k, v in per_step.items()}
+    assert graphed.state.step == eager.state.step == 16
+    assert np.isfinite(float(metrics["loss"]))
+    a, b = graphed.state, eager.state
+    assert int(a.optimizer.count) == int(b.optimizer.count) == 16
+    for x, y in zip(a.tensors(), b.tensors()):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-7)
+    assert not torch.equal(a.model.dense1.weight.cpu(), weights["dense1.weight"])

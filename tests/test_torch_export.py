@@ -72,6 +72,28 @@ def test_jax_config_json_loads_in_the_port(name):
     check_identity(got, want)
 
 
+@pytest.mark.parametrize("overrides", [
+    {}, dict(augment_ramp_steps=400, augment_affine_rotate=False,
+             augment_scale_range=(0.8, 1.0), augment_translate_vox=2.0)])
+def test_jax_robust64_config_keeps_every_affine_field(overrides):
+    """The JAX robust64 ``config.json`` (as written, and with every affine
+    knob off its default) loads with the warp, its knobs, the noise and
+    k = 8 intact, the scale range back as a tuple, and trains."""
+    jcfg = jax_get_config("robust64", **overrides)
+    d = json.loads(json.dumps(jax_config_to_dict(jcfg), default=str))
+    assert isinstance(d["augment_scale_range"], list)
+    got = config_from_dict(d)
+    for name in ("augment_affine", "augment_affine_prob", "augment_ramp_steps",
+                 "augment_affine_rotate", "augment_scale_range",
+                 "augment_translate_vox", "augment_noise", "steps_per_dispatch",
+                 "hbm_cache", "augment_groups"):
+        assert getattr(got, name) == getattr(jcfg, name), name
+    assert got.augment_scale_range == tuple(jcfg.augment_scale_range)
+    assert isinstance(got.augment_scale_range, tuple)
+    assert (got.augment_affine_prob, got.steps_per_dispatch) == (0.5, 8)
+    assert got.validate_training() is got
+
+
 @pytest.mark.parametrize("kind,clip", [("adamw", 0.0), ("adam", 0.0),
                                        ("adamw", 0.5)])
 def test_opt_from_optax_maps_the_moments(kind, clip):

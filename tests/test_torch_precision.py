@@ -154,8 +154,8 @@ def test_config_accepts_the_rungs_and_refuses_the_unported():
         for sp in precision.SERVE_PRECISIONS:
             cfg = get_config("sprint64", train_precision=tp, serve_precision=sp)
             assert cfg.validate_training() is cfg
-    with pytest.raises(ValueError, match="not ported for training"):
-        get_config("robust64").validate_training()
+    robust = get_config("robust64")  # affine, noise and k = 8: all ported
+    assert robust.validate_training() is robust
     with pytest.raises(ValueError, match="not ported"):
         get_config("sprint64", task="segment")
 

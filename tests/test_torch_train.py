@@ -349,13 +349,29 @@ def test_trainer_runs_and_logs_on_cpu():
 
 
 def test_training_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="not ported for training.*affine warp"
-                                         ".*occupancy noise.*multi-step"):
-        get_config("robust64").validate_training()
-    with pytest.raises(ValueError, match="steps_per_dispatch.*not ported for training"):
-        get_config("sprint64", steps_per_dispatch=8).validate_training()
-    with pytest.raises(ValueError, match="augment_noise.*not ported for training"):
-        get_config("sprint64", augment_noise=0.005).validate_training()
+    """robust64 (affine warp, occupancy noise, 8 steps per dispatch) and
+    sprint64 at k = 8 train; the reference's invalid values of those
+    fields raise, as its ``validate`` raises them."""
+    robust = get_config("robust64")
+    assert robust.validate_training() is robust
+    assert (robust.augment_affine, robust.augment_affine_prob,
+            robust.augment_noise, robust.steps_per_dispatch) == (True, 0.5, 0.005, 8)
+    k8 = get_config("sprint64", steps_per_dispatch=8)
+    assert k8.validate_training() is k8
+    for overrides, match in (
+            (dict(augment_noise=0.5), "augment_noise is a per-voxel"),
+            (dict(steps_per_dispatch=0), "steps_per_dispatch must be >= 1"),
+            (dict(augment_scale_range=(1.05, 0.7)), "0 < lo <= hi"),
+            (dict(augment_affine_prob=0.0), r"probability in \(0, 1\]"),
+            (dict(augment_affine=False, augment_affine_prob=0.5),
+             "augment_affine_prob configured but augment_affine is off"),
+            (dict(hbm_cache=False, data_cache=None), "needs device augmentation"),
+            (dict(augment_affine_rotate=False, augment_scale_range=(1.0, 1.0)),
+             "is the identity")):
+        with pytest.raises(ValueError, match=match):
+            get_config("robust64", **overrides)
+    listed = dataclasses.replace(robust, augment_scale_range=[0.8, 1.0]).validate()
+    assert listed.augment_scale_range == (0.8, 1.0)
     # The precision rungs and the fused33 lowering are ported; an unknown
     # name of either still raises.
     for prec in ("bf16_master", "fp16_scaled"):
