@@ -117,7 +117,12 @@ Phases, in order; any failure exits non-zero before the last line:
    robust64 step and a sprint64 resident step at k = 1 and per inner step
    at k = 8, of the warp (and its plain version) and of the noise;
    samples/s and the data-wait share over 50 steps at k = 1 and 8,
-   resident and streamed. Last, `cli train --config robust64 --data-cache
+   resident and streamed; a `pacing` line: samples/s over 50 steps at k =
+   8, resident and streamed, in turns with the loop paced
+   (max_inflight_steps 8: it waits for the event of the dispatch one group
+   back) and unpaced (above the run's length), beside the rates measured
+   before the loop paced its dispatches.
+   Last, `cli train --config robust64 --data-cache
    D --total-steps 16 --checkpoint-dir C`, `cli recalibrate --checkpoint-dir
    C --out-dir C2 --batches 8` and `cli eval --checkpoint-dir C2` as
    subprocesses: the recalibrated step's batch-norm statistics moved,
@@ -143,8 +148,36 @@ Phases, in order; any failure exits non-zero before the last line:
    count, BN statistics), its step advanced and its scale halved. fused33: 3 steps,
    no kernel of the package launched, device ms per step beside xla's, and
    logits within 2e-2 of xla's on the same weights.
-13. The wall time of every phase, one JSON line of per-kernel numbers
-   (launches by path, the cache, robust and precision runs' included), the
+13. Supervised training, after the precision ladder, from the robust
+   phase's cache, through `cli train --supervise` subprocesses
+   (`supervise_*` lines):
+   - `supervise_robust`: robust64 (resident, k = 8, pallas, batch 256) for
+     64 steps with SUPERVISE_FAULTS and `--restart-every 24`: child 1 is
+     preempted (exit 75, its exit save truncated), child 2 walks back past
+     the torn step and ends its segment (exit 75), child 3 loses its host
+     (SIGKILL), child 4 finishes. The supervisor must count 2 planned
+     restarts and 1 crash restart, and the last step must equal an
+     unbroken `cli train` of the same run, bitwise or each tensor within
+     STEP_TOL's fp32 gradient tolerance (the verdict printed). Per child:
+     its wall seconds and beats; the time from each exit or kill to the
+     next child's first beat; the killed child releasing the card before
+     the next child's setup record.
+   - `supervise_stall`: sprint64 streamed from the cache for 24 steps,
+     `--stall-timeout 20`, input worker 0 hung at ticket 16 (past the first
+     beat): exactly one stall verdict, detected within the timeout plus one
+     poll of the last beat, the killed process group gone, and the respawn
+     finishing with a finite loss and its last checkpoint.
+   - `supervise_swap`: `cli serve --checkpoint-dir` of the stall run with
+     `--inject-faults swap_corrupt@swap=1`: the first POST /admin/reload
+     (to the robust run's checkpoint) gets 409 `ChecksumMismatch` and the
+     old generation answers bitwise as before; the second swaps.
+   No supervisor process holds a CUDA context: nvidia-smi never lists its
+   pid and it never holds a GPU device node open, while the same probe
+   sees its children hold one. The children's kernel launches (each `cli
+   train` on the card ends with its counts) are the `supervise` path.
+14. The wall time of every phase, one JSON line of per-kernel numbers
+   (launches by path, the cache, robust, supervise and precision runs'
+   included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
@@ -154,8 +187,10 @@ yardstick here is full fp32.
 from __future__ import annotations
 
 import argparse
+import functools
 import http.client
 import json
+import math
 import os
 import signal
 import statistics
@@ -240,6 +275,15 @@ REPLAY_PROFILE_REPS = 3
 # The reload phase: keep-alive clients posting in a loop, over these grids.
 RELOAD_CLIENTS = 16
 RELOAD_GRIDS = 64
+# Idle seconds at the end of a profiler window that counts kernel events.
+# On the H100 the profiler loses device events at the edges of its window:
+# the first one or two kernels of the window's first graph launch, or the
+# last few milliseconds of kernels of its last ones (about one window in
+# six; never one inside). So a window that counts events runs its counted
+# graph launches between uncounted lead and tail launches, and the count
+# is taken per launch from the events correlated with it
+# (``graph_launch_events``).
+PROFILE_PAD_S = 0.1
 # The port's record_function ranges whose device ms the profile line splits.
 PROFILE_RANGES = ("optimizer", "bn_relu", "casts")
 
@@ -263,6 +307,28 @@ ROBUST_CHECK_STEPS = 16
 ROBUST_RATE_STEPS = 50
 ROBUST_CLI_STEPS = 16
 RECAL_BATCHES = 8
+# The pacing check: turns of ROBUST_RATE_STEPS steps at k = 8 at each
+# max_inflight_steps (8, and above the run's length), and the rates this
+# script measured before the train loop paced its dispatches (samples/s,
+# resident and streamed; H100 80GB HBM3, 700 W), printed beside them.
+PACING_TURNS = 2
+UNPACED_LOOP_RATES = {"resident": 4774.1, "streamed": 4585.7}
+# The supervise phase. robust64 resident at k = 8 for 64 steps, saving
+# every 16, in segments of 24 steps: child 1 is preempted at its segment's
+# end (step 24, saved truncated: the second save of that process), child 2
+# walks back to 16 and ends its segment at 40, child 3 loses its host at
+# the first boundary past 50 (step 56), child 4 resumes from 48 and
+# finishes. sprint64 streamed for 24 steps, saving every 8, with worker 0
+# of the input threads hung at ticket 16, well past the first beat (step
+# 9, 8 steps in flight).
+SUPERVISE_STEPS = 64
+SUPERVISE_CKPT_EVERY = 16
+SUPERVISE_RESTART_EVERY = 24
+SUPERVISE_FAULTS = "sigterm@step=20,checkpoint_corrupt@save=2,host_loss@step=50"
+STALL_STEPS = 24
+STALL_CKPT_EVERY = 8
+STALL_TIMEOUT_S = 20
+STALL_FAULTS = "producer_hang@batch=16"
 # k steps replayed on one CUDA graph against k eager steps from one state:
 # the reference's k-step tolerance (tests/test_train.py). The graph runs the
 # same kernels on the same inputs, draws the same numbers (each inner step's
@@ -853,28 +919,53 @@ def _check_warmup(pred, what: str) -> dict[str, int]:
     return counts
 
 
-def replay_kernel_events(torch, pred, what: str) -> float:
-    """Under torch.profiler, REPLAY_PROFILE_REPS replays of every bucket's
-    graph: the device events of conv3d_fwd_kernel per replay, which must be
-    3 (the hand-written kernel runs inside each replay)."""
+def graph_launch_events(torch, calls: list, names) -> list[dict]:
+    """Under torch.profiler, each of ``calls`` (one CUDA graph launch each)
+    once: the device events of each launch whose names contain each of
+    ``names``, matched to the launch by correlation id. Every call also
+    runs once before the counted ones and once after them, uncounted, so
+    that the events the profiler loses at its window's edges
+    (PROFILE_PAD_S) fall on launches that are not counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    R = pred.cfg.resolution
-    xs = [torch.zeros((b, R, R, R, 1), device="cuda") for b in SERVE_BUCKETS]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for x in xs:
-            for _ in range(REPLAY_PROFILE_REPS):
-                pred.forward(x)
-        torch.cuda.synchronize()
-    hits = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-               and "conv3d_fwd_kernel" in e.name)
-    per_replay = hits / (REPLAY_PROFILE_REPS * len(xs))
-    if per_replay != 3:
-        fail(f"{what}: {hits} conv3d_fwd_kernel device events in "
-             f"{REPLAY_PROFILE_REPS * len(xs)} replays, not 3 each")
-    return per_replay
+        for _ in ("lead", "counted", "tail"):
+            for call in calls:
+                call()
+            torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    events = prof.events()
+    launches = sorted((e.time_range.start, e.id) for e in events
+                      if e.device_type == DeviceType.CPU
+                      and e.name == "cudaGraphLaunch")
+    if len(launches) != 3 * len(calls):
+        fail(f"profiled {len(launches)} graph launches for {len(calls)} calls "
+             f"run 3 times")
+    counted = [cid for _, cid in launches[len(calls):2 * len(calls)]]
+    per = {cid: dict.fromkeys(names, 0) for cid in counted}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.id in per:
+            for n in names:
+                per[e.id][n] += int(n in e.name)
+    return [per[cid] for cid in counted]
+
+
+def replay_kernel_events(torch, pred, what: str) -> float:
+    """Under torch.profiler, REPLAY_PROFILE_REPS replays of every bucket's
+    graph: the device events of conv3d_fwd_kernel in each replay, which
+    must be 3 (the hand-written kernel runs inside each replay)."""
+    R = pred.cfg.resolution
+    xs = [torch.zeros((b, R, R, R, 1), device="cuda") for b in SERVE_BUCKETS]
+    calls = [functools.partial(pred.forward, x) for x in xs
+             for _ in range(REPLAY_PROFILE_REPS)]
+    per = [c["conv3d_fwd_kernel"] for c in
+           graph_launch_events(torch, calls, ("conv3d_fwd_kernel",))]
+    if per != [3] * len(calls):
+        fail(f"{what}: conv3d_fwd_kernel device events per replay {per}, "
+             f"not 3 each")
+    return sum(per) / len(per)
 
 
 def _forward_shared_conv(torch):
@@ -1665,16 +1756,9 @@ def _replay_events(torch, trainer, backend: str) -> dict:
     """One k-step replay under torch.profiler: its kernels' device events
     by name, which must be k times REPLAY_EVENTS[backend], with no launch
     from Python (the wrappers' counters stay put)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     before = _read_counts()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.dispatch(None, ROBUST_K)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    got = {k: sum(1 for n in names if k in n) for k in REPLAY_EVENTS[backend]}
+    (got,) = graph_launch_events(
+        torch, [lambda: trainer.dispatch(None, ROBUST_K)], REPLAY_EVENTS[backend])
     want = {k: ROBUST_K * v for k, v in REPLAY_EVENTS[backend].items()}
     if got != want or _read_counts() != before:
         fail(f"{backend}: one replay ran {got} kernel events (want {want}); "
@@ -1750,6 +1834,28 @@ def _rate(trainer, steps: int) -> dict:
     wall = trainer.timing["wall_s"] - t["wall_s"]
     return {"steps": steps, "samples_per_sec": steps * trainer.cfg.global_batch / wall,
             "data_wait_share": (trainer.timing["data_wait_s"] - t["data_wait_s"]) / wall}
+
+
+def _pacing(trainer) -> dict:
+    """samples/s of ``trainer`` (k = 8) over ROBUST_RATE_STEPS steps, in
+    PACING_TURNS turns at max_inflight_steps 8 (paced: the loop waits for
+    the event of the dispatch one group back) and above the run's length
+    (unpaced), on the same trainer and graph."""
+    import dataclasses
+
+    base = trainer.cfg
+    modes = {"paced": 8, "unpaced": 10 ** 9}
+    turns = {m: [] for m in modes}
+    try:
+        for _ in range(PACING_TURNS):
+            for mode, depth in modes.items():
+                trainer.cfg = dataclasses.replace(base, max_inflight_steps=depth)
+                turns[mode].append(_rate(trainer, ROBUST_RATE_STEPS)["samples_per_sec"])
+    finally:
+        trainer.cfg = base
+    mean = {m: statistics.mean(v) for m, v in turns.items()}
+    return {"turns": turns, "mean": mean,
+            "paced_over_unpaced": mean["paced"] / mean["unpaced"]}
 
 
 def _augment_alone(torch, trainer) -> dict:
@@ -1887,11 +1993,13 @@ def robust_phase(torch, seed: int, cache: str, smi_line: str) -> dict:
                                      reps=3, warmup=1) / ROBUST_K}
         rates = {"hbm_k8": _rate(graphed, ROBUST_RATE_STEPS),
                  "hbm_k1": _rate(eager, ROBUST_RATE_STEPS)}
+        pacing = {"resident": _pacing(graphed)}
         del graphed, eager
         torch.cuda.empty_cache()
         streamed, graphed, eager = _k_against_eager(torch, seed, cache, False, sink)
         rates.update(cache_k8=_rate(graphed, ROBUST_RATE_STEPS),
                      cache_k1=_rate(eager, ROBUST_RATE_STEPS))
+        pacing["streamed"] = _pacing(graphed)
         del graphed, eager
         torch.cuda.empty_cache()
         sprint = Trainer(_robust_cfg(seed, cache, "sprint64"), "cuda", stream=sink)
@@ -1904,13 +2012,439 @@ def robust_phase(torch, seed: int, cache: str, smi_line: str) -> dict:
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     launches = _read_counts()
+    print("pacing", json.dumps({**pacing, "k": ROBUST_K, "steps": ROBUST_RATE_STEPS,
+                                "before_pacing_samples_per_sec": UNPACED_LOOP_RATES,
+                                "nvidia_smi": smi_line}), flush=True)
     cli = robust_cli(seed, cache)
     out = {"k_vs_eager_resident": res, "k_vs_eager_streamed": streamed,
            "replay_events_pallas": events, "hybrid_dw": hybrid,
-           "augment": aug, "device_step_ms": ms, "rates": rates,
+           "augment": aug, "device_step_ms": ms, "rates": rates, "pacing": pacing,
            "launches": launches, "cli": cli, "nvidia_smi": smi_line}
     print("robust", json.dumps(out), flush=True)
     return out
+
+
+def _smi_apps() -> list[tuple[int, str]]:
+    """(pid, used memory) of every compute process nvidia-smi lists."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=30)
+    apps = []
+    for line in out.stdout.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps.append((int(pid), mem.strip()))
+    return apps
+
+
+def _smi_used_mib() -> int | None:
+    """The card's memory in use, MiB, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=30)
+    first = out.stdout.strip().splitlines()[:1]
+    return int(first[0]) if first and first[0].strip().isdigit() else None
+
+
+def _gpu_fds(pid: int) -> list[str]:
+    """The GPU device nodes (/dev/nvidia<N>) process ``pid`` holds open: a
+    CUDA context opens its device's node."""
+    found = []
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia") and target[11:].isdigit():
+                found.append(target)
+    except OSError:
+        pass
+    return found
+
+
+def _group_alive(pgid: int) -> list[int]:
+    """Live processes of process group ``pgid``."""
+    alive = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[2]) == pgid and fields[0] != "Z":
+            alive.append(int(name))
+    return alive
+
+
+class _Watched:
+    """``cli train --supervise`` in a subprocess, watched: its stdout JSON
+    lines and stderr lines with their arrival times, the heartbeat file's
+    mtimes, and once a second nvidia-smi's compute processes and memory in
+    use, the GPU device nodes the supervisor holds open, and which of its
+    children hold one (a CUDA context opens its device's node; nvidia-smi
+    may not see the pids of a container)."""
+
+    def __init__(self, argv: list[str], heartbeat: str | None, root: str):
+        self.t0 = time.time()
+        self.out: list[tuple[float, dict]] = []
+        self.err: list[tuple[float, str]] = []
+        self.beats: list[float] = []
+        self.smi: list[tuple[float, list]] = []
+        self.own_gpu_fds: set[str] = set()
+        self.card_held: dict[int, list[float]] = {}  # child pid -> sample times
+        self._hb = heartbeat
+        self._stop = threading.Event()
+        self.proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        self._threads = [threading.Thread(target=f, daemon=True) for f in
+                         (self._read_out, self._read_err, self._watch_beats,
+                          self._watch_card)]
+        for t in self._threads:
+            t.start()
+
+    def _read_out(self):
+        for line in self.proc.stdout:
+            try:
+                self.out.append((time.time(), json.loads(line)))
+            except ValueError:
+                self.out.append((time.time(), {"raw": line.rstrip()}))
+
+    def _read_err(self):
+        for line in self.proc.stderr:
+            self.err.append((time.time(), line.rstrip()))
+
+    def _watch_beats(self):
+        last = None
+        while not self._stop.is_set():
+            try:
+                m = os.stat(self._hb).st_mtime if self._hb else None
+            except OSError:
+                m = None
+            if m is not None and m != last:
+                self.beats.append(m)
+                last = m
+            time.sleep(0.005)
+
+    def _watch_card(self):
+        while not self._stop.is_set():
+            t = time.time()
+            self.own_gpu_fds.update(_gpu_fds(self.proc.pid))
+            for _, r in self.records("supervisor"):
+                if r["supervisor"] == "spawn" and _gpu_fds(r["pid"]):
+                    self.card_held.setdefault(r["pid"], []).append(t)
+            self.smi.append((t, _smi_apps(), _smi_used_mib()))
+            self._stop.wait(1.0)
+
+    def wait(self, timeout: float) -> int:
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self._stop.set()
+            for t in self._threads:
+                t.join(timeout=30)
+        return rc
+
+    def records(self, key: str) -> list[tuple[float, dict]]:
+        return [(t, r) for t, r in self.out if key in r]
+
+    def children(self) -> list[dict]:
+        """One entry per child the supervisor spawned: pid, wall seconds
+        from its spawn to the supervisor's next verdict, its beats, its
+        first beat, how it ended and the verdict's time."""
+        sup = [(t, r) for t, r in self.records("supervisor")]
+        kids = []
+        for i, (t, r) in enumerate(sup):
+            if r["supervisor"] != "spawn":
+                continue
+            end_t, end = next(((u, s) for u, s in sup[i + 1:]
+                               if s["supervisor"] != "spawn"), (None, {}))
+            beats = [b for b in self.beats if t < b <= (end_t or 1e18)]
+            kids.append({"pid": r["pid"], "spawn_t": t, "end_t": end_t,
+                         "ended": end.get("supervisor"),
+                         "wall_s": (end_t - t) if end_t else None,
+                         "beats": len(beats),
+                         "first_beat_t": beats[0] if beats else None,
+                         "last_beat_t": beats[-1] if beats else None})
+        return kids
+
+    def check_no_context(self) -> dict:
+        """The supervisor's pid: never listed by nvidia-smi and never
+        holding a GPU device node open, while the same probe sees its
+        children hold one."""
+        sup_pid = self.proc.pid
+        listed = sorted({p for _, apps, _ in self.smi for p, _ in apps})
+        if sup_pid in listed or self.own_gpu_fds or not self.card_held:
+            fail(f"the supervisor (pid {sup_pid}) holds a CUDA context, or the "
+                 f"probe sees none: nvidia-smi pids {listed}, its device nodes "
+                 f"{self.own_gpu_fds}, children holding the card {self.card_held}")
+        used = [m for _, _, m in self.smi if m is not None]
+        return {"supervisor_pid": sup_pid, "supervisor_gpu_fds": sorted(self.own_gpu_fds),
+                "children_seen_holding_the_card": sorted(self.card_held),
+                "smi_pids_seen": listed,
+                "smi_max_apps": max(len(apps) for _, apps, _ in self.smi),
+                "smi_used_mib_max": max(used) if used else None,
+                "smi_samples": len(self.smi)}
+
+
+def _cli(*args) -> list[str]:
+    return [sys.executable, "-m", "featurenet_tpu_torch.cli", *args]
+
+
+def _exit_kind(record: dict) -> str:
+    return "preempt_exit" if "preempt_exit" in record else "planned_restart_exit"
+
+
+def _launch_lines(watched) -> list[dict]:
+    return [r["launches"] for _, r in watched.records("launches")]
+
+
+def _ck_tensors(path: str) -> dict:
+    import torch
+
+    p = torch.load(path, map_location="cpu", weights_only=True)
+    out = {f"model.{k}": v for k, v in p["model"].items()}
+    out.update({f"{m}.{k}": v for m in ("mu", "nu") for k, v in p[m].items()})
+    out.update({k: p[k] for k in ("loss_scale", "good_steps")})
+    return out, int(p["step"]), int(p["count"])
+
+
+def _same_run(a: str, b: str) -> dict:
+    """Two checkpoint files of one step: bitwise, or each tensor's largest
+    difference relative to its largest magnitude, held to STEP_TOL's fp32
+    gradient tolerance."""
+    ta, sa, ca = _ck_tensors(a)
+    tb, sb, cb = _ck_tensors(b)
+    rel = {}
+    for k in ta:
+        d = float((ta[k].double() - tb[k].double()).abs().max())
+        rel[k] = d / max(float(tb[k].double().abs().max()), 1e-30)
+    worst = max(rel, key=rel.get)
+    out = {"step": [sa, sb], "count": [ca, cb],
+           "bitwise": all(v == 0.0 for v in rel.values()),
+           "max_rel_diff": rel[worst], "worst_tensor": worst,
+           "tensors_differing": sorted(k for k, v in rel.items() if v)}
+    if (sa, ca) != (sb, cb) or rel[worst] > STEP_TOL["fp32"]["grad"]:
+        fail(f"the supervised run ends away from the unbroken one: {out}")
+    return out
+
+
+def supervise_robust(seed: int, cache: str, tmp: str) -> tuple[dict, list, str]:
+    """robust64 (resident, k = 8, pallas, batch 256) for SUPERVISE_STEPS
+    steps under ``cli train --supervise`` with SUPERVISE_FAULTS: preempted
+    at its first segment's end (the step saved there truncated), a planned
+    restart at the next, a host loss (SIGKILL) in the third child. Then
+    the same run unbroken; the last steps must agree."""
+    from featurenet_tpu_torch.train.checkpoint import step_filename
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ck, ck_ref = os.path.join(tmp, "robust_ck"), os.path.join(tmp, "robust_ref")
+    hb = os.path.join(tmp, "robust_hb")
+    common = ["--config", "robust64", "--seed", str(seed), "--data-cache", cache,
+              "--total-steps", str(SUPERVISE_STEPS), "--checkpoint-every",
+              str(SUPERVISE_CKPT_EVERY)]
+    smi_before = (_smi_apps(), _smi_used_mib())
+    run = _Watched(_cli("train", *common, "--checkpoint-dir", ck, "--supervise",
+                        "--heartbeat-file", hb, "--restart-every",
+                        str(SUPERVISE_RESTART_EVERY), "--inject-faults",
+                        SUPERVISE_FAULTS), hb, root)
+    rc = run.wait(600)
+    smi_after = (_smi_apps(), _smi_used_mib())
+    sup = [r for _, r in run.records("supervisor")]
+    done = sup[-1] if sup else {}
+    kids = run.children()
+    fallbacks = [json.loads(line)["checkpoint_fallback"] for _, line in run.err
+                 if line.startswith('{"checkpoint_fallback"')]
+    exits = [r for _, r in run.out if r.get("kind") == "setup"
+             and ("preempt_exit" in r or "planned_restart_exit" in r)]
+    if not (rc == 0 and done.get("supervisor") == "done"
+            and (done["restarts"], done["stalls"], done["planned"]) == (1, 0, 2)
+            and [k["ended"] for k in kids] == ["planned_restart", "planned_restart",
+                                               "backoff", "done"]
+            and fallbacks == [{"from_step": SUPERVISE_RESTART_EVERY,
+                               "to_step": SUPERVISE_CKPT_EVERY}]
+            and [_exit_kind(r) for r in exits] == ["preempt_exit",
+                                                   "planned_restart_exit"]):
+        fail(f"supervise_robust: rc {rc}, {done}, children {kids}, fallbacks "
+             f"{fallbacks}, exits {exits}; stderr {[l for _, l in run.err][-40:]}")
+    # The SIGKILLed child (host_loss): its context released before the next
+    # child's setup record (no sample after it finds the killed pid in
+    # nvidia-smi or holding the card), and the time from the kill to the
+    # next beat.
+    killed = kids[2]
+    next_setup_t = next(t for t, r in run.out if r.get("kind") == "setup"
+                        and t > killed["end_t"])
+    held_after = [t for t in run.card_held.get(killed["pid"], []) if t >= next_setup_t]
+    listed_after = [t for t, apps, _ in run.smi if t >= next_setup_t
+                    and killed["pid"] in {p for p, _ in apps}]
+    if (held_after or listed_after or not run.card_held.get(killed["pid"])
+            or _group_alive(killed["pid"])):
+        fail(f"the killed child {killed['pid']} held the card after the next "
+             f"setup record ({held_after}, {listed_after}), or was never seen "
+             f"holding it ({run.card_held})")
+    t_ref = time.perf_counter()
+    ref = subprocess.run(_cli("train", *common, "--checkpoint-dir", ck_ref),
+                         cwd=root, capture_output=True, text=True, timeout=600)
+    ref_s = time.perf_counter() - t_ref
+    if ref.returncode != 0:
+        fail(f"unbroken robust64 run exited {ref.returncode}: {ref.stderr[-2000:]}")
+    same = _same_run(os.path.join(ck, step_filename(SUPERVISE_STEPS)),
+                     os.path.join(ck_ref, step_filename(SUPERVISE_STEPS)))
+    ref_launches = [json.loads(line)["launches"] for line in ref.stdout.splitlines()
+                    if line.startswith('{"launches"')]
+    out = {"config": "robust64", "steps": SUPERVISE_STEPS, "k": ROBUST_K,
+           "faults": SUPERVISE_FAULTS, "restart_every": SUPERVISE_RESTART_EVERY,
+           "result": done, "fallbacks": fallbacks,
+           "exits": [{"step": r["step"], "exit": _exit_kind(r)} for r in exits],
+           "children": [{k: v for k, v in c.items() if not k.endswith("_t")}
+                        for c in kids],
+           "kill_to_next_first_beat_s": kids[3]["first_beat_t"] - killed["end_t"],
+           "exit_to_next_first_beat_s": [kids[i + 1]["first_beat_t"] - kids[i]["end_t"]
+                                         for i in range(len(kids) - 1)],
+           "killed_pid": killed["pid"], "killed_released_before_next_setup": True,
+           "killed_last_seen_holding_to_next_setup_s":
+               next_setup_t - max(run.card_held[killed["pid"]]),
+           "vs_unbroken": same, "unbroken_s": ref_s, "wall_s": time.time() - run.t0,
+           "nvidia_smi_apps_and_used_mib_before": smi_before,
+           "nvidia_smi_apps_and_used_mib_after": smi_after,
+           **run.check_no_context()}
+    return out, _launch_lines(run) + ref_launches, ck
+
+
+def supervise_stall(seed: int, cache: str, tmp: str) -> tuple[dict, list, str]:
+    """sprint64 streamed from the cache (batch 256) for STALL_STEPS steps
+    under ``cli train --supervise --stall-timeout STALL_TIMEOUT_S`` with a
+    producer hung past the first beat: one stall verdict, the hung
+    child's whole group gone, the respawn finishing with a finite loss."""
+    import inspect
+
+    from featurenet_tpu_torch.train.checkpoint import CheckpointManager
+    from featurenet_tpu_torch.train.supervisor import supervise
+
+    poll_s = inspect.signature(supervise).parameters["poll_s"].default
+    root = os.path.dirname(os.path.abspath(__file__))
+    ck, hb = os.path.join(tmp, "stall_ck"), os.path.join(tmp, "stall_hb")
+    run = _Watched(_cli("train", "--config", "sprint64", "--seed", str(seed),
+                        "--data-cache", cache, "--total-steps", str(STALL_STEPS),
+                        "--checkpoint-every", str(STALL_CKPT_EVERY),
+                        "--checkpoint-dir", ck, "--supervise", "--heartbeat-file",
+                        hb, "--stall-timeout", str(STALL_TIMEOUT_S),
+                        "--inject-faults", STALL_FAULTS), hb, root)
+    rc = run.wait(600)
+    sup = [r for _, r in run.records("supervisor")]
+    kids = run.children()
+    stalls = [(t, r) for t, r in run.records("supervisor") if r["supervisor"] == "stall"]
+    trains = [r for _, r in run.out if r.get("kind") == "train"]
+    if not (rc == 0 and len(stalls) == 1 and sup[-1] == {
+            "supervisor": "done", "restarts": 1, "stalls": 1, "planned": 0}
+            and trains and trains[-1]["step"] == STALL_STEPS
+            and math.isfinite(trains[-1]["loss"])
+            and CheckpointManager(ck).latest_step() == STALL_STEPS):
+        fail(f"supervise_stall: rc {rc}, {sup}, trains {trains}; stderr "
+             f"{[l for _, l in run.err][-40:]}")
+    t_stall, stall = stalls[0]
+    hung = kids[0]
+    if _group_alive(stall["pid"]):
+        fail(f"the stalled child's group {stall['pid']} is still alive")
+    latency = t_stall - hung["last_beat_t"]
+    if not STALL_TIMEOUT_S <= latency <= STALL_TIMEOUT_S + poll_s + 1.0:
+        fail(f"stall detected {latency:.2f} s after the last beat (timeout "
+             f"{STALL_TIMEOUT_S}, poll {poll_s})")
+    out = {"config": "sprint64", "mode": "streamed", "steps": STALL_STEPS,
+           "faults": STALL_FAULTS, "stall_timeout_s": STALL_TIMEOUT_S,
+           "poll_s": poll_s, "result": sup[-1],
+           "detection_latency_s": latency,
+           "detection_bound_s": STALL_TIMEOUT_S + poll_s,
+           "heartbeat_age_at_verdict_s": stall["heartbeat_age_s"],
+           "killed_group_gone": True, "final_loss": trains[-1]["loss"],
+           "children": [{k: v for k, v in c.items() if not k.endswith("_t")}
+                        for c in kids],
+           "stall_to_next_first_beat_s": kids[1]["first_beat_t"] - t_stall,
+           "wall_s": time.time() - run.t0, **run.check_no_context()}
+    return out, _launch_lines(run), ck
+
+
+def supervise_swap(served: str, candidate: str) -> dict:
+    """``cli serve --checkpoint-dir served --inject-faults swap_corrupt@swap=1``:
+    the first POST /admin/reload to ``candidate`` gets 409 and the old
+    generation answers bitwise as before; the second swaps."""
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    srv = subprocess.Popen(_cli("serve", "--checkpoint-dir", served, "--port", "0",
+                                "--duration-s", "300", "--inject-faults",
+                                "swap_corrupt@swap=1"),
+                           cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    try:
+        banner = json.loads(srv.stdout.readline())["serving"]
+        conn = http.client.HTTPConnection("127.0.0.1", banner["port"], timeout=120)
+        grid = np.zeros((64, 64, 64), "<f4")
+        grid[10:40, 12:50, 8:30] = 1.0
+        grid[20:30, 20:30, 8:60] = 0.0
+        body = grid.tobytes()
+        s0, first, _ = _post(conn, "/predict_voxels", body)
+        reload = json.dumps({"checkpoint_dir": candidate}).encode()
+        s1, refused, _ = _post(conn, "/admin/reload", reload)
+        s2, again, _ = _post(conn, "/predict_voxels", body)
+        s3, swapped, _ = _post(conn, "/admin/reload", reload)
+        s4, after, _ = _post(conn, "/predict_voxels", body)
+        conn.close()
+        status, health = _get(banner["port"], "/healthz")
+        srv.send_signal(signal.SIGTERM)
+        out, err = srv.communicate(timeout=120)
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.communicate()
+    ok = (s0 == s2 == s4 == 200 and s1 == 409 and refused["error"] == "swap_refused"
+          and refused["kind"] == "ChecksumMismatch"
+          and refused["model_version"] == banner["model_version"]
+          and again == first and s3 == 200 and swapped["ok"]
+          and swapped["model_version"] == health["model_version"] != banner["model_version"]
+          and srv.returncode == 0)
+    if not ok:
+        fail(f"supervise_swap: {s0} {s1} {refused} {s2} {s3} {swapped} {s4} "
+             f"{health} rc {srv.returncode} {err[-2000:]}")
+    return {"refused": {"status": s1, "kind": refused["kind"]},
+            "old_generation_bitwise": again == first,
+            "swapped_to": swapped["model_version"], "swap_ms": swapped["swap_ms"],
+            "answer_changed": after != first, "from": banner["model_version"],
+            "supervisor": "none (cli serve has no supervisor process)"}
+
+
+def supervise_phase(seed: int, cache: str, smi_line: str) -> dict:
+    """The supervised runs: ``supervise_robust``, ``supervise_stall`` and
+    ``supervise_swap``, each its own line; the kernel launches their
+    ``cli train`` processes reported."""
+    launches: dict[str, int] = {}
+
+    def line(name, fn, *args):
+        t0 = time.perf_counter()
+        out, reported, ckpt = fn(*args)
+        for counts in reported:
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        out.update(phase_s=time.perf_counter() - t0,
+                   processes_reporting_launches=len(reported), nvidia_smi=smi_line)
+        print(name, json.dumps(out), flush=True)
+        return ckpt
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(cache)) as tmp:
+        robust_ck = line("supervise_robust", supervise_robust, seed, cache, tmp)
+        stall_ck = line("supervise_stall", supervise_stall, seed, cache, tmp)
+        t0 = time.perf_counter()
+        swap = supervise_swap(stall_ck, robust_ck)
+        swap.update(phase_s=time.perf_counter() - t0, nvidia_smi=smi_line)
+        print("supervise_swap", json.dumps(swap), flush=True)
+    if not (launches.get("conv3d_fwd") and launches.get("conv3d_dw")):
+        fail(f"the supervised children reported no kernel launches: {launches}")
+    return {"launches": launches}
 
 
 def _rung_serving(torch, seed: int, precision: str, grids, fp32_pred,
@@ -2299,8 +2833,10 @@ def main() -> int:
                       cache_dir)["runs"]
         robust = phase("robust", robust_phase, torch, args.seed, cache_dir,
                        smi_line)["launches"]
-    rungs = phase("precision", precision_phase, torch, args.seed, train,
-                  graphs, smi_line)["launches"]
+        rungs = phase("precision", precision_phase, torch, args.seed, train,
+                      graphs, smi_line)["launches"]
+        supervised = phase("supervise", supervise_phase, args.seed, cache_dir,
+                           smi_line)["launches"]
     print("phase_walls", json.dumps(walls), flush=True)
 
     # ms, plain_ms, library_ms and bound_ms sum one train step's shapes
@@ -2323,6 +2859,7 @@ def main() -> int:
                        "checkpoint": tc["conv3d_fwd"],
                        **{k: v["conv3d_fwd"] for k, v in cached.items()},
                        "robust": robust["conv3d_fwd"],
+                       "supervise": supervised["conv3d_fwd"],
                        **{k: v["conv3d_fwd"] for k, v in rungs.items()}}),
         _kernel_entry("conv3d_dw", "featurenet_tpu_torch/ops/csrc/conv3d_dw.cu",
                       "featurenet_tpu/ops/conv3d.py:192", rows["conv3d_dw"],
@@ -2331,6 +2868,7 @@ def main() -> int:
                        "checkpoint": tc["conv3d_dw"],
                        **{k: v["conv3d_dw"] for k, v in cached.items()},
                        "robust": robust["conv3d_dw"],
+                       "supervise": supervised["conv3d_dw"],
                        **{k: v["conv3d_dw"] for k, v in rungs.items()
                           if k.startswith("train")}}),
         _kernel_entry("conv_dw_folded",
@@ -2341,6 +2879,7 @@ def main() -> int:
                        "checkpoint": tc["conv_dw_folded"],
                        **{k: v["conv_dw_folded"] for k, v in cached.items()},
                        "robust": robust["conv_dw_folded"],
+                       "supervise": supervised.get("conv_dw_folded", 0),
                        **{k: v["conv_dw_folded"] for k, v in rungs.items()
                           if k.startswith("train")}}),
     ]

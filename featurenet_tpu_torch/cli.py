@@ -11,9 +11,11 @@
          --init-from OTHER_CK --total-steps N --global-batch B \
          --eval-batches E --conv-backend pallas|hybrid_dw|xla|fused33 \
          --train-precision fp32|bf16_master|fp16_scaled \
-         --serve-precision fp32|bf16|int8 --seed S]
+         --serve-precision fp32|bf16|int8 --seed S] \
+        [--supervise --checkpoint-dir CK [--stall-timeout S --max-restarts N \
+         --heartbeat-file F --restart-every N]] [--inject-faults SPEC]
     python -m featurenet_tpu_torch.cli serve --checkpoint-dir CK --port 0 \
-        [--precision fp32|bf16|int8]
+        [--precision fp32|bf16|int8] [--inject-faults SPEC]
     python -m featurenet_tpu_torch.cli serve --config sprint64 --seed 0 \
         --buckets 1,4,16,64 --port 0 --device cuda
     python -m featurenet_tpu_torch.cli serve --weights w.npz --port 0
@@ -41,6 +43,26 @@ the train split to the card once and draws every batch there.
 card). ``--augment-affine`` and its knobs, and ``--augment-noise``, are the
 reference's in-step augmentation flags (``config.py``); ``robust64`` sets
 them.
+
+``train --supervise`` runs training under a stall supervisor
+(``train/supervisor.py``): it re-executes the same command as a child
+process (the supervision flags stripped, ``--heartbeat-file`` and
+``--supervised-child`` added), watches the heartbeat the child touches at
+every confirmed point of progress, and restarts the child, which resumes
+from its newest good checkpoint, when it crashes or its heartbeat is
+older than ``--stall-timeout`` seconds (default 600), up to
+``--max-restarts`` times (default 5). A child exiting 75 (a preemption, or
+the end of a ``--restart-every N`` segment) is respawned for free. It
+requires ``--checkpoint-dir``, uses a private temporary heartbeat file
+unless ``--heartbeat-file`` names one, and exits with the last child's
+code; the supervisor process itself never touches the card.
+``--restart-every`` without ``--supervise`` is refused: nothing would
+respawn the child. ``--inject-faults SPEC`` (``train`` and ``serve``)
+injects the faults of ``faults.py``; a supervisor installs only
+``spawn_fail`` itself and hands the spec to every child, whose markers in
+the checkpoint directory fire each fault once per run. On the card,
+``train`` ends with a ``{"launches": {...}}`` line: the kernel launches of
+its process.
 
 ``recalibrate`` re-estimates the batch-norm statistics of the newest step
 in ``--checkpoint-dir`` over ``--batches`` clean training batches (train-
@@ -127,6 +149,10 @@ def _parser() -> argparse.ArgumentParser:
                        help="HTTP port (0 = ephemeral; printed in the banner)")
     p_srv.add_argument("--duration-s", type=float, default=None, dest="duration_s",
                        help="stop after this many seconds (default: until signalled)")
+    p_srv.add_argument("--inject-faults", dest="inject_faults",
+                       help="fault spec (featurenet_tpu_torch.faults); serving "
+                            "sites: replica_slow@request=N, swap_corrupt@swap=N, "
+                            "replica_loss_rollout@swap=N")
 
     p_tr = sub.add_parser("train", help="train a classify preset on "
                                         "synthetic parts or a voxel cache")
@@ -183,6 +209,31 @@ def _parser() -> argparse.ArgumentParser:
     p_tr.add_argument("--augment-noise", type=float, dest="augment_noise",
                       help="per-voxel occupancy bit-flip rate in the step "
                            "(0 = off)")
+    p_tr.add_argument("--inject-faults", dest="inject_faults",
+                      help="fault spec 'site[@counter=N[:every=M]],...' "
+                           "(featurenet_tpu_torch.faults), e.g. "
+                           "sigterm@step=120,checkpoint_corrupt@save=2; each "
+                           "fault fires once per run (markers in the "
+                           "checkpoint directory)")
+    p_tr.add_argument("--heartbeat-file", dest="heartbeat_file",
+                      help="touch this file at each confirmed point of "
+                           "progress (used by --supervise)")
+    p_tr.add_argument("--supervise", action="store_true",
+                      help="run under a stall supervisor: restart from the "
+                           "newest checkpoint on a crash or a stale "
+                           "heartbeat; requires --checkpoint-dir")
+    p_tr.add_argument("--stall-timeout", type=float, default=600.0,
+                      dest="stall_timeout",
+                      help="seconds of heartbeat staleness that count as a "
+                           "hang (default 600)")
+    p_tr.add_argument("--max-restarts", type=int, default=5, dest="max_restarts",
+                      help="restarts allowed before the supervisor gives up")
+    p_tr.add_argument("--restart-every", type=int, dest="restart_every_steps",
+                      help="supervised runs: checkpoint and respawn a fresh "
+                           "process every N steps (not a restart)")
+    # Set by the supervisor on its child, which may take --restart-every.
+    p_tr.add_argument("--supervised-child", action="store_true",
+                      dest="supervised_child", help=argparse.SUPPRESS)
 
     p_exp = sub.add_parser("export-data", help="write the synthetic parts "
                                                "into a packed voxel cache")
@@ -245,6 +296,11 @@ def _cfg_from_checkpoint(saved, args, **policy):
             "flag (the checkpoint self-configures), or point at a run "
             "trained with these settings"
         )
+    # What belongs to the run that saved, not to its resumes or readers,
+    # unless given again: a stale heartbeat path, a fault spec, and a
+    # segment length (an unsupervised resume would exit 75 mid-run).
+    for k in ("heartbeat_file", "restart_every_steps", "inject_faults"):
+        policy.setdefault(k, None)
     return _with_backend(dataclasses.replace(saved, **policy),
                          args.conv_backend).validate()
 
@@ -259,8 +315,57 @@ def _saved_config(directory: str):
     return saved
 
 
+def _supervised(args) -> int:
+    """The supervisor process of ``train --supervise``: it spawns the same
+    command as its child and never touches the card itself."""
+    import os
+    import tempfile
+
+    from featurenet_tpu_torch import faults
+    from featurenet_tpu_torch.train.supervisor import child_argv_from_cli, supervise
+
+    if not args.checkpoint_dir:
+        raise SystemExit("--supervise requires --checkpoint-dir: a restarted "
+                         "run must resume, not silently retrain from scratch")
+    if args.inject_faults:
+        # The spec reaches every child unchanged; here only the
+        # supervisor's own site may fire.
+        try:
+            faults.check_wired(args.inject_faults)
+            faults.install(args.inject_faults, only={"spawn_fail"})
+        except ValueError as e:
+            raise SystemExit(f"--inject-faults: {e}")
+    hb, hb_is_temp = args.heartbeat_file, False
+    if not hb:
+        fd, hb = tempfile.mkstemp(prefix="fn_heartbeat_")
+        os.close(fd)
+        hb_is_temp = True
+    try:
+        result = supervise(child_argv_from_cli(args.raw_argv, hb),
+                           heartbeat_file=hb,
+                           stall_timeout_s=args.stall_timeout,
+                           max_restarts=args.max_restarts,
+                           log=lambda line: print(line, flush=True))
+    finally:
+        if hb_is_temp:
+            try:
+                os.unlink(hb)
+            except OSError:
+                pass
+    return result.exit_code
+
+
 def _train(args) -> int:
+    if args.restart_every_steps and not (args.supervise or args.supervised_child):
+        raise SystemExit(
+            "--restart-every requires --supervise: a segmented run exits "
+            "(code 75) at every segment boundary and only the supervisor "
+            "respawns it -- without one, training silently stops at step N"
+        )
+    if args.supervise:
+        return _supervised(args)
     from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.ops import launch_counts
     from featurenet_tpu_torch.train.checkpoint import load_run_config
     from featurenet_tpu_torch.train.loop import Trainer
 
@@ -272,7 +377,9 @@ def _train(args) -> int:
                             "steps_per_dispatch", "augment_affine",
                             "augment_affine_prob", "augment_ramp_steps",
                             "augment_affine_rotate", "augment_scale_range",
-                            "augment_translate_vox", "augment_noise"))
+                            "augment_translate_vox", "augment_noise",
+                            "inject_faults", "heartbeat_file",
+                            "restart_every_steps"))
     if "augment_scale_range" in policy:
         policy["augment_scale_range"] = tuple(policy["augment_scale_range"])
     saved = load_run_config(args.checkpoint_dir) if args.checkpoint_dir else None
@@ -283,7 +390,12 @@ def _train(args) -> int:
                             args.conv_backend)
     print(json.dumps({"config": dataclasses.asdict(cfg)}, default=str),
           flush=True)
-    Trainer(cfg, device=args.device).run()
+    trainer = Trainer(cfg, device=args.device)
+    try:
+        trainer.run()
+    finally:
+        if trainer.device.type == "cuda":
+            print(json.dumps({"launches": launch_counts()}), flush=True)
     return 0
 
 
@@ -391,6 +503,14 @@ def _serve(args) -> int:
             f"serve: --buckets must be comma-separated batch sizes >= 1, "
             f"got {args.buckets!r}"
         )
+    if args.inject_faults:
+        from featurenet_tpu_torch import faults
+
+        try:
+            faults.check_wired(args.inject_faults)
+            faults.install(args.inject_faults)
+        except ValueError as e:
+            raise SystemExit(f"--inject-faults: {e}")
     if args.checkpoint_dir:
         cfg = _cfg_from_checkpoint(_saved_config(args.checkpoint_dir), args)
         pred = Predictor.from_checkpoint(args.checkpoint_dir, config=cfg,
@@ -435,6 +555,7 @@ def _serve(args) -> int:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    args.raw_argv = list(argv) if argv is not None else sys.argv[1:]
     return {"train": _train, "serve": _serve, "eval": _eval,
             "infer": _infer, "export-data": _export_data,
             "recalibrate": _recalibrate}[args.cmd](args)

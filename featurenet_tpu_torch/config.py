@@ -7,7 +7,9 @@ recipe -- batch, data workers, eval batches, optimizer, schedule, label
 smoothing, clipping, ``train_precision`` (``fp32``, ``bf16_master``,
 ``fp16_scaled``; ``train/precision.py``) and the log/eval cadence -- with
 the JAX presets' values, and the checkpoint fields (``checkpoint_dir``,
-``checkpoint_every``, ``keep_checkpoints``, ``init_from``). A
+``checkpoint_every``, ``keep_checkpoints``, ``init_from``), and the
+supervision fields (``restart_every_steps``, ``max_inflight_steps``,
+``inject_faults``, ``heartbeat_file``; ``train/supervisor.py``). A
 ``config.json`` that the JAX package writes beside its checkpoints loads
 through ``config_from_dict`` (the fields the port lacks are dropped), and
 ``check_identity`` holds a requested config to a persisted one as the
@@ -32,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from featurenet_tpu_torch import faults
 from featurenet_tpu_torch.models.featurenet import (
     FeatureNetArch,
     deep_arch,
@@ -114,6 +117,20 @@ class Config:
     keep_checkpoints: int = 3
     init_from: Optional[str] = None
 
+    # Supervised runs (train/supervisor.py). restart_every_steps: save and
+    # exit 75 every N steps so the supervisor respawns a fresh process
+    # (free, not a restart); needs checkpoint_dir. max_inflight_steps: the
+    # train steps dispatched ahead of confirmed progress (the loop waits
+    # for the dispatch that many steps back, then beats). inject_faults:
+    # a fault spec (faults.py), its markers in checkpoint_dir.
+    # heartbeat_file: touched at every confirmed point of progress (a
+    # paced completion, an eval batch read back, a completed save); the
+    # supervisor watches its mtime.
+    restart_every_steps: Optional[int] = None
+    max_inflight_steps: int = 8
+    inject_faults: Optional[str] = None
+    heartbeat_file: Optional[str] = None
+
     @property
     def device_augment(self) -> bool:
         """Whether pose augmentation runs inside the train step rather than
@@ -154,6 +171,21 @@ class Config:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         if self.warmup_steps < 0 or self.total_steps < 0:
             raise ValueError("warmup_steps and total_steps must be >= 0")
+        if self.inject_faults:
+            # A typo'd or unwired site must fail at config time: a spec
+            # that never fires makes a chaos test pass by testing nothing.
+            faults.check_wired(self.inject_faults)
+        if self.restart_every_steps is not None:
+            if self.restart_every_steps <= 0:
+                raise ValueError(
+                    f"restart_every_steps must be positive, got "
+                    f"{self.restart_every_steps}"
+                )
+            if not self.checkpoint_dir:
+                raise ValueError(
+                    "restart_every_steps requires checkpoint_dir: a "
+                    "segmented run resumes from its checkpoint"
+                )
         if self.hbm_cache:
             if not self.data_cache:
                 raise ValueError(

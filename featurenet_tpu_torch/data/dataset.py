@@ -15,17 +15,25 @@ parallel depends on the host. On the 8-core host of an H100 machine, 8
 threads delivered about as many parts/s as one thread makes alone, and
 slowed the thread that launches the train step (``chip_smoke.py``'s data
 line and ``device_step_ms_producers_busy``).
+
+A worker checks three fault sites (``faults.py``) at the top of each
+ticket: ``producer_crash`` raises (surfacing as ``ProducerError``),
+``producer_hang`` parks the worker until ``close()`` (the consumer starves,
+and a supervisor's stall kill is the recovery), ``producer_slow`` sleeps
+``SLOW_SLEEP_S``.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 import traceback
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from featurenet_tpu_torch import faults
 from featurenet_tpu_torch.data.synthetic import generate_batch, to_wire
 
 # Batches each producer worker may have ready ahead of the consumer.
@@ -103,6 +111,13 @@ class Prefetcher:
         ticket = w
         try:
             while not self._stop.is_set():
+                if faults.maybe_fail("producer_crash", batch=ticket):
+                    raise faults.InjectedFault(f"producer_crash at ticket {ticket}")
+                if faults.maybe_fail("producer_hang", batch=ticket):
+                    self._stop.wait()
+                    return
+                if faults.maybe_fail("producer_slow", batch=ticket):
+                    time.sleep(faults.SLOW_SLEEP_S)
                 host = {k: torch.from_numpy(np.ascontiguousarray(v))
                         for k, v in next(it).items()}
                 if self._pin:

@@ -23,8 +23,11 @@ the classify half of ``featurenet_tpu/data/offline.py``).
 The port runs one host, so the reference's host sharding (``num_hosts``,
 ``host_id``, ``num_shards``) is fixed at one host, id 0. Not ported yet:
 ``build_cache`` from an STL tree, the ``param_range``, ``mesh_pose`` and
-``margin_jitter`` exports, the segmentation caches and the
-``cache_read_error`` fault site.
+``margin_jitter`` exports and the segmentation caches.
+
+``VoxelCacheDataset`` counts its gathers and checks the
+``cache_read_error`` fault site (``faults.py``) at each one: the shape of
+an mmapped shard vanishing under a live reader.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Iterator
 
 import numpy as np
 
+from featurenet_tpu_torch import faults
 from featurenet_tpu_torch.data.synthetic import (
     CLASS_NAMES,
     generate_sample,
@@ -165,6 +169,7 @@ class VoxelCacheDataset:
         self.global_batch = global_batch
         self.seed = seed
         self.augment = augment
+        self._reads = 0  # gathers so far (the cache_read_error counter)
         # Sample m is self._packed[self._cls_pos[m]][self.rows[m]]; only a
         # gather copies sample bytes out of the shared (mmapped) arrays.
         self._packed = [packed[cls] for cls in self.index["classes"]]
@@ -206,6 +211,11 @@ class VoxelCacheDataset:
         stored bytes are the wire format, so without augmentation this is
         fancy indexing alone. With ``rng`` each sample is unpacked, rotated
         by one random cube rotation and packed again."""
+        self._reads += 1
+        if faults.maybe_fail("cache_read_error", read=self._reads):
+            raise faults.InjectedFault(
+                f"cache_read_error at gather #{self._reads} (the mmapped "
+                "shard behind this batch went away)")
         rows = self.rows[idx]
         cls = self._cls_pos[idx]
         r = self.resolution

@@ -1,6 +1,6 @@
 """The inference service: a ``Predictor`` behind the continuous batcher
 (port of ``featurenet_tpu/serve/service.py`` without its alerts, quality
-plane, flight recorder, incidents and fault sites).
+plane, flight recorder and incidents).
 
 - **Warmup**: construction builds the Predictor's serving program for
   every bucket (``Predictor.program_for``, the largest first), so the
@@ -15,16 +15,25 @@ plane, flight recorder, incidents and fault sites).
 - **The upload path**: ``submit_stl_bytes`` parses and voxelizes raw STL
   bytes in the caller's thread (an HTTP worker), never the dispatch
   thread, then enqueues the grid.
+- **Fault sites** (``faults.py``): ``replica_slow@request=N`` drags the
+  Nth forward by ``SLOW_SLEEP_S``; ``reload`` counts its attempts, and at
+  the Nth ``replica_loss_rollout@swap=N`` SIGKILLs this process before
+  the cordon, ``swap_corrupt@swap=N`` refuses the candidate with the
+  ``ChecksumMismatch`` a real mismatch raises (the old generation serves
+  on).
 """
 
 from __future__ import annotations
 
+import os
+import signal
 import threading
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 
+from featurenet_tpu_torch import faults
 from featurenet_tpu_torch.data.stl import parse_stl
 from featurenet_tpu_torch.data.synthetic import CLASS_NAMES
 from featurenet_tpu_torch.data.voxelize import voxelize
@@ -37,7 +46,7 @@ from featurenet_tpu_torch.serve.batcher import (
     normalize_buckets,
     normalize_lane,
 )
-from featurenet_tpu_torch.train.checkpoint import CheckpointManager
+from featurenet_tpu_torch.train.checkpoint import CheckpointManager, ChecksumMismatch
 
 
 class InferenceService:
@@ -61,6 +70,8 @@ class InferenceService:
         self._ready = False
         self._reload_cordon = False
         self._swap_lock = threading.Lock()
+        self._forwards = 0  # the fault sites' counters
+        self._swaps = 0
         for b in sorted(self.buckets, reverse=True):
             predictor.program_for(b)
         if batch_queue_limit is None:
@@ -73,6 +84,9 @@ class InferenceService:
         self._ready = True
 
     def _forward(self, bucket: int, padded: np.ndarray) -> np.ndarray:
+        self._forwards += 1
+        if faults.maybe_fail("replica_slow", request=self._forwards):
+            time.sleep(faults.SLOW_SLEEP_S)  # latency, not death
         return self.predictor.forward_padded(padded, batch=bucket)
 
     # -- request entry points ------------------------------------------------
@@ -150,7 +164,11 @@ class InferenceService:
         the flip and leaves the old generation serving. One swap at a
         time."""
         with self._swap_lock:
+            self._swaps += 1
+            n = self._swaps
             from_version = getattr(self.predictor, "model_version", "unversioned")
+            if faults.maybe_fail("replica_loss_rollout", swap=n):
+                os.kill(os.getpid(), signal.SIGKILL)  # death mid-reload
             t0 = time.perf_counter()
             self._reload_cordon = True
             try:
@@ -160,6 +178,10 @@ class InferenceService:
                     if step is None:
                         raise ValueError("no finalized checkpoint step in "
                                          f"{checkpoint_dir!r}")
+                    if faults.maybe_fail("swap_corrupt", swap=n):
+                        raise ChecksumMismatch(
+                            "injected swap_corrupt: candidate checkpoint "
+                            "fails content verification")
                     mgr.verify(step)
                 finally:
                     mgr.close()

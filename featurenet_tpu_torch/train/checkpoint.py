@@ -42,8 +42,20 @@ What the reference's manager guarantees, this one keeps:
 - Restores copy into the live tensors (``copy_``), so the optimizer, which
   holds the parameter tensors, keeps updating the model's parameters.
 
-Not ported: the fault-injection sites (``faults.py``) and the
-multi-process lockstep save.
+The fault sites (``faults.py``): ``checkpoint_corrupt@save=N`` is decided
+at the Nth ``save`` of this manager and applied once the writer has
+written that step: the file is truncated to half and its checksum sidecar
+never written, the on-disk shape of a crash mid-write, which a resume
+walks back past. ``save_slow@save=N`` sleeps ``SLOW_SLEEP_S`` in the
+writer thread, never on the step's thread. ``checkpoint_restore_error@
+restore=N`` fails the Nth restore attempt (counted per candidate step), so
+the walk-back takes the next one.
+
+``on_written(step)``, when given, is called from the writer thread after
+each step it writes (the Trainer's heartbeat: a completed save is
+confirmed progress).
+
+Not ported: the multi-process lockstep save.
 """
 
 from __future__ import annotations
@@ -60,6 +72,7 @@ from typing import Callable, Optional
 
 import torch
 
+from featurenet_tpu_torch import faults
 from featurenet_tpu_torch.config import Config, config_from_dict, config_to_dict
 
 CONFIG_FILENAME = "config.json"
@@ -111,6 +124,13 @@ def _write_file(payload: dict, path: str) -> None:
         fh.flush()
         os.fsync(fh.fileno())
     os.replace(tmp, path)
+
+
+def _truncate(path: str) -> None:
+    """The injected ``checkpoint_corrupt``: cut a written step file to half
+    its size."""
+    with open(path, "r+b") as fh:
+        fh.truncate(os.path.getsize(path) // 2)
 
 
 def _snapshot(state) -> dict:
@@ -194,12 +214,17 @@ class CheckpointManager:
     SNAPSHOT_SLOTS = 2
 
     def __init__(self, directory: str, keep: int = 3,
-                 config: Optional[Config] = None):
+                 config: Optional[Config] = None,
+                 on_written: Optional[Callable[[int], None]] = None):
         if keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
         self._dir = os.path.abspath(directory)
         self._keep = int(keep)
         self._config = config
+        self._on_written = on_written
+        # The fault sites' counters: saves and restore attempts so far.
+        self._saves = 0
+        self._restores = 0
         self._queue: queue.Queue = queue.Queue(maxsize=self.SNAPSHOT_SLOTS - 1)
         self._writer: Optional[threading.Thread] = None
         self._writer_error: Optional[BaseException] = None
@@ -285,7 +310,10 @@ class CheckpointManager:
             self._writer = threading.Thread(target=self._write_loop,
                                             name="ckpt-writer", daemon=True)
             self._writer.start()
-        self._queue.put((snap, event))
+        self._saves += 1
+        # Decided here, in save order; applied once the step is written.
+        corrupt = faults.maybe_fail("checkpoint_corrupt", save=self._saves)
+        self._queue.put((snap, event, self._saves, corrupt))
 
     def _to_host(self, snap: dict, event) -> dict:
         """The snapshot on the host. On the card: wait for the clone's
@@ -318,24 +346,31 @@ class CheckpointManager:
             if item is None:
                 self._queue.task_done()
                 return
-            snap, event = item
+            snap, event, save_n, corrupt = item
             try:
                 t0 = time.perf_counter()
+                if faults.maybe_fail("save_slow", save=save_n):
+                    time.sleep(faults.SLOW_SLEEP_S)  # a dragging write
                 host = self._to_host(snap, event)
                 del snap, item  # free the device copy before the slow write
                 host["count"] = int(host["count"])  # the file keeps an int
                 step = host["step"]
                 path = self._path(step)
                 _write_file(host, path)
-                sidecar = checksum_path(self._dir, step)
-                with open(sidecar + ".tmp", "w") as fh:
-                    json.dump({step_filename(step): _sha256(path)}, fh)
-                os.replace(sidecar + ".tmp", sidecar)
+                if corrupt:
+                    _truncate(path)
+                else:
+                    sidecar = checksum_path(self._dir, step)
+                    with open(sidecar + ".tmp", "w") as fh:
+                        json.dump({step_filename(step): _sha256(path)}, fh)
+                    os.replace(sidecar + ".tmp", sidecar)
                 for old in self.all_steps()[:-self._keep]:
                     self._delete(old)
                 self.timing["writes"] += 1
                 self.timing["write_s"] += time.perf_counter() - t0
                 self.timing["bytes"] = os.path.getsize(path)
+                if self._on_written is not None:
+                    self._on_written(step)
             except Exception as e:  # re-raised by _check_writer
                 if self._writer_error is None:
                     self._writer_error = e
@@ -372,7 +407,12 @@ class CheckpointManager:
                 raise FileNotFoundError(f"no checkpoint to restore in {self._dir}")
         first_error: Optional[BaseException] = None
         for s in candidates:
+            self._restores += 1
             try:
+                if faults.maybe_fail("checkpoint_restore_error",
+                                     restore=self._restores):
+                    raise faults.InjectedFault(
+                        f"checkpoint_restore_error at step {s}")
                 self._verify(s)
                 payload = torch.load(self._path(s), map_location="cpu",
                                      weights_only=True)

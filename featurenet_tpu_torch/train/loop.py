@@ -46,9 +46,31 @@ train-mode forwards over clean training batches (no augmentation, no
 update), the reference's answer to the blended statistics that mixed
 clean and warped training leaves.
 
-Not ported yet: the supervisor and preemption exits, obs events and the
-reference's HBM clamp of k (a graph's private pool reuses each inner
-step's activations).
+At most ``cfg.max_inflight_steps`` steps are in flight: after each
+dispatch the loop records a CUDA event on the step's stream
+(``DispatchPacer``) and waits for the event of the dispatch that many
+steps back, never for the stream as a whole, so the host keeps fetching
+the next batches while the card works. Each such completed wait, each eval
+batch read back and each step the checkpoint writer finishes is confirmed
+progress, and only then does the run touch ``cfg.heartbeat_file``, the
+file a supervisor watches (``train/supervisor.py``); never at loop entry
+or after a launch returns.
+
+Supervised runs exit mid-run in two ways, by one protocol. With
+``cfg.restart_every_steps`` the run stops after that many steps of this
+process; on SIGTERM (the handler only sets a flag, installed from the
+main thread and restored on the way out) it stops at the next dispatch
+boundary. Either way it saves the exact step if that is not the newest
+on disk, waits for the writer, beats, logs a ``setup`` record with
+``planned_restart_exit`` or ``preempt_exit`` and raises
+``SystemExit(75)``, which the supervisor answers with a free respawn. A
+preempted run with no checkpoint directory dies by SIGTERM instead.
+``cfg.inject_faults`` installs a fault plan (``faults.py``) whose markers
+live in ``cfg.checkpoint_dir``; the loop hosts the ``sigterm`` and
+``host_loss`` sites at each dispatch boundary.
+
+Not ported yet: obs events and the reference's HBM clamp of k (a graph's
+private pool reuses each inner step's activations).
 
 ``timing`` keeps the wall seconds of the run's steps, how many of them the
 loop spent waiting for the next batch (``data_wait_s``), so the data wait
@@ -60,11 +82,15 @@ ms, the writer's mean ms per step written, and the bytes of a step.
 
 from __future__ import annotations
 
+import collections
 import copy
+import os
+import signal
 import time
 
 import torch
 
+from featurenet_tpu_torch import faults
 from featurenet_tpu_torch.config import Config, check_identity
 from featurenet_tpu_torch.data.dataset import Prefetcher, SyntheticVoxelDataset
 from featurenet_tpu_torch.data.offline import VoxelCacheDataset
@@ -73,7 +99,9 @@ from featurenet_tpu_torch.ops.augment import cube_index_maps
 from featurenet_tpu_torch.runtime import resolve_device
 from featurenet_tpu_torch.runtime.registry import TrainProgram
 from featurenet_tpu_torch.train.checkpoint import CheckpointManager, load_run_config
+from featurenet_tpu_torch.train.heartbeat import touch_heartbeat
 from featurenet_tpu_torch.train.state import TrainState, create_state, param_count
+from featurenet_tpu_torch.train.supervisor import RESTART_EXIT_CODE
 from featurenet_tpu_torch.train.steps import (
     StepDraws,
     aggregate_eval,
@@ -101,20 +129,27 @@ def eval_dataset(cfg: Config):
 
 
 def evaluate(model, data, batches: int, device,
-             serve_precision: str = "fp32") -> dict:
+             serve_precision: str = "fp32", on_batch=None) -> dict:
     """Eval metrics of ``model`` at ``serve_precision``: over one exact
     pass of a cache split (``batches`` is not read), or over the first
     ``batches`` batches of a synthetic stream. ``batches`` and ``samples``
-    in the result count what was evaluated."""
+    in the result count what was evaluated. ``on_batch`` is called with
+    each batch's sums as they are made."""
+
+    def step(batch):
+        sums = eval_step(model, batch, serve_precision)
+        if on_batch is not None:
+            on_batch(sums)
+        return sums
+
     if isinstance(data, VoxelCacheDataset):
-        sums = [eval_step(model, {k: torch.from_numpy(v).to(device)
-                                  for k, v in batch.items()}, serve_precision)
+        sums = [step({k: torch.from_numpy(v).to(device)
+                      for k, v in batch.items()})
                 for batch in data.epoch_batches(data.global_batch)]
     else:
         stream = Prefetcher(data, device, num_workers=1)
         try:
-            sums = [eval_step(model, next(stream), serve_precision)
-                    for _ in range(batches)]
+            sums = [step(next(stream)) for _ in range(batches)]
         finally:
             stream.close()
     out = aggregate_eval(sums)
@@ -123,11 +158,43 @@ def evaluate(model, data, batches: int, device,
     return out
 
 
+class DispatchPacer:
+    """The bound on dispatches in flight, and the proof of progress.
+    ``mark(depth)`` after each dispatch records where the device's stream
+    stands (a CUDA event; on the CPU the dispatch has already run); once
+    more than ``depth`` marks are pending it waits for the oldest alone
+    (``Event.synchronize``: a readback would wait for everything enqueued
+    since, the dispatch just made included) and returns True, the device
+    having finished that dispatch."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._device = device
+        self._pending: collections.deque = collections.deque()
+
+    def mark(self, depth: int) -> bool:
+        event = None
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self._device))
+        self._pending.append(event)
+        if len(self._pending) <= depth:
+            return False
+        oldest = self._pending.popleft()
+        if oldest is not None:
+            oldest.synchronize()
+        return True
+
+
 class Trainer:
     def __init__(self, cfg: Config, device="cuda",
                  state: dict[str, torch.Tensor] | None = None, stream=None):
         self.cfg = cfg.validate_training()
         self.device = resolve_device(device)
+        if cfg.inject_faults:
+            # Markers in the checkpoint directory: a fault fires once per
+            # run, not once per respawned process.
+            faults.install(cfg.inject_faults, state_dir=cfg.checkpoint_dir)
         model = FeatureNet(cfg.arch, cfg.resolution)
         if state is None:
             init_weights(model, cfg.seed)
@@ -143,7 +210,8 @@ class Trainer:
             src.restore_init(self.state)
             src.close()
         self.ckpt = (CheckpointManager(cfg.checkpoint_dir, cfg.keep_checkpoints,
-                                       config=cfg)
+                                       config=cfg,
+                                       on_written=lambda step: self._heartbeat())
                      if cfg.checkpoint_dir else None)
         self.logger = MetricLogger(stream)
         self.eval_data = eval_dataset(cfg)
@@ -278,32 +346,64 @@ class Trainer:
             self.ckpt.restore(self.state, cleanup=True)
         return self.state.step
 
+    def _heartbeat(self) -> None:
+        """Record confirmed progress for a supervisor (see the module
+        docstring for where it is called)."""
+        if self.cfg.heartbeat_file:
+            touch_heartbeat(self.cfg.heartbeat_file)
+
     def evaluate(self) -> dict:
         """Eval over the held-out data (the same batches at every call), at
-        ``cfg.serve_precision``."""
+        ``cfg.serve_precision``. A supervised run reads each batch back and
+        beats: a whole held-out pass can outlast the stall timeout."""
+
+        def beat(sums):
+            float(sums["count"])  # the readback is the proof
+            self._heartbeat()
+
         return evaluate(self.state.model, self.eval_data,
                         self.cfg.eval_batches, self.device,
-                        self.cfg.serve_precision)
+                        self.cfg.serve_precision,
+                        on_batch=beat if self.cfg.heartbeat_file else None)
 
     def run(self, num_steps: int | None = None) -> dict:
         cfg = self.cfg
         total = num_steps if num_steps is not None else cfg.total_steps
         start = self.resume_if_available()
+        # A segment of a supervised run ends restart_every_steps in.
+        stop = total
+        if cfg.restart_every_steps and self.ckpt is not None:
+            stop = min(total, start + cfg.restart_every_steps)
         self.logger.log(start, {"params": self.params_n, "devices": 1,
                                 **self.resident}, prefix="setup")
         stream = None if self.resident else Prefetcher(
             self.train_data, self.device, num_workers=cfg.data_workers)
         self.logger.start_window()
+        # SIGTERM (a scheduler's preemption notice) only sets a flag, read
+        # at each dispatch boundary; signal.signal refuses off the main
+        # thread, where the default disposition stays.
+        self._preempted = False
+        prev_sigterm = None
+        try:
+            prev_sigterm = signal.signal(
+                signal.SIGTERM,
+                lambda signum, frame: setattr(self, "_preempted", True))
+        except ValueError:
+            pass
+        preempted = False
+        pacer = DispatchPacer(self.device)
         last: dict = {}
         try:
             step = start
-            while step < total:
-                take = self._k if self._k > 1 and step + self._k <= total else 1
+            while step < stop:
+                take = self._k if self._k > 1 and step + self._k <= stop else 1
                 t0 = time.perf_counter()
                 batches = [next(stream) for _ in range(take)] if stream else None
                 t1 = time.perf_counter()
                 metrics = self.dispatch(batches, take)
                 new_step = step + take
+                if pacer.mark(max(cfg.max_inflight_steps // take, 1)):
+                    self._heartbeat()
 
                 def crossed(every: int) -> bool:
                     return (new_step // every) > (step // every)
@@ -324,18 +424,38 @@ class Trainer:
                     last = {**last, **{f"eval_{k}": v for k, v in ev.items()}}
                     # Don't charge eval wall time to the next train window.
                     self.logger.start_window()
+                    self._heartbeat()
                 if self.ckpt and (crossed(cfg.checkpoint_every)
                                   or new_step == total):
-                    t2 = time.perf_counter()
-                    self.ckpt.save(self.state)
-                    self.timing["saves"] += 1
-                    self.timing["save_s"] += time.perf_counter() - t2
+                    self._save()
                 step = new_step
+                if faults.maybe_fail("sigterm", step=step):
+                    # A real signal through the real handler, at the first
+                    # boundary at or past N.
+                    os.kill(os.getpid(), signal.SIGTERM)
+                if faults.active() and faults.maybe_fail("host_loss", step=step):
+                    # The last host (this one) vanishes: no drain, no exit.
+                    os.kill(os.getpid(), signal.SIGKILL)
+                if self._preempted and step < total:
+                    preempted = True
+                    break
         finally:
+            if prev_sigterm is not None:
+                signal.signal(signal.SIGTERM, prev_sigterm)
             if stream:
                 stream.close()
+        if preempted and self.ckpt is None:
+            # Nothing persisted: exit 75 would ask for a free respawn that
+            # starts again from step 0. Die by the signal instead, which a
+            # supervisor counts as a crash.
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            os.kill(os.getpid(), signal.SIGTERM)
+        exiting = preempted or stop < total
         if self.ckpt:
             self.ckpt.wait()
+            if exiting and self.ckpt.latest_step() != self.state.step:
+                self._save()  # the exact step, whatever the cadence
+                self.ckpt.wait()
             t, w = self.timing, self.ckpt.timing
             if t["saves"]:
                 self.logger.log(self.state.step, {
@@ -343,4 +463,21 @@ class Trainer:
                     "save_ms_mean": t["save_s"] / t["saves"] * 1e3,
                     "writer_ms_mean": w["write_s"] / w["writes"] * 1e3,
                     "bytes": w["bytes"]}, prefix="checkpoint")
+        if exiting:
+            # A completed save is confirmed progress: a short segment must
+            # not exit 75 without ever beating (a startup failure to the
+            # supervisor).
+            self._heartbeat()
+            self.logger.log(self.state.step, {
+                "preempt_exit" if preempted else "planned_restart_exit": 1.0},
+                prefix="setup")
+            raise SystemExit(RESTART_EXIT_CODE)
         return last
+
+    def _save(self) -> None:
+        """Snapshot the state and hand it to the checkpoint writer, timed on
+        the step's thread."""
+        t0 = time.perf_counter()
+        self.ckpt.save(self.state)
+        self.timing["saves"] += 1
+        self.timing["save_s"] += time.perf_counter() - t0

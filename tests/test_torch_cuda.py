@@ -19,7 +19,9 @@ skipped, with no host synchronisation; a weight swap while another thread
 replays; the affine warp, the occupancy noise and the device cube codes
 on the card against the CPU; k train steps replayed as one CUDA graph
 against k eager steps, resident and streamed, with the augmented step
-making no host synchronisation.
+making no host synchronisation; the train loop's pacing waiting on its own
+dispatch's event, not on the stream; a SIGTERM during a k = 8 replay
+exiting 75 at the group boundary with the state of k eager steps.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -578,7 +580,11 @@ def test_each_replay_runs_the_forward_kernel(cuda):
     """Under the profiler, each replay of a captured sprint64 program runs
     exactly 3 ``conv3d_fwd_kernel`` on the card: the hand-written kernel
     launched from its library onto the capturing stream lands in the
-    graph."""
+    graph. The profiler loses device events at the edges of its window,
+    so the 5 counted replays run between uncounted ones, and each is
+    matched to its kernels by correlation id."""
+    import time
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -589,14 +595,24 @@ def test_each_replay_runs_the_forward_kernel(cuda):
     x = torch.zeros((4, 64, 64, 64, 1), device=cuda)
     pred.forward(x)
     torch.cuda.synchronize()
+    lead, counted, tail = 2, 5, 5
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
+        for _ in range(lead + counted + tail):
             pred.forward(x)
         torch.cuda.synchronize()
-    hits = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and "conv3d_fwd_kernel" in e.name]
-    assert len(hits) == 3 * 5, sorted({e.name for e in prof.events()
-                                       if e.device_type == DeviceType.CUDA})
+        time.sleep(0.1)
+    events = prof.events()
+    launches = sorted((e.time_range.start, e.id) for e in events
+                      if e.device_type == DeviceType.CPU
+                      and e.name == "cudaGraphLaunch")
+    assert len(launches) == lead + counted + tail
+    hits = {cid: 0 for _, cid in launches[lead:lead + counted]}
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and e.id in hits
+                and "conv3d_fwd_kernel" in e.name):
+            hits[e.id] += 1
+    assert list(hits.values()) == [3] * counted, sorted(
+        {e.name for e in events if e.device_type == DeviceType.CUDA})
 
 
 @pytest.mark.parametrize("skip", [False, True])
@@ -783,3 +799,76 @@ def test_k_step_graph_replay_equals_eager_steps(cuda, tmp_path, resident):
     for x, y in zip(a.tensors(), b.tensors()):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-7)
     assert not torch.equal(a.model.dense1.weight.cpu(), weights["dense1.weight"])
+
+
+def test_pacing_waits_for_its_event_not_the_stream(cuda):
+    """``DispatchPacer`` waits for the dispatch ``depth`` marks back alone:
+    with a long kernel enqueued after it, the wait returns while that
+    kernel still runs (a readback would have waited for it)."""
+    import time
+
+    from featurenet_tpu_torch.train.loop import DispatchPacer
+
+    pacer = DispatchPacer(cuda)
+    x = torch.ones(1 << 20, device=cuda)
+    x.mul_(2)
+    assert not pacer.mark(1)
+    torch.cuda._sleep(1 << 31)  # ~1 s of one thread spinning on the card
+    end = torch.cuda.Event()
+    end.record()
+    t0 = time.perf_counter()
+    assert pacer.mark(1)
+    waited = time.perf_counter() - t0
+    still_running = not end.query()
+    torch.cuda.synchronize()
+    assert still_running and waited < 0.1
+
+
+def test_sigterm_during_a_k8_replay_exits_75_at_the_boundary(cuda, tmp_path):
+    """smoke16 under the robust recipe, resident, k = 8, with
+    ``sigterm@step=1``: the signal lands while the first group's graph
+    replays; the run saves step 8 and exits 75, holding (and having saved)
+    the state of 8 eager steps from the same weights, bitwise."""
+    import dataclasses
+    import io
+    import json
+    import os
+
+    from featurenet_tpu_torch import faults
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.offline import export_synthetic_cache
+    from featurenet_tpu_torch.runtime import build_model
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cache = str(tmp_path / "c")
+    export_synthetic_cache(cache, per_class=4, resolution=16, seed=2)
+    ck = str(tmp_path / "ck")
+    cfg = get_config("smoke16", data_cache=cache, hbm_cache=True,
+                     global_batch=16, steps_per_dispatch=8, warmup_steps=2,
+                     total_steps=24, augment_affine=True, augment_affine_prob=0.5,
+                     augment_noise=0.005, checkpoint_dir=ck,
+                     checkpoint_every=100, inject_faults="sigterm@step=1")
+    weights = build_model(cfg, seed=0).state_dict()
+    out = io.StringIO()
+    graphed = Trainer(cfg, device=cuda, state=weights, stream=out)
+    try:
+        with pytest.raises(SystemExit) as e:
+            graphed.run()
+    finally:
+        faults.uninstall()
+    assert e.value.code == 75 and graphed.state.step == 8
+    assert graphed.ckpt.all_steps() == [8]
+    assert json.loads(out.getvalue().splitlines()[-1]) == {
+        "step": 8, "kind": "setup", "preempt_exit": 1.0}
+    eager = Trainer(dataclasses.replace(cfg, checkpoint_dir=None, inject_faults=None),
+                    device=cuda, state=weights, stream=io.StringIO())
+    for _ in range(8):
+        eager.step()
+    restored = Trainer(dataclasses.replace(cfg, inject_faults=None), device=cuda,
+                       stream=io.StringIO())
+    assert restored.resume_if_available() == 8
+    for x, y, z in zip(graphed.state.tensors(), eager.state.tensors(),
+                       restored.state.tensors()):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert os.path.exists(os.path.join(ck, "fault_sigterm.fired"))
+
