@@ -175,9 +175,32 @@ Phases, in order; any failure exits non-zero before the last line:
    pid and it never holds a GPU device node open, while the same probe
    sees its children hold one. The children's kernel launches (each `cli
    train` on the card ends with its counts) are the `supervise` path.
-14. The wall time of every phase, one JSON line of per-kernel numbers
-   (launches by path, the cache, robust, supervise and precision runs'
-   included), the
+14. Robustness evaluation (`ood` phase), after the supervised runs:
+   - `native`: the port's native voxelizer, built by g++ after the
+     kernels (its build seconds; a build that fails fails the script), on
+     8 sprint64 parts at 64³ (2 rotated): bitwise the numpy voxelizer, ms
+     per part of each and the OpenMP threads.
+   - `stl_cache`: `cli export-stl-data --per-class 2 --resolution 64`,
+     then `cli build-cache` with `--workers 1` and `--workers 4`
+     (subprocesses on the host): both caches bitwise each other and the
+     `mesh_pose="remesh"` export of the same seed; meshes/s, MB of STL
+     and of the cache.
+   - `ood`: `cli eval-ood --per-class 1` in this process on a seeded
+     sprint64 `pallas` checkpoint: 13 rows of 24 parts, the clean row's
+     delta 0, one bucket-64 graph captured (12 conv3d_fwd launches, the
+     `ood` path) and 312 forwards; host seconds in `_perturb` and in
+     `predict_voxels`, the forwards' device ms; the clean and so3 rows'
+     grids through the kernels against the plain conv (PROB_ATOL, labels
+     equal away from a near-tie).
+   - `tta`: 24 parts rotated in SO(3) through `predict_voxels(
+     canonicalize=True)` (the `tta` path: 12 launches, one capture): host
+     canonicalize s per part, device ms against 9 bucket-64 replays, the
+     vote against the plain conv's (PROB_ATOL), a cube rotation of the
+     input moving it by at most TTA_ATOL, and the device peak of a 64-part
+     vote beside a bucket-64 forward's.
+15. The wall time of every phase, one JSON line of per-kernel numbers
+   (launches by path, the cache, robust, supervise, precision, ood and
+   tta runs' included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
@@ -2754,6 +2777,439 @@ def precision_phase(torch, seed: int, train: dict, graphs: dict,
     print("precision", json.dumps(out), flush=True)
     return {"launches": launches, **out}
 
+# The ood phase: parts per class of the eval-ood report, the native line's
+# parts (two of them rotated), the STL tree's parts per class, the build
+# pool's widths, the parts of the canonicalized TTA and of the peak-memory
+# TTA. TTA_ATOL: one cube rotation of the input permutes the 24 forwards
+# the vote sums, so only the fp32 order of the sum changes.
+OOD_PER_CLASS = 1
+NATIVE_PARTS, NATIVE_ROTATED = 8, 2
+STL_PER_CLASS = 2
+STL_WORKERS = (1, 4)
+TTA_PARTS, TTA_MEMORY_PARTS = 24, 64
+TTA_ATOL = 1e-5
+
+
+class _Forwards:
+    """Device ms of every ``Predictor.forward`` call while installed (CUDA
+    events around each call: copy-in, replay, clone-out)."""
+
+    def __init__(self, torch):
+        from featurenet_tpu_torch.infer import Predictor
+
+        self._torch, self._cls = torch, Predictor
+        self._orig = Predictor.forward
+        self.events = []
+
+    def __enter__(self):
+        torch, orig, events = self._torch, self._orig, self.events
+
+        def timed(pred, voxels):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = orig(pred, voxels)
+            b.record()
+            events.append((a, b))
+            return out
+
+        self._cls.forward = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.forward = self._orig
+        return False
+
+    def ms(self) -> float:
+        self._torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def native_line(seed: int, build_info: dict, smi_line: str) -> dict:
+    """The port's native voxelizer on the card's host: NATIVE_PARTS
+    sprint64 parts (64³) through ``voxels_to_mesh`` (NATIVE_ROTATED of
+    them rotated), voxelized natively and in numpy: bitwise equal."""
+    import numpy as np
+
+    from featurenet_tpu_torch import native
+    from featurenet_tpu_torch.data.synthetic import generate_sample
+    from featurenet_tpu_torch.data.voxel_to_mesh import (
+        random_rotation_matrix,
+        rotate_mesh,
+        voxels_to_mesh,
+    )
+    from featurenet_tpu_torch.data.voxelize import voxelize
+
+    if not native.available():
+        fail("the native voxelizer does not build or load")
+    rng = np.random.default_rng(seed)
+    meshes = []
+    for i in range(NATIVE_PARTS):
+        part = generate_sample(rng, 64, label=(3 * i) % 24)[0]
+        tris = voxels_to_mesh(part)
+        if i < NATIVE_ROTATED:
+            tris = rotate_mesh(tris, random_rotation_matrix(rng))
+        meshes.append(tris)
+    times = {"native": 0.0, "numpy": 0.0}
+    for i, tris in enumerate(meshes):
+        got = {}
+        for backend in times:
+            t0 = time.perf_counter()
+            got[backend] = voxelize(tris, 64, fill=True, backend=backend)
+            times[backend] += time.perf_counter() - t0
+        if not np.array_equal(got["native"], got["numpy"]):
+            fail(f"native voxelization of part {i} differs from numpy in "
+                 f"{int((got['native'] != got['numpy']).sum())} voxels")
+    out = {"build_s": build_info["seconds"], "cached": build_info["cached"],
+           "parts": NATIVE_PARTS, "rotated": NATIVE_ROTATED, "resolution": 64,
+           "triangles_per_part": sum(len(t) for t in meshes) / len(meshes),
+           "native_ms_per_part": times["native"] / NATIVE_PARTS * 1e3,
+           "numpy_ms_per_part": times["numpy"] / NATIVE_PARTS * 1e3,
+           "omp_threads": native.omp_threads(), "cpu_count": os.cpu_count(),
+           "bitwise_numpy": True, "nvidia_smi": smi_line}
+    print("native", json.dumps(out), flush=True)
+    return out
+
+
+def _tree_mb(root: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files) / 1e6
+
+
+def _same_cache(a: str, b: str) -> bool:
+    names = sorted(os.listdir(b))
+    if sorted(os.listdir(a)) != names:
+        return False
+    for name in names:
+        with open(os.path.join(a, name), "rb") as fa, \
+                open(os.path.join(b, name), "rb") as fb:
+            if name == "index.json":
+                if json.load(fa) != json.load(fb):
+                    return False
+            elif fa.read() != fb.read():
+                return False
+    return True
+
+
+def stl_cache_line(seed: int, tmp: str, smi_line: str) -> dict:
+    """``cli export-stl-data`` (STL_PER_CLASS parts per class at 64³), then
+    ``cli build-cache`` at each of STL_WORKERS, as subprocesses on the
+    host: the caches must be bitwise each other and the ``mesh_pose=
+    "remesh"`` export of the same seed."""
+    import numpy as np
+
+    from featurenet_tpu_torch.data.offline import export_synthetic_cache
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "featurenet_tpu_torch.cli"]
+    tree = os.path.join(tmp, "stl")
+
+    def run(*args) -> dict:
+        t0 = time.perf_counter()
+        p = subprocess.run(cli + list(args), cwd=root, capture_output=True,
+                           text=True, timeout=600)
+        if p.returncode != 0:
+            fail(f"cli {args[0]} exited {p.returncode}: {p.stderr[-2000:]}")
+        return {**json.loads(p.stdout.strip().splitlines()[-1]),
+                "wall_s": time.perf_counter() - t0}
+
+    exported = run("export-stl-data", "--out", tree, "--per-class",
+                   str(STL_PER_CLASS), "--resolution", "64", "--seed", str(seed))
+    meshes = sum(exported["exported"].values())
+    builds = {}
+    for w in STL_WORKERS:
+        out = os.path.join(tmp, f"built_w{w}")
+        r = run("build-cache", "--stl-root", tree, "--out", out,
+                "--resolution", "64", "--workers", str(w))
+        if sum(r["built"].values()) != meshes:
+            fail(f"build-cache --workers {w} built {r['built']}")
+        builds[w] = {"wall_s": r["wall_s"], "build_s": r["seconds"],
+                     "meshes_per_s": meshes / r["seconds"], "dir": out}
+    remesh = os.path.join(tmp, "remesh")
+    t0 = time.perf_counter()
+    export_synthetic_cache(remesh, per_class=STL_PER_CLASS, resolution=64,
+                           seed=seed, mesh_pose="remesh")
+    remesh_s = time.perf_counter() - t0
+    first = builds[STL_WORKERS[0]]["dir"]
+    for w in STL_WORKERS[1:]:
+        if not _same_cache(builds[w]["dir"], first):
+            fail(f"build-cache --workers {w} differs from --workers "
+                 f"{STL_WORKERS[0]}")
+    from featurenet_tpu_torch.data.synthetic import CLASS_NAMES
+
+    for cls in CLASS_NAMES:
+        if not np.array_equal(np.load(os.path.join(first, f"{cls}.npy")),
+                              np.load(os.path.join(remesh, f"{cls}.npy"))):
+            fail(f"the STL-built cache differs from the remesh export in {cls}")
+    out = {"meshes": meshes, "resolution": 64,
+           "export_stl_wall_s": exported["wall_s"], "stl_mb": _tree_mb(tree),
+           "cache_mb": _tree_mb(first),
+           "builds": {str(w): {k: v for k, v in b.items() if k != "dir"}
+                      for w, b in builds.items()},
+           "remesh_export_s": remesh_s, "cpu_count": os.cpu_count(),
+           "bitwise_across_workers": True, "bitwise_remesh_export": True,
+           "nvidia_smi": smi_line}
+    print("stl_cache", json.dumps(out), flush=True)
+    return out
+
+
+def _plain_model(pred):
+    """The plain-conv copy of ``pred``'s fp32 weights, on the card."""
+    from featurenet_tpu_torch.runtime import build_model
+
+    plain = build_model(pred.cfg, plain=True)
+    plain.load_state_dict(pred.model.state_dict())
+    return plain.to("cuda")
+
+
+def _plain_probs(torch, model, grids, tta: bool = False):
+    """``model``'s probabilities for numpy ``grids`` ``[N,R,R,R]``, in
+    chunks of 64 on the card; with ``tta`` the mean over the 24
+    ``CUBE_GROUP`` rotations, summed in their order."""
+    import numpy as np
+
+    from featurenet_tpu_torch.ops.augment import CUBE_GROUP, apply_rotation
+    from featurenet_tpu_torch.runtime import serve_forward
+
+    out = []
+    for s in range(0, len(grids), 64):
+        x = torch.from_numpy(
+            np.ascontiguousarray(grids[s:s + 64], np.float32)[..., None]).cuda()
+        if not tta:
+            out.append(serve_forward(model, x).cpu().numpy())
+            continue
+        acc = None
+        for perm, flips in CUBE_GROUP:
+            p = serve_forward(model, apply_rotation(x, perm, flips).contiguous())
+            acc = p if acc is None else acc + p
+        out.append((acc / len(CUBE_GROUP)).cpu().numpy())
+    return np.concatenate(out)
+
+
+def _against_plain(kernel, plain, what: str) -> dict:
+    """Kernel probabilities within PROB_ATOL of the plain conv's, and the
+    same label wherever the plain top-2 margin is at least PROB_ATOL."""
+    import numpy as np
+
+    err = float(np.abs(kernel - plain).max())
+    if not err <= PROB_ATOL:
+        fail(f"{what}: kernel probabilities {err} from the plain conv's "
+             f"(> {PROB_ATOL})")
+    top2 = np.sort(plain, axis=-1)[:, -2:]
+    near = (top2[:, 1] - top2[:, 0]) < PROB_ATOL
+    flips = (kernel.argmax(-1) != plain.argmax(-1)) & ~near
+    if flips.any():
+        fail(f"{what}: {int(flips.sum())} labels differ from the plain conv's "
+             "away from a near-tie")
+    return {"max_abs_err": err, "near_ties": int(near.sum()),
+            "labels_differ_at_near_ties": int(
+                (kernel.argmax(-1) != plain.argmax(-1)).sum())}
+
+
+def ood_line(torch, seed: int, ck: str, tmp: str, smi_line: str) -> dict:
+    """``cli eval-ood --per-class 1`` on the card (in this process) over
+    every DEFAULT_LEVELS row of a seeded sprint64 ``pallas`` checkpoint:
+    13 rows of 24 parts, the clean row's delta 0; the host seconds in
+    ``_perturb``, the wall of the ``predict_voxels`` calls, the forwards'
+    device ms (each the upload of a host batch padded to 64, the replay
+    and the clone; the first also the capture) and the launches of the
+    run; then the clean and so3 rows' grids through the kernels against
+    the plain conv."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from featurenet_tpu_torch import cli, ood
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.runtime.registry import WARMUP_ITERS
+
+    kept_rows = (("clean", None), ("rotation", "so3"))
+    perturb = ood._perturb
+    host = {"s": 0.0, "kept": {k: [] for k in kept_rows}}
+
+    def timed(family, level, grid, rng):
+        t0 = time.perf_counter()
+        g = perturb(family, level, grid, rng)
+        host["s"] += time.perf_counter() - t0
+        if (family, level) in host["kept"]:
+            host["kept"][(family, level)].append(g)
+        return g
+
+    predict = Predictor.predict_voxels
+
+    def timed_predict(pred, grids, **kw):
+        t0 = time.perf_counter()
+        out = predict(pred, grids, **kw)
+        host["predict_s"] += time.perf_counter() - t0
+        return out
+
+    host["predict_s"] = 0.0
+    rows_path = os.path.join(tmp, "rows.json")
+    printed = io.StringIO()
+    _reset_counts()
+    ood._perturb, Predictor.predict_voxels = timed, timed_predict
+    try:
+        with _Forwards(torch) as fw, contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            rc = cli.main(["eval-ood", "--checkpoint-dir", ck, "--per-class",
+                           str(OOD_PER_CLASS), "--seed", str(seed),
+                           "--out", rows_path])
+            wall = time.perf_counter() - t0
+    finally:
+        ood._perturb, Predictor.predict_voxels = perturb, predict
+    counts = _read_counts()
+    device_ms = fw.ms()
+    with open(rows_path) as fh:
+        rows = json.load(fh)
+    if rc != 0 or [json.loads(ln) for ln in printed.getvalue().splitlines()] != rows:
+        fail(f"cli eval-ood returned {rc}; printed rows differ from --out's")
+    n = 24 * OOD_PER_CLASS
+    if [(r["family"], r["level"]) for r in rows] != list(ood.DEFAULT_LEVELS):
+        fail(f"eval-ood rows {[(r['family'], r['level']) for r in rows]}")
+    if any(r["n"] != n for r in rows) or rows[0]["delta_vs_clean"] != 0.0:
+        fail(f"eval-ood rows {rows}")
+    want = dict(_want_counts("xla", 0, 0), conv3d_fwd=3 * (WARMUP_ITERS + 1))
+    if counts != want:
+        fail(f"eval-ood launched {counts}, not {want} (one bucket-64 graph)")
+    if len(fw.events) != len(rows) * 24:
+        fail(f"eval-ood ran {len(fw.events)} forwards, not {len(rows) * 24}")
+    pred = Predictor.from_checkpoint(ck, batch=64)
+    plain = _plain_model(pred)
+    checks = {}
+    for key in kept_rows:
+        grids = np.stack(host["kept"][key]).astype(np.float32)
+        _, probs = pred.predict_voxels(grids)
+        checks[f"{key[0]}_{key[1]}"] = _against_plain(
+            probs, _plain_probs(torch, plain, grids), f"ood {key}")
+    out = {"rows": len(rows), "parts_per_row": n, "wall_s": wall,
+           "perturb_host_s": host["s"], "predict_voxels_wall_s": host["predict_s"],
+           "forwards": len(fw.events),
+           "forward_device_ms": device_ms,
+           "device_share": device_ms / 1e3 / wall,
+           "launches": counts, "kernel_vs_plain": checks,
+           "accuracy": {f"{r['family']}_{r['level']}": r["accuracy"] for r in rows},
+           "nvidia_smi": smi_line}
+    print("ood", json.dumps(out), flush=True)
+    return out
+
+
+def _turn(grids, code: int):
+    """Numpy ``[N,R,R,R]`` grids rotated by CUBE_GROUP[code]."""
+    import numpy as np
+
+    from featurenet_tpu_torch.ops.augment import CUBE_GROUP
+
+    perm, flips = CUBE_GROUP[code]
+    g = np.transpose(grids, (0, *(1 + p for p in perm)))
+    return np.ascontiguousarray(np.flip(g, [1 + i for i, f in enumerate(flips) if f]))
+
+
+def tta_line(torch, seed: int, ck: str, smi_line: str) -> dict:
+    """TTA_PARTS parts (one per class, each rotated uniformly in SO(3)
+    through ``rotate_part``) through ``predict_voxels(canonicalize=True)``
+    on the checkpoint of the ood line: host canonicalize s per part, device
+    ms and replays against nine bucket-64 replays; the vote against the
+    plain conv's; a cube rotation of the input moving the vote by at most
+    TTA_ATOL; and the peak device memory of a TTA_MEMORY_PARTS-part vote
+    beside a bucket-64 forward's."""
+    import importlib
+
+    import numpy as np
+
+    from featurenet_tpu_torch.data.synthetic import generate_batch, generate_sample
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.ood import rotate_part
+    from featurenet_tpu_torch.runtime.registry import WARMUP_ITERS
+
+    canon_mod = importlib.import_module("featurenet_tpu_torch.data.canonicalize")
+    rng = np.random.default_rng(seed + 1)
+    grids = np.stack([rotate_part(generate_sample(rng, 64, label=c)[0], rng)
+                      for c in range(TTA_PARTS)]).astype(np.float32)
+    pred = Predictor.from_checkpoint(ck, batch=64)
+    orig = canon_mod.canonicalize
+    canon = {"s": 0.0, "grids": []}
+
+    def timed(g, **kw):
+        t0 = time.perf_counter()
+        c = orig(g, **kw)
+        canon["s"] += time.perf_counter() - t0
+        canon["grids"].append(c)
+        return c
+
+    _reset_counts()
+    _, tta = pred.predict_voxels(grids, tta_rotations=True)  # captures b64
+    canon_mod.canonicalize = timed
+    try:
+        with _Forwards(torch) as fw:
+            t0 = time.perf_counter()
+            _, probs = pred.predict_voxels(grids, canonicalize=True)
+            wall = time.perf_counter() - t0
+    finally:
+        canon_mod.canonicalize = orig
+    counts = _read_counts()
+    want = dict(_want_counts("xla", 0, 0), conv3d_fwd=3 * (WARMUP_ITERS + 1))
+    if counts != want:
+        fail(f"tta launched {counts}, not {want} (one bucket-64 graph)")
+    replays = -(-TTA_PARTS * 24 // 64)
+    if len(fw.events) != replays:
+        fail(f"tta over {TTA_PARTS} parts ran {len(fw.events)} forwards, "
+             f"not {replays}")
+    device_ms = fw.ms()
+    x64 = torch.from_numpy(grids[:1].repeat(64, 0)[..., None]).cuda()
+    replay_ms = time_ms(torch, lambda: pred.forward(x64))
+    plain = _plain_model(pred)
+    vs_plain = _against_plain(
+        probs, _plain_probs(torch, plain, np.stack(canon["grids"]), tta=True),
+        "tta canonicalized")
+    _, turned = pred.predict_voxels(_turn(grids, 17), tta_rotations=True)
+    turn_err = float(np.abs(turned - tta).max())
+    if not turn_err <= TTA_ATOL:
+        fail(f"tta moved {turn_err} under a cube rotation of the input")
+    # Peak memory over what the Predictor holds (its graph pool included).
+    many = generate_batch(rng, TTA_MEMORY_PARTS, 64)["voxels"][..., 0]
+    peaks = {}
+    for what, fn in (
+            ("tta", lambda: pred.predict_voxels(many, tta_rotations=True)),
+            ("graphed_forward", lambda: pred.forward(x64)),
+            ("eager_forward", lambda: pred.forward_eager(x64))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            fn()
+        torch.cuda.synchronize()
+        peaks[what] = (torch.cuda.max_memory_allocated() - base) / 1e6
+    out = {"parts": TTA_PARTS, "canonicalize_host_s_per_part":
+           canon["s"] / TTA_PARTS, "wall_s": wall, "forwards": len(fw.events),
+           "device_ms": device_ms, "bucket64_replay_ms": replay_ms,
+           "device_ms_over_replays": device_ms / (replays * replay_ms),
+           "launches": counts, "kernel_vs_plain": vs_plain,
+           "cube_rotation_max_abs_diff": turn_err,
+           "peak_mb_over_base": {f"{k}_b64" if k != "tta" else
+                                 f"tta_{TTA_MEMORY_PARTS}_parts": v
+                                 for k, v in peaks.items()},
+           "nvidia_smi": smi_line}
+    print("tta", json.dumps(out), flush=True)
+    return out
+
+
+def ood_phase(torch, seed: int, native_info: dict, smi_line: str) -> dict:
+    """The robustness-evaluation lines: ``native``, ``stl_cache``, ``ood``
+    and ``tta``. Returns the ood and tta runs' launches."""
+    from featurenet_tpu_torch.config import get_config
+
+    native_line(seed, native_info, smi_line)
+    with tempfile.TemporaryDirectory() as tmp:
+        stl_cache_line(seed, tmp, smi_line)
+        cfg = get_config("sprint64")
+        if cfg.arch.conv_backend != "pallas":
+            fail(f"sprint64 serves through {cfg.arch.conv_backend}, not pallas")
+        ck = _seeded_checkpoint(os.path.join(tmp, "ck"), cfg, seed)
+        ood = ood_line(torch, seed, ck, tmp, smi_line)
+        tta = tta_line(torch, seed, ck, smi_line)
+    return {"launches": {"ood": ood["launches"], "tta": tta["launches"]}}
+
 
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
     main = [r for r in rows if r["main_path"]]
@@ -2797,9 +3253,14 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)
 
+    from featurenet_tpu_torch import native
+
     t0 = time.perf_counter()
     report = build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    native_info = native.build()  # raises if g++ cannot build it
+    print(f"build native: {native_info['seconds']:.2f} s"
+          f"{' (cached)' if native_info['cached'] else ''}", flush=True)
     for kname, r in report.items():
         info = [ln.strip() for ln in r["log"].splitlines()
                 if "registers" in ln or "spill" in ln or ln == "cached"]
@@ -2837,6 +3298,8 @@ def main() -> int:
                       graphs, smi_line)["launches"]
         supervised = phase("supervise", supervise_phase, args.seed, cache_dir,
                            smi_line)["launches"]
+    robustness = phase("ood", ood_phase, torch, args.seed, native_info,
+                       smi_line)["launches"]
     print("phase_walls", json.dumps(walls), flush=True)
 
     # ms, plain_ms, library_ms and bound_ms sum one train step's shapes
@@ -2860,7 +3323,8 @@ def main() -> int:
                        **{k: v["conv3d_fwd"] for k, v in cached.items()},
                        "robust": robust["conv3d_fwd"],
                        "supervise": supervised["conv3d_fwd"],
-                       **{k: v["conv3d_fwd"] for k, v in rungs.items()}}),
+                       **{k: v["conv3d_fwd"] for k, v in rungs.items()},
+                       **{k: v["conv3d_fwd"] for k, v in robustness.items()}}),
         _kernel_entry("conv3d_dw", "featurenet_tpu_torch/ops/csrc/conv3d_dw.cu",
                       "featurenet_tpu/ops/conv3d.py:192", rows["conv3d_dw"],
                       {"train_pallas": tp["conv3d_dw"],

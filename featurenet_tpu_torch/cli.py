@@ -1,7 +1,15 @@
 """Command line for the PyTorch port.
 
     python -m featurenet_tpu_torch.cli export-data --out .data/c \
-        [--per-class 1000 --resolution 64 --seed 0]
+        [--per-class 1000 --resolution 64 --seed 0 --param-range mid|tails|LO,HI \
+         --mesh-pose none|remesh|so3 --margin-jitter LO,HI]
+    python -m featurenet_tpu_torch.cli export-stl-data --out .data/stl \
+        [--per-class 10 --resolution 64 --seed 0]
+    python -m featurenet_tpu_torch.cli build-cache --stl-root .data/stl \
+        --out .data/c [--resolution 64 --workers N]
+    python -m featurenet_tpu_torch.cli eval-ood --checkpoint-dir CK \
+        [--per-class 50 --seed 777 --families rotation,noise --canonicalize \
+         --tta --out rows.json]
     python -m featurenet_tpu_torch.cli train --config sprint64 --device cuda \
         [--data-cache .data/c [--hbm-cache]] [--steps-per-dispatch K] \
         [--augment-affine [--augment-affine-prob P --augment-ramp-steps N \
@@ -26,10 +34,26 @@
     python -m featurenet_tpu_torch.cli recalibrate --checkpoint-dir CK \
         --out-dir CK2 [--batches 64 --data-cache D]
 
-Every subcommand but ``export-data`` runs on the card unless ``--device
-cpu`` is given. ``export-data`` writes the synthetic parts into a packed
-voxel cache (``data/offline.py``) and prints ``{"exported": {class:
-count}, ...}``.
+Every subcommand but the three data commands runs on the card unless
+``--device cpu`` is given. The data commands run on the host alone and
+never create a CUDA context: ``export-data`` writes the synthetic parts
+into a packed voxel cache (``data/offline.py``; ``--param-range``,
+``--mesh-pose`` and ``--margin-jitter`` as ``export_synthetic_cache``
+takes them) and prints ``{"exported": {class: count}, ...}``;
+``export-stl-data`` writes them as an STL class tree
+(``voxel_to_mesh.export_stl_tree``) and prints ``{"exported": {class:
+count}}``; ``build-cache`` voxelizes such a tree (or any tree of
+``<class>/*.stl``) into a packed cache over ``--workers`` processes
+(default: one per core) and prints ``{"built": {class: count},
+"seconds": wall}``. The
+segmentation trees are not ported: ``export-stl-data --seg`` and a
+``segment_stl`` tree are refused.
+
+``eval-ood`` prints the robustness report of a classify checkpoint
+(``ood.py``), one JSON row per (family, level), and with ``--out`` also
+writes the rows to a JSON file; ``--canonicalize`` undoes each part's
+pose before it is classified and implies ``--tta``, the mean over the 24
+cube rotations. A segmentation checkpoint is refused.
 
 ``train`` prints one ``{"config": {...}}`` line, then the Trainer's JSON
 records (``setup``, ``train`` every ``log_every`` steps, ``eval``). With
@@ -100,6 +124,7 @@ import json
 import signal
 import sys
 import threading
+import time
 
 DEFAULT_PRESET = "sprint64"
 
@@ -241,6 +266,54 @@ def _parser() -> argparse.ArgumentParser:
     p_exp.add_argument("--per-class", type=int, default=1000, dest="per_class")
     p_exp.add_argument("--resolution", type=int, default=64)
     p_exp.add_argument("--seed", type=int, default=0)
+    p_exp.add_argument("--param-range", dest="param_range", default=None,
+                       help="feature-parameter quantile window: 'mid', "
+                            "'tails', or 'lo,hi' (default: full range)")
+    p_exp.add_argument("--mesh-pose", dest="mesh_pose", default="none",
+                       choices=["none", "remesh", "so3"],
+                       help="route parts through the STL pipeline: 'remesh' "
+                            "= STL normalization, identity pose; 'so3' = "
+                            "also a uniform random rotation")
+    p_exp.add_argument("--margin-jitter", dest="margin_jitter", default=None,
+                       help="'lo,hi': per-part normalization margin "
+                            "(default fixed 0.05)")
+
+    p_stl = sub.add_parser("export-stl-data", help="write the synthetic parts "
+                                                   "as an STL class tree")
+    p_stl.add_argument("--out", required=True)
+    p_stl.add_argument("--per-class", type=int, default=10, dest="per_class")
+    p_stl.add_argument("--resolution", type=int, default=64)
+    p_stl.add_argument("--seed", type=int, default=0)
+    p_stl.add_argument("--seg", action="store_true",
+                       help="segmentation tree (not ported; refused)")
+
+    p_bld = sub.add_parser("build-cache", help="voxelize an STL class tree "
+                                               "into a packed voxel cache")
+    p_bld.add_argument("--stl-root", dest="stl_root", required=True)
+    p_bld.add_argument("--out", required=True)
+    p_bld.add_argument("--resolution", type=int, default=64)
+    p_bld.add_argument("--workers", type=int, default=None,
+                       help="processes voxelizing files (default: cpu "
+                            "count; 1 = inline)")
+
+    p_ood = sub.add_parser("eval-ood", help="robustness report of a classify "
+                                            "checkpoint under rotation, noise, "
+                                            "morphology, parameter tails and "
+                                            "scale")
+    p_ood.add_argument("--checkpoint-dir", dest="checkpoint_dir", required=True)
+    p_ood.add_argument("--per-class", type=int, default=50, dest="per_class")
+    p_ood.add_argument("--seed", type=int, default=777)
+    p_ood.add_argument("--families", default=None,
+                       help="comma list: clean,rotation,noise,morph,tails,scale")
+    p_ood.add_argument("--out", default=None,
+                       help="also write the report rows as a JSON file")
+    p_ood.add_argument("--canonicalize", action="store_true",
+                       help="undo each part's pose (min-AABB) before "
+                            "classifying it; implies --tta")
+    p_ood.add_argument("--tta", action="store_true", dest="tta_rotations",
+                       help="average the probabilities over the 24 cube "
+                            "rotations (24x the device work)")
+    p_ood.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     p_ev = sub.add_parser("eval", help="evaluate a checkpoint on the held-out "
                                        "synthetic stream")
@@ -439,15 +512,83 @@ def _recalibrate(args) -> int:
     return 0
 
 
+def _pair(text: str | None):
+    """``"lo,hi"`` as a float pair; another string (or ``None``) as is."""
+    if text and "," in text:
+        return tuple(float(v) for v in text.split(","))
+    return text
+
+
 def _export_data(args) -> int:
     from featurenet_tpu_torch.data.offline import export_synthetic_cache
 
     index = export_synthetic_cache(args.out, per_class=args.per_class,
-                                   resolution=args.resolution, seed=args.seed)
+                                   resolution=args.resolution, seed=args.seed,
+                                   param_range=_pair(args.param_range),
+                                   mesh_pose=args.mesh_pose,
+                                   margin_jitter=_pair(args.margin_jitter))
     print(json.dumps({"exported": index["counts"],
                       "param_range": index["param_range"],
                       "mesh_pose": index["mesh_pose"],
                       "margin_jitter": index["margin_jitter"]}), flush=True)
+    return 0
+
+
+def _export_stl_data(args) -> int:
+    from featurenet_tpu_torch.data.voxel_to_mesh import export_stl_tree
+
+    if args.seg:
+        raise SystemExit("export-stl-data --seg: the segmentation STL tree "
+                         "is not ported yet (ROADMAP Queue A.3)")
+    index = export_stl_tree(args.out, per_class=args.per_class,
+                            resolution=args.resolution, seed=args.seed)
+    print(json.dumps({"exported": index["counts"]}), flush=True)
+    return 0
+
+
+def _build_cache(args) -> int:
+    import os
+
+    from featurenet_tpu_torch.data.offline import build_cache
+
+    tree = os.path.join(args.stl_root, "index.json")
+    if os.path.exists(tree):
+        with open(tree) as fh:
+            if json.load(fh).get("kind") == "segment_stl":
+                raise SystemExit(
+                    f"build-cache: {args.stl_root} is a segmentation STL "
+                    "tree; its ingest is not ported yet (ROADMAP Queue A.3)")
+    t0 = time.perf_counter()
+    index = build_cache(args.stl_root, args.out, resolution=args.resolution,
+                        workers=args.workers)
+    print(json.dumps({"built": index["counts"],
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def _eval_ood(args) -> int:
+    import os
+
+    from featurenet_tpu_torch.ood import evaluate_ood
+    from featurenet_tpu_torch.train.checkpoint import CONFIG_FILENAME
+
+    sidecar = os.path.join(args.checkpoint_dir, CONFIG_FILENAME)
+    if os.path.exists(sidecar):
+        with open(sidecar) as fh:
+            if json.load(fh).get("task") == "segment":
+                raise SystemExit(
+                    "eval-ood: a segmentation checkpoint's report "
+                    "(evaluate_ood_seg) is not ported yet (ROADMAP Queue A.3)")
+    rows = evaluate_ood(
+        args.checkpoint_dir, per_class=args.per_class, seed=args.seed,
+        families=args.families.split(",") if args.families else None,
+        canonicalize=args.canonicalize, tta_rotations=args.tta_rotations,
+        device=args.device)
+    for r in rows:
+        print(json.dumps(r), flush=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(rows, fh, indent=1)
     return 0
 
 
@@ -558,7 +699,8 @@ def main(argv=None) -> int:
     args.raw_argv = list(argv) if argv is not None else sys.argv[1:]
     return {"train": _train, "serve": _serve, "eval": _eval,
             "infer": _infer, "export-data": _export_data,
-            "recalibrate": _recalibrate}[args.cmd](args)
+            "export-stl-data": _export_stl_data, "build-cache": _build_cache,
+            "eval-ood": _eval_ood, "recalibrate": _recalibrate}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""The packed voxel cache: synthetic export and the classify reader (port of
-the classify half of ``featurenet_tpu/data/offline.py``).
+"""The packed voxel cache: the STL-tree build, the synthetic export and the
+classify reader (port of the classify half of
+``featurenet_tpu/data/offline.py``).
 
 - Layout (``storage: "packed"`` in ``index.json``): one ``<cls>.npy`` per
   class holding bit-packed ``uint8 [N, R, R, R/8]`` voxels, byte for byte
@@ -8,10 +9,22 @@ the classify half of ``featurenet_tpu/data/offline.py``).
   canonical ``label_ids``. The shards are read through ``np.load(...,
   mmap_mode="r")``, so the host holds the pages the sampler touches, not
   the cache. Legacy ``.npz`` caches (unpacked) are packed once at open.
+- ``build_cache`` voxelizes an STL class tree (``root/<class>/*.stl``,
+  the reference benchmark's layout) into that layout: each file through
+  ``voxelize`` (parity fill, normalized at the default margin), in file
+  order, inline or over a ``spawn`` process pool; the bytes do not depend
+  on the worker count. Class directories named as a canonical class get
+  its id; others get ids after the canonical 24, with a warning.
 - ``export_synthetic_cache`` writes the parametric generator's parts in
   that layout, one ``SeedSequence([seed, class_id])`` stream per class, as
   the reference does: a cache written by either package has the same
-  bytes and loads in the other.
+  bytes and loads in the other. ``param_range`` restricts the feature
+  parameters to a quantile window, ``mesh_pose`` routes every part
+  through the STL pipeline (``"remesh"``: the identity pose, which gives
+  the bytes ``build_cache`` gives on ``export_stl_tree``'s tree of the
+  same seed; ``"so3"``: a uniform random rotation too), and
+  ``margin_jitter=(lo, hi)`` draws each part's normalization margin; all
+  three are recorded in ``index.json``.
 - ``VoxelCacheDataset`` is a split of a cache (a fixed hash of each row's
   index holds out ``test_fraction`` of every class) in the classify wire
   format: an infinite sampled stream per producer worker
@@ -22,8 +35,11 @@ the classify half of ``featurenet_tpu/data/offline.py``).
 
 The port runs one host, so the reference's host sharding (``num_hosts``,
 ``host_id``, ``num_shards``) is fixed at one host, id 0. Not ported yet:
-``build_cache`` from an STL tree, the ``param_range``, ``mesh_pose`` and
-``margin_jitter`` exports and the segmentation caches.
+the segmentation caches and their STL trees.
+
+This module and what it imports are numpy and the standard library only
+(no torch): ``build_cache``'s spawned workers import it and never touch
+the device.
 
 ``VoxelCacheDataset`` counts its gathers and checks the
 ``cache_read_error`` fault site (``faults.py``) at each one: the shape of
@@ -34,27 +50,171 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Iterator
+import warnings
+from typing import Iterator, Sequence
 
 import numpy as np
 
 from featurenet_tpu_torch import faults
+from featurenet_tpu_torch.data.stl import load_stl
 from featurenet_tpu_torch.data.synthetic import (
     CLASS_NAMES,
     generate_sample,
     pack_voxels,
     random_orientation,
 )
+from featurenet_tpu_torch.data.voxel_to_mesh import (
+    random_rotation_matrix,
+    rotate_mesh,
+    voxels_to_mesh,
+)
+from featurenet_tpu_torch.data.voxelize import voxelize
 
 # The reference's stream constant for the resident split's shuffle.
 RESIDENT_ORDER_STREAM = 0x4B10C5
 
 
+def _voxelize_stl_packed(args: tuple[str, int, str]) -> np.ndarray:
+    """Worker: one STL file → bit-packed ``uint8 [R, R, R/8]`` occupancy.
+    Module-level, so a process pool can pickle it."""
+    path, resolution, backend = args
+    grid = voxelize(load_stl(path), resolution, fill=True, backend=backend)
+    return pack_voxels(grid)
+
+
+def build_cache(
+    stl_root: str,
+    out_root: str,
+    resolution: int = 64,
+    classes: Sequence[str] | None = None,
+    backend: str = "auto",
+    workers: int | None = None,
+) -> dict:
+    """Voxelize an STL class tree into packed per-class shards under
+    ``out_root``; returns the index.
+
+    ``workers``: the width of a ``spawn`` process pool over the files
+    (``None``: ``os.cpu_count()``; 1 or less: inline). The pool keeps file
+    order and each file is voxelized on its own, so the bytes do not
+    depend on it. Unless ``backend="numpy"`` the native library is built
+    here first, so the workers only load it.
+
+    ``label_ids`` pins every class directory named as a canonical class
+    to its id, even in a partial tree, so a cache-trained checkpoint
+    agrees with the Predictor's id → name mapping; other directory names
+    get ids after the canonical block (with a warning: training them needs
+    ``num_classes`` to cover them)."""
+    if resolution % 8:
+        raise ValueError("resolution must be divisible by 8 (packed wire)")
+    os.makedirs(out_root, exist_ok=True)
+    if classes is None:
+        found = {
+            d for d in os.listdir(stl_root)
+            if os.path.isdir(os.path.join(stl_root, d))
+        }
+        classes = [c for c in CLASS_NAMES if c in found] + sorted(
+            found - set(CLASS_NAMES)
+        )
+    else:
+        classes = list(classes)
+    known = {c: i for i, c in enumerate(CLASS_NAMES)}
+    next_id = len(CLASS_NAMES)
+    label_ids = {}
+    for cls in classes:
+        if cls in known:
+            label_ids[cls] = known[cls]
+        else:
+            label_ids[cls] = next_id
+            next_id += 1
+    if next_id > len(CLASS_NAMES):
+        unknown = [c for c in classes if c not in known]
+        warnings.warn(
+            f"build_cache: non-canonical class dirs {unknown} get label ids "
+            "past the canonical block; training them needs num_classes >= "
+            f"{next_id} (the presets have 24, and the Trainer refuses "
+            "out-of-range labels)", stacklevel=2)
+    index = {
+        "resolution": resolution,
+        "storage": "packed",
+        "classes": [],
+        "counts": {},
+        "label_ids": label_ids,
+    }
+    if workers is None:
+        workers = os.cpu_count() or 1
+    if backend != "numpy":
+        from featurenet_tpu_torch import native
+
+        native.available()  # build it here, so the workers only load it
+    pool = None
+    if workers > 1:
+        import multiprocessing
+
+        # spawn, not fork: the caller may hold a CUDA context, which a
+        # forked child must not inherit.
+        pool = multiprocessing.get_context("spawn").Pool(workers)
+    try:
+        for cls in classes:
+            cdir = os.path.join(stl_root, cls)
+            files = sorted(
+                f for f in os.listdir(cdir) if f.lower().endswith(".stl")
+            )
+            packed = np.zeros(
+                (len(files), resolution, resolution, resolution // 8),
+                dtype=np.uint8,
+            )
+            work = [(os.path.join(cdir, f), resolution, backend) for f in files]
+            if pool is not None:
+                rows = pool.imap(
+                    _voxelize_stl_packed, work,
+                    chunksize=max(1, len(work) // (workers * 4) or 1),
+                )
+            else:
+                rows = map(_voxelize_stl_packed, work)
+            for i, row in enumerate(rows):
+                packed[i] = row
+            np.save(os.path.join(out_root, f"{cls}.npy"), packed)
+            with open(os.path.join(out_root, f"{cls}.files.json"), "w") as fh:
+                json.dump(files, fh)
+            index["classes"].append(cls)
+            index["counts"][cls] = len(files)
+    except BaseException:
+        if pool is not None:
+            # terminate, not close: close would first drain every queued
+            # voxelization of the doomed build.
+            pool.terminate()
+            pool.join()
+            pool = None
+        raise
+    finally:
+        if pool is not None:
+            pool.close()
+            pool.join()
+    with open(os.path.join(out_root, "index.json"), "w") as fh:
+        json.dump(index, fh, indent=1)
+    return index
+
+
 def export_synthetic_cache(out_root: str, per_class: int = 100,
                            resolution: int = 64, seed: int = 0,
-                           orient: bool = True) -> dict:
+                           orient: bool = True, param_range=None,
+                           mesh_pose: str = "none",
+                           margin_jitter: tuple | None = None) -> dict:
     """Write ``per_class`` generated parts of every class into the packed
-    cache layout under ``out_root``; returns the index."""
+    cache layout under ``out_root``; returns the index.
+
+    ``param_range``: the feature-parameter quantile window (``"mid"``,
+    ``"tails"``, ``(lo, hi)`` or ``None``; ``synthetic._ParamRange``).
+    ``mesh_pose``: ``"none"`` packs the parts as generated; ``"remesh"``
+    routes each through the STL pipeline (``voxels_to_mesh`` →
+    ``voxelize``, normalized at the margin); ``"so3"`` also rotates the
+    mesh uniformly at random. ``margin_jitter=(lo, hi)`` draws each part's
+    normalization margin (default 0.05) and implies the mesh route."""
+    if mesh_pose not in ("none", "remesh", "so3"):
+        raise ValueError(
+            f"mesh_pose {mesh_pose!r}: expected 'none', 'remesh', or 'so3'"
+        )
+    use_mesh = mesh_pose != "none" or margin_jitter is not None
     if resolution % 8:
         raise ValueError("resolution must be divisible by 8 (packed wire)")
     os.makedirs(out_root, exist_ok=True)
@@ -65,11 +225,12 @@ def export_synthetic_cache(out_root: str, per_class: int = 100,
         "counts": {},
         "seed": seed,
         "label_ids": {cls: i for i, cls in enumerate(CLASS_NAMES)},
-        # The reference's provenance fields, at their defaults: the full
-        # parameter range, parts as generated, no margin jitter.
-        "param_range": None,
-        "mesh_pose": "none",
-        "margin_jitter": None,
+        "param_range": (
+            list(param_range) if isinstance(param_range, (tuple, list))
+            else param_range
+        ),
+        "mesh_pose": mesh_pose,
+        "margin_jitter": list(margin_jitter) if margin_jitter else None,
     }
     for cls_id, cls in enumerate(CLASS_NAMES):
         rng = np.random.default_rng(np.random.SeedSequence([seed, cls_id]))
@@ -78,7 +239,15 @@ def export_synthetic_cache(out_root: str, per_class: int = 100,
                           dtype=np.uint8)
         for i in range(per_class):
             part, _, _ = generate_sample(rng, resolution, label=cls_id,
-                                         orient=orient)
+                                         orient=orient,
+                                         param_range=param_range)
+            if use_mesh:
+                tris = voxels_to_mesh(part.astype(bool))
+                if mesh_pose == "so3":
+                    tris = rotate_mesh(tris, random_rotation_matrix(rng))
+                m = (0.05 if margin_jitter is None
+                     else float(rng.uniform(*margin_jitter)))
+                part = voxelize(tris, resolution, fill=True, margin=m)
             packed[i] = pack_voxels(part)
         np.save(os.path.join(out_root, f"{cls}.npy"), packed)
         with open(os.path.join(out_root, f"{cls}.files.json"), "w") as fh:

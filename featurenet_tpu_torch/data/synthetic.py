@@ -4,9 +4,16 @@
 Each part is a stock cube with one parametric machining feature carved
 out, generated directly in voxel space from a caller's
 ``np.random.Generator``: with the same seed it gives the same arrays, bit
-for bit, as the JAX package's generator. The parameter-quantile windows of
-the JAX module (its OOD holdout support) are not ported: every draw uses
-the full range, which is that module's default.
+for bit, as the JAX package's generator.
+
+Every size and position draw goes through ``_u``, so a feature-parameter
+quantile window restricts all of them at once (``param_range``: the
+middle quantiles ``"mid"``, their complement ``"tails"``, an explicit
+``(lo, hi)``, or ``None`` for the full range). The window is thread-local,
+since dataset workers are threads; ``generate_sample`` and
+``generate_batch`` take ``param_range=_INHERIT`` by default, which keeps
+the caller's ambient window, while an explicit ``None`` forces the full
+range. The OOD harness draws its ``tails`` row this way (``ood.py``).
 
 Also here: ``pack_voxels``/``to_wire``, the bit-packed classify wire
 format that ``train/steps.unpack_voxels`` reads on the device.
@@ -14,6 +21,7 @@ format that ``train/steps.unpack_voxels`` reads on the device.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable
 
 import numpy as np
@@ -78,8 +86,81 @@ LO, HI = MARGIN, 1.0 - MARGIN
 S = HI - LO  # stock edge length
 
 
+# --- feature-parameter quantile window ------------------------------------
+
+PARAM_MID: tuple[float, float] = (0.15, 0.85)
+_param_window = threading.local()
+
+# "No spec given: keep whatever ambient window is active". Distinct from
+# None, which forces the full range.
+_INHERIT = object()
+
+
+def _resolve_param_range(spec):
+    """A param_range spec as ``("window"|"tails", lo, hi)``, or ``None``
+    for the full range: ``"mid"`` is the PARAM_MID window, ``"tails"`` its
+    complement ([0, lo) and (hi, 1] of each parameter's range), ``(lo,
+    hi)`` an explicit quantile window."""
+    if spec is None:
+        return None
+    if isinstance(spec, str):
+        if spec == "mid":
+            return ("window",) + PARAM_MID
+        if spec == "tails":
+            return ("tails",) + PARAM_MID
+        raise ValueError(
+            f"unknown param_range {spec!r}: expected 'mid', 'tails', a "
+            "(lo, hi) pair, or None"
+        )
+    if not isinstance(spec, (tuple, list)) or len(spec) != 2:
+        raise ValueError(
+            f"param_range window must be a (lo, hi) pair, got {spec!r}"
+        )
+    lo, hi = float(spec[0]), float(spec[1])
+    if not (0.0 <= lo < hi <= 1.0):
+        raise ValueError(f"param_range window must satisfy 0<=lo<hi<=1, "
+                         f"got ({lo}, {hi})")
+    return ("window", lo, hi)
+
+
+class _ParamRange:
+    """Context manager scoping a feature-parameter quantile window.
+    ``_INHERIT`` is a no-op: the ambient window stays in effect."""
+
+    def __init__(self, spec):
+        self._inherit = spec is _INHERIT
+        self._spec = None if self._inherit else _resolve_param_range(spec)
+
+    def __enter__(self):
+        self._prev = getattr(_param_window, "spec", None)
+        if not self._inherit:
+            _param_window.spec = self._spec
+        return self
+
+    def __exit__(self, *exc):
+        if not self._inherit:
+            _param_window.spec = self._prev
+        return False
+
+
+# Public alias (the generation entry points take a ``param_range=`` kwarg
+# that shadows the name locally, so they use the underscored class).
+param_range = _ParamRange
+
+
 def _u(rng: np.random.Generator, a: float, b: float) -> float:
-    return float(rng.uniform(a, b))
+    """A draw in ``[a, b)`` under the active window: one number from
+    ``rng`` whatever the window."""
+    spec = getattr(_param_window, "spec", None)
+    if spec is None:
+        return float(rng.uniform(a, b))
+    kind, lo, hi = spec
+    if kind == "window":
+        q = lo + (hi - lo) * rng.uniform()
+    else:  # tails: mass split between [0, lo) and (hi, 1] by width
+        u = rng.uniform(0.0, lo + (1.0 - hi))
+        q = u if u < lo else hi + (u - lo)
+    return float(a + (b - a) * q)
 
 
 def _cyl_z(R, cx, cy, r, z0, z1):
@@ -441,25 +522,29 @@ def generate_sample(
     label: int | None = None,
     num_features: int = 1,
     orient: bool = True,
+    param_range=_INHERIT,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Generate one part.
 
     Returns ``(voxels bool [R³], labels int32 [num_features], seg int32 [R³])``
     where seg is 0 on non-feature voxels and ``1+class`` on each feature's
-    removal volume (clipped to the stock).
+    removal volume (clipped to the stock). ``param_range``: the
+    feature-parameter quantile window (``_ParamRange``).
     """
     R = resolution
     labels = np.empty(num_features, dtype=np.int32)
     removals: list[np.ndarray] = []
-    for k in range(num_features):
-        cls = int(rng.integers(0, NUM_CLASSES)) if label is None else int(label)
-        labels[k] = cls
-        removal = _FEATURE_FNS[cls](R, rng)
-        if num_features > 1:
-            # Re-orient each extra feature so multi-feature parts do not
-            # stack every feature on the same faces.
-            removal = random_orientation(rng)(removal)
-        removals.append(removal)
+    with _ParamRange(param_range):
+        for k in range(num_features):
+            cls = (int(rng.integers(0, NUM_CLASSES))
+                   if label is None else int(label))
+            labels[k] = cls
+            removal = _FEATURE_FNS[cls](R, rng)
+            if num_features > 1:
+                # Re-orient each extra feature so multi-feature parts do
+                # not stack every feature on the same faces.
+                removal = random_orientation(rng)(removal)
+            removals.append(removal)
     if orient:
         # The stock cube is symmetric under the cube group, so orienting the
         # removals and carving commutes with carving then orienting.
@@ -476,6 +561,7 @@ def generate_batch(
     balanced: bool = True,
     num_features: int = 1,
     orient: bool = True,
+    param_range=_INHERIT,
 ) -> dict[str, np.ndarray]:
     """Generate a batch dict: voxels [B,R,R,R,1] f32, label [B] i32,
     seg [B,R,R,R] i32, mask [B] f32 (all ones)."""
@@ -487,6 +573,7 @@ def generate_batch(
         forced = (i % NUM_CLASSES) if balanced and num_features == 1 else None
         part, labs, s = generate_sample(
             rng, R, label=forced, num_features=num_features, orient=orient,
+            param_range=param_range,
         )
         voxels[i, ..., 0] = part
         labels[i] = labs[0]

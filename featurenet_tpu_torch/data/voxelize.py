@@ -1,14 +1,20 @@
-"""STL→voxel rasterization in numpy (port of the numpy path of
-``featurenet_tpu/data/voxelize.py``; the native C++ rasterizer is not
-ported yet).
+"""STL→voxel rasterization (port of ``featurenet_tpu/data/voxelize.py``):
+numpy, and the native C++ rasterizer (``featurenet_tpu_torch.native``).
 
 1. ``normalize_mesh`` centers the triangle soup and scales it uniformly
    into ``[margin, 1-margin]³``.
 2. ``fill=True``: parity ray casting — one vertical ray per (x, y)
    voxel-center column; a voxel is solid iff its center is inside the
-   watertight mesh.
-3. ``fill=False``: the conservative surface shell, from a barycentric
-   sampling of each triangle at under half a voxel's pitch.
+   watertight mesh. ``fill_method="flood"`` instead rasterizes the
+   surface and floods the exterior (``_fill_interior``), which tolerates
+   small holes; it runs in numpy only.
+3. ``fill=False``: the surface shell: in numpy a barycentric sampling of
+   each triangle at under half a voxel's pitch, natively the exact
+   triangle-box test (a superset).
+
+``backend="auto"`` takes the native library when it builds here (g++),
+else numpy; ``"native"`` requires it; ``"numpy"`` never uses it. The
+native parity fill is bitwise the numpy one on watertight meshes.
 
 The output is a ``bool [R, R, R]`` occupancy grid, index order ``[x, y, z]``.
 """
@@ -98,18 +104,69 @@ def _voxelize_parity(tris: np.ndarray, resolution: int) -> np.ndarray:
     return (np.cumsum(toggles[:, :, :R], axis=2) % 2).astype(bool)
 
 
+def _fill_interior(surface: np.ndarray) -> np.ndarray:
+    """Exterior flood fill by iterative dilation, then complement: the
+    exterior grows from the six grid faces through empty voxels, and
+    everything never reached (surface and enclosed volume) is solid."""
+    R = surface.shape[0]
+    empty = ~surface
+    exterior = np.zeros_like(surface)
+    for axis in range(3):
+        face = [slice(None)] * 3
+        face[axis] = 0
+        exterior[tuple(face)] = empty[tuple(face)]
+        face[axis] = R - 1
+        exterior[tuple(face)] = empty[tuple(face)]
+    while True:
+        grown = exterior.copy()
+        grown[1:, :, :] |= exterior[:-1, :, :]
+        grown[:-1, :, :] |= exterior[1:, :, :]
+        grown[:, 1:, :] |= exterior[:, :-1, :]
+        grown[:, :-1, :] |= exterior[:, 1:, :]
+        grown[:, :, 1:] |= exterior[:, :, :-1]
+        grown[:, :, :-1] |= exterior[:, :, 1:]
+        grown &= empty
+        if (grown == exterior).all():
+            break
+        exterior = grown
+    return ~exterior
+
+
 def voxelize(
     triangles: np.ndarray,
     resolution: int = 64,
     fill: bool = True,
     normalize: bool = True,
     margin: float = 0.05,
+    backend: str = "auto",
+    fill_method: str = "parity",
 ) -> np.ndarray:
     """Voxelize a triangle soup to a ``bool [R, R, R]`` occupancy grid:
-    the center-inside solid (``fill=True``) or the surface shell."""
+    the center-inside solid (``fill=True``) or the surface shell.
+
+    ``backend``: ``"auto"`` (native when it builds, else numpy),
+    ``"native"`` or ``"numpy"``. ``fill_method``: ``"parity"`` (exact, for
+    watertight meshes) or ``"flood"`` (numpy only: ``backend="native"``
+    with a flood fill raises rather than give parity semantics)."""
     tris = np.asarray(triangles, dtype=np.float32)
     if normalize:
         tris = normalize_mesh(tris, margin=margin)
+    native_ok = (not fill) or fill_method == "parity"
+    if backend == "native" and not native_ok:
+        raise ValueError(
+            "backend='native' has no flood fill; use "
+            "fill_method='parity' or backend='numpy'/'auto'"
+        )
+    if backend != "numpy" and native_ok:
+        try:
+            from featurenet_tpu_torch.native import voxelize_native
+
+            return voxelize_native(tris, resolution, fill)
+        except Exception:
+            if backend == "native":
+                raise
     if not fill:
         return _rasterize_surface(tris, resolution)
+    if fill_method == "flood":
+        return _fill_interior(_rasterize_surface(tris, resolution))
     return _voxelize_parity(tris, resolution)

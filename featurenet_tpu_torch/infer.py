@@ -6,6 +6,8 @@ Usage:
     p = Predictor(*load_npz("w.npz"))                # a convert.save_npz file
     p = Predictor.from_checkpoint("runs/ck", precision="int8")
     labels, probs = p.predict_voxels(grids)          # [N,R,R,R] occupancy
+    labels, probs = p.predict_voxels(grids, tta_rotations=True)  # 24-pose vote
+    labels, probs = p.predict_voxels(grids, canonicalize=True)   # + pose undone
     results = p.predict_stl(["part.stl", ...])       # end-to-end
     p.swap_params("runs/ck2")                        # hot swap, zero downtime
     p.agreement()                                    # top-1 vs fp32 serving
@@ -37,7 +39,18 @@ programs for every batch the old one had, and then flips one reference:
 dispatches in flight finish on the old generation, the next one runs the
 new, and a swap that fails raises before the flip.
 
-Canonicalization and test-time rotations are not ported yet.
+Robust serving (``predict_voxels``): ``tta_rotations=True`` averages the
+probabilities over the 24 cube rotations (``ops/augment.py``'s
+``CUBE_GROUP``, the reference's order). Each chunk of parts is uploaded
+to the device once; the rotations are made there with ``permute`` and
+``flip`` and streamed, rotation-major, through the serving program at the
+Predictor's batch, so the device holds one chunk, one staging batch and
+one forward's activations, never 24 rotated copies. The probabilities are
+summed in fp32 in rotation order and divided by 24, as the reference's
+``mean(axis=0)`` over its host-stacked rotations. ``canonicalize=True``
+first undoes each part's arbitrary pose on the host
+(``data/canonicalize.py``, numpy float64) and implies the vote, which
+resolves the 24-fold ambiguity the canonical pose leaves.
 """
 
 from __future__ import annotations
@@ -56,6 +69,7 @@ from featurenet_tpu_torch.config import Config, check_identity, get_config
 from featurenet_tpu_torch.data.stl import load_stl
 from featurenet_tpu_torch.data.synthetic import CLASS_NAMES, generate_batch
 from featurenet_tpu_torch.data.voxelize import voxelize
+from featurenet_tpu_torch.ops.augment import CUBE_GROUP, apply_rotation
 from featurenet_tpu_torch.runtime import build_model, resolve_device, serve_forward
 from featurenet_tpu_torch.runtime.quantize import (
     agreement,
@@ -363,15 +377,70 @@ class Predictor:
         what its programs captured, for comparing and timing the two."""
         return self._weights.programs.body(voxels)
 
-    def predict_voxels(self, grids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    def predict_voxels(self, grids: np.ndarray, canonicalize: bool = False,
+                       tta_rotations: bool = False
+                       ) -> tuple[np.ndarray, np.ndarray]:
         """Classify ``[N, R, R, R]`` (or ``[N,R,R,R,1]``) occupancy grids.
-        Returns ``(labels int32 [N], probs float32 [N, num_classes])``."""
+        Returns ``(labels int32 [N], probs float32 [N, num_classes])``.
+
+        ``tta_rotations=True``: the mean probability over the 24 cube
+        rotations of each part (24 times the device work).
+        ``canonicalize=True``: each part's pose is undone on the host
+        first (min-AABB search and re-voxelization, ``data/
+        canonicalize.py``); implies ``tta_rotations``."""
         g = self._validated(grids)
-        if g.shape[0] == 0:
+        n = g.shape[0]
+        if n == 0:
             return (np.zeros((0,), np.int32),
                     np.zeros((0, self.cfg.arch.num_classes), np.float32))
-        probs = self._batched_forward(g)
+        if canonicalize:
+            from featurenet_tpu_torch.data.canonicalize import (
+                canonicalize as _canon,
+            )
+
+            g = np.stack([_canon(g[i, ..., 0] > 0.5).astype(np.float32)
+                          for i in range(n)])[..., None]
+            tta_rotations = True  # the vote resolves the 24-fold ambiguity
+        probs = self._tta_forward(g) if tta_rotations else self._batched_forward(g)
         return probs.argmax(axis=-1).astype(np.int32), probs
+
+    @torch.inference_mode()
+    def _tta_forward(self, g: np.ndarray) -> np.ndarray:
+        """Mean probabilities over the 24 ``CUBE_GROUP`` rotations of each
+        part of ``g`` ``[N, R, R, R, 1]``. Per chunk of ``batch`` parts:
+        one upload, then the rotation-major stream of (rotation, part)
+        rows, made on the device into a staging batch and run through the
+        program at ``batch``; each part's rows are added in rotation
+        order in fp32."""
+        b, rots = self.batch, len(CUBE_GROUP)
+        classes = self.cfg.arch.num_classes
+        out = np.empty((g.shape[0], classes), np.float32)
+        staging = torch.empty((b,) + g.shape[1:], dtype=torch.float32,
+                              device=self.device)
+        for s in range(0, g.shape[0], b):
+            parts = torch.from_numpy(np.ascontiguousarray(g[s:s + b])).to(self.device)
+            m = parts.shape[0]
+            acc = torch.zeros((m, classes), dtype=torch.float32, device=self.device)
+            total = rots * m
+            for row0 in range(0, total, b):
+                rows = min(b, total - row0)
+                spans = []  # (staging row, part, count) of one rotation each
+                k = 0
+                while k < rows:
+                    r, i = divmod(row0 + k, m)
+                    take = min(m - i, rows - k)
+                    perm, flips = CUBE_GROUP[r]
+                    staging[k:k + take].copy_(
+                        apply_rotation(parts[i:i + take], perm, flips))
+                    spans.append((k, i, take))
+                    k += take
+                if rows < b:
+                    staging[rows:].zero_()
+                probs = self.forward(staging)
+                for k, i, take in spans:
+                    acc[i:i + take] += probs[k:k + take]
+            out[s:s + m] = (acc / rots).cpu().numpy()
+        return out
 
     def _batched_forward(self, g: np.ndarray) -> np.ndarray:
         """Chunk/pad ``g`` to the compile batch, run, trim, concat."""

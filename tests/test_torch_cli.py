@@ -269,3 +269,94 @@ def test_cli_refuses_an_unknown_precision():
         proc = _cli(*args, "--device", "cpu")
         out, err = proc.communicate(timeout=120)
         assert proc.returncode == 2 and "invalid choice" in err
+
+
+# --- robustness evaluation and the data commands (in process) -------------------
+
+def _main(capsys, *args) -> list[dict]:
+    from featurenet_tpu_torch import cli
+
+    assert cli.main(list(args)) == 0
+    return _records(capsys.readouterr().out)
+
+
+@pytest.fixture
+def xla_checkpoint(tmp_path):
+    """A seeded smoke16 checkpoint under the ``xla`` lowering (a library
+    conv on the CPU), run on one CPU thread: the report makes one small
+    forward per class and row."""
+    import dataclasses
+
+    import torch
+
+    from featurenet_tpu_torch.train.checkpoint import CheckpointManager
+    from featurenet_tpu_torch.train.state import create_state
+
+    base = get_config("smoke16")
+    cfg = dataclasses.replace(base, arch=dataclasses.replace(
+        base.arch, conv_backend="xla"))
+    ck = str(tmp_path / "ck")
+    mgr = CheckpointManager(ck, config=cfg)
+    mgr.save(create_state(build_model(cfg, seed=2), cfg))
+    mgr.close()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield ck
+    torch.set_num_threads(threads)
+
+
+def test_cli_eval_ood_on_cpu(xla_checkpoint, tmp_path, capsys):
+    out = str(tmp_path / "rows.json")
+    rows = _main(capsys, "eval-ood", "--checkpoint-dir", xla_checkpoint,
+                 "--device", "cpu", "--per-class", "1", "--families", "tails",
+                 "--seed", "3", "--out", out)
+    assert [(r["family"], r["level"]) for r in rows] == [("clean", None),
+                                                         ("tails", None)]
+    assert all(r["n"] == 24 and 0 <= r["accuracy"] <= 1 for r in rows)
+    assert rows[0]["delta_vs_clean"] == 0.0
+    with open(out) as fh:
+        assert json.load(fh) == rows
+    tta = _main(capsys, "eval-ood", "--checkpoint-dir", xla_checkpoint,
+                "--device", "cpu", "--per-class", "1", "--families", "clean",
+                "--seed", "3", "--tta")
+    assert len(tta) == 1 and tta[0]["n"] == 24
+
+
+def test_cli_stl_tree_build_cache_and_remesh_export(tmp_path, capsys):
+    tree, built, remesh = (str(tmp_path / n) for n in ("stl", "built", "remesh"))
+    exported = _main(capsys, "export-stl-data", "--out", tree, "--per-class",
+                     "1", "--resolution", "16", "--seed", "6")[0]["exported"]
+    assert exported == {c: 1 for c in exported} and len(exported) == 24
+    assert _main(capsys, "build-cache", "--stl-root", tree, "--out", built,
+                 "--resolution", "16", "--workers", "1")[0]["built"] == exported
+    rec = _main(capsys, "export-data", "--out", remesh, "--per-class", "1",
+                "--resolution", "16", "--seed", "6", "--mesh-pose", "remesh",
+                "--param-range", "0.0,1.0")[0]
+    assert (rec["mesh_pose"], rec["param_range"], rec["margin_jitter"]) == \
+        ("remesh", [0.0, 1.0], None)
+    for cls in exported:
+        np.testing.assert_array_equal(np.load(os.path.join(built, f"{cls}.npy")),
+                                      np.load(os.path.join(remesh, f"{cls}.npy")))
+    jit = _main(capsys, "export-data", "--out", str(tmp_path / "j"),
+                "--per-class", "1", "--resolution", "16", "--param-range", "tails",
+                "--margin-jitter", "0.04,0.08")[0]
+    assert (jit["mesh_pose"], jit["param_range"], jit["margin_jitter"]) == \
+        ("none", "tails", [0.04, 0.08])
+
+
+def test_cli_refuses_the_segmentation_paths(tmp_path):
+    from featurenet_tpu_torch import cli
+
+    seg_tree = tmp_path / "segtree"
+    seg_tree.mkdir()
+    (seg_tree / "index.json").write_text(json.dumps({"kind": "segment_stl"}))
+    seg_ck = tmp_path / "segck"
+    seg_ck.mkdir()
+    (seg_ck / "config.json").write_text(json.dumps({"task": "segment"}))
+    for args in (["export-stl-data", "--out", str(tmp_path / "o"), "--seg"],
+                 ["build-cache", "--stl-root", str(seg_tree), "--out",
+                  str(tmp_path / "c")],
+                 ["eval-ood", "--checkpoint-dir", str(seg_ck), "--device", "cpu"]):
+        with pytest.raises(SystemExit, match="Queue A.3"):
+            cli.main(args)
+    assert not (tmp_path / "o").exists() and not (tmp_path / "c").exists()

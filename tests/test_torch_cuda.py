@@ -21,7 +21,11 @@ on the card against the CPU; k train steps replayed as one CUDA graph
 against k eager steps, resident and streamed, with the augmented step
 making no host synchronisation; the train loop's pacing waiting on its own
 dispatch's event, not on the stream; a SIGTERM during a k = 8 replay
-exiting 75 at the group boundary with the state of k eager steps.
+exiting 75 at the group boundary with the state of k eager steps; the
+24-pose vote through the graphed kernels against the plain conv at bucket
+64, with the device holding one chunk and one staging batch, not 24
+rotated copies; the native voxelizer built on the card's host, bitwise the
+numpy fill at 64³.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -872,3 +876,67 @@ def test_sigterm_during_a_k8_replay_exits_75_at_the_boundary(cuda, tmp_path):
         assert torch.equal(x, y) and torch.equal(x, z)
     assert os.path.exists(os.path.join(ck, "fault_sigterm.fired"))
 
+
+
+def test_tta_through_the_kernels_matches_the_plain_conv(cuda):
+    """sprint64 at full width, bucket 64: ``predict_voxels(tta_rotations=
+    True)`` over 40 parts (960 rows, 15 replays of the bucket-64 graph)
+    against the mean of the plain conv's probabilities over the 24
+    rotations (the serving agreement bar, 2e-3); a cube rotation of the
+    input moves the vote by fp32 rounding only; the device peak of the vote
+    stays far below 24 rotated copies of the parts."""
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.synthetic import generate_batch
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.ops.augment import CUBE_GROUP, apply_rotation
+    from featurenet_tpu_torch.runtime import build_model, serve_forward
+
+    cfg = get_config("sprint64")
+    pred = Predictor.from_seed(cfg, 0, batch=64, device=cuda)
+    grids = generate_batch(np.random.default_rng(2), 40, 64)["voxels"][..., 0]
+    pred.program_for(64)
+    replays = pred.replays
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    labels, probs = pred.predict_voxels(grids, tta_rotations=True)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert pred.replays - replays == 15
+    assert peak < 6 * grids[:1].nbytes * 64, peak  # 24 copies: 24 x 40 parts
+    plain = build_model(cfg, seed=0, plain=True).to(cuda)
+    x = torch.from_numpy(grids[..., None]).to(cuda)
+    with torch.inference_mode():
+        want = sum(serve_forward(plain, apply_rotation(x, p, f).contiguous())
+                   for p, f in CUBE_GROUP) / len(CUBE_GROUP)
+    np.testing.assert_allclose(probs, want.cpu().numpy(), rtol=0, atol=2e-3)
+    perm, flips = CUBE_GROUP[9]
+    turned = np.transpose(grids, (0, *(1 + p for p in perm)))
+    turned = np.flip(turned, [1 + i for i, f in enumerate(flips) if f])
+    _, again = pred.predict_voxels(np.ascontiguousarray(turned),
+                                   tta_rotations=True)
+    np.testing.assert_allclose(again, probs, rtol=0, atol=1e-5)
+    assert labels.shape == (40,)
+
+
+def test_native_voxelizer_on_the_card_host_is_bitwise_numpy(cuda):
+    """The native library builds (g++, into build/native/) on the card's
+    host and its parity fill is bitwise the numpy fill on 64³ parts, one of
+    them rotated off the grid axes."""
+    from featurenet_tpu_torch import native
+    from featurenet_tpu_torch.data.synthetic import generate_sample
+    from featurenet_tpu_torch.data.voxel_to_mesh import (
+        random_rotation_matrix,
+        rotate_mesh,
+        voxels_to_mesh,
+    )
+    from featurenet_tpu_torch.data.voxelize import voxelize
+
+    assert native.build()["path"].endswith(".so") and native.available()
+    rng = np.random.default_rng(4)
+    for i, label in enumerate((1, 11)):
+        tris = voxels_to_mesh(generate_sample(rng, 64, label=label)[0])
+        if i:
+            tris = rotate_mesh(tris, random_rotation_matrix(rng))
+        np.testing.assert_array_equal(
+            voxelize(tris, 64, backend="native"),
+            voxelize(tris, 64, backend="numpy"))

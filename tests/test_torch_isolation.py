@@ -58,12 +58,15 @@ def test_port_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= 15
 
 
-def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
+def test_entry_points_refuse_cpu_without_being_asked(monkeypatch, tmp_path):
+    from featurenet_tpu_torch import cli
     from featurenet_tpu_torch.config import get_config
     from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.ood import evaluate_ood
     from featurenet_tpu_torch.runtime import build_model, resolve_device
-
+    from featurenet_tpu_torch.train.checkpoint import CheckpointManager
     from featurenet_tpu_torch.train.loop import Trainer
+    from featurenet_tpu_torch.train.state import create_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("smoke16")
@@ -77,6 +80,22 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, state=state)
     assert Trainer(cfg, device="cpu").device == torch.device("cpu")
+    ck = str(tmp_path / "ck")
+    mgr = CheckpointManager(ck, config=cfg)
+    mgr.save(create_state(build_model(cfg, seed=0), cfg))
+    mgr.close()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_ood(ck, per_class=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["eval-ood", "--checkpoint-dir", ck, "--per-class", "1"])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # 24 small forwards
+    try:
+        rows = evaluate_ood(ck, per_class=1, levels=[("clean", None)], batch=2,
+                            device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert [r["n"] for r in rows] == [24]
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")

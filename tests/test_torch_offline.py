@@ -355,3 +355,94 @@ def test_cli_export_data_then_train_resident_on_cpu(tmp_path):
     assert (ev["accuracy"], ev["loss"]) == (kinds["eval"]["accuracy"],
                                             kinds["eval"]["loss"])
     assert ev["samples"] == 24
+
+
+# --- the STL-tree build and the export modes ----------------------------------
+# The reference builds and exports through its numpy voxelizer (never its
+# native build); the port through its native library under "auto". The
+# native parity fill is bitwise numpy's on these watertight meshes
+# (tests/test_torch_native.py), so every file is held bitwise.
+
+def _same_cache(a: str, b: str):
+    names = sorted(os.listdir(b))
+    assert sorted(os.listdir(a)) == names
+    for name in names:
+        with open(os.path.join(a, name), "rb") as fa, \
+                open(os.path.join(b, name), "rb") as fb:
+            if name == "index.json":
+                assert json.load(fa) == json.load(fb)
+            else:
+                assert fa.read() == fb.read(), name
+
+
+@pytest.fixture(scope="module")
+def stl_tree(tmp_path_factory):
+    from featurenet_tpu_torch.data.voxel_to_mesh import export_stl_tree
+
+    root = str(tmp_path_factory.mktemp("stl") / "tree")
+    export_stl_tree(root, per_class=1, resolution=R, seed=5)
+    return root
+
+
+def test_build_cache_is_the_reference_whatever_the_workers(stl_tree, tmp_path):
+    port1, port2, ref = (str(tmp_path / n) for n in ("w1", "w2", "jax"))
+    got = offline.build_cache(stl_tree, port1, resolution=R, workers=1)
+    assert offline.build_cache(stl_tree, port2, resolution=R, workers=2) == got
+    want = jax_offline.build_cache(stl_tree, ref, resolution=R, workers=1,
+                                   backend="numpy")
+    assert got == want
+    assert got["label_ids"] == {c: i for i, c in enumerate(offline.CLASS_NAMES)}
+    assert got["counts"] == {c: 1 for c in offline.CLASS_NAMES}
+    assert len(os.listdir(port1)) == 2 * 24 + 1
+    _same_cache(port1, port2)
+    _same_cache(port1, ref)
+    # The tree's parts through the mesh pipeline: the remesh export of the
+    # same seed.
+    remesh = str(tmp_path / "remesh")
+    offline.export_synthetic_cache(remesh, per_class=1, resolution=R, seed=5,
+                                   mesh_pose="remesh")
+    for cls in offline.CLASS_NAMES:
+        np.testing.assert_array_equal(
+            np.load(os.path.join(port1, f"{cls}.npy")),
+            np.load(os.path.join(remesh, f"{cls}.npy")))
+
+
+def test_export_modes_write_the_reference_bytes(tmp_path, monkeypatch):
+    import importlib
+
+    jax_voxelize = importlib.import_module("featurenet_tpu.data.voxelize")
+    numpy_only = jax_voxelize.voxelize
+    monkeypatch.setattr(jax_voxelize, "voxelize",
+                        lambda *a, **kw: numpy_only(*a, backend="numpy", **kw))
+    kw = dict(per_class=1, resolution=R, seed=2, param_range="mid",
+              mesh_pose="so3", margin_jitter=(0.04, 0.08))
+    port, ref = str(tmp_path / "port"), str(tmp_path / "jax")
+    got = offline.export_synthetic_cache(port, **kw)
+    want = jax_offline.export_synthetic_cache(ref, **kw)
+    assert got == want
+    assert (got["param_range"], got["mesh_pose"], got["margin_jitter"]) == \
+        ("mid", "so3", [0.04, 0.08])
+    _same_cache(port, ref)
+    with pytest.raises(ValueError, match="mesh_pose"):
+        offline.export_synthetic_cache(port, per_class=1, resolution=R,
+                                       mesh_pose="tilted")
+
+
+def test_build_cache_gives_unknown_class_dirs_ids_after_the_canonical(tmp_path):
+    from featurenet_tpu_torch.data.mesh_primitives import mesh_box
+    from featurenet_tpu_torch.data.stl import save_stl
+
+    tree = tmp_path / "tree"
+    for d in ("zz_custom", "chamfer", "aa_custom", "o_ring"):
+        (tree / d).mkdir(parents=True)
+        save_stl(str(tree / d / "p.stl"), mesh_box())
+    with pytest.warns(UserWarning, match="non-canonical"):
+        got = offline.build_cache(str(tree), str(tmp_path / "port"),
+                                  resolution=8, workers=1)
+    want = jax_offline.build_cache(str(tree), str(tmp_path / "jax"),
+                                   resolution=8, workers=1, backend="numpy")
+    assert got == want
+    assert got["classes"] == ["o_ring", "chamfer", "aa_custom", "zz_custom"]
+    assert got["label_ids"] == {"o_ring": 0, "chamfer": 18, "aa_custom": 24,
+                                "zz_custom": 25}
+    _same_cache(str(tmp_path / "port"), str(tmp_path / "jax"))
