@@ -180,7 +180,7 @@ Phases, in order; any failure exits non-zero before the last line:
      kernels (its build seconds; a build that fails fails the script), on
      8 sprint64 parts at 64³ (2 rotated): bitwise the numpy voxelizer, ms
      per part of each and the OpenMP threads.
-   - `stl_cache`: `cli export-stl-data --per-class 2 --resolution 64`,
+   - `stl_cache`: `cli export-stl-data --per-class 1 --resolution 64`,
      then `cli build-cache` with `--workers 1` and `--workers 4`
      (subprocesses on the host): both caches bitwise each other and the
      `mesh_pose="remesh"` export of the same seed; meshes/s, MB of STL
@@ -198,9 +198,40 @@ Phases, in order; any failure exits non-zero before the last line:
      vote against the plain conv's (PROB_ATOL), a cube rotation of the
      input moving it by at most TTA_ATOL, and the device peak of a 64-part
      vote beside a bucket-64 forward's.
-15. The wall time of every phase, one JSON line of per-kernel numbers
-   (launches by path, the cache, robust, supervise, precision, ood and
-   tta runs' included), the
+15. seg64 (`seg` phase), the segmenter at full width (R=64, batch 32, 3
+   features per part, seg_features 32/64/128, proj_coords input channels,
+   2 decoder blocks, ce_dice; bf16 compute, fp32 masters):
+   - `seg_cache`: export_seg_cache of 512 parts: host s, parts/s, MB on
+     disk.
+   - `seg_train`: 30 steps resident on the card (hbm_cache: packed voxels
+     and int8 seg uploaded once, the paired cube rotation in the step),
+     every loss finite: device ms per step (CUDA events), samples/s, the
+     data-wait share, the peak allocated MB beside the reference's byte
+     model; 10 steps streamed from the cache (host rotation of voxels and
+     seg together, the Prefetcher), their data-wait share; 2 steps from
+     the synthetic stream, the host ms per 3-feature part.
+   - `seg_profile`: 3 resident steps under torch.profiler: device ms per
+     step by kernel family (cuDNN convolutions, gemm, elementwise/reduce/
+     copy) and inside the forward's ranges (input context, casts, batch
+     norm and ReLU, the transposed conv, the loss) and the optimizer's.
+   - `seg_eval`: one exact pass over the held-out split (4 batches):
+     mean IoU, voxel and foreground accuracy (printed, not gated).
+   - `seg_serve`: the trained state saved and restored bitwise;
+     Predictor.from_checkpoint at fp32 and bf16, one CUDA graph per bucket
+     (32, 1): graphed labels bitwise the eager ones, device ms of both,
+     capture s and reserved MB per generation, bf16's per-voxel agreement
+     with fp32; POST /predict_voxels answering the bincount of
+     predict_voxels_seg.
+   - `seg_cli`: `cli export-seg-data`, `cli train --config seg64
+     --data-cache D --hbm-cache --total-steps 4`, `cli eval` (its
+     mean_iou the run's) and `cli infer --seg-out` on two STL parts, as
+     subprocesses.
+   The segmenter runs no kernel of the package (its convolutions are the
+   reference's XLA convolutions, here cuDNN's): every launch count stays 0
+   through the phase, the `seg` path of each kernel.
+16. The wall time of every phase, one JSON line of per-kernel numbers
+   (launches by path, the cache, robust, supervise, precision, ood, tta
+   and seg runs' included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
@@ -1142,7 +1173,7 @@ def step_vs_plain(torch, trainer, snapshot, voxels, labels, backend,
 def host_generation(torch, seed: int, workers: int) -> dict:
     """Synthetic 64³ parts per second (generate_batch + to_wire) that one
     host thread makes, and that the trainer's Prefetcher with ``workers``
-    threads delivers to the card from its start through 3·workers batches
+    threads delivers to the card from its start through 2·workers batches
     of TRAIN_BATCH: the input rate a train step cannot outrun."""
     import numpy as np
 
@@ -1153,7 +1184,7 @@ def host_generation(torch, seed: int, workers: int) -> dict:
     t0 = time.perf_counter()
     to_wire(generate_batch(rng, 64, 64))
     one = 64 / (time.perf_counter() - t0)
-    n = 3 * workers
+    n = 2 * workers
     t0 = time.perf_counter()
     feed = Prefetcher(SyntheticVoxelDataset(64, TRAIN_BATCH, seed=seed), "cuda",
                       num_workers=workers)
@@ -2784,7 +2815,7 @@ def precision_phase(torch, seed: int, train: dict, graphs: dict,
 # the vote sums, so only the fp32 order of the sum changes.
 OOD_PER_CLASS = 1
 NATIVE_PARTS, NATIVE_ROTATED = 8, 2
-STL_PER_CLASS = 2
+STL_PER_CLASS = 1
 STL_WORKERS = (1, 4)
 TTA_PARTS, TTA_MEMORY_PARTS = 24, 64
 TTA_ATOL = 1e-5
@@ -3211,6 +3242,517 @@ def ood_phase(torch, seed: int, native_info: dict, smi_line: str) -> dict:
     return {"launches": {"ood": ood["launches"], "tta": tta["launches"]}}
 
 
+# --- seg64: the segmenter on the card ------------------------------------------
+
+SEG_CACHE_PARTS = 512
+SEG_TRAIN_STEPS = 30
+SEG_STREAM_STEPS = 10
+SEG_SYNTH_STEPS = 2
+SEG_PROFILE_STEPS = 2
+SEG_SERVE_BUCKETS = (32, 1)
+SEG_HTTP_GRIDS = 3
+SEG_CLI_PARTS = 64
+SEG_CLI_STEPS = 4
+# Kernel-name families of a seg64 step's profile, matched in order.
+SEG_FAMILIES = (
+    ("conv (cuDNN fprop, dgrad, wgrad)",
+     ("conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad", "implicit", "winograd")),
+    ("gemm", ("gemm", "cutlass", "cublas")),
+    ("elementwise, reduce, copy",
+     ("elementwise", "reduce", "vectorized", "copy", "cat", "index", "scatter",
+      "gather", "softmax", "batch_norm", "arange", "fill")),
+)
+SEG_RANGES = ("input_context", "casts", "bn_relu", "conv_transpose", "loss",
+              "optimizer")
+
+
+def _seg_act_bytes(cfg) -> int:
+    """The reference's byte model of a segmenter train step's activations
+    per sample (``featurenet_tpu/ops/membytes.py``
+    ``segmenter_act_bytes_per_sample``, 3.2 live bf16 tensors per block),
+    copied here: a sanity line beside the card's peak, not a target."""
+    R, blk = cfg.resolution, 3.2 * 2
+    in_ch = {"none": 1, "proj": 4, "proj_coords": 7}[cfg.seg_input_context]
+    total = 4 * R ** 3 + 2 * in_ch * R ** 3
+    d = R
+    for f in cfg.seg_features:
+        total += int(blk * f * d ** 3)
+        d //= 2
+        total += int(blk * f * d ** 3)
+    for _ in range(cfg.seg_bottleneck_blocks):
+        total += int(blk * cfg.seg_features[-1] * 2 * d ** 3)
+    for f in reversed(cfg.seg_features):
+        d *= 2
+        total += 2 * f * d ** 3 + 2 * 2 * f * d ** 3
+        total += int(blk * f * d ** 3) * cfg.seg_decoder_blocks
+    return total + 3 * 4 * 25 * R ** 3 + 4 * R ** 3
+
+
+def _seg_cfg(seed: int, **kw):
+    from featurenet_tpu_torch.config import get_config
+
+    cfg = get_config("seg64", seed=seed, **kw)
+    if (cfg.task, cfg.resolution, cfg.global_batch, cfg.num_features,
+            tuple(cfg.seg_features), cfg.seg_input_context,
+            cfg.seg_decoder_blocks, cfg.seg_loss) != (
+            "segment", 64, 32, 3, (32, 64, 128), "proj_coords", 2, "ce_dice"):
+        fail(f"seg64 is not at full width: {cfg}")
+    return cfg
+
+
+def _finite(v) -> bool:
+    return v == v and abs(v) < 1e30
+
+
+def _losses_of(trainer) -> list:
+    """A list that collects each dispatch's loss tensor (on the card, no
+    readback) as ``trainer`` runs."""
+    losses, dispatch = [], trainer.dispatch
+
+    def kept(batches, take):
+        metrics = dispatch(batches, take)
+        losses.append(metrics["loss"])
+        return metrics
+
+    trainer.dispatch = kept
+    return losses
+
+
+def _finite_losses(torch, losses: list, steps: int, what: str) -> list[float]:
+    values = torch.stack(losses).tolist()
+    if len(values) != steps or not all(_finite(v) for v in values):
+        fail(f"seg_train {what}: losses {values}")
+    return values
+
+
+def seg_cache_line(seed: int, cache: str, smi_line: str) -> dict:
+    from featurenet_tpu_torch.data.offline import export_seg_cache
+
+    t0 = time.perf_counter()
+    index = export_seg_cache(cache, num_parts=SEG_CACHE_PARTS, resolution=64,
+                             num_features=3, seed=seed)
+    host_s = time.perf_counter() - t0
+    mb = _tree_mb(cache)
+    out = {"parts": sum(s["count"] for s in index["shards"]),
+           "shards": len(index["shards"]), "resolution": 64,
+           "num_features": 3, "label_order": index["label_order"],
+           "host_s": host_s, "parts_per_s": SEG_CACHE_PARTS / host_s,
+           "host_ms_per_part": host_s / SEG_CACHE_PARTS * 1e3,
+           "mb_on_disk": mb, "nvidia_smi": smi_line}
+    print("seg_cache", json.dumps(out), flush=True)
+    return out
+
+
+def _seg_step_ms(torch, trainer, batch, reps: int = 5) -> float:
+    return time_ms(torch, lambda: trainer.step(batch), reps=reps, warmup=1)
+
+
+def seg_train_line(torch, seed: int, cache: str, smi_line: str):
+    """seg64 resident on the card (hbm_cache, the paired rotation in the
+    step) for SEG_TRAIN_STEPS steps, then streamed from the cache (host
+    rotation, the Prefetcher) and from the synthetic stream. Returns the
+    line and the resident trainer."""
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    with open(os.devnull, "w") as sink:
+        # The preset's schedule and cadence; the runs stop early, with no
+        # eval pass, each step's loss kept on the card (_losses_of).
+        cfg = _seg_cfg(seed, data_cache=cache, hbm_cache=True,
+                       eval_every=10 ** 6, data_workers=TRAIN_WORKERS)
+        if not (cfg.device_augment and cfg.augment_groups == 8):
+            fail(f"seg64 resident run does not rotate in the step: {cfg}")
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device="cuda", stream=sink)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        if not (trainer._labels.is_cuda and trainer._labels.dtype == torch.int8):
+            fail("the resident seg is not int8 on the card")
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 1e6
+        losses = _losses_of(trainer)
+        trainer.run(num_steps=SEG_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        losses = _finite_losses(torch, losses, SEG_TRAIN_STEPS, "resident")
+        t = trainer.timing
+        step_ms = _seg_step_ms(torch, trainer, None)
+        resident = {"steps": SEG_TRAIN_STEPS, "setup_s": setup_s,
+                    "device_step_ms": step_ms,
+                    "samples_per_sec_device_bound": cfg.global_batch / step_ms * 1e3,
+                    "samples_per_sec_with_data_wait":
+                        SEG_TRAIN_STEPS * cfg.global_batch / t["wall_s"],
+                    "data_wait_share": t["data_wait_s"] / t["wall_s"],
+                    "losses_finite": True, "first_loss": losses[0],
+                    "last_loss": losses[-1],
+                    "peak_allocated_mb": peak_mb,
+                    "allocated_before_mb": base_mb,
+                    "reference_byte_model_mb": _seg_act_bytes(cfg) * cfg.global_batch / 1e6,
+                    **trainer.resident}
+
+        # Streamed from the cache: the host rotates voxels and seg together.
+        scfg = _seg_cfg(seed, data_cache=cache, eval_every=10 ** 6,
+                        data_workers=TRAIN_WORKERS)
+        streamed = Trainer(scfg, device="cuda", stream=sink)
+        if not streamed.train_data.augment or scfg.device_augment:
+            fail("streamed seg64 does not rotate on the host")
+        sl = _losses_of(streamed)
+        streamed.run(num_steps=SEG_STREAM_STEPS)
+        torch.cuda.synchronize()
+        st = streamed.timing
+        _finite_losses(torch, sl, SEG_STREAM_STEPS, "streamed")
+
+        # The synthetic stream: 3-feature parts made on the host.
+        ycfg = _seg_cfg(seed, data_workers=1)
+        synth = Trainer(ycfg, device="cuda", stream=sink)
+        it = synth.train_data.worker_iter(0)
+        t0 = time.perf_counter()
+        batches = [next(it) for _ in range(SEG_SYNTH_STEPS)]
+        host_s = time.perf_counter() - t0
+        for b in batches:
+            m = synth.step({k: torch.from_numpy(v).cuda() for k, v in b.items()})
+            if not _finite(float(m["loss"])):
+                fail(f"seg_train synthetic: loss {float(m['loss'])}")
+        del synth, streamed
+    out = {"resident": resident,
+           "streamed": {"steps": SEG_STREAM_STEPS, "data_workers": TRAIN_WORKERS,
+                        "samples_per_sec_with_data_wait":
+                            SEG_STREAM_STEPS * scfg.global_batch / st["wall_s"],
+                        "data_wait_share": st["data_wait_s"] / st["wall_s"],
+                        "losses_finite": True},
+           "synthetic": {"steps": SEG_SYNTH_STEPS, "num_features": 3,
+                         "host_ms_per_sample":
+                             host_s / (SEG_SYNTH_STEPS * ycfg.global_batch) * 1e3,
+                         "losses_finite": True},
+           "nvidia_smi": smi_line}
+    print("seg_train", json.dumps(out), flush=True)
+    return out, trainer
+
+
+def seg_profile_line(torch, trainer, smi_line: str) -> dict:
+    """SEG_PROFILE_STEPS resident seg64 steps under torch.profiler: device
+    ms per step by kernel family (matched on the kernel's name) and inside
+    each of SEG_RANGES (forward ranges; the optimizer's is its whole
+    update), the top kernels and the device-busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def is_kernel(e):
+        return e.device_type == DeviceType.CUDA and not e.is_user_annotation
+
+    trainer.step()  # outside the window: nothing first-use inside it
+    torch.cuda.synchronize()
+    steps = SEG_PROFILE_STEPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.step()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    kernels = sorted((e for e in averages if is_kernel(e)),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    device_us = sum(e.self_device_time_total for e in kernels)
+    families = {name: 0.0 for name, _ in SEG_FAMILIES}
+    families["other"] = 0.0
+    for e in kernels:
+        key = e.key.lower()
+        fam = next((name for name, words in SEG_FAMILIES
+                    if any(w in key for w in words)), "other")
+        families[fam] += e.self_device_time_total / 1e3 / steps
+    ranges = {name: sum(e.device_time_total for e in averages
+                        if e.key == name and e.device_type == DeviceType.CPU)
+              / 1e3 / steps for name in SEG_RANGES}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if is_kernel(e))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    window_us = spans[-1][1] - spans[0][0] if spans else 0.0
+    out = {"steps": steps, "device_ms_per_step": device_us / 1e3 / steps,
+           "device_busy_share": busy_us / window_us if window_us else None,
+           "family_device_ms_per_step": families,
+           "range_device_ms_per_step": ranges,
+           "top_kernels": [{"name": e.key[:120], "calls": e.count,
+                            "device_ms_per_step": e.self_device_time_total / 1e3 / steps}
+                           for e in kernels[:10]],
+           "nvidia_smi": smi_line}
+    if device_us == 0:
+        out["device_time"] = "key_averages() recorded no device time"
+    print("seg_profile", json.dumps(out), flush=True)
+    return out
+
+
+def seg_eval_line(trainer, smi_line: str) -> dict:
+    ev = trainer.evaluate()
+    fg = _seg_fg_accuracy(trainer)
+    if not (0.0 <= ev["mean_iou"] <= 1.0 and len(ev["per_class_iou"]) == 25):
+        fail(f"seg_eval: {ev}")
+    out = {"batches": ev["batches"], "samples": ev["samples"],
+           "mean_iou": ev["mean_iou"], "voxel_accuracy": ev["accuracy"],
+           "fg_accuracy": fg, "loss": ev["loss"],
+           "per_class_iou": ev["per_class_iou"], "nvidia_smi": smi_line}
+    print("seg_eval", json.dumps(out), flush=True)
+    return out
+
+
+def _seg_fg_accuracy(trainer) -> float:
+    """Foreground voxel accuracy over the same held-out pass (the eval
+    sums count every voxel)."""
+    import torch
+
+    from featurenet_tpu_torch.train.steps import unpack_voxels
+
+    hit = total = 0.0
+    model = trainer.state.model
+    with torch.no_grad():
+        for batch in trainer.eval_data.epoch_batches(trainer.cfg.global_batch):
+            x = unpack_voxels(torch.from_numpy(batch["voxels"]).cuda())
+            seg = torch.from_numpy(batch["seg"]).cuda().long()
+            keep = torch.from_numpy(batch["mask"]).cuda()[:, None, None, None] > 0
+            fg = (seg > 0) & keep
+            pred = model(x, train=False).argmax(dim=-1)
+            hit += float(((pred == seg) & fg).sum())
+            total += float(fg.sum())
+    return hit / total if total else 0.0
+
+
+def seg_serve_line(torch, seed: int, trainer, tmp: str, smi_line: str) -> dict:
+    """The trained state saved and restored bitwise; Predictor.from_checkpoint
+    at fp32 and bf16 with graphs at SEG_SERVE_BUCKETS: graphed labels
+    bitwise the eager ones, device ms of both, capture s and reserved MB
+    per generation, bf16's per-voxel agreement with fp32; POST
+    /predict_voxels answering the bincount of predict_voxels_seg."""
+    import numpy as np
+
+    from featurenet_tpu_torch.data.synthetic import CLASS_NAMES
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.serve.http import make_server
+    from featurenet_tpu_torch.serve.service import InferenceService
+    from featurenet_tpu_torch.train.checkpoint import CheckpointManager
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    ck = os.path.join(tmp, "seg_ck")
+    mgr = CheckpointManager(ck, config=trainer.cfg)
+    t0 = time.perf_counter()
+    mgr.save(trainer.state)
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    mgr.close()
+    with open(os.devnull, "w") as sink:
+        fresh = Trainer(trainer.cfg, device="cuda", stream=sink)
+    t0 = time.perf_counter()
+    CheckpointManager(ck).restore(fresh.state)
+    restore_s = time.perf_counter() - t0
+    if not _bitwise_equal(torch, _train_state(trainer), _train_state(fresh)):
+        fail("seg_serve: the restored seg64 state is not bitwise the saved one")
+    del fresh
+    R = trainer.cfg.resolution
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = {b: (torch.rand((b, R, R, R, 1), device="cuda", generator=g) > 0.6).float()
+          for b in SEG_SERVE_BUCKETS}
+    gens, labels = {}, {}
+    preds = {}
+    for precision in ("fp32", "bf16"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        pred = Predictor.from_checkpoint(ck, batch=max(SEG_SERVE_BUCKETS),
+                                         device="cuda", precision=precision)
+        t0 = time.perf_counter()
+        progs = {b: pred.program_for(b) for b in SEG_SERVE_BUCKETS}
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        buckets = {}
+        for b in SEG_SERVE_BUCKETS:
+            x = xs[b]
+            n = pred.replays
+            graphed = pred.forward(x)
+            with torch.inference_mode():
+                eager = pred.forward_eager(x)
+            if pred.replays != n + 1 or progs[b].graph is None:
+                fail(f"seg_serve {precision} bucket {b}: not answered by its graph")
+            if graphed.dtype != torch.int8 or tuple(graphed.shape) != (b, R, R, R):
+                fail(f"seg_serve {precision}: labels {graphed.dtype} {tuple(graphed.shape)}")
+            if not torch.equal(graphed, eager):
+                fail(f"seg_serve {precision} bucket {b}: graphed labels differ "
+                     f"from eager at {int((graphed != eager).sum())} voxels")
+            if any(progs[b].capture_launches.values()):
+                fail(f"seg_serve: a capture launched {progs[b].capture_launches}")
+            with torch.inference_mode():
+                eager_ms = time_ms(torch, lambda: pred.forward_eager(x), reps=5)
+            buckets[b] = {"graphed_ms": time_ms(torch, lambda: pred.forward(x), reps=5),
+                          "eager_ms": eager_ms, "bitwise_eager": True,
+                          "capture_s": progs[b].capture_s}
+            labels[(precision, b)] = graphed
+        gens[precision] = {"buckets": buckets, "build_s": build_s,
+                           "generation_reserved_mb":
+                               (torch.cuda.memory_reserved() - base) / 1e6,
+                           "resident_weight_bytes": pred.resident_weight_bytes}
+        preds[precision] = pred
+    agree = {b: float((labels[("bf16", b)] == labels[("fp32", b)]).float().mean())
+             for b in SEG_SERVE_BUCKETS}
+
+    pred = preds["fp32"]
+    del preds["bf16"]
+    rng = np.random.default_rng(seed)
+    grids = (rng.random((SEG_HTTP_GRIDS, R, R, R)) > 0.5).astype(np.float32)
+    want = pred.predict_voxels_seg(grids)
+    # One bucket, the batch predict_voxels_seg pads to: the same program
+    # answers both, so the labels must agree exactly.
+    service = InferenceService(pred, buckets=(pred.batch,), max_wait_ms=2)
+    srv = make_server(service, port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1],
+                                          timeout=120)
+        t0 = time.perf_counter()
+        for grid, lab in zip(grids, want):
+            status, body, _ = _post(conn, "/predict_voxels", grid.astype("<f4").tobytes())
+            counts = np.bincount(lab.ravel().astype(np.int64), minlength=25)
+            expect = {c: int(counts[i + 1]) for i, c in enumerate(CLASS_NAMES)
+                      if counts[i + 1]}
+            if status != 200 or body != {"voxel_counts": expect}:
+                fail(f"seg_serve /predict_voxels answered {status}: {body} "
+                     f"(want {expect})")
+        http_ms = (time.perf_counter() - t0) * 1e3 / SEG_HTTP_GRIDS
+        conn.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.drain()
+    out = {"checkpoint_save_s": save_s, "restore_s": restore_s,
+           "restored_bitwise": True, "generations": gens,
+           "bf16_voxel_agreement_with_fp32": agree,
+           "http_predict_voxels": {"requests": SEG_HTTP_GRIDS,
+                                   "ms_per_request": http_ms,
+                                   "voxel_counts_equal_bincount": True},
+           "nvidia_smi": smi_line}
+    print("seg_serve", json.dumps(out), flush=True)
+    return out
+
+
+class _Cli:
+    """One ``featurenet_tpu_torch.cli`` subprocess, started at once;
+    ``records()`` waits for it and returns its JSON lines, failing the
+    script on a non-zero exit."""
+
+    def __init__(self, name: str, *args):
+        self.name = name
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "featurenet_tpu_torch.cli", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def records(self) -> list[dict]:
+        try:
+            out, err = self.proc.communicate(timeout=600)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.communicate()
+        self.wall_s = time.perf_counter() - self.t0
+        if self.proc.returncode != 0:
+            fail(f"cli {self.name} exited {self.proc.returncode}: {err[-2000:]}")
+        return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def seg_cli_line(seed: int, tmp: str, export: _Cli, smi_line: str) -> dict:
+    """``cli export-seg-data`` (``export``, started with the phase: it runs
+    on the host alone), ``cli train --config seg64 --data-cache``
+    (resident), then ``cli eval`` and ``cli infer --seg-out`` on two STL
+    parts side by side, as subprocesses on the card."""
+    import numpy as np
+
+    from featurenet_tpu_torch.data.stl import save_stl
+    from featurenet_tpu_torch.data.synthetic import generate_sample
+    from featurenet_tpu_torch.data.voxel_to_mesh import voxels_to_mesh
+
+    cache, ck, out_dir = (os.path.join(tmp, n) for n in ("cli_seg", "cli_ck", "cli_out"))
+    exp = export.records()
+    if exp[-1] != {"exported": SEG_CLI_PARTS, "shards": 1}:
+        fail(f"cli export-seg-data printed {exp}")
+    train = _Cli("train", "train", "--config", "seg64", "--data-cache", cache,
+                 "--hbm-cache", "--total-steps", str(SEG_CLI_STEPS),
+                 "--checkpoint-dir", ck, "--seed", str(seed))
+    recs = train.records()
+    train_losses = [r["loss"] for r in recs if r.get("kind") == "train"]
+    tev = [r for r in recs if r.get("kind") == "eval"]
+    if not tev or not all(_finite(v) for v in train_losses) or \
+            recs[-1].get("launches") is None or any(recs[-1]["launches"].values()):
+        fail(f"cli train (seg64) records {recs[-3:]}")
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(2):
+        part, _, _ = generate_sample(rng, 64, num_features=3)
+        paths.append(os.path.join(tmp, f"seg_part{i}.stl"))
+        save_stl(paths[-1], voxels_to_mesh(part.astype(bool)))
+    evaluate = _Cli("eval", "eval", "--checkpoint-dir", ck)
+    infer = _Cli("infer", "infer", "--checkpoint-dir", ck, "--seg-out", out_dir,
+                 *paths)
+    ev = evaluate.records()[-1]["eval"]
+    rows = infer.records()
+    if ev["mean_iou"] != tev[-1]["mean_iou"]:
+        fail(f"cli eval mean_iou {ev['mean_iou']} != the run's {tev[-1]['mean_iou']}")
+    for r in rows:
+        lab = np.load(r["labels_path"])["labels"]
+        if lab.shape != (64, 64, 64) or lab.dtype != np.int8 or \
+                sum(r["voxel_counts"].values()) != int((lab > 0).sum()):
+            fail(f"cli infer --seg-out row {r}")
+    walls = {c.name: c.wall_s for c in (export, train, evaluate, infer)}
+    out = {"walls_s": walls, "exported": SEG_CLI_PARTS,
+           "train_steps": SEG_CLI_STEPS, "train_losses": train_losses,
+           "eval_mean_iou": ev["mean_iou"], "eval_samples": ev["samples"],
+           "infer_rows": [{"path": os.path.basename(r["path"]),
+                           "voxel_counts": r["voxel_counts"]} for r in rows],
+           "nvidia_smi": smi_line}
+    print("seg_cli", json.dumps(out), flush=True)
+    return out
+
+
+def seg_phase(torch, seed: int, smi_line: str) -> dict:
+    """seg64 at full width: ``seg_cache``, ``seg_train``, ``seg_profile``,
+    ``seg_eval``, ``seg_serve`` and ``seg_cli`` lines. The segmenter runs
+    no kernel of the package: every count must stay 0 across the phase's
+    in-process runs and the `cli train` subprocess."""
+    walls = {}
+
+    def part(name, fn, *a):
+        t = time.perf_counter()
+        r = fn(*a)
+        walls[name] = time.perf_counter() - t
+        return r
+
+    _reset_counts()
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".data")
+    os.makedirs(data_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=data_dir) as tmp:
+        export = _Cli("export-seg-data", "export-seg-data", "--out",
+                      os.path.join(tmp, "cli_seg"), "--num-parts",
+                      str(SEG_CLI_PARTS), "--seed", str(seed))
+        try:
+            cache = os.path.join(tmp, "seg64")
+            part("seg_cache", seg_cache_line, seed, cache, smi_line)
+            _, trainer = part("seg_train", seg_train_line, torch, seed, cache,
+                              smi_line)
+            part("seg_profile", seg_profile_line, torch, trainer, smi_line)
+            part("seg_eval", seg_eval_line, trainer, smi_line)
+            part("seg_serve", seg_serve_line, torch, seed, trainer, tmp, smi_line)
+            del trainer
+            torch.cuda.empty_cache()
+            part("seg_cli", seg_cli_line, seed, tmp, export, smi_line)
+        finally:
+            if export.proc.poll() is None:
+                export.proc.kill()
+                export.proc.communicate()
+    counts = _read_counts()
+    if any(counts.values()):
+        fail(f"seg: the segmenter launched kernels of the package: {counts}")
+    print("seg", json.dumps({"walls_s": walls, "launches": counts}), flush=True)
+    return {"launches": counts}
+
+
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
     main = [r for r in rows if r["main_path"]]
     return {
@@ -3300,6 +3842,7 @@ def main() -> int:
                            smi_line)["launches"]
     robustness = phase("ood", ood_phase, torch, args.seed, native_info,
                        smi_line)["launches"]
+    seg = phase("seg", seg_phase, torch, args.seed, smi_line)["launches"]
     print("phase_walls", json.dumps(walls), flush=True)
 
     # ms, plain_ms, library_ms and bound_ms sum one train step's shapes
@@ -3324,7 +3867,8 @@ def main() -> int:
                        "robust": robust["conv3d_fwd"],
                        "supervise": supervised["conv3d_fwd"],
                        **{k: v["conv3d_fwd"] for k, v in rungs.items()},
-                       **{k: v["conv3d_fwd"] for k, v in robustness.items()}}),
+                       **{k: v["conv3d_fwd"] for k, v in robustness.items()},
+                       "seg": seg["conv3d_fwd"]}),
         _kernel_entry("conv3d_dw", "featurenet_tpu_torch/ops/csrc/conv3d_dw.cu",
                       "featurenet_tpu/ops/conv3d.py:192", rows["conv3d_dw"],
                       {"train_pallas": tp["conv3d_dw"],
@@ -3334,7 +3878,8 @@ def main() -> int:
                        "robust": robust["conv3d_dw"],
                        "supervise": supervised["conv3d_dw"],
                        **{k: v["conv3d_dw"] for k, v in rungs.items()
-                          if k.startswith("train")}}),
+                          if k.startswith("train")},
+                       "seg": seg["conv3d_dw"]}),
         _kernel_entry("conv_dw_folded",
                       "featurenet_tpu_torch/ops/csrc/conv_dw_folded.cu",
                       "featurenet_tpu/ops/conv_dw.py:163", rows["conv_dw_folded"],
@@ -3345,7 +3890,8 @@ def main() -> int:
                        "robust": robust["conv_dw_folded"],
                        "supervise": supervised.get("conv_dw_folded", 0),
                        **{k: v["conv_dw_folded"] for k, v in rungs.items()
-                          if k.startswith("train")}}),
+                          if k.startswith("train")},
+                       "seg": seg["conv_dw_folded"]}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)

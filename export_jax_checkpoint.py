@@ -7,7 +7,8 @@ Reads the newest good step (or ``--step``) of a run that
 ``featurenet_tpu``'s Trainer wrote, through that package's own
 ``CheckpointManager``, and writes one step of the same number through the
 port's ``CheckpointManager``: the weights and batch-norm statistics
-(``convert.from_flax``), the Adam moments and count
+(``convert.from_flax``; a classifier or, for a ``task="segment"`` run, the
+segmenter), the Adam moments and count
 (``convert.opt_from_optax``), the step, the loss-scale state
 (``convert.scale_state_from_jax``; a JAX ``fp16_scaled`` run resumes with
 its adapted scale), and the run's ``config.json``. The
@@ -45,15 +46,13 @@ def export(src: str, dst: str, step: int | None = None) -> int:
     from featurenet_tpu.train.steps import make_optimizer as jax_make_optimizer
     from featurenet_tpu_torch import convert
     from featurenet_tpu_torch.config import config_from_dict
-    from featurenet_tpu_torch.models.featurenet import FeatureNet
+    from featurenet_tpu_torch.runtime import build_model
     from featurenet_tpu_torch.train.checkpoint import CheckpointManager
     from featurenet_tpu_torch.train.state import create_state
 
     jcfg = jax_load_run_config(src)
     if jcfg is None:
         raise SystemExit(f"{src!r} has no config.json; not a JAX run directory")
-    if jcfg.task != "classify":
-        raise SystemExit(f"task {jcfg.task!r} is not ported; only 'classify' is")
     r = jcfg.resolution
     jstate = jax_create_state(jax_build_model(jcfg), jax_make_optimizer(jcfg),
                               np.zeros((1, r, r, r, 1), np.float32),
@@ -67,7 +66,7 @@ def export(src: str, dst: str, step: int | None = None) -> int:
                                                  default=str)))
     cfg = dataclasses.replace(cfg, checkpoint_dir=os.path.abspath(dst),
                               init_from=None)
-    model = FeatureNet(cfg.arch, cfg.resolution)
+    model = build_model(cfg)
     model.load_state_dict(convert.from_flax(
         {"params": to_np(jstate.params), "batch_stats": to_np(jstate.batch_stats)},
         cfg.arch))

@@ -3,6 +3,9 @@
     python -m featurenet_tpu_torch.cli export-data --out .data/c \
         [--per-class 1000 --resolution 64 --seed 0 --param-range mid|tails|LO,HI \
          --mesh-pose none|remesh|so3 --margin-jitter LO,HI]
+    python -m featurenet_tpu_torch.cli export-seg-data --out .data/seg64 \
+        [--num-parts 2400 --resolution 64 --num-features 3 --seed 0 \
+         --label-order canonical|generation]
     python -m featurenet_tpu_torch.cli export-stl-data --out .data/stl \
         [--per-class 10 --resolution 64 --seed 0]
     python -m featurenet_tpu_torch.cli build-cache --stl-root .data/stl \
@@ -16,10 +19,12 @@
          --no-augment-affine-rotate --augment-scale-range LO HI \
          --augment-translate-vox T]] [--augment-noise F] \
         [--checkpoint-dir CK --checkpoint-every N --keep-checkpoints K \
-         --init-from OTHER_CK --total-steps N --global-batch B \
+         --init-from OTHER_CK --resolution R --total-steps N --global-batch B \
          --eval-batches E --conv-backend pallas|hybrid_dw|xla|fused33 \
          --train-precision fp32|bf16_master|fp16_scaled \
          --serve-precision fp32|bf16|int8 --seed S] \
+        [--seg-loss balanced_ce|ce_dice|dice \
+         --seg-input-context none|proj|proj_coords] \
         [--supervise --checkpoint-dir CK [--stall-timeout S --max-restarts N \
          --heartbeat-file F --restart-every N]] [--inject-faults SPEC]
     python -m featurenet_tpu_torch.cli serve --checkpoint-dir CK --port 0 \
@@ -30,13 +35,16 @@
     python -m featurenet_tpu_torch.cli eval --checkpoint-dir CK \
         [--serve-precision fp32|bf16|int8]
     python -m featurenet_tpu_torch.cli infer --checkpoint-dir CK \
-        [--precision fp32|bf16|int8] part.stl ...
+        [--precision fp32|bf16|int8] [--seg-out DIR] part.stl ...
     python -m featurenet_tpu_torch.cli recalibrate --checkpoint-dir CK \
         --out-dir CK2 [--batches 64 --data-cache D]
 
-Every subcommand but the three data commands runs on the card unless
+Every subcommand but the four data commands runs on the card unless
 ``--device cpu`` is given. The data commands run on the host alone and
-never create a CUDA context: ``export-data`` writes the synthetic parts
+never create a CUDA context: ``export-seg-data`` writes multi-feature
+parts with their per-voxel labels into a segmentation cache
+(``data/offline.py`` ``export_seg_cache``) and prints ``{"exported": N,
+"shards": S}``; ``export-data`` writes the synthetic parts
 into a packed voxel cache (``data/offline.py``; ``--param-range``,
 ``--mesh-pose`` and ``--margin-jitter`` as ``export_synthetic_cache``
 takes them) and prints ``{"exported": {class: count}, ...}``;
@@ -46,8 +54,19 @@ count}}``; ``build-cache`` voxelizes such a tree (or any tree of
 ``<class>/*.stl``) into a packed cache over ``--workers`` processes
 (default: one per core) and prints ``{"built": {class: count},
 "seconds": wall}``. The
-segmentation trees are not ported: ``export-stl-data --seg`` and a
-``segment_stl`` tree are refused.
+segmentation STL trees are not ported: ``export-stl-data --seg`` and a
+``segment_stl`` tree are refused (ROADMAP Queue A.3).
+
+A segmentation run (``train --config seg64``) trains the segmenter from a
+segmentation cache (``--data-cache``, ``--hbm-cache``) or from synthetic
+multi-feature parts; ``--seg-loss`` and ``--seg-input-context`` override
+the preset's loss and input channels (the latter is part of the model's
+identity, so a resumed run refuses a change). ``eval`` of a segment
+checkpoint prints ``mean_iou`` and ``per_class_iou``; ``infer`` prints one
+``{"path", "voxel_counts"}`` line per part and with ``--seg-out DIR``
+writes each part's label grid to ``DIR/<stem>_seg.npz`` (key ``labels``,
+int8 ``[R, R, R]``); ``serve`` answers ``/predict`` and
+``/predict_voxels`` with ``{"voxel_counts": ...}``.
 
 ``eval-ood`` prints the robustness report of a classify checkpoint
 (``ood.py``), one JSON row per (family, level), and with ``--out`` also
@@ -130,8 +149,9 @@ DEFAULT_PRESET = "sprint64"
 
 
 def _parser() -> argparse.ArgumentParser:
-    from featurenet_tpu_torch.config import PRESETS
+    from featurenet_tpu_torch.config import PRESETS, SEG_LOSSES
     from featurenet_tpu_torch.models.featurenet import CONV_BACKENDS
+    from featurenet_tpu_torch.models.segmenter import INPUT_CONTEXTS
     from featurenet_tpu_torch.train.precision import (
         SERVE_PRECISIONS,
         TRAIN_PRECISIONS,
@@ -179,14 +199,16 @@ def _parser() -> argparse.ArgumentParser:
                             "sites: replica_slow@request=N, swap_corrupt@swap=N, "
                             "replica_loss_rollout@swap=N")
 
-    p_tr = sub.add_parser("train", help="train a classify preset on "
-                                        "synthetic parts or a voxel cache")
+    p_tr = sub.add_parser("train", help="train a preset on synthetic parts "
+                                        "or a voxel or segmentation cache")
     common(p_tr, f"preset to train (default {DEFAULT_PRESET}); a resumed "
                  "run takes its checkpoint's")
     precision(p_tr, "--train-precision", "train_precision", TRAIN_PRECISIONS,
               "training precision policy")
     precision(p_tr, "--serve-precision", "serve_precision", SERVE_PRECISIONS,
               "precision of the run's eval and serving")
+    p_tr.add_argument("--resolution", type=int,
+                      help="voxel grid edge (part of the model's identity)")
     p_tr.add_argument("--total-steps", type=int, dest="total_steps")
     p_tr.add_argument("--global-batch", type=int, dest="global_batch")
     p_tr.add_argument("--eval-batches", type=int, dest="eval_batches")
@@ -234,6 +256,12 @@ def _parser() -> argparse.ArgumentParser:
     p_tr.add_argument("--augment-noise", type=float, dest="augment_noise",
                       help="per-voxel occupancy bit-flip rate in the step "
                            "(0 = off)")
+    p_tr.add_argument("--seg-loss", dest="seg_loss", choices=SEG_LOSSES,
+                      help="segmentation loss variant (segment presets)")
+    p_tr.add_argument("--seg-input-context", dest="seg_input_context",
+                      choices=INPUT_CONTEXTS,
+                      help="segmenter input channels: axis projections, and "
+                           "coordinates")
     p_tr.add_argument("--inject-faults", dest="inject_faults",
                       help="fault spec 'site[@counter=N[:every=M]],...' "
                            "(featurenet_tpu_torch.faults), e.g. "
@@ -277,6 +305,20 @@ def _parser() -> argparse.ArgumentParser:
     p_exp.add_argument("--margin-jitter", dest="margin_jitter", default=None,
                        help="'lo,hi': per-part normalization margin "
                             "(default fixed 0.05)")
+
+    p_seg = sub.add_parser("export-seg-data", help="write multi-feature parts "
+                                                   "with per-voxel labels into "
+                                                   "a segmentation cache")
+    p_seg.add_argument("--out", required=True)
+    p_seg.add_argument("--num-parts", type=int, default=2400, dest="num_parts")
+    p_seg.add_argument("--resolution", type=int, default=64)
+    p_seg.add_argument("--num-features", type=int, default=3, dest="num_features")
+    p_seg.add_argument("--seed", type=int, default=0)
+    p_seg.add_argument("--label-order", choices=["canonical", "generation"],
+                       default="canonical", dest="label_order",
+                       help="label of a voxel several features cover: the "
+                            "lowest class id's (canonical, default) or the "
+                            "first drawn (generation)")
 
     p_stl = sub.add_parser("export-stl-data", help="write the synthetic parts "
                                                    "as an STL class tree")
@@ -324,11 +366,15 @@ def _parser() -> argparse.ArgumentParser:
     p_ev.add_argument("--eval-batches", type=int, dest="eval_batches")
     p_ev.add_argument("--global-batch", type=int, dest="global_batch")
 
-    p_inf = sub.add_parser("infer", help="classify STL parts with a checkpoint")
+    p_inf = sub.add_parser("infer", help="classify (or segment) STL parts "
+                                         "with a checkpoint")
     p_inf.add_argument("--checkpoint-dir", dest="checkpoint_dir", required=True)
     common(p_inf, "must be the run's preset when given")
     precision(p_inf, "--precision", "precision", SERVE_PRECISIONS,
               "serving weight precision")
+    p_inf.add_argument("--seg-out", dest="seg_out",
+                       help="segment checkpoints: also write each part's "
+                            "label grid to DIR/<stem>_seg.npz")
     p_inf.add_argument("paths", nargs="+", help="STL files")
 
     p_rec = sub.add_parser("recalibrate",
@@ -372,10 +418,17 @@ def _cfg_from_checkpoint(saved, args, **policy):
     # What belongs to the run that saved, not to its resumes or readers,
     # unless given again: a stale heartbeat path, a fault spec, and a
     # segment length (an unsupervised resume would exit 75 mid-run).
+    from featurenet_tpu_torch.config import check_identity
+
     for k in ("heartbeat_file", "restart_every_steps", "inject_faults"):
         policy.setdefault(k, None)
-    return _with_backend(dataclasses.replace(saved, **policy),
-                         args.conv_backend).validate()
+    cfg = _with_backend(dataclasses.replace(saved, **policy),
+                        args.conv_backend).validate()
+    try:
+        check_identity(saved, cfg)  # e.g. --seg-input-context
+    except ValueError as e:
+        raise SystemExit(str(e))
+    return cfg
 
 
 def _saved_config(directory: str):
@@ -442,7 +495,8 @@ def _train(args) -> int:
     from featurenet_tpu_torch.train.checkpoint import load_run_config
     from featurenet_tpu_torch.train.loop import Trainer
 
-    policy = _policy(args, ("total_steps", "global_batch", "eval_batches",
+    policy = _policy(args, ("resolution", "total_steps", "global_batch",
+                            "eval_batches",
                             "data_workers", "seed", "checkpoint_dir",
                             "checkpoint_every", "keep_checkpoints",
                             "init_from", "data_cache", "hbm_cache",
@@ -451,6 +505,7 @@ def _train(args) -> int:
                             "augment_affine_prob", "augment_ramp_steps",
                             "augment_affine_rotate", "augment_scale_range",
                             "augment_translate_vox", "augment_noise",
+                            "seg_loss", "seg_input_context",
                             "inject_faults", "heartbeat_file",
                             "restart_every_steps"))
     if "augment_scale_range" in policy:
@@ -534,6 +589,18 @@ def _export_data(args) -> int:
     return 0
 
 
+def _export_seg_data(args) -> int:
+    from featurenet_tpu_torch.data.offline import export_seg_cache
+
+    index = export_seg_cache(args.out, num_parts=args.num_parts,
+                             resolution=args.resolution,
+                             num_features=args.num_features, seed=args.seed,
+                             label_order=args.label_order)
+    print(json.dumps({"exported": sum(s["count"] for s in index["shards"]),
+                      "shards": len(index["shards"])}), flush=True)
+    return 0
+
+
 def _export_stl_data(args) -> int:
     from featurenet_tpu_torch.data.voxel_to_mesh import export_stl_tree
 
@@ -614,15 +681,39 @@ def _eval(args) -> int:
 
 
 def _infer(args) -> int:
-    from featurenet_tpu_torch.infer import Predictor
+    import os
+
+    import numpy as np
+
+    from featurenet_tpu_torch.infer import Predictor, SegPrediction
 
     cfg = _cfg_from_checkpoint(_saved_config(args.checkpoint_dir), args)
+    if args.seg_out and cfg.task != "segment":
+        raise SystemExit(
+            f"--seg-out only applies to segmentation checkpoints (config "
+            f"{cfg.name!r} has task={cfg.task!r}); it would write nothing")
     pred = Predictor.from_checkpoint(args.checkpoint_dir, config=cfg,
                                      batch=min(len(args.paths), 32),
                                      device=args.device,
                                      precision=args.precision)
+    if args.seg_out:
+        os.makedirs(args.seg_out, exist_ok=True)
+    used: set = set()
     for p in pred.predict_stl(args.paths):
-        print(json.dumps({**dataclasses.asdict(p), "precision": pred.precision,
+        if isinstance(p, SegPrediction):
+            row = {"path": p.path, "voxel_counts": p.voxel_counts}
+            if args.seg_out:
+                # Parts of one stem from two directories keep both grids.
+                stem = os.path.splitext(os.path.basename(p.path))[0]
+                name, i = f"{stem}_seg.npz", 1
+                while name in used:
+                    name, i = f"{stem}_{i}_seg.npz", i + 1
+                used.add(name)
+                row["labels_path"] = os.path.join(args.seg_out, name)
+                np.savez_compressed(row["labels_path"], labels=p.labels)
+        else:
+            row = dataclasses.asdict(p)
+        print(json.dumps({**row, "precision": pred.precision,
                           "model_version": pred.model_version}), flush=True)
     return 0
 
@@ -678,7 +769,8 @@ def _serve(args) -> int:
         "host": srv.server_address[0], "port": srv.server_address[1],
         "buckets": list(buckets), "max_wait_ms": args.max_wait_ms,
         "queue_limit": args.queue_limit, "precision": pred.precision,
-        "config": pred.cfg.name, "conv_backend": pred.cfg.arch.conv_backend,
+        "config": pred.cfg.name, "task": pred.cfg.task,
+        "conv_backend": pred.cfg.arch.conv_backend,
         "device": str(pred.device), "model_version": pred.model_version,
         "endpoints": ENDPOINTS,
     }}), flush=True)
@@ -699,6 +791,7 @@ def main(argv=None) -> int:
     args.raw_argv = list(argv) if argv is not None else sys.argv[1:]
     return {"train": _train, "serve": _serve, "eval": _eval,
             "infer": _infer, "export-data": _export_data,
+            "export-seg-data": _export_seg_data,
             "export-stl-data": _export_stl_data, "build-cache": _build_cache,
             "eval-ood": _eval_ood, "recalibrate": _recalibrate}[args.cmd](args)
 

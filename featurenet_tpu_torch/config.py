@@ -1,7 +1,11 @@
-"""Configuration and the classify presets (port of the parts of
+"""Configuration and the presets (port of the parts of
 ``featurenet_tpu/config.py`` that serving and training read).
 
-Kept: the model identity (``name``, ``task``, ``resolution``, ``arch``),
+Kept: the model identity (``name``, ``task``, ``resolution``, ``arch``, and
+for ``task="segment"`` the segmenter's ``seg_features``,
+``seg_input_context``, ``seg_decoder_blocks`` and
+``seg_bottleneck_blocks``; ``models/segmenter.py``), ``seg_loss``
+(``balanced_ce``, ``ce_dice``, ``dice``; ``train/steps.py``),
 ``serve_precision`` (``fp32``, ``bf16``, ``int8``), ``seed``, the training
 recipe -- batch, data workers, eval batches, optimizer, schedule, label
 smoothing, clipping, ``train_precision`` (``fp32``, ``bf16_master``,
@@ -25,8 +29,15 @@ the affine warp (``augment_affine_prob``, ``augment_ramp_steps``,
 ``augment_translate_vox``); ``augment_noise`` flips occupancy after either
 (``ops/augment.py``). ``steps_per_dispatch`` runs k train steps per
 dispatch, one CUDA graph on the card (``train/loop.py``). The reference's
-validation of these fields is kept. ``seg64`` waits for the segmenter's
-port.
+validation of these fields is kept.
+
+``task="segment"`` (the ``seg64`` preset) trains and serves the per-voxel
+segmenter from synthetic multi-feature parts or a segmentation cache
+(``data/offline.py``); a streamed cache rotates on the host, a resident
+one in the step, voxels and target together. Two combinations wait for
+ROADMAP Queue A.3 and are refused: ``augment_affine`` with ``segment``
+(the paired affine warp) and ``serve_precision="int8"`` with ``segment``
+(int8 segment serving).
 """
 
 from __future__ import annotations
@@ -40,9 +51,12 @@ from featurenet_tpu_torch.models.featurenet import (
     deep_arch,
     tiny_arch,
 )
+from featurenet_tpu_torch.models.segmenter import INPUT_CONTEXTS
 from featurenet_tpu_torch.train.precision import SERVE_PRECISIONS, TRAIN_PRECISIONS
 
 OPTIMIZERS = ("adamw", "adam", "sgd")
+TASKS = ("classify", "segment")
+SEG_LOSSES = ("balanced_ce", "ce_dice", "dice")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +65,15 @@ class Config:
     task: str = "classify"
     resolution: int = 64
     arch: FeatureNetArch = dataclasses.field(default_factory=FeatureNetArch)
+    # The segmenter (task="segment", models/segmenter.py): encoder widths,
+    # loss variant (train/steps.segmentation_loss), input context channels
+    # ("none", "proj", "proj_coords") and the refine convs per decoder
+    # stage and in the bottleneck. All but seg_loss are identity fields.
+    seg_features: tuple[int, ...] = (32, 64, 128)
+    seg_loss: str = "balanced_ce"
+    seg_input_context: str = "none"
+    seg_decoder_blocks: int = 1
+    seg_bottleneck_blocks: int = 1
     # Serving weight precision (train/precision.py serve_params_cast):
     # "fp32" masters, a "bf16" working copy, or "int8" per-channel
     # quantized weights; the model computes in its bf16 activation dtype
@@ -141,13 +164,23 @@ class Config:
             return False
         if self.hbm_cache:
             return True
-        return bool(self.data_cache and self.augment_device)
+        return bool(self.data_cache and self.augment_device
+                    and self.task == "classify")
 
     def validate(self) -> "Config":
-        if self.task != "classify":
+        if self.task not in TASKS:
+            raise ValueError(f"unknown task {self.task!r}; one of {TASKS}")
+        if self.seg_loss not in SEG_LOSSES:
+            raise ValueError(f"unknown seg_loss {self.seg_loss!r}")
+        if self.seg_input_context not in INPUT_CONTEXTS:
             raise ValueError(
-                f"task {self.task!r} is not ported; only 'classify' is"
-            )
+                f"unknown seg_input_context {self.seg_input_context!r}")
+        if self.seg_decoder_blocks < 1 or self.seg_bottleneck_blocks < 1:
+            raise ValueError(
+                "seg_decoder_blocks and seg_bottleneck_blocks must be >= 1")
+        features = tuple(self.seg_features)
+        if features != self.seg_features:  # a JSON list compares unequal
+            object.__setattr__(self, "seg_features", features)
         if self.serve_precision not in SERVE_PRECISIONS:
             raise ValueError(
                 f"unknown serve_precision {self.serve_precision!r}; one of "
@@ -206,11 +239,35 @@ class Config:
                     "augment=True would otherwise be silently ignored -- "
                     "pass augment=False to train unaugmented"
                 )
+        if self.task == "segment":
+            self._validate_segment()
         self._validate_augment()
         if self.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got "
                              f"{self.steps_per_dispatch}")
         return self
+
+    def _validate_segment(self) -> None:
+        """The reference's divisibility check, and the refusals of what a
+        segment run of the port does not do yet."""
+        down = 2 ** len(self.seg_features)
+        if self.resolution % down:
+            raise ValueError(
+                f"segment task: resolution {self.resolution} must be "
+                f"divisible by 2**len(seg_features) = {down}"
+            )
+        if self.augment_affine:
+            raise ValueError(
+                "augment_affine with task='segment' (the paired affine warp "
+                "of voxels and per-voxel target) is not ported yet (ROADMAP "
+                "Queue A.3); a segment run poses by the cube rotation"
+            )
+        if self.serve_precision == "int8":
+            raise ValueError(
+                "serve_precision='int8' with task='segment' (int8 segment "
+                "serving) is not ported yet (ROADMAP Queue A.3); serve a "
+                "segmenter at fp32 or bf16"
+            )
 
     def _validate_augment(self) -> None:
         """The reference's checks of the affine and noise fields."""
@@ -323,6 +380,13 @@ PRESETS = {
         data_cache=".data/cls64_cache", hbm_cache=True, steps_per_dispatch=8,
         augment_affine=True, augment_affine_prob=0.5, augment_noise=0.005,
     ),
+    # The reference's seg64: ce_dice, axis-projection and coordinate
+    # input channels, two refine convs per decoder stage.
+    "seg64": lambda: Config(
+        name="seg64", task="segment", resolution=64, global_batch=32,
+        num_features=3, total_steps=10000, peak_lr=5e-4, seg_loss="ce_dice",
+        seg_input_context="proj_coords", seg_decoder_blocks=2,
+    ),
     "abc128": lambda: Config(name="abc128", resolution=128, arch=deep_arch(),
                              global_batch=32, total_steps=8000, peak_lr=3e-4),
 }
@@ -348,8 +412,9 @@ def config_from_dict(d: dict) -> Config:
     the tuples the arch and ``augment_scale_range`` expect."""
     known = {f.name for f in dataclasses.fields(Config)}
     kw = {k: v for k, v in d.items() if k in known}
-    if "augment_scale_range" in kw:
-        kw["augment_scale_range"] = tuple(kw["augment_scale_range"])
+    for k in ("augment_scale_range", "seg_features"):
+        if k in kw:
+            kw[k] = tuple(kw[k])
     if "arch" in kw:
         known_a = {f.name for f in dataclasses.fields(FeatureNetArch)}
         kw["arch"] = FeatureNetArch(**{
@@ -361,7 +426,9 @@ def config_from_dict(d: dict) -> Config:
 
 # Fields that define the trained artifact: a checkpoint restores only under
 # these values. The rest (schedule, data, cadence, paths) is run policy.
-IDENTITY_FIELDS = ("task", "resolution", "arch")
+IDENTITY_FIELDS = ("task", "resolution", "arch", "seg_features",
+                   "seg_input_context", "seg_decoder_blocks",
+                   "seg_bottleneck_blocks")
 
 
 def _identity_view(cfg: Config, field: str):

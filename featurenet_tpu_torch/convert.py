@@ -14,6 +14,14 @@ dict of numpy arrays ``jax.device_get(model.init(...))`` gives -- into a
 - ``params/Dense_j/{kernel,bias}`` → ``dense{j}.{weight,bias}``; the Flax
   kernel is ``[in, out]`` and is transposed for ``F.linear``.
 
+A ``FeatureNetSegmenter`` tree (one that holds ``ConvTranspose_0``) maps
+the same way to the port's ``FeatureNetSegmenter``
+(``models/segmenter.py``): ``ConvBNRelu_i`` → ``blocks.i`` (the strided
+blocks' scope is ``SpaceToDepthConv_0``, the others' ``Conv_0``),
+``ConvTranspose_j/{kernel,bias}`` → ``ups.j.{kernel,bias}`` and
+``Conv_0/{kernel,bias}`` → ``head.{kernel,bias}``, every kernel in its
+Flax layout; ``arch`` is not read.
+
 ``opt_from_optax`` maps the state of optax's ``adam``/``adamw`` (or either
 after ``clip_by_global_norm``), as ``jax.device_get`` gives it, to the
 port optimizer's moments keyed by parameter name and its ``count``; with
@@ -57,15 +65,36 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def _from_params(params: dict, arch: FeatureNetArch) -> dict[str, torch.Tensor]:
+def _is_segmenter(params: dict) -> bool:
+    return "ConvTranspose_0" in params
+
+
+def _block_count(params: dict) -> int:
+    return sum(1 for k in params if k.startswith("ConvBNRelu_"))
+
+
+def _from_params(params: dict, arch) -> dict[str, torch.Tensor]:
     """The parameters of a ``params``-shaped tree, in port names."""
     out = {}
-    for i in range(len(arch.features)):
+    for i in range(_block_count(params)):
         name = f"ConvBNRelu_{i}"
         out[f"blocks.{i}.conv.kernel"] = _t(_conv_kernel(params[name], name))
         bn = params[name]["BatchNorm_0"]
         out[f"blocks.{i}.scale"] = _t(bn["scale"])
         out[f"blocks.{i}.bias"] = _t(bn["bias"])
+    if _is_segmenter(params):
+        j = 0
+        while f"ConvTranspose_{j}" in params:
+            up = params[f"ConvTranspose_{j}"]
+            out[f"ups.{j}.kernel"] = _t(up["kernel"])
+            out[f"ups.{j}.bias"] = _t(up["bias"])
+            j += 1
+        out["head.kernel"] = _t(params["Conv_0"]["kernel"])
+        out["head.bias"] = _t(params["Conv_0"]["bias"])
+        return out
+    if arch is not None and len(arch.features) != _block_count(params):
+        raise KeyError(f"the tree has {_block_count(params)} conv blocks, the "
+                       f"arch {len(arch.features)}")
     for j in range(2):
         dense = params[f"Dense_{j}"]
         out[f"dense{j}.weight"] = _t(dense["kernel"]).T.contiguous()
@@ -73,10 +102,13 @@ def _from_params(params: dict, arch: FeatureNetArch) -> dict[str, torch.Tensor]:
     return out
 
 
-def from_flax(variables: dict, arch: FeatureNetArch) -> dict[str, torch.Tensor]:
-    """Port ``state_dict`` (fp32 tensors) from JAX ``FeatureNet`` variables."""
-    out = _from_params(variables["params"], arch)
-    for i in range(len(arch.features)):
+def from_flax(variables: dict, arch: FeatureNetArch | None = None
+              ) -> dict[str, torch.Tensor]:
+    """Port ``state_dict`` (fp32 tensors) from the variables of a JAX
+    ``FeatureNet`` or ``FeatureNetSegmenter``."""
+    params = variables["params"]
+    out = _from_params(params, arch)
+    for i in range(_block_count(params)):
         bs = variables["batch_stats"][f"ConvBNRelu_{i}"]["BatchNorm_0"]
         out[f"blocks.{i}.mean"] = _t(bs["mean"])
         out[f"blocks.{i}.var"] = _t(bs["var"])
@@ -93,11 +125,12 @@ def _adam_states(tree):
             yield from _adam_states(node)
 
 
-def opt_from_optax(opt_state, arch: FeatureNetArch) -> dict:
+def opt_from_optax(opt_state, arch: FeatureNetArch | None = None) -> dict:
     """``{"mu": {name: tensor}, "nu": {name: tensor}, "count": int}`` for
     the port's ``Optimizer`` from the numpy state of optax's ``adam`` or
-    ``adamw`` over a JAX ``FeatureNet``'s params (the tree ``from_flax``
-    walks; dense moments transposed as the kernels are)."""
+    ``adamw`` over a JAX ``FeatureNet``'s or ``FeatureNetSegmenter``'s
+    params (the tree ``from_flax`` walks; dense moments transposed as the
+    kernels are)."""
     found = list(_adam_states(opt_state))
     if len(found) != 1:
         raise ValueError(

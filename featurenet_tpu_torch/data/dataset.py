@@ -51,15 +51,20 @@ class ProducerError(RuntimeError):
 
 
 class SyntheticVoxelDataset:
-    """Infinite, seeded stream of synthetic feature batches in the classify
-    wire format (``synthetic.to_wire``: bit-packed voxels, labels, mask)."""
+    """Infinite, seeded stream of synthetic feature batches in ``task``'s
+    wire format (``synthetic.to_wire``: bit-packed voxels and mask, with
+    labels for ``classify`` or the per-voxel int8 ``seg`` for
+    ``segment``). ``num_features > 1`` carves that many features into each
+    part (segmentation samples)."""
 
     def __init__(self, resolution: int = 64, global_batch: int = 96,
-                 num_features: int = 1, seed: int = 0):
+                 num_features: int = 1, seed: int = 0,
+                 task: str = "classify"):
         self.resolution = resolution
         self.global_batch = global_batch
         self.num_features = num_features
         self.seed = seed
+        self.task = task
 
     def worker_iter(self, worker_id: int = 0) -> Iterator[dict[str, np.ndarray]]:
         """An independent infinite stream for one producer worker."""
@@ -68,7 +73,8 @@ class SyntheticVoxelDataset:
         )
         while True:
             yield to_wire(generate_batch(rng, self.global_batch, self.resolution,
-                                         num_features=self.num_features))
+                                         num_features=self.num_features),
+                          self.task)
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         return self.worker_iter(0)

@@ -33,15 +33,29 @@ classify reader (port of the classify half of
   ``augment=True`` rotates each drawn sample on the host by one of the 24
   cube rotations; with device augmentation the train step rotates instead.
 
+- The segmentation cache (``index.json`` ``"kind": "segment"``):
+  ``export_seg_cache`` writes multi-feature parts in flat shards of
+  ``seg_NNNN.voxels.npy`` (packed ``uint8 [N, R, R, R/8]``) and
+  ``seg_NNNN.seg.npy`` (``int8 [N, R, R, R]``, 0 = stock or air, 1+class
+  a feature's removal volume), one ``SeedSequence([seed, shard])`` stream
+  per shard, the bytes the reference writes. ``label_order="canonical"``
+  (the default) labels a voxel several features cover by the feature of
+  the lowest class id, ``"generation"`` by the first drawn.
+  ``SegCacheDataset`` is a split of it in the segment wire format, as
+  ``VoxelCacheDataset`` is of a classify cache; its host augmentation
+  rotates each sample's voxels and ``seg`` by one cube rotation together.
+  Each reader refuses the other kind of cache.
+
 The port runs one host, so the reference's host sharding (``num_hosts``,
 ``host_id``, ``num_shards``) is fixed at one host, id 0. Not ported yet:
-the segmentation caches and their STL trees.
+the segmentation STL trees and their ingest (``build_seg_cache``; ROADMAP
+Queue A.3).
 
 This module and what it imports are numpy and the standard library only
 (no torch): ``build_cache``'s spawned workers import it and never touch
 the device.
 
-``VoxelCacheDataset`` counts its gathers and checks the
+Both datasets count their gathers and check the
 ``cache_read_error`` fault site (``faults.py``) at each one: the shape of
 an mmapped shard vanishing under a live reader.
 """
@@ -59,7 +73,9 @@ from featurenet_tpu_torch import faults
 from featurenet_tpu_torch.data.stl import load_stl
 from featurenet_tpu_torch.data.synthetic import (
     CLASS_NAMES,
+    carve,
     generate_sample,
+    generate_sample_with_removals,
     pack_voxels,
     random_orientation,
 )
@@ -259,6 +275,66 @@ def export_synthetic_cache(out_root: str, per_class: int = 100,
     return index
 
 
+def _generate_seg_sample(rng: np.random.Generator, resolution: int,
+                         num_features: int,
+                         label_order: str) -> tuple[np.ndarray, np.ndarray]:
+    """One segmentation sample ``(part bool [R³], seg int32 [R³])``. The
+    part does not depend on ``label_order``; a voxel that several
+    features' removal volumes cover is labelled by the feature of the
+    lowest class id (``"canonical"``: a function of the part's features,
+    so learnable) or by the first one drawn (``"generation"``)."""
+    part, labels, seg, removals = generate_sample_with_removals(
+        rng, resolution, num_features=num_features)
+    if label_order == "canonical":
+        _, seg = carve(labels, removals,
+                       order=np.argsort(labels, kind="stable"),
+                       resolution=resolution)
+    elif label_order != "generation":
+        raise ValueError(f"unknown label_order {label_order!r}")
+    return part, seg
+
+
+def export_seg_cache(out_root: str, num_parts: int = 2400,
+                     resolution: int = 64, num_features: int = 3,
+                     shard_size: int = 200, seed: int = 0,
+                     label_order: str = "canonical") -> dict:
+    """Write ``num_parts`` multi-feature parts with their per-voxel labels
+    into the segmentation cache layout under ``out_root`` (see the module
+    docstring), ``shard_size`` parts a shard; returns the index."""
+    if resolution % 8:
+        raise ValueError("resolution must be divisible by 8 (packed wire)")
+    os.makedirs(out_root, exist_ok=True)
+    index = {
+        "kind": "segment",
+        "resolution": resolution,
+        "storage": "packed",
+        "num_features": num_features,
+        "shards": [],
+        "seed": seed,
+        "label_order": label_order,
+    }
+    done = shard_id = 0
+    while done < num_parts:
+        n = min(shard_size, num_parts - done)
+        rng = np.random.default_rng(np.random.SeedSequence([seed, shard_id]))
+        stem = f"seg_{shard_id:04d}"
+        voxels = np.zeros((n, resolution, resolution, resolution // 8), np.uint8)
+        seg = np.zeros((n, resolution, resolution, resolution), np.int8)
+        for i in range(n):
+            part, s = _generate_seg_sample(rng, resolution, num_features,
+                                           label_order)
+            voxels[i] = pack_voxels(part)
+            seg[i] = s.astype(np.int8)
+        np.save(os.path.join(out_root, f"{stem}.voxels.npy"), voxels)
+        np.save(os.path.join(out_root, f"{stem}.seg.npy"), seg)
+        index["shards"].append({"stem": stem, "count": n})
+        done += n
+        shard_id += 1
+    with open(os.path.join(out_root, "index.json"), "w") as fh:
+        json.dump(index, fh, indent=1)
+    return index
+
+
 # One open cache per process, keyed by (directory, index mtime): the train
 # and test splits index into the same per-class arrays.
 _cache_memo: dict = {}
@@ -279,8 +355,8 @@ def _load_cache(cache_root: str):
             index = json.load(fh)
         if index.get("kind") == "segment":
             raise ValueError(
-                f"{cache_root} is a segmentation cache; the port trains "
-                "the classifier only"
+                f"{cache_root} is a segmentation cache; use it with "
+                "task='segment' (SegCacheDataset), not a classify config"
             )
         packed = {}
         for cls in index["classes"]:
@@ -292,6 +368,51 @@ def _load_cache(cache_root: str):
         _cache_memo.clear()  # hold at most one cache resident
         _cache_memo[key] = (index, packed)
     return _cache_memo[key]
+
+
+def _load_seg_cache(cache_root: str):
+    """``(index, voxel shards, seg shards)`` of the segmentation cache at
+    ``cache_root``: lists of per-shard arrays, mmapped when packed, so a
+    large cache is never read whole."""
+    index_path = os.path.join(cache_root, "index.json")
+    key = ("seg", os.path.abspath(cache_root), os.path.getmtime(index_path))
+    if key not in _cache_memo:
+        with open(index_path) as fh:
+            index = json.load(fh)
+        if index.get("kind") != "segment":
+            raise ValueError(
+                f"{cache_root} is not a segmentation cache (export with "
+                "export_seg_cache / `cli export-seg-data`)"
+            )
+        voxels, seg = [], []
+        for sh in index["shards"]:
+            if index.get("storage") == "packed":
+                voxels.append(_open_packed(cache_root, sh["stem"] + ".voxels"))
+                seg.append(_open_packed(cache_root, sh["stem"] + ".seg"))
+            else:
+                with np.load(os.path.join(cache_root, sh["file"])) as z:
+                    voxels.append(pack_voxels(z["voxels"]))  # validates W%8
+                    seg.append(z["seg"])
+        _cache_memo.clear()  # hold at most one cache resident
+        _cache_memo[key] = (index, voxels, seg)
+    return _cache_memo[key]
+
+
+def _count_read(ds) -> None:
+    """Count one gather of a cache dataset and check the
+    ``cache_read_error`` fault site at it."""
+    ds._reads += 1
+    if faults.maybe_fail("cache_read_error", read=ds._reads):
+        raise faults.InjectedFault(
+            f"cache_read_error at gather #{ds._reads} (the mmapped shard "
+            "behind this batch went away)")
+
+
+def _resident_order(seed: int, n: int) -> np.ndarray:
+    """The seed-shuffled order of a split's ``n`` samples that a
+    device-resident upload lays out."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, RESIDENT_ORDER_STREAM]))
+    return rng.permutation(n)
 
 
 def _hash_split_rows(n: int, split: str, test_fraction: float) -> np.ndarray:
@@ -380,11 +501,7 @@ class VoxelCacheDataset:
         stored bytes are the wire format, so without augmentation this is
         fancy indexing alone. With ``rng`` each sample is unpacked, rotated
         by one random cube rotation and packed again."""
-        self._reads += 1
-        if faults.maybe_fail("cache_read_error", read=self._reads):
-            raise faults.InjectedFault(
-                f"cache_read_error at gather #{self._reads} (the mmapped "
-                "shard behind this batch went away)")
+        _count_read(self)
         rows = self.rows[idx]
         cls = self._cls_pos[idx]
         r = self.resolution
@@ -401,9 +518,7 @@ class VoxelCacheDataset:
         """The seed-shuffled order of the split's samples that
         ``materialize_split`` lays out: resident row ``i`` is sample
         ``resident_order()[i]``."""
-        rng = np.random.default_rng(
-            np.random.SeedSequence([self.seed, RESIDENT_ORDER_STREAM]))
-        return rng.permutation(len(self.labels))
+        return _resident_order(self.seed, len(self.labels))
 
     def materialize_split(self) -> tuple[np.ndarray, np.ndarray, int]:
         """The whole split for a device-resident upload: ``(packed voxels,
@@ -433,3 +548,97 @@ class VoxelCacheDataset:
         for idx, mask in _epoch_index_batches(len(self.labels), batch):
             yield {"voxels": self._gather(idx), "label": self.labels[idx],
                    "mask": mask}
+
+
+class SegCacheDataset:
+    """A split of a segmentation cache in the segment wire format:
+    ``voxels`` bit-packed ``uint8 [B, R, R, R/8]``, ``seg`` int8 ``[B, R, R,
+    R]`` and ``mask`` float32, as ``SyntheticVoxelDataset(task="segment")``
+    gives. ``split`` holds out rows by the same per-index hash as
+    ``VoxelCacheDataset``. ``augment=True`` rotates each drawn sample's
+    voxels and ``seg`` by one random cube rotation together, on the host
+    (a per-voxel target must turn with its part); exact passes never
+    augment."""
+
+    def __init__(self, cache_root: str, global_batch: int = 32,
+                 split: str = "train", test_fraction: float = 0.2,
+                 seed: int = 0, augment: bool = False):
+        self.index, self._voxels, self._seg = _load_seg_cache(cache_root)
+        self.resolution = int(self.index["resolution"])
+        self.global_batch = global_batch
+        self.seed = seed
+        self.augment = augment
+        self._reads = 0
+        # Row g of the cache is shard _shard_pos[g], row _row_in_shard[g].
+        counts = [v.shape[0] for v in self._voxels]
+        self._shard_pos = np.repeat(np.arange(len(counts), dtype=np.int32),
+                                    counts)
+        self._row_in_shard = (
+            np.concatenate([np.arange(c, dtype=np.int64) for c in counts])
+            if counts else np.zeros(0, np.int64))
+        self.rows = _hash_split_rows(int(sum(counts)), split, test_fraction)
+        if len(self.rows) == 0:
+            raise ValueError(f"empty split {split!r} in {cache_root}")
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def _gather(self, idx: np.ndarray, rng: np.random.Generator | None = None
+                ) -> tuple[np.ndarray, np.ndarray]:
+        """``(packed voxels [n, R, R, R/8], seg int8 [n, R, R, R])`` of split
+        rows ``idx``: fancy indexing of the stored bytes, which are the
+        wire format. With ``rng`` each sample is unpacked, rotated with its
+        ``seg`` by one random cube rotation, and packed again."""
+        _count_read(self)
+        g = self.rows[idx]
+        sh, rw = self._shard_pos[g], self._row_in_shard[g]
+        r = self.resolution
+        vox = np.empty((len(g), r, r, r // 8), np.uint8)
+        seg = np.empty((len(g), r, r, r), np.int8)
+        for p in np.unique(sh):
+            m = sh == p
+            vox[m] = self._voxels[p][rw[m]]
+            seg[m] = self._seg[p][rw[m]]
+        if rng is not None:
+            grids = np.unpackbits(vox, axis=-1)
+            rot_v, rot_s = [], []
+            for v, t in zip(grids, seg):
+                rot = random_orientation(rng)
+                rot_v.append(rot(v))
+                rot_s.append(rot(t))
+            vox = pack_voxels(np.stack(rot_v))
+            seg = np.stack(rot_s)
+        return vox, seg
+
+    def resident_order(self) -> np.ndarray:
+        """The seed-shuffled order ``materialize_split`` lays out."""
+        return _resident_order(self.seed, len(self.rows))
+
+    def materialize_split(self) -> tuple[np.ndarray, np.ndarray, int]:
+        """The whole split for a device-resident upload: ``(packed voxels,
+        seg int8, rows)`` in ``resident_order()``, as stored (the train
+        step rotates voxels and ``seg`` together on the device)."""
+        order = self.resident_order()
+        vox, seg = self._gather(order)
+        return vox, seg, len(order)
+
+    def worker_iter(self, worker_id: int = 0) -> Iterator[dict[str, np.ndarray]]:
+        """An independent infinite stream of uniformly drawn batches for
+        one producer worker (``SeedSequence([seed, 0, worker_id])``)."""
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, 0, worker_id]))
+        n = len(self.rows)
+        while True:
+            idx = rng.integers(0, n, size=self.global_batch)
+            v, t = self._gather(idx, rng if self.augment else None)
+            yield {"voxels": v, "seg": t,
+                   "mask": np.ones(self.global_batch, dtype=np.float32)}
+
+    def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
+        return self.worker_iter(0)
+
+    def epoch_batches(self, batch: int) -> Iterator[dict[str, np.ndarray]]:
+        """One exact pass over the split, every sample once; the last
+        batch is padded with ``mask = 0`` rows."""
+        for idx, mask in _epoch_index_batches(len(self.rows), batch):
+            v, t = self._gather(idx)
+            yield {"voxels": v, "seg": t, "mask": mask}

@@ -15,14 +15,20 @@ since dataset workers are threads; ``generate_sample`` and
 the caller's ambient window, while an explicit ``None`` forces the full
 range. The OOD harness draws its ``tails`` row this way (``ood.py``).
 
-Also here: ``pack_voxels``/``to_wire``, the bit-packed classify wire
-format that ``train/steps.unpack_voxels`` reads on the device.
+Multi-feature parts (``num_features > 1``) are the segmentation samples:
+``generate_sample_with_removals`` also returns each feature's removal
+volume, and ``carve(..., order=)`` relabels the voxels several features
+cover (``data/offline.py``'s ``label_order``).
+
+Also here: ``pack_voxels``/``to_wire``, the bit-packed wire formats
+(``WIRE_KEYS``: classify labels, or the per-voxel int8 ``seg``) that
+``train/steps.unpack_voxels`` reads on the device.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 
@@ -498,39 +504,46 @@ def random_orientation(rng: np.random.Generator):
 def carve(
     labels: np.ndarray,
     removals: list[np.ndarray],
-    resolution: int,
+    order: Sequence[int] | None = None,
+    resolution: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Carve feature removal volumes from stock, in order.
+    """Carve feature removal volumes from stock, in ``order`` (default: as
+    given).
 
-    Returns ``(part bool [R³], seg int32 [R³])``: ``stock & ~union(removals)``,
-    and each carved voxel labelled ``1+class`` of the first removal that
-    covers it.
+    Returns ``(part bool [R³], seg int32 [R³])``: ``stock &
+    ~union(removals)``, which no order changes, and each carved voxel
+    labelled ``1+class`` of the first removal in ``order`` that covers it.
+    ``resolution`` is needed only when there are no removals (plain stock,
+    all-zero seg).
     """
-    R = resolution
+    if not len(removals):
+        if resolution is None:
+            raise ValueError("carve with no removals needs resolution")
+        R = resolution
+        return stock_mask(R).copy(), np.zeros((R, R, R), dtype=np.int32)
+    R = removals[0].shape[0]
     part = stock_mask(R).copy()
     seg = np.zeros((R, R, R), dtype=np.int32)
-    for k in range(len(removals)):
+    for k in order if order is not None else range(len(removals)):
         carved = removals[k] & part
         seg[carved] = int(labels[k]) + 1
         part &= ~removals[k]
     return part, seg
 
 
-def generate_sample(
+def generate_sample_with_removals(
     rng: np.random.Generator,
     resolution: int = 64,
     label: int | None = None,
     num_features: int = 1,
     orient: bool = True,
     param_range=_INHERIT,
-) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Generate one part.
-
-    Returns ``(voxels bool [R³], labels int32 [num_features], seg int32 [R³])``
-    where seg is 0 on non-feature voxels and ``1+class`` on each feature's
-    removal volume (clipped to the stock). ``param_range``: the
-    feature-parameter quantile window (``_ParamRange``).
-    """
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, list[np.ndarray]]:
+    """``generate_sample`` that also returns each feature's removal volume:
+    ``(voxels, labels, seg, removals)``, the removals ``bool [R³]`` in the
+    final (oriented) frame and in generation order, so ``carve(labels,
+    removals)`` gives ``(voxels, seg)`` again. The draws are
+    ``generate_sample``'s: the same seed gives the same part."""
     R = resolution
     labels = np.empty(num_features, dtype=np.int32)
     removals: list[np.ndarray] = []
@@ -551,6 +564,27 @@ def generate_sample(
         o = random_orientation(rng)
         removals = [o(r) for r in removals]
     part, seg = carve(labels, removals, resolution=R)
+    return part, labels, seg, removals
+
+
+def generate_sample(
+    rng: np.random.Generator,
+    resolution: int = 64,
+    label: int | None = None,
+    num_features: int = 1,
+    orient: bool = True,
+    param_range=_INHERIT,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Generate one part.
+
+    Returns ``(voxels bool [R³], labels int32 [num_features], seg int32 [R³])``
+    where seg is 0 on non-feature voxels and ``1+class`` on each feature's
+    removal volume (clipped to the stock). ``param_range``: the
+    feature-parameter quantile window (``_ParamRange``).
+    """
+    part, labels, seg, _ = generate_sample_with_removals(
+        rng, resolution, label=label, num_features=num_features,
+        orient=orient, param_range=param_range)
     return part, labels, seg
 
 
@@ -596,11 +630,22 @@ def pack_voxels(voxels: np.ndarray) -> np.ndarray:
     return np.packbits(voxels.astype(bool), axis=-1)
 
 
-def to_wire(batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """Shrink a ``generate_batch`` dict to the classify wire format:
-    bit-packed voxels, labels, mask."""
-    return {
-        "voxels": pack_voxels(batch["voxels"]),
-        "label": batch["label"],
-        "mask": batch["mask"],
-    }
+# The keys of each task's wire batch.
+WIRE_KEYS = {
+    "classify": ("voxels", "label", "mask"),
+    "segment": ("voxels", "seg", "mask"),
+}
+
+
+def to_wire(batch: dict[str, np.ndarray],
+            task: str = "classify") -> dict[str, np.ndarray]:
+    """Shrink a ``generate_batch`` dict to a task's wire format: bit-packed
+    voxels and the mask, with the labels (``classify``) or the per-voxel
+    ``seg`` as int8 (``segment``)."""
+    if task == "classify":
+        return {"voxels": pack_voxels(batch["voxels"]),
+                "label": batch["label"], "mask": batch["mask"]}
+    if task == "segment":
+        return {"voxels": pack_voxels(batch["voxels"]),
+                "seg": batch["seg"].astype(np.int8), "mask": batch["mask"]}
+    raise ValueError(f"unknown task {task!r}")

@@ -11,6 +11,8 @@ Usage:
     results = p.predict_stl(["part.stl", ...])       # end-to-end
     p.swap_params("runs/ck2")                        # hot swap, zero downtime
     p.agreement()                                    # top-1 vs fp32 serving
+    labels = seg.predict_voxels_seg(grids)           # a segment checkpoint:
+    results = seg.predict_stl(["part.stl", ...])     # int8 [N,R,R,R], SegPrediction
 
 Inputs are padded to the compile batch as in the JAX package, so every
 dispatch has one of a few shapes, and each shape has its serving program
@@ -38,6 +40,16 @@ its ``model_version`` and ``checkpoint_dir``, its programs) is one
 programs for every batch the old one had, and then flips one reference:
 dispatches in flight finish on the old generation, the next one runs the
 new, and a swap that fails raises before the flip.
+
+A segmentation checkpoint (``task="segment"``) serves through the same
+programs: each one's body is the segmenter's forward and the per-voxel
+argmax on the device (``runtime.serve_forward``), so a dispatch reads back
+int8 labels ``[b, R, R, R]``, never the logit volume. ``predict_voxels_seg``
+returns those labels; ``predict_stl`` returns a ``SegPrediction`` per part
+(the labels and the feature-voxel counts by class name);
+``predict_voxels`` refuses a segmenter, and ``predict_voxels_seg`` a
+classifier. A segmenter serves at ``fp32`` or ``bf16``; ``int8`` is
+refused (ROADMAP Queue A.3).
 
 Robust serving (``predict_voxels``): ``tta_rotations=True`` averages the
 probabilities over the 24 cube rotations (``ops/augment.py``'s
@@ -110,6 +122,26 @@ class Prediction:
     top3: list[tuple[str, float]]
 
 
+@dataclasses.dataclass
+class SegPrediction:
+    path: str
+    # Predicted feature voxels by class name (background excluded); empty
+    # when no feature voxel is predicted.
+    voxel_counts: dict[str, int]
+    # Per-voxel labels [R, R, R] int8: 0 = stock or air, 1+c = class c.
+    labels: np.ndarray = dataclasses.field(repr=False)
+
+
+def voxel_counts(labels: np.ndarray) -> dict[str, int]:
+    """The feature voxels of a label grid by class name (class ids past the
+    canonical block as ``class_<id>``), background and absent classes
+    left out."""
+    counts = np.bincount(np.asarray(labels, np.int32).ravel(),
+                         minlength=len(CLASS_NAMES) + 1)
+    return {(CLASS_NAMES[c - 1] if c - 1 < len(CLASS_NAMES) else f"class_{c - 1}"):
+            int(counts[c]) for c in range(1, len(counts)) if counts[c]}
+
+
 def _drop_parameters(model: torch.nn.Module) -> None:
     """Replace every parameter of ``model`` by a ``meta`` placeholder of
     its shape and dtype, so its device memory is freed and only a forward
@@ -180,9 +212,9 @@ class _Weights:
 
 
 class Predictor:
-    """Eval-mode ``FeatureNet`` on one device, fed padded fixed-shape
-    batches through one serving program per batch, at one serving
-    precision (see the module docstring).
+    """Eval-mode ``FeatureNet`` (or ``FeatureNetSegmenter``) on one device,
+    fed padded fixed-shape batches through one serving program per batch,
+    at one serving precision (see the module docstring).
 
     ``state`` is a port ``state_dict`` (``convert.from_flax``,
     ``convert.load_npz``); ``device`` defaults to ``"cuda"`` and raises
@@ -202,6 +234,10 @@ class Predictor:
         if precision not in SERVE_PRECISIONS:
             raise ValueError(f"unknown serving precision {precision!r}; one "
                              f"of {', '.join(SERVE_PRECISIONS)}")
+        if cfg.task == "segment" and precision == "int8":
+            raise ValueError("int8 serving of a segmentation checkpoint is "
+                             "not ported yet (ROADMAP Queue A.3); serve it at "
+                             "fp32 or bf16")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch = int(batch)
@@ -353,18 +389,19 @@ class Predictor:
         return self._weights.programs.get(batch)
 
     def forward_padded(self, voxels: np.ndarray, batch: int | None = None) -> np.ndarray:
-        """Probabilities for an already padded ``[batch, R, R, R, 1]`` array,
-        read back to the host. The continuous batcher calls this once per
-        dispatch with its chosen bucket."""
+        """Probabilities (a segmenter: int8 per-voxel labels) for an
+        already padded ``[batch, R, R, R, 1]`` array, read back to the
+        host. The continuous batcher calls this once per dispatch with its
+        chosen bucket."""
         if batch is not None and voxels.shape[0] != batch:
             raise ValueError(f"padded batch {voxels.shape[0]} != bucket {batch}")
         x = torch.from_numpy(np.ascontiguousarray(voxels, dtype=np.float32))
         return self.forward(x).cpu().numpy()
 
     def forward(self, voxels: torch.Tensor) -> torch.Tensor:
-        """Probabilities on the device for ``[B, R, R, R, 1]`` voxels (on the
-        device or the host): one dispatch, the program at batch ``B`` of the
-        live generation, read once."""
+        """Probabilities (a segmenter: int8 labels) on the device for ``[B,
+        R, R, R, 1]`` voxels (on the device or the host): one dispatch, the
+        program at batch ``B`` of the live generation, read once."""
         w = self._weights
         out = w.programs.get(voxels.shape[0])(voxels)
         if self.device.type == "cuda":
@@ -388,6 +425,11 @@ class Predictor:
         ``canonicalize=True``: each part's pose is undone on the host
         first (min-AABB search and re-voxelization, ``data/
         canonicalize.py``); implies ``tta_rotations``."""
+        if self.cfg.task == "segment":
+            raise ValueError(
+                "this Predictor wraps a segmentation checkpoint; use "
+                "predict_voxels_seg (per-voxel labels), not class "
+                "probabilities")
         g = self._validated(grids)
         n = g.shape[0]
         if n == 0:
@@ -464,12 +506,32 @@ class Predictor:
             raise ValueError(f"expected [N,{R},{R},{R}(,1)] grids, got {g.shape}")
         return g
 
-    def predict_stl(self, paths: Sequence[str], fill: bool = True) -> list[Prediction]:
-        """End-to-end: STL file → normalized voxel grid → class + top-3."""
+    def predict_voxels_seg(self, grids: np.ndarray) -> np.ndarray:
+        """Per-voxel labels of ``[N, R, R, R]`` (or ``[N,R,R,R,1]``) grids
+        from a segmentation checkpoint: int8 ``[N, R, R, R]``, 0 = stock or
+        air, 1+c = feature class c."""
+        if self.cfg.task != "segment":
+            raise ValueError("this Predictor wraps a classification "
+                             "checkpoint; use predict_voxels")
+        g = self._validated(grids)
+        if g.shape[0] == 0:
+            r = self.cfg.resolution
+            return np.zeros((0, r, r, r), np.int8)
+        return self._batched_forward(g)
+
+    def predict_stl(self, paths: Sequence[str], fill: bool = True
+                    ) -> list[Prediction] | list[SegPrediction]:
+        """End-to-end: STL file → normalized voxel grid → class + top-3, or
+        for a segmentation checkpoint the per-voxel labels and their
+        feature-voxel counts (``SegPrediction``)."""
         if not paths:
             return []
         R = self.cfg.resolution
         grids = np.stack([voxelize(load_stl(p), R, fill=fill) for p in paths])
+        if self.cfg.task == "segment":
+            return [SegPrediction(path=path, voxel_counts=voxel_counts(lab),
+                                  labels=lab)
+                    for path, lab in zip(paths, self.predict_voxels_seg(grids))]
         labels, probs = self.predict_voxels(grids)
         out = []
         for path, lab, pr in zip(paths, labels, probs):

@@ -20,7 +20,9 @@ that draws on the device reads nothing back to the host.
   bitwise the same, with no host decision. The train step rotates the
   unpacked 0/1 grid before its cast to float: a rotation moves values and
   never changes one, so the result is bitwise the same and the gather
-  moves a quarter of the bytes.
+  moves a quarter of the bytes. ``rotate_pair_by_codes`` turns a
+  segmentation batch's per-voxel target with its voxels, each group of
+  both by the same code (the reference's ``random_rotate_batch_paired``).
 - The affine warp (``random_affine_batch_paired``, classify half):
   ``affine_warp`` samples each output voxel ``p`` of a group at ``Rᵀ (p −
   c − t) / s + c`` about the grid centre ``c``, trilinearly, each corner
@@ -147,6 +149,15 @@ def rotate_by_codes(voxels: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     index = cube_index_maps(r, voxels.device)[codes]
     index = index[:, None, :, None].expand(flat.shape)
     return flat.gather(2, index).reshape(voxels.shape)
+
+
+def rotate_pair_by_codes(voxels: torch.Tensor, seg: torch.Tensor,
+                         codes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rotate_by_codes`` of ``[B, R, R, R, C]`` voxels and of their
+    per-voxel target ``seg [B, R, R, R]``, slice ``i`` of both by
+    ``codes[i]``."""
+    return (rotate_by_codes(voxels, codes),
+            rotate_by_codes(seg[..., None], codes)[..., 0])
 
 
 class AffineDraw(NamedTuple):

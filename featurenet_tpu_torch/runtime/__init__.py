@@ -1,9 +1,13 @@
 """Model construction and the serving forward (port of
 ``featurenet_tpu/runtime/registry.py``'s ``build_model`` and ``_serve_fn``).
 
-The serving forward is a plain function: logits → fp32 softmax, over the
-model's own parameters or over a working copy of them
-(``train/precision.py``). ``runtime/registry.py`` builds the serving
+``build_model`` dispatches on ``cfg.task``: the classifier
+(``models/featurenet.py``) or the segmenter (``models/segmenter.py``). The
+serving forward is a plain function over the model's own parameters or
+over a working copy of them (``train/precision.py``): logits → fp32
+softmax for a classifier, the per-voxel argmax as int8 labels for a
+segmenter, made on the device so only labels cross to the host, never
+the logit volume. ``runtime/registry.py`` builds the serving
 programs from it, one per batch and precision (on the card a CUDA graph of
 this forward, the reference's compiled program); ``runtime/quantize.py``
 holds the int8 quantizer and the agreement gate.
@@ -15,6 +19,10 @@ import torch
 
 from featurenet_tpu_torch.config import Config
 from featurenet_tpu_torch.models.featurenet import FeatureNet, init_weights
+from featurenet_tpu_torch.models.segmenter import (
+    FeatureNetSegmenter,
+    init_segmenter_weights,
+)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -32,11 +40,21 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def build_model(cfg: Config, seed: int | None = None,
-                plain: bool = False) -> FeatureNet:
-    """The classifier a config serves, on the CPU, in eval mode; random
-    weights from ``seed`` when given (else the module's placeholders,
-    to be overwritten by ``load_state_dict``). ``plain=True`` builds it
-    with the kernels' plain versions."""
+                plain: bool = False) -> FeatureNet | FeatureNetSegmenter:
+    """The model a config trains and serves, on the CPU, in eval mode: the
+    classifier, or for ``task="segment"`` the segmenter; random weights
+    from ``seed`` when given (else the module's placeholders, to be
+    overwritten by ``load_state_dict``). ``plain=True`` builds the
+    classifier with the kernels' plain versions (the segmenter runs no
+    kernel of this package)."""
+    if cfg.task == "segment":
+        model = FeatureNetSegmenter(
+            cfg.seg_features, input_context=cfg.seg_input_context,
+            decoder_blocks=cfg.seg_decoder_blocks,
+            bottleneck_blocks=cfg.seg_bottleneck_blocks)
+        if seed is not None:
+            init_segmenter_weights(model, seed)
+        return model.eval()
     model = FeatureNet(cfg.arch, cfg.resolution, plain=plain)
     if seed is not None:
         init_weights(model, seed)
@@ -55,8 +73,13 @@ def forward_with(model: FeatureNet, params: dict[str, torch.Tensor] | None,
 
 
 @torch.inference_mode()
-def serve_forward(model: FeatureNet, voxels: torch.Tensor,
+def serve_forward(model, voxels: torch.Tensor,
                   params: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
-    """``[B,R,R,R,1]`` voxels → fp32 class probabilities ``[B, classes]``,
-    with ``params`` in place of the model's parameters when given."""
-    return torch.softmax(forward_with(model, params, voxels), dim=-1)
+    """``[B,R,R,R,1]`` voxels → fp32 class probabilities ``[B, classes]``
+    (a classifier) or int8 per-voxel labels ``[B, R, R, R]`` (a
+    segmenter), with ``params`` in place of the model's parameters when
+    given."""
+    logits = forward_with(model, params, voxels)
+    if isinstance(model, FeatureNetSegmenter):
+        return logits.argmax(dim=-1).to(torch.int8)
+    return torch.softmax(logits, dim=-1)

@@ -9,8 +9,9 @@ card the counterpart is a CUDA graph: ``ServeProgram`` captures the serving
 forward of one weight generation at one batch over a static fp32 input
 ``[b, R, R, R, 1]``, and a call copies the batch into that buffer, replays
 the graph and returns a clone of its probabilities (the next replay
-overwrites them). The captured body is the eager forward the caller hands
-in, per-dispatch weight transforms included (the bf16 working copy through
+overwrites them; a segmenter's program returns int8 per-voxel labels, its
+argmax made inside the graph). The captured body is the eager forward the
+caller hands in, per-dispatch weight transforms included (the bf16 working copy through
 ``functional_call``, int8's dequantize), so a replay reads the weights the
 generation holds at the addresses it held at capture.
 
@@ -115,9 +116,10 @@ class ServeProgram:
 
     @torch.inference_mode()
     def __call__(self, voxels: torch.Tensor) -> torch.Tensor:
-        """Probabilities ``[batch, classes]`` for ``voxels`` of this
-        program's shape (on the card or the host; copied in on the card),
-        on the program's device."""
+        """The body's output (probabilities ``[batch, classes]``, or a
+        segmenter's int8 labels ``[batch, R, R, R]``) for ``voxels`` of
+        this program's shape (on the card or the host; copied in on the
+        card), on the program's device."""
         if tuple(voxels.shape) != self.shape:
             raise ValueError(f"{self.name}: input {tuple(voxels.shape)}, "
                              f"program {self.shape}")

@@ -10,6 +10,9 @@ plane, flight recorder and incidents).
   checkpoint and swaps the Predictor's weight generation under traffic
   (``Predictor.swap_params``); the replica is cordoned (not ready) while it
   swaps, and a refusal leaves the old generation serving.
+- **Tasks**: a classifier answers each request with its class and top-3,
+  a segmenter with the feature-voxel counts of its per-voxel labels
+  (``format_row``); a segment checkpoint hot-swaps like a classify one.
 - **Precision**: the service serves its ``Predictor``'s precision
   (``fp32``, ``bf16``, ``int8``), which ``stats`` (``GET /stats``) reports.
 - **The upload path**: ``submit_stl_bytes`` parses and voxelizes raw STL
@@ -37,6 +40,7 @@ from featurenet_tpu_torch import faults
 from featurenet_tpu_torch.data.stl import parse_stl
 from featurenet_tpu_torch.data.synthetic import CLASS_NAMES
 from featurenet_tpu_torch.data.voxelize import voxelize
+from featurenet_tpu_torch.infer import voxel_counts
 from featurenet_tpu_torch.serve.batcher import (
     DEFAULT_BUCKETS,
     DEFAULT_MAX_WAIT_MS,
@@ -109,7 +113,11 @@ class InferenceService:
         return self.submit_voxels(grid.astype(np.float32), lane=lane)
 
     def format_row(self, row: np.ndarray) -> dict:
-        """One probability row as the wire response: class + top-3."""
+        """One request's output row as the wire response: class + top-3 of
+        a probability row, or for a segmentation checkpoint the
+        feature-voxel counts of its label grid (``voxel_counts``)."""
+        if self.cfg.task == "segment":
+            return {"voxel_counts": voxel_counts(row)}
         probs = np.asarray(row, np.float32)
         label = int(probs.argmax())
         order = np.argsort(probs)[::-1][:3]

@@ -1,9 +1,10 @@
 """The Trainer: config → model → train state → data → run loop (port of
 ``featurenet_tpu/train/loop.py``, one device).
 
-``Trainer(cfg, device="cuda")`` builds the model from ``cfg.seed`` (or
-from a port ``state_dict``, e.g. one bridged from a JAX run by
-``convert.from_flax``), its optimizer, and the train and eval data:
+``Trainer(cfg, device="cuda")`` builds the model of ``cfg.task``
+(``runtime.build_model``: the classifier, or the segmenter) from
+``cfg.seed`` (or from a port ``state_dict``, e.g. one bridged from a JAX
+run by ``convert.from_flax``), its optimizer, and the train and eval data:
 
 - synthetic parts streamed from the host (the default);
 - with ``cfg.data_cache``, the cache's train split streamed by the
@@ -12,6 +13,13 @@ from a port ``state_dict``, e.g. one bridged from a JAX run by
   once (``materialize_split``); every step draws its rows there, and no
   producer thread runs. A failed upload or draw raises; nothing falls
   back to host streaming.
+
+A segment run reads a segmentation cache (``SegCacheDataset``; a streamed
+split rotates voxels and ``seg`` together on the host, a resident one keeps
+its int8 ``seg`` on the device beside the packed voxels and rotates both in
+the step) or the synthetic stream of ``cfg.num_features``-feature parts in
+the segment wire format; its eval reports ``mean_iou`` and
+``per_class_iou``. k steps per dispatch run as for classify.
 
 The state trains under ``cfg.train_precision`` (``train/precision.py``:
 fp32 masters, a bf16 or fp16 working copy, loss scaling under
@@ -93,10 +101,10 @@ import torch
 from featurenet_tpu_torch import faults
 from featurenet_tpu_torch.config import Config, check_identity
 from featurenet_tpu_torch.data.dataset import Prefetcher, SyntheticVoxelDataset
-from featurenet_tpu_torch.data.offline import VoxelCacheDataset
-from featurenet_tpu_torch.models.featurenet import FeatureNet, init_weights
+from featurenet_tpu_torch.data.offline import SegCacheDataset, VoxelCacheDataset
+from featurenet_tpu_torch.data.synthetic import WIRE_KEYS
 from featurenet_tpu_torch.ops.augment import cube_index_maps
-from featurenet_tpu_torch.runtime import resolve_device
+from featurenet_tpu_torch.runtime import build_model, resolve_device
 from featurenet_tpu_torch.runtime.registry import TrainProgram
 from featurenet_tpu_torch.train.checkpoint import CheckpointManager, load_run_config
 from featurenet_tpu_torch.train.heartbeat import touch_heartbeat
@@ -120,12 +128,12 @@ def eval_dataset(cfg: Config):
     """The held-out data a run of ``cfg`` evaluates on: the cache's test
     split, or the held-out synthetic stream."""
     if cfg.data_cache:
-        return VoxelCacheDataset(cfg.data_cache, cfg.global_batch, "test",
-                                 cfg.test_fraction,
-                                 seed=cfg.seed + EVAL_SEED_OFFSET)
+        cache = SegCacheDataset if cfg.task == "segment" else VoxelCacheDataset
+        return cache(cfg.data_cache, cfg.global_batch, "test",
+                     cfg.test_fraction, seed=cfg.seed + EVAL_SEED_OFFSET)
     return SyntheticVoxelDataset(cfg.resolution, cfg.global_batch,
                                  cfg.num_features,
-                                 seed=cfg.seed + EVAL_SEED_OFFSET)
+                                 seed=cfg.seed + EVAL_SEED_OFFSET, task=cfg.task)
 
 
 def evaluate(model, data, batches: int, device,
@@ -133,16 +141,18 @@ def evaluate(model, data, batches: int, device,
     """Eval metrics of ``model`` at ``serve_precision``: over one exact
     pass of a cache split (``batches`` is not read), or over the first
     ``batches`` batches of a synthetic stream. ``batches`` and ``samples``
-    in the result count what was evaluated. ``on_batch`` is called with
-    each batch's sums as they are made."""
+    (parts, not voxels) in the result count what was evaluated.
+    ``on_batch`` is called with each batch's sums as they are made."""
+    rows = []
 
     def step(batch):
         sums = eval_step(model, batch, serve_precision)
+        rows.append(batch["mask"].sum())
         if on_batch is not None:
             on_batch(sums)
         return sums
 
-    if isinstance(data, VoxelCacheDataset):
+    if isinstance(data, (VoxelCacheDataset, SegCacheDataset)):
         sums = [step({k: torch.from_numpy(v).to(device)
                       for k, v in batch.items()})
                 for batch in data.epoch_batches(data.global_batch)]
@@ -154,7 +164,7 @@ def evaluate(model, data, batches: int, device,
             stream.close()
     out = aggregate_eval(sums)
     out["batches"] = len(sums)
-    out["samples"] = int(sum(float(s["count"]) for s in sums))
+    out["samples"] = int(sum(float(r) for r in rows))
     return out
 
 
@@ -195,10 +205,8 @@ class Trainer:
             # Markers in the checkpoint directory: a fault fires once per
             # run, not once per respawned process.
             faults.install(cfg.inject_faults, state_dir=cfg.checkpoint_dir)
-        model = FeatureNet(cfg.arch, cfg.resolution)
-        if state is None:
-            init_weights(model, cfg.seed)
-        else:
+        model = build_model(cfg, seed=cfg.seed if state is None else None)
+        if state is not None:
             model.load_state_dict(state)
         self.state: TrainState = create_state(model.to(self.device), cfg)
         self.params_n = param_count(model)
@@ -215,7 +223,11 @@ class Trainer:
                      if cfg.checkpoint_dir else None)
         self.logger = MetricLogger(stream)
         self.eval_data = eval_dataset(cfg)
-        if cfg.data_cache:
+        if cfg.data_cache and cfg.task == "segment":
+            self.train_data = SegCacheDataset(
+                cfg.data_cache, cfg.global_batch, "train", cfg.test_fraction,
+                seed=cfg.seed, augment=cfg.augment and not cfg.device_augment)
+        elif cfg.data_cache:
             self.train_data = VoxelCacheDataset(
                 cfg.data_cache, cfg.global_batch, "train", cfg.test_fraction,
                 seed=cfg.seed, augment=cfg.augment and not cfg.device_augment)
@@ -229,20 +241,30 @@ class Trainer:
         else:
             self.train_data = SyntheticVoxelDataset(
                 cfg.resolution, cfg.global_batch, cfg.num_features, seed=cfg.seed,
+                task=cfg.task,
             )
+        if self.train_data.resolution != cfg.resolution:
+            raise ValueError(
+                f"cache {cfg.data_cache!r} holds {self.train_data.resolution}³ "
+                f"parts; the config trains at {cfg.resolution}³")
         self._groups = cfg.augment_groups if cfg.device_augment else 0
+        # The wire batch's keys a step reads: voxels and the target.
+        self._keys = WIRE_KEYS[cfg.task][:2]
         step_opts = (cfg.label_smoothing, self._groups, cfg.augment_affine,
-                     cfg.augment_noise)
+                     cfg.augment_noise, cfg.task, cfg.seg_loss)
         self._train_step = make_train_step(*step_opts)
         self._resident_step = make_resident_train_step(*step_opts)
         self.resident: dict = {}
         rows = 0
         if cfg.hbm_cache:
+            # The targets: int32 labels, or the int8 per-voxel seg.
             voxels, labels, rows = self.train_data.materialize_split()
             self._data = torch.from_numpy(voxels).to(self.device)
             self._labels = torch.from_numpy(labels).to(self.device)
             self.resident = {"hbm_resident_rows": rows,
                              "hbm_resident_mb": round(voxels.nbytes / 1e6, 1)}
+            if cfg.task == "segment":
+                self.resident["hbm_resident_seg_mb"] = round(labels.nbytes / 1e6, 1)
         self._k = cfg.steps_per_dispatch
         self._draws = StepDraws(cfg, self._k, self.device, rows)
         if "codes" in self._draws.streams:
@@ -303,7 +325,7 @@ class Trainer:
         return metrics
 
     def _capture(self, key: tuple, batches: list | None) -> None:
-        static = [{k: b[k].clone() for k in ("voxels", "label")}
+        static = [{k: b[k].clone() for k in self._keys}
                   for b in batches or ()]
 
         def body() -> dict:

@@ -1,5 +1,5 @@
-"""Train and eval steps, loss, learning-rate schedule and optimizers (port
-of ``featurenet_tpu/train/steps.py``, classify task).
+"""Train and eval steps, losses, learning-rate schedule and optimizers
+(port of ``featurenet_tpu/train/steps.py``).
 
 PyTorch runs eagerly, so a step is a plain function that runs forward,
 backward and the update on the state's model in place. The optimizers are
@@ -55,6 +55,22 @@ device value on the host. Every slot a step writes (parameters, moments,
 place, so a CUDA graph of steps (``runtime/registry.py`` ``TrainProgram``)
 replays against the live state.
 
+``task="segment"`` trains the segmenter on the per-voxel target ``seg``
+(int8 on the wire, int64 in the loss) with ``segmentation_loss``: the
+reference's foreground-balanced cross-entropy (``balanced_ce``), plus its
+soft Dice (``ce_dice``), or the Dice alone (``dice``), in its order of
+arithmetic. The cross-entropy reads the logits in the channels-last layout
+the model gives (``logsumexp`` and a gather on the last axis, no transposed
+copy), and the Dice takes each class's intersection as a sum of the true
+class's probability over its voxels (a gather and ``class_sums``), not
+through an fp32 one-hot of the target. A cube rotation in the step turns
+``seg`` with the voxels, group by group, by the same codes
+(``ops/augment.py`` ``rotate_pair_by_codes``). The eval step of a segment
+batch sums, per class, the intersection and union of the predicted and
+true voxels of the rows its mask keeps, and ``aggregate_eval`` turns them
+into ``mean_iou`` (over the classes present in either) and
+``per_class_iou``.
+
 The update runs inside the profiler range ``optimizer``
 (``record_function``), beside the model's ``casts`` and ``bn_relu``.
 
@@ -83,7 +99,9 @@ from featurenet_tpu_torch.ops.augment import (
     group_count,
     occupancy_noise,
     rotate_by_codes,
+    rotate_pair_by_codes,
 )
+from featurenet_tpu_torch.config import SEG_LOSSES
 from featurenet_tpu_torch.runtime import forward_with
 from featurenet_tpu_torch.train.precision import (
     LOSS_SCALE_GROWTH_INTERVAL,
@@ -114,20 +132,27 @@ def unpack_voxels(packed: torch.Tensor) -> torch.Tensor:
 
 def step_voxels(packed: torch.Tensor, codes=None,
                 affine: Optional[AffineDraw] = None,
-                flips: Optional[torch.Tensor] = None) -> torch.Tensor:
+                flips: Optional[torch.Tensor] = None,
+                seg: Optional[torch.Tensor] = None):
     """The float voxels a train step computes on: unpacked; with ``codes``
     (a sequence or a tensor) rotated group by group before the cast, on the
     0/1 bytes, or with ``affine`` cast and then warped; then, with
-    ``flips``, their occupancy flipped."""
+    ``flips``, their occupancy flipped. With ``seg`` (a per-voxel target
+    ``[B, R, R, R]``) returns ``(voxels, seg)``, the target rotated by the
+    same codes."""
     bits = unpack_bits(packed)
     if codes is not None:
-        bits = rotate_by_codes(bits, torch.as_tensor(codes, device=bits.device))
+        codes = torch.as_tensor(codes, device=bits.device)
+        if seg is None:
+            bits = rotate_by_codes(bits, codes)
+        else:
+            bits, seg = rotate_pair_by_codes(bits, seg, codes)
     voxels = bits.float()
     if affine is not None:
         voxels = affine_warp(voxels, *affine)
     if flips is not None:
         voxels = occupancy_noise(voxels, flips)
-    return voxels
+    return voxels if seg is None else (voxels, seg)
 
 
 def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -138,6 +163,75 @@ def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
     loss = F.cross_entropy(logits, labels, label_smoothing=label_smoothing)
     acc = (logits.argmax(dim=-1) == labels).float().mean()
     return loss, {"loss": loss, "accuracy": acc}
+
+
+def class_sums(index: torch.Tensor, values: torch.Tensor,
+               n_cls: int) -> torch.Tensor:
+    """``out[c] = Σ values[index == c]`` over ``[B, D, H, W]`` tensors, in
+    ``values``' dtype (differentiable in ``values``): a scatter-add into
+    one row of ``n_cls`` bins per ``(b, d)`` plane, then the rows summed.
+    The adds of a 64³ batch spread over ``B·D·n_cls`` addresses; one row of
+    bins for the whole batch makes 8 M atomic adds contend for 25 (on an
+    H100 the seg64 loss's forward took 32.7 ms that way, 7.5 ms spread)."""
+    rows = index.reshape(-1, index.shape[-2] * index.shape[-1]).long()
+    bins = torch.zeros((rows.shape[0], n_cls), dtype=values.dtype,
+                       device=values.device)
+    return bins.scatter_add(1, rows, values.reshape(rows.shape)).sum(0)
+
+
+def _soft_dice(logits: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Mean soft-Dice loss over the classes present in the batch
+    (background included): ``1 - (2·inter + 1) / (Σprob + count + 1)`` per
+    class. ``inter`` sums the probability of each voxel's true class into
+    that class, ``count`` the voxels of each class (``class_sums``)."""
+    n_cls = logits.shape[-1]
+    probs = torch.softmax(logits, dim=-1)
+    p_true = probs.gather(-1, seg[..., None])[..., 0]
+    inter = class_sums(seg, p_true, n_cls)
+    count = class_sums(seg, torch.ones_like(p_true), n_cls)
+    denom = probs.sum(dim=tuple(range(probs.dim() - 1))) + count
+    present = (count > 0).float()
+    dice = 1.0 - (2.0 * inter + 1.0) / (denom + 1.0)
+    return (dice * present).sum() / torch.clamp(present.sum(), min=1.0)
+
+
+def segmentation_loss(logits: torch.Tensor, seg: torch.Tensor,
+                      variant: str = "balanced_ce"):
+    """Per-voxel loss of fp32 logits ``[B, D, H, W, C+1]`` against ``seg``
+    ``[B, D, H, W]`` (0 = background) and its metrics (``loss``,
+    ``accuracy``, ``fg_accuracy``); returns ``(loss, metrics)``.
+
+    - ``balanced_ce``: cross-entropy with each foreground voxel weighted
+      ``0.5 / max(fg_frac, 1e-4)`` and each background one ``0.5 /
+      max(1 - fg_frac, 1e-4)``, ``fg_frac`` the batch's foreground share;
+    - ``ce_dice``: that plus ``_soft_dice``;
+    - ``dice``: ``_soft_dice`` alone."""
+    if variant not in SEG_LOSSES:
+        raise ValueError(f"unknown segmentation loss variant {variant!r}")
+    seg = seg.long()
+    with record_function("loss"):
+        lse = torch.logsumexp(logits, dim=-1)
+        per_voxel = lse - logits.gather(-1, seg[..., None])[..., 0]
+        fg = seg > 0
+        is_fg = fg.float()
+        fg_frac = is_fg.mean()
+        w = torch.where(fg, 0.5 / torch.clamp(fg_frac, min=1e-4),
+                        0.5 / torch.clamp(1.0 - fg_frac, min=1e-4))
+        ce = (per_voxel * w).mean()
+        if variant == "balanced_ce":
+            loss = ce
+        elif variant == "ce_dice":
+            loss = ce + _soft_dice(logits, seg)
+        else:
+            loss = _soft_dice(logits, seg)
+        with torch.no_grad():
+            hit = (logits.argmax(dim=-1) == seg).float()
+            acc = hit.mean()
+            n_fg = is_fg.sum()
+            fg_acc = torch.where(n_fg > 0,
+                                 (hit * is_fg).sum() / torch.clamp(n_fg, min=1.0),
+                                 torch.zeros_like(n_fg))
+    return loss, {"loss": loss, "accuracy": acc, "fg_accuracy": fg_acc}
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -264,12 +358,15 @@ def loss_and_grads(model, voxels: torch.Tensor, labels: torch.Tensor,
                    label_smoothing: float = 0.0,
                    generator: torch.Generator | None = None,
                    policy: PrecisionPolicy = POLICIES["fp32"],
-                   loss_scale: torch.Tensor | None = None):
+                   loss_scale: torch.Tensor | None = None,
+                   loss_fn: Callable | None = None):
     """Train-mode forward (batch statistics move) and the gradient of the
     loss (times ``loss_scale`` when given) for every parameter, in
     ``model.parameters()`` order, with respect to ``policy``'s working
     copy: the masters under ``fp32``, else a cast of them, whose gradients
-    come back at the working dtype. Metrics hold the unscaled loss."""
+    come back at the working dtype. The loss is ``classification_loss`` of
+    ``labels``, or ``loss_fn(logits, labels) -> (loss, metrics)`` when
+    given. Metrics hold the unscaled loss."""
     if policy.working_dtype is None:
         logits = model(voxels, train=True, generator=generator)
         leaves = list(model.parameters())
@@ -278,13 +375,17 @@ def loss_and_grads(model, voxels: torch.Tensor, labels: torch.Tensor,
         logits = forward_with(model, work, voxels, train=True,
                               generator=generator)
         leaves = list(work.values())
-    loss, metrics = classification_loss(logits, labels, label_smoothing)
+    if loss_fn is None:
+        loss, metrics = classification_loss(logits, labels, label_smoothing)
+    else:
+        loss, metrics = loss_fn(logits, labels)
     target = loss if loss_scale is None else loss * loss_scale
     grads = torch.autograd.grad(target, leaves)
     return grads, metrics
 
 
-def _scaled_update(state, voxels, labels, label_smoothing, generator) -> dict:
+def _scaled_update(state, voxels, labels, label_smoothing, generator,
+                   loss_fn=None) -> dict:
     """The ``fp16_scaled`` step (the reference's ``_scaled_update``): scale
     the loss, upcast then unscale the gradients, one finiteness verdict;
     apply, or skip bitwise with the batch-norm statistics put back; grow
@@ -293,7 +394,8 @@ def _scaled_update(state, voxels, labels, label_smoothing, generator) -> dict:
     model, policy, scale = state.model, state.policy, state.loss_scale
     stats = [b.detach().clone() for b in model.buffers()]
     grads, metrics = loss_and_grads(model, voxels, labels, label_smoothing,
-                                    generator, policy, loss_scale=scale)
+                                    generator, policy, loss_scale=scale,
+                                    loss_fn=loss_fn)
     # Upcast first, then unscale: dividing in fp16 would overflow again.
     inv = 1.0 / scale
     grads = [g * inv for g in policy.master_grads(grads)]
@@ -321,7 +423,8 @@ def _scaled_update(state, voxels, labels, label_smoothing, generator) -> dict:
 
 def make_train_step(label_smoothing: float = 0.0, augment_groups: int = 0,
                     augment_affine: bool = False,
-                    augment_noise: float = 0.0) -> Callable:
+                    augment_noise: float = 0.0, task: str = "classify",
+                    seg_loss: str = "balanced_ce") -> Callable:
     """``step(state, batch, generator, codes, affine, flips) -> metrics``:
     one update of ``state`` (``train/state.py``) in place from a wire batch
     (bit-packed voxels unpacked on the device), with the draws given
@@ -332,8 +435,21 @@ def make_train_step(label_smoothing: float = 0.0, augment_groups: int = 0,
     ``augment_noise > 0`` the voxels in ``flips`` are flipped. Metrics are
     device scalars: ``loss``, ``accuracy`` and ``grad_norm``, the global
     norm of the gradients, and under ``fp16_scaled`` ``loss_scale`` (after
-    the verdict) and ``grads_finite`` (1.0 or 0.0)."""
+    the verdict) and ``grads_finite`` (1.0 or 0.0).
+
+    ``task="segment"`` trains on the batch's per-voxel ``seg`` with
+    ``segmentation_loss(variant=seg_loss)`` (metrics add ``fg_accuracy``),
+    rotating it with the voxels; its affine warp is not ported (ROADMAP
+    Queue A.3)."""
     warp = bool(augment_affine and augment_groups)
+    if task not in ("classify", "segment"):
+        raise ValueError(f"unknown task {task!r}")
+    if task == "segment" and warp:
+        raise ValueError("the segment step's paired affine warp is not "
+                         "ported yet (ROADMAP Queue A.3)")
+    target_key = "label" if task == "classify" else "seg"
+    loss_fn = (None if task == "classify" else
+               lambda logits, seg: segmentation_loss(logits, seg, seg_loss))
 
     def train_step(state, batch: dict, generator=None, codes=None,
                    affine: Optional[AffineDraw] = None,
@@ -353,13 +469,19 @@ def make_train_step(label_smoothing: float = 0.0, augment_groups: int = 0,
         if (flips is None) != (augment_noise <= 0.0):
             raise ValueError(f"a step with augment_noise={augment_noise} "
                              f"needs a flip mask exactly when it is > 0")
-        voxels = step_voxels(batch["voxels"], codes, affine, flips)
+        if loss_fn is None:
+            voxels = step_voxels(batch["voxels"], codes, affine, flips)
+            target = batch["label"]
+        else:
+            voxels, target = step_voxels(batch["voxels"], codes, affine, flips,
+                                         seg=batch["seg"])
         policy = state.policy
         if policy.loss_scaling:
-            return _scaled_update(state, voxels, batch["label"],
-                                  label_smoothing, generator)
-        grads, metrics = loss_and_grads(state.model, voxels, batch["label"],
-                                        label_smoothing, generator, policy)
+            return _scaled_update(state, voxels, target, label_smoothing,
+                                  generator, loss_fn)
+        grads, metrics = loss_and_grads(state.model, voxels, target,
+                                        label_smoothing, generator, policy,
+                                        loss_fn=loss_fn)
         grads = policy.master_grads(grads)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
@@ -377,28 +499,34 @@ def draw_rows(generator: torch.Generator, rows: int, batch: int) -> torch.Tensor
 
 
 def gather_rows(data: torch.Tensor, labels: torch.Tensor,
-                idx: torch.Tensor) -> dict:
+                idx: torch.Tensor, key: str = "label") -> dict:
     """The wire batch of resident rows ``idx``: packed voxels of ``data``
-    ``uint8 [N, R, R, R/8]`` and labels of ``labels`` ``int32 [N]``."""
+    ``uint8 [N, R, R, R/8]`` and, under ``key``, the targets of ``labels``
+    (``int32 [N]`` labels, or the int8 per-voxel ``seg [N, R, R, R]``)."""
     return {"voxels": data.index_select(0, idx),
-            "label": labels.index_select(0, idx)}
+            key: labels.index_select(0, idx)}
 
 
 def make_resident_train_step(label_smoothing: float = 0.0,
                              augment_groups: int = 0,
                              augment_affine: bool = False,
-                             augment_noise: float = 0.0) -> Callable:
+                             augment_noise: float = 0.0,
+                             task: str = "classify",
+                             seg_loss: str = "balanced_ce") -> Callable:
     """``step(state, data, labels, idx, generator, codes, affine, flips) ->
     metrics``: the train step of ``make_train_step`` on the rows ``idx`` of
     a split that lives on the device (``draw_rows`` draws them there; one
-    inner step of the reference's ``make_hbm_multi_train_step``)."""
+    inner step of the reference's ``make_hbm_multi_train_step``);
+    ``labels`` holds the split's targets, the per-voxel ``seg`` for
+    ``task="segment"``."""
     step = make_train_step(label_smoothing, augment_groups, augment_affine,
-                           augment_noise)
+                           augment_noise, task, seg_loss)
+    key = "label" if task == "classify" else "seg"
 
     def resident_step(state, data, labels, idx, generator=None, codes=None,
                       affine=None, flips=None) -> dict:
-        return step(state, gather_rows(data, labels, idx), generator, codes,
-                    affine, flips)
+        return step(state, gather_rows(data, labels, idx, key), generator,
+                    codes, affine, flips)
 
     return resident_step
 
@@ -493,17 +621,35 @@ class StepDraws:
 @torch.no_grad()
 def eval_step(model, batch: dict, serve_precision: str = "fp32") -> dict:
     """Eval sums (not means) of one wire batch, so batches add up exactly:
-    ``correct``, ``loss_sum``, ``count`` and ``confusion`` [true, pred].
-    The forward reads ``serve_params_cast(params, serve_precision)`` of the
+    ``correct``, ``loss_sum`` and ``count``, with ``confusion`` [true,
+    pred] for a labelled batch, or for a segment batch (one with ``seg``)
+    per-voxel sums and the per-class ``intersection`` and ``union`` of
+    predicted and true voxels; rows with ``mask`` 0 count nowhere. The
+    forward reads ``serve_params_cast(params, serve_precision)`` of the
     model's parameters (the masters as they are under ``fp32``)."""
     params = (None if serve_precision == "fp32" else
               serve_params_cast(dict(model.named_parameters()), serve_precision))
     logits = forward_with(model, params, unpack_voxels(batch["voxels"]),
                           train=False)
-    labels = batch["label"].long()
     mask = batch["mask"].float()
     pred = logits.argmax(dim=-1)
     n = logits.shape[-1]
+    if "seg" in batch:
+        seg = batch["seg"].long()
+        vmask = mask[:, None, None, None]
+        lse = torch.logsumexp(logits, dim=-1)
+        loss = lse - logits.gather(-1, seg[..., None])[..., 0]
+        vm = vmask.expand_as(seg)
+        inter = class_sums(seg, (pred == seg).float() * vm, n)
+        union = class_sums(pred, vm, n) + class_sums(seg, vm, n) - inter
+        return {
+            "correct": ((pred == seg).float() * vmask).sum(),
+            "loss_sum": (loss * vmask).sum(),
+            "count": mask.sum() * seg[0].numel(),
+            "intersection": inter,
+            "union": union,
+        }
+    labels = batch["label"].long()
     loss = F.cross_entropy(logits, labels, reduction="none")
     confusion = (F.one_hot(labels, n).float()[:, :, None]
                  * F.one_hot(pred, n).float()[:, None, :]
@@ -517,7 +663,11 @@ def eval_step(model, batch: dict, serve_precision: str = "fp32") -> dict:
 
 
 def aggregate_eval(metric_list: list[dict]) -> dict:
-    """Host-side exact aggregation of per-batch eval sums."""
+    """Host-side exact aggregation of per-batch eval sums: accuracy and
+    loss, with the per-class accuracies and the confusion matrix of a
+    classifier, or a segmenter's ``mean_iou`` over the classes present in
+    the predictions or the truth and its ``per_class_iou`` (index 0 the
+    background; ``None`` for a class absent from both)."""
     total: dict = {}
     for m in metric_list:
         for k, v in m.items():
@@ -526,11 +676,20 @@ def aggregate_eval(metric_list: list[dict]) -> dict:
         "accuracy": float(total["correct"] / total["count"]),
         "loss": float(total["loss_sum"] / total["count"]),
     }
-    conf = total["confusion"]
-    row = conf.sum(axis=1)
-    per_class = np.where(row > 0, np.diag(conf) / np.maximum(row, 1), 0.0)
-    seen = row > 0
-    out["per_class_accuracy"] = per_class.round(4).tolist()
-    out["mean_class_accuracy"] = float(per_class[seen].mean() if seen.any() else 0.0)
-    out["confusion"] = conf.astype(int).tolist()
+    if "confusion" in total:
+        conf = total["confusion"]
+        row = conf.sum(axis=1)
+        per_class = np.where(row > 0, np.diag(conf) / np.maximum(row, 1), 0.0)
+        seen = row > 0
+        out["per_class_accuracy"] = per_class.round(4).tolist()
+        out["mean_class_accuracy"] = float(per_class[seen].mean()
+                                           if seen.any() else 0.0)
+        out["confusion"] = conf.astype(int).tolist()
+    if "intersection" in total:
+        union = total["union"]
+        present = union > 0
+        iou = np.where(present, total["intersection"] / np.maximum(union, 1), 0.0)
+        out["mean_iou"] = float(iou.sum() / np.maximum(present.sum(), 1))
+        out["per_class_iou"] = [round(float(v), 4) if p else None
+                                for v, p in zip(iou, present)]
     return out

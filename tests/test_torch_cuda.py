@@ -25,7 +25,9 @@ exiting 75 at the group boundary with the state of k eager steps; the
 24-pose vote through the graphed kernels against the plain conv at bucket
 64, with the device holding one chunk and one staging batch, not 24
 rotated copies; the native voxelizer built on the card's host, bitwise the
-numpy fill at 64³.
+numpy fill at 64³; the seg64 segmenter's graphed labels bitwise its eager
+ones, and its resident train steps (eager, and k = 2 on one graph) with
+finite losses.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -940,3 +942,63 @@ def test_native_voxelizer_on_the_card_host_is_bitwise_numpy(cuda):
         np.testing.assert_array_equal(
             voxelize(tris, 64, backend="native"),
             voxelize(tris, 64, backend="numpy"))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_segmenter_graphed_labels_are_bitwise_eager(cuda, precision):
+    """seg64 at full width: each bucket's program is a CUDA graph whose
+    replay gives the eager forward's int8 labels bitwise, twice (the static
+    buffers are reused); the segmenter captures no kernel of the package
+    (its convolutions are cuDNN's)."""
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.infer import Predictor
+
+    pred = Predictor.from_seed(get_config("seg64"), 0, batch=4, device=cuda,
+                               precision=precision)
+    for b in (4, 1):
+        prog = pred.program_for(b)
+        assert prog.graph is not None and not any(prog.capture_launches.values())
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for b in (1, 4):
+        for _ in range(2):
+            x = (torch.rand((b, 64, 64, 64, 1), device=cuda, generator=g)
+                 > 0.6).float()
+            got = pred.forward(x)
+            with torch.inference_mode():
+                want = pred.forward_eager(x)
+            assert got.dtype == torch.int8 and tuple(got.shape) == (b, 64, 64, 64)
+            assert torch.equal(got, want), (b, int((got != want).sum()))
+    assert pred.replays == 4
+
+
+def test_segment_train_steps_on_card(cuda, tmp_path):
+    """seg64 at full width and batch 4, resident with the paired rotation:
+    an eager step makes no host synchronisation and has a finite loss;
+    then k = 2 steps per dispatch replay one captured CUDA graph, every
+    loss finite, the parameters moved."""
+    import io
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.offline import export_seg_cache
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cache = str(tmp_path / "seg")
+    export_seg_cache(cache, num_parts=10, resolution=64, seed=1)
+    cfg = get_config("seg64", data_cache=cache, hbm_cache=True, global_batch=4,
+                     steps_per_dispatch=2, log_every=1, eval_every=10 ** 6)
+    tr = Trainer(cfg, device=cuda, stream=io.StringIO())
+    assert tr._labels.is_cuda and tr._labels.dtype == torch.int8
+    before = tr.state.model.head.kernel.detach().clone()
+    tr.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = tr.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(metrics["loss"]))
+    tr.run(num_steps=6)
+    assert [k[:2] for k in tr.programs] == [("resident", 2)]
+    losses = [r["loss"] for r in tr.logger.history if r["kind"] == "train"]
+    assert len(losses) == 2 and all(np.isfinite(v) for v in losses)
+    assert not torch.equal(tr.state.model.head.kernel, before)

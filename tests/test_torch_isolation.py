@@ -96,6 +96,14 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch, tmp_path):
     finally:
         torch.set_num_threads(threads)
     assert [r["n"] for r in rows] == [24]
+    # The segmenter's entry points likewise; its data command is host-only.
+    seg = get_config("seg64", resolution=16, seg_features=(4, 8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor.from_seed(seg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(seg)
+    assert cli.main(["export-seg-data", "--out", str(tmp_path / "seg"),
+                     "--num-parts", "2", "--resolution", "16"]) == 0
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")

@@ -156,8 +156,15 @@ def test_config_accepts_the_rungs_and_refuses_the_unported():
             assert cfg.validate_training() is cfg
     robust = get_config("robust64")  # affine, noise and k = 8: all ported
     assert robust.validate_training() is robust
-    with pytest.raises(ValueError, match="not ported"):
-        get_config("sprint64", task="segment")
+    seg = get_config("seg64")  # the segmenter: ported
+    assert seg.validate_training() is seg and seg.task == "segment"
+    for sp in ("fp32", "bf16"):
+        assert get_config("seg64", serve_precision=sp).serve_precision == sp
+    # What a segment run does not do yet is refused, naming its queue.
+    for bad in (dict(serve_precision="int8"),
+                dict(augment_affine=True, data_cache="c", hbm_cache=True)):
+        with pytest.raises(ValueError, match="Queue A.3"):
+            get_config("seg64", **bad)
 
 
 # --- serving casts and the quantizer --------------------------------------------
