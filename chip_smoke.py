@@ -46,6 +46,35 @@ Phases, in order; any failure exits non-zero before the last line:
    answered 200 with one of the two generations' eager probabilities
    (PROB_ATOL), the old one's before the swap and the new one's after it,
    /healthz must name the new version, and no request may launch a kernel.
+6a. Wire (`wire` phase), sprint64 at full width:
+   - `programs`: `cli programs --config sprint64 --warm` as a subprocess on
+     the card: the 11 catalog rows, and each applicable program captured
+     (serve* at buckets 1/4/16/64, serve_packed* at batch 256; 3
+     conv3d_fwd per graph) or skipped with its reason.
+   - `serve_packed`: per precision (fp32, bf16, int8) the packed program at
+     batches 256 and 1 on 256 synthetic parts: labels against the argmax
+     of the same precision's serve program on the unpacked grids (bitwise
+     at fp32, a failure otherwise; at bf16 and int8 a differing row is
+     printed with its top-2 logit gap), device ms per replay of both
+     (CUDA events), the bytes and device ms of copying the batch to the
+     card packed and as float32, and 3 conv3d_fwd_kernel device events per
+     replay (correlation ids).
+   - `stream`: `cli serve --config sprint64 --seed S --port 0 --run-dir D
+     --slo-p99-ms 250 --queue-limit 256` as a subprocess; 256 parts through
+     `stream_load` (POST /predict_voxels_stream, one keep-alive socket),
+     every label the in-process Predictor's (a near-tie, top-2
+     probabilities within 1e-6, is counted and exempt); a torn frame gets
+     a 400 `bad_stream`; GET /metrics before and after counts 256 more
+     served and carries the serving p99; SIGTERM drains with exit 0;
+     `D/events.jsonl` holds serve_start, serve_batch and serve_stop.
+   - `loadgen`: `measure_trace_overhead`'s percentage, then
+     `bench_serving` on sprint64 at BENCH_LOAD_FRACTION (0.3) of two
+     closed-loop rates, the fp32 serve_packed replay at batch 256 (the
+     reference benchmark's basis) and the float32 request path (the trace
+     probe's rate with its sampler off): the sustained rate, p50/p99,
+     occupancy and rejections.
+   The phase's own launches (captures and eager warmups) are the `wire`
+   path of conv3d_fwd.
 7. Train path, once per conv backend (pallas, hybrid_dw, xla): the sprint64
    Trainer at full width and batch 256 from a seed, dropout 0.5, a few
    steps on synthetic parts, then one eval batch. Every loss must be
@@ -230,8 +259,8 @@ Phases, in order; any failure exits non-zero before the last line:
    reference's XLA convolutions, here cuDNN's): every launch count stays 0
    through the phase, the `seg` path of each kernel.
 16. The wall time of every phase, one JSON line of per-kernel numbers
-   (launches by path, the cache, robust, supervise, precision, ood, tta
-   and seg runs' included), the
+   (launches by path, the wire, cache, robust, supervise, precision, ood,
+   tta and seg runs' included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
@@ -3753,6 +3782,302 @@ def seg_phase(torch, seed: int, smi_line: str) -> dict:
     return {"launches": counts}
 
 
+# The wire phase: the packed programs' batches, the stream's frames and the
+# loadgen's requests; the load generator's offered rate is
+# BENCH_LOAD_FRACTION of the closed-loop rate measured here (the packed fp32
+# program at batch 256, the reference benchmark's serving number).
+WIRE_PARTS = 256
+WIRE_BATCHES = (256, 1)
+WIRE_STREAM_FRAMES = 256
+WIRE_LOAD_REQUESTS = 512
+WIRE_SLO_P99_MS = 250.0
+
+
+def _gap(torch, pred, grid) -> float:
+    """The top-2 logit gap of one part under ``pred``'s live generation."""
+    from featurenet_tpu_torch.runtime import forward_with
+
+    with torch.inference_mode():
+        x = torch.from_numpy(grid[None, ..., None]).cuda()
+        logits = forward_with(pred.model, pred._dispatch_params(), x).float()
+    top = logits[0].topk(2).values
+    return float(top[0] - top[1])
+
+
+def _h2d_ms(torch, host) -> float:
+    """Device ms of copying ``host`` (a pageable tensor) to the card."""
+    dev = torch.empty_like(host, device="cuda")
+    return time_ms(torch, lambda: dev.copy_(host))
+
+
+def wire_programs_line(proc, smi_line: str) -> dict:
+    """``cli programs --config sprint64 --warm`` on the card: every catalog
+    row, and each applicable program built (serve* at the buckets,
+    serve_packed* at batch 256, each capturing 3 conv3d_fwd per graph) or
+    skipped with its reason."""
+    recs = proc.records()
+    rows = [r for r in recs if "program" in r]
+    warm = next((r["warmup"] for r in recs if "warmup" in r), None)
+    if warm is None or len(rows) != 11:
+        fail(f"cli programs printed {recs}")
+    applicable = [r["program"] for r in rows if r["applicable"]]
+    if sorted(warm) != sorted(applicable):
+        fail(f"cli programs --warm built {sorted(warm)}, not {applicable}")
+    want3 = dict(_want_counts("xla", 0, 0), conv3d_fwd=3)
+    for name, rec in warm.items():
+        if "skipped" in rec:
+            continue
+        per_graph = {k: v * len(rec["batches"]) for k, v in want3.items()}
+        if rec["source"] != "capture" or rec["capture_launches"] != per_graph:
+            fail(f"cli programs --warm {name}: {rec}, want {per_graph} captured")
+        if name.startswith("serve_packed") and rec["batches"] != [256]:
+            fail(f"cli programs --warm {name} at {rec['batches']}, not [256]")
+    out = {"wall_s": proc.wall_s, "rows": rows, "warmup": warm,
+           "nvidia_smi": smi_line}
+    print("programs", json.dumps(out), flush=True)
+    return out
+
+
+def wire_serve_packed_line(torch, seed: int, grids, smi_line: str) -> dict:
+    """Per precision, the sprint64 packed program at batches 256 and 1 on
+    the phase's parts: labels against the argmax of the same precision's
+    serve program on the unpacked grids (bitwise at fp32; at bf16 and int8
+    a differing row is printed with its top-2 logit gap), device ms per
+    replay of both (CUDA events, the batch already on the card), the host
+    to device copy of the batch packed and as float32 (bytes and device
+    ms), and 3 conv3d_fwd_kernel device events per replay."""
+    import numpy as np
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.synthetic import pack_voxels
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.train.precision import SERVE_PRECISIONS
+
+    cfg = get_config("sprint64")
+    packed_host = torch.from_numpy(pack_voxels(grids))
+    float_host = torch.from_numpy(np.ascontiguousarray(grids[..., None]))
+    copies = {b: {"packed_bytes": packed_host[:b].nbytes,
+                  "float32_bytes": float_host[:b].nbytes,
+                  "packed_h2d_ms": _h2d_ms(torch, packed_host[:b]),
+                  "float32_h2d_ms": _h2d_ms(torch, float_host[:b])}
+              for b in WIRE_BATCHES}
+    packed_dev, float_dev = packed_host.cuda(), float_host.cuda()
+    want3 = dict(_want_counts("xla", 0, 0), conv3d_fwd=3)
+    out = {}
+    for precision in SERVE_PRECISIONS:
+        torch.cuda.empty_cache()
+        pred = Predictor.from_seed(cfg, seed, batch=max(WIRE_BATCHES),
+                                   device="cuda", precision=precision)
+        rows = {}
+        for b in WIRE_BATCHES:
+            prog = pred.packed_program_for(b)
+            if prog.graph is None or prog.capture_launches != want3:
+                fail(f"serve_packed {precision} b{b} captured {prog.capture_launches}")
+            serve = pred.program_for(b)
+            labels = prog(packed_host[:b]).cpu().numpy()
+            want = serve(float_host[:b]).argmax(-1).cpu().numpy()
+            diff = np.flatnonzero(labels != want)
+            differing = [{"row": int(i), "packed": int(labels[i]), "serve": int(want[i]),
+                          "top2_logit_gap": _gap(torch, pred, grids[i])}
+                         for i in diff]
+            if precision == "fp32" and differing:
+                fail(f"serve_packed fp32 b{b} labels differ from serve's argmax: "
+                     f"{differing}")
+            events = [c["conv3d_fwd_kernel"] for c in graph_launch_events(
+                torch, [functools.partial(prog, packed_dev[:b])] * REPLAY_PROFILE_REPS,
+                ("conv3d_fwd_kernel",))]
+            if events != [3] * REPLAY_PROFILE_REPS:
+                fail(f"serve_packed {precision} b{b}: conv3d_fwd_kernel events "
+                     f"per replay {events}")
+            rows[b] = {"packed_ms": time_ms(torch, lambda: prog(packed_dev[:b])),
+                       "serve_ms": time_ms(torch, lambda: serve(float_dev[:b])),
+                       "labels_equal_serve_argmax": not differing,
+                       "differing_rows": differing,
+                       "capture_s": prog.capture_s,
+                       "conv3d_fwd_kernel_events_per_replay": 3,
+                       **copies[b]}
+        out[precision] = rows
+        del pred, prog, serve
+    print("serve_packed", json.dumps({**out, "nvidia_smi": smi_line}), flush=True)
+    return out
+
+
+def _metric(text: str, line_prefix: str):
+    for line in text.splitlines():
+        if line.startswith(line_prefix + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def wire_stream_line(torch, seed: int, grids, serve, run_dir: str,
+                     smi_line: str) -> dict:
+    """``serve`` (``cli serve --config sprint64 --seed S --port 0 --run-dir
+    D --slo-p99-ms 250``, started with the phase): WIRE_STREAM_FRAMES parts
+    through ``stream_load`` over one keep-alive socket, each label the
+    in-process Predictor's on the same seed; a torn frame answered 400
+    ``bad_stream``; GET /metrics before and after counting the frames
+    served and carrying the serving p99; SIGTERM draining with exit 0; and
+    ``D/events.jsonl`` holding serve_start, serve_batch and serve_stop."""
+    import struct
+
+    import numpy as np
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.serve.loadgen import stream_load
+
+    banner = json.loads(serve.stdout.readline())["serving"]
+    port = banner["port"]
+    served = 'featurenet_requests_total{outcome="served"}'
+    before = _get_text(port, "/metrics")
+    frames = grids[:WIRE_STREAM_FRAMES]
+    out = stream_load("127.0.0.1", port, frames, trace_id=f"wire{seed}")
+    after = _get_text(port, "/metrics")
+    pred = Predictor.from_seed(get_config("sprint64"), seed, batch=64, device="cuda")
+    want, probs = pred.predict_voxels(frames)
+    top2 = np.sort(probs, axis=-1)[:, -2:]
+    near_tie = top2[:, 1] - top2[:, 0] < 1e-6
+    got = np.array([ln.get("label", -1) for ln in out["lines"]])
+    traces = [ln.get("trace") for ln in out["lines"]]
+    if out["status"] != 200 or out["answered"] != len(frames) or \
+            traces != [f"wire{seed}.{i}" for i in range(len(frames))]:
+        fail(f"stream: status {out['status']}, answered {out['answered']}, "
+             f"lines {out['lines'][:3]}")
+    wrong = np.flatnonzero((got != want) & ~near_tie)
+    if wrong.size:
+        fail(f"stream: frames {wrong.tolist()} answered {got[wrong].tolist()}, "
+             f"the Predictor {want[wrong].tolist()}")
+    want_bytes = 64 ** 3 * 4
+    torn_body = struct.pack("<I", want_bytes) + frames[0].astype("<f4").tobytes()[:100]
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    status, torn, _ = _post(conn, "/predict_voxels_stream", torn_body)
+    conn.close()
+    if status != 400 or torn.get("error") != "bad_stream":
+        fail(f"stream: a torn frame answered {status}: {torn}")
+    counted = (_metric(after, served) or 0) - (_metric(before, served) or 0)
+    p99 = _metric(after, 'featurenet_serving_ms{q="0.99"}')
+    if counted != len(frames) or p99 is None:
+        fail(f"stream: /metrics counted {counted} served, serving p99 {p99}")
+    serve.send_signal(signal.SIGTERM)
+    rest, err = serve.communicate(timeout=120)
+    stats = [json.loads(ln)["serve_stats"] for ln in rest.splitlines()
+             if ln.startswith('{"serve_stats"')]
+    if serve.returncode != 0 or not stats:
+        fail(f"stream: cli serve exited {serve.returncode}: {err[-2000:]}")
+    with open(os.path.join(run_dir, "events.jsonl")) as fh:
+        kinds = {json.loads(ln)["ev"] for ln in fh}
+    if not {"serve_start", "serve_batch", "serve_stop"} <= kinds:
+        fail(f"stream: events.jsonl holds {sorted(kinds)}")
+    res = {"frames": len(frames), "wall_s": out["wall_s"],
+           "frames_per_sec": out["frames_per_sec"], "reconnects": out["reconnects"],
+           "labels_equal_predictor": True, "near_ties": int(near_tie.sum()),
+           "torn_frame": {"status": status, "error": torn["error"]},
+           "metrics_served_delta": counted, "metrics_serving_p99_ms": p99,
+           "drain": {k: stats[-1][k] for k in ("served", "batches", "occupancy",
+                                              "by_bucket", "active_serving_alerts",
+                                              "exit_code")},
+           "exit_code": serve.returncode, "event_kinds": sorted(kinds),
+           "nvidia_smi": smi_line}
+    print("stream", json.dumps(res), flush=True)
+    return res
+
+
+def _get_text(port: int, path: str) -> str:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        return conn.getresponse().read().decode("utf-8")
+    finally:
+        conn.close()
+
+
+def wire_loadgen_line(torch, seed: int, packed_per_s: float,
+                      smi_line: str) -> dict:
+    """``measure_trace_overhead``'s percentage on sprint64 on the card, then
+    ``bench_serving`` at BENCH_LOAD_FRACTION (capped at BENCH_QPS_CAP) of
+    two closed-loop rates: the fp32 serve_packed rate at batch 256 (the
+    reference benchmark's basis) and the float32 request path's rate that
+    the trace probe measured with its sampler off."""
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.serve.loadgen import (
+        BENCH_LOAD_FRACTION,
+        BENCH_QPS_CAP,
+        bench_serving,
+        measure_trace_overhead,
+    )
+
+    cfg = get_config("sprint64")
+    trace = measure_trace_overhead(cfg, device="cuda")
+    rows = {}
+    for basis, rate in (("serve_packed_b256", packed_per_s),
+                        ("float32_requests", trace["trace_dark_qps"])):
+        qps = min(BENCH_QPS_CAP, BENCH_LOAD_FRACTION * rate)
+        row = bench_serving(cfg, qps=qps, n_requests=WIRE_LOAD_REQUESTS,
+                            device="cuda")
+        if row["serve_qps_sustained"] is None or row["serve_p99_ms"] is None:
+            fail(f"loadgen ({basis}): {row}")
+        rows[basis] = {"closed_loop_per_s": rate, **row}
+    out = {"load_fraction": BENCH_LOAD_FRACTION, **rows, **trace,
+           "nvidia_smi": smi_line}
+    print("loadgen", json.dumps(out), flush=True)
+    return out
+
+
+def wire_phase(torch, seed: int, smi_line: str) -> dict:
+    """The serving wire at sprint64 full width: `programs`, `serve_packed`,
+    `stream` and `loadgen` lines. ``cli programs --warm`` and ``cli serve``
+    start with the phase as subprocesses (their warmups overlap) and are
+    done before the in-process lines time anything. The launches counted
+    are this process's (the packed programs' and the loadgen services'
+    captures and eager warmups; replays launch none)."""
+    import numpy as np
+
+    from featurenet_tpu_torch.data.synthetic import generate_batch
+
+    _reset_counts()
+    walls = {}
+    grids = generate_batch(np.random.default_rng(seed + 7), WIRE_PARTS,
+                           64)["voxels"][..., 0].astype("<f4")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        programs = _Cli("programs", "programs", "--config", "sprint64", "--warm")
+        # A queue bound above the stream's frames: the stream submits them
+        # all before the first batch returns.
+        serve = subprocess.Popen(
+            [sys.executable, "-m", "featurenet_tpu_torch.cli", "serve",
+             "--config", "sprint64", "--seed", str(seed), "--port", "0",
+             "--run-dir", run_dir, "--slo-p99-ms", str(WIRE_SLO_P99_MS),
+             "--queue-limit", str(WIRE_STREAM_FRAMES)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            t = time.perf_counter()
+            wire_programs_line(programs, smi_line)
+            walls["programs"] = time.perf_counter() - t
+            t = time.perf_counter()
+            wire_stream_line(torch, seed, grids, serve, run_dir, smi_line)
+            walls["stream"] = time.perf_counter() - t
+        finally:
+            for proc in (programs.proc, serve):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    packed = wire_serve_packed_line(torch, seed, grids, smi_line)
+    walls["serve_packed"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rate = 256 / packed["fp32"][256]["packed_ms"] * 1e3
+    wire_loadgen_line(torch, seed, rate, smi_line)
+    walls["loadgen"] = time.perf_counter() - t
+    counts = _read_counts()
+    if counts["conv3d_fwd"] < 1 or any(v for k, v in counts.items()
+                                       if k != "conv3d_fwd"):
+        fail(f"wire: launches {counts}")
+    print("wire", json.dumps({"walls_s": walls, "launches": counts}), flush=True)
+    return {"launches": counts}
+
+
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
     main = [r for r in rows if r["main_path"]]
     return {
@@ -3822,6 +4147,7 @@ def main() -> int:
     serve = phase("serve", serve_phase, torch, args.seed)
     graphs = phase("graphs", graphs_phase, torch, args.seed, smi_line)
     reload = phase("reload", reload_phase, torch, args.seed, smi_line)
+    wire = phase("wire", wire_phase, torch, args.seed, smi_line)["launches"]
     phase("data", host_generation, torch, args.seed, TRAIN_WORKERS)
     train = {b: phase(f"train_{b}", train_phase, torch, args.seed, b)
              for b in ("pallas", "hybrid_dw", "xla")}
@@ -3859,6 +4185,7 @@ def main() -> int:
                       "featurenet_tpu/ops/conv3d.py:160", fwd_train,
                       {"serve": serve["conv3d_fwd_launches"],
                        "reload": reload["launches"]["conv3d_fwd"],
+                       "wire": wire["conv3d_fwd"],
                        "train_pallas": tp["conv3d_fwd"],
                        "train_hybrid_dw": th["conv3d_fwd"],
                        "train_xla": tx["conv3d_fwd"],

@@ -28,7 +28,9 @@
         [--supervise --checkpoint-dir CK [--stall-timeout S --max-restarts N \
          --heartbeat-file F --restart-every N]] [--inject-faults SPEC]
     python -m featurenet_tpu_torch.cli serve --checkpoint-dir CK --port 0 \
-        [--precision fp32|bf16|int8] [--inject-faults SPEC]
+        [--precision fp32|bf16|int8] [--inject-faults SPEC] \
+        [--slo-p99-ms 250 | --alert-rules SPEC] [--drain] \
+        [--trace-sample F] [--run-dir D] [--batch-queue-limit N]
     python -m featurenet_tpu_torch.cli serve --config sprint64 --seed 0 \
         --buckets 1,4,16,64 --port 0 --device cuda
     python -m featurenet_tpu_torch.cli serve --weights w.npz --port 0
@@ -38,6 +40,9 @@
         [--precision fp32|bf16|int8] [--seg-out DIR] part.stl ...
     python -m featurenet_tpu_torch.cli recalibrate --checkpoint-dir CK \
         --out-dir CK2 [--batches 64 --data-cache D]
+    python -m featurenet_tpu_torch.cli programs [--config pod64] \
+        [--train-precision P --serve-precision P] [--warm [--device cpu]] \
+        [--run-dir D]
 
 Every subcommand but the four data commands runs on the card unless
 ``--device cpu`` is given. The data commands run on the host alone and
@@ -121,6 +126,26 @@ working copy, the latter with dynamic loss scaling) and
 ``config.json``, its serving) runs at; both are run policy, so a resumed
 run may change them.
 
+``programs`` prints the program catalog of a preset, one JSON row per
+program (``program``, ``doc``, ``precision``, ``applicable``; the
+reference's rows), building nothing; ``--warm`` then builds every
+applicable program the port builds ahead (``runtime/registry.py``
+``warmup``: the serving graphs of each precision at the buckets
+1,4,16,64, the packed ones at ``global_batch``, the k-step train graph)
+on the card unless ``--device cpu``, and prints ``{"warmup": {program:
+{"source", "build_s", "precision", "capture_launches"} | {"skipped":
+reason}}}``.
+
+``serve`` installs SLO alert rules over the serving windows
+(``--slo-p99-ms``, default 250: ``serving_p99_ms`` and
+``queue_wait_ms_p99`` against it; ``--alert-rules`` replaces them).
+Drained, it exits 2 when the dispatcher did not stop in time and, with
+``--drain``, also when a serving alert is still unresolved (a CI latency
+gate); else 0. ``--run-dir D`` writes ``D/run.json`` and
+``D/events.jsonl`` (``serve_start``, ``serve_batch``, ``overload``,
+``serve_stop``, window summaries, alerts, sampled request timelines at
+``--trace-sample``). ``--batch-queue-limit`` caps the ``batch`` lane.
+
 ``serve``, ``eval`` and ``infer`` read a checkpoint directory read-only and
 configure themselves from its ``config.json``; ``--conv-backend`` picks
 another lowering of the same model, ``--precision`` (``serve``, ``infer``)
@@ -198,6 +223,47 @@ def _parser() -> argparse.ArgumentParser:
                        help="fault spec (featurenet_tpu_torch.faults); serving "
                             "sites: replica_slow@request=N, swap_corrupt@swap=N, "
                             "replica_loss_rollout@swap=N")
+    p_srv.add_argument("--batch-queue-limit", type=int, default=None,
+                       dest="batch_queue_limit",
+                       help="admission cap of the batch lane (default: half "
+                            "of --queue-limit)")
+    p_srv.add_argument("--slo-p99-ms", type=float, default=250.0,
+                       dest="slo_p99_ms",
+                       help="end-to-end p99 latency SLO: installs "
+                            "serving_p99_ms>SLO:critical and "
+                            "queue_wait_ms_p99>SLO rules (default 250; "
+                            "--alert-rules replaces them)")
+    p_srv.add_argument("--alert-rules", dest="alert_rules",
+                       help="full rule spec metric(>|<)threshold[:severity],... "
+                            "(featurenet_tpu_torch.obs.alerts)")
+    p_srv.add_argument("--drain", action="store_true",
+                       help="exit 2 when a serving alert is still unresolved "
+                            "after the final window flush (a CI latency gate)")
+    p_srv.add_argument("--trace-sample", type=float, dest="trace_sample",
+                       help="request-tracing sample rate in [0, 1]; "
+                            "rejections, errors and SLO breaches are always "
+                            "kept (default: the config's trace_sample)")
+    p_srv.add_argument("--run-dir", dest="run_dir",
+                       help="observability directory: run.json and "
+                            "events.jsonl (serve_batch, overload, window "
+                            "summaries, alerts, request timelines)")
+
+    p_prog = sub.add_parser("programs", help="list a preset's program catalog; "
+                                             "--warm builds them")
+    p_prog.add_argument("--config", choices=sorted(PRESETS), default="pod64",
+                        help="preset whose catalog to list (default pod64)")
+    precision(p_prog, "--train-precision", "train_precision", TRAIN_PRECISIONS,
+              "training precision the train programs are listed under")
+    precision(p_prog, "--serve-precision", "serve_precision", SERVE_PRECISIONS,
+              "serving precision eval_step is listed under")
+    p_prog.add_argument("--warm", action="store_true",
+                        help="build every applicable program the port builds "
+                             "ahead")
+    p_prog.add_argument("--run-dir", dest="run_dir",
+                        help="observability directory: the warmup's "
+                             "program_compile events")
+    p_prog.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu, for --warm")
 
     p_tr = sub.add_parser("train", help="train a preset on synthetic parts "
                                         "or a voxel or segmentation cache")
@@ -735,6 +801,14 @@ def _serve(args) -> int:
             f"serve: --buckets must be comma-separated batch sizes >= 1, "
             f"got {args.buckets!r}"
         )
+    rules = None  # the service installs serve_rules(--slo-p99-ms)
+    if args.alert_rules:
+        from featurenet_tpu_torch.obs.alerts import parse_rules
+
+        try:
+            rules = parse_rules(args.alert_rules)
+        except ValueError as e:
+            raise SystemExit(f"--alert-rules: {e}")
     if args.inject_faults:
         from featurenet_tpu_torch import faults
 
@@ -743,24 +817,38 @@ def _serve(args) -> int:
             faults.install(args.inject_faults)
         except ValueError as e:
             raise SystemExit(f"--inject-faults: {e}")
+    if args.trace_sample is not None and not 0.0 <= args.trace_sample <= 1.0:
+        raise SystemExit(f"--trace-sample is a probability in [0, 1]; got "
+                         f"{args.trace_sample}")
+    policy = _policy(args, ("trace_sample",))
     if args.checkpoint_dir:
-        cfg = _cfg_from_checkpoint(_saved_config(args.checkpoint_dir), args)
+        cfg = _cfg_from_checkpoint(_saved_config(args.checkpoint_dir), args,
+                                   **policy)
         pred = Predictor.from_checkpoint(args.checkpoint_dir, config=cfg,
                                          batch=max(buckets), device=args.device,
                                          precision=args.precision)
     elif args.weights:
         state, cfg = load_npz(args.weights)
-        pred = Predictor(state, _with_backend(cfg, args.conv_backend),
+        pred = Predictor(state, _with_backend(dataclasses.replace(cfg, **policy),
+                                              args.conv_backend),
                          batch=max(buckets), device=args.device,
                          model_version=args.weights, precision=args.precision)
     else:
-        cfg = _with_backend(get_config(args.config or DEFAULT_PRESET),
+        cfg = _with_backend(get_config(args.config or DEFAULT_PRESET, **policy),
                             args.conv_backend)
         pred = Predictor.from_seed(cfg, args.seed, batch=max(buckets),
                                    device=args.device, precision=args.precision)
+    if args.run_dir:
+        from featurenet_tpu_torch import obs
+        from featurenet_tpu_torch.config import config_to_dict
+
+        obs.init_run(args.run_dir, config=config_to_dict(pred.cfg),
+                     extra={"cmd": "serve"})
     service = InferenceService(pred, buckets=buckets,
                                max_wait_ms=args.max_wait_ms,
-                               queue_limit=args.queue_limit)
+                               queue_limit=args.queue_limit, rules=rules,
+                               slo_p99_ms=args.slo_p99_ms,
+                               batch_queue_limit=args.batch_queue_limit)
     srv = make_server(service, host=args.host, port=args.port)
     server_thread = threading.Thread(target=srv.serve_forever,
                                      name="serve-http", daemon=True)
@@ -772,7 +860,8 @@ def _serve(args) -> int:
         "config": pred.cfg.name, "task": pred.cfg.task,
         "conv_backend": pred.cfg.arch.conv_backend,
         "device": str(pred.device), "model_version": pred.model_version,
-        "endpoints": ENDPOINTS,
+        "slo_p99_ms": args.slo_p99_ms, "trace_sample": pred.cfg.trace_sample,
+        "run_dir": args.run_dir, "endpoints": ENDPOINTS,
     }}), flush=True)
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -782,8 +871,37 @@ def _serve(args) -> int:
     srv.server_close()
     server_thread.join(timeout=10.0)
     st = service.drain()
+    if args.run_dir:
+        from featurenet_tpu_torch import obs
+
+        obs.close_run()
     print(json.dumps({"serve_stats": st}), flush=True)
-    return st["exit_code"]
+    # Without --drain the SLO verdict is reported, and only a drain that
+    # timed out fails the exit.
+    return st["exit_code"] if args.drain else (2 if st["drain_timeout"] else 0)
+
+
+def _programs(args) -> int:
+    from featurenet_tpu_torch.config import config_to_dict, get_config
+    from featurenet_tpu_torch.runtime.registry import list_programs, warmup
+
+    cfg = get_config(args.config,
+                     **_policy(args, ("train_precision", "serve_precision")))
+    if args.run_dir:
+        from featurenet_tpu_torch import obs
+
+        obs.init_run(args.run_dir, config=config_to_dict(cfg),
+                     extra={"cmd": "programs"})
+    try:
+        for row in list_programs(cfg):
+            print(json.dumps(row), flush=True)
+        if args.warm:
+            print(json.dumps({"warmup": warmup(cfg, device=args.device)}),
+                  flush=True)
+    finally:
+        if args.run_dir:
+            obs.close_run()
+    return 0
 
 
 def main(argv=None) -> int:
@@ -793,7 +911,8 @@ def main(argv=None) -> int:
             "infer": _infer, "export-data": _export_data,
             "export-seg-data": _export_seg_data,
             "export-stl-data": _export_stl_data, "build-cache": _build_cache,
-            "eval-ood": _eval_ood, "recalibrate": _recalibrate}[args.cmd](args)
+            "eval-ood": _eval_ood, "recalibrate": _recalibrate,
+            "programs": _programs}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ smoothing, clipping, ``train_precision`` (``fp32``, ``bf16_master``,
 the JAX presets' values, and the checkpoint fields (``checkpoint_dir``,
 ``checkpoint_every``, ``keep_checkpoints``, ``init_from``), and the
 supervision fields (``restart_every_steps``, ``max_inflight_steps``,
-``inject_faults``, ``heartbeat_file``; ``train/supervisor.py``). A
+``inject_faults``, ``heartbeat_file``; ``train/supervisor.py``), and the
+observability fields (``run_dir``, ``alert_rules``, ``trace_sample``;
+``obs/``). A
 ``config.json`` that the JAX package writes beside its checkpoints loads
 through ``config_from_dict`` (the fields the port lacks are dropped), and
 ``check_identity`` holds a requested config to a persisted one as the
@@ -154,6 +156,17 @@ class Config:
     inject_faults: Optional[str] = None
     heartbeat_file: Optional[str] = None
 
+    # Run-scoped observability (obs/). run_dir: the directory of run.json
+    # and events.jsonl (None: no obs file I/O). alert_rules: threshold
+    # rules "metric(>|<)threshold[:severity]", comma-separated, over the
+    # rolling windows (obs/alerts.py); None: the defaults. trace_sample:
+    # the share of healthy serving requests whose timeline lands in the
+    # stream (obs/tracing.py); rejections, errors and SLO breaches are
+    # always kept.
+    run_dir: Optional[str] = None
+    alert_rules: Optional[str] = None
+    trace_sample: float = 1.0
+
     @property
     def device_augment(self) -> bool:
         """Whether pose augmentation runs inside the train step rather than
@@ -208,6 +221,15 @@ class Config:
             # A typo'd or unwired site must fail at config time: a spec
             # that never fires makes a chaos test pass by testing nothing.
             faults.check_wired(self.inject_faults)
+        if self.alert_rules:
+            # A rule naming a metric that does not exist would never
+            # evaluate: an SLO that watches nothing.
+            from featurenet_tpu_torch.obs.alerts import parse_rules
+
+            parse_rules(self.alert_rules)
+        if not (0.0 <= self.trace_sample <= 1.0):
+            raise ValueError(f"trace_sample is a probability in [0, 1]; got "
+                             f"{self.trace_sample}")
         if self.restart_every_steps is not None:
             if self.restart_every_steps <= 0:
                 raise ValueError(

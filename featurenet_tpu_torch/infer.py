@@ -11,6 +11,7 @@ Usage:
     results = p.predict_stl(["part.stl", ...])       # end-to-end
     p.swap_params("runs/ck2")                        # hot swap, zero downtime
     p.agreement()                                    # top-1 vs fp32 serving
+    labels = p.packed_program_for(256)(packed)       # uint8 [256,R,R,R/8] wire
     labels = seg.predict_voxels_seg(grids)           # a segment checkpoint:
     results = seg.predict_stl(["part.stl", ...])     # int8 [N,R,R,R], SegPrediction
 
@@ -31,6 +32,14 @@ parameters leave the device (``meta`` placeholders, which a forward
 without the working copy cannot read); the batch-norm statistics stay fp32
 on the device, and the fp32 masters stay on the host for ``agreement``.
 ``resident_weight_bytes`` counts the parameter bytes the device holds.
+
+Packed serving (``packed_program_for``, a classifier only): the
+``serve_packed``/``serve_packed_bf16``/``serve_packed_int8`` program of
+this precision at one batch takes the bit-packed wire batch (``uint8
+[b, R, R, R/8]``, ``data.synthetic.pack_voxels``), unpacks it on the
+device and returns the argmax labels (``int32 [b]``), all inside one CUDA
+graph on the card: 32x fewer bytes cross to the device than float32
+grids.
 
 Weight generations: everything one set of weights serves with (its device
 module with its batch-norm statistics, its working copy or int8 tensors,
@@ -82,7 +91,12 @@ from featurenet_tpu_torch.data.stl import load_stl
 from featurenet_tpu_torch.data.synthetic import CLASS_NAMES, generate_batch
 from featurenet_tpu_torch.data.voxelize import voxelize
 from featurenet_tpu_torch.ops.augment import CUBE_GROUP, apply_rotation
-from featurenet_tpu_torch.runtime import build_model, resolve_device, serve_forward
+from featurenet_tpu_torch.runtime import (
+    build_model,
+    forward_with,
+    resolve_device,
+    serve_forward,
+)
 from featurenet_tpu_torch.runtime.quantize import (
     agreement,
     dequantize_tree,
@@ -97,6 +111,7 @@ from featurenet_tpu_torch.train.checkpoint import (
     load_run_config,
 )
 from featurenet_tpu_torch.train.state import TrainState
+from featurenet_tpu_torch.train.steps import unpack_voxels
 
 
 def checkpoint_version(checkpoint_dir: str, step: int) -> str:
@@ -194,6 +209,18 @@ def _serve_weights(model: torch.nn.Module, serve_params: dict | None,
                          _dispatch_params(serve_params, qparams, scales))
 
 
+@torch.inference_mode()
+def _serve_packed_weights(model: torch.nn.Module, serve_params: dict | None,
+                          qparams: dict | None, scales: dict | None,
+                          packed: torch.Tensor) -> torch.Tensor:
+    """One generation's eager packed serving forward: unpack the wire
+    batch, the model at the generation's precision, argmax to int32
+    labels (the reference's ``serve_packed`` body)."""
+    logits = forward_with(model, _dispatch_params(serve_params, qparams, scales),
+                          unpack_voxels(packed))
+    return logits.argmax(dim=-1).to(torch.int32)
+
+
 @dataclasses.dataclass(eq=False)
 class _Weights:
     """One generation of serving weights, bundled so a hot swap is a single
@@ -209,6 +236,7 @@ class _Weights:
     version: str
     checkpoint_dir: str | None
     programs: ServePrograms | None = None  # their ``body`` is the eager forward
+    packed: ServePrograms | None = None    # the serve_packed* programs (classify)
 
 
 class Predictor:
@@ -270,10 +298,14 @@ class Predictor:
         # The body is a function of the tensors, not of the bundle: no
         # cycle, so a retired generation (its graphs and their memory pool
         # included) is freed as soon as no dispatch holds it.
-        body = functools.partial(_serve_weights, model, serve_params, qparams,
-                                 scales)
-        w.programs = ServePrograms(self.precision, body, self.cfg.resolution,
-                                   self.device)
+        tensors = (model, serve_params, qparams, scales)
+        w.programs = ServePrograms(self.precision,
+                                   functools.partial(_serve_weights, *tensors),
+                                   self.cfg.resolution, self.device)
+        if self.cfg.task == "classify":
+            w.packed = ServePrograms(
+                self.precision, functools.partial(_serve_packed_weights, *tensors),
+                self.cfg.resolution, self.device, packed=True)
         return w
 
     # The live generation's parts, read through the one bundle, so every
@@ -359,6 +391,8 @@ class Predictor:
         state, _, version = _restore_for_serving(checkpoint_dir, self.cfg)
         new = self._build_weights(state, version, checkpoint_dir)
         new.programs.build(self._weights.programs.batches())
+        if new.packed is not None:
+            new.packed.build(self._weights.packed.batches())
         self._weights = new
         return version
 
@@ -387,6 +421,21 @@ class Predictor:
         first use and memoized: building one per bucket before traffic is
         the serving warmup, after which no request shape captures."""
         return self._weights.programs.get(batch)
+
+    def packed_program_for(self, batch: int) -> ServeProgram:
+        """The ``serve_packed*`` program at this batch and precision on the
+        live generation (``registry.serve_program_name(precision,
+        packed=True)``): ``uint8 [batch, R, R, R/8]`` → ``int32 [batch]``
+        labels, built at first use and memoized. A classifier only, as the
+        reference gates it."""
+        w = self._weights
+        if w.packed is None:
+            raise ValueError("the serve_packed programs serve a classify "
+                             f"checkpoint; this one has task={self.cfg.task!r}")
+        if self.cfg.resolution % 8:
+            raise ValueError(f"the packed wire needs a resolution divisible "
+                             f"by 8, got {self.cfg.resolution}")
+        return w.packed.get(batch)
 
     def forward_padded(self, voxels: np.ndarray, batch: int | None = None) -> np.ndarray:
         """Probabilities (a segmenter: int8 per-voxel labels) for an

@@ -1,6 +1,7 @@
-"""The serving programs: one per batch and precision, built ahead of
-traffic (port of the serving half of ``featurenet_tpu/runtime/registry.py``:
-``serve_program_name``, the ``serve``/``serve_bf16``/``serve_int8`` specs,
+"""The program catalog and the serving programs, built ahead of traffic
+(port of ``featurenet_tpu/runtime/registry.py`` without its executable
+cache: ``PROGRAMS``, ``list_programs``, ``program_precision``,
+``serve_program_name``, the ``serve*`` and ``serve_packed*`` specs,
 ``Runtime.build`` and ``Runtime.warmup``).
 
 The reference compiles one XLA executable per (program, batch) before the
@@ -10,7 +11,11 @@ forward of one weight generation at one batch over a static fp32 input
 ``[b, R, R, R, 1]``, and a call copies the batch into that buffer, replays
 the graph and returns a clone of its probabilities (the next replay
 overwrites them; a segmenter's program returns int8 per-voxel labels, its
-argmax made inside the graph). The captured body is the eager forward the
+argmax made inside the graph). A ``serve_packed*`` program (classify only)
+takes a static bit-packed ``uint8 [b, R, R, R/8]`` input instead, unpacks
+it inside the graph (``train/steps.py`` ``unpack_voxels``) and returns
+the argmax labels as ``int32 [b]``: a wire batch of 256 parts at R=64 is
+8 MiB packed against 256 MiB of float32. The captured body is the eager forward the
 caller hands in, per-dispatch weight transforms included (the bf16 working copy through
 ``functional_call``, int8's dequantize), so a replay reads the weights the
 generation holds at the addresses it held at capture.
@@ -34,6 +39,11 @@ A capture or replay that fails on the card raises; nothing falls back to
 the eager forward. On the CPU, which a caller must ask for, a program is
 the eager forward itself.
 
+``warmup`` builds every applicable catalog program the port builds ahead
+(the serving graphs of each precision at the bucket ladder, the packed
+ones at ``global_batch``, the k-step ``TrainProgram``) and reports the
+rest as skipped with the reason; ``cli programs --warm`` prints it.
+
 ``TrainProgram`` is the training counterpart (the reference's
 ``multi_train_step`` and ``hbm_train_step`` programs): k train steps, each
 drawing on the device, captured as one CUDA graph over the live train
@@ -47,45 +57,119 @@ seeds at each replay.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from featurenet_tpu_torch import obs
+from featurenet_tpu_torch.config import Config
 from featurenet_tpu_torch.ops import launch_counts
+from featurenet_tpu_torch.serve.batcher import DEFAULT_BUCKETS
 from featurenet_tpu_torch.train.precision import SERVE_PRECISIONS
 
 # The eager runs of a batch on the capture stream before its capture.
 WARMUP_ITERS = 3
 
 
-def serve_program_name(precision: str) -> str:
+def serve_program_name(precision: str, packed: bool = False) -> str:
     """The name of the serving program at one precision: ``serve``,
-    ``serve_bf16`` or ``serve_int8`` (the one precision → program
-    mapping)."""
+    ``serve_bf16``, ``serve_int8`` or, ``packed``, ``serve_packed``,
+    ``serve_packed_bf16``, ``serve_packed_int8`` (the one precision →
+    program mapping)."""
     if precision not in SERVE_PRECISIONS:
         raise ValueError(f"unknown serving precision {precision!r}; one of "
                          f"{', '.join(SERVE_PRECISIONS)}")
-    return "serve" if precision == "fp32" else f"serve_{precision}"
+    base = "serve_packed" if packed else "serve"
+    return base if precision == "fp32" else f"{base}_{precision}"
+
+
+def _always(cfg: Config) -> bool:
+    return True
+
+
+def _classify(cfg: Config) -> bool:
+    return cfg.task == "classify"
+
+
+# The reference's catalog: name → (doc, applicable), its docs verbatim.
+PROGRAMS: dict[str, tuple[str, Callable[[Config], bool]]] = {
+    "init": ("sharded state init", _always),
+    "train_step": ("one fused fwd+bwd+optimizer+BN step", _always),
+    "multi_train_step": ("k train steps fused into one executable",
+                         lambda cfg: cfg.steps_per_dispatch > 1),
+    "hbm_train_step": (
+        "train steps sampling batches from the HBM-resident split",
+        lambda cfg: cfg.hbm_cache),
+    "eval_step": ("exact-sum eval forward; serve-precision-variant", _always),
+    "serve": ("serving forward, fp32 weights", _always),
+    "serve_bf16": ("serving forward, bf16 working-copy weights", _always),
+    "serve_int8": ("serving forward, int8 per-channel weights", _always),
+    "serve_packed": ("packed-wire serving forward (bench/mesh)", _classify),
+    "serve_packed_bf16": (
+        "packed-wire serving forward, bf16 working-copy weights", _classify),
+    "serve_packed_int8": ("packed-wire serving forward, int8 weights",
+                          _classify),
+}
+
+# The programs whose weights run at the training precision, and the one at
+# the serving precision; the serving programs name theirs.
+TRAIN_PRECISION_PROGRAMS = frozenset(
+    {"init", "train_step", "multi_train_step", "hbm_train_step"})
+SERVE_PRECISION_PROGRAMS = frozenset({"eval_step"})
+
+# What warmup cannot build: the resident split exists only once a run
+# materializes it, and the port runs these eagerly, with nothing to build
+# ahead.
+_NEEDS_RUNTIME_ARGS = frozenset({"hbm_train_step"})
+_EAGER = frozenset({"init", "train_step", "eval_step"})
+
+
+def program_precision(cfg: Config, name: str) -> str:
+    """The weight precision of one catalog program under ``cfg``."""
+    if name.endswith("int8"):
+        return "int8"
+    if name.endswith("bf16"):
+        return "bf16"
+    if name in TRAIN_PRECISION_PROGRAMS:
+        return cfg.train_precision
+    if name in SERVE_PRECISION_PROGRAMS:
+        return cfg.serve_precision
+    return "fp32"
+
+
+def list_programs(cfg: Config) -> list[dict]:
+    """The catalog for ``cfg``, built nothing: one row per program with
+    its ``program``, ``doc``, ``precision`` and ``applicable``."""
+    return [{"program": name, "doc": doc,
+             "precision": program_precision(cfg, name),
+             "applicable": bool(applicable(cfg))}
+            for name, (doc, applicable) in PROGRAMS.items()]
 
 
 class ServeProgram:
-    """One serving program: ``body`` at one batch, captured as a CUDA graph
-    on the card, the eager ``body`` on the CPU. Built by ``ServePrograms``,
-    whose lock, memory pool and stream it shares.
+    """One serving program: ``body`` over a static input of ``shape`` and
+    ``dtype`` (batch first), captured as a CUDA graph on the card, the
+    eager ``body`` on the CPU. Built by ``ServePrograms``, whose lock,
+    memory pool and stream it shares.
 
     ``capture_s`` is the wall time of the eager warmup and the capture;
     ``capture_launches`` the kernel launches recorded into the graph, by
-    kernel (``ops.launch_counts``); ``graph`` is ``None`` on the CPU.
+    kernel (``ops.launch_counts``); ``graph`` is ``None`` on the CPU. Each
+    build is a ``program_compile`` event (the reference's name for a
+    program built ahead).
     """
 
     def __init__(self, name: str, body: Callable[[torch.Tensor], torch.Tensor],
-                 batch: int, resolution: int, device: torch.device,
+                 shape: tuple, dtype: torch.dtype, device: torch.device,
                  lock: threading.Lock, pool=None, stream=None):
         self.name = name
-        self.batch = int(batch)
-        self.shape = (self.batch, resolution, resolution, resolution, 1)
+        self.shape = tuple(int(d) for d in shape)
+        self.batch = self.shape[0]
+        self.dtype = dtype
         self.device = device
         self._body = body
         self._lock = lock
@@ -94,11 +178,14 @@ class ServeProgram:
         self.capture_launches: dict[str, int] = {}
         if device.type == "cuda":
             self._capture(pool, stream)
+        obs.emit("program_compile", program=name, batch=self.batch,
+                 dur_s=round(self.capture_s, 3),
+                 source="capture" if self.graph is not None else "eager")
 
     @torch.inference_mode()
     def _capture(self, pool, stream) -> None:
         t0 = time.perf_counter()
-        self.static_in = torch.zeros(self.shape, dtype=torch.float32,
+        self.static_in = torch.zeros(self.shape, dtype=self.dtype,
                                      device=self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
@@ -116,13 +203,14 @@ class ServeProgram:
 
     @torch.inference_mode()
     def __call__(self, voxels: torch.Tensor) -> torch.Tensor:
-        """The body's output (probabilities ``[batch, classes]``, or a
-        segmenter's int8 labels ``[batch, R, R, R]``) for ``voxels`` of
-        this program's shape (on the card or the host; copied in on the
-        card), on the program's device."""
-        if tuple(voxels.shape) != self.shape:
-            raise ValueError(f"{self.name}: input {tuple(voxels.shape)}, "
-                             f"program {self.shape}")
+        """The body's output (probabilities ``[batch, classes]``, a
+        segmenter's int8 labels ``[batch, R, R, R]``, or a packed program's
+        int32 labels ``[batch]``) for ``voxels`` of this program's shape
+        and dtype (on the card or the host; copied in on the card), on the
+        program's device."""
+        if tuple(voxels.shape) != self.shape or voxels.dtype != self.dtype:
+            raise ValueError(f"{self.name}: input {tuple(voxels.shape)} "
+                             f"{voxels.dtype}, program {self.shape} {self.dtype}")
         with self._lock:
             if self.graph is None:
                 return self._body(voxels)
@@ -134,16 +222,18 @@ class ServeProgram:
 class ServePrograms:
     """The serving programs of one weight generation, one per batch,
     memoized: ``get(batch)`` builds (captures) a batch's program at first
-    use. ``body`` is the generation's eager forward
-    (``[b,R,R,R,1]`` fp32 → probabilities). The programs share one lock,
-    and on the card one stream and one memory pool, all their own."""
+    use. ``body`` is the generation's eager forward: ``[b,R,R,R,1]`` fp32
+    → probabilities, or with ``packed`` ``[b,R,R,R/8]`` uint8 → int32
+    labels. The programs share one lock, and on the card one stream and
+    one memory pool, all their own."""
 
     def __init__(self, precision: str,
                  body: Callable[[torch.Tensor], torch.Tensor],
-                 resolution: int, device: torch.device):
-        self.name = serve_program_name(precision)
+                 resolution: int, device: torch.device, packed: bool = False):
+        self.name = serve_program_name(precision, packed=packed)
         self.body = body
         self.resolution = resolution
+        self.packed = packed
         self.device = device
         self.lock = threading.Lock()
         self._programs: dict[int, ServeProgram] = {}
@@ -160,9 +250,13 @@ class ServePrograms:
         with self.lock:
             prog = self._programs.get(batch)
             if prog is None:
-                prog = ServeProgram(self.name, self.body, batch,
-                                    self.resolution, self.device, self.lock,
-                                    self._pool, self._stream)
+                r = self.resolution
+                shape, dtype = (((batch, r, r, r // 8), torch.uint8)
+                                if self.packed else
+                                ((batch, r, r, r, 1), torch.float32))
+                prog = ServeProgram(self.name, self.body, shape, dtype,
+                                    self.device, self.lock, self._pool,
+                                    self._stream)
                 self._programs[batch] = prog
             return prog
 
@@ -232,3 +326,103 @@ class TrainProgram:
     def __call__(self) -> dict:
         self.graph.replay()
         return {k: v.clone() for k, v in self._out.items()}
+
+
+def _record(progs: list, precision: str, t0: float) -> dict:
+    """One warmup record of a program family built as ``progs``."""
+    launches: dict[str, int] = {}
+    for p in progs:
+        for k, v in p.capture_launches.items():
+            launches[k] = launches.get(k, 0) + v
+    return {"source": "capture" if progs[0].graph is not None else "eager",
+            "build_s": round(time.perf_counter() - t0, 4),
+            "precision": precision, "batches": [p.batch for p in progs],
+            "capture_launches": launches}
+
+
+def _warm_k_step(cfg: Config, device: torch.device) -> dict:
+    """The streamed k-step ``TrainProgram`` of ``cfg`` captured on zero
+    wire batches by a throwaway Trainer (its cache, when it names one,
+    must exist); on the CPU the k steps run eagerly, with nothing to
+    build."""
+    import os
+
+    from featurenet_tpu_torch.data.synthetic import WIRE_KEYS, generate_batch, to_wire
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    precision = program_precision(cfg, "multi_train_step")
+    if device.type != "cuda":
+        return {"source": "eager", "build_s": 0.0, "precision": precision,
+                "capture_launches": {}}
+    if cfg.data_cache and not os.path.isdir(cfg.data_cache):
+        return {"skipped": f"needs the data cache {cfg.data_cache!r}"}
+    t0 = time.perf_counter()
+    trainer = Trainer(dataclasses.replace(
+        cfg, hbm_cache=False, checkpoint_dir=None, init_from=None,
+        inject_faults=None, heartbeat_file=None), device=device)
+    one = to_wire(generate_batch(np.random.default_rng(0), 1, cfg.resolution,
+                                 num_features=cfg.num_features), cfg.task)
+    k = cfg.steps_per_dispatch
+    batches = [{key: torch.zeros((cfg.global_batch,) + one[key].shape[1:],
+                                 dtype=torch.from_numpy(one[key]).dtype,
+                                 device=device)
+                for key in WIRE_KEYS[cfg.task]} for _ in range(k)]
+    trainer.dispatch(batches, k)  # captures at its first use
+    prog = trainer.programs[("streamed", k, trainer.state.precision)]
+    torch.cuda.synchronize(device)
+    return {"source": "capture", "build_s": round(time.perf_counter() - t0, 4),
+            "precision": precision, "capture_launches": prog.capture_launches}
+
+
+def warmup(cfg: Config, device="cuda", names: Optional[list[str]] = None,
+           buckets=DEFAULT_BUCKETS, seed: int = 0) -> dict[str, dict]:
+    """Build every requested applicable catalog program of ``cfg`` (all of
+    them by default) that the port builds ahead, on seeded weights (the
+    programs do not depend on the weights' values): per serving precision
+    the ``serve*`` graphs at ``buckets`` and the ``serve_packed*`` graph at
+    ``cfg.global_batch``, and the k-step ``TrainProgram`` where
+    ``steps_per_dispatch > 1``. Returns per program ``{"source":
+    "capture"|"eager", "build_s", "precision", "capture_launches"}``
+    (serving ones also their ``batches``), or ``{"skipped": reason}``: a
+    program that needs the resident split, one the port runs eagerly, and
+    int8 segment serving (not ported)."""
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.runtime import resolve_device
+
+    dev = resolve_device(device)
+    wanted = [n for n, (_, applicable) in PROGRAMS.items() if applicable(cfg)]
+    if names is not None:
+        unknown = sorted(set(names) - set(PROGRAMS))
+        if unknown:
+            raise ValueError(f"unknown programs {unknown}; the catalog holds "
+                             f"{', '.join(PROGRAMS)}")
+        wanted = [n for n in wanted if n in names]
+    predictors: dict[str, Predictor] = {}
+    out: dict[str, dict] = {}
+    for name in wanted:
+        if name in _NEEDS_RUNTIME_ARGS:
+            out[name] = {"skipped": "needs resident-split arrays"}
+            continue
+        if name in _EAGER:
+            out[name] = {"skipped": "runs eagerly in the port; nothing to "
+                                    "build ahead"}
+            continue
+        if name == "multi_train_step":
+            out[name] = _warm_k_step(cfg, dev)
+            continue
+        precision = program_precision(cfg, name)
+        if cfg.task == "segment" and precision == "int8":
+            out[name] = {"skipped": "int8 segment serving is not ported "
+                                    "(ROADMAP Queue A.3)"}
+            continue
+        t0 = time.perf_counter()
+        pred = predictors.get(precision)
+        if pred is None:
+            pred = predictors[precision] = Predictor.from_seed(
+                cfg, seed, batch=max(buckets), device=dev, precision=precision)
+        if name.startswith("serve_packed"):
+            progs = [pred.packed_program_for(cfg.global_batch)]
+        else:
+            progs = [pred.program_for(b) for b in sorted(set(buckets), reverse=True)]
+        out[name] = _record(progs, precision, t0)
+    return out

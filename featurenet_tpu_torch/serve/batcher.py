@@ -1,6 +1,7 @@
 """Continuous batcher: the serving front end's scheduling core (port of
-``featurenet_tpu/serve/batcher.py`` without its tracing, rolling windows
-and perf hooks).
+``featurenet_tpu/serve/batcher.py``; its perf hook, which folds a
+dispatch's compiled cost into MFU windows, waits for ``obs/perf.py``,
+ROADMAP Queue A.2(c)).
 
 Requests are numpy arrays and the model is an injected
 ``forward(bucket, padded)`` callable, so everything here runs on a bare CPU
@@ -19,6 +20,17 @@ with a fake forward.
   fast-rejects with ``OverloadError``.
 - **Priority lanes**: ``interactive`` (default) and ``batch``; a per-lane
   cap lets ``batch`` shed first.
+
+Telemetry, never load-bearing (``obs/``): each request feeds
+``queue_wait_ms`` (enqueue → dispatch) and ``serving_ms`` (enqueue →
+response) into the rolling windows; the batcher emits ``serve_start``
+(from the service), ``serve_batch`` per dispatch (``bucket``, ``n``,
+``pad``, ``batch_seq``, ``dur_ms``), ``overload`` per rejection and
+``serve_stop`` at its first drain. ``submit`` mints or adopts a trace
+context per request (``obs/tracing.py``); the dispatcher stamps each with
+the ``batch_seq`` it rode and completes it at de-mux with the queue and
+device split. Rejections, forward errors and requests over
+``trace_slo_ms`` are always sampled; the rest at ``trace_sample``.
 """
 
 from __future__ import annotations
@@ -29,6 +41,10 @@ from collections import deque
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+
+from featurenet_tpu_torch import obs
+from featurenet_tpu_torch.obs import tracing as _tracing
+from featurenet_tpu_torch.obs import windows as _windows
 
 DEFAULT_BUCKETS = (1, 4, 16, 64)
 DEFAULT_MAX_WAIT_MS = 5.0
@@ -49,11 +65,14 @@ class OverloadError(RuntimeError):
     backoff hint it sends as ``Retry-After``."""
 
     def __init__(self, queue_depth: int, limit: int,
+                 trace_id: Optional[str] = None,
                  lane: Optional[str] = None,
                  retry_after_s: Optional[float] = None):
         super().__init__(f"serving queue full ({queue_depth}/{limit})")
         self.queue_depth = int(queue_depth)
         self.limit = int(limit)
+        # The rejected request's trace id, which the HTTP layer echoes.
+        self.trace_id = trace_id
         self.lane = lane
         self.retry_after_s = retry_after_s
 
@@ -86,17 +105,37 @@ def pick_bucket(n: int, buckets: Sequence[int]) -> int:
 
 class PendingRequest:
     """One enqueued request: a future resolved with this request's own
-    output row (or the batch's forward error)."""
+    output row (or the batch's forward error), carrying its trace
+    context."""
 
-    __slots__ = ("voxels", "t_enq", "value", "error", "_event", "lane")
+    __slots__ = ("voxels", "t_enq", "t_done", "value", "error", "_event",
+                 "ctx", "lane")
 
-    def __init__(self, voxels: np.ndarray, lane: str = "interactive"):
+    def __init__(self, voxels: np.ndarray,
+                 ctx: Optional[_tracing.TraceContext] = None,
+                 lane: str = "interactive"):
         self.voxels = voxels
         self.lane = lane
         self.t_enq = time.perf_counter()
+        self.t_done: Optional[float] = None
         self.value = None
         self.error: Optional[BaseException] = None
         self._event = threading.Event()
+        self.ctx = ctx
+
+    @property
+    def trace_id(self) -> Optional[str]:
+        return self.ctx.trace_id if self.ctx is not None else None
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    @property
+    def latency_ms(self) -> Optional[float]:
+        """Enqueue → response, once resolved."""
+        if self.t_done is None:
+            return None
+        return (self.t_done - self.t_enq) * 1e3
 
     def result(self, timeout: Optional[float] = None):
         if not self._event.wait(timeout):
@@ -112,12 +151,16 @@ class ContinuousBatcher:
 
     ``forward(bucket, padded)`` receives a ``[bucket, ...]`` array whose
     first ``n <= bucket`` rows are real requests and returns an indexable
-    ``[bucket, ...]`` result (row i answers request i).
+    ``[bucket, ...]`` result (row i answers request i). ``trace_sample``
+    is the healthy-traffic sampling rate; a request over ``trace_slo_ms``
+    is always sampled.
     """
 
     def __init__(self, forward: Callable, buckets: Sequence[int] = DEFAULT_BUCKETS,
                  max_wait_ms: float = DEFAULT_MAX_WAIT_MS,
                  queue_limit: int = DEFAULT_QUEUE_LIMIT,
+                 trace_sample: float = 1.0,
+                 trace_slo_ms: Optional[float] = None,
                  lane_limits: Optional[dict] = None):
         bs = normalize_buckets(buckets)
         if max_wait_ms < 0:
@@ -132,7 +175,11 @@ class ContinuousBatcher:
                 )
             if lim < 0:
                 raise ValueError(f"lane_limits[{lane!r}] must be >= 0, got {lim}")
+        if not (0.0 <= trace_sample <= 1.0):
+            raise ValueError(f"trace_sample must be in [0, 1], got {trace_sample}")
         self.forward = forward
+        self.trace_sample = float(trace_sample)
+        self.trace_slo_ms = trace_slo_ms
         self.buckets = bs
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.queue_limit = int(queue_limit)
@@ -145,26 +192,35 @@ class ContinuousBatcher:
         self._lane_depth: dict[str, int] = {}
         self._lane_rejected: dict[str, int] = {}
         self._draining = False
+        self._stopped = False
         self._served = 0
         self._rejected = 0
         self._errors = 0
         self._batches = 0
         self._rows = 0
         self._capacity = 0
+        # The dispatch sequence number, advanced by the dispatcher thread
+        # alone; serve_batch and each request_dispatch carry it.
+        self._batch_seq = 0
         self._by_bucket: dict[int, int] = {}
         self._worker = threading.Thread(target=self._run, name="serve-batcher",
                                         daemon=True)
         self._worker.start()
 
     # -- producer side -------------------------------------------------------
-    def submit(self, voxels: np.ndarray, lane: str = "interactive") -> PendingRequest:
+    def submit(self, voxels: np.ndarray, trace_id: Optional[str] = None,
+               lane: str = "interactive") -> PendingRequest:
         """Enqueue one request; returns its future. Raises ``OverloadError``
-        at the queue or lane bound and ``RuntimeError`` after ``drain()``."""
+        at the queue or lane bound and ``RuntimeError`` after ``drain()``.
+        ``trace_id`` adopts the caller's id; ``None`` mints one."""
         lane = normalize_lane(lane)
         p = PendingRequest(voxels, lane=lane)
         with self._cv:
             if self._draining:
                 raise RuntimeError("batcher is draining; no new requests accepted")
+            # Admitted after the draining check, so a refusal there is no
+            # admitted trace (admitted = done + rejected).
+            ctx = p.ctx = _tracing.admit(trace_id, self.trace_sample)
             depth = len(self._queue)
             lane_cap = self.lane_limits.get(lane)
             if depth >= self.queue_limit or (
@@ -172,11 +228,19 @@ class ContinuousBatcher:
             ):
                 self._rejected += 1
                 self._lane_rejected[lane] = self._lane_rejected.get(lane, 0) + 1
-                raise OverloadError(depth, self.queue_limit, lane=lane,
-                                    retry_after_s=self.retry_after_s)
-            self._queue.append(p)
-            self._lane_depth[lane] = self._lane_depth.get(lane, 0) + 1
-            self._cv.notify_all()
+            else:
+                self._queue.append(p)
+                self._lane_depth[lane] = self._lane_depth.get(lane, 0) + 1
+                self._cv.notify_all()
+                depth = -1
+        if depth >= 0:
+            # Outside the lock: a slow filesystem must not lengthen
+            # admission.
+            obs.emit("overload", queue_depth=depth, limit=self.queue_limit,
+                     lane=lane)
+            _tracing.reject(ctx, depth, self.queue_limit)
+            raise OverloadError(depth, self.queue_limit, trace_id=ctx.trace_id,
+                                lane=lane, retry_after_s=self.retry_after_s)
         return p
 
     # -- dispatcher thread ---------------------------------------------------
@@ -217,6 +281,12 @@ class ContinuousBatcher:
     def _dispatch(self, batch: list[PendingRequest]) -> None:
         n = len(batch)
         bucket = pick_bucket(n, self.buckets)
+        self._batch_seq += 1
+        seq = self._batch_seq
+        t_disp = time.perf_counter()
+        for p in batch:
+            _windows.observe("queue_wait_ms", (t_disp - p.t_enq) * 1e3)
+            _tracing.dispatch(p.ctx, seq, bucket, bucket - n)
         arr = np.stack([p.voxels for p in batch])
         if bucket > n:
             arr = np.concatenate(
@@ -228,12 +298,22 @@ class ContinuousBatcher:
             out = self.forward(bucket, arr)
         except Exception as e:  # resolve the batch; the batcher survives
             err = e
+        t_done = time.perf_counter()
+        outcome = "error" if err is not None else "ok"
         for i, p in enumerate(batch):
             if err is not None:
                 p.error = err
             else:
                 p.value = out[i]
+            p.t_done = t_done
             p._event.set()
+            # Queue wait + dispatch + device + readback: what an SLO is
+            # written against.
+            _windows.observe("serving_ms", (t_done - p.t_enq) * 1e3)
+            _tracing.done(p.ctx, queue_wait_ms=(t_disp - p.t_enq) * 1e3,
+                          dispatch_ms=(t_done - t_disp) * 1e3,
+                          total_ms=(t_done - p.t_enq) * 1e3, outcome=outcome,
+                          slo_ms=self.trace_slo_ms)
         with self._cv:
             self._batches += 1
             self._rows += n
@@ -243,6 +323,8 @@ class ContinuousBatcher:
                 self._served += n
             else:
                 self._errors += n
+        obs.emit("serve_batch", bucket=bucket, n=n, pad=bucket - n,
+                 batch_seq=seq, dur_ms=round((t_done - t_disp) * 1e3, 3))
 
     # -- lifecycle / introspection -------------------------------------------
     def stats(self) -> dict:
@@ -273,11 +355,21 @@ class ContinuousBatcher:
     def drain(self, timeout_s: float = 30.0) -> dict:
         """Stop accepting, answer everything admitted, stop the dispatcher
         and return final stats; ``drain_timeout`` is true when the join
-        timed out (a wedged forward). Idempotent."""
+        timed out (a wedged forward), with a warning. The first drain emits
+        ``serve_stop``. Idempotent."""
         with self._cv:
             self._draining = True
             self._cv.notify_all()
         self._worker.join(timeout=timeout_s)
         st = self.stats()
         st["drain_timeout"] = self._worker.is_alive()
+        if st["drain_timeout"]:
+            obs.warn("serve_drain_timeout",
+                     f"dispatcher still running {timeout_s}s after drain; "
+                     f"{st['queue_depth']} request(s) may go unanswered")
+        with self._cv:
+            first = not self._stopped
+            self._stopped = True
+        if first:
+            obs.emit("serve_stop", served=st["served"], rejected=st["rejected"])
         return st

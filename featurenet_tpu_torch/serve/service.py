@@ -1,6 +1,7 @@
-"""The inference service: a ``Predictor`` behind the continuous batcher
-(port of ``featurenet_tpu/serve/service.py`` without its alerts, quality
-plane, flight recorder and incidents).
+"""The inference service: a ``Predictor`` behind the continuous batcher,
+with an SLO-gated drain (port of ``featurenet_tpu/serve/service.py``
+without its quality plane, flight recorder and incidents, ROADMAP Queue
+A.2(c)).
 
 - **Warmup**: construction builds the Predictor's serving program for
   every bucket (``Predictor.program_for``, the largest first), so the
@@ -18,6 +19,16 @@ plane, flight recorder and incidents).
 - **The upload path**: ``submit_stl_bytes`` parses and voxelizes raw STL
   bytes in the caller's thread (an HTTP worker), never the dispatch
   thread, then enqueues the grid.
+- **SLO gating**: the service installs alert rules over the serving
+  windows (``serve_rules``: end-to-end ``serving_p99_ms`` and
+  ``queue_wait_ms_p99`` against ``slo_p99_ms``; a ``rules`` list replaces
+  them, ``rules=()`` leaves the installed aggregator alone). ``drain()``
+  flushes the last window cycle and reports the serving alerts still
+  unresolved; its ``exit_code`` is 2 on such an alert or on a drain
+  timeout, else 0. Requests carry trace ids (``obs/tracing.py``) at
+  ``Config.trace_sample``; ``serve_start``, ``serve_batch``, ``overload``,
+  ``serve_stop`` and ``swap`` events go to the run's sink when one is
+  installed (``obs.init_run``).
 - **Fault sites** (``faults.py``): ``replica_slow@request=N`` drags the
   Nth forward by ``SLOW_SLEEP_S``; ``reload`` counts its attempts, and at
   the Nth ``replica_loss_rollout@swap=N`` SIGKILLs this process before
@@ -36,11 +47,13 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from featurenet_tpu_torch import faults
+from featurenet_tpu_torch import faults, obs
 from featurenet_tpu_torch.data.stl import parse_stl
 from featurenet_tpu_torch.data.synthetic import CLASS_NAMES
 from featurenet_tpu_torch.data.voxelize import voxelize
 from featurenet_tpu_torch.infer import voxel_counts
+from featurenet_tpu_torch.obs import alerts as _alerts
+from featurenet_tpu_torch.obs import windows as _windows
 from featurenet_tpu_torch.serve.batcher import (
     DEFAULT_BUCKETS,
     DEFAULT_MAX_WAIT_MS,
@@ -52,17 +65,35 @@ from featurenet_tpu_torch.serve.batcher import (
 )
 from featurenet_tpu_torch.train.checkpoint import CheckpointManager, ChecksumMismatch
 
+# The default p99 end-to-end SLO of the serving rules: generous, so an
+# unconfigured service still notices a pathological tail.
+DEFAULT_SLO_P99_MS = 250.0
+
+
+def serve_rules(slo_p99_ms: float = DEFAULT_SLO_P99_MS) -> list:
+    """The default rules plus the two serving rules: end-to-end p99
+    latency over the SLO (critical) and queue-wait p99 over it."""
+    return list(_alerts.DEFAULT_RULES) + [
+        _alerts.AlertRule("serving_p99_ms", ">", float(slo_p99_ms), "critical"),
+        _alerts.AlertRule("queue_wait_ms_p99", ">", float(slo_p99_ms), "warning"),
+    ]
+
 
 class InferenceService:
     """Continuous-batching serving over a ``Predictor``.
 
-    ``batch_queue_limit`` caps the ``batch`` lane (default: half the
-    admission bound), so bulk traffic sheds before interactive traffic.
+    ``rules=None`` installs ``serve_rules(slo_p99_ms)`` over the rolling
+    windows, a rule list installs those, ``rules=()`` leaves the installed
+    aggregator alone. ``batch_queue_limit`` caps the ``batch`` lane
+    (default: half the admission bound), so bulk traffic sheds before
+    interactive traffic.
     """
 
     def __init__(self, predictor, buckets: Sequence[int] = DEFAULT_BUCKETS,
                  max_wait_ms: float = DEFAULT_MAX_WAIT_MS,
                  queue_limit: int = DEFAULT_QUEUE_LIMIT,
+                 rules: Optional[Sequence] = None,
+                 slo_p99_ms: float = DEFAULT_SLO_P99_MS,
                  batch_queue_limit: Optional[int] = None):
         self.predictor = predictor
         self.cfg = predictor.cfg
@@ -78,13 +109,21 @@ class InferenceService:
         self._swaps = 0
         for b in sorted(self.buckets, reverse=True):
             predictor.program_for(b)
+        if rules is None:
+            rules = serve_rules(slo_p99_ms)
+        if rules:
+            _windows.install(_windows.WindowAggregator(rules=list(rules)))
         if batch_queue_limit is None:
             batch_queue_limit = max(1, queue_limit // 2)
         self.batcher = ContinuousBatcher(
             self._forward, buckets=self.buckets, max_wait_ms=max_wait_ms,
             queue_limit=queue_limit,
+            trace_sample=getattr(self.cfg, "trace_sample", 1.0),
+            trace_slo_ms=float(slo_p99_ms),
             lane_limits={"batch": int(batch_queue_limit)},
         )
+        obs.emit("serve_start", buckets=list(self.buckets),
+                 max_wait_ms=float(max_wait_ms), queue_limit=int(queue_limit))
         self._ready = True
 
     def _forward(self, bucket: int, padded: np.ndarray) -> np.ndarray:
@@ -94,23 +133,26 @@ class InferenceService:
         return self.predictor.forward_padded(padded, batch=bucket)
 
     # -- request entry points ------------------------------------------------
-    def submit_voxels(self, grid: np.ndarray,
+    def submit_voxels(self, grid: np.ndarray, trace_id: Optional[str] = None,
                       lane: str = "interactive") -> PendingRequest:
-        """Enqueue one ``[R,R,R]`` (or ``[R,R,R,1]``) occupancy grid."""
+        """Enqueue one ``[R,R,R]`` (or ``[R,R,R,1]``) occupancy grid;
+        ``trace_id`` adopts the caller's id (``None`` mints one)."""
         g = np.asarray(grid, dtype=np.float32)
         if g.ndim == 3:
             g = g[..., None]
         R = self.cfg.resolution
         if g.shape != (R, R, R, 1):
             raise ValueError(f"expected one [{R},{R},{R}(,1)] grid, got {g.shape}")
-        return self.batcher.submit(g, lane=normalize_lane(lane))
+        return self.batcher.submit(g, trace_id=trace_id, lane=normalize_lane(lane))
 
     def submit_stl_bytes(self, data: bytes, fill: bool = True,
+                         trace_id: Optional[str] = None,
                          lane: str = "interactive") -> PendingRequest:
         """Raw STL bytes → parse → normalize+voxelize → enqueue; malformed
         bytes raise ``ValueError`` before anything is admitted."""
         grid = voxelize(parse_stl(data), self.cfg.resolution, fill=fill)
-        return self.submit_voxels(grid.astype(np.float32), lane=lane)
+        return self.submit_voxels(grid.astype(np.float32), trace_id=trace_id,
+                                  lane=lane)
 
     def format_row(self, row: np.ndarray) -> dict:
         """One request's output row as the wire response: class + top-3 of
@@ -147,11 +189,13 @@ class InferenceService:
         return self._reload_cordon
 
     def health(self) -> dict:
-        """The /healthz payload: readiness, uptime, queue depth, and which
-        weights this replica serves and where they came from."""
+        """The /healthz payload: readiness, uptime, the last rolling-window
+        emission seq, queue depth, and which weights this replica serves and
+        where they came from."""
         out = {
             "ready": self.ready(),
             "uptime_s": round(time.perf_counter() - self._t_start, 3),
+            "window_seq": _windows.last_seq(),
             "queue_depth": self.batcher.stats()["queue_depth"],
             "model_version": getattr(self.predictor, "model_version",
                                      "unversioned"),
@@ -170,7 +214,7 @@ class InferenceService:
         throughout. Any failure (no step, a checksum mismatch, another
         identity, an unreadable checkpoint, a failed capture) raises before
         the flip and leaves the old generation serving. One swap at a
-        time."""
+        time. Every attempt is a ``swap`` event."""
         with self._swap_lock:
             self._swaps += 1
             n = self._swaps
@@ -194,19 +238,36 @@ class InferenceService:
                 finally:
                     mgr.close()
                 version = self.predictor.swap_params(checkpoint_dir)
+            except Exception as e:
+                obs.emit("swap", ok=False, from_version=from_version,
+                         swap_ms=round((time.perf_counter() - t0) * 1e3, 3),
+                         checkpoint_dir=str(checkpoint_dir),
+                         error=f"{type(e).__name__}: {e}")
+                raise
             finally:
                 self._reload_cordon = False
+            swap_ms = round((time.perf_counter() - t0) * 1e3, 3)
+            obs.emit("swap", ok=True, from_version=from_version,
+                     swap_ms=swap_ms, to_version=version,
+                     checkpoint_dir=str(checkpoint_dir))
             return {
                 "ok": True,
                 "model_version": version,
                 "from_version": from_version,
-                "swap_ms": round((time.perf_counter() - t0) * 1e3, 3),
+                "swap_ms": swap_ms,
             }
 
     def drain(self, timeout_s: float = 30.0) -> dict:
-        """Stop accepting and answer everything admitted; ``exit_code`` is
-        2 when the drain timed out with requests unanswered, else 0."""
+        """Stop accepting, answer everything admitted, flush the last window
+        cycle and report the SLO verdict: ``active_serving_alerts`` names
+        the serving alerts (``alerts.is_serving_metric``) still unresolved,
+        and ``exit_code`` is 2 when there is one or the drain timed out with
+        requests unanswered, else 0."""
         self._ready = False
         st = self.batcher.drain(timeout_s)
-        st["exit_code"] = 2 if st["drain_timeout"] else 0
+        _windows.flush()
+        active = [m for m in _windows.active_alerts()
+                  if _alerts.is_serving_metric(m)]
+        st["active_serving_alerts"] = active
+        st["exit_code"] = 2 if (active or st["drain_timeout"]) else 0
         return st

@@ -24,6 +24,11 @@ from featurenet_tpu_torch.runtime import build_model
 ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
 
 
+# A served subprocess's small forwards on one torch thread: under xdist a
+# thread team per worker slows each forward many times over.
+ONE_THREAD = {**os.environ, "OMP_NUM_THREADS": "1"}
+
+
 def _cli(*args, **kw):
     return subprocess.Popen([sys.executable, "-m", "featurenet_tpu_torch.cli", *args],
                             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -61,8 +66,10 @@ def test_cli_serve_round_trip(tmp_path, source, request):
                "--conv-backend", "xla"]
     else:
         src = ["--seed", "3", "--config", "smoke16"]
+    # One torch thread (see ONE_THREAD): the drain's exit code carries the
+    # 250 ms latency SLO.
     proc = _cli("serve", *src, "--device", "cpu", "--port", "0",
-                "--buckets", "1,4", "--duration-s", "120")
+                "--buckets", "1,4", "--duration-s", "120", env=ONE_THREAD)
     try:
         banner = json.loads(proc.stdout.readline())["serving"]
         assert banner["config"] == "smoke16" and banner["device"] == "cpu"

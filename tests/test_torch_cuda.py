@@ -27,7 +27,11 @@ exiting 75 at the group boundary with the state of k eager steps; the
 rotated copies; the native voxelizer built on the card's host, bitwise the
 numpy fill at 64³; the seg64 segmenter's graphed labels bitwise its eager
 ones, and its resident train steps (eager, and k = 2 on one graph) with
-finite losses.
+finite losses; the packed serving programs (bit-packed wire batches
+unpacked inside one CUDA graph per batch and precision) bitwise their
+eager body and the serve program's argmax, with the forward kernel inside
+each replay; a stream of frames through POST /predict_voxels_stream
+answered with the Predictor's labels and counted by GET /metrics.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -1002,3 +1006,106 @@ def test_segment_train_steps_on_card(cuda, tmp_path):
     losses = [r["loss"] for r in tr.logger.history if r["kind"] == "train"]
     assert len(losses) == 2 and all(np.isfinite(v) for v in losses)
     assert not torch.equal(tr.state.model.head.kernel, before)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+def test_serve_packed_graphed_is_bitwise_eager(cuda, precision):
+    """sprint64 at full width: the packed program at batches 16 and 1 is a
+    CUDA graph that captured the forward kernel once per 3³ block; its
+    int32 labels are bitwise its eager body's and the argmax of the same
+    precision's serve program on the unpacked grids."""
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.synthetic import generate_batch, pack_voxels
+    from featurenet_tpu_torch.infer import Predictor
+
+    cfg = get_config("sprint64")
+    pred = Predictor.from_seed(cfg, 0, batch=16, device=cuda, precision=precision)
+    grids = generate_batch(np.random.default_rng(2), 16, 64)["voxels"]
+    for b in (16, 1):
+        prog = pred.packed_program_for(b)
+        assert prog.graph is not None and prog.name == (
+            "serve_packed" if precision == "fp32" else f"serve_packed_{precision}")
+        assert prog.capture_launches["conv3d_fwd"] == 3, prog.capture_launches
+        packed = torch.from_numpy(pack_voxels(grids[:b]))
+        got = prog(packed)
+        assert got.dtype == torch.int32 and got.shape == (b,)
+        with torch.inference_mode():
+            eager = pred._weights.packed.body(packed.to(cuda))
+        assert torch.equal(got, eager)
+        probs = pred.forward(torch.from_numpy(grids[:b]).to(cuda))
+        assert torch.equal(got, probs.argmax(-1).to(torch.int32))
+
+
+def test_serve_packed_replay_runs_the_forward_kernel(cuda):
+    """Under the profiler each replay of the packed program runs exactly 3
+    ``conv3d_fwd_kernel`` on the card (counted replays between uncounted
+    ones, matched by correlation id)."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.infer import Predictor
+
+    pred = Predictor.from_seed(get_config("sprint64"), 0, batch=4, device=cuda)
+    prog = pred.packed_program_for(4)
+    x = torch.zeros((4, 64, 64, 8), dtype=torch.uint8, device=cuda)
+    prog(x)
+    torch.cuda.synchronize()
+    lead, counted, tail = 2, 5, 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead + counted + tail):
+            prog(x)
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    events = prof.events()
+    launches = sorted((e.time_range.start, e.id) for e in events
+                      if e.device_type == DeviceType.CPU
+                      and e.name == "cudaGraphLaunch")
+    assert len(launches) == lead + counted + tail
+    hits = {cid: 0 for _, cid in launches[lead:lead + counted]}
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and e.id in hits
+                and "conv3d_fwd_kernel" in e.name):
+            hits[e.id] += 1
+    assert list(hits.values()) == [3] * counted
+
+
+def test_stream_and_metrics_round_trip_on_card(cuda):
+    """sprint64 served from its graphs: 12 frames over one
+    POST /predict_voxels_stream answer the Predictor's labels in frame
+    order with ``<stream>.<i>`` trace ids, and GET /metrics counts them."""
+    import threading
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.synthetic import generate_batch
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.serve.http import make_server
+    from featurenet_tpu_torch.serve.loadgen import stream_load
+    from featurenet_tpu_torch.serve.service import InferenceService
+
+    cfg = get_config("sprint64")
+    grids = generate_batch(np.random.default_rng(4), 12, 64)["voxels"]
+    want, _ = Predictor.from_seed(cfg, 0, batch=4, device=cuda).predict_voxels(grids)
+    service = InferenceService(Predictor.from_seed(cfg, 0, batch=4, device=cuda),
+                               buckets=(1, 4))
+    srv = make_server(service, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    port = srv.server_address[1]
+    try:
+        out = stream_load("127.0.0.1", port, grids, trace_id="cardstream")
+        import urllib.request
+
+        metrics = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics", timeout=30).read().decode()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.drain()
+    assert out["status"] == 200 and out["answered"] == 12, out
+    assert [ln["frame"] for ln in out["lines"]] == list(range(12))
+    assert [ln["trace"] for ln in out["lines"]] == [f"cardstream.{i}" for i in range(12)]
+    assert [ln["label"] for ln in out["lines"]] == want.tolist()
+    assert 'featurenet_requests_total{outcome="served"} 12' in metrics
+    assert 'featurenet_serving_ms{q="0.99"}' in metrics

@@ -134,3 +134,39 @@ def test_ab_tool_forward_mode_exits_nonzero_without_a_card():
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode == 1
     assert "no CUDA device" in out.stderr
+
+
+# The serving wire's modules (obs core, exporter, load generator).
+WIRE_MODULES = ("obs/__init__.py", "obs/events.py", "obs/alerts.py",
+                "obs/windows.py", "obs/tracing.py", "serve/metrics.py",
+                "serve/loadgen.py")
+
+
+@pytest.mark.parametrize("module", WIRE_MODULES)
+def test_wire_modules_are_checked_and_import_no_jax(module):
+    path = PORT / module
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & FORBIDDEN
+
+
+def test_wire_entry_points_refuse_cpu_without_being_asked(monkeypatch, capsys):
+    from featurenet_tpu_torch import cli, obs
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.runtime import registry
+    from featurenet_tpu_torch.serve import loadgen
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("smoke16")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.warmup(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["programs", "--config", "smoke16", "--warm"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loadgen.bench_serving(cfg, qps=10.0, n_requests=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loadgen.measure_trace_overhead(cfg, n_requests=1)
+    assert not obs.active()  # the refused probe closed its run
+    capsys.readouterr()
+    # Listing builds nothing and needs no card.
+    assert cli.main(["programs", "--config", "smoke16"]) == 0
+    assert len(capsys.readouterr().out.splitlines()) == len(registry.PROGRAMS)

@@ -251,7 +251,11 @@ def test_swap_corrupt_is_refused_and_the_old_generation_serves(tmp_path):
     finally:
         srv.shutdown()
         srv.server_close()
-        assert service.drain()["exit_code"] == 0
+        st = service.drain()
+    # replica_slow dragged the first request past the default 250 ms SLO:
+    # the drain names the serving alert and exits 2.
+    assert st["active_serving_alerts"] == ["serving_p99_ms"]
+    assert st["exit_code"] == 2
 
 
 def test_cli_supervised_run_survives_preemption_and_a_torn_step(tmp_path):

@@ -53,6 +53,17 @@ def _grids(n, seed=3):
     return synthetic.generate_batch(np.random.default_rng(seed), n, R)["voxels"]
 
 
+@pytest.fixture
+def one_thread():
+    """A served test's small forwards on one torch thread: under xdist a
+    thread team per worker slows each forward many times over, and the
+    drain's exit code now carries the default 250 ms latency SLO."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("precision", SERVE_PRECISIONS)
 def test_serve_program_name_is_the_reference_mapping(precision):
     assert registry.serve_program_name(precision) == jax_program_name(precision)
@@ -78,7 +89,7 @@ def test_program_for_memoizes_one_program_per_bucket(weights):
         p4(torch.zeros((2, R, R, R, 1)))
 
 
-def test_service_warms_exactly_its_buckets_largest_first(weights):
+def test_service_warms_exactly_its_buckets_largest_first(weights, one_thread):
     _, _, cfg, state = weights
     pred = Predictor(state, cfg, batch=4, device="cpu")
     built, program_for = [], pred.program_for

@@ -78,6 +78,17 @@ def _grids(n=4, seed=5):
     return synthetic.generate_batch(np.random.default_rng(seed), n, R)["voxels"]
 
 
+@pytest.fixture
+def one_thread():
+    """A served test's small forwards on one torch thread: under xdist a
+    thread team per worker slows each forward many times over, and the
+    drain's exit code now carries the default 250 ms latency SLO."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_swap_params_flips_the_generation_and_matches_jax(ckpts):
     """``swap_params`` to ``b`` flips ``model_version`` and
     ``checkpoint_dir``, builds the new generation's program for every
@@ -163,7 +174,8 @@ def _corrupt_copy(src, dst) -> str:
     return dst
 
 
-def test_reload_verifies_cordons_and_refuses_a_checksum_mismatch(ckpts, tmp_path):
+def test_reload_verifies_cordons_and_refuses_a_checksum_mismatch(ckpts, tmp_path,
+                                                                 one_thread):
     """``reload`` cordons the service (``ready()`` false, ``reloading()``
     true) for the swap's duration, returns the new identity and the swap's
     ms, and refuses a candidate whose step does not match its checksum
@@ -265,7 +277,7 @@ def test_admin_reload_endpoint_contract():
         srv.server_close()
 
 
-def test_admin_reload_over_http_swaps_a_real_service(ckpts, tmp_path):
+def test_admin_reload_over_http_swaps_a_real_service(ckpts, tmp_path, one_thread):
     """A smoke16 service from ``a`` behind the HTTP server: a corrupted
     candidate gets 409 and ``a`` keeps serving; ``/admin/reload`` to ``b``
     answers 200, ``/healthz`` then names ``b``, and ``/predict_voxels``

@@ -208,7 +208,18 @@ def _post(conn, path, body, headers=None):
     return resp.status, json.loads(resp.read()), resp
 
 
-def test_http_round_trip_matches_jax(models, tmp_path):
+@pytest.fixture
+def one_thread():
+    """A served test's small forwards on one torch thread: under xdist a
+    thread team per worker slows each forward many times over, and the
+    drain's exit code now carries the default 250 ms latency SLO."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_http_round_trip_matches_jax(models, tmp_path, one_thread):
     _, _, cfg, state = models
     service = InferenceService(Predictor(state, cfg, batch=4, device="cpu"),
                                buckets=(1, 4), max_wait_ms=2)
@@ -306,4 +317,9 @@ def test_http_overload_and_timeout():
         srv.shutdown()
         srv.server_close()
     st = service.drain()
-    assert st["exit_code"] == 0 and st["rejected"] == 1
+    # The timed-out request and the one queued behind it took over a
+    # second, past the default 250 ms SLO: the drain names both serving
+    # alerts and exits 2.
+    assert st["rejected"] == 1
+    assert st["active_serving_alerts"] == ["queue_wait_ms_p99", "serving_p99_ms"]
+    assert st["exit_code"] == 2
