@@ -204,6 +204,28 @@ Phases, in order; any failure exits non-zero before the last line:
    pid and it never holds a GPU device node open, while the same probe
    sees its children hold one. The children's kernel launches (each `cli
    train` on the card ends with its counts) are the `supervise` path.
+13a. The Trainer's run directory (`report` phase), from the same cache:
+   - `report_run`: `cli train --config sprint64 --conv-backend pallas
+     --data-cache D --hbm-cache --supervise --restart-every 20
+     --total-steps 40 --checkpoint-every 20 --run-dir R --profile-dir P
+     --profile-start 25 --profile-steps 3` (two children at full width);
+     then `cli report R` in processes where torch cannot be imported:
+     `--json` (40 loop steps, 2 process starts, 1 planned restart and no
+     other, heartbeats; the breakdown and its attributed fraction
+     printed, and each child's segment reported alone: segment 1 has no
+     trace window), `--validate` (no finding), `--trace` (spans on both
+     children's tracks), `--gate R/gate_baseline.json` (exit 0, or 2 with a
+     `gate_regression` event in the stream: the gate is never
+     load-bearing). P holds one Chrome trace of steps 25-27; per step the
+     `conv3d_fwd_kernel` and `conv3d_dw_partial` device events launched
+     inside its `train_dispatch@<step>` range are printed, and the middle
+     step must hold 6 and 3 (the profiler may lose events at its edges).
+     The children's launches are the `report` path.
+   - `report_cost`: one resident sprint64 `pallas` Trainer in this process
+     takes 30 steps per turn, dark and with a run directory in turns, twice
+     each: device ms per step (CUDA events around each turn, its end-of-run
+     eval left out), the overhead, and the events and spans emitted per
+     step. Printed, never gated.
 14. Robustness evaluation (`ood` phase), after the supervised runs:
    - `native`: the port's native voxelizer, built by g++ after the
      kernels (its build seconds; a build that fails fails the script), on
@@ -259,8 +281,8 @@ Phases, in order; any failure exits non-zero before the last line:
    reference's XLA convolutions, here cuDNN's): every launch count stays 0
    through the phase, the `seg` path of each kernel.
 16. The wall time of every phase, one JSON line of per-kernel numbers
-   (launches by path, the wire, cache, robust, supervise, precision, ood,
-   tta and seg runs' included), the
+   (launches by path, the wire, cache, robust, supervise, report,
+   precision, ood, tta and seg runs' included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
@@ -4077,6 +4099,271 @@ def wire_phase(torch, seed: int, smi_line: str) -> dict:
     print("wire", json.dumps({"walls_s": walls, "launches": counts}), flush=True)
     return {"launches": counts}
 
+# The report phase: one supervised sprint64 run from the cache phase's
+# cache, two segments of REPORT_SEGMENT steps, its steps
+# [REPORT_PROFILE_START, +REPORT_PROFILE_STEPS) traced; then the dark cost
+# of the run directory, REPORT_COST_STEPS resident steps per turn.
+REPORT_STEPS = 40
+REPORT_SEGMENT = 20
+REPORT_PROFILE_START = 25
+REPORT_PROFILE_STEPS = 3
+REPORT_COST_STEPS = 30
+REPORT_COST_TURNS = 2
+# The device events of one eager pallas train step, by kernel name (a
+# substring of the symbol).
+STEP_EVENTS = {"conv3d_fwd_kernel": 6, "conv3d_dw_partial": 3}
+
+
+def _report_cli(*args) -> subprocess.CompletedProcess:
+    """``cli report`` in a process where torch cannot be imported: the
+    report path needs the standard library alone."""
+    code = ("import sys; sys.modules['torch'] = None\n"
+            "from featurenet_tpu_torch import cli\n"
+            f"sys.exit(cli.main({list(args)!r}))\n")
+    return subprocess.run([sys.executable, "-c", code],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+
+
+def _step_kernel_events(trace: dict) -> dict[int, dict[str, int]]:
+    """Per traced step of a Trainer's torch.profiler trace (its
+    ``train_dispatch@<step>`` ranges): the device events whose launch
+    (matched by correlation id) lies inside the step's range, by
+    STEP_EVENTS name. The backward's launches come from autograd's device
+    thread while the range's thread waits in ``backward()``, so a launch
+    is matched to a range by time, on any thread."""
+    evs = trace["traceEvents"]
+    ranges = [(int(e["name"].split("@")[1]), e["ts"], e["ts"] + e["dur"])
+              for e in evs if e.get("cat") == "user_annotation"
+              and str(e.get("name", "")).startswith("train_dispatch@")]
+    launch_step = {}
+    for e in evs:
+        if e.get("cat") != "cuda_runtime":
+            continue
+        for step, t0, t1 in ranges:
+            if t0 <= e["ts"] <= t1:
+                launch_step[(e.get("args") or {}).get("correlation")] = step
+    per = {step: dict.fromkeys(STEP_EVENTS, 0) for step, *_ in ranges}
+    for e in evs:
+        if e.get("cat") != "kernel":
+            continue
+        step = launch_step.get((e.get("args") or {}).get("correlation"))
+        if step is None:
+            continue
+        for n in STEP_EVENTS:
+            per[step][n] += int(n in e["name"])
+    return dict(sorted(per.items()))
+
+
+def _segment_reports(run: str) -> list[dict]:
+    """The report of each child's lines alone: the events from one
+    supervisor ``spawn`` to the next. Segment 1 runs without the trace
+    window, so its breakdown is that of an unprofiled run; segment 2's
+    holds the window. Beside it, the first ``dispatch`` span (the
+    process's cold first step) against the median of the others."""
+    from featurenet_tpu_torch.obs import report as obs_report
+
+    events, _ = obs_report.load_events(run)
+    cuts = [e["t"] for e in events
+            if e.get("ev") == "supervisor" and e.get("phase") == "spawn"]
+    out = []
+    for i, t0 in enumerate(cuts):
+        t1 = cuts[i + 1] if i + 1 < len(cuts) else math.inf
+        seg = [e for e in events if t0 <= e["t"] < t1]
+        rep = obs_report.build_report(seg)
+        loop = rep.get("loop") or {}
+        dispatch = [e["dur_s"] * 1e3 for e in seg if e.get("ev") == "span"
+                    and e.get("name") == "dispatch"]
+        out.append({
+            "steps": loop.get("steps"), "wall_s": loop.get("wall_s"),
+            "step_ms": loop.get("step_ms"),
+            "breakdown_s": {k: v["seconds"]
+                            for k, v in (rep.get("breakdown") or {}).items()},
+            "attributed_fraction": rep.get("attributed_fraction"),
+            "first_dispatch_ms": dispatch[0] if dispatch else None,
+            "median_dispatch_ms": (statistics.median(dispatch[1:])
+                                   if len(dispatch) > 1 else None),
+        })
+    return out
+
+
+def report_run_line(seed: int, cache: str, tmp: str, smi_line: str) -> dict:
+    """``cli train --supervise --run-dir D --profile-dir P`` on sprint64
+    (pallas, resident from ``cache``) for REPORT_STEPS steps in two
+    segments, then ``cli report D`` (--json, --validate, --trace, --gate)
+    in processes without torch, and the kernels of P's trace per step."""
+    ck, run, prof, trace_out = (os.path.join(tmp, n) for n in
+                                ("ck", "run", "prof", "trace.json"))
+    t0 = time.perf_counter()
+    train = subprocess.run(
+        _cli("train", "--config", "sprint64", "--conv-backend", "pallas",
+             "--seed", str(seed), "--data-cache", cache, "--hbm-cache",
+             "--supervise", "--restart-every", str(REPORT_SEGMENT),
+             "--total-steps", str(REPORT_STEPS), "--checkpoint-every",
+             str(REPORT_SEGMENT), "--checkpoint-dir", ck, "--run-dir", run,
+             "--profile-dir", prof, "--profile-start", str(REPORT_PROFILE_START),
+             "--profile-steps", str(REPORT_PROFILE_STEPS)),
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    train_s = time.perf_counter() - t0
+    if train.returncode != 0:
+        fail(f"report: supervised cli train exited {train.returncode}: "
+             f"{train.stderr[-2000:]}")
+    lines = [json.loads(ln) for ln in train.stdout.splitlines()
+             if ln.startswith("{")]
+    launches = [r["launches"] for r in lines if "launches" in r]
+    sup = [r["supervisor"] for r in lines if "supervisor" in r]
+    if len(launches) != 2 or sup.count("spawn") != 2 or sup[-1] != "done":
+        fail(f"report: the supervised run did not run two children to the end: "
+             f"supervisor {sup}, {len(launches)} launch reports")
+
+    t0 = time.perf_counter()
+    got = _report_cli("report", run, "--json")
+    if got.returncode != 0:
+        fail(f"report: cli report --json exited {got.returncode}: {got.stderr[-2000:]}")
+    rep = json.loads(got.stdout)
+    sv = rep.get("supervisor") or {}
+    hb = rep.get("heartbeat") or {}
+    if (rep["loop"]["steps"] != REPORT_STEPS or rep["process_starts"] != 2
+            or sv.get("planned_restarts") != 1 or sv.get("restarts") != 0
+            or not hb.get("beats") or rep.get("attributed_fraction") is None):
+        fail(f"report: the report is not that of the run: loop {rep.get('loop')}, "
+             f"process_starts {rep.get('process_starts')}, supervisor {sv}, "
+             f"heartbeat {hb}")
+    validate = _report_cli("report", run, "--validate")
+    if validate.returncode != 0 or '"validate": "ok"' not in validate.stdout:
+        fail(f"report --validate: {validate.stdout[-2000:]} {validate.stderr[-2000:]}")
+    traced = _report_cli("report", run, "--trace", trace_out)
+    if traced.returncode != 0:
+        fail(f"report --trace exited {traced.returncode}: {traced.stderr[-2000:]}")
+    with open(trace_out) as fh:
+        chrome = json.load(fh)["traceEvents"]
+    span_tracks = {e["pid"] for e in chrome if e.get("ph") == "X"}
+    if len(span_tracks) < 2:
+        fail(f"report --trace: spans on {len(span_tracks)} process track(s), "
+             "not both children's")
+    gate = _report_cli("report", run, "--gate",
+                       os.path.join(run, "gate_baseline.json"))
+    with open(os.path.join(run, "events.jsonl")) as fh:
+        phases = [e.get("phase") for e in map(json.loads, fh)
+                  if e.get("ev") == "supervisor"]
+    if gate.returncode not in (0, 2) or (
+            gate.returncode == 2 and "gate_regression" not in phases):
+        fail(f"report --gate exited {gate.returncode} (supervisor phases "
+             f"{phases}): {gate.stdout[-2000:]} {gate.stderr[-2000:]}")
+    report_s = time.perf_counter() - t0
+    segments = _segment_reports(run)
+    if ([g["steps"] for g in segments] != [REPORT_SEGMENT] * 2
+            or any(g["attributed_fraction"] is None for g in segments)):
+        fail(f"report: the segments' own reports are not two of "
+             f"{REPORT_SEGMENT} steps: {segments}")
+
+    files = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+    if len(files) != 1:
+        fail(f"report: the profile directory holds {files}, not one trace")
+    with open(os.path.join(prof, files[0])) as fh:
+        per_step = _step_kernel_events(json.load(fh))
+    want_steps = list(range(REPORT_PROFILE_START,
+                            REPORT_PROFILE_START + REPORT_PROFILE_STEPS))
+    if list(per_step) != want_steps:
+        fail(f"report: the trace holds steps {list(per_step)}, not {want_steps}")
+    # The profiler may lose device events at its window's edges (the
+    # PROFILE_PAD_S note): the middle step is held exact.
+    middle = want_steps[len(want_steps) // 2]
+    if per_step[middle] != STEP_EVENTS:
+        fail(f"report: traced step {middle} ran {per_step[middle]}, not "
+             f"{STEP_EVENTS}")
+    return {
+        "train_s": train_s, "report_s": report_s,
+        "supervisor": sup, "loop": rep["loop"],
+        "process_starts": rep["process_starts"],
+        "planned_restarts": sv["planned_restarts"],
+        "heartbeat": hb, "breakdown": rep.get("breakdown"),
+        "attributed_fraction": rep["attributed_fraction"],
+        "segments": segments,
+        "slo_windows": (rep.get("slo") or {}).get("windows"),
+        "prefetch_queue_depth": rep.get("prefetch_queue_depth"),
+        "validate": json.loads(validate.stdout.strip().splitlines()[-1]),
+        "trace_span_tracks": len(span_tracks),
+        "trace_events": len(chrome),
+        "gate_exit": gate.returncode, "gate": gate.stdout.strip().splitlines(),
+        "profile_file": files[0], "kernel_events_per_step": per_step,
+        "launches_per_child": launches, "nvidia_smi": smi_line,
+    }, launches
+
+
+def report_cost_line(torch, seed: int, cache: str, tmp: str,
+                     smi_line: str) -> dict:
+    """The run directory's cost on the loop: one resident sprint64 pallas
+    Trainer takes REPORT_COST_STEPS steps per turn, dark and with a run
+    directory in turns, REPORT_COST_TURNS times each; device ms per step
+    from CUDA events around each turn (its end-of-run eval left out), and
+    the events, spans among them, emitted per step."""
+    from featurenet_tpu_torch import obs
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.obs import events as obs_events
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    if obs.active():
+        fail("report: a run directory is still open before the dark turns")
+    import dataclasses
+
+    cfg = get_config("sprint64", seed=seed, data_cache=cache, hbm_cache=True)
+    cfg = dataclasses.replace(cfg, arch=dataclasses.replace(
+        cfg.arch, conv_backend="pallas"))
+    with open(os.devnull, "w") as sink:
+        trainer = Trainer(cfg, device="cuda", stream=sink)
+        trainer.evaluate = lambda: {}  # the turn's end is not an eval pass
+        trainer.run(num_steps=REPORT_COST_STEPS)  # warm: kernels, allocator
+        torch.cuda.synchronize()
+        turns = {"dark": [], "run_dir": []}
+        per_step = {}
+        for turn in range(REPORT_COST_TURNS):
+            for mode in ("dark", "run_dir"):
+                if mode == "run_dir":
+                    obs.init_run(os.path.join(tmp, f"cost_{turn}"),
+                                 process_index=0)
+                start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+                start.record()
+                trainer.run(num_steps=trainer.state.step + REPORT_COST_STEPS)
+                end.record()
+                end.synchronize()
+                turns[mode].append(start.elapsed_time(end) / REPORT_COST_STEPS)
+                if mode == "run_dir":
+                    kinds = obs_events.kind_counts()
+                    obs.close_run()
+                    per_step = {k: v / REPORT_COST_STEPS for k, v in kinds.items()}
+    dark, lit = statistics.median(turns["dark"]), statistics.median(turns["run_dir"])
+    return {"ms_per_step": turns, "median_dark_ms": dark,
+            "median_run_dir_ms": lit,
+            "run_dir_overhead_pct": (lit - dark) / dark * 100.0,
+            "events_per_step": per_step, "spans_per_step": per_step.get("span"),
+            "nvidia_smi": smi_line}
+
+
+def report_phase(torch, seed: int, cache: str, smi_line: str) -> dict:
+    """The Trainer's run directory on the card (`report_run`,
+    `report_cost` lines); the launches are those the supervised children
+    reported, the `report` path."""
+    launches: dict[str, int] = {}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(cache)) as tmp:
+        t0 = time.perf_counter()
+        out, reported = report_run_line(seed, cache, tmp, smi_line)
+        out["phase_s"] = time.perf_counter() - t0
+        print("report_run", json.dumps(out), flush=True)
+        for counts in reported:
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        t0 = time.perf_counter()
+        cost = report_cost_line(torch, seed, cache, tmp, smi_line)
+        cost["phase_s"] = time.perf_counter() - t0
+        print("report_cost", json.dumps(cost), flush=True)
+    torch.cuda.empty_cache()
+    if not (launches.get("conv3d_fwd") and launches.get("conv3d_dw")):
+        fail(f"report: the supervised children reported no kernel launches: "
+             f"{launches}")
+    return {"launches": launches}
+
 
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
     main = [r for r in rows if r["main_path"]]
@@ -4166,6 +4453,8 @@ def main() -> int:
                       graphs, smi_line)["launches"]
         supervised = phase("supervise", supervise_phase, args.seed, cache_dir,
                            smi_line)["launches"]
+        reported = phase("report", report_phase, torch, args.seed, cache_dir,
+                         smi_line)["launches"]
     robustness = phase("ood", ood_phase, torch, args.seed, native_info,
                        smi_line)["launches"]
     seg = phase("seg", seg_phase, torch, args.seed, smi_line)["launches"]
@@ -4193,6 +4482,7 @@ def main() -> int:
                        **{k: v["conv3d_fwd"] for k, v in cached.items()},
                        "robust": robust["conv3d_fwd"],
                        "supervise": supervised["conv3d_fwd"],
+                       "report": reported["conv3d_fwd"],
                        **{k: v["conv3d_fwd"] for k, v in rungs.items()},
                        **{k: v["conv3d_fwd"] for k, v in robustness.items()},
                        "seg": seg["conv3d_fwd"]}),
@@ -4204,6 +4494,7 @@ def main() -> int:
                        **{k: v["conv3d_dw"] for k, v in cached.items()},
                        "robust": robust["conv3d_dw"],
                        "supervise": supervised["conv3d_dw"],
+                       "report": reported["conv3d_dw"],
                        **{k: v["conv3d_dw"] for k, v in rungs.items()
                           if k.startswith("train")},
                        "seg": seg["conv3d_dw"]}),
@@ -4216,6 +4507,7 @@ def main() -> int:
                        **{k: v["conv_dw_folded"] for k, v in cached.items()},
                        "robust": robust["conv_dw_folded"],
                        "supervise": supervised.get("conv_dw_folded", 0),
+                       "report": reported.get("conv_dw_folded", 0),
                        **{k: v["conv_dw_folded"] for k, v in rungs.items()
                           if k.startswith("train")},
                        "seg": seg["conv_dw_folded"]}),

@@ -26,7 +26,9 @@
         [--seg-loss balanced_ce|ce_dice|dice \
          --seg-input-context none|proj|proj_coords] \
         [--supervise --checkpoint-dir CK [--stall-timeout S --max-restarts N \
-         --heartbeat-file F --restart-every N]] [--inject-faults SPEC]
+         --heartbeat-file F --restart-every N]] [--inject-faults SPEC] \
+        [--run-dir D [--alert-rules SPEC]] [--tb-dir T] \
+        [--profile-dir P [--profile-start 10 --profile-steps 5]]
     python -m featurenet_tpu_torch.cli serve --checkpoint-dir CK --port 0 \
         [--precision fp32|bf16|int8] [--inject-faults SPEC] \
         [--slo-p99-ms 250 | --alert-rules SPEC] [--drain] \
@@ -37,16 +39,22 @@
     python -m featurenet_tpu_torch.cli eval --checkpoint-dir CK \
         [--serve-precision fp32|bf16|int8]
     python -m featurenet_tpu_torch.cli infer --checkpoint-dir CK \
-        [--precision fp32|bf16|int8] [--seg-out DIR] part.stl ...
+        [--precision fp32|bf16|int8] [--seg-out DIR] \
+        [--run-dir D [--alert-rules SPEC]] part.stl ...
     python -m featurenet_tpu_torch.cli recalibrate --checkpoint-dir CK \
         --out-dir CK2 [--batches 64 --data-cache D]
     python -m featurenet_tpu_torch.cli programs [--config pod64] \
         [--train-precision P --serve-precision P] [--warm [--device cpu]] \
         [--run-dir D]
+    python -m featurenet_tpu_torch.cli report RUN_DIR [--json] \
+        [--trace t.json] [--follow [--interval S]] [--gate BASELINE] \
+        [--validate] [--request TRACE_ID]
 
-Every subcommand but the four data commands runs on the card unless
-``--device cpu`` is given. The data commands run on the host alone and
-never create a CUDA context: ``export-seg-data`` writes multi-feature
+Every subcommand but ``report`` and the four data commands runs on the card
+unless ``--device cpu`` is given. The data commands run on the host alone
+and never create a CUDA context (``export-data`` and ``build-cache`` take
+``--run-dir`` for their ``export_class`` / ``build_cache_class`` and
+``voxelize`` spans): ``export-seg-data`` writes multi-feature
 parts with their per-voxel labels into a segmentation cache
 (``data/offline.py`` ``export_seg_cache``) and prints ``{"exported": N,
 "shards": S}``; ``export-data`` writes the synthetic parts
@@ -108,9 +116,30 @@ code; the supervisor process itself never touches the card.
 respawn the child. ``--inject-faults SPEC`` (``train`` and ``serve``)
 injects the faults of ``faults.py``; a supervisor installs only
 ``spawn_fail`` itself and hands the spec to every child, whose markers in
-the checkpoint directory fire each fault once per run. On the card,
-``train`` ends with a ``{"launches": {...}}`` line: the kernel launches of
-its process.
+the run directory (else the checkpoint directory) fire each fault once
+per run. On the card, ``train`` ends with a ``{"launches": {...}}`` line:
+the kernel launches of its process.
+
+``train --run-dir D`` writes the run directory (``obs/``; ``train/loop.py``
+lists the events): spans, heartbeats, metrics, the loop's events, window
+summaries and alerts over ``--alert-rules`` (default: the built-in
+rules); under ``--supervise`` the supervisor writes its ``supervisor``
+events into the same stream, checks each child's telemetry on its exit 0
+and gates each clean segment against ``D/gate_baseline.json``, pinned
+from the first. ``--profile-dir P`` traces steps ``[max(--profile-start,
+first step), +--profile-steps)`` with ``torch.profiler`` into ``P`` as a
+Chrome trace; ``--tb-dir T`` writes the logged scalars as TensorBoard
+events (refused when the ``tensorboard`` package is missing).
+
+``report RUN_DIR`` folds a run directory's event streams into the
+step-time breakdown, input-pipeline health, heartbeat and supervisor
+timeline, serving latency and SLO view (``obs/report.py``); ``--json``
+prints the dict, ``--trace`` writes the spans as a Chrome trace,
+``--follow`` re-renders while the run is live, ``--validate`` lints the
+event schema (exit 1 on findings), ``--gate`` judges the report against a
+baseline (exit 2 on a regression), ``--request`` prints one request's
+timeline (exit 2 when absent). It imports the standard library only:
+never torch, never CUDA.
 
 ``recalibrate`` re-estimates the batch-norm statistics of the newest step
 in ``--checkpoint-dir`` over ``--batches`` clean training batches (train-
@@ -146,6 +175,10 @@ gate); else 0. ``--run-dir D`` writes ``D/run.json`` and
 ``serve_stop``, window summaries, alerts, sampled request timelines at
 ``--trace-sample``). ``--batch-queue-limit`` caps the ``batch`` lane.
 
+``infer --run-dir D`` writes an ``infer_batch`` span per forward (the
+``serving_ms`` window) and the part's ``voxelize`` spans; with
+``--alert-rules`` a serving alert still active at the end exits 2.
+
 ``serve``, ``eval`` and ``infer`` read a checkpoint directory read-only and
 configure themselves from its ``config.json``; ``--conv-backend`` picks
 another lowering of the same model, ``--precision`` (``serve``, ``infer``)
@@ -163,6 +196,7 @@ stream; ``infer`` one JSON line per STL part.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import signal
@@ -195,7 +229,10 @@ def _parser() -> argparse.ArgumentParser:
                             "of a checkpoint's identity)")
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
-    ap = argparse.ArgumentParser(prog="featurenet_tpu_torch.cli")
+    ap = argparse.ArgumentParser(
+        prog="featurenet_tpu_torch.cli",
+        epilog="report RUN_DIR: analyze a run directory's event streams "
+               "(no torch needed; see `report --help`)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p_srv = sub.add_parser("serve", help="HTTP/1.1 inference service over a "
@@ -332,8 +369,28 @@ def _parser() -> argparse.ArgumentParser:
                       help="fault spec 'site[@counter=N[:every=M]],...' "
                            "(featurenet_tpu_torch.faults), e.g. "
                            "sigterm@step=120,checkpoint_corrupt@save=2; each "
-                           "fault fires once per run (markers in the "
-                           "checkpoint directory)")
+                           "fault fires once per run (markers in the run "
+                           "directory, else the checkpoint directory)")
+    p_tr.add_argument("--run-dir", dest="run_dir",
+                      help="run directory: run.json and events.jsonl "
+                           "(spans, heartbeats, metrics, supervisor "
+                           "events); read it with `cli report`")
+    p_tr.add_argument("--alert-rules", dest="alert_rules",
+                      help="SLO alert rules 'metric(>|<)threshold"
+                           "[:severity],...' over the run's windows "
+                           "(featurenet_tpu_torch.obs.alerts); default: the "
+                           "built-in rules")
+    p_tr.add_argument("--profile-dir", dest="profile_dir",
+                      help="trace steps [profile-start, +profile-steps) "
+                           "with torch.profiler into this directory")
+    p_tr.add_argument("--profile-start", type=int, dest="profile_start",
+                      help="first traced step (default 10; a resumed run "
+                           "starts no earlier than its first step)")
+    p_tr.add_argument("--profile-steps", type=int, dest="profile_steps",
+                      help="traced steps (default 5)")
+    p_tr.add_argument("--tb-dir", dest="tb_dir",
+                      help="also write the logged scalars as TensorBoard "
+                           "events here")
     p_tr.add_argument("--heartbeat-file", dest="heartbeat_file",
                       help="touch this file at each confirmed point of "
                            "progress (used by --supervise)")
@@ -371,6 +428,8 @@ def _parser() -> argparse.ArgumentParser:
     p_exp.add_argument("--margin-jitter", dest="margin_jitter", default=None,
                        help="'lo,hi': per-part normalization margin "
                             "(default fixed 0.05)")
+    p_exp.add_argument("--run-dir", dest="run_dir",
+                       help="run directory for the export's spans")
 
     p_seg = sub.add_parser("export-seg-data", help="write multi-feature parts "
                                                    "with per-voxel labels into "
@@ -403,6 +462,8 @@ def _parser() -> argparse.ArgumentParser:
     p_bld.add_argument("--workers", type=int, default=None,
                        help="processes voxelizing files (default: cpu "
                             "count; 1 = inline)")
+    p_bld.add_argument("--run-dir", dest="run_dir",
+                       help="run directory for the build's spans")
 
     p_ood = sub.add_parser("eval-ood", help="robustness report of a classify "
                                             "checkpoint under rotation, noise, "
@@ -441,6 +502,13 @@ def _parser() -> argparse.ArgumentParser:
     p_inf.add_argument("--seg-out", dest="seg_out",
                        help="segment checkpoints: also write each part's "
                             "label grid to DIR/<stem>_seg.npz")
+    p_inf.add_argument("--run-dir", dest="run_dir",
+                       help="run directory: infer_batch and voxelize spans, "
+                            "the serving window")
+    p_inf.add_argument("--alert-rules", dest="alert_rules",
+                       help="serving SLO rules over the run's windows; a "
+                            "serving alert active at the end exits 2 "
+                            "(needs --run-dir)")
     p_inf.add_argument("paths", nargs="+", help="STL files")
 
     p_rec = sub.add_parser("recalibrate",
@@ -456,7 +524,38 @@ def _parser() -> argparse.ArgumentParser:
     p_rec.add_argument("--data-cache", dest="data_cache",
                        help="another path of the run's data cache")
     p_rec.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
     return ap
+
+
+def _report_parser() -> argparse.ArgumentParser:
+    """``report``'s parser: kept apart from ``_parser``, which imports the
+    config and with it torch."""
+    p = argparse.ArgumentParser(
+        prog="featurenet_tpu_torch.cli report", allow_abbrev=False,
+        description="analyze a run directory's event streams (no torch "
+                    "needed)")
+    p.add_argument("run_dir", help="directory a run wrote with --run-dir")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="print the report dict as JSON")
+    p.add_argument("--trace", default=None,
+                   help="also write the spans as a Chrome trace to this "
+                        "path (chrome://tracing, ui.perfetto.dev)")
+    p.add_argument("--follow", action="store_true",
+                   help="re-read the streams and re-render every --interval "
+                        "seconds until the run ends or Ctrl-C")
+    p.add_argument("--interval", type=float, default=3.0,
+                   help="--follow re-render period in seconds (default 3)")
+    p.add_argument("--gate", default=None, metavar="BASELINE_JSON",
+                   help="judge the report against this baseline "
+                        "(obs/gates.py); exit 2 on a regression")
+    p.add_argument("--validate", action="store_true",
+                   help="event-schema lint; exit 1 on findings")
+    p.add_argument("--request", default=None, metavar="TRACE_ID",
+                   dest="request_trace",
+                   help="print one request's timeline (exit 2 when the id "
+                        "is not in the run)")
+    return p
 
 
 def _with_backend(cfg, backend):
@@ -482,11 +581,13 @@ def _cfg_from_checkpoint(saved, args, **policy):
             "trained with these settings"
         )
     # What belongs to the run that saved, not to its resumes or readers,
-    # unless given again: a stale heartbeat path, a fault spec, and a
-    # segment length (an unsupervised resume would exit 75 mid-run).
+    # unless given again: a stale heartbeat path, a fault spec, a segment
+    # length (an unsupervised resume would exit 75 mid-run), and the run's
+    # telemetry directories.
     from featurenet_tpu_torch.config import check_identity
 
-    for k in ("heartbeat_file", "restart_every_steps", "inject_faults"):
+    for k in ("heartbeat_file", "restart_every_steps", "inject_faults",
+              "run_dir", "profile_dir", "tb_dir"):
         policy.setdefault(k, None)
     cfg = _with_backend(dataclasses.replace(saved, **policy),
                         args.conv_backend).validate()
@@ -537,7 +638,10 @@ def _supervised(args) -> int:
                            heartbeat_file=hb,
                            stall_timeout_s=args.stall_timeout,
                            max_restarts=args.max_restarts,
-                           log=lambda line: print(line, flush=True))
+                           log=lambda line: print(line, flush=True),
+                           # The child's --run-dir reaches it unchanged;
+                           # the supervisor writes into the same stream.
+                           run_dir=args.run_dir)
     finally:
         if hb_is_temp:
             try:
@@ -573,7 +677,9 @@ def _train(args) -> int:
                             "augment_translate_vox", "augment_noise",
                             "seg_loss", "seg_input_context",
                             "inject_faults", "heartbeat_file",
-                            "restart_every_steps"))
+                            "restart_every_steps", "run_dir", "alert_rules",
+                            "profile_dir", "profile_start", "profile_steps",
+                            "tb_dir"))
     if "augment_scale_range" in policy:
         policy["augment_scale_range"] = tuple(policy["augment_scale_range"])
     saved = load_run_config(args.checkpoint_dir) if args.checkpoint_dir else None
@@ -590,6 +696,10 @@ def _train(args) -> int:
     finally:
         if trainer.device.type == "cuda":
             print(json.dumps({"launches": launch_counts()}), flush=True)
+        if cfg.run_dir:
+            from featurenet_tpu_torch import obs
+
+            obs.close_run()
     return 0
 
 
@@ -640,14 +750,32 @@ def _pair(text: str | None):
     return text
 
 
+@contextlib.contextmanager
+def _data_run(args, cmd: str):
+    """A data command's run directory (``--run-dir``), closed on the way
+    out; process 0's stream, read from no torch topology."""
+    if not args.run_dir:
+        yield
+        return
+    from featurenet_tpu_torch import obs
+
+    obs.init_run(args.run_dir, extra={"cmd": cmd}, process_index=0)
+    try:
+        yield
+    finally:
+        obs.close_run()
+
+
 def _export_data(args) -> int:
     from featurenet_tpu_torch.data.offline import export_synthetic_cache
 
-    index = export_synthetic_cache(args.out, per_class=args.per_class,
-                                   resolution=args.resolution, seed=args.seed,
-                                   param_range=_pair(args.param_range),
-                                   mesh_pose=args.mesh_pose,
-                                   margin_jitter=_pair(args.margin_jitter))
+    with _data_run(args, "export-data"):
+        index = export_synthetic_cache(args.out, per_class=args.per_class,
+                                       resolution=args.resolution,
+                                       seed=args.seed,
+                                       param_range=_pair(args.param_range),
+                                       mesh_pose=args.mesh_pose,
+                                       margin_jitter=_pair(args.margin_jitter))
     print(json.dumps({"exported": index["counts"],
                       "param_range": index["param_range"],
                       "mesh_pose": index["mesh_pose"],
@@ -692,8 +820,9 @@ def _build_cache(args) -> int:
                     f"build-cache: {args.stl_root} is a segmentation STL "
                     "tree; its ingest is not ported yet (ROADMAP Queue A.3)")
     t0 = time.perf_counter()
-    index = build_cache(args.stl_root, args.out, resolution=args.resolution,
-                        workers=args.workers)
+    with _data_run(args, "build-cache"):
+        index = build_cache(args.stl_root, args.out,
+                            resolution=args.resolution, workers=args.workers)
     print(json.dumps({"built": index["counts"],
                       "seconds": time.perf_counter() - t0}), flush=True)
     return 0
@@ -758,6 +887,25 @@ def _infer(args) -> int:
         raise SystemExit(
             f"--seg-out only applies to segmentation checkpoints (config "
             f"{cfg.name!r} has task={cfg.task!r}); it would write nothing")
+    if args.alert_rules and not args.run_dir:
+        raise SystemExit("infer: --alert-rules needs --run-dir (no run, no "
+                         "windows: the rules would gate nothing)")
+    if args.run_dir:
+        from featurenet_tpu_torch import obs
+        from featurenet_tpu_torch.config import config_to_dict
+        from featurenet_tpu_torch.obs import windows
+        from featurenet_tpu_torch.obs.alerts import parse_rules
+
+        rules = None
+        if args.alert_rules:
+            try:
+                rules = parse_rules(args.alert_rules)
+            except ValueError as e:
+                raise SystemExit(f"--alert-rules: {e}")
+        obs.init_run(args.run_dir, config=config_to_dict(cfg),
+                     extra={"cmd": "infer"}, process_index=0)
+        if rules is not None:
+            windows.install(windows.WindowAggregator(rules=rules))
     pred = Predictor.from_checkpoint(args.checkpoint_dir, config=cfg,
                                      batch=min(len(args.paths), 32),
                                      device=args.device,
@@ -781,6 +929,17 @@ def _infer(args) -> int:
             row = dataclasses.asdict(p)
         print(json.dumps({**row, "precision": pred.precision,
                           "model_version": pred.model_version}), flush=True)
+    if args.run_dir:
+        # The serving windows' last summaries, then the SLO verdict: a
+        # serving alert still active here exits 2 (a CI latency gate).
+        from featurenet_tpu_torch.obs.alerts import is_serving_metric
+
+        windows.flush()
+        stuck = [m for m in windows.active_alerts() if is_serving_metric(m)]
+        obs.close_run()
+        if stuck:
+            print(json.dumps({"serving_alerts_active": stuck}), flush=True)
+            return 2
     return 0
 
 
@@ -904,9 +1063,93 @@ def _programs(args) -> int:
     return 0
 
 
+def _report(args) -> int:
+    """``report``: the standard library only, so it works where the card
+    (and torch) that made the run are gone."""
+    import os
+
+    from featurenet_tpu_torch.obs.report import (
+        build_report_dir,
+        discover_event_files,
+        follow_report,
+        format_report,
+        format_request_timeline,
+        load_events,
+        request_timeline,
+        validate_events,
+    )
+
+    files = discover_event_files(args.run_dir)
+    if not files:
+        if not os.path.isdir(args.run_dir):
+            raise SystemExit(
+                f"report: {args.run_dir!r} is not a directory — was the run "
+                "started with --run-dir pointing here?")
+        names = sorted(os.listdir(args.run_dir))
+        raise SystemExit(
+            "report: no event stream (events.jsonl or events.<i>.jsonl) in "
+            f"{args.run_dir!r} — "
+            + (f"found: {', '.join(names)}" if names
+               else "the directory is empty")
+            + "; was the run started with --run-dir pointing here?")
+    if args.follow:
+        try:
+            follow_report(args.run_dir, interval=args.interval)
+        except KeyboardInterrupt:
+            print()  # a clean ^C: no traceback over the live view
+        return 0
+    events, bad = load_events(args.run_dir)
+    if args.request_trace:
+        tl = request_timeline(events, args.request_trace)
+        if args.as_json:
+            print(json.dumps(tl, indent=1, default=str))
+        else:
+            print(format_request_timeline(tl))
+        return 0 if tl["found"] else 2
+    if args.validate:
+        findings = validate_events(events, bad_lines=bad)
+        for f in findings:
+            print(json.dumps(f, default=str))
+        if findings:
+            raise SystemExit(
+                f"validate: {len(findings)} finding(s) across {len(events)} "
+                f"event(s) in {len(files)} stream(s)")
+        print(json.dumps({"validate": "ok", "events": len(events),
+                          "streams": len(files)}))
+        return 0
+    rep = build_report_dir(args.run_dir)
+    if args.as_json:
+        print(json.dumps(rep, indent=1, default=str))
+    else:
+        print(format_report(rep))
+    if args.trace:
+        from featurenet_tpu_torch.obs.spans import chrome_trace
+
+        with open(args.trace, "w") as fh:
+            json.dump(chrome_trace(events), fh)
+        print(json.dumps({"trace": args.trace}))
+    if args.gate:
+        from featurenet_tpu_torch.obs.gates import (
+            evaluate_gates,
+            format_gates,
+            load_baseline,
+            report_gate_values,
+        )
+
+        result = evaluate_gates(report_gate_values(rep),
+                                load_baseline(args.gate))
+        print(format_gates(result, args.gate))
+        if not result["ok"]:
+            return 2
+    return 0
+
+
 def main(argv=None) -> int:
+    raw = list(argv) if argv is not None else sys.argv[1:]
+    if raw[:1] == ["report"]:
+        return _report(_report_parser().parse_args(raw[1:]))
     args = _parser().parse_args(argv)
-    args.raw_argv = list(argv) if argv is not None else sys.argv[1:]
+    args.raw_argv = raw
     return {"train": _train, "serve": _serve, "eval": _eval,
             "infer": _infer, "export-data": _export_data,
             "export-seg-data": _export_seg_data,

@@ -15,7 +15,9 @@ the JAX presets' values, and the checkpoint fields (``checkpoint_dir``,
 supervision fields (``restart_every_steps``, ``max_inflight_steps``,
 ``inject_faults``, ``heartbeat_file``; ``train/supervisor.py``), and the
 observability fields (``run_dir``, ``alert_rules``, ``trace_sample``;
-``obs/``). A
+``obs/``; ``profile_dir``, ``profile_start``, ``profile_steps``, the
+Trainer's ``torch.profiler`` window; ``tb_dir``, the TensorBoard scalars
+of ``utils/logging.py``). A
 ``config.json`` that the JAX package writes beside its checkpoints loads
 through ``config_from_dict`` (the fields the port lacks are dropped), and
 ``check_identity`` holds a requested config to a persisted one as the
@@ -167,6 +169,16 @@ class Config:
     alert_rules: Optional[str] = None
     trace_sample: float = 1.0
 
+    # Profiling: with profile_dir, train steps [profile_start,
+    # profile_start + profile_steps) run under torch.profiler (CPU and CUDA
+    # activities) and the trace is written into profile_dir as a Chrome
+    # trace (train/loop.py). tb_dir: also write the logged scalars as
+    # TensorBoard events there (utils/logging.py).
+    profile_dir: Optional[str] = None
+    profile_start: int = 10
+    profile_steps: int = 5
+    tb_dir: Optional[str] = None
+
     @property
     def device_augment(self) -> bool:
         """Whether pose augmentation runs inside the train step rather than
@@ -230,6 +242,20 @@ class Config:
         if not (0.0 <= self.trace_sample <= 1.0):
             raise ValueError(f"trace_sample is a probability in [0, 1]; got "
                              f"{self.trace_sample}")
+        if self.profile_start < 0 or self.profile_steps < 1:
+            raise ValueError(
+                f"profile_start must be >= 0 and profile_steps >= 1; got "
+                f"{self.profile_start} and {self.profile_steps}")
+        if self.tb_dir:
+            # torch.utils.tensorboard writes through the tensorboard
+            # package: without it the scalars could not be written.
+            import importlib.util
+
+            if importlib.util.find_spec("tensorboard") is None:
+                raise ValueError(
+                    f"tb_dir={self.tb_dir!r} needs the 'tensorboard' package "
+                    "(torch.utils.tensorboard writes through it), which is "
+                    "not installed")
         if self.restart_every_steps is not None:
             if self.restart_every_steps <= 0:
                 raise ValueError(

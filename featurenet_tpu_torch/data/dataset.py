@@ -21,6 +21,13 @@ ticket: ``producer_crash`` raises (surfacing as ``ProducerError``),
 ``producer_hang`` parks the worker until ``close()`` (the consumer starves,
 and a supervisor's stall kill is the recovery), ``producer_slow`` sleeps
 ``SLOW_SLEEP_S``.
+
+In a run with a ``run_dir`` (``obs/``) each worker gauges its batch time
+(``producer_batch_s``, the generation alone, not the backpressure wait),
+the consumer gauges the ready queue's depth after every pop
+(``prefetch_queue_depth``, 0 when the consumer waited for the batch it
+took) and feeds it to the ``queue_depth`` window, and a worker's error is
+also a ``producer_error`` warning beside the supervisor's restart verdict.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from featurenet_tpu_torch import faults
+from featurenet_tpu_torch import faults, obs
 from featurenet_tpu_torch.data.synthetic import generate_batch, to_wire
 
 # Batches each producer worker may have ready ahead of the consumer.
@@ -124,8 +131,15 @@ class Prefetcher:
                     return
                 if faults.maybe_fail("producer_slow", batch=ticket):
                     time.sleep(faults.SLOW_SLEEP_S)
+                if obs.active():  # clock reads only in a run
+                    t0 = time.perf_counter()
+                    item = next(it)
+                    obs.gauge("producer_batch_s",
+                              round(time.perf_counter() - t0, 6), worker=w)
+                else:
+                    item = next(it)
                 host = {k: torch.from_numpy(np.ascontiguousarray(v))
-                        for k, v in next(it).items()}
+                        for k, v in item.items()}
                 if self._pin:
                     host = {k: v.pin_memory() for k, v in host.items()}
                 with self._cond:
@@ -152,9 +166,16 @@ class Prefetcher:
             while self._next not in self._ready:
                 self._cond.wait(0.1)
             item = self._ready.pop(self._next)
+            depth = len(self._ready)  # ready batches left after ours
             self._next += 1
             self._cond.notify_all()
+        obs.gauge("prefetch_queue_depth", depth)
+        obs.observe("queue_depth", depth)
         if isinstance(item, BaseException):
+            if isinstance(item, ProducerError):
+                obs.warn("producer_error",
+                         f"prefetch worker {item.worker} died: "
+                         f"{item.__cause__!r}", worker=item.worker)
             raise item
         return {k: v.to(self.device, non_blocking=True) for k, v in item.items()}
 

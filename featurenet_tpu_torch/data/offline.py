@@ -69,7 +69,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-from featurenet_tpu_torch import faults
+from featurenet_tpu_torch import faults, obs
 from featurenet_tpu_torch.data.stl import load_stl
 from featurenet_tpu_torch.data.synthetic import (
     CLASS_NAMES,
@@ -144,11 +144,13 @@ def build_cache(
             next_id += 1
     if next_id > len(CLASS_NAMES):
         unknown = [c for c in classes if c not in known]
-        warnings.warn(
-            f"build_cache: non-canonical class dirs {unknown} get label ids "
-            "past the canonical block; training them needs num_classes >= "
-            f"{next_id} (the presets have 24, and the Trainer refuses "
-            "out-of-range labels)", stacklevel=2)
+        msg = (f"build_cache: non-canonical class dirs {unknown} get label "
+               "ids past the canonical block; training them needs "
+               f"num_classes >= {next_id} (the presets have 24, and the "
+               "Trainer refuses out-of-range labels)")
+        warnings.warn(msg, stacklevel=2)
+        # The run's record of it too (stderr has the Python warning).
+        obs.emit("warning", name="build_cache_warning", msg=msg, dirs=unknown)
     index = {
         "resolution": resolution,
         "storage": "packed",
@@ -175,20 +177,24 @@ def build_cache(
             files = sorted(
                 f for f in os.listdir(cdir) if f.lower().endswith(".stl")
             )
-            packed = np.zeros(
-                (len(files), resolution, resolution, resolution // 8),
-                dtype=np.uint8,
-            )
-            work = [(os.path.join(cdir, f), resolution, backend) for f in files]
-            if pool is not None:
-                rows = pool.imap(
-                    _voxelize_stl_packed, work,
-                    chunksize=max(1, len(work) // (workers * 4) or 1),
+            # One span per class (the pool's workers have no sink).
+            with obs.span("build_cache_class", cls=cls, files=len(files),
+                          workers=workers):
+                packed = np.zeros(
+                    (len(files), resolution, resolution, resolution // 8),
+                    dtype=np.uint8,
                 )
-            else:
-                rows = map(_voxelize_stl_packed, work)
-            for i, row in enumerate(rows):
-                packed[i] = row
+                work = [(os.path.join(cdir, f), resolution, backend)
+                        for f in files]
+                if pool is not None:
+                    rows = pool.imap(
+                        _voxelize_stl_packed, work,
+                        chunksize=max(1, len(work) // (workers * 4) or 1),
+                    )
+                else:
+                    rows = map(_voxelize_stl_packed, work)
+                for i, row in enumerate(rows):
+                    packed[i] = row
             np.save(os.path.join(out_root, f"{cls}.npy"), packed)
             with open(os.path.join(out_root, f"{cls}.files.json"), "w") as fh:
                 json.dump(files, fh)
@@ -250,21 +256,24 @@ def export_synthetic_cache(out_root: str, per_class: int = 100,
     }
     for cls_id, cls in enumerate(CLASS_NAMES):
         rng = np.random.default_rng(np.random.SeedSequence([seed, cls_id]))
-        # Packed one part at a time: the transient is one unpacked grid.
-        packed = np.zeros((per_class, resolution, resolution, resolution // 8),
-                          dtype=np.uint8)
-        for i in range(per_class):
-            part, _, _ = generate_sample(rng, resolution, label=cls_id,
-                                         orient=orient,
-                                         param_range=param_range)
-            if use_mesh:
-                tris = voxels_to_mesh(part.astype(bool))
-                if mesh_pose == "so3":
-                    tris = rotate_mesh(tris, random_rotation_matrix(rng))
-                m = (0.05 if margin_jitter is None
-                     else float(rng.uniform(*margin_jitter)))
-                part = voxelize(tris, resolution, fill=True, margin=m)
-            packed[i] = pack_voxels(part)
+        with obs.span("export_class", cls=cls, n=per_class,
+                      mesh_pose=mesh_pose):
+            # Packed one part at a time: the transient is one unpacked grid.
+            packed = np.zeros(
+                (per_class, resolution, resolution, resolution // 8),
+                dtype=np.uint8)
+            for i in range(per_class):
+                part, _, _ = generate_sample(rng, resolution, label=cls_id,
+                                             orient=orient,
+                                             param_range=param_range)
+                if use_mesh:
+                    tris = voxels_to_mesh(part.astype(bool))
+                    if mesh_pose == "so3":
+                        tris = rotate_mesh(tris, random_rotation_matrix(rng))
+                    m = (0.05 if margin_jitter is None
+                         else float(rng.uniform(*margin_jitter)))
+                    part = voxelize(tris, resolution, fill=True, margin=m)
+                packed[i] = pack_voxels(part)
         np.save(os.path.join(out_root, f"{cls}.npy"), packed)
         with open(os.path.join(out_root, f"{cls}.files.json"), "w") as fh:
             json.dump([f"synthetic_{i:05d}" for i in range(per_class)], fh)
@@ -318,15 +327,17 @@ def export_seg_cache(out_root: str, num_parts: int = 2400,
         n = min(shard_size, num_parts - done)
         rng = np.random.default_rng(np.random.SeedSequence([seed, shard_id]))
         stem = f"seg_{shard_id:04d}"
-        voxels = np.zeros((n, resolution, resolution, resolution // 8), np.uint8)
-        seg = np.zeros((n, resolution, resolution, resolution), np.int8)
-        for i in range(n):
-            part, s = _generate_seg_sample(rng, resolution, num_features,
-                                           label_order)
-            voxels[i] = pack_voxels(part)
-            seg[i] = s.astype(np.int8)
-        np.save(os.path.join(out_root, f"{stem}.voxels.npy"), voxels)
-        np.save(os.path.join(out_root, f"{stem}.seg.npy"), seg)
+        with obs.span("export_seg_shard", shard=stem, n=n):
+            voxels = np.zeros((n, resolution, resolution, resolution // 8),
+                              np.uint8)
+            seg = np.zeros((n, resolution, resolution, resolution), np.int8)
+            for i in range(n):
+                part, s = _generate_seg_sample(rng, resolution, num_features,
+                                               label_order)
+                voxels[i] = pack_voxels(part)
+                seg[i] = s.astype(np.int8)
+            np.save(os.path.join(out_root, f"{stem}.voxels.npy"), voxels)
+            np.save(os.path.join(out_root, f"{stem}.seg.npy"), seg)
         index["shards"].append({"stem": stem, "count": n})
         done += n
         shard_id += 1

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from featurenet_tpu_torch import obs
+
 
 def normalize_mesh(triangles: np.ndarray, margin: float = 0.05) -> np.ndarray:
     """Center + uniformly scale triangles into [margin, 1-margin]³."""
@@ -149,24 +151,28 @@ def voxelize(
     watertight meshes) or ``"flood"`` (numpy only: ``backend="native"``
     with a flood fill raises rather than give parity semantics)."""
     tris = np.asarray(triangles, dtype=np.float32)
-    if normalize:
-        tris = normalize_mesh(tris, margin=margin)
-    native_ok = (not fill) or fill_method == "parity"
-    if backend == "native" and not native_ok:
-        raise ValueError(
-            "backend='native' has no flood fill; use "
-            "fill_method='parity' or backend='numpy'/'auto'"
-        )
-    if backend != "numpy" and native_ok:
-        try:
-            from featurenet_tpu_torch.native import voxelize_native
+    # One span per mesh in a run (the per-mesh wall sets ingest
+    # throughput); a pool worker has no sink, and the span is a no-op.
+    with obs.span("voxelize", tris=int(tris.shape[0]),
+                  resolution=resolution, fill=bool(fill)):
+        if normalize:
+            tris = normalize_mesh(tris, margin=margin)
+        native_ok = (not fill) or fill_method == "parity"
+        if backend == "native" and not native_ok:
+            raise ValueError(
+                "backend='native' has no flood fill; use "
+                "fill_method='parity' or backend='numpy'/'auto'"
+            )
+        if backend != "numpy" and native_ok:
+            try:
+                from featurenet_tpu_torch.native import voxelize_native
 
-            return voxelize_native(tris, resolution, fill)
-        except Exception:
-            if backend == "native":
-                raise
-    if not fill:
-        return _rasterize_surface(tris, resolution)
-    if fill_method == "flood":
-        return _fill_interior(_rasterize_surface(tris, resolution))
-    return _voxelize_parity(tris, resolution)
+                return voxelize_native(tris, resolution, fill)
+            except Exception:
+                if backend == "native":
+                    raise
+        if not fill:
+            return _rasterize_surface(tris, resolution)
+        if fill_method == "flood":
+            return _fill_interior(_rasterize_surface(tris, resolution))
+        return _voxelize_parity(tris, resolution)

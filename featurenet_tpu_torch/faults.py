@@ -37,8 +37,8 @@ attribute load and a ``None`` check.
 the JAX package parses parses the same here. ``WIRED`` is the subset the
 port has wired; ``Config.validate`` refuses a spec naming another site
 (``check_wired``), since a fault that can never fire would let a chaos run
-pass by testing nothing. ``sink_enospc`` waits for the port's event sink
-and ``replica_loss`` for its fleet router.
+pass by testing nothing. ``replica_loss`` waits for the port's fleet
+router (ROADMAP Queue A.4).
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ SITES = {
 }
 
 # The sites the port wires; the rest of SITES are refused at validation.
-WIRED = frozenset(SITES) - {"sink_enospc", "replica_loss"}
+WIRED = frozenset(SITES) - {"replica_loss"}
 
 # How long the latency sites (producer_slow, save_slow, replica_slow)
 # sleep per firing.
@@ -166,8 +166,8 @@ def check_wired(spec: str) -> dict[str, Optional[tuple]]:
     if unwired:
         raise ValueError(
             f"fault site(s) {', '.join(unwired)} in {spec!r} are not wired "
-            "in the port yet (sink_enospc waits for its event sink, "
-            "replica_loss for its fleet router); the fault could never fire"
+            "in the port yet (replica_loss waits for its fleet router); the "
+            "fault could never fire"
         )
     return sites
 

@@ -86,6 +86,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from featurenet_tpu_torch import obs
 from featurenet_tpu_torch.config import Config, check_identity, get_config
 from featurenet_tpu_torch.data.stl import load_stl
 from featurenet_tpu_torch.data.synthetic import CLASS_NAMES, generate_batch
@@ -534,7 +535,9 @@ class Predictor:
         return out
 
     def _batched_forward(self, g: np.ndarray) -> np.ndarray:
-        """Chunk/pad ``g`` to the compile batch, run, trim, concat."""
+        """Chunk/pad ``g`` to the compile batch, run, trim, concat. In a
+        run each chunk is an ``infer_batch`` span (the ``serving_ms``
+        window): the forward and its readback, the request's latency."""
         out = []
         for s in range(0, g.shape[0], self.batch):
             chunk = g[s:s + self.batch]
@@ -543,7 +546,9 @@ class Predictor:
                 chunk = np.concatenate(
                     [chunk, np.zeros((pad,) + chunk.shape[1:], np.float32)]
                 )
-            out.append(self.forward_padded(chunk)[: self.batch - pad])
+            with obs.span("infer_batch", n=self.batch - pad, batch=self.batch):
+                y = self.forward_padded(chunk)
+            out.append(y[: self.batch - pad])
         return np.concatenate(out, axis=0)
 
     def _validated(self, grids: np.ndarray) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Run-scoped observability (port of the core of ``featurenet_tpu/obs``).
 
-Setting ``Config.run_dir`` (``cli serve --run-dir``, ``cli programs
---run-dir``) makes the process write into one run directory:
+Setting ``Config.run_dir`` (``cli train|serve|infer|programs|export-data|
+build-cache --run-dir``) makes the process write into one run directory:
 
 - ``run.json``: the manifest (config, device topology, start time;
   ``events.init_run``, process 0 only);
@@ -12,12 +12,22 @@ Live SLOs ride the same stream: the rolling windows (``windows.py``) keep
 the last samples of the serving latency and queue wait, emit
 ``window_summary`` events, and evaluate the threshold alert rules
 (``alerts.py``), which fire ``alert`` events; request tracing
-(``tracing.py``) keeps per-request timelines, tail-biased. With no
-run_dir every hook is one ``None`` check and no file I/O.
+(``tracing.py``) keeps per-request timelines, tail-biased. Timing spans (``spans.span``) nest per thread and emit one
+``span`` event each on exit; ``data_wait`` and ``infer_batch`` feed their
+windows too. With no run_dir every hook is one ``None`` check and no file
+I/O.
 
-Not ported yet: spans, the report and its CLI (ROADMAP Queue A.2(b)); the
-perf, quality, incident, tsdb and dashboard planes and the burn-rate
-alerts (Queue A.2(c)).
+Post hoc, ``python -m featurenet_tpu_torch.cli report <run_dir>`` folds
+the streams into a step-time breakdown (data wait, dispatch, readback,
+eval, checkpoint), the input pipeline's health, the heartbeat and the
+supervisor's restart timeline, serving latency and the SLO view
+(``report.py``); ``--trace`` exports the spans as a Chrome trace
+(``spans.chrome_trace``), ``--validate`` lints the schema and ``--gate``
+judges the report against a pinned baseline (``gates.py``). The report
+path imports the standard library only, never torch.
+
+Not ported yet: the perf, quality, incident, tsdb and dashboard planes
+and the burn-rate alerts (ROADMAP Queue A.2(c)).
 """
 
 from featurenet_tpu_torch.obs.events import (
@@ -30,12 +40,14 @@ from featurenet_tpu_torch.obs.events import (
     init_run,
     warn,
 )
+from featurenet_tpu_torch.obs.spans import chrome_trace, span
 from featurenet_tpu_torch.obs.windows import flush as flush_windows
 from featurenet_tpu_torch.obs.windows import observe
 
 __all__ = [
     "EventSink",
     "active",
+    "chrome_trace",
     "close_run",
     "emit",
     "events_filename",
@@ -43,5 +55,6 @@ __all__ = [
     "gauge",
     "init_run",
     "observe",
+    "span",
     "warn",
 ]

@@ -20,19 +20,22 @@ everything the process does logs into that run until ``close_run()`` or
 an ``init_run`` naming another directory.
 
 A write that fails at the OS level (ENOSPC, a quota) turns the sink dark
-with one stderr line; the run goes on without telemetry. The reference's
-``sink_enospc`` fault site, which injects that failure, is not wired here
-yet (ROADMAP Queue A.2(b)).
+with one stderr line; the run goes on without telemetry. The
+``sink_enospc`` fault site (``faults.py``, counter ``emit``: the sink's
+Nth emit) injects that failure.
 """
 
 from __future__ import annotations
 
+import errno
 import json
 import os
 import sys
 import threading
 import time
 from typing import Any, Optional
+
+from featurenet_tpu_torch import faults
 
 MANIFEST_FILENAME = "run.json"
 EVENTS_FILENAME = "events.jsonl"
@@ -122,6 +125,9 @@ class EventSink:
             self._emits += 1
             self._kind_counts[ev] = self._kind_counts.get(ev, 0) + 1
             try:
+                if faults.maybe_fail("sink_enospc", emit=self._emits):
+                    raise OSError(errno.ENOSPC, "injected ENOSPC",
+                                  self.path)
                 # A short write loses this line's atomicity already;
                 # finishing its tail beats gluing it onto the next record.
                 view = memoryview(data)

@@ -11,10 +11,12 @@ device synchronisation.
 
 The aggregator is process-wide and optional: ``observe`` with none
 installed is one attribute load and a ``None`` check. ``events.init_run``
-installs a default-rule aggregator beside the sink, and the inference
-service installs one with its serving rules. The reference's span hook
-(``observe_span``, ROADMAP Queue A.2(b)) and raw-sample read for a fleet
-router (``samples``, Queue A.4) come with their callers.
+installs a default-rule aggregator beside the sink, the Trainer and ``cli
+infer`` install one with the run's rules, and the inference service one
+with its serving rules. ``observe_span`` is the span-exit hook
+(``obs/spans.py``): the spans that are window metrics feed their windows.
+The reference's raw-sample read for a fleet router (``samples``, ROADMAP
+Queue A.4) comes with its caller.
 """
 
 from __future__ import annotations
@@ -36,6 +38,14 @@ def _pct(sorted_vals: list, q: float):
     i = int(round(q / 100.0 * (len(sorted_vals) - 1)))
     return sorted_vals[min(max(i, 0), len(sorted_vals) - 1)]
 
+
+# Spans that are window metrics: span name -> (metric, scale, the field a
+# span's duration is divided by). A k-step dispatch's data_wait covers
+# ``take`` steps, and the sample is per step.
+SPAN_METRICS = {
+    "data_wait": ("data_wait_ms", 1e3, "take"),
+    "infer_batch": ("serving_ms", 1e3, None),
+}
 
 DEFAULT_WINDOW = 128       # samples per ring buffer
 DEFAULT_MAX_AGE_S = 300.0  # and none older than this
@@ -238,6 +248,24 @@ def observe(metric: str, value: float) -> None:
     if agg is None:
         return
     agg.observe(metric, value)
+
+
+def observe_span(name: str, dur_s: float,
+                 fields: Optional[dict] = None) -> None:
+    """The span-exit hook: a ``SPAN_METRICS`` span's duration, per step,
+    into its window; one ``None`` check with no aggregator."""
+    agg = _agg
+    if agg is None:
+        return
+    m = SPAN_METRICS.get(name)
+    if m is None:
+        return
+    value = dur_s * m[1]
+    if m[2] is not None and fields:
+        div = fields.get(m[2])
+        if isinstance(div, (int, float)) and div > 1:
+            value /= div
+    agg.observe(m[0], value)
 
 
 def flush() -> None:

@@ -295,11 +295,23 @@ class ContinuousBatcher:
         out = None
         err: Optional[BaseException] = None
         try:
-            out = self.forward(bucket, arr)
+            with obs.span("serve_dispatch", bucket=bucket, n=n, batch_seq=seq):
+                out = self.forward(bucket, arr)
         except Exception as e:  # resolve the batch; the batcher survives
             err = e
         t_done = time.perf_counter()
         outcome = "error" if err is not None else "ok"
+        # Counted before any request is answered: a client that reads
+        # /stats or /metrics right after its answer sees its request.
+        with self._cv:
+            self._batches += 1
+            self._rows += n
+            self._capacity += bucket
+            self._by_bucket[bucket] = self._by_bucket.get(bucket, 0) + 1
+            if err is None:
+                self._served += n
+            else:
+                self._errors += n
         for i, p in enumerate(batch):
             if err is not None:
                 p.error = err
@@ -314,15 +326,6 @@ class ContinuousBatcher:
                           dispatch_ms=(t_done - t_disp) * 1e3,
                           total_ms=(t_done - p.t_enq) * 1e3, outcome=outcome,
                           slo_ms=self.trace_slo_ms)
-        with self._cv:
-            self._batches += 1
-            self._rows += n
-            self._capacity += bucket
-            self._by_bucket[bucket] = self._by_bucket.get(bucket, 0) + 1
-            if err is None:
-                self._served += n
-            else:
-                self._errors += n
         obs.emit("serve_batch", bucket=bucket, n=n, pad=bucket - n,
                  batch_seq=seq, dur_ms=round((t_done - t_disp) * 1e3, 3))
 

@@ -55,6 +55,13 @@ the walk-back takes the next one.
 each step it writes (the Trainer's heartbeat: a completed save is
 confirmed progress).
 
+In a run with a ``run_dir`` (``obs/``) the manager writes the reference's
+spans: ``checkpoint_save`` (the snapshot and the enqueue, on the caller's
+thread), ``checkpoint_write`` (the writer thread's copy to the host and
+file write), ``checkpoint_restore`` (one candidate step's load) and
+``checkpoint_wait``; a walk-back past a failed step is also a
+``checkpoint_fallback`` event.
+
 Not ported: the multi-process lockstep save.
 """
 
@@ -72,7 +79,7 @@ from typing import Callable, Optional
 
 import torch
 
-from featurenet_tpu_torch import faults
+from featurenet_tpu_torch import faults, obs
 from featurenet_tpu_torch.config import Config, config_from_dict, config_to_dict
 
 CONFIG_FILENAME = "config.json"
@@ -300,20 +307,21 @@ class CheckpointManager:
         self._check_writer()
         os.makedirs(self._dir, exist_ok=True)
         self._write_config()
-        snap = _snapshot(state)
-        event = None
-        first = next(iter(snap["model"].values()))
-        if first.is_cuda:
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(first.device))
-        if self._writer is None:
-            self._writer = threading.Thread(target=self._write_loop,
-                                            name="ckpt-writer", daemon=True)
-            self._writer.start()
-        self._saves += 1
-        # Decided here, in save order; applied once the step is written.
-        corrupt = faults.maybe_fail("checkpoint_corrupt", save=self._saves)
-        self._queue.put((snap, event, self._saves, corrupt))
+        with obs.span("checkpoint_save", step=int(state.step)):
+            snap = _snapshot(state)
+            event = None
+            first = next(iter(snap["model"].values()))
+            if first.is_cuda:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(first.device))
+            if self._writer is None:
+                self._writer = threading.Thread(target=self._write_loop,
+                                                name="ckpt-writer", daemon=True)
+                self._writer.start()
+            self._saves += 1
+            # Decided here, in save order; applied once the step is written.
+            corrupt = faults.maybe_fail("checkpoint_corrupt", save=self._saves)
+            self._queue.put((snap, event, self._saves, corrupt))
 
     def _to_host(self, snap: dict, event) -> dict:
         """The snapshot on the host. On the card: wait for the clone's
@@ -349,23 +357,24 @@ class CheckpointManager:
             snap, event, save_n, corrupt = item
             try:
                 t0 = time.perf_counter()
-                if faults.maybe_fail("save_slow", save=save_n):
-                    time.sleep(faults.SLOW_SLEEP_S)  # a dragging write
-                host = self._to_host(snap, event)
-                del snap, item  # free the device copy before the slow write
-                host["count"] = int(host["count"])  # the file keeps an int
-                step = host["step"]
-                path = self._path(step)
-                _write_file(host, path)
-                if corrupt:
-                    _truncate(path)
-                else:
-                    sidecar = checksum_path(self._dir, step)
-                    with open(sidecar + ".tmp", "w") as fh:
-                        json.dump({step_filename(step): _sha256(path)}, fh)
-                    os.replace(sidecar + ".tmp", sidecar)
-                for old in self.all_steps()[:-self._keep]:
-                    self._delete(old)
+                step = snap["step"]
+                with obs.span("checkpoint_write", step=step):
+                    if faults.maybe_fail("save_slow", save=save_n):
+                        time.sleep(faults.SLOW_SLEEP_S)  # a dragging write
+                    host = self._to_host(snap, event)
+                    del snap, item  # free the device copy before the write
+                    host["count"] = int(host["count"])  # the file keeps an int
+                    path = self._path(step)
+                    _write_file(host, path)
+                    if corrupt:
+                        _truncate(path)
+                    else:
+                        sidecar = checksum_path(self._dir, step)
+                        with open(sidecar + ".tmp", "w") as fh:
+                            json.dump({step_filename(step): _sha256(path)}, fh)
+                        os.replace(sidecar + ".tmp", sidecar)
+                    for old in self.all_steps()[:-self._keep]:
+                        self._delete(old)
                 self.timing["writes"] += 1
                 self.timing["write_s"] += time.perf_counter() - t0
                 self.timing["bytes"] = os.path.getsize(path)
@@ -379,8 +388,9 @@ class CheckpointManager:
 
     def wait(self) -> None:
         """Every queued step written; re-raises a writer error."""
-        if self._writer is not None:
-            self._queue.join()
+        with obs.span("checkpoint_wait"):
+            if self._writer is not None:
+                self._queue.join()
         self._check_writer()
 
     def close(self) -> None:
@@ -414,9 +424,10 @@ class CheckpointManager:
                     raise faults.InjectedFault(
                         f"checkpoint_restore_error at step {s}")
                 self._verify(s)
-                payload = torch.load(self._path(s), map_location="cpu",
-                                     weights_only=True)
-                apply(payload)
+                with obs.span("checkpoint_restore", step=s):
+                    payload = torch.load(self._path(s), map_location="cpu",
+                                         weights_only=True)
+                    apply(payload)
             except Exception as e:
                 if step is not None:
                     raise
@@ -431,6 +442,8 @@ class CheckpointManager:
                 if cleanup:
                     for bad in candidates[:candidates.index(s)]:
                         self._delete(bad)
+                obs.emit("checkpoint_fallback", from_step=candidates[0],
+                         to_step=s, error=repr(first_error)[:300])
                 print(json.dumps({"checkpoint_fallback": {
                     "from_step": candidates[0], "to_step": s}}),
                     file=sys.stderr, flush=True)

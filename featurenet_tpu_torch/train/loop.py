@@ -74,11 +74,32 @@ on disk, waits for the writer, beats, logs a ``setup`` record with
 ``SystemExit(75)``, which the supervisor answers with a free respawn. A
 preempted run with no checkpoint directory dies by SIGTERM instead.
 ``cfg.inject_faults`` installs a fault plan (``faults.py``) whose markers
-live in ``cfg.checkpoint_dir``; the loop hosts the ``sigterm`` and
-``host_loss`` sites at each dispatch boundary.
+live in ``cfg.run_dir``, or else in ``cfg.checkpoint_dir``; the loop hosts
+the ``sigterm`` and ``host_loss`` sites at each dispatch boundary.
 
-Not ported yet: obs events and the reference's HBM clamp of k (a graph's
-private pool reuses each inner step's activations).
+With ``cfg.run_dir`` the Trainer writes the run directory (``obs/``):
+``init_run`` with a window aggregator over ``cfg.alert_rules``; a
+``heartbeat`` event at every beat (with the age since the last, also the
+``heartbeat_age_s`` window); per dispatch a ``data_wait`` span around the
+batch fetch (streamed only) and a ``dispatch`` span around the launch
+(``take=k``, ``mode="hbm"`` for the resident step); a ``readback`` span
+around the pacer's wait, only when it waits; the ``step_ms`` window
+(the group's wall over ``take``); ``eval`` and ``checkpoint`` spans;
+``loop_start`` (with ``global_batch``) and ``loop_end`` around the loop,
+the windows flushed after it; ``preempt`` on a SIGTERM exit and
+``run_end`` when the whole budget is done. ``cli report`` folds them.
+
+With ``cfg.profile_dir`` steps ``[max(profile_start, start), +
+profile_steps)`` run under ``torch.profiler`` (CPU and, on the card,
+CUDA activities), each dispatch in a ``train_dispatch@<step>`` range; the
+device is synchronized before the profiler stops, and the trace is
+written to ``profile_dir`` as a Chrome trace
+(``trace_steps_<a>-<b>_<pid>.json``). The window is anchored at the first
+step this process runs (a resumed run traces its own steps), and an
+exception or a segment's end closes it with its trace kept.
+
+Not ported: the reference's HBM clamp of k (a graph's private pool reuses
+each inner step's activations).
 
 ``timing`` keeps the wall seconds of the run's steps, how many of them the
 loop spent waiting for the next batch (``data_wait_s``), so the data wait
@@ -91,6 +112,7 @@ ms, the writer's mean ms per step written, and the bytes of a step.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import os
 import signal
@@ -98,8 +120,8 @@ import time
 
 import torch
 
-from featurenet_tpu_torch import faults
-from featurenet_tpu_torch.config import Config, check_identity
+from featurenet_tpu_torch import faults, obs
+from featurenet_tpu_torch.config import Config, check_identity, config_to_dict
 from featurenet_tpu_torch.data.dataset import Prefetcher, SyntheticVoxelDataset
 from featurenet_tpu_torch.data.offline import SegCacheDataset, VoxelCacheDataset
 from featurenet_tpu_torch.data.synthetic import WIRE_KEYS
@@ -170,19 +192,19 @@ def evaluate(model, data, batches: int, device,
 
 class DispatchPacer:
     """The bound on dispatches in flight, and the proof of progress.
-    ``mark(depth)`` after each dispatch records where the device's stream
-    stands (a CUDA event; on the CPU the dispatch has already run); once
-    more than ``depth`` marks are pending it waits for the oldest alone
-    (``Event.synchronize``: a readback would wait for everything enqueued
-    since, the dispatch just made included) and returns True, the device
-    having finished that dispatch."""
+    ``mark(depth, step)`` after each dispatch records where the device's
+    stream stands (a CUDA event; on the CPU the dispatch has already run);
+    once more than ``depth`` marks are pending it waits for the oldest
+    alone (``Event.synchronize``: a readback would wait for everything
+    enqueued since, the dispatch just made included), in a ``readback``
+    span, and returns True, the device having finished that dispatch."""
 
     def __init__(self, device: torch.device):
         self._cuda = device.type == "cuda"
         self._device = device
         self._pending: collections.deque = collections.deque()
 
-    def mark(self, depth: int) -> bool:
+    def mark(self, depth: int, step: int = 0) -> bool:
         event = None
         if self._cuda:
             event = torch.cuda.Event()
@@ -191,8 +213,9 @@ class DispatchPacer:
         if len(self._pending) <= depth:
             return False
         oldest = self._pending.popleft()
-        if oldest is not None:
-            oldest.synchronize()
+        with obs.span("readback", step=step):
+            if oldest is not None:
+                oldest.synchronize()
         return True
 
 
@@ -201,10 +224,20 @@ class Trainer:
                  state: dict[str, torch.Tensor] | None = None, stream=None):
         self.cfg = cfg.validate_training()
         self.device = resolve_device(device)
+        if cfg.run_dir:
+            # First, so every later event of this construction lands in
+            # the run; the windows judge the run's own alert rules.
+            from featurenet_tpu_torch.obs import alerts, windows
+
+            obs.init_run(cfg.run_dir, config=config_to_dict(cfg),
+                         process_index=0)
+            windows.install(windows.WindowAggregator(
+                rules=alerts.parse_rules(cfg.alert_rules)))
         if cfg.inject_faults:
-            # Markers in the checkpoint directory: a fault fires once per
-            # run, not once per respawned process.
-            faults.install(cfg.inject_faults, state_dir=cfg.checkpoint_dir)
+            # Markers in the run (or checkpoint) directory: a fault fires
+            # once per run, not once per respawned process.
+            faults.install(cfg.inject_faults,
+                           state_dir=cfg.run_dir or cfg.checkpoint_dir)
         model = build_model(cfg, seed=cfg.seed if state is None else None)
         if state is not None:
             model.load_state_dict(state)
@@ -221,7 +254,7 @@ class Trainer:
                                        config=cfg,
                                        on_written=lambda step: self._heartbeat())
                      if cfg.checkpoint_dir else None)
-        self.logger = MetricLogger(stream)
+        self.logger = MetricLogger(stream, tb_dir=cfg.tb_dir)
         self.eval_data = eval_dataset(cfg)
         if cfg.data_cache and cfg.task == "segment":
             self.train_data = SegCacheDataset(
@@ -370,7 +403,15 @@ class Trainer:
 
     def _heartbeat(self) -> None:
         """Record confirmed progress for a supervisor (see the module
-        docstring for where it is called)."""
+        docstring for where it is called), and in a run a ``heartbeat``
+        event with the age since the last beat."""
+        now = time.perf_counter()
+        last = getattr(self, "_last_beat", None)
+        obs.emit("heartbeat",
+                 age_s=round(now - last, 3) if last is not None else None)
+        if last is not None:
+            obs.observe("heartbeat_age_s", round(now - last, 3))
+        self._last_beat = now
         if self.cfg.heartbeat_file:
             touch_heartbeat(self.cfg.heartbeat_file)
 
@@ -383,10 +424,11 @@ class Trainer:
             float(sums["count"])  # the readback is the proof
             self._heartbeat()
 
-        return evaluate(self.state.model, self.eval_data,
-                        self.cfg.eval_batches, self.device,
-                        self.cfg.serve_precision,
-                        on_batch=beat if self.cfg.heartbeat_file else None)
+        with obs.span("eval"):
+            return evaluate(self.state.model, self.eval_data,
+                            self.cfg.eval_batches, self.device,
+                            self.cfg.serve_precision,
+                            on_batch=beat if self.cfg.heartbeat_file else None)
 
     def run(self, num_steps: int | None = None) -> dict:
         cfg = self.cfg
@@ -415,17 +457,48 @@ class Trainer:
         preempted = False
         pacer = DispatchPacer(self.device)
         last: dict = {}
+        # The report attributes span time to the step-time breakdown only
+        # between loop_start and loop_end.
+        obs.emit("loop_start", step=start, stop=stop, total=total,
+                 global_batch=cfg.global_batch)
+        loop_t0 = time.perf_counter()
+        # The trace window, anchored at the first step this process runs.
+        trace_start = max(cfg.profile_start, start) if cfg.profile_dir else -1
+        prof = None
+        trace_done = False
+        step = start
         try:
-            step = start
             while step < stop:
+                if (trace_start >= 0 and step >= trace_start and prof is None
+                        and not trace_done):
+                    prof = self._start_trace()
+                    trace_from = step
                 take = self._k if self._k > 1 and step + self._k <= stop else 1
                 t0 = time.perf_counter()
-                batches = [next(stream) for _ in range(take)] if stream else None
+                if stream:
+                    with obs.span("data_wait", take=take):
+                        batches = [next(stream) for _ in range(take)]
+                else:
+                    batches = None
                 t1 = time.perf_counter()
-                metrics = self.dispatch(batches, take)
+                ranged = (torch.profiler.record_function(f"train_dispatch@{step}")
+                          if prof is not None else contextlib.nullcontext())
+                with ranged, obs.span("dispatch", take=take,
+                                      **({} if stream else {"mode": "hbm"})):
+                    metrics = self.dispatch(batches, take)
                 new_step = step + take
-                if pacer.mark(max(cfg.max_inflight_steps // take, 1)):
+                if pacer.mark(max(cfg.max_inflight_steps // take, 1), new_step):
                     self._heartbeat()
+                # The dispatch and paced wait of the group, per step (eval
+                # and checkpoint work are spans of their own).
+                obs.observe("step_ms",
+                            round((time.perf_counter() - t0) / take * 1e3, 3))
+                if prof is not None and (
+                        new_step >= trace_start + cfg.profile_steps
+                        or new_step == total):
+                    self._stop_trace(prof, trace_from, new_step)
+                    prof = None
+                    trace_done = True
 
                 def crossed(every: int) -> bool:
                     return (new_step // every) > (step // every)
@@ -449,7 +522,8 @@ class Trainer:
                     self._heartbeat()
                 if self.ckpt and (crossed(cfg.checkpoint_every)
                                   or new_step == total):
-                    self._save()
+                    with obs.span("checkpoint", step=new_step):
+                        self._save()
                 step = new_step
                 if faults.maybe_fail("sigterm", step=step):
                     # A real signal through the real handler, at the first
@@ -460,12 +534,23 @@ class Trainer:
                     os.kill(os.getpid(), signal.SIGKILL)
                 if self._preempted and step < total:
                     preempted = True
+                    obs.emit("preempt", step=int(step))
                     break
         finally:
             if prev_sigterm is not None:
                 signal.signal(signal.SIGTERM, prev_sigterm)
+            obs.emit("loop_end", step=int(step),
+                     wall_s=time.perf_counter() - loop_t0)
+            # A run shorter than the emission period still lands its
+            # window summaries (and their alert verdicts).
+            obs.flush_windows()
             if stream:
                 stream.close()
+            if prof is not None:
+                # An exception or a segment's end inside the window: the
+                # trace of those steps is kept.
+                self._stop_trace(prof, trace_from, step)
+            self.logger.flush()
         if preempted and self.ckpt is None:
             # Nothing persisted: exit 75 would ask for a free respawn that
             # starts again from step 0. Die by the signal instead, which a
@@ -494,7 +579,30 @@ class Trainer:
                 "preempt_exit" if preempted else "planned_restart_exit": 1.0},
                 prefix="setup")
             raise SystemExit(RESTART_EXIT_CODE)
+        # The whole budget is done: a live tail stops here. A segment's
+        # exit above does not end the run.
+        obs.emit("run_end", step=int(step), total=total)
         return last
+
+    def _start_trace(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_trace(self, prof, first: int, end: int) -> str:
+        """Stop the trace window after the device has finished its steps,
+        and write it to ``cfg.profile_dir``; returns the file's path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir,
+                            f"trace_steps_{first}-{end}_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        return path
 
     def _save(self) -> None:
         """Snapshot the state and hand it to the checkpoint writer, timed on

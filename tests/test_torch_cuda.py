@@ -31,7 +31,10 @@ finite losses; the packed serving programs (bit-packed wire batches
 unpacked inside one CUDA graph per batch and precision) bitwise their
 eager body and the serve program's argmax, with the forward kernel inside
 each replay; a stream of frames through POST /predict_voxels_stream
-answered with the Predictor's labels and counted by GET /metrics.
+answered with the Predictor's labels and counted by GET /metrics; a
+Trainer's run directory on the card (its report, no validation finding,
+the readback span only where the pacer waits) and its torch.profiler
+window holding the kernels' device events for each traced step.
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -1109,3 +1112,79 @@ def test_stream_and_metrics_round_trip_on_card(cuda):
     assert [ln["label"] for ln in out["lines"]] == want.tolist()
     assert 'featurenet_requests_total{outcome="served"} 12' in metrics
     assert 'featurenet_serving_ms{q="0.99"}' in metrics
+
+
+def _report_trainer(cuda, tmp_path, **kw):
+    """A smoke16 pallas Trainer on the card with a run directory, run for 6
+    steps; returns it."""
+    import dataclasses
+    import os
+
+    from featurenet_tpu_torch import obs
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cfg = get_config("smoke16", total_steps=6, log_every=3, eval_every=6,
+                     data_workers=1, run_dir=str(tmp_path / "run"), **kw)
+    cfg = dataclasses.replace(cfg, arch=dataclasses.replace(
+        cfg.arch, conv_backend="pallas"))
+    try:
+        with open(os.devnull, "w") as sink:
+            trainer = Trainer(cfg, device=cuda, stream=sink)
+            trainer.run()
+    finally:
+        obs.close_run()
+    return trainer
+
+
+def test_report_of_a_trainer_run_on_card(cuda, tmp_path):
+    """smoke16 under pallas on the card with a run directory, 2 steps in
+    flight: the report has 6 steps, every loop category, readback spans
+    only for the paced waits and the metrics reads, and no validation
+    finding."""
+    from featurenet_tpu_torch.obs import report
+
+    _report_trainer(cuda, tmp_path, max_inflight_steps=2)
+    ev, bad = report.load_events(str(tmp_path / "run"))
+    assert report.validate_events(ev, bad) == []
+    rep = report.build_report(ev, report.load_manifest(str(tmp_path / "run")), bad)
+    assert rep["loop"]["steps"] == 6 and rep["run"]["device_count"] >= 1
+    paced = [e for e in ev if e.get("name") == "readback" and "src" not in e]
+    assert [e["step"] for e in paced] == [3, 4, 5, 6]  # depth 2: from step 3
+    assert rep["breakdown"]["dispatch"]["seconds"] > 0
+
+
+def test_report_profile_window_holds_the_kernels_on_card(cuda, tmp_path):
+    """The trace window (steps 2-4) holds the device events of the pallas
+    step: for the middle step (the profiler may lose events at its edges)
+    one conv3d_fwd_kernel per forward launch and one conv3d_dw_partial per
+    weight-gradient launch that an eager step counts."""
+    import json
+    import os
+
+    from featurenet_tpu_torch.data.dataset import SyntheticVoxelDataset
+    from featurenet_tpu_torch.ops import launch_counts
+
+    trainer = _report_trainer(cuda, tmp_path, profile_dir=str(tmp_path / "prof"),
+                              profile_start=2, profile_steps=3)
+    batch = next(SyntheticVoxelDataset(16, 32).worker_iter(0))
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    before = launch_counts()
+    trainer.step(batch)
+    step = {k: v - before[k] for k, v in launch_counts().items()}
+    assert step["conv3d_fwd"] > 0 and step["conv3d_dw"] > 0
+    (name,) = os.listdir(tmp_path / "prof")
+    assert name.startswith("trace_steps_2-5_")
+    with open(tmp_path / "prof" / name) as fh:
+        evs = json.load(fh)["traceEvents"]
+    ranges = {int(e["name"].split("@")[1]): (e["ts"], e["ts"] + e["dur"])
+              for e in evs if e.get("cat") == "user_annotation"
+              and e["name"].startswith("train_dispatch@")}
+    assert sorted(ranges) == [2, 3, 4]
+    t0, t1 = ranges[3]
+    corr = {e["args"]["correlation"] for e in evs
+            if e.get("cat") == "cuda_runtime" and t0 <= e["ts"] <= t1}
+    names = [e["name"] for e in evs
+             if e.get("cat") == "kernel" and e["args"].get("correlation") in corr]
+    assert sum("conv3d_fwd_kernel" in n for n in names) == step["conv3d_fwd"]
+    assert sum("conv3d_dw_partial" in n for n in names) == step["conv3d_dw"]

@@ -75,8 +75,8 @@ def test_parse_spec_matches_jax(spec):
 
 
 def test_port_refuses_the_sites_it_does_not_wire():
-    assert set(faults.SITES) - faults.WIRED == {"sink_enospc", "replica_loss"}
-    for spec in ("sink_enospc@emit=1", "sigterm@step=2,replica_loss@request=1"):
+    assert set(faults.SITES) - faults.WIRED == {"replica_loss"}
+    for spec in ("replica_loss@request=1", "sigterm@step=2,replica_loss@request=1"):
         faults.parse_spec(spec)  # parses as in the reference
         with pytest.raises(ValueError, match="not wired"):
             faults.check_wired(spec)
@@ -208,16 +208,32 @@ def test_config_keeps_the_supervision_fields_and_resume_strips_them(tmp_path):
 
 def test_supervision_modules_import_only_the_stdlib():
     """``faults.py`` and ``train/heartbeat.py`` import the standard library
-    alone, ``train/supervisor.py`` those two besides: the supervisor
-    process never needs torch for its own work."""
+    alone, ``train/supervisor.py`` those two and the obs modules of its
+    ``run_dir`` half besides, and those obs modules the standard library,
+    ``faults`` and each other (``obs/events.py`` imports torch only inside
+    the manifest's topology probe, which the supervisor's sink never
+    calls): the supervisor process never needs torch for its own work."""
     import ast
     import pathlib
     import sys
 
     port = pathlib.Path(faults.__file__).parent
+    obs_mods = {"featurenet_tpu_torch.obs", "featurenet_tpu_torch.obs.events",
+                "featurenet_tpu_torch.obs.gates",
+                "featurenet_tpu_torch.obs.report",
+                "featurenet_tpu_torch.obs.alerts",
+                "featurenet_tpu_torch.obs.windows",
+                "featurenet_tpu_torch.obs.tracing",
+                "featurenet_tpu_torch.obs.spans"}
+    obs_ok = obs_mods | {"featurenet_tpu_torch.faults"}
     allowed = {"faults.py": set(), "train/heartbeat.py": set(),
                "train/supervisor.py": {"featurenet_tpu_torch.faults",
-                                       "featurenet_tpu_torch.train.heartbeat"}}
+                                       "featurenet_tpu_torch.train.heartbeat"}
+               | obs_mods,
+               "obs/__init__.py": obs_ok, "obs/events.py": obs_ok | {"torch"},
+               "obs/gates.py": obs_ok, "obs/report.py": obs_ok,
+               "obs/alerts.py": obs_ok, "obs/windows.py": obs_ok,
+               "obs/tracing.py": obs_ok, "obs/spans.py": obs_ok}
     for name, extra in allowed.items():
         tree = ast.parse((port / name).read_text())
         mods = set()

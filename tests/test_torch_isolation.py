@@ -136,10 +136,12 @@ def test_ab_tool_forward_mode_exits_nonzero_without_a_card():
     assert "no CUDA device" in out.stderr
 
 
-# The serving wire's modules (obs core, exporter, load generator).
+# The serving wire's modules (obs core, exporter, load generator) and the
+# run directory's (spans, the report, the gates, the supervisor).
 WIRE_MODULES = ("obs/__init__.py", "obs/events.py", "obs/alerts.py",
                 "obs/windows.py", "obs/tracing.py", "serve/metrics.py",
-                "serve/loadgen.py")
+                "serve/loadgen.py", "obs/spans.py", "obs/report.py",
+                "obs/gates.py", "train/supervisor.py")
 
 
 @pytest.mark.parametrize("module", WIRE_MODULES)
@@ -170,3 +172,23 @@ def test_wire_entry_points_refuse_cpu_without_being_asked(monkeypatch, capsys):
     # Listing builds nothing and needs no card.
     assert cli.main(["programs", "--config", "smoke16"]) == 0
     assert len(capsys.readouterr().out.splitlines()) == len(registry.PROGRAMS)
+
+
+def test_report_and_supervisor_import_no_torch():
+    """``cli report``'s modules and the supervisor's run_dir half load with
+    torch blocked, and ``cli report`` reaches its answer without it."""
+    code = (
+        "import sys\n"
+        "sys.modules['torch'] = None\n"
+        "import featurenet_tpu_torch.obs.report, featurenet_tpu_torch.obs.gates\n"
+        "import featurenet_tpu_torch.obs.spans, featurenet_tpu_torch.train.supervisor\n"
+        "from featurenet_tpu_torch import cli\n"
+        "try:\n"
+        "    cli.main(['report', '/nonexistent-run-dir'])\n"
+        "except SystemExit as e:\n"
+        "    print(e)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "is not a directory" in out.stdout
