@@ -208,7 +208,8 @@ Phases, in order; any failure exits non-zero before the last line:
    - `report_run`: `cli train --config sprint64 --conv-backend pallas
      --data-cache D --hbm-cache --supervise --restart-every 20
      --total-steps 40 --checkpoint-every 20 --run-dir R --profile-dir P
-     --profile-start 25 --profile-steps 3` (two children at full width);
+     --profile-start 25 --profile-steps 3 --poll-device-memory` (two
+     children at full width);
      then `cli report R` in processes where torch cannot be imported:
      `--json` (40 loop steps, 2 process starts, 1 planned restart and no
      other, heartbeats; the breakdown and its attributed fraction
@@ -220,12 +221,44 @@ Phases, in order; any failure exits non-zero before the last line:
      `conv3d_fwd_kernel` and `conv3d_dw_partial` device events launched
      inside its `train_dispatch@<step>` range are printed, and the middle
      step must hold 6 and 3 (the profiler may lose events at its edges).
-     The children's launches are the `report` path.
+     The perf section (`perf` in the line) must hold the train program
+     (`hbm_train_step`) with its analytic `flops` and its `peak_bytes`,
+     the card's name as `device_kind` at the `known` tier, an `mfu`
+     window with its p50 in (0, 1), and `device_memory` watermarks at most
+     the card's `bytes_limit`; the report's gate values must hold `mfu`
+     and `hbm_peak_train_bytes`, and `cli report --gate` on a baseline
+     pinned from them must pass. The children's launches are the `report`
+     path.
    - `report_cost`: one resident sprint64 `pallas` Trainer in this process
      takes 30 steps per turn, dark and with a run directory in turns, twice
      each: device ms per step (CUDA events around each turn, its end-of-run
      eval left out), the overhead, and the events and spans emitted per
      step. Printed, never gated.
+13b. The model-quality plane (`quality` phase), on the `report` run's
+   sprint64 `pallas` checkpoint C (40 steps: its probabilities are near
+   uniform, so the recorder's 0.35 confidence floor keeps almost every
+   request; captures are printed by reason):
+   - `quality_pin`: `cli pin-quality --checkpoint-dir C --n 512`: a
+     baseline of 512 parts.
+   - `quality_serve`: `cli serve --checkpoint-dir C --run-dir D --quality
+     --quality-baseline B --capture --port 0`, 512 POST /predict_voxels of
+     synthetic parts in concurrent waves of 1, 4, 16 and 64, a drain; then
+     `cli report D` without torch: `--validate` (no finding) and `--json`
+     (the `serve` program's flops and peak_bytes, the serving mfu p50 in
+     (0, 1), the confidence, margin, entropy and drift windows, captures
+     by reason).
+   - `quality_replay`: `cli replay D/capture --checkpoint-dir C` four
+     times: the identity candidate, `--precision bf16`, `--precision
+     int8`, `--conv-backend xla`; each one's agreement, flips, score_ms,
+     per_request_ms and post_warmup_compiles (the graph captures made
+     while scoring: 0, or the phase fails). The identity candidate must
+     reach 0.967; a flip of it is printed with its two top probabilities.
+     The other candidates may exit 2: their verdicts are printed.
+   - `quality_overhead`: `measure_quality_overhead` at sprint64, buckets
+     1/4/16, 192 requests, in three turns: each turn's tax and captured
+     count, and the spread of the tax.
+   The children's launches and the overhead probe's are the `quality`
+   path.
 14. Robustness evaluation (`ood` phase), after the supervised runs:
    - `native`: the port's native voxelizer, built by g++ after the
      kernels (its build seconds; a build that fails fails the script), on
@@ -282,7 +315,7 @@ Phases, in order; any failure exits non-zero before the last line:
    through the phase, the `seg` path of each kernel.
 16. The wall time of every phase, one JSON line of per-kernel numbers
    (launches by path, the wire, cache, robust, supervise, report,
-   precision, ood, tta and seg runs' included), the
+   quality, precision, ood, tta and seg runs' included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
@@ -306,10 +339,16 @@ import threading
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32
-# outside the tensor cores, bf16 dense tensor cores, and HBM3 bandwidth.
+# outside the tensor cores, the fp32 kernels' bound; bf16 dense tensor
+# cores and HBM3 bandwidth from the port's one peak table (obs/perf.py).
 PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
+
+
+def _h100_peaks() -> tuple[float, float]:
+    from featurenet_tpu_torch.obs import perf
+
+    return (perf.PEAK_FLOPS_BY_KIND[perf.H100],
+            perf.PEAK_BYTES_PER_SEC_BY_KIND[perf.H100])
 
 # Kernel vs plain: both sum K³·Cin fp32 products (up to 1728 here) in
 # different orders, so they differ by rounding, ~sqrt(n)·2^-24 of the
@@ -497,7 +536,7 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
     peak rate and bytes (each input read once, each output written once)
     over the memory rate."""
     t_ops = flops / peak_flops * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_bytes = nbytes / _h100_peaks()[1] * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -572,7 +611,7 @@ def check_kernels(torch, seed: int) -> dict[str, list[dict]]:
                 lambda: fn(x, gy, k), lambda: conv_dw.conv_dw_plain(x, gy, k),
                 library, 2.0 * n * cout * k ** 3 * cin,
                 size * n * (cin + cout) + 4.0 * k ** 3 * cin * cout,
-                PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS, DW_REL_TOL,
+                _h100_peaks()[0] if bf16 else PEAK_FP32_FLOPS, DW_REL_TOL,
                 # The main path runs conv_dw_folded in bf16 (hybrid_dw).
                 main and (name == "conv3d_dw" or bf16)))
             rows[name][-1]["dtype"] = "bf16" if bf16 else "fp32"
@@ -4187,11 +4226,37 @@ def _segment_reports(run: str) -> list[dict]:
     return out
 
 
-def report_run_line(seed: int, cache: str, tmp: str, smi_line: str) -> dict:
-    """``cli train --supervise --run-dir D --profile-dir P`` on sprint64
-    (pallas, resident from ``cache``) for REPORT_STEPS steps in two
-    segments, then ``cli report D`` (--json, --validate, --trace, --gate)
-    in processes without torch, and the kernels of P's trace per step."""
+def _report_perf(rep: dict, kind: str, program: str, what: str) -> dict:
+    """The perf section of a report: ``program``'s row with its flops and
+    peak_bytes, the card's name at the known tier, an mfu p50 in (0, 1),
+    and each device_memory watermark within the card's limit."""
+    perf = rep.get("perf") or {}
+    row = (perf.get("programs") or {}).get(program) or {}
+    mfu = perf.get("mfu") or {}
+    # A serving program's peak_bytes is the rise of the process's peak
+    # across its capture: 0 when a larger bucket captured first set it
+    # (quality_serve_line checks the largest bucket's).
+    if not (row.get("flops") and isinstance(row.get("peak_bytes"), (int, float))):
+        fail(f"{what}: perf program {program!r} lacks flops or peak_bytes: "
+             f"{perf.get('programs')}")
+    if perf.get("device_kind") != kind or perf.get("tier") != "known":
+        fail(f"{what}: perf device {perf.get('device_kind')!r} tier "
+             f"{perf.get('tier')!r}, not {kind!r} known")
+    if not (mfu.get("p50") is not None and 0.0 < mfu["p50"] < 1.0):
+        fail(f"{what}: mfu window {mfu}, not a p50 in (0, 1)")
+    for dev, mem in (perf.get("device_memory") or {}).items():
+        if not mem.get("bytes_limit") or mem["watermark_bytes"] > mem["bytes_limit"]:
+            fail(f"{what}: device {dev} memory {mem}")
+    return perf
+
+
+def report_run_line(seed: int, cache: str, tmp: str, smi_line: str,
+                    kind: str) -> dict:
+    """``cli train --supervise --run-dir D --profile-dir P
+    --poll-device-memory`` on sprint64 (pallas, resident from ``cache``)
+    for REPORT_STEPS steps in two segments, then ``cli report D`` (--json
+    with its perf section, --validate, --trace, --gate) in processes
+    without torch, and the kernels of P's trace per step."""
     ck, run, prof, trace_out = (os.path.join(tmp, n) for n in
                                 ("ck", "run", "prof", "trace.json"))
     t0 = time.perf_counter()
@@ -4202,7 +4267,8 @@ def report_run_line(seed: int, cache: str, tmp: str, smi_line: str) -> dict:
              "--total-steps", str(REPORT_STEPS), "--checkpoint-every",
              str(REPORT_SEGMENT), "--checkpoint-dir", ck, "--run-dir", run,
              "--profile-dir", prof, "--profile-start", str(REPORT_PROFILE_START),
-             "--profile-steps", str(REPORT_PROFILE_STEPS)),
+             "--profile-steps", str(REPORT_PROFILE_STEPS),
+             "--poll-device-memory"),
         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
         text=True, timeout=600)
     train_s = time.perf_counter() - t0
@@ -4251,6 +4317,22 @@ def report_run_line(seed: int, cache: str, tmp: str, smi_line: str) -> dict:
             gate.returncode == 2 and "gate_regression" not in phases):
         fail(f"report --gate exited {gate.returncode} (supervisor phases "
              f"{phases}): {gate.stdout[-2000:]} {gate.stderr[-2000:]}")
+    perf = _report_perf(rep, kind, "hbm_train_step", "report")
+    if not perf.get("device_memory"):
+        fail(f"report: --poll-device-memory recorded no device_memory: {perf}")
+    from featurenet_tpu_torch.obs import gates as obs_gates
+
+    gate_vals = obs_gates.report_gate_values(rep)
+    pinned = {k: gate_vals.get(k) for k in ("mfu", "hbm_peak_train_bytes")}
+    if None in pinned.values():
+        fail(f"report: gate values lack the perf keys: {gate_vals}")
+    perf_base = os.path.join(tmp, "perf_baseline.json")
+    with open(perf_base, "w") as fh:
+        json.dump(obs_gates.make_baseline(pinned), fh)
+    perf_gate = _report_cli("report", run, "--gate", perf_base)
+    if perf_gate.returncode != 0:
+        fail(f"report --gate on its own perf pins exited "
+             f"{perf_gate.returncode}: {perf_gate.stdout[-2000:]}")
     report_s = time.perf_counter() - t0
     segments = _segment_reports(run)
     if ([g["steps"] for g in segments] != [REPORT_SEGMENT] * 2
@@ -4287,6 +4369,7 @@ def report_run_line(seed: int, cache: str, tmp: str, smi_line: str) -> dict:
         "trace_span_tracks": len(span_tracks),
         "trace_events": len(chrome),
         "gate_exit": gate.returncode, "gate": gate.stdout.strip().splitlines(),
+        "perf": perf, "perf_gate": perf_gate.stdout.strip().splitlines(),
         "profile_file": files[0], "kernel_events_per_step": per_step,
         "launches_per_child": launches, "nvidia_smi": smi_line,
     }, launches
@@ -4341,27 +4424,295 @@ def report_cost_line(torch, seed: int, cache: str, tmp: str,
             "nvidia_smi": smi_line}
 
 
-def report_phase(torch, seed: int, cache: str, smi_line: str) -> dict:
+def report_phase(torch, seed: int, cache: str, tmp: str, smi_line: str) -> dict:
     """The Trainer's run directory on the card (`report_run`,
-    `report_cost` lines); the launches are those the supervised children
+    `report_cost` lines) in ``tmp``, where the run's checkpoint stays for
+    the `quality` phase; the launches are those the supervised children
     reported, the `report` path."""
     launches: dict[str, int] = {}
-    with tempfile.TemporaryDirectory(dir=os.path.dirname(cache)) as tmp:
-        t0 = time.perf_counter()
-        out, reported = report_run_line(seed, cache, tmp, smi_line)
-        out["phase_s"] = time.perf_counter() - t0
-        print("report_run", json.dumps(out), flush=True)
-        for counts in reported:
-            for k, v in counts.items():
-                launches[k] = launches.get(k, 0) + v
-        t0 = time.perf_counter()
-        cost = report_cost_line(torch, seed, cache, tmp, smi_line)
-        cost["phase_s"] = time.perf_counter() - t0
-        print("report_cost", json.dumps(cost), flush=True)
+    t0 = time.perf_counter()
+    out, reported = report_run_line(seed, cache, tmp, smi_line,
+                                    torch.cuda.get_device_name(0))
+    out["phase_s"] = time.perf_counter() - t0
+    print("report_run", json.dumps(out), flush=True)
+    for counts in reported:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    t0 = time.perf_counter()
+    cost = report_cost_line(torch, seed, cache, tmp, smi_line)
+    cost["phase_s"] = time.perf_counter() - t0
+    print("report_cost", json.dumps(cost), flush=True)
     torch.cuda.empty_cache()
     if not (launches.get("conv3d_fwd") and launches.get("conv3d_dw")):
         fail(f"report: the supervised children reported no kernel launches: "
              f"{launches}")
+    return {"launches": launches, "checkpoint": os.path.join(tmp, "ck")}
+
+
+# The quality phase: a pinned baseline of QUALITY_PARTS parts, as many
+# requests served in concurrent waves of the bucket sizes, four replay
+# candidates, and the quality tax over QUALITY_OVERHEAD_REQUESTS requests in
+# QUALITY_OVERHEAD_TURNS turns.
+QUALITY_PARTS = 512
+QUALITY_WAVES = (1, 4, 16, 64)
+QUALITY_OVERHEAD_REQUESTS = 192
+QUALITY_OVERHEAD_TURNS = 3
+QUALITY_MIN_AGREEMENT = 0.967
+QUALITY_CANDIDATES = {"identity": (), "bf16": ("--precision", "bf16"),
+                      "int8": ("--precision", "int8"),
+                      "xla": ("--conv-backend", "xla")}
+
+
+def _cli_records(what: str, *args, ok=(0,)) -> tuple[int, list[dict], float]:
+    """One ``cli`` subprocess on the card, run to its end: its exit code
+    (one of ``ok``, else the script fails), its JSON lines and its wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(_cli(*args), cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode not in ok:
+        fail(f"{what}: cli {args[0]} exited {proc.returncode}: "
+             f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    return (proc.returncode, [json.loads(ln) for ln in proc.stdout.splitlines()
+                              if ln.startswith("{")], wall)
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _serve_waves(port: int, grids) -> tuple[list[dict], float]:
+    """POST /predict_voxels of every grid, in concurrent waves of
+    QUALITY_WAVES' sizes in turn (each wave answered before the next),
+    one keep-alive connection per client thread; every answer a 200 with
+    a label."""
+    import concurrent.futures
+
+    local = threading.local()
+    conns = []
+
+    def post(i):
+        conn = getattr(local, "conn", None)
+        if conn is None:
+            conn = local.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                           timeout=120)
+            conns.append(conn)
+        status, body, _ = _post(conn, "/predict_voxels", grids[i].tobytes())
+        if status != 200 or "label" not in body:
+            raise RuntimeError(f"request {i}: {status} {body}")
+        return body
+
+    answers: list[dict] = []
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max(QUALITY_WAVES)) as pool:
+        i, w = 0, 0
+        while i < len(grids):
+            k = min(QUALITY_WAVES[w % len(QUALITY_WAVES)], len(grids) - i)
+            answers += list(pool.map(post, range(i, i + k)))
+            i, w = i + k, w + 1
+    wall = time.perf_counter() - t0
+    for conn in conns:
+        conn.close()
+    return answers, wall
+
+
+def quality_serve_line(seed: int, ck: str, baseline: str, tmp: str,
+                       kind: str, smi_line: str) -> tuple[dict, dict]:
+    """``cli serve --quality --quality-baseline --capture`` on the
+    checkpoint, QUALITY_PARTS requests in waves, a drain, then ``cli
+    report`` (--validate, --json) without torch."""
+    import numpy as np
+
+    from featurenet_tpu_torch.data.synthetic import generate_batch
+
+    run = os.path.join(tmp, "serve_run")
+    grids = np.ascontiguousarray(generate_batch(
+        np.random.default_rng(seed + 11), QUALITY_PARTS, 64)["voxels"][..., 0],
+        dtype="<f4")
+    t0 = time.perf_counter()
+    srv = subprocess.Popen(
+        _cli("serve", "--checkpoint-dir", ck, "--run-dir", run, "--quality",
+             "--quality-baseline", baseline, "--capture", "--port", "0",
+             "--duration-s", "600"),
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        banner = json.loads(srv.stdout.readline())["serving"]
+        ready_s = time.perf_counter() - t0
+        try:
+            answers, wall = _serve_waves(banner["port"], grids)
+        except RuntimeError as e:
+            fail(f"quality: cli serve {e}")
+        srv.send_signal(signal.SIGTERM)
+        out, err = srv.communicate(timeout=120)
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.communicate()
+    if srv.returncode != 0:
+        fail(f"quality: cli serve exited {srv.returncode}: {err[-2000:]}")
+    stats = json.loads(out.strip().splitlines()[-1])["serve_stats"]
+    cap, qual = stats.get("capture") or {}, stats.get("quality") or {}
+    if (stats["served"] != QUALITY_PARTS or not cap.get("captured")
+            or qual.get("seen") != QUALITY_PARTS or not qual.get("baseline")):
+        fail(f"quality: cli serve stats {stats}")
+    validate = _report_cli("report", run, "--validate")
+    if validate.returncode != 0 or '"validate": "ok"' not in validate.stdout:
+        fail(f"quality: report --validate {validate.stdout[-2000:]}")
+    got = _report_cli("report", run, "--json")
+    if got.returncode != 0:
+        fail(f"quality: report --json exited {got.returncode}: {got.stderr[-2000:]}")
+    rep = json.loads(got.stdout)
+    perf = _report_perf(rep, kind, "serve", "quality")
+    with open(os.path.join(run, "events.jsonl")) as fh:
+        costs = [e for e in map(json.loads, fh) if e.get("ev") == "program_cost"]
+    # A serving peak_bytes is the rise of the process's peak across a
+    # capture, so the report's last "serve" row (bucket 1) may read 0; the
+    # largest bucket, captured first, must raise it.
+    first = max(costs, key=lambda e: e.get("batch") or 0, default={})
+    if not (first.get("peak_bytes") or 0) > 0:
+        fail(f"quality: the largest bucket's program_cost has no peak_bytes: {costs}")
+    quality = rep.get("quality") or {}
+    if not all(quality.get(k) for k in ("confidence", "margin", "entropy",
+                                         "drift_score", "drift", "captures")):
+        fail(f"quality: the report's quality section lacks a field: {quality}")
+    return {
+        "ready_s": ready_s, "requests_wall_s": wall,
+        "requests_per_s": QUALITY_PARTS / wall,
+        "labels": len({a["label"] for a in answers}),
+        "by_bucket": stats["by_bucket"], "occupancy": stats["occupancy"],
+        "capture": cap, "tracker": qual,
+        "serve_programs": {k: v for k, v in perf["programs"].items()
+                           if k.startswith("serve")},
+        "program_cost_by_batch": {e.get("batch"): {
+            k: e.get(k) for k in ("flops", "peak_bytes", "precision")}
+            for e in costs},
+        "serving_mfu": perf["mfu"], "device_kind": perf["device_kind"],
+        "windows": {k: quality[k] for k in ("confidence", "margin", "entropy",
+                                            "drift_score")},
+        "drift": quality["drift"], "captures": quality["captures"],
+        "validate": json.loads(validate.stdout.strip().splitlines()[-1]),
+        "nvidia_smi": smi_line,
+    }, {"launches": stats.get("launches") or {}, "capture": cap["dir"]}
+
+
+def _flip_top2(torch, ck: str, capture: str) -> list[dict]:
+    """The identity candidate's flips scored again here: each flipped
+    request's recorded label and confidence beside the two top
+    probabilities now (near-uniform rows can tie)."""
+    import numpy as np
+
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.serve.recorder import read_captures, unpack_grid
+
+    recs = [r for r in read_captures(capture) if r.get("label") is not None]
+    pred = Predictor.from_checkpoint(ck, batch=32)
+    labels, probs = pred.predict_voxels(
+        np.stack([unpack_grid(r["voxels"]) for r in recs]))
+    out = []
+    for r, lab, pr in zip(recs, labels.tolist(), probs):
+        if lab != r["label"]:
+            top = np.argsort(pr)[::-1][:2]
+            out.append({"trace": r.get("trace"), "recorded": r["label"],
+                        "recorded_confidence": r.get("confidence"),
+                        "label": lab, "top2": [[int(i), float(pr[i])] for i in top]})
+    del pred
+    torch.cuda.empty_cache()
+    return out
+
+
+def quality_replay_line(torch, ck: str, capture: str, tmp: str,
+                        smi_line: str) -> tuple[dict, dict]:
+    """``cli replay`` of the ring for each QUALITY_CANDIDATES candidate:
+    no graph captured while scoring; the identity candidate at or above
+    QUALITY_MIN_AGREEMENT (its run directory validated); the others'
+    verdicts printed."""
+    launches: dict[str, int] = {}
+    out: dict = {}
+    for name, extra in QUALITY_CANDIDATES.items():
+        run = os.path.join(tmp, f"replay_{name}")
+        rc, recs, wall = _cli_records(
+            f"quality replay {name}", "replay", capture, "--checkpoint-dir", ck,
+            "--run-dir", run, *extra, ok=(0,) if name == "identity" else (0, 2))
+        r = next((x["replay"] for x in recs if "replay" in x), None)
+        if r is None or r["post_warmup_compiles"] != 0:
+            fail(f"quality: replay {name} captured while scoring: {recs}")
+        _add_counts(launches, r.get("launches") or {})
+        out[name] = {"exit": rc, "wall_s": wall, **{k: r[k] for k in (
+            "n", "agreement", "ok", "flips", "confidence_delta", "score_ms",
+            "per_request_ms", "post_warmup_compiles")},
+            "candidate": r["candidate"]}
+    ident = out["identity"]
+    if ident["agreement"] < QUALITY_MIN_AGREEMENT:
+        fail(f"quality: identity replay agreement {ident['agreement']} < "
+             f"{QUALITY_MIN_AGREEMENT}: {ident}")
+    if ident["flips"]:
+        ident["flipped"] = _flip_top2(torch, ck, capture)
+    validate = _report_cli("report", os.path.join(tmp, "replay_identity"),
+                           "--validate")
+    if validate.returncode != 0:
+        fail(f"quality: report --validate of the replay run: {validate.stdout[-2000:]}")
+    out["nvidia_smi"] = smi_line
+    return out, launches
+
+
+def quality_phase(torch, seed: int, ck: str, smi_line: str) -> dict:
+    """The model-quality plane on the card (`quality_pin`,
+    `quality_serve`, `quality_replay`, `quality_overhead` lines) from the
+    `report` run's checkpoint; the launches are the children's reports and
+    the overhead probe's, the `quality` path."""
+    import dataclasses
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.serve.loadgen import measure_quality_overhead
+
+    kind = torch.cuda.get_device_name(0)
+    launches: dict[str, int] = {}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(ck)) as tmp:
+        baseline = os.path.join(tmp, "quality_baseline.json")
+        _, recs, wall = _cli_records("quality pin", "pin-quality",
+                                     "--checkpoint-dir", ck, "--n",
+                                     str(QUALITY_PARTS), "--out", baseline)
+        pinned = next((r["quality_baseline"] for r in recs
+                       if "quality_baseline" in r), None)
+        if pinned is None or pinned["n"] != QUALITY_PARTS:
+            fail(f"quality: pin-quality printed {recs}")
+        _add_counts(launches, pinned.get("launches") or {})
+        print("quality_pin", json.dumps({**pinned, "wall_s": wall,
+                                         "nvidia_smi": smi_line}), flush=True)
+
+        t0 = time.perf_counter()
+        served, child = quality_serve_line(seed, ck, baseline, tmp, kind,
+                                           smi_line)
+        served["phase_s"] = time.perf_counter() - t0
+        _add_counts(launches, child["launches"])
+        print("quality_serve", json.dumps(served), flush=True)
+
+        t0 = time.perf_counter()
+        replays, counts = quality_replay_line(torch, ck, child["capture"], tmp,
+                                              smi_line)
+        replays["phase_s"] = time.perf_counter() - t0
+        _add_counts(launches, counts)
+        print("quality_replay", json.dumps(replays), flush=True)
+
+    cfg = get_config("sprint64", seed=seed)
+    cfg = dataclasses.replace(cfg, arch=dataclasses.replace(
+        cfg.arch, conv_backend="pallas"))
+    _reset_counts()
+    t0 = time.perf_counter()
+    turns = [measure_quality_overhead(cfg, n_requests=QUALITY_OVERHEAD_REQUESTS,
+                                      device="cuda")
+             for _ in range(QUALITY_OVERHEAD_TURNS)]
+    _add_counts(launches, _read_counts())
+    pcts = [t["quality_overhead_pct"] for t in turns]
+    tax = {"turns": turns, "quality_overhead_pct_min": min(pcts),
+           "quality_overhead_pct_max": max(pcts),
+           "wall_s": time.perf_counter() - t0, "nvidia_smi": smi_line}
+    print("quality_overhead", json.dumps(tax), flush=True)
+    torch.cuda.empty_cache()
+    if not launches.get("conv3d_fwd"):
+        fail(f"quality: no conv3d_fwd launch on the quality path: {launches}")
     return {"launches": launches}
 
 
@@ -4453,8 +4804,13 @@ def main() -> int:
                       graphs, smi_line)["launches"]
         supervised = phase("supervise", supervise_phase, args.seed, cache_dir,
                            smi_line)["launches"]
-        reported = phase("report", report_phase, torch, args.seed, cache_dir,
-                         smi_line)["launches"]
+        report_tmp = os.path.join(tmp, "report")
+        os.makedirs(report_tmp)
+        report_out = phase("report", report_phase, torch, args.seed,
+                           cache_dir, report_tmp, smi_line)
+        reported = report_out["launches"]
+        quality = phase("quality", quality_phase, torch, args.seed,
+                        report_out["checkpoint"], smi_line)["launches"]
     robustness = phase("ood", ood_phase, torch, args.seed, native_info,
                        smi_line)["launches"]
     seg = phase("seg", seg_phase, torch, args.seed, smi_line)["launches"]
@@ -4483,6 +4839,7 @@ def main() -> int:
                        "robust": robust["conv3d_fwd"],
                        "supervise": supervised["conv3d_fwd"],
                        "report": reported["conv3d_fwd"],
+                       "quality": quality["conv3d_fwd"],
                        **{k: v["conv3d_fwd"] for k, v in rungs.items()},
                        **{k: v["conv3d_fwd"] for k, v in robustness.items()},
                        "seg": seg["conv3d_fwd"]}),

@@ -27,12 +27,19 @@
          --seg-input-context none|proj|proj_coords] \
         [--supervise --checkpoint-dir CK [--stall-timeout S --max-restarts N \
          --heartbeat-file F --restart-every N]] [--inject-faults SPEC] \
-        [--run-dir D [--alert-rules SPEC]] [--tb-dir T] \
-        [--profile-dir P [--profile-start 10 --profile-steps 5]]
+        [--run-dir D [--alert-rules SPEC] [--poll-device-memory]] \
+        [--tb-dir T] [--profile-dir P [--profile-start 10 --profile-steps 5]]
     python -m featurenet_tpu_torch.cli serve --checkpoint-dir CK --port 0 \
         [--precision fp32|bf16|int8] [--inject-faults SPEC] \
         [--slo-p99-ms 250 | --alert-rules SPEC] [--drain] \
-        [--trace-sample F] [--run-dir D] [--batch-queue-limit N]
+        [--trace-sample F] [--run-dir D] [--batch-queue-limit N] \
+        [--quality [--quality-baseline B]] \
+        [--capture [--capture-sample F] [--capture-dir C]]
+    python -m featurenet_tpu_torch.cli pin-quality --checkpoint-dir CK \
+        [--n 512 --seed 0 --batch 32 --precision P --out B]
+    python -m featurenet_tpu_torch.cli replay D/capture --checkpoint-dir CK \
+        [--precision P --conv-backend B --batch 32 --min-agreement 0.967 \
+         --run-dir D2]
     python -m featurenet_tpu_torch.cli serve --config sprint64 --seed 0 \
         --buckets 1,4,16,64 --port 0 --device cuda
     python -m featurenet_tpu_torch.cli serve --weights w.npz --port 0
@@ -175,6 +182,27 @@ gate); else 0. ``--run-dir D`` writes ``D/run.json`` and
 ``serve_stop``, window summaries, alerts, sampled request timelines at
 ``--trace-sample``). ``--batch-queue-limit`` caps the ``batch`` lane.
 
+``serve --quality`` feeds the ``confidence``, ``confidence_margin`` and
+``prediction_entropy`` windows per answered request and installs the
+confidence alert rule; ``--quality-baseline B`` (from ``pin-quality``) adds
+the ``quality_drift_score`` window and its rule. ``--capture`` keeps a
+flight-recorder ring of served requests in ``D/capture`` (or
+``--capture-dir``; ``serve/recorder.py``), refused without either. Both
+need a classify checkpoint. ``pin-quality`` scores ``--n`` synthetic parts
+with a checkpoint and writes their class mix to
+``CK/quality_baseline.json`` (or ``--out``), printing
+``{"quality_baseline": {...}}``. ``replay RING`` re-scores a ring's
+answered requests with a candidate (another checkpoint, ``--precision``,
+``--conv-backend``) through one serving program built before scoring,
+prints ``{"replay": {...}}`` (agreement with the recorded labels, flips,
+confidence deltas, ``score_ms``, ``post_warmup_compiles``: the programs
+built while scoring, 0 when the warmup held) and exits 2 below
+``--min-agreement``. On the card, ``serve_stats``, ``replay`` and
+``quality_baseline`` carry the process's kernel ``launches``.
+
+``train --poll-device-memory`` samples the card's memory at every
+heartbeat into ``device_memory`` events (the report's perf section).
+
 ``infer --run-dir D`` writes an ``infer_batch`` span per forward (the
 ``serving_ms`` window) and the part's ``voxelize`` spans; with
 ``--alert-rules`` a serving alert still active at the end exits 2.
@@ -284,6 +312,68 @@ def _parser() -> argparse.ArgumentParser:
                        help="observability directory: run.json and "
                             "events.jsonl (serve_batch, overload, window "
                             "summaries, alerts, request timelines)")
+    p_srv.add_argument("--quality", action="store_true",
+                       help="model-quality telemetry (classify checkpoints): "
+                            "per-request top-1 confidence, top1-top2 margin "
+                            "and entropy windows, and the confidence alert "
+                            "rule")
+    p_srv.add_argument("--quality-baseline", dest="quality_baseline",
+                       help="pinned class-mix baseline (quality_baseline.json "
+                            "from `pin-quality`): implies --quality and adds "
+                            "the quality_drift_score window and its rule")
+    p_srv.add_argument("--capture", action="store_true",
+                       help="flight recorder: a bounded, sampled JSONL ring "
+                            "of served requests under <run-dir>/capture; "
+                            "rejections, errors, low-confidence predictions "
+                            "and SLO breaches always kept (`replay` "
+                            "re-scores it)")
+    p_srv.add_argument("--capture-sample", type=float, default=None,
+                       dest="capture_sample",
+                       help="capture rate in [0, 1] of healthy traffic (a "
+                            "trace-id hash; default 0.05)")
+    p_srv.add_argument("--capture-dir", dest="capture_dir",
+                       help="capture ring directory (default "
+                            "<run-dir>/capture; implies --capture)")
+
+    p_pin = sub.add_parser("pin-quality", help="pin a predicted-class-mix "
+                                               "baseline from a classify "
+                                               "checkpoint's pass over "
+                                               "synthetic parts")
+    p_pin.add_argument("--checkpoint-dir", required=True, dest="checkpoint_dir")
+    common(p_pin, "must be the run's (the checkpoint self-configures)")
+    precision(p_pin, "--precision", "precision", SERVE_PRECISIONS,
+              "serving precision of the pass")
+    p_pin.add_argument("--n", type=int, default=512,
+                       help="parts to score (default 512)")
+    p_pin.add_argument("--seed", type=int, default=0,
+                       help="synthetic parts' seed (default 0)")
+    p_pin.add_argument("--batch", type=int, default=32,
+                       help="scoring batch (default 32)")
+    p_pin.add_argument("--out", default=None,
+                       help="baseline path (default "
+                            "<checkpoint-dir>/quality_baseline.json)")
+
+    p_rpl = sub.add_parser("replay", help="re-score a capture ring (`serve "
+                                          "--capture`) with a candidate; "
+                                          "exit 2 below --min-agreement")
+    p_rpl.add_argument("capture_dir", help="capture ring directory "
+                                           "(e.g. <run-dir>/capture)")
+    p_rpl.add_argument("--checkpoint-dir", required=True, dest="checkpoint_dir",
+                       help="the candidate checkpoint")
+    common(p_rpl, "must be the run's (the checkpoint self-configures)")
+    precision(p_rpl, "--precision", "precision", SERVE_PRECISIONS,
+              "candidate serving precision")
+    p_rpl.add_argument("--batch", type=int, default=32,
+                       help="scoring batch: one program, built before "
+                            "scoring, so scoring builds none (default 32)")
+    p_rpl.add_argument("--min-agreement", type=float, default=0.967,
+                       dest="min_agreement",
+                       help="exit 2 when the candidate agrees with fewer "
+                            "than this share of the recorded predictions "
+                            "(default 0.967)")
+    p_rpl.add_argument("--run-dir", dest="run_dir",
+                       help="observability directory for the "
+                            "replay_verdict event")
 
     p_prog = sub.add_parser("programs", help="list a preset's program catalog; "
                                              "--warm builds them")
@@ -380,6 +470,11 @@ def _parser() -> argparse.ArgumentParser:
                            "[:severity],...' over the run's windows "
                            "(featurenet_tpu_torch.obs.alerts); default: the "
                            "built-in rules")
+    p_tr.add_argument("--poll-device-memory", action="store_true",
+                      default=None, dest="poll_device_memory",
+                      help="sample the card's allocated, peak and total "
+                           "bytes at every heartbeat as device_memory "
+                           "events (the report's watermark; needs --run-dir)")
     p_tr.add_argument("--profile-dir", dest="profile_dir",
                       help="trace steps [profile-start, +profile-steps) "
                            "with torch.profiler into this directory")
@@ -589,6 +684,7 @@ def _cfg_from_checkpoint(saved, args, **policy):
     for k in ("heartbeat_file", "restart_every_steps", "inject_faults",
               "run_dir", "profile_dir", "tb_dir"):
         policy.setdefault(k, None)
+    policy.setdefault("poll_device_memory", False)
     cfg = _with_backend(dataclasses.replace(saved, **policy),
                         args.conv_backend).validate()
     try:
@@ -678,8 +774,8 @@ def _train(args) -> int:
                             "seg_loss", "seg_input_context",
                             "inject_faults", "heartbeat_file",
                             "restart_every_steps", "run_dir", "alert_rules",
-                            "profile_dir", "profile_start", "profile_steps",
-                            "tb_dir"))
+                            "poll_device_memory", "profile_dir",
+                            "profile_start", "profile_steps", "tb_dir"))
     if "augment_scale_range" in policy:
         policy["augment_scale_range"] = tuple(policy["augment_scale_range"])
     saved = load_run_config(args.checkpoint_dir) if args.checkpoint_dir else None
@@ -997,6 +1093,7 @@ def _serve(args) -> int:
                             args.conv_backend)
         pred = Predictor.from_seed(cfg, args.seed, batch=max(buckets),
                                    device=args.device, precision=args.precision)
+    quality, recorder = _quality_plane(args, pred)
     if args.run_dir:
         from featurenet_tpu_torch import obs
         from featurenet_tpu_torch.config import config_to_dict
@@ -1007,7 +1104,8 @@ def _serve(args) -> int:
                                max_wait_ms=args.max_wait_ms,
                                queue_limit=args.queue_limit, rules=rules,
                                slo_p99_ms=args.slo_p99_ms,
-                               batch_queue_limit=args.batch_queue_limit)
+                               batch_queue_limit=args.batch_queue_limit,
+                               quality=quality, recorder=recorder)
     srv = make_server(service, host=args.host, port=args.port)
     server_thread = threading.Thread(target=srv.serve_forever,
                                      name="serve-http", daemon=True)
@@ -1021,6 +1119,8 @@ def _serve(args) -> int:
         "device": str(pred.device), "model_version": pred.model_version,
         "slo_p99_ms": args.slo_p99_ms, "trace_sample": pred.cfg.trace_sample,
         "run_dir": args.run_dir, "endpoints": ENDPOINTS,
+        "quality": quality is not None,
+        "capture_dir": recorder.root if recorder is not None else None,
     }}), flush=True)
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -1034,10 +1134,223 @@ def _serve(args) -> int:
         from featurenet_tpu_torch import obs
 
         obs.close_run()
+    if pred.device.type == "cuda":
+        from featurenet_tpu_torch.ops import launch_counts
+
+        st["launches"] = launch_counts()
     print(json.dumps({"serve_stats": st}), flush=True)
     # Without --drain the SLO verdict is reported, and only a drain that
     # timed out fails the exit.
     return st["exit_code"] if args.drain else (2 if st["drain_timeout"] else 0)
+
+
+def _quality_plane(args, pred):
+    """The ``QualityTracker`` and ``FlightRecorder`` that ``serve``'s
+    ``--quality``/``--quality-baseline`` and ``--capture``/
+    ``--capture-sample``/``--capture-dir`` ask for (None each when not
+    asked), refused for a segmenter and for a ring with nowhere to live."""
+    want_quality = args.quality or bool(args.quality_baseline)
+    want_capture = (args.capture or bool(args.capture_dir)
+                    or args.capture_sample is not None)
+    if (want_quality or want_capture) and pred.cfg.task != "classify":
+        raise SystemExit(
+            "serve: --quality/--capture need a classify checkpoint "
+            f"(task={pred.cfg.task!r}) — confidence and drift are "
+            "class-probability notions")
+    quality = recorder = None
+    if want_quality:
+        from featurenet_tpu_torch.data.synthetic import CLASS_NAMES
+        from featurenet_tpu_torch.obs.quality import QualityTracker, load_baseline
+
+        baseline = None
+        if args.quality_baseline:
+            try:
+                baseline = load_baseline(args.quality_baseline)["dist"]
+            except (OSError, ValueError) as e:
+                raise SystemExit(f"--quality-baseline: {e}")
+        quality = QualityTracker(len(CLASS_NAMES), baseline=baseline)
+    if want_capture:
+        from featurenet_tpu_torch.serve import recorder as _recorder
+
+        root = args.capture_dir
+        if not root:
+            if not args.run_dir:
+                raise SystemExit(
+                    "serve: --capture needs --run-dir (or an explicit "
+                    "--capture-dir) — the ring has to live somewhere")
+            root = _recorder.capture_dir(args.run_dir)
+        try:
+            recorder = _recorder.FlightRecorder(
+                root, sample=(_recorder.DEFAULT_SAMPLE
+                              if args.capture_sample is None
+                              else args.capture_sample),
+                slo_ms=args.slo_p99_ms)
+        except ValueError as e:
+            raise SystemExit(f"--capture-sample: {e}")
+    return quality, recorder
+
+
+def _pin_quality(args) -> int:
+    """``pin-quality``: the class mix of a classify checkpoint over ``--n``
+    synthetic parts, pinned as the drift baseline."""
+    import os
+
+    import numpy as np
+
+    from featurenet_tpu_torch.data.synthetic import CLASS_NAMES, generate_batch
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.obs import quality as _quality
+
+    if args.n < 1:
+        raise SystemExit(f"pin-quality: --n must be >= 1, got {args.n}")
+    cfg = _cfg_from_checkpoint(_saved_config(args.checkpoint_dir), args)
+    pred = Predictor.from_checkpoint(args.checkpoint_dir, config=cfg,
+                                     batch=min(args.batch, args.n),
+                                     device=args.device,
+                                     precision=args.precision)
+    if pred.cfg.task != "classify":
+        raise SystemExit(
+            "pin-quality: a drift baseline is a predicted-CLASS "
+            f"distribution — task={pred.cfg.task!r} has none")
+    rng = np.random.default_rng(args.seed)
+    counts = [0] * len(CLASS_NAMES)
+    remaining = args.n
+    while remaining > 0:
+        k = min(remaining, max(args.batch, 1) * 8)
+        grids = generate_batch(rng, k, pred.cfg.resolution)["voxels"]
+        labels, _ = pred.predict_voxels(grids)
+        for lab in labels.tolist():
+            counts[int(lab)] += 1
+        remaining -= k
+    out = args.out or os.path.join(args.checkpoint_dir,
+                                   _quality.BASELINE_FILENAME)
+    rec = _quality.save_baseline(
+        out, counts, class_names=list(CLASS_NAMES),
+        source={"checkpoint_dir": args.checkpoint_dir, "n": args.n,
+                "seed": args.seed, "precision": pred.precision})
+    top = sorted(range(len(rec["dist"])), key=lambda i: -rec["dist"][i])[:5]
+    summary = {"path": out, "n": rec["n"],
+               "top": [{"class": CLASS_NAMES[i], "p": rec["dist"][i]}
+                       for i in top]}
+    if pred.device.type == "cuda":
+        from featurenet_tpu_torch.ops import launch_counts
+
+        summary["launches"] = launch_counts()
+    print(json.dumps({"quality_baseline": summary}), flush=True)
+    return 0
+
+
+def _score_capture_ring(pred, recs: list):
+    """Re-score capture records (each with a recorded ``label``) through
+    ``pred``'s serving program at its batch, which must be built already.
+    Returns ``(labels, probs, score_ms, post_warmup_compiles)``: the
+    programs built while scoring, counted from the active sink's
+    ``program_compile`` events (on the card a graph capture)."""
+    import numpy as np
+
+    from featurenet_tpu_torch.obs import events as _events
+    from featurenet_tpu_torch.serve.recorder import unpack_grid
+
+    grids = np.stack([unpack_grid(r["voxels"]) for r in recs])
+    warm = _events.kind_counts().get("program_compile", 0)
+    t0 = time.perf_counter()
+    labels, probs = pred.predict_voxels(grids)
+    score_ms = (time.perf_counter() - t0) * 1e3
+    compiles = _events.kind_counts().get("program_compile", 0) - warm
+    return labels, probs, score_ms, compiles
+
+
+def _replay(args) -> int:
+    """``replay``: the replay canary (see ``_score_capture_ring``); exits
+    2 below ``--min-agreement``."""
+    import shutil
+    import tempfile
+
+    from featurenet_tpu_torch import obs
+    from featurenet_tpu_torch.data.synthetic import CLASS_NAMES
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.serve.recorder import read_captures
+
+    if not 0.0 <= args.min_agreement <= 1.0:
+        raise SystemExit(f"replay: --min-agreement must be in [0, 1], got "
+                         f"{args.min_agreement}")
+    # Only answered requests carry a recorded prediction to agree with.
+    recs = [r for r in read_captures(args.capture_dir)
+            if r.get("label") is not None]
+    if not recs:
+        raise SystemExit(
+            f"replay: no re-scorable capture records under "
+            f"{args.capture_dir!r} — the ring is missing, empty, or holds "
+            "only rejections/errors")
+    cfg = _cfg_from_checkpoint(_saved_config(args.checkpoint_dir), args)
+    # The verdict event needs a sink, and the zero-compile evidence its
+    # program_compile count: a throwaway run directory when none is given.
+    own_run = not args.run_dir
+    run_dir = args.run_dir or tempfile.mkdtemp(prefix="replay_")
+    obs.init_run(run_dir, extra={"cmd": "replay"})
+    try:
+        pred = Predictor.from_checkpoint(args.checkpoint_dir, config=cfg,
+                                         batch=min(args.batch, len(recs)),
+                                         device=args.device,
+                                         precision=args.precision)
+        if pred.cfg.task != "classify":
+            raise SystemExit("replay: capture rings hold classify traffic — "
+                             f"the candidate is task={pred.cfg.task!r}")
+        # The warmup: the one program scoring runs, built here; a build
+        # after this point is a canary failure in itself.
+        pred.program_for(pred.batch)
+        labels, probs, score_ms, compiles = _score_capture_ring(pred, recs)
+
+        def cls(c: int) -> str:
+            return CLASS_NAMES[c] if 0 <= c < len(CLASS_NAMES) else str(c)
+
+        n = len(recs)
+        agree = 0
+        flips: dict = {}
+        conf_deltas = []
+        for i, r in enumerate(recs):
+            old, new = int(r["label"]), int(labels[i])
+            if old == new:
+                agree += 1
+            else:
+                key = f"{cls(old)}->{cls(new)}"
+                flips[key] = flips.get(key, 0) + 1
+            if r.get("confidence") is not None:
+                conf_deltas.append(float(probs[i, new]) - float(r["confidence"]))
+        agreement = agree / n
+        ok = agreement >= args.min_agreement
+        obs.emit("replay_verdict", agreement=round(agreement, 6), n=n, ok=ok,
+                 min_agreement=args.min_agreement, flips=sum(flips.values()),
+                 post_warmup_compiles=compiles)
+        out = {
+            "capture_dir": args.capture_dir,
+            "candidate": {"checkpoint_dir": args.checkpoint_dir,
+                          "precision": pred.precision,
+                          "conv_backend": pred.cfg.arch.conv_backend,
+                          "device": str(pred.device)},
+            "n": n,
+            "agreement": round(agreement, 6),
+            "min_agreement": args.min_agreement,
+            "ok": ok,
+            "flips": dict(sorted(flips.items(), key=lambda kv: -kv[1])),
+            "confidence_delta": {
+                "mean": round(sum(conf_deltas) / len(conf_deltas), 6),
+                "max_abs": round(max(abs(d) for d in conf_deltas), 6),
+            } if conf_deltas else None,
+            "score_ms": round(score_ms, 3),
+            "per_request_ms": round(score_ms / n, 3),
+            "post_warmup_compiles": compiles,
+        }
+        if pred.device.type == "cuda":
+            from featurenet_tpu_torch.ops import launch_counts
+
+            out["launches"] = launch_counts()
+        print(json.dumps({"replay": out}), flush=True)
+    finally:
+        obs.close_run()
+        if own_run:
+            shutil.rmtree(run_dir, ignore_errors=True)
+    return 0 if ok else 2
 
 
 def _programs(args) -> int:
@@ -1155,7 +1468,8 @@ def main(argv=None) -> int:
             "export-seg-data": _export_seg_data,
             "export-stl-data": _export_stl_data, "build-cache": _build_cache,
             "eval-ood": _eval_ood, "recalibrate": _recalibrate,
-            "programs": _programs}[args.cmd](args)
+            "programs": _programs, "pin-quality": _pin_quality,
+            "replay": _replay}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -14,8 +14,8 @@ the JAX presets' values, and the checkpoint fields (``checkpoint_dir``,
 ``checkpoint_every``, ``keep_checkpoints``, ``init_from``), and the
 supervision fields (``restart_every_steps``, ``max_inflight_steps``,
 ``inject_faults``, ``heartbeat_file``; ``train/supervisor.py``), and the
-observability fields (``run_dir``, ``alert_rules``, ``trace_sample``;
-``obs/``; ``profile_dir``, ``profile_start``, ``profile_steps``, the
+observability fields (``run_dir``, ``alert_rules``, ``trace_sample``,
+``poll_device_memory``; ``obs/``; ``profile_dir``, ``profile_start``, ``profile_steps``, the
 Trainer's ``torch.profiler`` window; ``tb_dir``, the TensorBoard scalars
 of ``utils/logging.py``). A
 ``config.json`` that the JAX package writes beside its checkpoints loads
@@ -168,6 +168,11 @@ class Config:
     run_dir: Optional[str] = None
     alert_rules: Optional[str] = None
     trace_sample: float = 1.0
+    # The device-memory watermark (obs/perf.py): the Trainer samples
+    # torch.cuda's allocated, peak and total bytes at every heartbeat (off
+    # the dispatch path) as device_memory events; nothing on the CPU. Only
+    # meaningful with run_dir (no sink, no events).
+    poll_device_memory: bool = False
 
     # Profiling: with profile_dir, train steps [profile_start,
     # profile_start + profile_steps) run under torch.profiler (CPU and CUDA

@@ -81,6 +81,7 @@ import functools
 import hashlib
 import os
 import threading
+import time
 from typing import Sequence
 
 import numpy as np
@@ -91,7 +92,9 @@ from featurenet_tpu_torch.config import Config, check_identity, get_config
 from featurenet_tpu_torch.data.stl import load_stl
 from featurenet_tpu_torch.data.synthetic import CLASS_NAMES, generate_batch
 from featurenet_tpu_torch.data.voxelize import voxelize
+from featurenet_tpu_torch.obs import perf as _perf
 from featurenet_tpu_torch.ops.augment import CUBE_GROUP, apply_rotation
+from featurenet_tpu_torch.ops.flops import classifier_forward_flops
 from featurenet_tpu_torch.runtime import (
     build_model,
     forward_with,
@@ -275,6 +278,10 @@ class Predictor:
         self.precision = precision
         self.replays = 0
         self._replay_lock = threading.Lock()
+        # The card's peak row: each batched forward's wall folds into the
+        # mfu window against its program's flops (the unknown tier, no
+        # sample, on the CPU).
+        self._peaks = _perf.local_device_peaks(self.device)
         self._weights = self._build_weights(state, model_version, checkpoint_dir)
 
     def _build_weights(self, state: dict[str, torch.Tensor], version: str,
@@ -300,13 +307,18 @@ class Predictor:
         # cycle, so a retired generation (its graphs and their memory pool
         # included) is freed as soon as no dispatch holds it.
         tensors = (model, serve_params, qparams, scales)
+        # The analytic forward count (ops/flops.py); a segmenter has none.
+        fps = (classifier_forward_flops(self.cfg.arch, self.cfg.resolution)
+               if self.cfg.task == "classify" else None)
         w.programs = ServePrograms(self.precision,
                                    functools.partial(_serve_weights, *tensors),
-                                   self.cfg.resolution, self.device)
+                                   self.cfg.resolution, self.device,
+                                   flops_per_sample=fps)
         if self.cfg.task == "classify":
             w.packed = ServePrograms(
                 self.precision, functools.partial(_serve_packed_weights, *tensors),
-                self.cfg.resolution, self.device, packed=True)
+                self.cfg.resolution, self.device, packed=True,
+                flops_per_sample=fps)
         return w
 
     # The live generation's parts, read through the one bundle, so every
@@ -537,7 +549,9 @@ class Predictor:
     def _batched_forward(self, g: np.ndarray) -> np.ndarray:
         """Chunk/pad ``g`` to the compile batch, run, trim, concat. In a
         run each chunk is an ``infer_batch`` span (the ``serving_ms``
-        window): the forward and its readback, the request's latency."""
+        window): the forward and its readback, the request's latency. The
+        same wall folds into the ``mfu`` window against the program's
+        ``flops``."""
         out = []
         for s in range(0, g.shape[0], self.batch):
             chunk = g[s:s + self.batch]
@@ -546,8 +560,11 @@ class Predictor:
                 chunk = np.concatenate(
                     [chunk, np.zeros((pad,) + chunk.shape[1:], np.float32)]
                 )
+            t0 = time.perf_counter()
             with obs.span("infer_batch", n=self.batch - pad, batch=self.batch):
                 y = self.forward_padded(chunk)
+            _perf.observe_dispatch(self.program_for(self.batch).cost,
+                                   time.perf_counter() - t0, peaks=self._peaks)
             out.append(y[: self.batch - pad])
         return np.concatenate(out, axis=0)
 

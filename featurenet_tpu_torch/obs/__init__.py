@@ -26,8 +26,11 @@ supervisor's restart timeline, serving latency and the SLO view
 judges the report against a pinned baseline (``gates.py``). The report
 path imports the standard library only, never torch.
 
-Not ported yet: the perf, quality, incident, tsdb and dashboard planes
-and the burn-rate alerts (ROADMAP Queue A.2(c)).
+The perf plane (``perf.py``: per-program cost, the ``mfu`` window, the
+device-memory watermark) and the model-quality plane (``quality.py``, with
+the flight recorder ``serve/recorder.py``) ride the same stream. Not
+ported yet: the incident, tsdb and dashboard planes and the burn-rate
+alerts (ROADMAP Queue A.2(d)).
 """
 
 from featurenet_tpu_torch.obs.events import (

@@ -18,7 +18,7 @@ which emits the paired ``state="resolve"``. Alerts only write telemetry.
 ``scope="report"``: no one process sees it, so the in-process engine
 skips it. The reference's burn-rate rules and the mirror of alert
 transitions into a time-series store need its tsdb and wait for ROADMAP
-Queue A.2(c).
+Queue A.2(d).
 """
 
 from __future__ import annotations

@@ -25,10 +25,13 @@ is worse, ``"min"`` = lower is worse. An unknown metric defaults to
 ``"max"``. A metric the baseline pins but the report lacks fails
 ("missing"): a gate that cannot see its metric must not pass.
 
-The reference's bench half (``BENCH_GATE_KEYS``, ``bench_gate_values``
-and the bench keys of the tables below) waits for the port's benchmark
-(ROADMAP Queue A.5); its perf keys (``mfu``, ``hbm_peak_train_bytes``)
-for the perf section of the report (Queue A.2(c)).
+The perf keys read the report's perf section (``obs/perf.py``): ``mfu``,
+the p50 of the rolling MFU, regresses downward, and
+``hbm_peak_train_bytes``, the largest ``peak_bytes`` of the train
+programs, upward. The reference's bench half (``BENCH_GATE_KEYS``,
+``bench_gate_values``, ``mfu_train``, ``serve_mfu`` and the other bench
+keys of the tables below) waits for the port's benchmark (ROADMAP Queue
+A.5).
 """
 
 from __future__ import annotations
@@ -54,6 +57,10 @@ DIRECTIONS = {
     "data_wait_spread": "max",
     # A fleet run's dropped admitted requests, pinned at zero.
     "fleet_requests_dropped": "max",
+    # The perf section: the rolling MFU is throughput restated against
+    # the card's peak; the train programs' peak memory eats headroom.
+    "mfu": "min",
+    "hbm_peak_train_bytes": "max",
 }
 
 
@@ -81,6 +88,20 @@ def report_gate_values(rep: dict) -> dict[str, float]:
     dwf = (rep.get("host_skew") or {}).get("data_wait_fraction")
     if dwf and dwf.get("spread") is not None:
         vals["data_wait_spread"] = dwf["spread"]
+    # Absent when unrecorded: a CPU run has no mfu window, a program
+    # without peak_bytes no memory pin.
+    perf = rep.get("perf") or {}
+    mfu_row = perf.get("mfu")
+    if isinstance(mfu_row, dict) and mfu_row.get("p50") is not None:
+        vals["mfu"] = float(mfu_row["p50"])
+    train_peaks = [
+        row["peak_bytes"]
+        for name, row in (perf.get("programs") or {}).items()
+        if name in ("train_step", "multi_train_step", "hbm_train_step")
+        and isinstance(row.get("peak_bytes"), (int, float))
+    ]
+    if train_peaks:
+        vals["hbm_peak_train_bytes"] = float(max(train_peaks))
     fleet = rep.get("fleet") or {}
     if isinstance(fleet.get("dropped"), (int, float)):
         vals["fleet_requests_dropped"] = float(fleet["dropped"])

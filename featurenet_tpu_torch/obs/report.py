@@ -30,11 +30,12 @@ Everything here is stdlib-only and never imports torch: the report CLI
 must run on a machine (or in a moment) where the card that produced the
 run is gone.
 
-Left out until their planes are ported (ROADMAP Queue A.2(c)): the perf
-section (``program_cost`` / ``device_memory`` / the ``mfu`` window, which
-reads ``obs.perf``'s peak table), the incidents fold (``incident_*``
-events and the bundle inventory of ``obs.incidents``) and the fleet
-timeline read from ``obs.tsdb``'s store. ``validate_events`` still knows
+The perf section folds ``program_cost``, ``program_compile`` and
+``device_memory`` events and the ``mfu`` window against ``obs.perf``'s
+peak table (standard library only). Left out until their planes are
+ported (ROADMAP Queue A.2(d)): the incidents fold (``incident_*`` events
+and the bundle inventory of ``obs.incidents``) and the fleet timeline
+read from ``obs.tsdb``'s store. ``validate_events`` still knows
 their event kinds, so a stream that carries them validates as the
 reference's does.
 """
@@ -391,6 +392,79 @@ def _slo_section(events: list[dict], primary: list[dict]) -> dict:
     return out
 
 
+def _perf_section(events: list[dict], slo: dict) -> dict:
+    """Performance attribution (``obs/perf.py``): fold the
+    ``program_cost``, ``program_compile`` and ``device_memory`` events and
+    the rolling ``mfu`` window into a per-program table. The peak table
+    and the roofline verdict are ``obs.perf``'s module-level data, never a
+    live device. A counter a program did not report has no cell, and a
+    device kind without a peak reads as the explicit unknown tier, never
+    a number."""
+    from featurenet_tpu_torch.obs import perf as _perf
+
+    programs: dict[str, dict] = {}
+    device_kind = None
+    for e in events:
+        if e["ev"] == "program_cost" and e.get("program"):
+            row = programs.setdefault(str(e["program"]), {})
+            # Latest capture wins (a rebuilt program re-reports itself).
+            for k in ("flops", "bytes", "temp_bytes", "peak_bytes",
+                      "argument_bytes", "output_bytes", "alias_bytes",
+                      "optimal_seconds"):
+                if isinstance(e.get(k), (int, float)):
+                    row[k] = e[k]
+            if e.get("precision"):
+                row["precision"] = str(e["precision"])
+            if e.get("device_kind"):
+                device_kind = e["device_kind"]
+        elif e["ev"] == "program_compile" and e.get("program"):
+            row = programs.setdefault(str(e["program"]), {})
+            row["compile_s"] = round(
+                row.get("compile_s", 0.0) + float(e.get("dur_s") or 0.0), 3
+            )
+    out: dict = {}
+    peaks = _perf.device_peaks(device_kind)
+    for row in programs.values():
+        fl, by = row.get("flops"), row.get("bytes")
+        if fl and by:
+            row["intensity_flops_per_byte"] = round(fl / by, 2)
+        verdict = _perf.roofline(fl, by, peaks)
+        if verdict is not None:
+            row["roofline"] = verdict
+    if programs:
+        out["programs"] = dict(sorted(programs.items()))
+    if device_kind is not None:
+        out["device_kind"] = device_kind
+        out["tier"] = peaks["tier"]
+        if peaks.get("peak_flops"):
+            out["peak_tflops"] = round(peaks["peak_flops"] / 1e12, 1)
+    mfu = (slo.get("windows") or {}).get("mfu")
+    if mfu:
+        out["mfu"] = mfu
+    bw = (slo.get("windows") or {}).get("achieved_bw_fraction")
+    if bw:
+        out["achieved_bw_fraction"] = bw
+    # The device-memory watermark: last and peak bytes per polled device
+    # (every host's stream counts: each polls its own devices).
+    mem: dict[str, dict] = {}
+    for e in events:
+        if e["ev"] != "device_memory" or "bytes_in_use" not in e:
+            continue
+        key = f"{int(e.get('process_index') or 0)}/{e.get('device', 0)}"
+        d = mem.setdefault(key, {"samples": 0, "watermark_bytes": 0})
+        d["samples"] += 1
+        d["bytes_in_use"] = e["bytes_in_use"]
+        d["watermark_bytes"] = max(
+            d["watermark_bytes"], e["bytes_in_use"],
+            e.get("peak_bytes_in_use") or 0,
+        )
+        if e.get("bytes_limit") is not None:
+            d["bytes_limit"] = e["bytes_limit"]
+    if mem:
+        out["device_memory"] = dict(sorted(mem.items()))
+    return out
+
+
 def _traces_section(events: list[dict],
                     trace_sample: float = 1.0) -> dict:
     """Fold the sampled per-request timelines (obs.tracing) into the
@@ -690,8 +764,10 @@ def build_report(events: list[dict], manifest: Optional[dict] = None,
             ],
         }
 
-    # The reference's performance attribution (obs.perf) goes here; it
-    # waits for ROADMAP Queue A.2(c).
+    # --- performance attribution (obs.perf) ---------------------------------
+    perf = _perf_section(events, slo)
+    if perf:
+        rep["perf"] = perf
 
     # --- serving ------------------------------------------------------------
     lat = sorted(
@@ -903,7 +979,7 @@ def build_report(events: list[dict], manifest: Optional[dict] = None,
         rep["traces"] = traces
 
     # The reference's incident fold (obs.incidents) goes here; it waits
-    # for ROADMAP Queue A.2(c).
+    # for ROADMAP Queue A.2(d).
 
     # --- warnings / metrics -------------------------------------------------
     # Warnings aggregate across every host (a warning on host 3 must not
@@ -930,7 +1006,7 @@ def build_report_dir(run_dir: str) -> dict:
     """``build_report`` of a run directory's streams and manifest. The
     reference also folds in the fleet timeline (``obs.tsdb``) and the
     incident bundles on disk (``obs.incidents``); both wait for ROADMAP
-    Queue A.2(c)."""
+    Queue A.2(d)."""
     events, bad = load_events(run_dir)
     return build_report(events, load_manifest(run_dir), bad_lines=bad)
 
@@ -955,6 +1031,30 @@ def _skew_parts(skew: dict) -> list:
             f"({dwf['min'] * 100:.1f}%–{dwf['max'] * 100:.1f}%)"
         )
     return parts
+
+
+def _perf_headline(pf: dict) -> str:
+    """The perf section's one-line MFU readout — ONE renderer shared by
+    the report body and the live tail (``follow_perf_line``), so the two
+    views can never drift. The unknown peak tier is EXPLICIT: a device
+    kind with no peak-table entry reads ``mfu: unknown (<kind>)``, never
+    a number."""
+    if pf.get("tier") == "known":
+        head = f"perf: device {pf.get('device_kind')}"
+        if pf.get("peak_tflops"):
+            head += f" (peak {pf['peak_tflops']} TF/s)"
+        mfu = pf.get("mfu")
+        if mfu:
+            head += (f"; mfu p50 {mfu.get('p50')} p99 {mfu.get('p99')} "
+                     f"(n={mfu.get('n')})")
+        else:
+            head += "; mfu: no samples"
+        bw = pf.get("achieved_bw_fraction")
+        if bw:
+            head += f"; bw fraction p50 {bw.get('p50')}"
+        return head
+    kind = pf.get("device_kind")
+    return f"perf: mfu: unknown ({kind or 'no device kind recorded'})"
 
 
 def format_report(rep: dict) -> str:
@@ -1072,6 +1172,41 @@ def format_report(rep: dict) -> str:
         for r in rt["rejects"]:
             lines.append(
                 f"  REJECT {r.get('program')}: {r.get('reason')}"
+            )
+    pf = rep.get("perf")
+    if pf:
+        lines.append(_perf_headline(pf))
+        progs = pf.get("programs") or {}
+        if progs:
+            lines.append(
+                "  program                 precision      gflops    acc MB"
+                "   peak MB  roofline       compile"
+            )
+
+            def cell(v, scale, fmt):
+                return format(v / scale, fmt) if v is not None else "—"
+
+            for name in sorted(progs):
+                row = progs[name]
+                lines.append(
+                    f"  {name:<22}  "
+                    f"{row.get('precision') or '—':<11}  "
+                    f"{cell(row.get('flops'), 1e9, '8.2f'):>8}  "
+                    f"{cell(row.get('bytes'), 1e6, '8.1f'):>8}  "
+                    f"{cell(row.get('peak_bytes'), 1e6, '8.1f'):>8}"
+                    f"  {row.get('roofline') or '—':<13}"
+                    + (f"  {row['compile_s']}s" if row.get("compile_s")
+                       is not None else "  —")
+                )
+        dm = pf.get("device_memory")
+        if dm:
+            lines.append(
+                "  device memory watermark: " + ", ".join(
+                    f"host/dev {k}: {v['watermark_bytes'] / 1e6:.1f} MB"
+                    + (f" of {v['bytes_limit'] / 1e6:.0f} MB"
+                       if v.get("bytes_limit") else "")
+                    for k, v in dm.items()
+                )
             )
     q = rep.get("prefetch_queue_depth")
     if q:
@@ -1367,6 +1502,21 @@ def follow_slo_line(rep: dict) -> Optional[str]:
     return "== slo | " + " | ".join(parts)
 
 
+def follow_perf_line(rep: dict) -> Optional[str]:
+    """The live tail's perf readout next to the SLO line: the current
+    rolling MFU (or its explicit unknown tier) and the device-memory
+    watermark. None when the run carries no perf telemetry."""
+    pf = rep.get("perf")
+    if not pf:
+        return None
+    parts = [_perf_headline(pf)[len("perf: "):]]
+    dm = pf.get("device_memory")
+    if dm:
+        top = max(v["watermark_bytes"] for v in dm.values())
+        parts.append(f"device-memory watermark {top / 1e6:.1f} MB")
+    return "== perf | " + " | ".join(parts)
+
+
 def follow_report(
     run_dir: str,
     interval: float = 3.0,
@@ -1394,9 +1544,11 @@ def follow_report(
             rep = build_report(events, manifest, bad_lines=tail.bad)
             prefix = "\x1b[2J\x1b[H" if clear else ""
             slo_line = follow_slo_line(rep)
+            perf_line = follow_perf_line(rep)
             out(
                 prefix + follow_header(rep, run_dir) + "\n"
                 + (slo_line + "\n" if slo_line else "")
+                + (perf_line + "\n" if perf_line else "")
                 + format_report(rep)
                 + f"\n-- following {run_dir} ({len(events)} events, "
                 f"re-render every {interval:g}s; Ctrl-C to stop)"

@@ -109,9 +109,8 @@ def chrome_trace(events: list[dict]) -> dict:
     ``window_summary`` events export as counter ("ph":"C") tracks — one
     per metric — so the rolling p50/p95/p99 render as stepped series
     above the span lanes they summarize (the ``mfu`` window rides this
-    path). ``device_memory`` events (the reference's heartbeat-cadence
-    memory poller; the port's waits for ROADMAP Queue A.2(c)) export as one
-    counter track per device.
+    path). ``device_memory`` events (the heartbeat-cadence memory poller,
+    ``obs/perf.py``) export as one counter track per device.
 
     Sampled request traces (obs.tracing) export as ASYNC events — one
     ``b``/``e`` pair per trace id spanning admit→done (or →reject), with

@@ -19,7 +19,7 @@
 With no event sink installed nothing is buffered; a minted id costs one
 ``os.urandom`` read. The reference's incident mode, which keeps every
 request while an incident is open, waits for its incident plane (ROADMAP
-Queue A.2(c)).
+Queue A.2(d)).
 """
 
 from __future__ import annotations

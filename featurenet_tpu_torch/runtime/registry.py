@@ -44,6 +44,18 @@ the eager forward itself.
 ones at ``global_batch``, the k-step ``TrainProgram``) and reports the
 rest as skipped with the reason; ``cli programs --warm`` prints it.
 
+Each built program carries a ``cost`` dict and emits one ``program_cost``
+event after its ``program_compile`` (``obs/perf.py``): ``flops``, the
+analytic count of its work when the caller gives one (``ops/flops.py``: a
+serving program's forward per sample × batch, a train program's step ×
+batch × k), and on the card ``peak_bytes``. For a serving program that is
+the rise of ``torch.cuda.max_memory_allocated`` across its warmup and
+capture (what it added to the process's high-water mark, not its own
+peak: 0 when a larger program built earlier had already set it). For a
+train program it is the process's ``max_memory_allocated`` read after the
+capture, as the Trainer's eager step reads it: weights, optimizer state
+and resident data included, so the two kinds of train program compare.
+
 ``TrainProgram`` is the training counterpart (the reference's
 ``multi_train_step`` and ``hbm_train_step`` programs): k train steps, each
 drawing on the device, captured as one CUDA graph over the live train
@@ -67,6 +79,7 @@ import torch
 
 from featurenet_tpu_torch import obs
 from featurenet_tpu_torch.config import Config
+from featurenet_tpu_torch.obs import perf as _perf
 from featurenet_tpu_torch.ops import launch_counts
 from featurenet_tpu_torch.serve.batcher import DEFAULT_BUCKETS
 from featurenet_tpu_torch.train.precision import SERVE_PRECISIONS
@@ -160,12 +173,16 @@ class ServeProgram:
     ``capture_launches`` the kernel launches recorded into the graph, by
     kernel (``ops.launch_counts``); ``graph`` is ``None`` on the CPU. Each
     build is a ``program_compile`` event (the reference's name for a
-    program built ahead).
+    program built ahead), then a ``program_cost`` event of ``cost``:
+    ``flops_per_sample`` × batch when given, and on the card
+    ``peak_bytes``, the rise of the process's peak across the capture.
     """
 
     def __init__(self, name: str, body: Callable[[torch.Tensor], torch.Tensor],
                  shape: tuple, dtype: torch.dtype, device: torch.device,
-                 lock: threading.Lock, pool=None, stream=None):
+                 lock: threading.Lock, pool=None, stream=None,
+                 precision: Optional[str] = None,
+                 flops_per_sample: Optional[float] = None):
         self.name = name
         self.shape = tuple(int(d) for d in shape)
         self.batch = self.shape[0]
@@ -176,11 +193,19 @@ class ServeProgram:
         self.graph = None
         self.capture_s = 0.0
         self.capture_launches: dict[str, int] = {}
+        cost: dict = {}
+        if flops_per_sample is not None:
+            cost["flops"] = float(flops_per_sample) * self.batch
         if device.type == "cuda":
+            before = _perf.peak_allocated(device)
             self._capture(pool, stream)
+            cost["peak_bytes"] = _perf.peak_allocated(device) - before
         obs.emit("program_compile", program=name, batch=self.batch,
                  dur_s=round(self.capture_s, 3),
                  source="capture" if self.graph is not None else "eager")
+        self.cost = _perf.emit_program_cost(
+            name, cost, _perf.local_device_peaks(device), precision,
+            batch=self.batch)
 
     @torch.inference_mode()
     def _capture(self, pool, stream) -> None:
@@ -225,12 +250,17 @@ class ServePrograms:
     use. ``body`` is the generation's eager forward: ``[b,R,R,R,1]`` fp32
     → probabilities, or with ``packed`` ``[b,R,R,R/8]`` uint8 → int32
     labels. The programs share one lock, and on the card one stream and
-    one memory pool, all their own."""
+    one memory pool, all their own. ``flops_per_sample`` (the forward's
+    analytic count; None for a segmenter) gives each program its
+    ``flops``."""
 
     def __init__(self, precision: str,
                  body: Callable[[torch.Tensor], torch.Tensor],
-                 resolution: int, device: torch.device, packed: bool = False):
+                 resolution: int, device: torch.device, packed: bool = False,
+                 flops_per_sample: Optional[float] = None):
         self.name = serve_program_name(precision, packed=packed)
+        self.precision = precision
+        self.flops_per_sample = flops_per_sample
         self.body = body
         self.resolution = resolution
         self.packed = packed
@@ -256,7 +286,8 @@ class ServePrograms:
                                 ((batch, r, r, r, 1), torch.float32))
                 prog = ServeProgram(self.name, self.body, shape, dtype,
                                     self.device, self.lock, self._pool,
-                                    self._stream)
+                                    self._stream, self.precision,
+                                    self.flops_per_sample)
                 self._programs[batch] = prog
             return prog
 
@@ -286,11 +317,16 @@ class TrainProgram:
 
     ``capture_s`` is the wall time of the warmup, the capture and the
     state's restore; ``capture_launches`` the kernel launches recorded
-    into the graph, by kernel.
+    into the graph, by kernel. ``cost`` (``flops`` when given, and
+    ``peak_bytes``, the process's peak allocated bytes after the capture)
+    is emitted as a ``program_cost`` event after the ``program_compile``
+    event of the capture.
     """
 
     def __init__(self, name: str, body: Callable[[], dict], state,
-                 generators, device: torch.device):
+                 generators, device: torch.device,
+                 precision: Optional[str] = None,
+                 flops: Optional[float] = None):
         if device.type != "cuda":
             raise ValueError(f"{name}: a train program is a CUDA graph; on "
                              f"{device} run the steps eagerly")
@@ -309,7 +345,7 @@ class TrainProgram:
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
-        before = launch_counts()
+        launched = launch_counts()
         with torch.cuda.graph(graph, stream=stream,
                               capture_error_mode="thread_local"):
             self._out = body()
@@ -320,8 +356,14 @@ class TrainProgram:
                 t.copy_(v)
         state.step = step
         self.graph = graph
-        self.capture_launches = {k: after[k] - before[k] for k in after}
+        self.capture_launches = {k: after[k] - launched[k] for k in after}
         self.capture_s = time.perf_counter() - t0
+        cost = {} if flops is None else {"flops": float(flops)}
+        cost["peak_bytes"] = _perf.peak_allocated(device)
+        obs.emit("program_compile", program=name,
+                 dur_s=round(self.capture_s, 3), source="capture")
+        self.cost = _perf.emit_program_cost(
+            name, cost, _perf.local_device_peaks(device), precision)
 
     def __call__(self) -> dict:
         self.graph.replay()

@@ -1,7 +1,5 @@
 """Continuous batcher: the serving front end's scheduling core (port of
-``featurenet_tpu/serve/batcher.py``; its perf hook, which folds a
-dispatch's compiled cost into MFU windows, waits for ``obs/perf.py``,
-ROADMAP Queue A.2(c)).
+``featurenet_tpu/serve/batcher.py``).
 
 Requests are numpy arrays and the model is an injected
 ``forward(bucket, padded)`` callable, so everything here runs on a bare CPU
@@ -31,6 +29,16 @@ context per request (``obs/tracing.py``); the dispatcher stamps each with
 the ``batch_seq`` it rode and completes it at de-mux with the queue and
 device split. Rejections, forward errors and requests over
 ``trace_slo_ms`` are always sampled; the rest at ``trace_sample``.
+
+Injected, so the batcher stays free of any backend:
+
+- ``cost_for(bucket)`` (the bucket's program cost) and ``peaks`` (the
+  card's peak row): each successful dispatch's wall, forward and readback,
+  folds into the ``mfu`` window (``obs/perf.py``);
+- ``on_result(p, row, total_ms, outcome)`` per answered request (``row``
+  is None on a forward error) and ``on_reject(p)`` per rejection: the
+  service's quality tracker and flight recorder. Both are telemetry: what
+  they raise is counted and swallowed.
 """
 
 from __future__ import annotations
@@ -161,7 +169,11 @@ class ContinuousBatcher:
                  queue_limit: int = DEFAULT_QUEUE_LIMIT,
                  trace_sample: float = 1.0,
                  trace_slo_ms: Optional[float] = None,
-                 lane_limits: Optional[dict] = None):
+                 lane_limits: Optional[dict] = None,
+                 cost_for: Optional[Callable] = None,
+                 peaks: Optional[dict] = None,
+                 on_result: Optional[Callable] = None,
+                 on_reject: Optional[Callable] = None):
         bs = normalize_buckets(buckets)
         if max_wait_ms < 0:
             raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
@@ -178,6 +190,11 @@ class ContinuousBatcher:
         if not (0.0 <= trace_sample <= 1.0):
             raise ValueError(f"trace_sample must be in [0, 1], got {trace_sample}")
         self.forward = forward
+        self.cost_for = cost_for
+        self.peaks = peaks
+        self.on_result = on_result
+        self.on_reject = on_reject
+        self._hook_errors = 0
         self.trace_sample = float(trace_sample)
         self.trace_slo_ms = trace_slo_ms
         self.buckets = bs
@@ -239,6 +256,13 @@ class ContinuousBatcher:
             obs.emit("overload", queue_depth=depth, limit=self.queue_limit,
                      lane=lane)
             _tracing.reject(ctx, depth, self.queue_limit)
+            if self.on_reject is not None:
+                try:
+                    self.on_reject(p)
+                except Exception:
+                    # Another thread (the dispatcher's hook) counts too.
+                    with self._cv:
+                        self._hook_errors += 1
             raise OverloadError(depth, self.queue_limit, trace_id=ctx.trace_id,
                                 lane=lane, retry_after_s=self.retry_after_s)
         return p
@@ -301,6 +325,13 @@ class ContinuousBatcher:
             err = e
         t_done = time.perf_counter()
         outcome = "error" if err is not None else "ok"
+        if err is None and self.cost_for is not None:
+            from featurenet_tpu_torch.obs import perf as _perf
+
+            # The forward returns a host array, so the wall spans the
+            # replay and its readback: the served batch's own wall.
+            _perf.observe_dispatch(self.cost_for(bucket), t_done - t_disp,
+                                   peaks=self.peaks)
         # Counted before any request is answered: a client that reads
         # /stats or /metrics right after its answer sees its request.
         with self._cv:
@@ -326,6 +357,13 @@ class ContinuousBatcher:
                           dispatch_ms=(t_done - t_disp) * 1e3,
                           total_ms=(t_done - p.t_enq) * 1e3, outcome=outcome,
                           slo_ms=self.trace_slo_ms)
+            if self.on_result is not None:
+                try:
+                    self.on_result(p, None if err is not None else out[i],
+                                   (t_done - p.t_enq) * 1e3, outcome)
+                except Exception:
+                    with self._cv:
+                        self._hook_errors += 1
         obs.emit("serve_batch", bucket=bucket, n=n, pad=bucket - n,
                  batch_seq=seq, dur_ms=round((t_done - t_disp) * 1e3, 3))
 

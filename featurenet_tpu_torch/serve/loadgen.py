@@ -13,12 +13,14 @@ client-side p50/p99 and the buckets' occupancy.
 does not depend on the weights' values) at an offered rate, as flat
 ``serve_*`` fields; ``BENCH_LOAD_FRACTION`` of the closed-loop rate is the
 rate a benchmark offers. ``measure_trace_overhead`` is the tracing tax:
-the closed-loop rate with the sampler off against every request traced.
-``stream_load`` is the client of ``POST /predict_voxels_stream``: every
-grid as one frame, over one keep-alive socket.
+the closed-loop rate with the sampler off against every request traced;
+``measure_quality_overhead`` the model-quality tax: the quality tracker
+and the flight recorder detached against attached. ``stream_load`` is the
+client of ``POST /predict_voxels_stream``: every grid as one frame, over
+one keep-alive socket.
 
-The reference's incident and quality overheads wait for their planes
-(ROADMAP Queue A.2(c)).
+The reference's incident overhead waits for the incident plane (ROADMAP
+Queue A.2(d)).
 """
 
 from __future__ import annotations
@@ -282,4 +284,73 @@ def measure_trace_overhead(cfg, n_requests: int = 192,
         "trace_dark_qps": round(dark, 1),
         "trace_sampled_qps": round(traced, 1),
         "trace_overhead_requests": n_requests,
+    }
+
+
+def measure_quality_overhead(cfg, n_requests: int = 192,
+                             device="cuda") -> dict:
+    """The model-quality tax: the closed-loop request rate through one
+    warmed service with the batcher's hooks detached (what every serve
+    without ``--quality``/``--capture`` runs) against attached (the
+    confidence windows, the drift score against a uniform baseline, and
+    the flight recorder at its default sample rate), on the same programs.
+    The recorder's confidence floor is 0 here: seeded weights predict
+    near-uniform probabilities, and force-capturing every request would
+    measure the disk, not the tax on healthy traffic. It installs and
+    closes its own run in a throwaway directory, so it refuses while one
+    is active."""
+    import shutil
+    import tempfile
+
+    from featurenet_tpu_torch.data.synthetic import CLASS_NAMES
+    from featurenet_tpu_torch.obs.quality import QualityTracker
+    from featurenet_tpu_torch.serve.recorder import FlightRecorder, capture_dir
+
+    if obs.active():
+        raise RuntimeError("measure_quality_overhead installs and closes its "
+                           "own obs run; close_run() the active run first")
+    tmp = tempfile.mkdtemp(prefix="quality_overhead_")
+    obs.init_run(tmp, extra={"cmd": "quality_overhead"}, process_index=0)
+    num_classes = len(CLASS_NAMES)
+    quality = QualityTracker(num_classes,
+                             baseline=[1.0 / num_classes] * num_classes)
+    recorder = FlightRecorder(capture_dir(tmp), confidence_floor=0.0)
+    grid = np.zeros((cfg.resolution,) * 3 + (1,), np.float32)
+    service = None
+
+    def closed_loop_qps() -> float:
+        t0 = time.perf_counter()
+        futs = [service.submit_voxels(grid) for _ in range(n_requests)]
+        for f in futs:
+            f.result(timeout=RESULT_TIMEOUT_S)
+        return n_requests / (time.perf_counter() - t0)
+
+    try:
+        # No rules and an infinite SLO, as the trace probe: the per-request
+        # quality math and capture policy, not the alert engine.
+        service = _build_service(cfg, (1, 4, 16), max_wait_ms=2.0,
+                                 queue_limit=max(256, n_requests),
+                                 device=device, rules=(),
+                                 slo_p99_ms=float("inf"), quality=quality,
+                                 recorder=recorder)
+        hooks = (service.batcher.on_result, service.batcher.on_reject)
+        service.batcher.trace_sample = 0.0  # apart from the tracing tax
+        service.batcher.on_result = service.batcher.on_reject = None
+        closed_loop_qps()  # warm pass
+        off = closed_loop_qps()
+        service.batcher.on_result, service.batcher.on_reject = hooks
+        on = closed_loop_qps()
+        captured = recorder.stats()["captured"]
+    finally:
+        if service is not None:
+            service.drain()
+        obs.close_run()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "quality_overhead_pct": round(max(0.0, (off - on) / off * 100.0), 2)
+        if off > 0 else None,
+        "quality_off_qps": round(off, 1),
+        "quality_on_qps": round(on, 1),
+        "quality_overhead_requests": n_requests,
+        "quality_captured": captured,
     }

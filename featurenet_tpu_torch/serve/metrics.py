@@ -13,7 +13,7 @@ of the ``window_summary`` events.
 emit; the window gauges derive from ``alerts.WINDOW_METRICS``.
 ``build_info`` carries the torch version where the reference carries
 JAX's. ``incidents_open`` reads 0 until the incident plane is ported, and
-the fleet router's exporter waits for the fleet (ROADMAP Queue A.2(c),
+the fleet router's exporter waits for the fleet (ROADMAP Queue A.2(d),
 A.4).
 """
 

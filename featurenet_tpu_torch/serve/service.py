@@ -1,7 +1,6 @@
 """The inference service: a ``Predictor`` behind the continuous batcher,
 with an SLO-gated drain (port of ``featurenet_tpu/serve/service.py``
-without its quality plane, flight recorder and incidents, ROADMAP Queue
-A.2(c)).
+without its incident manager, which waits for ROADMAP Queue A.2(d)).
 
 - **Warmup**: construction builds the Predictor's serving program for
   every bucket (``Predictor.program_for``, the largest first), so the
@@ -29,6 +28,17 @@ A.2(c)).
   ``Config.trace_sample``; ``serve_start``, ``serve_batch``, ``overload``,
   ``serve_stop`` and ``swap`` events go to the run's sink when one is
   installed (``obs.init_run``).
+- **Perf**: each bucket's program cost (``ServeProgram.cost``, captured at
+  warmup) and the card's peak row go to the batcher, which folds each
+  dispatch's wall into the ``mfu`` window (``obs/perf.py``).
+- **Model quality** (a classifier only; a segmenter is refused):
+  ``quality`` (an ``obs.quality.QualityTracker``) takes each answered
+  request's top-1 confidence, margin, entropy and label, and its alert
+  rules (``quality_rules``: the confidence floor, and the drift ceiling
+  when a baseline is pinned) join ``serve_rules``; ``recorder`` (a
+  ``serve.recorder.FlightRecorder``) is offered every answered, failed and
+  rejected request. Both run in the batcher's hooks, which swallow what
+  they raise.
 - **Fault sites** (``faults.py``): ``replica_slow@request=N`` drags the
   Nth forward by ``SLOW_SLEEP_S``; ``reload`` counts its attempts, and at
   the Nth ``replica_loss_rollout@swap=N`` SIGKILLs this process before
@@ -53,6 +63,8 @@ from featurenet_tpu_torch.data.synthetic import CLASS_NAMES
 from featurenet_tpu_torch.data.voxelize import voxelize
 from featurenet_tpu_torch.infer import voxel_counts
 from featurenet_tpu_torch.obs import alerts as _alerts
+from featurenet_tpu_torch.obs import perf as _perf
+from featurenet_tpu_torch.obs import quality as _quality
 from featurenet_tpu_torch.obs import windows as _windows
 from featurenet_tpu_torch.serve.batcher import (
     DEFAULT_BUCKETS,
@@ -94,9 +106,17 @@ class InferenceService:
                  queue_limit: int = DEFAULT_QUEUE_LIMIT,
                  rules: Optional[Sequence] = None,
                  slo_p99_ms: float = DEFAULT_SLO_P99_MS,
-                 batch_queue_limit: Optional[int] = None):
+                 batch_queue_limit: Optional[int] = None,
+                 quality=None, recorder=None):
         self.predictor = predictor
         self.cfg = predictor.cfg
+        if (quality is not None or recorder is not None) \
+                and self.cfg.task != "classify":
+            raise ValueError(
+                "quality telemetry and the flight recorder need a classify "
+                f"checkpoint, got task={self.cfg.task!r}")
+        self.quality = quality
+        self.recorder = recorder
         # The Predictor's serving precision (None for a predictor that
         # names none).
         self.precision = getattr(predictor, "precision", None)
@@ -107,10 +127,14 @@ class InferenceService:
         self._swap_lock = threading.Lock()
         self._forwards = 0  # the fault sites' counters
         self._swaps = 0
-        for b in sorted(self.buckets, reverse=True):
-            predictor.program_for(b)
+        costs = {b: getattr(predictor.program_for(b), "cost", None)
+                 for b in sorted(self.buckets, reverse=True)}
         if rules is None:
             rules = serve_rules(slo_p99_ms)
+            if quality is not None:
+                # The drift rule only with a baseline to drift from.
+                rules += list(_quality.quality_rules(
+                    with_drift=quality.baseline is not None))
         if rules:
             _windows.install(_windows.WindowAggregator(rules=list(rules)))
         if batch_queue_limit is None:
@@ -121,6 +145,11 @@ class InferenceService:
             trace_sample=getattr(self.cfg, "trace_sample", 1.0),
             trace_slo_ms=float(slo_p99_ms),
             lane_limits={"batch": int(batch_queue_limit)},
+            cost_for=costs.get,
+            peaks=_perf.local_device_peaks(getattr(predictor, "device", "cpu")),
+            on_result=(self._on_result if quality is not None
+                       or recorder is not None else None),
+            on_reject=self._on_reject if recorder is not None else None,
         )
         obs.emit("serve_start", buckets=list(self.buckets),
                  max_wait_ms=float(max_wait_ms), queue_limit=int(queue_limit))
@@ -131,6 +160,29 @@ class InferenceService:
         if faults.maybe_fail("replica_slow", request=self._forwards):
             time.sleep(faults.SLOW_SLEEP_S)  # latency, not death
         return self.predictor.forward_padded(padded, batch=bucket)
+
+    # -- the batcher's hooks (telemetry: the batcher swallows what they
+    # raise) ------------------------------------------------------------------
+    def _on_result(self, p, row, total_ms: float, outcome: str) -> None:
+        """Per answered request, on the dispatcher thread: reduce the
+        probability row to floats for the tracker and offer the request to
+        the recorder."""
+        confidence = label = None
+        if row is not None:
+            probs = np.asarray(row, np.float32)
+            label = int(probs.argmax())
+            confidence, margin, entropy = _quality.confidence_stats(
+                probs.tolist())
+            if self.quality is not None:
+                self.quality.observe(label, confidence, margin, entropy)
+        if self.recorder is not None:
+            self.recorder.maybe_capture(
+                p.voxels, p.trace_id, label=label, confidence=confidence,
+                total_ms=total_ms, outcome=outcome)
+
+    def _on_reject(self, p) -> None:
+        """Per rejection: always worth a capture."""
+        self.recorder.maybe_capture(p.voxels, p.trace_id, outcome="rejected")
 
     # -- request entry points ------------------------------------------------
     def submit_voxels(self, grid: np.ndarray, trace_id: Optional[str] = None,
@@ -175,8 +227,14 @@ class InferenceService:
 
     # -- lifecycle -----------------------------------------------------------
     def stats(self) -> dict:
-        """The batcher's counters and the Predictor's serving precision."""
-        return {**self.batcher.stats(), "precision": self.precision}
+        """The batcher's counters, the Predictor's serving precision, and
+        the quality tracker's and the recorder's counters when present."""
+        st = {**self.batcher.stats(), "precision": self.precision}
+        if self.quality is not None:
+            st["quality"] = self.quality.stats()
+        if self.recorder is not None:
+            st["capture"] = self.recorder.stats()
+        return st
 
     def ready(self) -> bool:
         """True between warmup completing and drain beginning, except while
@@ -270,4 +328,9 @@ class InferenceService:
                   if _alerts.is_serving_metric(m)]
         st["active_serving_alerts"] = active
         st["exit_code"] = 2 if (active or st["drain_timeout"]) else 0
+        if self.recorder is not None:
+            self.recorder.close()
+            st["capture"] = self.recorder.stats()
+        if self.quality is not None:
+            st["quality"] = self.quality.stats()
         return st

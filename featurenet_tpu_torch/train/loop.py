@@ -88,6 +88,13 @@ around the pacer's wait, only when it waits; the ``step_ms`` window
 ``loop_start`` (with ``global_batch``) and ``loop_end`` around the loop,
 the windows flushed after it; ``preempt`` on a SIGTERM exit and
 ``run_end`` when the whole budget is done. ``cli report`` folds them.
+The perf plane (``obs/perf.py``): one ``program_cost`` event per program
+(a captured k-step graph at its capture; an eager step, ``train_step`` or
+``hbm_train_step``, at the first paced wait after its first dispatch, with
+the process's peak allocated bytes), and each paced group's wall folded
+into the ``mfu`` window against the program's analytic FLOPs; with
+``cfg.poll_device_memory`` a ``device_memory`` event per card at every
+beat.
 
 With ``cfg.profile_dir`` steps ``[max(profile_start, start), +
 profile_steps)`` run under ``torch.profiler`` (CPU and, on the card,
@@ -125,7 +132,9 @@ from featurenet_tpu_torch.config import Config, check_identity, config_to_dict
 from featurenet_tpu_torch.data.dataset import Prefetcher, SyntheticVoxelDataset
 from featurenet_tpu_torch.data.offline import SegCacheDataset, VoxelCacheDataset
 from featurenet_tpu_torch.data.synthetic import WIRE_KEYS
+from featurenet_tpu_torch.obs import perf as obs_perf
 from featurenet_tpu_torch.ops.augment import cube_index_maps
+from featurenet_tpu_torch.ops.flops import train_step_flops_per_sample
 from featurenet_tpu_torch.runtime import build_model, resolve_device
 from featurenet_tpu_torch.runtime.registry import TrainProgram
 from featurenet_tpu_torch.train.checkpoint import CheckpointManager, load_run_config
@@ -305,6 +314,17 @@ class Trainer:
         # k-step programs by (path, k, precision); on the card only.
         self.programs: dict[tuple, TrainProgram] = {}
         self._static: dict[tuple, list] = {}
+        # Performance attribution (obs/perf.py): the card's peak row (the
+        # unknown tier on the CPU: no MFU sample) and the counters of the
+        # last dispatched program, folded against the paced group wall in
+        # run(). An eager program's cost (by name and take) is emitted as
+        # its program_cost event at the first paced wait after its first
+        # dispatch, where the process's peak memory is read with no extra
+        # synchronization.
+        self._peaks = obs_perf.local_device_peaks(self.device)
+        self._last_cost: dict | None = None
+        self._eager_costs: dict[tuple, dict] = {}
+        self._unreported: list[tuple] = []
         self.timing = {"steps": 0, "wall_s": 0.0, "data_wait_s": 0.0,
                        "saves": 0, "save_s": 0.0}
 
@@ -330,18 +350,55 @@ class Trainer:
         self._draws.seed(self.state.step, 1)
         return self._one(0, batch)
 
+    def _flops(self, take: int) -> dict:
+        """The analytic cost of ``take`` train steps of a global batch
+        (``ops/flops.py``; a segmenter has no count)."""
+        if self.cfg.task != "classify":
+            return {}
+        return {"flops": float(train_step_flops_per_sample(
+            self.cfg.arch, self.cfg.resolution)) * self.cfg.global_batch * take}
+
+    def _eager_cost(self, batches: list | None, take: int) -> dict:
+        """The cost dict of an eager dispatch, made at its first use and
+        queued for its program_cost event; named as the reference names
+        its programs."""
+        if take == 1:
+            name = "train_step" if batches else "hbm_train_step"
+        else:
+            name = "multi_train_step" if batches else "hbm_train_step"
+        key = (name, take)
+        if key not in self._eager_costs:
+            self._eager_costs[key] = self._flops(take)
+            self._unreported.append(key)
+        return self._eager_costs[key]
+
+    def _report_costs(self) -> None:
+        """Emit the queued eager programs' program_cost events, with the
+        process's peak allocated bytes; called after a paced wait, when
+        the device has finished the dispatches in question."""
+        peak = obs_perf.peak_allocated(self.device)
+        for name, take in self._unreported:
+            cost = self._eager_costs[(name, take)]
+            if peak is not None:
+                cost["peak_bytes"] = peak
+            obs_perf.emit_program_cost(name, cost, self._peaks,
+                                       self.state.precision, take=take)
+        self._unreported = []
+
     def dispatch(self, batches: list | None, take: int) -> dict:
         """``take`` train steps from ``state.step``, on ``take`` wire
         batches on the device or, with ``batches=None``, on the resident
         split; returns the last step's metrics. One step runs eagerly; k
         (``cfg.steps_per_dispatch``) replay the CUDA graph of their (path,
         k, precision) on the card, captured at its first use, and run
-        eagerly on the CPU."""
-        if take == 1:
-            return self.step(batches[0] if batches else None)
-        if take != self._k:
+        eagerly on the CPU. The dispatched program's cost becomes
+        ``_last_cost``."""
+        if take != 1 and take != self._k:
             raise ValueError(f"a dispatch takes 1 or {self._k} steps, not {take}")
-        if self.device.type != "cuda":
+        if take == 1 or self.device.type != "cuda":
+            self._last_cost = self._eager_cost(batches, take)
+            if take == 1:
+                return self.step(batches[0] if batches else None)
             self._draws.seed(self.state.step, take)
             for j in range(take):
                 metrics = self._one(j, batches[j] if batches else None)
@@ -355,6 +412,7 @@ class Trainer:
         self._draws.seed(self.state.step, take)
         metrics = self.programs[key]()
         self.state.step += take
+        self._last_cost = self.programs[key].cost
         return metrics
 
     def _capture(self, key: tuple, batches: list | None) -> None:
@@ -370,7 +428,8 @@ class Trainer:
         self._draws.seed(self.state.step, key[1])
         self.programs[key] = TrainProgram(
             "multi_train_step" if static else "hbm_train_step", body,
-            self.state, self._draws.generators(), self.device)
+            self.state, self._draws.generators(), self.device,
+            precision=key[2], flops=self._flops(key[1]).get("flops"))
 
     @torch.no_grad()
     def recalibrate_bn(self, batches: int = 64) -> None:
@@ -412,6 +471,11 @@ class Trainer:
         if last is not None:
             obs.observe("heartbeat_age_s", round(now - last, 3))
         self._last_beat = now
+        if self.cfg.poll_device_memory:
+            # The device-memory watermark, on the heartbeat cadence: every
+            # beat sits off the dispatch path (a paced wait, an eval
+            # batch, a written checkpoint). No events on the CPU.
+            obs_perf.sample_device_memory()
         if self.cfg.heartbeat_file:
             touch_heartbeat(self.cfg.heartbeat_file)
 
@@ -487,12 +551,22 @@ class Trainer:
                                       **({} if stream else {"mode": "hbm"})):
                     metrics = self.dispatch(batches, take)
                 new_step = step + take
-                if pacer.mark(max(cfg.max_inflight_steps // take, 1), new_step):
+                paced = pacer.mark(max(cfg.max_inflight_steps // take, 1),
+                                   new_step)
+                if paced:
+                    if self._unreported:
+                        self._report_costs()
                     self._heartbeat()
                 # The dispatch and paced wait of the group, per step (eval
                 # and checkpoint work are spans of their own).
-                obs.observe("step_ms",
-                            round((time.perf_counter() - t0) / take * 1e3, 3))
+                group_wall = time.perf_counter() - t0
+                obs.observe("step_ms", round(group_wall / take * 1e3, 3))
+                if paced:
+                    # Only a wall bounded by a real wait folds into the
+                    # MFU: while the pipeline fills, the wall is enqueue
+                    # time and would read an MFU far above 1.
+                    obs_perf.observe_dispatch(self._last_cost, group_wall,
+                                              peaks=self._peaks)
                 if prof is not None and (
                         new_step >= trace_start + cfg.profile_steps
                         or new_step == total):

@@ -34,7 +34,9 @@ each replay; a stream of frames through POST /predict_voxels_stream
 answered with the Predictor's labels and counted by GET /metrics; a
 Trainer's run directory on the card (its report, no validation finding,
 the readback span only where the pacer waits) and its torch.profiler
-window holding the kernels' device events for each traced step.
+window holding the kernels' device events for each traced step; the perf
+plane on the card (the peak row keyed by the card's name, a graph's
+``program_cost``, a Trainer's MFU window and memory watermark; ``-k perf``).
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -1188,3 +1190,99 @@ def test_report_profile_window_holds_the_kernels_on_card(cuda, tmp_path):
              if e.get("cat") == "kernel" and e["args"].get("correlation") in corr]
     assert sum("conv3d_fwd_kernel" in n for n in names) == step["conv3d_fwd"]
     assert sum("conv3d_dw_partial" in n for n in names) == step["conv3d_dw"]
+
+
+def test_perf_peak_row_matches_the_card(cuda):
+    """The peak table's one row is keyed by the card's own name: on the
+    H100 the card reads the known tier, its bf16 peak and bandwidth."""
+    from featurenet_tpu_torch.obs import perf
+
+    peaks = perf.local_device_peaks(cuda)
+    assert peaks["device_kind"] == torch.cuda.get_device_name(cuda)
+    assert peaks["device_kind"] == perf.H100
+    assert peaks["tier"] == "known"
+    assert peaks["peak_flops"] == 989.4e12 and peaks["peak_bytes_per_sec"] == 3.35e12
+
+
+def test_perf_graph_program_cost_has_flops_and_peak_bytes(cuda, tmp_path):
+    """A serving graph's program_cost: the card's name, the precision, the
+    analytic forward FLOPs × batch and the peak rise of its capture; the
+    memory poller answers for the card it holds memory on."""
+    import json
+
+    from featurenet_tpu_torch import obs
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.obs import perf
+    from featurenet_tpu_torch.ops.flops import classifier_forward_flops
+
+    cfg = get_config("smoke16")
+    obs.init_run(str(tmp_path / "run"), process_index=0)
+    try:
+        prog = Predictor.from_seed(cfg, 0, batch=4, device=cuda).program_for(4)
+        rows = perf.sample_device_memory()
+    finally:
+        obs.close_run()
+    with open(tmp_path / "run" / "events.jsonl") as fh:
+        (ev,) = [e for e in map(json.loads, fh) if e["ev"] == "program_cost"]
+    assert ev["program"] == "serve" and ev["batch"] == 4
+    assert ev["device_kind"] == torch.cuda.get_device_name(cuda)
+    assert ev["precision"] == "fp32"
+    assert ev["flops"] == classifier_forward_flops(cfg.arch, 16) * 4
+    assert isinstance(ev["peak_bytes"], int) and ev["peak_bytes"] >= 0
+    assert prog.cost == {"flops": ev["flops"], "peak_bytes": ev["peak_bytes"]}
+    assert rows and all(0 < r["bytes_in_use"] <= r["peak_bytes_in_use"]
+                        <= r["bytes_limit"] for r in rows)
+
+
+def test_perf_train_program_peak_bytes_is_the_process_peak(cuda, tmp_path):
+    """A k = 2 train graph's program_cost reads the process's peak after
+    its capture, as the eager step does: memory held before the Trainer
+    was built (a 256 MiB block here) is inside it, not left out."""
+    import dataclasses
+    import io
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.ops.flops import train_step_flops_per_sample
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    held = torch.empty(256 * 2**20, dtype=torch.uint8, device=cuda)
+    cfg = get_config("smoke16", total_steps=4, steps_per_dispatch=2,
+                     log_every=2, eval_every=10 ** 6, data_workers=1)
+    cfg = dataclasses.replace(cfg, arch=dataclasses.replace(
+        cfg.arch, conv_backend="pallas"))
+    tr = Trainer(cfg, device=cuda, stream=io.StringIO())
+    tr.run()
+    (prog,) = tr.programs.values()
+    assert prog.name == "multi_train_step"
+    assert prog.cost["flops"] == 2 * cfg.global_batch * \
+        train_step_flops_per_sample(cfg.arch, cfg.resolution)
+    assert held.numel() < prog.cost["peak_bytes"] <= \
+        torch.cuda.max_memory_allocated(cuda)
+    del held
+
+
+def test_perf_trainer_run_folds_mfu_and_device_memory(cuda, tmp_path):
+    """A Trainer's run on the card (2 steps in flight, the memory poller
+    on): the report's perf section holds train_step with its FLOPs and
+    the process's peak, an mfu window of the paced steps with its p50 in
+    (0, 1), the device_memory watermark within the card, and the gate
+    values read both perf keys."""
+    from featurenet_tpu_torch.obs import gates, report
+
+    _report_trainer(cuda, tmp_path, max_inflight_steps=2,
+                    poll_device_memory=True)
+    ev, bad = report.load_events(str(tmp_path / "run"))
+    assert report.validate_events(ev, bad) == []
+    rep = report.build_report(ev, None, bad)
+    pf = rep["perf"]
+    row = pf["programs"]["train_step"]
+    assert row["flops"] > 0 and row["peak_bytes"] > 0
+    assert pf["device_kind"] == torch.cuda.get_device_name(cuda)
+    assert pf["tier"] == "known"
+    assert pf["mfu"]["n"] == 4 and 0 < pf["mfu"]["p50"] < 1
+    (mem,) = pf["device_memory"].values()
+    assert 0 < mem["watermark_bytes"] <= mem["bytes_limit"]
+    vals = gates.report_gate_values(rep)
+    assert vals["mfu"] == pf["mfu"]["p50"]
+    assert vals["hbm_peak_train_bytes"] == row["peak_bytes"]

@@ -11,6 +11,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -136,12 +137,14 @@ def test_ab_tool_forward_mode_exits_nonzero_without_a_card():
     assert "no CUDA device" in out.stderr
 
 
-# The serving wire's modules (obs core, exporter, load generator) and the
-# run directory's (spans, the report, the gates, the supervisor).
+# The serving wire's modules (obs core, exporter, load generator), the
+# run directory's (spans, the report, the gates, the supervisor), and the
+# perf and model-quality planes'.
 WIRE_MODULES = ("obs/__init__.py", "obs/events.py", "obs/alerts.py",
                 "obs/windows.py", "obs/tracing.py", "serve/metrics.py",
                 "serve/loadgen.py", "obs/spans.py", "obs/report.py",
-                "obs/gates.py", "train/supervisor.py")
+                "obs/gates.py", "train/supervisor.py", "obs/perf.py",
+                "ops/flops.py", "obs/quality.py", "serve/recorder.py")
 
 
 @pytest.mark.parametrize("module", WIRE_MODULES)
@@ -175,13 +178,16 @@ def test_wire_entry_points_refuse_cpu_without_being_asked(monkeypatch, capsys):
 
 
 def test_report_and_supervisor_import_no_torch():
-    """``cli report``'s modules and the supervisor's run_dir half load with
-    torch blocked, and ``cli report`` reaches its answer without it."""
+    """``cli report``'s modules, the supervisor's run_dir half and the perf
+    and quality planes' modules load with torch blocked, and ``cli
+    report`` reaches its answer without it."""
     code = (
         "import sys\n"
         "sys.modules['torch'] = None\n"
         "import featurenet_tpu_torch.obs.report, featurenet_tpu_torch.obs.gates\n"
         "import featurenet_tpu_torch.obs.spans, featurenet_tpu_torch.train.supervisor\n"
+        "import featurenet_tpu_torch.obs.perf, featurenet_tpu_torch.ops.flops\n"
+        "import featurenet_tpu_torch.obs.quality, featurenet_tpu_torch.serve.recorder\n"
         "from featurenet_tpu_torch import cli\n"
         "try:\n"
         "    cli.main(['report', '/nonexistent-run-dir'])\n"
@@ -192,3 +198,34 @@ def test_report_and_supervisor_import_no_torch():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "is not a directory" in out.stdout
+
+
+def test_quality_entry_points_refuse_cpu_without_being_asked(monkeypatch,
+                                                            tmp_path):
+    """``pin-quality``, ``replay`` and the quality tax run on the card
+    unless asked for the CPU; the refused probe closes its run."""
+    from featurenet_tpu_torch import cli, obs
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.runtime import build_model
+    from featurenet_tpu_torch.serve import loadgen, recorder
+    from featurenet_tpu_torch.train.checkpoint import CheckpointManager
+    from featurenet_tpu_torch.train.state import create_state
+
+    cfg = get_config("smoke16")
+    ck = str(tmp_path / "ck")
+    mgr = CheckpointManager(ck, config=cfg)
+    mgr.save(create_state(build_model(cfg, seed=0), cfg))
+    mgr.close()
+    ring = str(tmp_path / "capture")
+    rec = recorder.FlightRecorder(ring, sample=1.0)
+    rec.maybe_capture(np.zeros((16, 16, 16, 1), np.float32), "t", label=1,
+                      confidence=0.5)
+    rec.close()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["pin-quality", "--checkpoint-dir", ck, "--n", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["replay", ring, "--checkpoint-dir", ck])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loadgen.measure_quality_overhead(cfg, n_requests=1)
+    assert not obs.active()

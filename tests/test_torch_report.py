@@ -9,8 +9,9 @@ smoke16 width on one torch thread.
   ``chrome_trace``, ``request_timeline`` and the gates give what the JAX
   package's give. The stated differences: the manifest's topology sits
   under ``"torch"`` in the port's ``run.json`` (``"jax"`` in the
-  reference's), and the perf and incident sections (and the gate keys read
-  from the perf section) are absent until ROADMAP Queue A.2(c).
+  reference's), and the incident and fleet-timeline sections are absent
+  until ROADMAP Queue A.2(d). The perf section and its gate keys are
+  compared in ``test_torch_perf.py`` too.
 - A CPU ``Trainer`` with a ``run_dir`` writes the reference Trainer's
   event kinds and loop spans; its report has the loop fields and no
   validation finding. The trace window starts at a resumed run's first
@@ -56,9 +57,8 @@ from featurenet_tpu_torch.train.loop import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "featurenet_tpu_torch")
-# Report sections and gate keys that wait for ROADMAP Queue A.2(c).
-A2C_SECTIONS = ("perf", "incidents", "fleet_timeline")
-A2C_GATES = ("mfu", "hbm_peak_train_bytes")
+# Report sections that wait for ROADMAP Queue A.2(d).
+A2C_SECTIONS = ("incidents", "fleet_timeline")
 
 
 @pytest.fixture(autouse=True)
@@ -397,10 +397,10 @@ def test_build_report_matches_jax(streams):
     assert rep["run"]["device_count"] == 1  # read under "torch"
     assert not set(A2C_SECTIONS) & set(rep)
     if case == "serving":
-        assert {"perf", "incidents"} <= set(jrep)
+        assert "incidents" in jrep and rep["perf"] == jrep["perf"]
     assert report.build_report_dir(port) == _jax_view(
         jax_report.build_report_dir(ref))
-    # The rendering, but for the perf and incident lines and the word XLA.
+    # The rendering, but for the incident lines and the word XLA.
     text = report.format_report(rep)
     jtext = jax_report.format_report(_jax_view(jrep)).replace("s XLA)", "s)")
     assert text == jtext
@@ -427,7 +427,7 @@ def test_gates_match_jax(streams):
                                    bad_lines=bad)
     vals = gates.report_gate_values(rep)
     jvals = jax_gates.report_gate_values(jrep)
-    assert vals == {k: v for k, v in jvals.items() if k not in A2C_GATES}
+    assert vals == jvals
     base = gates.apply_abs_slack(gates.make_baseline(vals, tolerance=0.2))
     assert base == jax_gates.apply_abs_slack(
         jax_gates.make_baseline(vals, tolerance=0.2))
