@@ -259,6 +259,32 @@ Phases, in order; any failure exits non-zero before the last line:
      count, and the spread of the tax.
    The children's launches and the overhead probe's are the `quality`
    path.
+13c. The incident plane (`incident` phase), sprint64 at full width from
+   seeded weights (every answer held to the same weights' eager label; a
+   top-2 gap under 1e-6 is a near-tie, counted and exempt):
+   - `incident_calibrate`: an in-process service (buckets 1/4/16/64 on
+     CUDA graphs) gives a sequential bucket-1 p99 and a 128-request
+     burst's median; the SLO is their geometric mean (the burst must be
+     INCIDENT_SEPARATION times the sequential p99).
+   - `incident_serve`: `cli serve --config sprint64 --run-dir D
+     --trace-sample 0 --slo-p99-ms SLO --alert-rules serving_p99_ms>SLO`
+     under 128 keep-alive clients until the incident's capture is
+     written, then one request at a time until GET /metrics reads
+     incidents_open 0 (it must read 1 while open); exactly one incident;
+     every request answered while it was open traced, some under the SLO
+     (only force-all keeps those), none under the SLO kept outside it;
+     the bundle complete, its stacks sampling the dispatch and HTTP
+     threads; the child's launches its warmup's alone (replays only);
+     then `cli incident list|show`, `cli report --json|--validate`
+     without torch. The capture's wall and the sampler's ticks against
+     its 100 due are printed, `sampler_starved` when under 80.
+   - `incident_store`: the same burst and recovery in-process with a
+     run directory and a `TimeSeriesStore` attached by `alerts.set_store`:
+     `alerts_active` 1 then 0 in the store, the 1 in the bundle's
+     `tsdb.json`, `cli dash --once` naming the bundle.
+   - `incident_overhead`: `measure_incident_overhead`, three turns.
+   The services' warmups, the probe's and the serve child's launches are
+   the `incident` path.
 14. Robustness evaluation (`ood` phase), after the supervised runs:
    - `native`: the port's native voxelizer, built by g++ after the
      kernels (its build seconds; a build that fails fails the script), on
@@ -315,7 +341,7 @@ Phases, in order; any failure exits non-zero before the last line:
    through the phase, the `seg` path of each kernel.
 16. The wall time of every phase, one JSON line of per-kernel numbers
    (launches by path, the wire, cache, robust, supervise, report,
-   quality, precision, ood, tta and seg runs' included), the
+   quality, incident, precision, ood, tta and seg runs' included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
@@ -4716,6 +4742,512 @@ def quality_phase(torch, seed: int, ck: str, smi_line: str) -> dict:
     return {"launches": launches}
 
 
+# The incident phase: sprint64 served while its serving_p99_ms rule fires,
+# opens, captures and closes one incident (obs/incidents.py). The SLO lies
+# between two latencies measured first on the card: sequential bucket-1
+# requests' p99 and a concurrent burst's median. The burst and the
+# recovery are bounded in the windows' emission cycles (DEFAULT_EMIT_EVERY_S):
+# the rule fires within INCIDENT_FIRE_CYCLES of the burst's start, and the
+# burst goes on until the capture (the sampler's DEFAULT_SAMPLE_S, its hard
+# deadline twice that) is written; the recovery sends one request at a
+# time until the alert resolves, within INCIDENT_RESOLVE_CYCLES of the
+# window (DEFAULT_WINDOW samples) holding recovery requests alone.
+INCIDENT_PARTS = 256
+INCIDENT_CLIENTS = 128  # two bucket-64 batches in flight
+INCIDENT_CALIB_SEQ = 64
+INCIDENT_CALIB_BURSTS = 3
+INCIDENT_SEPARATION = 4.0  # the burst's median over the sequential p99
+INCIDENT_FIRE_CYCLES = 3
+INCIDENT_RESOLVE_CYCLES = 3
+INCIDENT_OVERHEAD_REQUESTS = 192
+INCIDENT_OVERHEAD_TURNS = 3
+INCIDENT_RULE = "serving_p99_ms"
+
+
+def _incident_grids(seed: int):
+    import numpy as np
+
+    from featurenet_tpu_torch.data.synthetic import generate_batch
+
+    return np.ascontiguousarray(generate_batch(
+        np.random.default_rng(seed + 13), INCIDENT_PARTS, 64)["voxels"][..., 0],
+        dtype="<f4")
+
+
+def _eager_labels(torch, pred, grids):
+    """The labels (and top-2 gap) of the Predictor's eager forward."""
+    import numpy as np
+
+    probs = []
+    with torch.inference_mode():
+        for i in range(0, len(grids), 64):
+            x = torch.from_numpy(grids[i:i + 64, ..., None]).cuda()
+            probs.append(pred.forward_eager(x).float().cpu().numpy())
+    probs = np.concatenate(probs)
+    top2 = np.sort(probs, axis=-1)[:, -2:]
+    return probs.argmax(-1), top2[:, 1] - top2[:, 0]
+
+
+def _incident_service(pred, rules=(), run_dir=None):
+    from featurenet_tpu_torch.serve.service import InferenceService
+
+    return InferenceService(pred, buckets=SERVE_BUCKETS, queue_limit=256,
+                            rules=rules, run_dir=run_dir,
+                            slo_p99_ms=float("inf"))
+
+
+def incident_calibrate(pred, grids, smi_line: str) -> dict:
+    """The two latencies the SLO is set between, from one in-process
+    service on the card (no rules, no run directory): INCIDENT_CALIB_SEQ
+    requests one at a time (bucket 1) and INCIDENT_CALIB_BURSTS bursts of
+    INCIDENT_CLIENTS requests at once (bucket 64)."""
+    service = _incident_service(pred)
+    try:
+        seq = []
+        for g in grids[:INCIDENT_CALIB_SEQ]:
+            f = service.submit_voxels(g)
+            f.result(timeout=120)
+            seq.append(f.latency_ms)
+        burst = []
+        for _ in range(INCIDENT_CALIB_BURSTS):
+            futs = [service.submit_voxels(g) for g in grids[:INCIDENT_CLIENTS]]
+            for f in futs:
+                f.result(timeout=120)
+            burst += [f.latency_ms for f in futs]
+    finally:
+        service.drain()
+    from featurenet_tpu_torch.obs.report import _pct
+
+    seq_p99, burst_p50 = _pct(sorted(seq), 99), _pct(sorted(burst), 50)
+    if not seq_p99 * INCIDENT_SEPARATION <= burst_p50:
+        fail(f"incident: a burst's median {burst_p50} ms is not "
+             f"{INCIDENT_SEPARATION}x the sequential p99 {seq_p99} ms")
+    return {"seq_p99_ms": seq_p99, "burst_p50_ms": burst_p50,
+            "slo_p99_ms": round((seq_p99 * burst_p50) ** 0.5, 3),
+            "nvidia_smi": smi_line}
+
+
+class _Burst:
+    """INCIDENT_CLIENTS threads, each posting grids over its own keep-alive
+    connection until ``stop``; every answer recorded with its trace id and
+    the client's send and receive times (epoch s, the server's axis)."""
+
+    def __init__(self, port: int, grids, tag: str):
+        self.port, self.grids, self.tag = port, grids, tag
+        self.stop = threading.Event()
+        self.records: list[dict] = []
+        self.errors: list[str] = []
+        self._lock = threading.Lock()
+        self.threads = [threading.Thread(target=self._client, args=(c,),
+                                         daemon=True)
+                        for c in range(INCIDENT_CLIENTS)]
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def _client(self, c: int):
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=120)
+        i = 0
+        try:
+            while not self.stop.is_set():
+                k = (c + i * INCIDENT_CLIENTS) % len(self.grids)
+                rec = _post_traced(conn, self.grids, k, f"{self.tag}-{c}-{i}")
+                with self._lock:
+                    self.records.append(rec)
+                i += 1
+        except Exception as e:  # reported by the phase
+            with self._lock:
+                self.errors.append(f"client {c}: {type(e).__name__}: {e}")
+        finally:
+            conn.close()
+
+    def join(self):
+        self.stop.set()
+        for t in self.threads:
+            t.join(180)
+        if any(t.is_alive() for t in self.threads):
+            fail(f"incident: burst clients of {self.tag} did not finish")
+
+
+def _post_traced(conn, grids, k: int, trace: str) -> dict:
+    t_send = time.time()
+    conn.request("POST", "/predict_voxels", body=grids[k].tobytes(),
+                 headers={"X-Featurenet-Trace": trace})
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    return {"trace": trace, "k": k, "status": resp.status,
+            "label": body.get("label"), "t_send": t_send, "t_recv": time.time()}
+
+
+def _wait_until(pred, deadline_s: float, what: str, poll_s: float = 0.05):
+    t_end = time.perf_counter() + deadline_s
+    while not pred():
+        if time.perf_counter() > t_end:
+            fail(f"incident: {what} within {deadline_s:.1f} s")
+        time.sleep(poll_s)
+
+
+def _bundle_done(bundle: str) -> bool:
+    try:
+        with open(os.path.join(bundle, "manifest.json")) as fh:
+            return bool(json.load(fh).get("files"))
+    except (OSError, ValueError):
+        return False
+
+
+def _capture_line(b: dict, events: list) -> dict:
+    """A bundle's capture: its wall (incident_open to incident_capture on
+    the events' clock), the sampler's samples and ticks against its
+    cadence, and the samples per thread."""
+    from featurenet_tpu_torch.obs import incidents, stacksampler
+
+    man = b["manifest"] or {}
+    cap = man.get("capture") or {}
+    t = {e["ev"]: e["t"] for e in events
+         if e.get("id") == b["id"] and e["ev"].startswith("incident_")}
+    expected = incidents.DEFAULT_SAMPLE_S * stacksampler.DEFAULT_HZ
+    # The HTTP server's request threads folded into one entry.
+    threads: dict = {}
+    for name, n in stacksampler.thread_totals(b["stacks"] or {}).items():
+        if "process_request_thread" in name:
+            row = threads.setdefault("http_request_threads",
+                                     {"threads": 0, "samples": 0})
+            row["threads"] += 1
+            row["samples"] += n
+        else:
+            threads[name] = n
+    return {"capture_wall_s": round(t["incident_capture"] - t["incident_open"], 3)
+            if {"incident_capture", "incident_open"} <= set(t) else None,
+            "stack_samples": cap.get("stack_samples"),
+            "stack_ticks": cap.get("stack_ticks"),
+            "stack_ticks_expected": expected,
+            "stack_duration_s": cap.get("stack_duration_s"),
+            "stack_truncated": cap.get("stack_truncated"),
+            "sampler_starved": bool(cap.get("stack_truncated"))
+            or (cap.get("stack_ticks") or 0) < 0.8 * expected,
+            "threads": threads}
+
+
+def _check_bundle(b: dict, what: str, http_threads: bool) -> None:
+    from featurenet_tpu_torch.obs import incidents, stacksampler
+
+    man = b["manifest"] or {}
+    if b["missing"] or not set(incidents.BUNDLE_FILES) <= set(man.get("files") or ()):
+        fail(f"{what}: bundle {b['id']} missing {b['missing']}, files "
+             f"{man.get('files')}")
+    names = stacksampler.thread_totals(b["stacks"] or {})
+    if "serve-batcher" not in names or (http_threads and not any(
+            "process_request_thread" in n for n in names)):
+        fail(f"{what}: stacks.folded samples no dispatch or HTTP thread: "
+             f"{sorted(names)}")
+
+
+def incident_serve_line(seed: int, grids, labels, gaps, slo: float,
+                        tmp: str, smi_line: str) -> tuple[dict, dict]:
+    """``cli serve --config sprint64 --run-dir D --trace-sample 0
+    --slo-p99-ms SLO --alert-rules serving_p99_ms>SLO`` as a subprocess: a
+    burst of INCIDENT_CLIENTS keep-alive clients until the incident's
+    capture is written, then one request at a time until GET /metrics
+    reads ``incidents_open 0``; SIGTERM; then ``cli incident list|show``
+    and ``cli report --json|--validate`` without torch."""
+    from featurenet_tpu_torch.obs import incidents, windows
+    from featurenet_tpu_torch.runtime.registry import WARMUP_ITERS
+
+    emit_s = windows.DEFAULT_EMIT_EVERY_S
+    run = os.path.join(tmp, "serve_run")
+    t0 = time.perf_counter()
+    srv = subprocess.Popen(
+        _cli("serve", "--config", "sprint64", "--seed", str(seed), "--port", "0",
+             "--run-dir", run, "--trace-sample", "0", "--slo-p99-ms", str(slo),
+             "--alert-rules", f"{INCIDENT_RULE}>{slo}:critical",
+             "--queue-limit", "256", "--duration-s", "600"),
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    gauge = 'featurenet_incidents_open'
+    readings: list[tuple[float, float]] = []
+    try:
+        port = json.loads(srv.stdout.readline())["serving"]["port"]
+        ready_s = time.perf_counter() - t0
+
+        def read_gauge() -> float:
+            v = _metric(_get_text(port, "/metrics"), gauge)
+            readings.append((time.time(), v))
+            return v
+
+        if read_gauge() != 0:
+            fail(f"incident_serve: {gauge} before the burst: {readings}")
+        t_burst = time.perf_counter()
+        burst = _Burst(port, grids, f"inc{seed}").start()
+        inc_dir = incidents.incidents_dir(run)
+        _wait_until(lambda: read_gauge() == 1, INCIDENT_FIRE_CYCLES * emit_s,
+                    f"{gauge} did not read 1 during the burst", poll_s=0.25)
+        t_open_seen = time.perf_counter() - t_burst
+        _wait_until(lambda: os.path.isdir(inc_dir) and os.listdir(inc_dir),
+                    emit_s, "the bundle's directory did not appear")
+        (bundle_id,) = os.listdir(inc_dir)
+        _wait_until(lambda: _bundle_done(os.path.join(inc_dir, bundle_id)),
+                    2 * incidents.DEFAULT_SAMPLE_S + emit_s,
+                    "the capture was not written during the burst")
+        burst.join()
+        burst_s = time.perf_counter() - t_burst
+        if burst.errors:
+            fail(f"incident_serve: burst {burst.errors[:3]}")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        recovery: list[dict] = []
+        t_rec = time.perf_counter()
+        deadline = INCIDENT_RESOLVE_CYCLES * emit_s
+        while True:
+            k = len(recovery) % len(grids)
+            recovery.append(_post_traced(conn, grids, k,
+                                         f"rec{seed}-{len(recovery)}"))
+            if len(recovery) % 16 == 0 and read_gauge() == 0:
+                break
+            if time.perf_counter() - t_rec > deadline + emit_s:
+                fail(f"incident_serve: {gauge} still 1 after "
+                     f"{len(recovery)} recovery requests: {readings[-3:]}")
+        conn.close()
+        recovery_s = time.perf_counter() - t_rec
+        srv.send_signal(signal.SIGTERM)
+        out, err = srv.communicate(timeout=120)
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.communicate()
+    if srv.returncode != 0:
+        fail(f"incident_serve: cli serve exited {srv.returncode}: {err[-2000:]}")
+    stats = json.loads(out.strip().splitlines()[-1])["serve_stats"]
+    requests = burst.records + recovery
+    bad = [r for r in requests if r["status"] != 200 or r["label"] is None]
+    wrong = [r for r in requests if r["label"] != int(labels[r["k"]])
+             and gaps[r["k"]] >= 1e-6]
+    if bad or wrong:
+        fail(f"incident_serve: {len(bad)} failed, {len(wrong)} wrong answers: "
+             f"{(bad + wrong)[:3]}")
+    # No request launched a kernel from Python: the child's counts are its
+    # warmup's (WARMUP_ITERS eager runs and one capture of 3 per bucket).
+    want = dict(_want_counts("xla", 0, 0),
+                conv3d_fwd=3 * (WARMUP_ITERS + 1) * len(SERVE_BUCKETS))
+    if stats.get("launches") != want:
+        fail(f"incident_serve: launches {stats.get('launches')}, not {want}")
+    with open(os.path.join(run, "events.jsonl")) as fh:
+        events = [json.loads(ln) for ln in fh]
+    opens = [e for e in events if e["ev"] == "incident_open"]
+    closes = [e for e in events if e["ev"] == "incident_close"]
+    if len(opens) != 1 or len(closes) != 1 or opens[0]["rule"] != INCIDENT_RULE \
+            or stats.get("incidents", {}).get("opened_total") != 1:
+        fail(f"incident_serve: opens {opens}, closes {closes}, "
+             f"stats {stats.get('incidents')}")
+    t_open, t_close = opens[0]["t"], closes[0]["t"]
+    kept = {e["trace"]: e for e in events if e["ev"] == "request_done"}
+    inside = [r for r in requests if t_open < r["t_send"] and r["t_recv"] < t_close]
+    missing = [r["trace"] for r in inside if r["trace"] not in kept]
+    under = [t for t, e in kept.items() if e["total_ms"] <= slo
+             and t_open < e["t"] < t_close]
+    after = [t for t, e in kept.items() if e["total_ms"] <= slo and e["t"] > t_close]
+    before = [t for t, e in kept.items() if e["total_ms"] <= slo and e["t"] < t_open]
+    if missing or not under or after or before:
+        fail(f"incident_serve: traces: {len(missing)} answered while open not "
+             f"kept {missing[:3]}, {len(under)} under the SLO kept while open, "
+             f"{len(after)} kept after the close {after[:3]}, {len(before)} "
+             "before the open")
+    if max(v for _, v in readings) != 1 or readings[-1][1] != 0:
+        fail(f"incident_serve: {gauge} readings {readings}")
+    (entry,) = incidents.list_incidents(run)
+    b = incidents.load_bundle(run, entry["id"])
+    _check_bundle(b, "incident_serve", http_threads=True)
+    listed = _report_cli("incident", "list", run, "--json")
+    shown = _report_cli("incident", "show", run)
+    rep = _report_cli("report", run, "--json")
+    validate = _report_cli("report", run, "--validate")
+    if listed.returncode or json.loads(listed.stdout) != [entry] \
+            or shown.returncode or entry["id"] not in shown.stdout \
+            or "missing:" in shown.stdout:
+        fail(f"incident_serve: cli incident list {listed.stdout[-500:]} "
+             f"{listed.stderr[-500:]} show {shown.stdout[-1000:]}")
+    inc = json.loads(rep.stdout).get("incidents") or {} if not rep.returncode else {}
+    if inc.get("opened") != 1 or inc.get("closed") != 1 \
+            or [x["id"] for x in inc.get("bundles", ())] != [entry["id"]]:
+        fail(f"incident_serve: report incidents {inc} {rep.stderr[-1000:]}")
+    if validate.returncode or '"validate": "ok"' not in validate.stdout:
+        fail(f"incident_serve: report --validate {validate.stdout[-2000:]}")
+    return {
+        "slo_p99_ms": slo, "ready_s": ready_s,
+        "burst": {"requests": len(burst.records), "wall_s": burst_s,
+                  "open_seen_after_s": t_open_seen},
+        "recovery": {"requests": len(recovery), "wall_s": recovery_s},
+        "near_ties": int(sum(gaps[r["k"]] < 1e-6 for r in requests)),
+        "incident": {k: entry.get(k) for k in ("id", "rule", "value",
+                                              "threshold", "duration_s")},
+        **_capture_line(b, events),
+        "traces_kept_while_open": len([t for t, e in kept.items()
+                                       if t_open < e["t"] < t_close]),
+        "traces_under_slo_kept_while_open": len(under),
+        "answered_while_open": len(inside),
+        "traces_kept_outside": len([t for t, e in kept.items()
+                                    if not t_open < e["t"] < t_close]),
+        "metrics_readings": len(readings),
+        "by_bucket": stats["by_bucket"], "served": stats["served"],
+        "report_incidents": {k: inc[k] for k in ("opened", "closed", "by_rule")},
+        "validate": json.loads(validate.stdout.strip().splitlines()[-1]),
+        "nvidia_smi": smi_line,
+    }, {"launches": stats.get("launches") or {}}
+
+
+def incident_store_line(pred, grids, labels, gaps, slo: float, tmp: str,
+                        smi_line: str) -> dict:
+    """An in-process sprint64 service with a run directory and a
+    ``TimeSeriesStore`` attached by ``alerts.set_store`` (as the reference's
+    ``cli fleet`` wires one): the same burst (concurrent submits) and
+    recovery; the store holds ``alerts_active`` 1 then 0, the bundle's
+    ``tsdb.json`` that 1, and ``cli dash --once`` renders the run directory
+    alone with the bundle on its incident line."""
+    from featurenet_tpu_torch import obs
+    from featurenet_tpu_torch.obs import alerts, incidents, tsdb, windows
+
+    emit_s = windows.DEFAULT_EMIT_EVERY_S
+    run = os.path.join(tmp, "store_run")
+    obs.init_run(run, extra={"cmd": "incident_store"}, process_index=0)
+    store = tsdb.TimeSeriesStore.open(run)
+    alerts.set_store(store)
+    rule = alerts.AlertRule(INCIDENT_RULE, ">", slo, "critical")
+    service = _incident_service(pred, rules=[rule], run_dir=run)
+    service.batcher.trace_sample = 0.0
+    answers: list[tuple[int, object]] = []
+    stop = threading.Event()
+    errors: list[str] = []
+
+    def submitter(c: int):
+        try:
+            i = 0
+            while not stop.is_set():
+                ks = [(c * 32 + i * 64 + j) % len(grids) for j in range(32)]
+                futs = [service.submit_voxels(grids[k]) for k in ks]
+                for k, f in zip(ks, futs):
+                    answers.append((k, f.result(timeout=120)))
+                i += 1
+        except Exception as e:
+            errors.append(f"{type(e).__name__}: {e}")
+
+    try:
+        mgr = incidents.manager()
+        t_burst = time.perf_counter()
+        threads = [threading.Thread(target=submitter, args=(c,), daemon=True)
+                   for c in range(INCIDENT_CLIENTS // 32)]
+        for t in threads:
+            t.start()
+        _wait_until(lambda: mgr.open_count() == 1, INCIDENT_FIRE_CYCLES * emit_s,
+                    "incident_store: no incident opened during the burst")
+        (inc_id,) = mgr.open_ids()
+        bundle = os.path.join(incidents.incidents_dir(run), inc_id)
+        _wait_until(lambda: _bundle_done(bundle), 2 * incidents.DEFAULT_SAMPLE_S
+                    + emit_s, "incident_store: the capture was not written")
+        stop.set()
+        for t in threads:
+            t.join(180)
+        burst_s = time.perf_counter() - t_burst
+        t_rec, n_rec = time.perf_counter(), 0
+        while mgr.open_count():
+            k = n_rec % len(grids)
+            answers.append((k, service.submit_voxels(grids[k]).result(timeout=120)))
+            n_rec += 1
+            if time.perf_counter() - t_rec > (INCIDENT_RESOLVE_CYCLES + 1) * emit_s:
+                fail(f"incident_store: still open after {n_rec} requests")
+        recovery_s = time.perf_counter() - t_rec
+    finally:
+        stop.set()
+        st = service.drain()
+        alerts.set_store(None)
+        store.close()
+        obs.close_run()
+        windows.uninstall()
+    if errors:
+        fail(f"incident_store: submitters {errors[:3]}")
+    wrong = [k for k, row in answers
+             if int(row.argmax()) != int(labels[k]) and gaps[k] >= 1e-6]
+    if wrong:
+        fail(f"incident_store: {len(wrong)} answers differ from the eager labels")
+    reader = tsdb.TimeSeriesStore.open(run)
+    mirror = [v for _, v in reader.query("alerts_active", {"rule": INCIDENT_RULE})]
+    b = incidents.load_bundle(run, inc_id)
+    _check_bundle(b, "incident_store", http_threads=False)
+    sliced = [s["samples"] for s in (b["tsdb"] or {}).get("series", ())
+              if s["metric"] == "alerts_active"]
+    if mirror != [1.0, 0.0] or not sliced or [v for _, v in sliced[0]] != [1.0] \
+            or st.get("incidents", {}).get("opened_total") != 1:
+        fail(f"incident_store: store {mirror}, bundle slice {sliced}, "
+             f"stats {st.get('incidents')}")
+    dash = _report_cli("dash", run, "--once")
+    line = [ln for ln in dash.stdout.splitlines() if ln.startswith("incidents:")]
+    if dash.returncode or not line or inc_id not in line[0]:
+        fail(f"incident_store: cli dash --once {dash.stdout[-1500:]} "
+             f"{dash.stderr[-1000:]}")
+    with open(os.path.join(run, "events.jsonl")) as fh:
+        events = [json.loads(ln) for ln in fh]
+    return {"slo_p99_ms": slo, "answers": len(answers),
+            "burst_wall_s": burst_s, "recovery": {"requests": n_rec,
+                                                  "wall_s": recovery_s},
+            "alerts_active": mirror, "store": reader.stats(),
+            "bundle_tsdb_series": len(b["tsdb"]["series"]),
+            "dash_incident_line": line[0], "dash_lines": len(dash.stdout.splitlines()),
+            **_capture_line(b, events), "nvidia_smi": smi_line}
+
+
+def incident_phase(torch, seed: int, smi_line: str) -> dict:
+    """The incident plane on the card (`incident_calibrate`,
+    `incident_serve`, `incident_store`, `incident_overhead` lines); the
+    launches are the in-process services' warmups, the overhead probe's
+    and the serve child's, the `incident` path."""
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.serve.loadgen import measure_incident_overhead
+
+    grids = _incident_grids(seed)
+    pred = Predictor.from_seed(get_config("sprint64"), seed, batch=64,
+                               device="cuda")
+    labels, gaps = _eager_labels(torch, pred, grids)
+    _reset_counts()
+    t0 = time.perf_counter()
+    calib = incident_calibrate(pred, grids, smi_line)
+    calib["wall_s"] = time.perf_counter() - t0
+    print("incident_calibrate", json.dumps(calib), flush=True)
+    slo = calib["slo_p99_ms"]
+    launches = _read_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        served, child = incident_serve_line(seed, grids, labels, gaps,
+                                            slo, tmp, smi_line)
+        served["phase_s"] = time.perf_counter() - t0
+        _add_counts(launches, child["launches"])
+        print("incident_serve", json.dumps(served), flush=True)
+        _reset_counts()
+        t0 = time.perf_counter()
+        stored = incident_store_line(pred, grids, labels, gaps, slo, tmp,
+                                     smi_line)
+        stored["phase_s"] = time.perf_counter() - t0
+        _add_counts(launches, _read_counts())
+        print("incident_store", json.dumps(stored), flush=True)
+    del pred
+    torch.cuda.empty_cache()
+    cfg = get_config("sprint64", seed=seed)
+    _reset_counts()
+    t0 = time.perf_counter()
+    turns = [measure_incident_overhead(cfg, n_requests=INCIDENT_OVERHEAD_REQUESTS,
+                                       device="cuda")
+             for _ in range(INCIDENT_OVERHEAD_TURNS)]
+    _add_counts(launches, _read_counts())
+    pcts = [t["incident_overhead_pct"] for t in turns]
+    tax = {"turns": turns, "incident_overhead_pct_min": min(pcts),
+           "incident_overhead_pct_max": max(pcts),
+           "wall_s": time.perf_counter() - t0, "nvidia_smi": smi_line}
+    print("incident_overhead", json.dumps(tax), flush=True)
+    torch.cuda.empty_cache()
+    if not launches.get("conv3d_fwd"):
+        fail(f"incident: no conv3d_fwd launch on the incident path: {launches}")
+    return {"launches": launches}
+
+
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
     main = [r for r in rows if r["main_path"]]
     return {
@@ -4811,6 +5343,8 @@ def main() -> int:
         reported = report_out["launches"]
         quality = phase("quality", quality_phase, torch, args.seed,
                         report_out["checkpoint"], smi_line)["launches"]
+    incident = phase("incident", incident_phase, torch, args.seed,
+                     smi_line)["launches"]
     robustness = phase("ood", ood_phase, torch, args.seed, native_info,
                        smi_line)["launches"]
     seg = phase("seg", seg_phase, torch, args.seed, smi_line)["launches"]
@@ -4840,6 +5374,7 @@ def main() -> int:
                        "supervise": supervised["conv3d_fwd"],
                        "report": reported["conv3d_fwd"],
                        "quality": quality["conv3d_fwd"],
+                       "incident": incident["conv3d_fwd"],
                        **{k: v["conv3d_fwd"] for k, v in rungs.items()},
                        **{k: v["conv3d_fwd"] for k, v in robustness.items()},
                        "seg": seg["conv3d_fwd"]}),

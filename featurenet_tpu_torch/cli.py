@@ -56,8 +56,12 @@
     python -m featurenet_tpu_torch.cli report RUN_DIR [--json] \
         [--trace t.json] [--follow [--interval S]] [--gate BASELINE] \
         [--validate] [--request TRACE_ID]
+    python -m featurenet_tpu_torch.cli incident list|show RUN_DIR [ID] [--json]
+    python -m featurenet_tpu_torch.cli dash RUN_DIR [--once] [--interval 2] \
+        [--window-s 300] [--slos SPEC]
 
-Every subcommand but ``report`` and the four data commands runs on the card
+Every subcommand but ``report``, ``incident``, ``dash`` and the four data
+commands runs on the card
 unless ``--device cpu`` is given. The data commands run on the host alone
 and never create a CUDA context (``export-data`` and ``build-cache`` take
 ``--run-dir`` for their ``export_class`` / ``build_cache_class`` and
@@ -147,6 +151,17 @@ event schema (exit 1 on findings), ``--gate`` judges the report against a
 baseline (exit 2 on a regression), ``--request`` prints one request's
 timeline (exit 2 when absent). It imports the standard library only:
 never torch, never CUDA.
+
+``incident list RUN_DIR`` prints one line per incident bundle under
+``RUN_DIR/incidents`` (``obs/incidents.py``), oldest first; ``incident
+show RUN_DIR [ID]`` renders one bundle's post-mortem (the newest by
+default), naming any missing or torn piece; ``--json`` prints the index or
+the loaded bundle. ``dash RUN_DIR`` renders the run's time-series store
+(``RUN_DIR/tsdb``, ``obs/dash.py``) every ``--interval`` seconds, or once
+with ``--once``: per-target sparklines, the burn-rate gauges of ``--slos``
+(``metric(<|>)threshold@objective%``, default ``serving_p99_ms<250@99%``)
+and the incident line. Both read the files alone, with the standard
+library only.
 
 ``recalibrate`` re-estimates the batch-norm statistics of the newest step
 in ``--checkpoint-dir`` over ``--batches`` clean training batches (train-
@@ -259,8 +274,9 @@ def _parser() -> argparse.ArgumentParser:
 
     ap = argparse.ArgumentParser(
         prog="featurenet_tpu_torch.cli",
-        epilog="report RUN_DIR: analyze a run directory's event streams "
-               "(no torch needed; see `report --help`)")
+        epilog="report RUN_DIR, incident list|show RUN_DIR, dash RUN_DIR: "
+               "read a run directory (no torch needed; see `report --help`, "
+               "`incident --help`, `dash --help`)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p_srv = sub.add_parser("serve", help="HTTP/1.1 inference service over a "
@@ -650,6 +666,45 @@ def _report_parser() -> argparse.ArgumentParser:
                    dest="request_trace",
                    help="print one request's timeline (exit 2 when the id "
                         "is not in the run)")
+    return p
+
+
+def _incident_parser() -> argparse.ArgumentParser:
+    """``incident``'s parser, apart from ``_parser`` (torch)."""
+    p = argparse.ArgumentParser(
+        prog="featurenet_tpu_torch.cli incident", allow_abbrev=False,
+        description="post-mortem over a run directory's incident bundles "
+                    "(no torch needed)")
+    p.add_argument("action", choices=["list", "show"],
+                   help="list: one line per bundle, oldest first; show: one "
+                        "incident's post-mortem")
+    p.add_argument("run_dir", help="run directory (bundles live under "
+                                   "<run_dir>/incidents)")
+    p.add_argument("incident_id", nargs="?", default=None,
+                   help="show only: the incident id (default: the newest)")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="the bundle index (list) or the loaded bundle (show) "
+                        "as JSON")
+    return p
+
+
+def _dash_parser() -> argparse.ArgumentParser:
+    """``dash``'s parser, apart from ``_parser`` (torch)."""
+    p = argparse.ArgumentParser(
+        prog="featurenet_tpu_torch.cli dash", allow_abbrev=False,
+        description="terminal dashboard over a run directory's time-series "
+                    "store (no torch needed)")
+    p.add_argument("run_dir", help="run directory (the store lives at "
+                                   "<run_dir>/tsdb)")
+    p.add_argument("--once", action="store_true",
+                   help="render one frame and exit")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="refresh interval in seconds (default 2)")
+    p.add_argument("--window-s", type=float, default=300.0, dest="window_s",
+                   help="sparkline look-back window in seconds (default 300)")
+    p.add_argument("--slos", default=None,
+                   help="burn-rate objectives of the gauges (e.g. "
+                        "'serving_p99_ms<250@99%%'; default: that one)")
     return p
 
 
@@ -1105,7 +1160,8 @@ def _serve(args) -> int:
                                queue_limit=args.queue_limit, rules=rules,
                                slo_p99_ms=args.slo_p99_ms,
                                batch_queue_limit=args.batch_queue_limit,
-                               quality=quality, recorder=recorder)
+                               quality=quality, recorder=recorder,
+                               run_dir=args.run_dir)
     srv = make_server(service, host=args.host, port=args.port)
     server_thread = threading.Thread(target=srv.serve_forever,
                                      name="serve-http", daemon=True)
@@ -1457,10 +1513,78 @@ def _report(args) -> int:
     return 0
 
 
+def _incident(args) -> int:
+    """``incident list|show``: reads the bundles alone; a damaged bundle
+    renders with a ``missing:`` line, never a traceback."""
+    import os
+
+    from featurenet_tpu_torch.obs import incidents as _incidents
+
+    if args.action == "list":
+        entries = _incidents.list_incidents(args.run_dir)
+        if args.as_json:
+            print(json.dumps(entries, indent=1, default=str))
+            return 0
+        if not entries:
+            print("no incident bundles under "
+                  f"{_incidents.incidents_dir(args.run_dir)}")
+            return 0
+        for e in entries:
+            dur = (f"  duration={e['duration_s']:.3f}s"
+                   if isinstance(e.get("duration_s"), (int, float)) else "")
+            print(f"{e['id']}  rule={e.get('rule', '?')}  "
+                  f"severity={e.get('severity', '?')}  "
+                  f"state={e.get('state', '?')}{dur}")
+        return 0
+    incident_id = args.incident_id
+    if incident_id is None:
+        entries = _incidents.list_incidents(args.run_dir)
+        if not entries:
+            raise SystemExit("incident show: no bundles under "
+                             f"{_incidents.incidents_dir(args.run_dir)}")
+        incident_id = entries[-1]["id"]
+    bundle = _incidents.load_bundle(args.run_dir, incident_id)
+    if not os.path.isdir(bundle["dir"]):
+        raise SystemExit(f"incident show: no bundle {incident_id!r} under "
+                         f"{_incidents.incidents_dir(args.run_dir)}")
+    if args.as_json:
+        print(json.dumps(bundle, indent=1, default=str))
+    else:
+        print(_incidents.format_incident(bundle), end="")
+    return 0
+
+
+def _dash(args) -> int:
+    """``dash``: one frame (``--once``) or a redraw every ``--interval``
+    seconds until Ctrl-C, from the store alone."""
+    from featurenet_tpu_torch.obs.dash import render_frame
+
+    def frame() -> str:
+        return render_frame(args.run_dir, window_s=args.window_s,
+                            slos=args.slos)
+
+    try:
+        if args.once:
+            print(frame(), end="")
+            return 0
+        while True:
+            print("\x1b[2J\x1b[H" + frame(), end="", flush=True)
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        print()
+    except ValueError as e:
+        raise SystemExit(f"dash: {e}")
+    return 0
+
+
 def main(argv=None) -> int:
     raw = list(argv) if argv is not None else sys.argv[1:]
     if raw[:1] == ["report"]:
         return _report(_report_parser().parse_args(raw[1:]))
+    if raw[:1] == ["incident"]:
+        return _incident(_incident_parser().parse_args(raw[1:]))
+    if raw[:1] == ["dash"]:
+        return _dash(_dash_parser().parse_args(raw[1:]))
     args = _parser().parse_args(argv)
     args.raw_argv = raw
     return {"train": _train, "serve": _serve, "eval": _eval,

@@ -28,9 +28,16 @@ path imports the standard library only, never torch.
 
 The perf plane (``perf.py``: per-program cost, the ``mfu`` window, the
 device-memory watermark) and the model-quality plane (``quality.py``, with
-the flight recorder ``serve/recorder.py``) ride the same stream. Not
-ported yet: the incident, tsdb and dashboard planes and the burn-rate
-alerts (ROADMAP Queue A.2(d)).
+the flight recorder ``serve/recorder.py``) ride the same stream.
+
+The incident plane (``incidents.py``) watches the stream through the event
+tap: an alert firing freezes a bundle under ``<run_dir>/incidents/`` (the
+windows, the events tail, the host's folded thread stacks from
+``stacksampler.py``, the store's slice) and keeps every request's trace
+until it resolves. The time-series store (``tsdb.py``, ``<run_dir>/tsdb``)
+outlives every process; the alert mirror and the burn-rate objectives
+(``alerts.py``), ``cli dash`` (``dash.py``) and the report's fleet timeline
+read it. ``cli incident`` reads the bundles.
 """
 
 from featurenet_tpu_torch.obs.events import (

@@ -23,6 +23,11 @@ A write that fails at the OS level (ENOSPC, a quota) turns the sink dark
 with one stderr line; the run goes on without telemetry. The
 ``sink_enospc`` fault site (``faults.py``, counter ``emit``: the sink's
 Nth emit) injects that failure.
+
+The event tap (``set_tap``) is one process-wide subscriber that sees every
+event any sink of the process emits, even a dark one's: the incident
+manager (``obs/incidents.py``) watches alert transitions, gate regressions
+and replica losses through it.
 """
 
 from __future__ import annotations
@@ -119,6 +124,15 @@ class EventSink:
                   "pid": self._pid}
         record.update(fields)
         data = (json.dumps(record, default=str) + "\n").encode("utf-8")
+        # The tap is consulted before the write lock (it may emit events
+        # of its own) and sees the event even when the sink is dark. What
+        # it raises never reaches the emit site.
+        tap = _tap
+        if tap is not None:
+            try:
+                tap(ev, record)
+            except Exception:
+                pass
         with self._lock:
             if self._fd is None:
                 return
@@ -157,6 +171,17 @@ class EventSink:
 
 _sink: Optional[EventSink] = None
 _install_lock = threading.Lock()
+
+# The process-wide event tap: one slot, one subscriber.
+_tap = None
+
+
+def set_tap(fn) -> None:
+    """Install (or, with None, remove) the event tap, called as ``fn(ev,
+    record)`` from the emitting thread after the record is built and
+    before it is written. It must be cheap."""
+    global _tap
+    _tap = fn
 
 
 def init_run(run_dir: str, config: Optional[dict] = None,

@@ -32,12 +32,10 @@ run is gone.
 
 The perf section folds ``program_cost``, ``program_compile`` and
 ``device_memory`` events and the ``mfu`` window against ``obs.perf``'s
-peak table (standard library only). Left out until their planes are
-ported (ROADMAP Queue A.2(d)): the incidents fold (``incident_*`` events
-and the bundle inventory of ``obs.incidents``) and the fleet timeline
-read from ``obs.tsdb``'s store. ``validate_events`` still knows
-their event kinds, so a stream that carries them validates as the
-reference's does.
+peak table (standard library only). The incidents section folds the
+``incident_*`` events, and ``build_report_dir`` adds the bundles on disk
+(``obs/incidents.py``) and the fleet timeline read from the run's
+time-series store alone (``fleet_timeline_section``, ``obs/tsdb.py``).
 """
 
 from __future__ import annotations
@@ -978,8 +976,28 @@ def build_report(events: list[dict], manifest: Optional[dict] = None,
     if traces:
         rep["traces"] = traces
 
-    # The reference's incident fold (obs.incidents) goes here; it waits
-    # for ROADMAP Queue A.2(d).
+    # --- incident plane (obs.incidents) --------------------------------------
+    # From the streams (open and close across every host);
+    # build_report_dir adds the bundles on disk, which outlive a tail.
+    inc_open = [e for e in events if e["ev"] == "incident_open"]
+    inc_close = [e for e in events if e["ev"] == "incident_close"]
+    if inc_open or inc_close:
+        closed_ids = {e.get("id") for e in inc_close}
+        by_rule: dict[str, int] = {}
+        for e in inc_open:
+            r = str(e.get("rule", "?"))
+            by_rule[r] = by_rule.get(r, 0) + 1
+        rep["incidents"] = {
+            "opened": len(inc_open),
+            "closed": len(inc_close),
+            "by_rule": by_rule,
+            "still_open": sorted(
+                str(e.get("id")) for e in inc_open
+                if e.get("id") not in closed_ids
+            ),
+            "durations_s": [e.get("duration_s") for e in inc_close
+                            if e.get("duration_s") is not None],
+        }
 
     # --- warnings / metrics -------------------------------------------------
     # Warnings aggregate across every host (a warning on host 3 must not
@@ -1002,13 +1020,79 @@ def build_report(events: list[dict], manifest: Optional[dict] = None,
     return rep
 
 
+def fleet_timeline_section(run_dir: str, window_s: float = 3600.0,
+                           now: Optional[float] = None) -> Optional[dict]:
+    """The fleet timeline from the time-series store alone: per target
+    (each replica and the router) the scraped ``serving_ms{q=0.99}`` over
+    the look-back window (samples, last, median, max, a sparkline). None
+    without a store or a target."""
+    # tsdb and dash import this module's _pct: import them at call time.
+    from featurenet_tpu_torch.obs import tsdb as _tsdb
+    from featurenet_tpu_torch.obs.dash import SPARK_SLOTS, _bucket, _spark
+
+    if not os.path.isdir(_tsdb.store_dir(run_dir)):
+        return None
+    store = _tsdb.TimeSeriesStore.open(run_dir)
+    targets: dict[str, dict] = {}
+    series = store.series()
+    if not series:
+        return None
+    if now is None:
+        # A finished run's "now" is its store's last sample, so a report
+        # read days later shows the hour the fleet served.
+        now = max(
+            (s[0] for m, lb in series
+             for s in [store.latest(m, lb)] if s is not None),
+            default=time.time(),
+        )
+    names = sorted({lb.get("replica") for _m, lb in series
+                    if lb.get("replica") is not None})
+    for target in names:
+        samples = store.query("serving_ms",
+                              {"q": "0.99", "replica": target},
+                              since_s=window_s, now=now)
+        if not samples:
+            continue
+        vals = sorted(v for _t, v in samples)
+        targets[target] = {
+            "samples": len(samples),
+            "p99_ms_last": round(samples[-1][1], 3),
+            "p99_ms_median": round(_pct(vals, 50), 3),
+            "p99_ms_max": round(vals[-1], 3),
+            "spark": _spark(_bucket(samples, now, window_s, SPARK_SLOTS)),
+        }
+    if not targets:
+        return None
+    fails = 0
+    for metric, labels in series:
+        if metric == "scrape_failures_total":
+            last = store.latest(metric, labels)
+            if last is not None:
+                fails += int(last[1])
+    return {
+        "window_s": float(window_s),
+        "t_end": round(now, 3),
+        "targets": targets,
+        "scrape_failures": fails,
+    }
+
+
 def build_report_dir(run_dir: str) -> dict:
-    """``build_report`` of a run directory's streams and manifest. The
-    reference also folds in the fleet timeline (``obs.tsdb``) and the
-    incident bundles on disk (``obs.incidents``); both wait for ROADMAP
-    Queue A.2(d)."""
+    """``build_report`` of a run directory's streams and manifest, with the
+    fleet timeline of its store and the inventory of its incident
+    bundles."""
     events, bad = load_events(run_dir)
-    return build_report(events, load_manifest(run_dir), bad_lines=bad)
+    rep = build_report(events, load_manifest(run_dir), bad_lines=bad)
+    timeline = fleet_timeline_section(run_dir)
+    if timeline is not None:
+        rep["fleet_timeline"] = timeline
+    # The bundles outlive the stream's tail and a dark sink.
+    from featurenet_tpu_torch.obs import incidents as _incidents
+
+    bundles = _incidents.list_incidents(run_dir)
+    if bundles:
+        rep.setdefault("incidents", {})["bundles"] = bundles
+    return rep
 
 
 def _fmt_s(v: float) -> str:
@@ -1332,6 +1416,21 @@ def format_report(rep: dict) -> str:
             detail = {k: v for k, v in e.items()
                       if k not in ("t", "event")}
             lines.append(f"  t={e['t']:.3f} {e['event']} {detail or ''}")
+    ft = rep.get("fleet_timeline")
+    if ft:
+        lines.append(
+            f"fleet timeline (tsdb, last {ft['window_s']:g}s): "
+            f"{len(ft['targets'])} target(s), "
+            f"{ft['scrape_failures']} scrape failure(s)"
+        )
+        for target, row in sorted(ft["targets"].items()):
+            lines.append(
+                f"  {target:<8} p99 {row['spark']} "
+                f"last {row['p99_ms_last']} ms · "
+                f"median {row['p99_ms_median']} ms · "
+                f"max {row['p99_ms_max']} ms "
+                f"({row['samples']} sample(s))"
+            )
     cn = rep.get("connections")
     if cn:
         ratio = cn.get("reuse_ratio")
@@ -1381,6 +1480,24 @@ def format_report(rep: dict) -> str:
                     f"{str(row.get('bucket') or '—'):>6}  "
                     f"{row.get('outcome')}"
                 )
+    inc = rep.get("incidents")
+    if inc:
+        head = (f"incidents: {inc.get('opened', 0)} opened, "
+                f"{inc.get('closed', 0)} closed")
+        if inc.get("by_rule"):
+            head += " (" + ", ".join(
+                f"{k}×{v}" for k, v in sorted(inc["by_rule"].items())
+            ) + ")"
+        if inc.get("still_open"):
+            head += "; STILL OPEN: " + ", ".join(inc["still_open"])
+        lines.append(head)
+        for b in inc.get("bundles", ()):
+            lines.append(
+                f"  {b['id']}  rule={b.get('rule', '?')} "
+                f"state={b.get('state', '?')}"
+                + (f" duration={b['duration_s']}s"
+                   if b.get("duration_s") is not None else "")
+            )
     w = rep.get("warnings")
     if w:
         lines.append(

@@ -17,9 +17,10 @@
   trace id (``sampled``), so any two processes agree on it.
 
 With no event sink installed nothing is buffered; a minted id costs one
-``os.urandom`` read. The reference's incident mode, which keeps every
-request while an incident is open, waits for its incident plane (ROADMAP
-Queue A.2(d)).
+``os.urandom`` read. While an incident is open (``obs/incidents.py``) the
+incident manager sets ``set_force_all``: every request's timeline is kept,
+so the bundle's events tail holds the bad window's complete traces. The
+flag resets with the run's counters.
 """
 
 from __future__ import annotations
@@ -83,6 +84,19 @@ _counters = {"admitted": 0, "done": 0, "sampled": 0, "forced": 0,
              "rejected": 0}
 _counters_lock = threading.Lock()
 
+# Incident mode: every request is kept while it is set. Reset with the
+# run, so a leaked flag never un-samples the next one.
+_force_all = False
+
+
+def set_force_all(on: bool) -> None:
+    global _force_all
+    _force_all = bool(on)
+
+
+def force_all() -> bool:
+    return _force_all
+
 
 def counters() -> dict:
     with _counters_lock:
@@ -90,6 +104,8 @@ def counters() -> dict:
 
 
 def reset_counters() -> None:
+    global _force_all
+    _force_all = False
     with _counters_lock:
         for k in _counters:
             _counters[k] = 0
@@ -154,12 +170,14 @@ def reject(ctx: Optional[TraceContext], queue_depth: int,
 def done(ctx: Optional[TraceContext], queue_wait_ms: float,
          dispatch_ms: float, total_ms: float, outcome: str = "ok",
          slo_ms: Optional[float] = None) -> None:
-    """Completion: keep the timeline when it is forced (an error, or over
-    ``slo_ms``) or sampled at the context's rate, else drop it."""
+    """Completion: keep the timeline when it is forced (incident mode, an
+    error, or over ``slo_ms``) or sampled at the context's rate, else drop
+    it."""
     if ctx is None or ctx._finished:
         return
     ctx._finished = True
-    forced = outcome != "ok" or (slo_ms is not None and total_ms > slo_ms)
+    forced = _force_all or outcome != "ok" or (
+        slo_ms is not None and total_ms > slo_ms)
     keep = forced or sampled(ctx.trace_id, ctx.sample_rate)
     with _counters_lock:
         _counters["done"] += 1

@@ -15,12 +15,10 @@ does not depend on the weights' values) at an offered rate, as flat
 rate a benchmark offers. ``measure_trace_overhead`` is the tracing tax:
 the closed-loop rate with the sampler off against every request traced;
 ``measure_quality_overhead`` the model-quality tax: the quality tracker
-and the flight recorder detached against attached. ``stream_load`` is the
-client of ``POST /predict_voxels_stream``: every grid as one frame, over
-one keep-alive socket.
-
-The reference's incident overhead waits for the incident plane (ROADMAP
-Queue A.2(d)).
+and the flight recorder detached against attached;
+``measure_incident_overhead`` the price of an armed incident manager.
+``stream_load`` is the client of ``POST /predict_voxels_stream``: every
+grid as one frame, over one keep-alive socket.
 """
 
 from __future__ import annotations
@@ -235,6 +233,16 @@ def bench_serving(cfg, qps: float, n_requests: int = 512,
     }
 
 
+def _closed_loop_qps(service, grid, n_requests: int) -> float:
+    """The request rate of ``n_requests`` submitted at once and all
+    answered: the overhead probes' closed loop."""
+    t0 = time.perf_counter()
+    futs = [service.submit_voxels(grid) for _ in range(n_requests)]
+    for f in futs:
+        f.result(timeout=RESULT_TIMEOUT_S)
+    return n_requests / (time.perf_counter() - t0)
+
+
 def measure_trace_overhead(cfg, n_requests: int = 192,
                            device="cuda") -> dict:
     """The tracing tax: the closed-loop request rate through one warmed
@@ -253,14 +261,6 @@ def measure_trace_overhead(cfg, n_requests: int = 192,
     obs.init_run(tmp, extra={"cmd": "trace_overhead"}, process_index=0)
     grid = np.zeros((cfg.resolution,) * 3 + (1,), np.float32)
     service = None
-
-    def closed_loop_qps() -> float:
-        t0 = time.perf_counter()
-        futs = [service.submit_voxels(grid) for _ in range(n_requests)]
-        for f in futs:
-            f.result(timeout=RESULT_TIMEOUT_S)
-        return n_requests / (time.perf_counter() - t0)
-
     try:
         # No rules and an infinite SLO: a finite one would force-sample
         # the closed-loop burst's tail in both phases alike.
@@ -269,10 +269,10 @@ def measure_trace_overhead(cfg, n_requests: int = 192,
                                  device=device, rules=(),
                                  slo_p99_ms=float("inf"))
         service.batcher.trace_sample = 0.0
-        closed_loop_qps()  # warm pass
-        dark = closed_loop_qps()
+        _closed_loop_qps(service, grid, n_requests)  # warm pass
+        dark = _closed_loop_qps(service, grid, n_requests)
         service.batcher.trace_sample = 1.0
-        traced = closed_loop_qps()
+        traced = _closed_loop_qps(service, grid, n_requests)
     finally:
         if service is not None:
             service.drain()
@@ -284,6 +284,55 @@ def measure_trace_overhead(cfg, n_requests: int = 192,
         "trace_dark_qps": round(dark, 1),
         "trace_sampled_qps": round(traced, 1),
         "trace_overhead_requests": n_requests,
+    }
+
+
+def measure_incident_overhead(cfg, n_requests: int = 192,
+                              device="cuda") -> dict:
+    """The incident plane's steady-state tax: the closed-loop request rate
+    through one warmed service with no incident manager armed against one
+    armed on the run directory (the event tap installed), on the same
+    programs. Both phases trace every request (``trace_sample=1``), so the
+    tap sits on the per-request emit path; no rules, so no alert fires and
+    no incident opens: this is the price of being armed, not of a
+    capture. It installs and closes its own run in a throwaway directory,
+    so it refuses while one is active."""
+    import shutil
+    import tempfile
+
+    from featurenet_tpu_torch.obs import incidents as _incidents
+
+    if obs.active():
+        raise RuntimeError("measure_incident_overhead installs and closes "
+                           "its own obs run; close_run() the active run "
+                           "first")
+    tmp = tempfile.mkdtemp(prefix="incident_overhead_")
+    obs.init_run(tmp, extra={"cmd": "incident_overhead"}, process_index=0)
+    grid = np.zeros((cfg.resolution,) * 3 + (1,), np.float32)
+    service = manager = None
+    try:
+        service = _build_service(cfg, (1, 4, 16), max_wait_ms=2.0,
+                                 queue_limit=max(256, n_requests),
+                                 device=device, rules=(),
+                                 slo_p99_ms=float("inf"))
+        service.batcher.trace_sample = 1.0  # the tap on the emit path
+        _closed_loop_qps(service, grid, n_requests)  # warm pass
+        dark = _closed_loop_qps(service, grid, n_requests)  # no manager armed
+        manager = _incidents.arm(tmp)
+        armed = _closed_loop_qps(service, grid, n_requests)
+    finally:
+        if manager is not None:
+            _incidents.disarm(manager)
+        if service is not None:
+            service.drain()
+        obs.close_run()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "incident_overhead_pct": round(max(0.0, (dark - armed) / dark * 100.0),
+                                       2) if dark > 0 else None,
+        "incident_dark_qps": round(dark, 1),
+        "incident_armed_qps": round(armed, 1),
+        "incident_overhead_requests": n_requests,
     }
 
 
@@ -317,14 +366,6 @@ def measure_quality_overhead(cfg, n_requests: int = 192,
     recorder = FlightRecorder(capture_dir(tmp), confidence_floor=0.0)
     grid = np.zeros((cfg.resolution,) * 3 + (1,), np.float32)
     service = None
-
-    def closed_loop_qps() -> float:
-        t0 = time.perf_counter()
-        futs = [service.submit_voxels(grid) for _ in range(n_requests)]
-        for f in futs:
-            f.result(timeout=RESULT_TIMEOUT_S)
-        return n_requests / (time.perf_counter() - t0)
-
     try:
         # No rules and an infinite SLO, as the trace probe: the per-request
         # quality math and capture policy, not the alert engine.
@@ -336,10 +377,10 @@ def measure_quality_overhead(cfg, n_requests: int = 192,
         hooks = (service.batcher.on_result, service.batcher.on_reject)
         service.batcher.trace_sample = 0.0  # apart from the tracing tax
         service.batcher.on_result = service.batcher.on_reject = None
-        closed_loop_qps()  # warm pass
-        off = closed_loop_qps()
+        _closed_loop_qps(service, grid, n_requests)  # warm pass
+        off = _closed_loop_qps(service, grid, n_requests)
         service.batcher.on_result, service.batcher.on_reject = hooks
-        on = closed_loop_qps()
+        on = _closed_loop_qps(service, grid, n_requests)
         captured = recorder.stats()["captured"]
     finally:
         if service is not None:

@@ -12,9 +12,9 @@ of the ``window_summary`` events.
 ``METRIC_NAMES`` is the closed registry of every family the exporter can
 emit; the window gauges derive from ``alerts.WINDOW_METRICS``.
 ``build_info`` carries the torch version where the reference carries
-JAX's. ``incidents_open`` reads 0 until the incident plane is ported, and
-the fleet router's exporter waits for the fleet (ROADMAP Queue A.2(d),
-A.4).
+JAX's. ``incidents_open`` is the incident manager's count of open
+incidents (``obs/incidents.py``; 0 when none is armed). The fleet
+router's exporter waits for the fleet (ROADMAP Queue A.4).
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ _EVENT_COUNTERS = {
 
 _QUANTILES = (("0.5", "p50"), ("0.95", "p95"), ("0.99", "p99"))
 
-# Every family this exporter can emit (base names, no labels).
+# Every family this exporter can emit (base names, no labels), and the
+# series the alert mirror appends to the store (``alerts_active``).
 METRIC_NAMES = frozenset(
     {
         "ready",
@@ -52,6 +53,7 @@ METRIC_NAMES = frozenset(
         "trace_sampled_total",
         "trace_forced_total",
         "build_info",
+        "alerts_active",
         "incidents_open",
     }
     | set(_EVENT_COUNTERS.values())
@@ -74,6 +76,7 @@ _HELP = {
     "program_compiles_total": "serving programs built ahead",
     "overloads_total": "admission-bound rejections",
     "serve_batches_total": "dispatched serving batches",
+    "alerts_active": "1 while the labeled alert rule is firing",
     "incidents_open": "incidents currently open in this process",
 }
 
@@ -173,11 +176,18 @@ def render_metrics(service) -> str:
     row("trace_sampled_total", tc["sampled"], kind="counter")
     row("trace_forced_total", tc["forced"], kind="counter")
 
-    # No incident plane yet: nothing is ever open.
-    row("incidents_open", 0, kind="gauge")
+    row("incidents_open", _incidents_open(), kind="gauge")
 
     _window_lines(lines)
     return "\n".join(lines) + "\n"
+
+
+def _incidents_open() -> int:
+    """The open incidents (0 with no manager armed). Imported here: the
+    incident plane pulls in the store and the windows."""
+    from featurenet_tpu_torch.obs import incidents as _incidents
+
+    return _incidents.open_count()
 
 
 def _window_lines(lines: list[str]) -> None:

@@ -1,6 +1,6 @@
 """The inference service: a ``Predictor`` behind the continuous batcher,
-with an SLO-gated drain (port of ``featurenet_tpu/serve/service.py``
-without its incident manager, which waits for ROADMAP Queue A.2(d)).
+with an SLO-gated drain and an incident manager (port of
+``featurenet_tpu/serve/service.py``).
 
 - **Warmup**: construction builds the Predictor's serving program for
   every bucket (``Predictor.program_for``, the largest first), so the
@@ -28,6 +28,12 @@ without its incident manager, which waits for ROADMAP Queue A.2(d)).
   ``Config.trace_sample``; ``serve_start``, ``serve_batch``, ``overload``,
   ``serve_stop`` and ``swap`` events go to the run's sink when one is
   installed (``obs.init_run``).
+- **Incidents**: with a ``run_dir`` the service arms the process-wide
+  incident manager (``obs/incidents.py``): a serving alert firing over the
+  windows opens an incident, freezes a bundle under
+  ``<run_dir>/incidents/`` and keeps every request's trace until the alert
+  resolves. ``drain()`` adds the manager's counters (``incidents``) and
+  disarms it.
 - **Perf**: each bucket's program cost (``ServeProgram.cost``, captured at
   warmup) and the card's peak row go to the batcher, which folds each
   dispatch's wall into the ``mfu`` window (``obs/perf.py``).
@@ -98,7 +104,8 @@ class InferenceService:
     windows, a rule list installs those, ``rules=()`` leaves the installed
     aggregator alone. ``batch_queue_limit`` caps the ``batch`` lane
     (default: half the admission bound), so bulk traffic sheds before
-    interactive traffic.
+    interactive traffic. ``run_dir`` arms the incident manager over that
+    run directory (the caller installs its event sink, ``obs.init_run``).
     """
 
     def __init__(self, predictor, buckets: Sequence[int] = DEFAULT_BUCKETS,
@@ -107,7 +114,8 @@ class InferenceService:
                  rules: Optional[Sequence] = None,
                  slo_p99_ms: float = DEFAULT_SLO_P99_MS,
                  batch_queue_limit: Optional[int] = None,
-                 quality=None, recorder=None):
+                 quality=None, recorder=None,
+                 run_dir: Optional[str] = None):
         self.predictor = predictor
         self.cfg = predictor.cfg
         if (quality is not None or recorder is not None) \
@@ -151,6 +159,11 @@ class InferenceService:
                        or recorder is not None else None),
             on_reject=self._on_reject if recorder is not None else None,
         )
+        self._incidents = None
+        if run_dir is not None:
+            from featurenet_tpu_torch.obs import incidents as _incidents
+
+            self._incidents = _incidents.arm(run_dir)
         obs.emit("serve_start", buckets=list(self.buckets),
                  max_wait_ms=float(max_wait_ms), queue_limit=int(queue_limit))
         self._ready = True
@@ -324,6 +337,13 @@ class InferenceService:
         self._ready = False
         st = self.batcher.drain(timeout_s)
         _windows.flush()
+        # The last cycle may have resolved an alert and closed its
+        # incident: disarm after it, so durations cover the real window.
+        if self._incidents is not None:
+            from featurenet_tpu_torch.obs import incidents as _incidents
+
+            st["incidents"] = self._incidents.stats()
+            _incidents.disarm(self._incidents)
         active = [m for m in _windows.active_alerts()
                   if _alerts.is_serving_metric(m)]
         st["active_serving_alerts"] = active

@@ -36,7 +36,10 @@ Trainer's run directory on the card (its report, no validation finding,
 the readback span only where the pacer waits) and its torch.profiler
 window holding the kernels' device events for each traced step; the perf
 plane on the card (the peak row keyed by the card's name, a graph's
-``program_cost``, a Trainer's MFU window and memory watermark; ``-k perf``).
+``program_cost``, a Trainer's MFU window and memory watermark; ``-k perf``);
+a served sprint64 burst opening and a recovery closing one incident with
+a complete bundle, and an armed service's answers bitwise a dark one's
+(``-k incident``).
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -1286,3 +1289,133 @@ def test_perf_trainer_run_folds_mfu_and_device_memory(cuda, tmp_path):
     vals = gates.report_gate_values(rep)
     assert vals["mfu"] == pf["mfu"]["p50"]
     assert vals["hbm_peak_train_bytes"] == row["peak_bytes"]
+
+
+def _incident_service(cuda, pred, run_dir=None, rules=()):
+    """sprint64's buckets, healthy traffic never sampled
+    (``trace_sample`` 0): a kept trace is forced."""
+    from featurenet_tpu_torch.serve.service import InferenceService
+
+    service = InferenceService(pred, buckets=(1, 4, 16, 64), max_wait_ms=2,
+                               queue_limit=256, rules=rules, run_dir=run_dir,
+                               slo_p99_ms=float("inf"))
+    service.batcher.trace_sample = 0.0
+    return service
+
+
+def _burst(service, grids) -> list:
+    """Every grid submitted at once (the batcher fills bucket 64); each
+    request's latency in ms."""
+    futs = [service.submit_voxels(g) for g in grids]
+    for f in futs:
+        f.result(timeout=120)
+    return [f.latency_ms for f in futs]
+
+
+def _one_by_one(service, grids) -> list:
+    """One request at a time (bucket 1); the answers' rows and latencies."""
+    rows, ms = [], []
+    for g in grids:
+        f = service.submit_voxels(g)
+        rows.append(f.result(timeout=120))
+        ms.append(f.latency_ms)
+    return rows, ms
+
+
+def test_incident_opens_on_a_burst_and_closes_on_recovery_on_card(cuda,
+                                                                 tmp_path):
+    """sprint64 on its graphs: the SLO sits between the sequential bucket-1
+    latency and a 128-request burst's, both measured here. With a run
+    directory the service arms the manager; the burst's window cycle fires
+    serving_p99_ms and opens one incident (incidents_open 1, every request
+    kept), the bundle holds every piece, a sequential recovery resolves it
+    (incidents_open 0)."""
+    import os
+
+    from featurenet_tpu_torch import obs
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.synthetic import generate_batch
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.obs import alerts, incidents, tracing, windows
+    from featurenet_tpu_torch.serve.metrics import render_metrics
+
+    grids = generate_batch(np.random.default_rng(6), 128, 64)["voxels"]
+    pred = Predictor.from_seed(get_config("sprint64"), 0, batch=64, device=cuda)
+    calib = _incident_service(cuda, pred)
+    _burst(calib, grids)  # warm
+    seq_ms = max(_one_by_one(calib, grids[:32])[1])
+    burst_ms = float(np.median(_burst(calib, grids)))
+    calib.drain()
+    assert seq_ms < burst_ms, (seq_ms, burst_ms)
+    slo = (seq_ms * burst_ms) ** 0.5
+    run_dir = str(tmp_path / "run")
+    obs.init_run(run_dir, process_index=0)
+    rule = alerts.AlertRule("serving_p99_ms", ">", slo, "critical")
+    service = _incident_service(cuda, pred, run_dir, rules=[rule])
+
+    def gauge():
+        (line,) = [ln for ln in render_metrics(service).splitlines()
+                   if ln.startswith("featurenet_incidents_open ")]
+        return line
+
+    try:
+        assert gauge() == "featurenet_incidents_open 0"
+        _burst(service, grids)
+        windows.flush()  # the emission cycle the 5 s cadence would run
+        mgr = incidents.manager()
+        assert mgr.open_count() == 1 and tracing.force_all()
+        assert gauge() == "featurenet_incidents_open 1"
+        (inc_id,) = mgr.open_ids()
+        for th in list(mgr._threads):
+            th.join(timeout=30)
+        _one_by_one(service, grids)  # 128 fast samples fill the window
+        windows.flush()
+        assert gauge() == "featurenet_incidents_open 0"
+        assert not tracing.force_all()
+    finally:
+        st = service.drain()
+        obs.close_run()
+        windows.uninstall()
+    assert st["incidents"]["opened_total"] == 1
+    b = incidents.load_bundle(run_dir, inc_id)
+    assert b["missing"] == []
+    assert set(incidents.BUNDLE_FILES) <= set(b["manifest"]["files"])
+    assert b["manifest"]["state"] == "closed"
+    assert "serve-batcher" in b["stacks"] or any(
+        s.startswith("serve-batcher;") for s in b["stacks"])
+    assert os.path.isdir(os.path.join(run_dir, "incidents", inc_id))
+
+
+def test_incident_armed_service_answers_bitwise_the_dark_one_on_card(
+        cuda, tmp_path):
+    """The same grids one at a time through a service with no run
+    directory and one armed with an incident open (every request traced):
+    the probability rows are bitwise equal."""
+    from featurenet_tpu_torch import obs
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.synthetic import generate_batch
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.obs import alerts, incidents, tracing, windows
+
+    grids = generate_batch(np.random.default_rng(7), 24, 64)["voxels"]
+    pred = Predictor.from_seed(get_config("sprint64"), 0, batch=64, device=cuda)
+    dark = _incident_service(cuda, pred)
+    want = _one_by_one(dark, grids)[0]
+    dark.drain()
+    run_dir = str(tmp_path / "run")
+    obs.init_run(run_dir, process_index=0)
+    armed = _incident_service(cuda, pred, run_dir)
+    try:
+        alerts.fire(alerts.AlertRule("serving_p99_ms", ">", 1.0, "critical"),
+                    2.0, 1)
+        assert incidents.open_count() == 1 and tracing.force_all()
+        got = _one_by_one(armed, grids)[0]
+    finally:
+        armed.drain()
+        obs.close_run()
+        windows.uninstall()
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    with open(f"{run_dir}/events.jsonl") as fh:
+        done = [ln for ln in fh if '"request_done"' in ln]
+    assert len(done) == len(grids)  # force-all kept every request
+    assert all('"forced": true' in ln for ln in done)

@@ -209,7 +209,8 @@ def test_config_keeps_the_supervision_fields_and_resume_strips_them(tmp_path):
 def test_supervision_modules_import_only_the_stdlib():
     """``faults.py`` and ``train/heartbeat.py`` import the standard library
     alone, ``train/supervisor.py`` those two and the obs modules of its
-    ``run_dir`` half besides, and those obs modules the standard library,
+    ``run_dir`` half besides, and those obs modules (with the store, the
+    dash and the incident plane the report reads) the standard library,
     ``faults`` and each other (``obs/events.py`` imports torch only inside
     the manifest's topology probe, which the supervisor's sink never
     calls): the supervisor process never needs torch for its own work."""
@@ -225,7 +226,13 @@ def test_supervision_modules_import_only_the_stdlib():
                 "featurenet_tpu_torch.obs.windows",
                 "featurenet_tpu_torch.obs.tracing",
                 "featurenet_tpu_torch.obs.spans"}
-    obs_ok = obs_mods | {"featurenet_tpu_torch.faults"}
+    # What the report reads at call time: the store, the dash, the
+    # incident plane.
+    store_mods = {"featurenet_tpu_torch.obs.tsdb",
+                  "featurenet_tpu_torch.obs.dash",
+                  "featurenet_tpu_torch.obs.incidents",
+                  "featurenet_tpu_torch.obs.stacksampler"}
+    obs_ok = obs_mods | store_mods | {"featurenet_tpu_torch.faults"}
     allowed = {"faults.py": set(), "train/heartbeat.py": set(),
                "train/supervisor.py": {"featurenet_tpu_torch.faults",
                                        "featurenet_tpu_torch.train.heartbeat"}
@@ -233,7 +240,9 @@ def test_supervision_modules_import_only_the_stdlib():
                "obs/__init__.py": obs_ok, "obs/events.py": obs_ok | {"torch"},
                "obs/gates.py": obs_ok, "obs/report.py": obs_ok,
                "obs/alerts.py": obs_ok, "obs/windows.py": obs_ok,
-               "obs/tracing.py": obs_ok, "obs/spans.py": obs_ok}
+               "obs/tracing.py": obs_ok, "obs/spans.py": obs_ok,
+               "obs/tsdb.py": obs_ok, "obs/dash.py": obs_ok,
+               "obs/incidents.py": obs_ok, "obs/stacksampler.py": obs_ok}
     for name, extra in allowed.items():
         tree = ast.parse((port / name).read_text())
         mods = set()

@@ -138,13 +138,19 @@ def test_ab_tool_forward_mode_exits_nonzero_without_a_card():
 
 
 # The serving wire's modules (obs core, exporter, load generator), the
-# run directory's (spans, the report, the gates, the supervisor), and the
-# perf and model-quality planes'.
+# run directory's (spans, the report, the gates, the supervisor), the
+# perf and model-quality planes', and the incident plane's and the
+# store's.
 WIRE_MODULES = ("obs/__init__.py", "obs/events.py", "obs/alerts.py",
                 "obs/windows.py", "obs/tracing.py", "serve/metrics.py",
                 "serve/loadgen.py", "obs/spans.py", "obs/report.py",
                 "obs/gates.py", "train/supervisor.py", "obs/perf.py",
-                "ops/flops.py", "obs/quality.py", "serve/recorder.py")
+                "ops/flops.py", "obs/quality.py", "serve/recorder.py",
+                "obs/tsdb.py", "obs/stacksampler.py", "obs/incidents.py",
+                "obs/dash.py")
+# The incident plane's and the store's modules, which import no torch.
+INCIDENT_MODULES = ("obs/tsdb.py", "obs/stacksampler.py",
+                    "obs/incidents.py", "obs/dash.py")
 
 
 @pytest.mark.parametrize("module", WIRE_MODULES)
@@ -171,6 +177,9 @@ def test_wire_entry_points_refuse_cpu_without_being_asked(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         loadgen.measure_trace_overhead(cfg, n_requests=1)
     assert not obs.active()  # the refused probe closed its run
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loadgen.measure_incident_overhead(cfg, n_requests=1)
+    assert not obs.active()
     capsys.readouterr()
     # Listing builds nothing and needs no card.
     assert cli.main(["programs", "--config", "smoke16"]) == 0
@@ -229,3 +238,35 @@ def test_quality_entry_points_refuse_cpu_without_being_asked(monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         loadgen.measure_quality_overhead(cfg, n_requests=1)
     assert not obs.active()
+
+
+@pytest.mark.parametrize("module", INCIDENT_MODULES)
+def test_incident_modules_import_no_torch(module):
+    assert "torch" not in set(_imported_roots(PORT / module))
+
+
+def test_incident_and_dash_answer_without_torch(tmp_path):
+    """``cli incident list`` and ``cli dash --once`` load and answer in a
+    process where torch cannot be imported."""
+    from featurenet_tpu_torch.obs import tsdb
+
+    run_dir = str(tmp_path / "run")
+    store = tsdb.TimeSeriesStore.open(run_dir)
+    store.append("alerts_active", 1.0, {"rule": "serving_p99_ms"})
+    store.close()
+    code = (
+        "import sys\n"
+        "sys.modules['torch'] = None\n"
+        "import featurenet_tpu_torch.obs.tsdb, featurenet_tpu_torch.obs.dash\n"
+        "import featurenet_tpu_torch.obs.incidents\n"
+        "import featurenet_tpu_torch.obs.stacksampler\n"
+        "from featurenet_tpu_torch import cli\n"
+        f"assert cli.main(['incident', 'list', {run_dir!r}]) == 0\n"
+        f"assert cli.main(['dash', '--once', {run_dir!r}]) == 0\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "no incident bundles under" in out.stdout
+    assert "fleet dash · " in out.stdout
+    assert "incidents: none recorded" in out.stdout

@@ -9,9 +9,10 @@ smoke16 width on one torch thread.
   ``chrome_trace``, ``request_timeline`` and the gates give what the JAX
   package's give. The stated differences: the manifest's topology sits
   under ``"torch"`` in the port's ``run.json`` (``"jax"`` in the
-  reference's), and the incident and fleet-timeline sections are absent
-  until ROADMAP Queue A.2(d). The perf section and its gate keys are
-  compared in ``test_torch_perf.py`` too.
+  reference's). The incident and fleet-timeline sections are compared
+  here too, and in ``test_torch_incidents.py`` and ``test_torch_tsdb.py``
+  against bundles and stores; the perf section and its gate keys in
+  ``test_torch_perf.py``.
 - A CPU ``Trainer`` with a ``run_dir`` writes the reference Trainer's
   event kinds and loop spans; its report has the loop fields and no
   validation finding. The trace window starts at a resumed run's first
@@ -57,8 +58,6 @@ from featurenet_tpu_torch.train.loop import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "featurenet_tpu_torch")
-# Report sections that wait for ROADMAP Queue A.2(d).
-A2C_SECTIONS = ("incidents", "fleet_timeline")
 
 
 @pytest.fixture(autouse=True)
@@ -80,10 +79,6 @@ def _clean():
 def _lines(path):
     with open(path) as fh:
         return [json.loads(ln) for ln in fh if ln.strip()]
-
-
-def _jax_view(rep: dict) -> dict:
-    return {k: v for k, v in rep.items() if k not in A2C_SECTIONS}
 
 
 # --- spans -------------------------------------------------------------------
@@ -393,16 +388,14 @@ def test_build_report_matches_jax(streams):
     rep = report.build_report(ev, report.load_manifest(port), bad_lines=bad)
     jrep = jax_report.build_report(ev, jax_report.load_manifest(ref),
                                    bad_lines=bad)
-    assert rep == _jax_view(jrep)
+    assert rep == jrep
     assert rep["run"]["device_count"] == 1  # read under "torch"
-    assert not set(A2C_SECTIONS) & set(rep)
     if case == "serving":
-        assert "incidents" in jrep and rep["perf"] == jrep["perf"]
-    assert report.build_report_dir(port) == _jax_view(
-        jax_report.build_report_dir(ref))
-    # The rendering, but for the incident lines and the word XLA.
+        assert "incidents" in rep and rep["perf"] == jrep["perf"]
+    assert report.build_report_dir(port) == jax_report.build_report_dir(ref)
+    # The rendering, but for the word XLA.
     text = report.format_report(rep)
-    jtext = jax_report.format_report(_jax_view(jrep)).replace("s XLA)", "s)")
+    jtext = jax_report.format_report(jrep).replace("s XLA)", "s)")
     assert text == jtext
 
 
