@@ -327,18 +327,39 @@ Phases, in order; any failure exits non-zero before the last line:
    - `seg_eval`: one exact pass over the held-out split (4 batches):
      mean IoU, voxel and foreground accuracy (printed, not gated).
    - `seg_serve`: the trained state saved and restored bitwise;
-     Predictor.from_checkpoint at fp32 and bf16, one CUDA graph per bucket
-     (32, 1): graphed labels bitwise the eager ones, device ms of both,
-     capture s and reserved MB per generation, bf16's per-voxel agreement
-     with fp32; POST /predict_voxels answering the bincount of
-     predict_voxels_seg.
+     Predictor.from_checkpoint at fp32, bf16 and int8, one CUDA graph per
+     bucket (32, 1): graphed labels bitwise the eager ones, device ms of
+     both, capture s and reserved MB per generation, resident weight
+     bytes against fp32's, bf16's and int8's per-voxel agreement with
+     fp32 (int8's also over 64 synthetic parts; printed, not gated); POST
+     /predict_voxels answering the bincount of predict_voxels_seg.
+   - `seg_affine`: 10 resident steps with the paired affine warp in the
+     step (robust64's settings): device ms per step beside seg_train's,
+     peak MB, finite losses; the warp alone at batch 32 against its plain
+     gather (labels bitwise, voxels within 1e-5, every label held by its
+     sample, untaken groups bitwise), device ms of both.
    - `seg_cli`: `cli export-seg-data`, `cli train --config seg64
      --data-cache D --hbm-cache --total-steps 4`, `cli eval` (its
      mean_iou the run's) and `cli infer --seg-out` on two STL parts, as
-     subprocesses.
+     subprocesses; `cli programs --config seg64 --warm` (serve_int8
+     captured).
+   - `seg_ood`: `cli eval-ood --seg-parts 16` on seg_cli's checkpoint:
+     every row, the scale-0.7 control and each rotation row's
+     delta_vs_scale_control; host s in _perturb_seg against
+     predict_voxels_seg.
+   - `seg_diagnose`: `python -m featurenet_tpu_torch.train.seg_diagnose`
+     on seg_cli's checkpoint and cache (a subprocess on the card): its
+     confusion matrix sums to the held-out split's voxels; the device it
+     printed.
+   - `seg_stl`: `cli export-stl-data --seg` of 48 parts, `cli build-cache`
+     over it at 1 and 4 workers, both bitwise `cli export-seg-data` of the
+     same seed; meshes/s and MB.
+   - `seg_oracle`: seg_oracle.measure_ceiling(64, 3) over 64 samples.
    The segmenter runs no kernel of the package (its convolutions are the
    reference's XLA convolutions, here cuDNN's): every launch count stays 0
-   through the phase, the `seg` path of each kernel.
+   in each line, the `seg` path of each kernel. A line's counts are its
+   in-process runs' and those its subprocesses print of themselves
+   (`cli train`, `cli eval`, `cli infer`, seg_diagnose, each on the card).
 16. The wall time of every phase, one JSON line of per-kernel numbers
    (launches by path, the wire, cache, robust, supervise, report,
    quality, incident, precision, ood, tta and seg runs' included), the
@@ -505,13 +526,13 @@ STALL_FAULTS = "producer_hang@batch=16"
 # generators reseeded from (seed, step, stream) before the replay), so the
 # states are expected bitwise equal; the verdict is printed.
 K_RTOL, K_ATOL = 1e-6, 1e-7
-# The affine warp (F.grid_sample) against its explicit 8-corner gather on
-# the same draws, voxels in [0, 1] at R=64: grid_sample normalises each
-# source coordinate to [-1, 1] and back, which moves a coordinate up to ~64
-# by a few fp32 ulps (~4e-6 each), and a value by that times the largest
-# difference of neighbouring voxels (1) on each of 3 axes; the 8 terms are
-# summed in another order. Held to 2e-5.
-WARP_ATOL = 2e-5
+# The affine warp (F.grid_sample in float64) against its explicit 8-corner
+# gather in fp32 on the same draws, voxels in [0, 1] at R=64: the float64
+# normalisation to [-1, 1] and back keeps each fp32 source coordinate, so
+# both weight the corners from the same coordinates and differ by the
+# fp32 rounding of the plain gather's weights and sum (a few 1e-7). Held
+# to 1e-5, the bound the CPU tests hold the warp to against the reference.
+WARP_ATOL = 1e-5
 # The kernels' device events in one replay of a k-step graph, by kernel
 # name (a substring of the symbol), per inner step: pallas runs 6 forward /
 # dx convs, 3 weight gradients and their 3 slab sums; hybrid_dw 3 folded
@@ -3366,6 +3387,20 @@ SEG_STREAM_STEPS = 10
 SEG_SYNTH_STEPS = 2
 SEG_PROFILE_STEPS = 2
 SEG_SERVE_BUCKETS = (32, 1)
+SEG_SERVE_PRECISIONS = ("fp32", "bf16", "int8")
+SEG_INT8_AGREEMENT_PARTS = 64
+# seg_affine: robust64's affine settings (prob 0.5, the default scale
+# range, rotation on) on a resident seg64 run, cut from 10,000 steps.
+SEG_AFFINE_STEPS = 10
+SEG_AFFINE_PROB = 0.5
+SEG_WARP_VOXEL_ATOL = WARP_ATOL
+# seg_ood: fresh parts a row, cut from the reference's 60.
+SEG_OOD_PARTS = 16
+# seg_stl: parts in the STL tree, and the ingest's worker counts.
+SEG_STL_PARTS = 48
+SEG_STL_WORKERS = (1, 4)
+# seg_oracle: samples, cut from the reference's 1,024.
+SEG_ORACLE_SAMPLES = 64
 SEG_HTTP_GRIDS = 3
 SEG_CLI_PARTS = 64
 SEG_CLI_STEPS = 4
@@ -3633,10 +3668,13 @@ def _seg_fg_accuracy(trainer) -> float:
 
 def seg_serve_line(torch, seed: int, trainer, tmp: str, smi_line: str) -> dict:
     """The trained state saved and restored bitwise; Predictor.from_checkpoint
-    at fp32 and bf16 with graphs at SEG_SERVE_BUCKETS: graphed labels
+    at fp32, bf16 and int8 with graphs at SEG_SERVE_BUCKETS: graphed labels
     bitwise the eager ones, device ms of both, capture s and reserved MB
-    per generation, bf16's per-voxel agreement with fp32; POST
-    /predict_voxels answering the bincount of predict_voxels_seg."""
+    per generation, resident weight bytes, bf16's and int8's per-voxel
+    agreement with fp32 on the buckets' inputs, and int8's over
+    SEG_INT8_AGREEMENT_PARTS synthetic parts (printed, not gated: the
+    reference gates no segmenter); POST /predict_voxels answering the
+    bincount of predict_voxels_seg."""
     import numpy as np
 
     from featurenet_tpu_torch.data.synthetic import CLASS_NAMES
@@ -3667,7 +3705,7 @@ def seg_serve_line(torch, seed: int, trainer, tmp: str, smi_line: str) -> dict:
           for b in SEG_SERVE_BUCKETS}
     gens, labels = {}, {}
     preds = {}
-    for precision in ("fp32", "bf16"):
+    for precision in SEG_SERVE_PRECISIONS:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_reserved()
@@ -3704,12 +3742,23 @@ def seg_serve_line(torch, seed: int, trainer, tmp: str, smi_line: str) -> dict:
                            "generation_reserved_mb":
                                (torch.cuda.memory_reserved() - base) / 1e6,
                            "resident_weight_bytes": pred.resident_weight_bytes}
-        preds[precision] = pred
-    agree = {b: float((labels[("bf16", b)] == labels[("fp32", b)]).float().mean())
-             for b in SEG_SERVE_BUCKETS}
+        if precision == "int8":
+            gens["int8"]["voxel_agreement_with_fp32"] = {
+                "parts": SEG_INT8_AGREEMENT_PARTS,
+                "agreement": pred.agreement(n=SEG_INT8_AGREEMENT_PARTS, seed=seed)}
+        if precision == "fp32":
+            preds[precision] = pred
+        del pred, progs
+    fp32_bytes = gens["fp32"]["resident_weight_bytes"]
+    for precision in SEG_SERVE_PRECISIONS:
+        gens[precision]["resident_weight_fraction_of_fp32"] = (
+            gens[precision]["resident_weight_bytes"] / fp32_bytes)
+    agree = {precision: {b: float((labels[(precision, b)]
+                                   == labels[("fp32", b)]).float().mean())
+                         for b in SEG_SERVE_BUCKETS}
+             for precision in SEG_SERVE_PRECISIONS if precision != "fp32"}
 
     pred = preds["fp32"]
-    del preds["bf16"]
     rng = np.random.default_rng(seed)
     grids = (rng.random((SEG_HTTP_GRIDS, R, R, R)) > 0.5).astype(np.float32)
     want = pred.predict_voxels_seg(grids)
@@ -3739,7 +3788,7 @@ def seg_serve_line(torch, seed: int, trainer, tmp: str, smi_line: str) -> dict:
         service.drain()
     out = {"checkpoint_save_s": save_s, "restore_s": restore_s,
            "restored_bitwise": True, "generations": gens,
-           "bf16_voxel_agreement_with_fp32": agree,
+           "voxel_agreement_with_fp32": agree,
            "http_predict_voxels": {"requests": SEG_HTTP_GRIDS,
                                    "ms_per_request": http_ms,
                                    "voxel_counts_equal_bincount": True},
@@ -3749,15 +3798,15 @@ def seg_serve_line(torch, seed: int, trainer, tmp: str, smi_line: str) -> dict:
 
 
 class _Cli:
-    """One ``featurenet_tpu_torch.cli`` subprocess, started at once;
-    ``records()`` waits for it and returns its JSON lines, failing the
-    script on a non-zero exit."""
+    """One ``featurenet_tpu_torch.cli`` subprocess (or one of another
+    ``module``), started at once; ``records()`` waits for it and returns
+    its JSON lines, failing the script on a non-zero exit."""
 
-    def __init__(self, name: str, *args):
+    def __init__(self, name: str, *args, module: str = "featurenet_tpu_torch.cli"):
         self.name = name
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "featurenet_tpu_torch.cli", *args],
+            [sys.executable, "-m", module, *args],
             cwd=os.path.dirname(os.path.abspath(__file__)),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
@@ -3778,7 +3827,9 @@ def seg_cli_line(seed: int, tmp: str, export: _Cli, smi_line: str) -> dict:
     """``cli export-seg-data`` (``export``, started with the phase: it runs
     on the host alone), ``cli train --config seg64 --data-cache``
     (resident), then ``cli eval`` and ``cli infer --seg-out`` on two STL
-    parts side by side, as subprocesses on the card."""
+    parts side by side, as subprocesses on the card; then ``cli programs
+    --config seg64 --warm`` (every serving precision's graphs, int8
+    included) in this process."""
     import numpy as np
 
     from featurenet_tpu_torch.data.stl import save_stl
@@ -3809,6 +3860,13 @@ def seg_cli_line(seed: int, tmp: str, export: _Cli, smi_line: str) -> dict:
                  *paths)
     ev = evaluate.records()[-1]["eval"]
     rows = infer.records()
+    # Each subprocess's own kernel launches, which it prints on the card.
+    children = {"train": recs[-1].get("launches"), "eval": ev.get("launches"),
+                "infer": rows.pop()["launches"] if rows and "launches" in rows[-1]
+                else None}
+    if any(c is None for c in children.values()):
+        fail(f"seg_cli: a subprocess printed no launches (not on the card): "
+             f"{children}")
     if ev["mean_iou"] != tev[-1]["mean_iou"]:
         fail(f"cli eval mean_iou {ev['mean_iou']} != the run's {tev[-1]['mean_iou']}")
     for r in rows:
@@ -3816,56 +3874,357 @@ def seg_cli_line(seed: int, tmp: str, export: _Cli, smi_line: str) -> dict:
         if lab.shape != (64, 64, 64) or lab.dtype != np.int8 or \
                 sum(r["voxel_counts"].values()) != int((lab > 0).sum()):
             fail(f"cli infer --seg-out row {r}")
+    # The catalog's programs of seg64 built ahead, serve_int8 among them
+    # (in this process: the three generations are freed on return).
+    warm, warm_s = _cli_here("programs", "--config", "seg64", "--warm")
+    built = warm[-1]["warmup"]
+    if built.get("serve_int8", {}).get("source") != "capture" or any(
+            built[n].get("source") != "capture" for n in ("serve", "serve_bf16")):
+        fail(f"cli programs --warm (seg64) built {built}")
     walls = {c.name: c.wall_s for c in (export, train, evaluate, infer)}
+    walls["programs"] = warm_s
     out = {"walls_s": walls, "exported": SEG_CLI_PARTS,
            "train_steps": SEG_CLI_STEPS, "train_losses": train_losses,
            "eval_mean_iou": ev["mean_iou"], "eval_samples": ev["samples"],
            "infer_rows": [{"path": os.path.basename(r["path"]),
                            "voxel_counts": r["voxel_counts"]} for r in rows],
-           "nvidia_smi": smi_line}
+           "programs_warm": {n: {k: v for k, v in r.items()
+                                 if k in ("source", "build_s", "batches", "skipped")}
+                             for n, r in built.items()},
+           "subprocess_launches": children, "nvidia_smi": smi_line}
     print("seg_cli", json.dumps(out), flush=True)
+    return out
+
+
+def _cli_here(*args) -> tuple[list[dict], float]:
+    """``cli.main(args)`` in this process (no interpreter or torch start):
+    its JSON lines and its wall; a non-zero exit fails the script."""
+    import contextlib
+    import io
+
+    from featurenet_tpu_torch import cli
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(list(args))
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"cli {args[0]} returned {rc}")
+    return ([json.loads(ln) for ln in printed.getvalue().splitlines()
+             if ln.startswith("{")], wall)
+
+
+def seg_affine_line(torch, seed: int, cache: str, train: dict,
+                    smi_line: str) -> dict:
+    """seg64 resident from the phase's cache with the paired affine warp in
+    the step (robust64's settings: take probability SEG_AFFINE_PROB, the
+    default scale range, rotation on) for SEG_AFFINE_STEPS steps: device
+    ms per step beside seg_train's cube-rotation step, peak allocated MB,
+    finite losses. Then the warp alone at batch 32 on resident rows:
+    ``affine_warp_pair`` against ``affine_warp_pair_plain`` (labels
+    bitwise, voxels within SEG_WARP_VOXEL_ATOL), every warped label 0 or
+    one its sample held, untaken groups bitwise, the device ms of both."""
+    from featurenet_tpu_torch.ops.augment import (
+        affine_warp_pair,
+        affine_warp_pair_plain,
+        draw_affine,
+    )
+    from featurenet_tpu_torch.train.loop import Trainer
+    from featurenet_tpu_torch.train.steps import draw_rows, gather_rows, unpack_voxels
+
+    with open(os.devnull, "w") as sink:
+        cfg = _seg_cfg(seed, data_cache=cache, hbm_cache=True,
+                       eval_every=10 ** 6, augment_affine=True,
+                       augment_affine_prob=SEG_AFFINE_PROB)
+        if not (cfg.device_augment and cfg.augment_affine_rotate
+                and cfg.augment_scale_range == (0.7, 1.05)):
+            fail(f"seg_affine: not robust64's affine settings: {cfg}")
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device="cuda", stream=sink)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        if "affine" not in trainer._draws.streams or "codes" in trainer._draws.streams:
+            fail(f"seg_affine: the step draws {trainer._draws.streams}")
+        torch.cuda.reset_peak_memory_stats()
+        losses = _losses_of(trainer)
+        trainer.run(num_steps=SEG_AFFINE_STEPS)
+        torch.cuda.synchronize()
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        losses = _finite_losses(torch, losses, SEG_AFFINE_STEPS, "affine")
+        step_ms = _seg_step_ms(torch, trainer, None)
+
+        b = cfg.global_batch
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        batch = gather_rows(trainer._data, trainer._labels,
+                            draw_rows(g, trainer._data.shape[0], b), "seg")
+        vox, seg = unpack_voxels(batch["voxels"]), batch["seg"]
+        opts = dict(scale_range=cfg.augment_scale_range, rotate=True,
+                    translate_vox=cfg.augment_translate_vox)
+        draw = draw_affine(g, b, cfg.augment_groups, 1.0, **opts)
+        fast_v, fast_s = affine_warp_pair(vox, seg, *draw)
+        plain_v, plain_s = affine_warp_pair_plain(vox, seg, *draw)
+        if not torch.equal(fast_s, plain_s):
+            fail(f"seg_affine: warped labels differ from the plain gather at "
+                 f"{int((fast_s != plain_s).sum())} voxels")
+        verr = float((fast_v - plain_v).abs().max())
+        if verr > SEG_WARP_VOXEL_ATOL:
+            fail(f"seg_affine: warped voxels {verr} from the plain gather")
+        n_cls = 25
+        held = torch.zeros((b, n_cls), dtype=torch.bool, device="cuda")
+        held.scatter_(1, seg.reshape(b, -1).long(), True)
+        held[:, 0] = True
+        got = torch.zeros_like(held).scatter_(1, fast_s.reshape(b, -1).long(), True)
+        if bool((got & ~held).any()):
+            fail("seg_affine: a warped label its sample did not hold")
+        half = draw._replace(take=torch.arange(len(draw.take), device="cuda") % 2 == 0)
+        hv, hs = affine_warp_pair(vox, seg, *half)
+        per = b // len(draw.take)
+        for grp in range(1, len(draw.take), 2):
+            sl = slice(grp * per, (grp + 1) * per)
+            if not (torch.equal(hv[sl], vox[sl]) and torch.equal(hs[sl], seg[sl])):
+                fail(f"seg_affine: untaken group {grp} changed")
+        changed = float((fast_s != seg).float().mean())
+        warp_ms = time_ms(torch, lambda: affine_warp_pair(vox, seg, *draw), reps=10)
+        plain_ms = time_ms(torch, lambda: affine_warp_pair_plain(vox, seg, *draw),
+                           reps=3, warmup=1)
+        del trainer
+    cube = train["resident"]
+    out = {"steps": SEG_AFFINE_STEPS, "setup_s": setup_s,
+           "affine": {"prob": cfg.augment_affine_prob,
+                      "scale_range": list(cfg.augment_scale_range),
+                      "rotate": cfg.augment_affine_rotate,
+                      "translate_vox": cfg.augment_translate_vox,
+                      "ramp_steps": cfg.augment_ramp_steps,
+                      "groups": cfg.augment_groups},
+           "device_step_ms": step_ms,
+           "cube_rotation_step_ms": cube["device_step_ms"],
+           "step_ms_over_cube": step_ms / cube["device_step_ms"],
+           "peak_allocated_mb": peak_mb,
+           "cube_rotation_peak_allocated_mb": cube["peak_allocated_mb"],
+           "losses_finite": True, "first_loss": losses[0], "last_loss": losses[-1],
+           "warp_alone": {"batch": b, "groups": len(draw.take),
+                          "warp_device_ms": warp_ms,
+                          "plain_gather_device_ms": plain_ms,
+                          "labels_bitwise_plain": True,
+                          "voxel_max_abs_err": verr,
+                          "voxel_atol": SEG_WARP_VOXEL_ATOL,
+                          "labels_held_by_sample": True,
+                          "untaken_groups_bitwise": True,
+                          "labels_changed_share": changed},
+           "nvidia_smi": smi_line}
+    print("seg_affine", json.dumps(out), flush=True)
+    return out
+
+
+def seg_ood_line(seed: int, ck: str, tmp: str, smi_line: str) -> dict:
+    """``cli eval-ood --seg-parts SEG_OOD_PARTS`` on the card (in this
+    process) on seg_cli's checkpoint: every SEG_DEFAULT_LEVELS row, the
+    clean row's delta 0, the scale-0.7 control row there and each rotation
+    row's ``delta_vs_scale_control``; the wall, and the host seconds in
+    ``_perturb_seg`` against the wall of the ``predict_voxels_seg``
+    calls."""
+    from featurenet_tpu_torch import ood
+    from featurenet_tpu_torch.infer import Predictor
+
+    perturb, predict = ood._perturb_seg, Predictor.predict_voxels_seg
+    host = {"perturb_s": 0.0, "predict_s": 0.0}
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        r = perturb(*a)
+        host["perturb_s"] += time.perf_counter() - t0
+        return r
+
+    def timed_predict(pred, grids):
+        t0 = time.perf_counter()
+        r = predict(pred, grids)
+        host["predict_s"] += time.perf_counter() - t0
+        return r
+
+    rows_path = os.path.join(tmp, "seg_ood_rows.json")
+    ood._perturb_seg, Predictor.predict_voxels_seg = timed, timed_predict
+    try:
+        printed, wall = _cli_here("eval-ood", "--checkpoint-dir", ck,
+                                  "--seg-parts", str(SEG_OOD_PARTS),
+                                  "--seed", str(seed), "--out", rows_path)
+    finally:
+        ood._perturb_seg, Predictor.predict_voxels_seg = perturb, predict
+    with open(rows_path) as fh:
+        rows = json.load(fh)
+    if printed != rows:
+        fail("cli eval-ood (seg): printed rows differ from --out's")
+    if [(r["family"], r["level"]) for r in rows] != list(ood.SEG_DEFAULT_LEVELS):
+        fail(f"seg eval-ood rows {[(r['family'], r['level']) for r in rows]}")
+    if any(r["n"] != SEG_OOD_PARTS or not 0.0 <= r["mean_iou"] <= 1.0
+           for r in rows) or rows[0]["delta_vs_clean"] != 0.0:
+        fail(f"seg eval-ood rows {rows}")
+    if not any(r["family"] == "scale" and r["level"] == ood.ROTATION_PRESCALE
+               for r in rows) or not all(
+            "delta_vs_scale_control" in r for r in rows if r["family"] == "rotation"):
+        fail(f"seg eval-ood: no scale-{ood.ROTATION_PRESCALE} control: {rows}")
+    out = {"rows": rows, "parts_per_row": SEG_OOD_PARTS, "wall_s": wall,
+           "perturb_seg_host_s": host["perturb_s"],
+           "predict_voxels_seg_wall_s": host["predict_s"],
+           "nvidia_smi": smi_line}
+    print("seg_ood", json.dumps(out), flush=True)
+    return out
+
+
+def seg_diagnose_line(ck: str, cache: str, smi_line: str) -> dict:
+    """``python -m featurenet_tpu_torch.train.seg_diagnose`` on seg_cli's
+    checkpoint and cache, a subprocess on the card: its confusion matrix
+    sums to the held-out split's voxels; the device and the kernel
+    launches are the ones the subprocess reports of itself."""
+    from featurenet_tpu_torch.data.offline import SegCacheDataset
+    from featurenet_tpu_torch.train.checkpoint import load_run_config
+
+    run = _Cli("seg_diagnose", "--checkpoint-dir", ck, "--data-cache", cache,
+               module="featurenet_tpu_torch.train.seg_diagnose")
+    recs = run.records()
+    if len(recs) != 2 or "launches" not in recs[1] or \
+            not recs[1]["device"].startswith("cuda"):
+        fail(f"seg_diagnose: no device and launches line from the card: {recs[-1:]}")
+    rec, child = recs
+    cfg = load_run_config(ck)
+    test = SegCacheDataset(cache, global_batch=cfg.global_batch, split="test",
+                           test_fraction=cfg.test_fraction)
+    want = len(test.rows) * cfg.resolution ** 3
+    if rec["voxels"] != want or not 0.0 <= rec["mean_iou"] <= 1.0 or \
+            len(rec["per_class_iou"]) != 25:
+        fail(f"seg_diagnose counted {rec['voxels']} voxels, not {want}: {rec}")
+    out = {"report": rec, "test_rows": len(test.rows), "voxels": want,
+           "wall_s": run.wall_s, "device": child["device"],
+           "subprocess_launches": {"seg_diagnose": child["launches"]},
+           "nvidia_smi": smi_line}
+    print("seg_diagnose", json.dumps(out), flush=True)
+    return out
+
+
+def seg_stl_line(seed: int, tmp: str, smi_line: str) -> dict:
+    """``cli export-stl-data --seg`` and ``cli export-seg-data`` of the same
+    seed, then ``cli build-cache`` over the tree at each of
+    SEG_STL_WORKERS (a spawn pool beside this process's CUDA context), all
+    in this process and on the host: every cache's shards bitwise the
+    exported cache's; meshes/s and MB."""
+    tree, ref = (os.path.join(tmp, n) for n in ("seg_stl", "seg_stl_ref"))
+    exported, export_s = _cli_here("export-stl-data", "--seg", "--out", tree,
+                                   "--num-parts", str(SEG_STL_PARTS),
+                                   "--seed", str(seed))
+    if exported != [{"exported": SEG_STL_PARTS, "kind": "segment_stl"}]:
+        fail(f"cli export-stl-data --seg printed {exported}")
+    _cli_here("export-seg-data", "--out", ref, "--num-parts",
+              str(SEG_STL_PARTS), "--seed", str(seed))
+    with open(os.path.join(ref, "index.json")) as fh:
+        shards = json.load(fh)["shards"]
+    builds = {}
+    for w in SEG_STL_WORKERS:
+        out_dir = os.path.join(tmp, f"seg_stl_cache_w{w}")
+        recs, wall = _cli_here("build-cache", "--stl-root", tree, "--out",
+                               out_dir, "--workers", str(w))
+        rec = recs[-1]
+        with open(os.path.join(out_dir, "index.json")) as fh:
+            index = json.load(fh)
+        if rec["built"] != SEG_STL_PARTS or rec["kind"] != "segment" or \
+                index["shards"] != shards:
+            fail(f"cli build-cache (seg, {w} workers) built {rec}, {index}")
+        for sh in shards:
+            for kind in ("voxels", "seg"):
+                name = f"{sh['stem']}.{kind}.npy"
+                with open(os.path.join(out_dir, name), "rb") as fa, \
+                        open(os.path.join(ref, name), "rb") as fb:
+                    same = fa.read() == fb.read()
+                if not same:
+                    fail(f"seg build-cache ({w} workers): {name} differs from "
+                         "export-seg-data's")
+        builds[str(w)] = {"seconds": rec["seconds"], "wall_s": wall,
+                          "meshes_per_s": SEG_STL_PARTS / rec["seconds"],
+                          "cache_mb": _tree_mb(out_dir)}
+    out = {"parts": SEG_STL_PARTS, "export_stl_s": export_s,
+           "export_stl_parts_per_s": SEG_STL_PARTS / export_s,
+           "stl_tree_mb": _tree_mb(tree), "builds": builds,
+           "bitwise_export_seg_data": True, "cpu_count": os.cpu_count(),
+           "nvidia_smi": smi_line}
+    print("seg_stl", json.dumps(out), flush=True)
+    return out
+
+
+def seg_oracle_line(seed: int, smi_line: str) -> dict:
+    """``seg_oracle.measure_ceiling`` at seg64's shape over
+    SEG_ORACLE_SAMPLES parts (host only, numpy)."""
+    from featurenet_tpu_torch.data.seg_oracle import measure_ceiling
+
+    t0 = time.perf_counter()
+    got = measure_ceiling(64, 3, samples=SEG_ORACLE_SAMPLES, seed=seed)
+    wall = time.perf_counter() - t0
+    keys = ("iou_random_pair", "iou_canonical", "iou_extent_guess",
+            "iou_overlap_worst", "ambiguous_voxel_fraction")
+    if got["samples"] != SEG_ORACLE_SAMPLES or not all(
+            0.0 <= got[k] <= 1.0 for k in keys):
+        fail(f"seg_oracle: {got}")
+    out = {"ceiling": got, "wall_s": wall, "nvidia_smi": smi_line}
+    print("seg_oracle", json.dumps(out), flush=True)
     return out
 
 
 def seg_phase(torch, seed: int, smi_line: str) -> dict:
     """seg64 at full width: ``seg_cache``, ``seg_train``, ``seg_profile``,
-    ``seg_eval``, ``seg_serve`` and ``seg_cli`` lines. The segmenter runs
-    no kernel of the package: every count must stay 0 across the phase's
-    in-process runs and the `cli train` subprocess."""
-    walls = {}
+    ``seg_eval``, ``seg_serve``, ``seg_affine``, ``seg_cli``, ``seg_ood``,
+    ``seg_diagnose``, ``seg_stl`` and ``seg_oracle`` lines. The segmenter
+    runs no kernel of the package: every count must stay 0 in each line,
+    which holds its in-process runs (the counts are set to 0 before each
+    line and read after) and the counts its subprocesses report of
+    themselves (``subprocess_launches``: seg_cli's train, eval and infer,
+    seg_diagnose)."""
+    walls, launches = {}, {}
 
     def part(name, fn, *a):
+        _reset_counts()
         t = time.perf_counter()
         r = fn(*a)
         walls[name] = time.perf_counter() - t
+        launches[name] = _read_counts()
+        for counts in (r.get("subprocess_launches", {}).values()
+                       if isinstance(r, dict) else ()):
+            _add_counts(launches[name], counts)
         return r
 
-    _reset_counts()
     data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".data")
     os.makedirs(data_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=data_dir) as tmp:
+        # The data commands run on the host alone: started with the phase.
         export = _Cli("export-seg-data", "export-seg-data", "--out",
                       os.path.join(tmp, "cli_seg"), "--num-parts",
                       str(SEG_CLI_PARTS), "--seed", str(seed))
         try:
             cache = os.path.join(tmp, "seg64")
             part("seg_cache", seg_cache_line, seed, cache, smi_line)
-            _, trainer = part("seg_train", seg_train_line, torch, seed, cache,
-                              smi_line)
+            train, trainer = part("seg_train", seg_train_line, torch, seed,
+                                  cache, smi_line)
             part("seg_profile", seg_profile_line, torch, trainer, smi_line)
             part("seg_eval", seg_eval_line, trainer, smi_line)
             part("seg_serve", seg_serve_line, torch, seed, trainer, tmp, smi_line)
             del trainer
             torch.cuda.empty_cache()
+            part("seg_affine", seg_affine_line, torch, seed, cache, train, smi_line)
+            torch.cuda.empty_cache()
             part("seg_cli", seg_cli_line, seed, tmp, export, smi_line)
+            ck, cli_cache = os.path.join(tmp, "cli_ck"), os.path.join(tmp, "cli_seg")
+            part("seg_ood", seg_ood_line, seed, ck, tmp, smi_line)
+            torch.cuda.empty_cache()
+            part("seg_diagnose", seg_diagnose_line, ck, cli_cache, smi_line)
+            part("seg_stl", seg_stl_line, seed, tmp, smi_line)
+            part("seg_oracle", seg_oracle_line, seed, smi_line)
         finally:
             if export.proc.poll() is None:
                 export.proc.kill()
                 export.proc.communicate()
-    counts = _read_counts()
+    counts = {k: sum(line.get(k, 0) for line in launches.values())
+              for line in launches.values() for k in line}
     if any(counts.values()):
-        fail(f"seg: the segmenter launched kernels of the package: {counts}")
-    print("seg", json.dumps({"walls_s": walls, "launches": counts}), flush=True)
+        fail(f"seg: the segmenter launched kernels of the package: {launches}")
+    print("seg", json.dumps({"walls_s": walls, "launches": counts,
+                             "launches_by_line": launches}), flush=True)
     return {"launches": counts}
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -54,9 +55,11 @@ def export(src: str, dst: str, step: int | None = None) -> int:
     if jcfg is None:
         raise SystemExit(f"{src!r} has no config.json; not a JAX run directory")
     r = jcfg.resolution
-    jstate = jax_create_state(jax_build_model(jcfg), jax_make_optimizer(jcfg),
-                              np.zeros((1, r, r, r, 1), np.float32),
-                              jax.random.key(0))
+    # The restore's template, built by one compiled init (its values are
+    # overwritten; an eager init compiles every op on its own).
+    jstate = jax.jit(functools.partial(
+        jax_create_state, jax_build_model(jcfg), jax_make_optimizer(jcfg)))(
+        np.zeros((1, r, r, r, 1), np.float32), jax.random.key(0))
     mgr = JaxManager(src)
     jstate = mgr.restore(jstate, step=step)
     mgr.close()

@@ -7,12 +7,14 @@
         [--num-parts 2400 --resolution 64 --num-features 3 --seed 0 \
          --label-order canonical|generation]
     python -m featurenet_tpu_torch.cli export-stl-data --out .data/stl \
-        [--per-class 10 --resolution 64 --seed 0]
+        [--per-class 10 --resolution 64 --seed 0] \
+        [--seg --num-parts 2400 --num-features 3 \
+         --label-order canonical|generation]
     python -m featurenet_tpu_torch.cli build-cache --stl-root .data/stl \
         --out .data/c [--resolution 64 --workers N]
     python -m featurenet_tpu_torch.cli eval-ood --checkpoint-dir CK \
-        [--per-class 50 --seed 777 --families rotation,noise --canonicalize \
-         --tta --out rows.json]
+        [--per-class 50 --seg-parts 60 --seed 777 --families rotation,noise \
+         --canonicalize --tta --out rows.json]
     python -m featurenet_tpu_torch.cli train --config sprint64 --device cuda \
         [--data-cache .data/c [--hbm-cache]] [--steps-per-dispatch K] \
         [--augment-affine [--augment-affine-prob P --augment-ramp-steps N \
@@ -74,12 +76,17 @@ into a packed voxel cache (``data/offline.py``; ``--param-range``,
 takes them) and prints ``{"exported": {class: count}, ...}``;
 ``export-stl-data`` writes them as an STL class tree
 (``voxel_to_mesh.export_stl_tree``) and prints ``{"exported": {class:
-count}}``; ``build-cache`` voxelizes such a tree (or any tree of
+count}}``, or with ``--seg`` (``--num-parts``, ``--num-features``,
+``--label-order``) the segmentation tree of STL parts and per-voxel label
+sidecars (``export_seg_stl_tree``) and prints ``{"exported": N, "kind":
+"segment_stl"}``; ``build-cache`` voxelizes such a tree (or any tree of
 ``<class>/*.stl``) into a packed cache over ``--workers`` processes
 (default: one per core) and prints ``{"built": {class: count},
-"seconds": wall}``. The
-segmentation STL trees are not ported: ``export-stl-data --seg`` and a
-``segment_stl`` tree are refused (ROADMAP Queue A.3).
+"seconds": wall}``, or a segmentation tree into a segmentation cache
+(``offline.build_seg_cache``) and prints ``{"built": N, "kind":
+"segment", "seconds": wall}``. ``--resolution`` applies to a
+classification tree (default 64); a segmentation tree's resolution is its
+sidecars', and a flag that contradicts it is refused.
 
 A segmentation run (``train --config seg64``) trains the segmenter from a
 segmentation cache (``--data-cache``, ``--hbm-cache``) or from synthetic
@@ -92,11 +99,14 @@ writes each part's label grid to ``DIR/<stem>_seg.npz`` (key ``labels``,
 int8 ``[R, R, R]``); ``serve`` answers ``/predict`` and
 ``/predict_voxels`` with ``{"voxel_counts": ...}``.
 
-``eval-ood`` prints the robustness report of a classify checkpoint
-(``ood.py``), one JSON row per (family, level), and with ``--out`` also
-writes the rows to a JSON file; ``--canonicalize`` undoes each part's
-pose before it is classified and implies ``--tta``, the mean over the 24
-cube rotations. A segmentation checkpoint is refused.
+``eval-ood`` prints the robustness report of a checkpoint (``ood.py``),
+one JSON row per (family, level), and with ``--out`` also writes the rows
+to a JSON file. The task comes from the checkpoint's ``config.json``: a
+classifier is scored over ``--per-class`` parts of each class, and
+``--canonicalize`` undoes each part's pose before it is classified and
+implies ``--tta``, the mean over the 24 cube rotations; a segmenter over
+``--seg-parts`` parts a row (``evaluate_ood_seg``), where
+``--canonicalize`` and ``--tta`` are refused.
 
 ``train`` prints one ``{"config": {...}}`` line, then the Trainer's JSON
 records (``setup``, ``train`` every ``log_every`` steps, ``eval``). With
@@ -233,7 +243,9 @@ SIGTERM/SIGINT (or ``--duration-s``), then drains and prints
 ``{"serve_stats": {...}}``. ``eval`` prints one ``{"eval": {...}}`` line
 over one pass of the cache's held-out split when the run's config names
 a cache, else over ``eval_batches`` batches of the held-out synthetic
-stream; ``infer`` one JSON line per STL part.
+stream; ``infer`` one JSON line per STL part. On the card, ``eval``'s line
+carries the process's kernel ``launches`` and ``infer`` ends with a
+``{"launches": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -563,36 +575,53 @@ def _parser() -> argparse.ArgumentParser:
     p_stl.add_argument("--resolution", type=int, default=64)
     p_stl.add_argument("--seed", type=int, default=0)
     p_stl.add_argument("--seg", action="store_true",
-                       help="segmentation tree (not ported; refused)")
+                       help="segmentation tree: multi-feature parts with "
+                            "per-voxel label sidecars (<part>.seg.npy)")
+    p_stl.add_argument("--num-parts", type=int, default=2400, dest="num_parts",
+                       help="(--seg) total parts in the tree")
+    p_stl.add_argument("--num-features", type=int, default=3,
+                       dest="num_features",
+                       help="(--seg) features carved per part")
+    p_stl.add_argument("--label-order", choices=["canonical", "generation"],
+                       default="canonical", dest="label_order",
+                       help="(--seg) label of a voxel several features "
+                            "cover: the lowest class id's (canonical, "
+                            "default) or the first drawn (generation)")
 
     p_bld = sub.add_parser("build-cache", help="voxelize an STL class tree "
                                                "into a packed voxel cache")
     p_bld.add_argument("--stl-root", dest="stl_root", required=True)
     p_bld.add_argument("--out", required=True)
-    p_bld.add_argument("--resolution", type=int, default=64)
+    p_bld.add_argument("--resolution", type=int, default=None,
+                       help="classification trees only (default 64); a "
+                            "segmentation tree's resolution is its "
+                            "sidecars', so a contradicting flag is refused")
     p_bld.add_argument("--workers", type=int, default=None,
                        help="processes voxelizing files (default: cpu "
                             "count; 1 = inline)")
     p_bld.add_argument("--run-dir", dest="run_dir",
                        help="run directory for the build's spans")
 
-    p_ood = sub.add_parser("eval-ood", help="robustness report of a classify "
+    p_ood = sub.add_parser("eval-ood", help="robustness report of a "
                                             "checkpoint under rotation, noise, "
                                             "morphology, parameter tails and "
                                             "scale")
     p_ood.add_argument("--checkpoint-dir", dest="checkpoint_dir", required=True)
     p_ood.add_argument("--per-class", type=int, default=50, dest="per_class")
+    p_ood.add_argument("--seg-parts", type=int, default=60, dest="seg_parts",
+                       help="segment checkpoints: fresh draws per row (the "
+                            "task comes from the checkpoint's config)")
     p_ood.add_argument("--seed", type=int, default=777)
     p_ood.add_argument("--families", default=None,
                        help="comma list: clean,rotation,noise,morph,tails,scale")
     p_ood.add_argument("--out", default=None,
                        help="also write the report rows as a JSON file")
     p_ood.add_argument("--canonicalize", action="store_true",
-                       help="undo each part's pose (min-AABB) before "
-                            "classifying it; implies --tta")
+                       help="classify checkpoints: undo each part's pose "
+                            "(min-AABB) before classifying it; implies --tta")
     p_ood.add_argument("--tta", action="store_true", dest="tta_rotations",
-                       help="average the probabilities over the 24 cube "
-                            "rotations (24x the device work)")
+                       help="classify checkpoints: average the probabilities "
+                            "over the 24 cube rotations (24x the device work)")
     p_ood.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     p_ev = sub.add_parser("eval", help="evaluate a checkpoint on the held-out "
@@ -947,11 +976,18 @@ def _export_seg_data(args) -> int:
 
 
 def _export_stl_data(args) -> int:
+    if args.seg:
+        from featurenet_tpu_torch.data.voxel_to_mesh import export_seg_stl_tree
+
+        index = export_seg_stl_tree(
+            args.out, num_parts=args.num_parts, resolution=args.resolution,
+            num_features=args.num_features, seed=args.seed,
+            label_order=args.label_order)
+        print(json.dumps({"exported": index["num_parts"],
+                          "kind": "segment_stl"}), flush=True)
+        return 0
     from featurenet_tpu_torch.data.voxel_to_mesh import export_stl_tree
 
-    if args.seg:
-        raise SystemExit("export-stl-data --seg: the segmentation STL tree "
-                         "is not ported yet (ROADMAP Queue A.3)")
     index = export_stl_tree(args.out, per_class=args.per_class,
                             resolution=args.resolution, seed=args.seed)
     print(json.dumps({"exported": index["counts"]}), flush=True)
@@ -961,42 +997,58 @@ def _export_stl_data(args) -> int:
 def _build_cache(args) -> int:
     import os
 
-    from featurenet_tpu_torch.data.offline import build_cache
+    from featurenet_tpu_torch.data.offline import build_cache, build_seg_cache
 
-    tree = os.path.join(args.stl_root, "index.json")
-    if os.path.exists(tree):
-        with open(tree) as fh:
-            if json.load(fh).get("kind") == "segment_stl":
-                raise SystemExit(
-                    f"build-cache: {args.stl_root} is a segmentation STL "
-                    "tree; its ingest is not ported yet (ROADMAP Queue A.3)")
+    # A segmentation tree (index kind "segment_stl") takes the sidecar
+    # ingest; a class-directory tree takes build_cache.
+    tree = {}
+    idx_path = os.path.join(args.stl_root, "index.json")
+    if os.path.exists(idx_path):
+        with open(idx_path) as fh:
+            tree = json.load(fh)
     t0 = time.perf_counter()
+    if tree.get("kind") == "segment_stl":
+        if args.resolution is not None and args.resolution != tree.get("resolution"):
+            raise SystemExit(
+                f"--resolution {args.resolution} contradicts the "
+                f"segmentation tree's sidecar resolution "
+                f"{tree.get('resolution')}: per-voxel labels only exist at "
+                "the exported grid; drop the flag")
+        with _data_run(args, "build-cache"):
+            index = build_seg_cache(args.stl_root, args.out,
+                                    workers=args.workers)
+        print(json.dumps({"built": sum(s["count"] for s in index["shards"]),
+                          "kind": "segment",
+                          "seconds": time.perf_counter() - t0}), flush=True)
+        return 0
     with _data_run(args, "build-cache"):
         index = build_cache(args.stl_root, args.out,
-                            resolution=args.resolution, workers=args.workers)
+                            resolution=args.resolution or 64,
+                            workers=args.workers)
     print(json.dumps({"built": index["counts"],
                       "seconds": time.perf_counter() - t0}), flush=True)
     return 0
 
 
 def _eval_ood(args) -> int:
-    import os
+    from featurenet_tpu_torch.ood import evaluate_ood, evaluate_ood_seg
+    from featurenet_tpu_torch.train.checkpoint import load_run_config
 
-    from featurenet_tpu_torch.ood import evaluate_ood
-    from featurenet_tpu_torch.train.checkpoint import CONFIG_FILENAME
-
-    sidecar = os.path.join(args.checkpoint_dir, CONFIG_FILENAME)
-    if os.path.exists(sidecar):
-        with open(sidecar) as fh:
-            if json.load(fh).get("task") == "segment":
-                raise SystemExit(
-                    "eval-ood: a segmentation checkpoint's report "
-                    "(evaluate_ood_seg) is not ported yet (ROADMAP Queue A.3)")
-    rows = evaluate_ood(
-        args.checkpoint_dir, per_class=args.per_class, seed=args.seed,
-        families=args.families.split(",") if args.families else None,
-        canonicalize=args.canonicalize, tta_rotations=args.tta_rotations,
-        device=args.device)
+    families = args.families.split(",") if args.families else None
+    saved = load_run_config(args.checkpoint_dir)
+    if saved is not None and saved.task == "segment":
+        if args.canonicalize or args.tta_rotations:
+            raise SystemExit(
+                "eval-ood: --canonicalize/--tta are classify-only "
+                "(per-voxel labels would need the inverse warp)")
+        rows = evaluate_ood_seg(args.checkpoint_dir, parts=args.seg_parts,
+                                seed=args.seed, families=families,
+                                device=args.device)
+    else:
+        rows = evaluate_ood(
+            args.checkpoint_dir, per_class=args.per_class, seed=args.seed,
+            families=families, canonicalize=args.canonicalize,
+            tta_rotations=args.tta_rotations, device=args.device)
     for r in rows:
         print(json.dumps(r), flush=True)
     if args.out:
@@ -1019,10 +1071,14 @@ def _eval(args) -> int:
                                      precision="fp32")
     ev = evaluate(pred.model, eval_dataset(cfg), cfg.eval_batches, pred.device,
                   cfg.serve_precision)
-    print(json.dumps({"eval": {
-        "config": cfg.name, "model_version": pred.model_version,
-        "serve_precision": cfg.serve_precision,
-        **{k: v for k, v in ev.items() if k != "confusion"}}}), flush=True)
+    out = {"config": cfg.name, "model_version": pred.model_version,
+           "serve_precision": cfg.serve_precision,
+           **{k: v for k, v in ev.items() if k != "confusion"}}
+    if pred.device.type == "cuda":
+        from featurenet_tpu_torch.ops import launch_counts
+
+        out["launches"] = launch_counts()
+    print(json.dumps({"eval": out}), flush=True)
     return 0
 
 
@@ -1080,6 +1136,10 @@ def _infer(args) -> int:
             row = dataclasses.asdict(p)
         print(json.dumps({**row, "precision": pred.precision,
                           "model_version": pred.model_version}), flush=True)
+    if pred.device.type == "cuda":
+        from featurenet_tpu_torch.ops import launch_counts
+
+        print(json.dumps({"launches": launch_counts()}), flush=True)
     if args.run_dir:
         # The serving windows' last summaries, then the SLO verdict: a
         # serving alert still active here exits 2 (a CI latency gate).

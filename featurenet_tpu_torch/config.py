@@ -38,10 +38,11 @@ validation of these fields is kept.
 ``task="segment"`` (the ``seg64`` preset) trains and serves the per-voxel
 segmenter from synthetic multi-feature parts or a segmentation cache
 (``data/offline.py``); a streamed cache rotates on the host, a resident
-one in the step, voxels and target together. Two combinations wait for
-ROADMAP Queue A.3 and are refused: ``augment_affine`` with ``segment``
-(the paired affine warp) and ``serve_precision="int8"`` with ``segment``
-(int8 segment serving).
+one in the step, voxels and target together. With ``augment_affine`` a
+resident segment run warps voxels and target by the same affine draw in
+the step (``ops/augment.py``); a streamed one has no in-step augmentation
+and is refused, as the reference refuses it. A segmenter serves at every
+``serve_precision``, ``int8`` included.
 """
 
 from __future__ import annotations
@@ -301,25 +302,12 @@ class Config:
         return self
 
     def _validate_segment(self) -> None:
-        """The reference's divisibility check, and the refusals of what a
-        segment run of the port does not do yet."""
+        """The reference's divisibility check."""
         down = 2 ** len(self.seg_features)
         if self.resolution % down:
             raise ValueError(
                 f"segment task: resolution {self.resolution} must be "
                 f"divisible by 2**len(seg_features) = {down}"
-            )
-        if self.augment_affine:
-            raise ValueError(
-                "augment_affine with task='segment' (the paired affine warp "
-                "of voxels and per-voxel target) is not ported yet (ROADMAP "
-                "Queue A.3); a segment run poses by the cube rotation"
-            )
-        if self.serve_precision == "int8":
-            raise ValueError(
-                "serve_precision='int8' with task='segment' (int8 segment "
-                "serving) is not ported yet (ROADMAP Queue A.3); serve a "
-                "segmenter at fp32 or bf16"
             )
 
     def _validate_augment(self) -> None:

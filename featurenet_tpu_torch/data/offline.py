@@ -1,6 +1,5 @@
-"""The packed voxel cache: the STL-tree build, the synthetic export and the
-classify reader (port of the classify half of
-``featurenet_tpu/data/offline.py``).
+"""The packed voxel caches: the STL-tree builds, the synthetic exports and
+the readers (port of ``featurenet_tpu/data/offline.py``).
 
 - Layout (``storage: "packed"`` in ``index.json``): one ``<cls>.npy`` per
   class holding bit-packed ``uint8 [N, R, R, R/8]`` voxels, byte for byte
@@ -44,16 +43,22 @@ classify reader (port of the classify half of
   ``SegCacheDataset`` is a split of it in the segment wire format, as
   ``VoxelCacheDataset`` is of a classify cache; its host augmentation
   rotates each sample's voxels and ``seg`` by one cube rotation together.
-  Each reader refuses the other kind of cache.
+  Each reader refuses the other kind of cache. ``build_seg_cache``
+  ingests a segmentation STL tree (``voxel_to_mesh.export_seg_stl_tree``:
+  ``parts/*.stl`` with ``.seg.npy`` sidecars, ``index.json`` of kind
+  ``segment_stl``) into that layout: each mesh voxelized unnormalized (the
+  tree must declare ``aligned_unit_cube``), each sidecar checked for its
+  shape and against the part (a labelled voxel must be air), inline or
+  over a ``spawn`` pool, in shards of the tree's ``shard_size``; over an
+  exported tree it gives ``export_seg_cache``'s bytes of the same
+  arguments.
 
 The port runs one host, so the reference's host sharding (``num_hosts``,
-``host_id``, ``num_shards``) is fixed at one host, id 0. Not ported yet:
-the segmentation STL trees and their ingest (``build_seg_cache``; ROADMAP
-Queue A.3).
+``host_id``, ``num_shards``) is fixed at one host, id 0.
 
 This module and what it imports are numpy and the standard library only
-(no torch): ``build_cache``'s spawned workers import it and never touch
-the device.
+(no torch): ``build_cache``'s and ``build_seg_cache``'s spawned workers
+import it and never touch the device.
 
 Both datasets count their gathers and check the
 ``cache_read_error`` fault site (``faults.py``) at each one: the shape of
@@ -90,11 +95,14 @@ from featurenet_tpu_torch.data.voxelize import voxelize
 RESIDENT_ORDER_STREAM = 0x4B10C5
 
 
-def _voxelize_stl_packed(args: tuple[str, int, str]) -> np.ndarray:
+def _voxelize_stl_packed(args: tuple[str, int, str, bool]) -> np.ndarray:
     """Worker: one STL file → bit-packed ``uint8 [R, R, R/8]`` occupancy.
-    Module-level, so a process pool can pickle it."""
-    path, resolution, backend = args
-    grid = voxelize(load_stl(path), resolution, fill=True, backend=backend)
+    Module-level, so a process pool can pickle it. ``normalize=False`` is
+    the aligned tree's path (a segmentation sidecar must stay voxel-exact
+    with its mesh)."""
+    path, resolution, backend, normalize = args
+    grid = voxelize(load_stl(path), resolution, fill=True, backend=backend,
+                    normalize=normalize)
     return pack_voxels(grid)
 
 
@@ -184,7 +192,7 @@ def build_cache(
                     (len(files), resolution, resolution, resolution // 8),
                     dtype=np.uint8,
                 )
-                work = [(os.path.join(cdir, f), resolution, backend)
+                work = [(os.path.join(cdir, f), resolution, backend, True)
                         for f in files]
                 if pool is not None:
                     rows = pool.imap(
@@ -341,6 +349,129 @@ def export_seg_cache(out_root: str, num_parts: int = 2400,
         index["shards"].append({"stem": stem, "count": n})
         done += n
         shard_id += 1
+    with open(os.path.join(out_root, "index.json"), "w") as fh:
+        json.dump(index, fh, indent=1)
+    return index
+
+
+def build_seg_cache(
+    stl_root: str,
+    out_root: str,
+    backend: str = "auto",
+    workers: int | None = None,
+    shard_size: int | None = None,
+) -> dict:
+    """Ingest a segmentation STL tree (meshes with per-voxel label
+    sidecars) into the packed segmentation cache layout under
+    ``out_root``; returns the index.
+
+    Refused: a tree whose ``index.json`` is not of kind ``segment_stl``,
+    or that does not declare ``aligned_unit_cube`` (normalizing would
+    shift each part against its labels). Each mesh is voxelized with
+    ``normalize=False`` at the tree's resolution, in part order, inline
+    or over a ``spawn`` pool of ``workers`` (``None``: one per core); a
+    sidecar of another shape, or a labelled voxel (a feature's removed
+    volume) that the voxelized part occupies, is refused. Shards hold
+    ``shard_size`` parts (default: the tree's)."""
+    with open(os.path.join(stl_root, "index.json")) as fh:
+        tree = json.load(fh)
+    if tree.get("kind") != "segment_stl":
+        raise ValueError(
+            f"{stl_root} is not a segmentation STL tree (export with "
+            "`cli export-stl-data --seg`); classification trees go "
+            "through build_cache"
+        )
+    if not tree.get("aligned_unit_cube"):
+        raise ValueError(
+            "segmentation ingest needs aligned_unit_cube trees: per-voxel "
+            "sidecars are only meaningful in the mesh's own grid frame, "
+            "and normalization would shift the part against its labels"
+        )
+    resolution = int(tree["resolution"])
+    if shard_size is None:
+        shard_size = int(tree.get("shard_size", 200))
+    pdir = os.path.join(stl_root, "parts")
+    stems = sorted(f[:-4] for f in os.listdir(pdir)
+                   if f.lower().endswith(".stl"))
+    if not stems:
+        raise ValueError(f"no .stl parts under {pdir}")
+    os.makedirs(out_root, exist_ok=True)
+    index = {
+        "kind": "segment",
+        "resolution": resolution,
+        "storage": "packed",
+        "num_features": tree.get("num_features"),
+        "shards": [],
+        "source": {"stl_tree": os.path.abspath(stl_root),
+                   "label_order": tree.get("label_order")},
+    }
+    if workers is None:
+        workers = os.cpu_count() or 1
+    if backend != "numpy":
+        from featurenet_tpu_torch import native
+
+        native.available()  # build it here, so the workers only load it
+    pool = None
+    if workers > 1:
+        import multiprocessing
+
+        # spawn, not fork: the caller may hold a CUDA context.
+        pool = multiprocessing.get_context("spawn").Pool(workers)
+    try:
+        work = [(os.path.join(pdir, s + ".stl"), resolution, backend, False)
+                for s in stems]
+        if pool is not None:
+            rows = pool.imap(_voxelize_stl_packed, work,
+                             chunksize=max(1, len(work) // (workers * 4) or 1))
+        else:
+            rows = map(_voxelize_stl_packed, work)
+        shard_id = 0
+        vox_buf, seg_buf = [], []
+
+        def flush():
+            nonlocal shard_id
+            stem = f"seg_{shard_id:04d}"
+            with obs.span("seg_cache_flush", shard=stem, n=len(vox_buf)):
+                np.save(os.path.join(out_root, f"{stem}.voxels.npy"),
+                        np.stack(vox_buf))
+                np.save(os.path.join(out_root, f"{stem}.seg.npy"),
+                        np.stack(seg_buf))
+            index["shards"].append({"stem": stem, "count": len(vox_buf)})
+            vox_buf.clear()
+            seg_buf.clear()
+            shard_id += 1
+
+        with obs.span("build_seg_cache", parts=len(stems), workers=workers):
+            for stem, packed in zip(stems, rows):
+                seg = np.load(os.path.join(pdir, stem + ".seg.npy"))
+                if seg.shape != (resolution,) * 3:
+                    raise ValueError(
+                        f"{stem}: sidecar shape {seg.shape} != grid "
+                        f"{(resolution,) * 3}"
+                    )
+                part = np.unpackbits(packed, axis=-1).astype(bool)
+                if (part & (seg > 0)).any():
+                    raise ValueError(
+                        f"{stem}: labeled voxels occupied in the voxelized "
+                        "part -- mesh and sidecar are misaligned (was the "
+                        "tree exported aligned_unit_cube?)"
+                    )
+                vox_buf.append(packed)
+                seg_buf.append(seg.astype(np.int8))
+                if len(vox_buf) >= shard_size:
+                    flush()
+            if vox_buf:
+                flush()
+    except BaseException:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+            pool = None
+        raise
+    finally:
+        if pool is not None:
+            pool.close()
+            pool.join()
     with open(os.path.join(out_root, "index.json"), "w") as fh:
         json.dump(index, fh, indent=1)
     return index

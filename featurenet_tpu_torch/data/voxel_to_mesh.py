@@ -1,5 +1,5 @@
 """Voxel occupancy grid → watertight triangle mesh (port of
-``featurenet_tpu/data/voxel_to_mesh.py``, the classify half).
+``featurenet_tpu/data/voxel_to_mesh.py``).
 
 Every boundary face between an occupied and an empty voxel becomes two
 triangles, so the surface is closed and wound outward; the STL→voxel
@@ -12,8 +12,15 @@ the unit cube, while the parity fill casts its rays through voxel centres
 
 ``export_stl_tree`` materializes the synthetic benchmark as an STL class
 tree (``out_root/<class>/<class>_<i>.stl``), the on-disk shape of the
-reference dataset. The segmentation tree (``export_seg_stl_tree``) is not
-ported.
+reference dataset. ``export_seg_stl_tree`` writes the segmentation
+benchmark as STL parts with per-voxel label sidecars
+(``parts/part_NNNNNNN.stl`` and ``.seg.npy``, int8 ``[R, R, R]``) and an
+``index.json`` of kind ``segment_stl`` marked ``aligned_unit_cube``: the
+meshes sit in the unit cube of their own grid, so the ingest
+(``offline.build_seg_cache``) voxelizes them unnormalized and grid and
+sidecar stay voxel-exact. It draws from ``export_seg_cache``'s per-shard
+seed streams, so that ingest gives back the seg cache of the same
+arguments byte for byte.
 """
 
 from __future__ import annotations
@@ -140,3 +147,53 @@ def export_stl_tree(
             )
         counts[cls] = per_class
     return {"counts": counts}
+
+
+def export_seg_stl_tree(
+    out_root: str,
+    num_parts: int = 100,
+    resolution: int = 64,
+    num_features: int = 3,
+    shard_size: int = 200,
+    seed: int = 0,
+    label_order: str = "canonical",
+) -> dict:
+    """Write ``num_parts`` multi-feature parts as
+    ``out_root/parts/part_<i>.stl`` (the boundary surface, unit cube) with
+    their labels beside them as ``part_<i>.seg.npy`` (int8 ``[R, R, R]``),
+    one ``SeedSequence([seed, shard])`` stream per ``shard_size`` parts,
+    and ``out_root/index.json`` (``kind: segment_stl``,
+    ``aligned_unit_cube: true``); returns the index."""
+    import json
+
+    from featurenet_tpu_torch.data.offline import _generate_seg_sample
+    from featurenet_tpu_torch.data.stl import save_stl
+
+    pdir = os.path.join(out_root, "parts")
+    os.makedirs(pdir, exist_ok=True)
+    done = shard_id = 0
+    while done < num_parts:
+        n = min(shard_size, num_parts - done)
+        rng = np.random.default_rng(np.random.SeedSequence([seed, shard_id]))
+        for i in range(n):
+            part, seg = _generate_seg_sample(rng, resolution, num_features,
+                                             label_order)
+            stem = os.path.join(pdir, f"part_{done + i:07d}")
+            save_stl(stem + ".stl", voxels_to_mesh(part),
+                     name=f"part_{done + i}")
+            np.save(stem + ".seg.npy", seg.astype(np.int8))
+        done += n
+        shard_id += 1
+    index = {
+        "kind": "segment_stl",
+        "resolution": resolution,
+        "num_parts": num_parts,
+        "num_features": num_features,
+        "shard_size": shard_size,
+        "seed": seed,
+        "label_order": label_order,
+        "aligned_unit_cube": True,
+    }
+    with open(os.path.join(out_root, "index.json"), "w") as fh:
+        json.dump(index, fh, indent=1)
+    return index

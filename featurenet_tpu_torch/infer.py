@@ -57,8 +57,11 @@ int8 labels ``[b, R, R, R]``, never the logit volume. ``predict_voxels_seg``
 returns those labels; ``predict_stl`` returns a ``SegPrediction`` per part
 (the labels and the feature-voxel counts by class name);
 ``predict_voxels`` refuses a segmenter, and ``predict_voxels_seg`` a
-classifier. A segmenter serves at ``fp32`` or ``bf16``; ``int8`` is
-refused (ROADMAP Queue A.3).
+classifier. A segmenter serves at every precision: at ``int8`` its conv,
+transposed-conv and head kernels are quantized on their output channel
+(the trailing axis of the Flax layout) and the fp32 masters stay on the
+host, as the classifier's do. ``agreement`` is the per-voxel match for a
+segmenter, the top-1 match for a classifier.
 
 Robust serving (``predict_voxels``): ``tta_rotations=True`` averages the
 probabilities over the 24 cube rotations (``ops/augment.py``'s
@@ -266,10 +269,6 @@ class Predictor:
         if precision not in SERVE_PRECISIONS:
             raise ValueError(f"unknown serving precision {precision!r}; one "
                              f"of {', '.join(SERVE_PRECISIONS)}")
-        if cfg.task == "segment" and precision == "int8":
-            raise ValueError("int8 serving of a segmentation checkpoint is "
-                             "not ported yet (ROADMAP Queue A.3); serve it at "
-                             "fp32 or bf16")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch = int(batch)
@@ -412,10 +411,10 @@ class Predictor:
     def agreement(self, n: int = 48, seed: int = 0,
                   reference_precision: str = "fp32",
                   candidate_precision: str | None = None) -> float:
-        """Top-1 agreement between two serving precisions of this
-        Predictor's weights (``candidate_precision`` defaults to its own)
-        on ``n`` synthetic parts from ``seed``: the precision-agnostic
-        accuracy gate (``runtime.quantize.agreement``)."""
+        """Top-1 (a segmenter: per-voxel) agreement between two serving
+        precisions of this Predictor's weights (``candidate_precision``
+        defaults to its own) on ``n`` synthetic parts from ``seed``: the
+        precision-agnostic accuracy gate (``runtime.quantize.agreement``)."""
         grids = generate_batch(np.random.default_rng(seed), n,
                                self.cfg.resolution)["voxels"]
         masters = {k: v.to(self.device) for k, v in self._masters.items()}

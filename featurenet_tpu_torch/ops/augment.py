@@ -23,14 +23,29 @@ that draws on the device reads nothing back to the host.
   moves a quarter of the bytes. ``rotate_pair_by_codes`` turns a
   segmentation batch's per-voxel target with its voxels, each group of
   both by the same code (the reference's ``random_rotate_batch_paired``).
-- The affine warp (``random_affine_batch_paired``, classify half):
+- The affine warp (``random_affine_batch_paired``):
   ``affine_warp`` samples each output voxel ``p`` of a group at ``Rᵀ (p −
   c − t) / s + c`` about the grid centre ``c``, trilinearly, each corner
   outside the grid counting 0 (``map_coordinates(order=1,
   mode="constant")``), through ``F.grid_sample`` (``align_corners=True``,
-  ``padding_mode="zeros"``); ``affine_warp_plain`` is the same warp as an
-  explicit 8-corner gather, for comparison. A group whose take flag is
-  false comes out bitwise as it went in. The step warps every group and
+  ``padding_mode="zeros"``) in float64: its normalisation of the source
+  coordinates to [-1, 1] and back then keeps each fp32 coordinate to
+  ~1e-15, so the corner weights are the coordinate's own, as the
+  reference's are (in fp32 the round trip moves a coordinate near 64 by a
+  few ulps); ``affine_warp_plain`` is the same warp as an explicit
+  8-corner gather in fp32, for comparison. ``affine_warp_pair`` warps a
+  segment batch: the voxels as ``affine_warp`` does, and their per-voxel
+  target ``[B, D, H, W]`` by the same draw at order 0 (``map_coordinates(order=0)``): each
+  output voxel takes the label of the source voxel nearest its source
+  point, 0 where that lies outside the grid, so labels never blend. The
+  nearest index rounds halves away from zero (``round_half_away``), as
+  the reference's ``lax.round`` does; ``torch.round`` and
+  ``grid_sample(mode="nearest")`` round them to even, so the labels go
+  through one flat ``gather`` at indices computed here, and
+  ``warp_labels_plain`` is the same sample as a per-group gather at three
+  index tensors, for comparison. A group whose
+  take flag is false comes out bitwise as it went in, voxels and labels
+  alike. The step warps every group and
   then selects (branchless on the device), where the reference warps only
   the taken ones. ``draw_affine`` draws per group a quaternion (uniform
   SO(3), ``quat_to_matrix``), a scale, a translation and the take flag;
@@ -257,28 +272,38 @@ def _from_groups(x: torch.Tensor, shape) -> torch.Tensor:
 def _select_taken(voxels: torch.Tensor, warped: torch.Tensor,
                   take: torch.Tensor) -> torch.Tensor:
     g = take.shape[0]
-    keep = take.view(g, 1, 1, 1, 1, 1)
+    keep = take.view(g, *([1] * voxels.dim()))
     shape = (g, voxels.shape[0] // g, *voxels.shape[1:])
     return torch.where(keep, warped.reshape(shape),
                        voxels.reshape(shape)).reshape(voxels.shape)
+
+
+def _warp_voxels(voxels: torch.Tensor, src: tuple[torch.Tensor, ...],
+                 take: torch.Tensor) -> torch.Tensor:
+    shape = tuple(voxels.shape[1:4])
+    # grid_sample's last axis is (x, y, z) = (W, H, D), each normalised so
+    # that -1 and 1 are the first and last voxel centres. In float64, so
+    # that the normalisation and grid_sample's own unnormalisation return
+    # each fp32 source coordinate to ~1e-15 of itself and the corner
+    # weights are the coordinate's own; in fp32 that round trip moves a
+    # coordinate near 64 by a few ulps, up to ~1.4e-5 of a value.
+    grid = torch.stack([2.0 * src[i].double() / max(shape[i] - 1, 1) - 1.0
+                        for i in (2, 1, 0)], dim=-1)
+    warped = F.grid_sample(_by_group(voxels, take.shape[0]).double(), grid,
+                           mode="bilinear", padding_mode="zeros",
+                           align_corners=True)
+    return _select_taken(voxels, _from_groups(warped.to(voxels.dtype),
+                                              voxels.shape), take)
 
 
 def affine_warp(voxels: torch.Tensor, rot: torch.Tensor, scale: torch.Tensor,
                 trans: torch.Tensor, take: torch.Tensor) -> torch.Tensor:
     """Warp float ``[B, D, H, W, C]`` voxels group by group by one
     ``AffineDraw``'s fields (trilinear, 0 outside the grid) through
-    ``F.grid_sample``; groups whose take flag is false pass through
-    bitwise."""
-    shape = tuple(voxels.shape[1:4])
-    src = _source_coords(shape, rot, scale, trans)
-    # grid_sample's last axis is (x, y, z) = (W, H, D), each normalised so
-    # that -1 and 1 are the first and last voxel centres.
-    grid = torch.stack([2.0 * src[i] / max(shape[i] - 1, 1) - 1.0
-                        for i in (2, 1, 0)], dim=-1)
-    warped = F.grid_sample(_by_group(voxels, take.shape[0]), grid,
-                           mode="bilinear", padding_mode="zeros",
-                           align_corners=True)
-    return _select_taken(voxels, _from_groups(warped, voxels.shape), take)
+    ``F.grid_sample`` in float64; groups whose take flag is false pass
+    through bitwise."""
+    src = _source_coords(tuple(voxels.shape[1:4]), rot, scale, trans)
+    return _warp_voxels(voxels, src, take)
 
 
 def affine_warp_plain(voxels: torch.Tensor, rot: torch.Tensor,
@@ -309,6 +334,83 @@ def affine_warp_plain(voxels: torch.Tensor, rot: torch.Tensor,
         vals = torch.where(valid.reshape(g, 1, -1), vals, torch.zeros_like(vals))
         out += (weight.reshape(g, 1, -1) * vals).reshape(grids.shape)
     return _select_taken(voxels, _from_groups(out, voxels.shape), take)
+
+
+def round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """The nearest integer of float ``x``, halves away from zero (the
+    reference's ``lax.round``): exact, since ``x − trunc(x)`` is exact in
+    floating point, so a half is found only where ``x`` is one."""
+    t = torch.trunc(x)
+    return torch.where((x - t).abs() == 0.5, t + torch.sign(x), torch.round(x))
+
+
+def _nearest(src: tuple[torch.Tensor, ...], shape) -> tuple[list, torch.Tensor]:
+    """Per axis the nearest source index of each output voxel, clamped
+    into the grid, and where all three lie inside it before the clamp."""
+    index, valid = [], None
+    for axis, n in enumerate(shape):
+        i = round_half_away(src[axis])
+        ok = (i >= 0) & (i < n)
+        valid = ok if valid is None else valid & ok
+        index.append(i.clamp(0, n - 1).long())
+    return index, valid
+
+
+def _warp_labels(seg: torch.Tensor, src: tuple[torch.Tensor, ...],
+                 take: torch.Tensor) -> torch.Tensor:
+    """An integer target ``[B, D, H, W]`` sampled at order 0 at ``src`` as
+    one flat gather in its own dtype; untaken groups as they were."""
+    shape = tuple(seg.shape[1:4])
+    g = take.shape[0]
+    (i, j, k), valid = _nearest(src, shape)
+    flat_index = ((i * shape[1] + j) * shape[2] + k).reshape(g, 1, -1)
+    flat = seg.reshape(g, seg.shape[0] // g, -1)
+    got = flat.gather(2, flat_index.expand(flat.shape))
+    got = torch.where(valid.reshape(g, 1, -1), got, torch.zeros_like(got))
+    return _select_taken(seg, got.reshape(seg.shape), take)
+
+
+def warp_labels_plain(seg: torch.Tensor, rot: torch.Tensor,
+                      scale: torch.Tensor, trans: torch.Tensor,
+                      take: torch.Tensor) -> torch.Tensor:
+    """The label half of ``affine_warp_pair`` as the reference writes it:
+    each sample cast to fp32, indexed group by group at the three
+    nearest-index tensors, 0 where the source point is outside the grid,
+    cast back."""
+    shape = tuple(seg.shape[1:4])
+    src = _source_coords(shape, rot, scale, trans)
+    (i, j, k), valid = _nearest(src, shape)
+    g = take.shape[0]
+    per = seg.shape[0] // g
+    out = []
+    for b in range(seg.shape[0]):
+        grp = b // per
+        v = seg[b].float()[i[grp], j[grp], k[grp]]
+        out.append(torch.where(valid[grp], v, torch.zeros_like(v)).to(seg.dtype))
+    return _select_taken(seg, torch.stack(out), take)
+
+
+def affine_warp_pair(voxels: torch.Tensor, seg: torch.Tensor,
+                     rot: torch.Tensor, scale: torch.Tensor,
+                     trans: torch.Tensor, take: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``affine_warp`` of float ``[B, D, H, W, C]`` voxels and the order-0
+    warp of their integer target ``[B, D, H, W]`` (the nearest source
+    voxel's label, 0 outside the grid) by the same draw, from one set of
+    source coordinates (the reference's ``random_affine_batch_paired``
+    with ``seg``); groups whose take flag is false pass through bitwise."""
+    src = _source_coords(tuple(voxels.shape[1:4]), rot, scale, trans)
+    return _warp_voxels(voxels, src, take), _warp_labels(seg, src, take)
+
+
+def affine_warp_pair_plain(voxels: torch.Tensor, seg: torch.Tensor,
+                           rot: torch.Tensor, scale: torch.Tensor,
+                           trans: torch.Tensor, take: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``affine_warp_pair`` through the plain gathers
+    (``affine_warp_plain``, ``warp_labels_plain``), for comparison."""
+    return (affine_warp_plain(voxels, rot, scale, trans, take),
+            warp_labels_plain(seg, rot, scale, trans, take))
 
 
 def draw_flips(generator: torch.Generator, shape, rate: float) -> torch.Tensor:

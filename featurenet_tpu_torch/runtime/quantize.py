@@ -12,9 +12,14 @@ the JAX layout, but axis 0 of a dense weight, which the port stores as
 With ``x / scale`` and ``torch.round`` (half to even, as ``jnp.round``)
 the int8 values and the scales are the JAX package's, bitwise.
 
+The segmenter's conv, transposed-conv and head kernels are all stored
+``[K,K,K,Cin,Cout]`` and it has no dense weight, so every one of its
+weights is quantized on the trailing axis, as the reference quantizes it.
+
 ``agreement`` is the precision-agnostic accuracy gate: the top-1 match
-between two serving precisions of the same weights, held by the tests at
-``PAPER_TOP1_TARGET``.
+between two serving precisions of the same weights (held by the tests at
+``PAPER_TOP1_TARGET``), or for a segmenter the per-voxel match; the
+trailing-axis argmax covers both.
 """
 
 from __future__ import annotations
@@ -76,10 +81,11 @@ def tree_bytes(*trees: Mapping[str, torch.Tensor]) -> int:
 def agreement(model, params: Mapping[str, torch.Tensor], voxels: torch.Tensor,
               reference_precision: str = "fp32",
               candidate_precision: str = "int8") -> float:
-    """Top-1 agreement between two serving precisions of the same weights
-    ``params`` (the fp32 masters, on the model's device) on ``voxels``;
-    each side's forward runs ``serve_params_cast`` of its precision, with
-    the model's own batch-norm statistics."""
+    """Top-1 (classify) or per-voxel (segment) agreement between two
+    serving precisions of the same weights ``params`` (the fp32 masters,
+    on the model's device) on ``voxels``; each side's forward runs
+    ``serve_params_cast`` of its precision, with the model's own
+    batch-norm statistics."""
     from featurenet_tpu_torch.runtime import forward_with
     from featurenet_tpu_torch.train.precision import serve_params_cast
 

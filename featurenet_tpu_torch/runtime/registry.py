@@ -426,8 +426,7 @@ def warmup(cfg: Config, device="cuda", names: Optional[list[str]] = None,
     ``steps_per_dispatch > 1``. Returns per program ``{"source":
     "capture"|"eager", "build_s", "precision", "capture_launches"}``
     (serving ones also their ``batches``), or ``{"skipped": reason}``: a
-    program that needs the resident split, one the port runs eagerly, and
-    int8 segment serving (not ported)."""
+    program that needs the resident split, or one the port runs eagerly."""
     from featurenet_tpu_torch.infer import Predictor
     from featurenet_tpu_torch.runtime import resolve_device
 
@@ -453,10 +452,6 @@ def warmup(cfg: Config, device="cuda", names: Optional[list[str]] = None,
             out[name] = _warm_k_step(cfg, dev)
             continue
         precision = program_precision(cfg, name)
-        if cfg.task == "segment" and precision == "int8":
-            out[name] = {"skipped": "int8 segment serving is not ported "
-                                    "(ROADMAP Queue A.3)"}
-            continue
         t0 = time.perf_counter()
         pred = predictors.get(precision)
         if pred is None:

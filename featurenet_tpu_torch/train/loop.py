@@ -17,7 +17,7 @@ run by ``convert.from_flax``), its optimizer, and the train and eval data:
 A segment run reads a segmentation cache (``SegCacheDataset``; a streamed
 split rotates voxels and ``seg`` together on the host, a resident one keeps
 its int8 ``seg`` on the device beside the packed voxels and rotates both in
-the step) or the synthetic stream of ``cfg.num_features``-feature parts in
+the step, or under ``cfg.augment_affine`` warps both by one draw) or the synthetic stream of ``cfg.num_features``-feature parts in
 the segment wire format; its eval reports ``mean_iou`` and
 ``per_class_iou``. k steps per dispatch run as for classify.
 

@@ -93,6 +93,7 @@ from featurenet_tpu_torch.ops.augment import (
     AffineDraw,
     affine_prob,
     affine_warp,
+    affine_warp_pair,
     draw_affine,
     draw_code_tensor,
     draw_flips,
@@ -139,7 +140,8 @@ def step_voxels(packed: torch.Tensor, codes=None,
     0/1 bytes, or with ``affine`` cast and then warped; then, with
     ``flips``, their occupancy flipped. With ``seg`` (a per-voxel target
     ``[B, R, R, R]``) returns ``(voxels, seg)``, the target rotated by the
-    same codes."""
+    same codes or warped by the same draw (order 0,
+    ``ops/augment.py`` ``affine_warp_pair``)."""
     bits = unpack_bits(packed)
     if codes is not None:
         codes = torch.as_tensor(codes, device=bits.device)
@@ -149,7 +151,10 @@ def step_voxels(packed: torch.Tensor, codes=None,
             bits, seg = rotate_pair_by_codes(bits, seg, codes)
     voxels = bits.float()
     if affine is not None:
-        voxels = affine_warp(voxels, *affine)
+        if seg is None:
+            voxels = affine_warp(voxels, *affine)
+        else:
+            voxels, seg = affine_warp_pair(voxels, seg, *affine)
     if flips is not None:
         voxels = occupancy_noise(voxels, flips)
     return voxels if seg is None else (voxels, seg)
@@ -439,14 +444,11 @@ def make_train_step(label_smoothing: float = 0.0, augment_groups: int = 0,
 
     ``task="segment"`` trains on the batch's per-voxel ``seg`` with
     ``segmentation_loss(variant=seg_loss)`` (metrics add ``fg_accuracy``),
-    rotating it with the voxels; its affine warp is not ported (ROADMAP
-    Queue A.3)."""
+    rotating it with the voxels, or under ``augment_affine`` warping it by
+    the same draw (nearest, so labels never blend)."""
     warp = bool(augment_affine and augment_groups)
     if task not in ("classify", "segment"):
         raise ValueError(f"unknown task {task!r}")
-    if task == "segment" and warp:
-        raise ValueError("the segment step's paired affine warp is not "
-                         "ported yet (ROADMAP Queue A.3)")
     target_key = "label" if task == "classify" else "seg"
     loss_fn = (None if task == "classify" else
                lambda logits, seg: segmentation_loss(logits, seg, seg_loss))

@@ -8,9 +8,12 @@ inputs made from numpy seeds.
 - The affine warp is handed the draws the reference makes from its key
   (its own split sequence, ``random_affine_batch_paired``) and held to
   1e-5 absolute: both compute fp32 source coordinates in the same order
-  and sum the 8 trilinear terms of voxels in [0, 1], the port through
-  ``grid_sample``'s normalised coordinates (a rounding of each coordinate
-  on the way) in another order; measured ~1e-6.
+  and sum the 8 trilinear terms of voxels in [0, 1], each corner weighted
+  from the coordinate itself (the port through ``grid_sample`` in
+  float64, which carries the fp32 coordinate through its normalisation;
+  the port's coordinates are sums of three products where the
+  reference takes a matrix product, an fp32 rounding apart); measured
+  ~1e-6.
 - The noise is ``|v - flip|`` of the reference's own mask: bitwise.
 """
 

@@ -352,18 +352,31 @@ def test_cli_stl_tree_build_cache_and_remesh_export(tmp_path, capsys):
 
 
 def test_cli_refuses_the_segmentation_paths(tmp_path):
+    """What the reference refuses of the segmentation paths: a
+    ``--resolution`` that contradicts a segmentation tree's sidecars, a
+    segmentation tree that is not ``aligned_unit_cube``, and ``--tta`` or
+    ``--canonicalize`` on a segment checkpoint; nothing is written."""
     from featurenet_tpu_torch import cli
 
-    seg_tree = tmp_path / "segtree"
-    seg_tree.mkdir()
-    (seg_tree / "index.json").write_text(json.dumps({"kind": "segment_stl"}))
+    seg_tree = str(tmp_path / "segtree")
+    assert cli.main(["export-stl-data", "--seg", "--out", seg_tree,
+                     "--num-parts", "2", "--resolution", "16"]) == 0
+    with pytest.raises(SystemExit, match="contradicts"):
+        cli.main(["build-cache", "--stl-root", seg_tree, "--out",
+                  str(tmp_path / "c"), "--resolution", "64"])
+    with open(os.path.join(seg_tree, "index.json")) as fh:
+        index = json.load(fh)
+    index.pop("aligned_unit_cube")
+    with open(os.path.join(seg_tree, "index.json"), "w") as fh:
+        json.dump(index, fh)
+    with pytest.raises(ValueError, match="aligned_unit_cube"):
+        cli.main(["build-cache", "--stl-root", seg_tree, "--out",
+                  str(tmp_path / "c"), "--workers", "1"])
     seg_ck = tmp_path / "segck"
     seg_ck.mkdir()
     (seg_ck / "config.json").write_text(json.dumps({"task": "segment"}))
-    for args in (["export-stl-data", "--out", str(tmp_path / "o"), "--seg"],
-                 ["build-cache", "--stl-root", str(seg_tree), "--out",
-                  str(tmp_path / "c")],
-                 ["eval-ood", "--checkpoint-dir", str(seg_ck), "--device", "cpu"]):
-        with pytest.raises(SystemExit, match="Queue A.3"):
-            cli.main(args)
-    assert not (tmp_path / "o").exists() and not (tmp_path / "c").exists()
+    for flag in ("--tta", "--canonicalize"):
+        with pytest.raises(SystemExit, match="classify-only"):
+            cli.main(["eval-ood", "--checkpoint-dir", str(seg_ck),
+                      "--device", "cpu", flag])
+    assert not (tmp_path / "c").exists()

@@ -26,8 +26,9 @@ exiting 75 at the group boundary with the state of k eager steps; the
 64, with the device holding one chunk and one staging batch, not 24
 rotated copies; the native voxelizer built on the card's host, bitwise the
 numpy fill at 64³; the seg64 segmenter's graphed labels bitwise its eager
-ones, and its resident train steps (eager, and k = 2 on one graph) with
-finite losses; the packed serving programs (bit-packed wire batches
+ones at fp32, bf16 and int8, and its resident train steps (eager, and k =
+2 on one graph, with the cube rotation or the paired affine warp) with
+finite losses; the paired warp's labels bitwise its plain gather's; the packed serving programs (bit-packed wire batches
 unpacked inside one CUDA graph per batch and precision) bitwise their
 eager body and the serve program's argmax, with the forward kernel inside
 each replay; a stream of frames through POST /predict_voxels_stream
@@ -736,8 +737,8 @@ def test_swap_under_replay_keeps_the_old_answers_until_the_flip(cuda, tmp_path):
 
 def test_augment_on_card_equals_cpu(cuda):
     """The affine warp (and its plain gather) of the same voxels and draws
-    on the card and on the CPU, within 1e-5 (fp32 coordinates, another
-    order of the trilinear sum in grid_sample's kernel); the noise flips
+    on the card and on the CPU, within 1e-5 (the same fp32 coordinates,
+    another order of the trilinear sum in grid_sample's kernel); the noise flips
     exactly the mask it is given; device cube codes rotate bitwise as the
     CPU's permute and flip."""
     from featurenet_tpu_torch.ops import augment
@@ -956,7 +957,7 @@ def test_native_voxelizer_on_the_card_host_is_bitwise_numpy(cuda):
             voxelize(tris, 64, backend="numpy"))
 
 
-@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
 def test_segmenter_graphed_labels_are_bitwise_eager(cuda, precision):
     """seg64 at full width: each bucket's program is a CUDA graph whose
     replay gives the eager forward's int8 labels bitwise, twice (the static
@@ -1014,6 +1015,84 @@ def test_segment_train_steps_on_card(cuda, tmp_path):
     losses = [r["loss"] for r in tr.logger.history if r["kind"] == "train"]
     assert len(losses) == 2 and all(np.isfinite(v) for v in losses)
     assert not torch.equal(tr.state.model.head.kernel, before)
+
+
+@pytest.mark.parametrize("data,translate", [("parts", 0.0), ("dense", 1.0)])
+def test_paired_warp_on_card_labels_bitwise_plain(cuda, data, translate):
+    """seg64's paired affine warp at batch 32 on the card: the warp path's
+    labels bitwise its plain gather's and the CPU's; every warped label 0
+    or one its sample held; untaken groups bitwise. Its voxels within
+    1e-5 of the plain gather and the CPU, on seg64's parts under
+    robust64's settings (no translation) and on dense random grids with a
+    translation of up to a voxel, where every neighbouring difference is
+    up to 1: grid_sample runs in float64, so its normalisation of each
+    fp32 source coordinate (up to ~65 here) to [-1, 1] and back keeps the
+    coordinate, and the corner weights are its own (in fp32 dense grids
+    read 1.23-1.37e-5)."""
+    from featurenet_tpu_torch.data.offline import _generate_seg_sample
+    from featurenet_tpu_torch.ops import augment
+
+    g = torch.Generator().manual_seed(2)
+    if data == "parts":
+        rng = np.random.default_rng(2)
+        pairs = [_generate_seg_sample(rng, 64, 3, "canonical") for _ in range(32)]
+        x = torch.from_numpy(np.stack([p for p, _ in pairs])[..., None]).float()
+        seg = torch.from_numpy(np.stack([s for _, s in pairs])).to(torch.int8)
+    else:
+        x = (torch.rand((32, 64, 64, 64, 1), generator=g) < 0.4).float()
+        seg = torch.randint(0, 25, (32, 64, 64, 64), generator=g).to(torch.int8)
+        seg[:16] = seg[:16] % 4  # samples that hold few labels
+    draw = augment.draw_affine(g, 32, 8, prob=0.5, translate_vox=translate)
+    assert bool(draw.take.any()) and not bool(draw.take.all())
+    on = [t.to(cuda) for t in draw]
+    xv, xs = x.to(cuda), seg.to(cuda)
+    got_v, got_s = augment.affine_warp_pair(xv, xs, *on)
+    plain_v, plain_s = augment.affine_warp_pair_plain(xv, xs, *on)
+    cpu_v, cpu_s = augment.affine_warp_pair(x, seg, *draw)
+    assert torch.equal(got_s, plain_s)
+    assert torch.equal(got_s.cpu(), cpu_s)
+    err = (float((got_v - plain_v).abs().max()),
+           float((got_v.cpu() - cpu_v).abs().max()))
+    print(f"paired warp, {data}, translate {translate}: voxels {err} from "
+          "the plain gather and the CPU")
+    assert max(err) <= 1e-5
+    for b in range(32):
+        held = set(seg[b].unique().tolist()) | {0}
+        assert set(got_s[b].unique().tolist()) <= held, b
+    kept = (~draw.take).repeat_interleave(4)
+    assert torch.equal(got_s.cpu()[kept], seg[kept])
+    assert torch.equal(got_v.cpu()[kept], x[kept])
+
+
+def test_segment_affine_train_steps_on_card(cuda, tmp_path):
+    """seg64 at full width and batch 4, resident with the paired affine
+    warp in the step: k = 2 steps per dispatch replay one captured CUDA
+    graph, every loss finite, and the step makes no host synchronisation."""
+    import io
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.offline import export_seg_cache
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cache = str(tmp_path / "seg")
+    export_seg_cache(cache, num_parts=10, resolution=64, seed=1)
+    cfg = get_config("seg64", data_cache=cache, hbm_cache=True, global_batch=4,
+                     steps_per_dispatch=2, log_every=1, eval_every=10 ** 6,
+                     augment_affine=True, augment_affine_prob=0.5)
+    tr = Trainer(cfg, device=cuda, stream=io.StringIO())
+    assert "affine" in tr._draws.streams
+    tr.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = tr.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(metrics["loss"]))
+    tr.run(num_steps=6)
+    assert [k[:2] for k in tr.programs] == [("resident", 2)]
+    losses = [r["loss"] for r in tr.logger.history if r["kind"] == "train"]
+    assert len(losses) == 2 and all(np.isfinite(v) for v in losses)
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])

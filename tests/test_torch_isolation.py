@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``featurenet_tpu_torch/`` (or the
-port's card scripts ``chip_smoke.py`` and ``ab_conv_dw_folded.py``)
-imports JAX, Flax or the JAX package, the whole port imports with those
+port's card scripts ``chip_smoke.py``, ``ab_conv_dw_folded.py`` and
+``ab_affine_warp.py``) imports JAX, Flax or the JAX package, the whole port imports with those
 blocked, its entry points refuse to run silently on the CPU when asked for
 the card that is not there, and the card scripts exit non-zero without
 one."""
@@ -18,7 +18,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "featurenet_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "featurenet_tpu"}
-CARD_SCRIPTS = ("chip_smoke.py", "ab_conv_dw_folded.py")
+CARD_SCRIPTS = ("chip_smoke.py", "ab_conv_dw_folded.py", "ab_affine_warp.py")
 
 
 def _port_files():
@@ -50,7 +50,7 @@ def test_port_imports_with_jax_blocked():
         "import featurenet_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'featurenet_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke, ab_conv_dw_folded\n"
+        "import chip_smoke, ab_conv_dw_folded, ab_affine_warp\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -270,3 +270,56 @@ def test_incident_and_dash_answer_without_torch(tmp_path):
     assert "no incident bundles under" in out.stdout
     assert "fleet dash · " in out.stdout
     assert "incidents: none recorded" in out.stdout
+
+
+def test_segmentation_data_modules_import_no_torch():
+    """The segmentation oracle and the cache module (with what it imports,
+    the STL tree's exporter included) load with torch blocked: the
+    ingest's spawned workers import them and never touch the device."""
+    code = (
+        "import sys\n"
+        "sys.modules['torch'] = None\n"
+        "import featurenet_tpu_torch.data.seg_oracle\n"
+        "import featurenet_tpu_torch.data.offline\n"
+        "import featurenet_tpu_torch.data.voxel_to_mesh\n"
+        "print(featurenet_tpu_torch.data.seg_oracle.measure_ceiling(16, 2, samples=1)['samples'])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "1"
+
+
+def test_segmentation_entry_points_refuse_cpu_without_being_asked(monkeypatch,
+                                                                  tmp_path):
+    from featurenet_tpu_torch import cli
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.offline import export_seg_cache
+    from featurenet_tpu_torch.ood import evaluate_ood_seg
+    from featurenet_tpu_torch.runtime import build_model
+    from featurenet_tpu_torch.train.checkpoint import CheckpointManager
+    from featurenet_tpu_torch.train.seg_diagnose import diagnose
+    from featurenet_tpu_torch.train.state import create_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("seg64", resolution=16, seg_features=(4, 8))
+    ck, cache = str(tmp_path / "ck"), str(tmp_path / "c")
+    mgr = CheckpointManager(ck, config=cfg)
+    mgr.save(create_state(build_model(cfg, seed=0), cfg))
+    mgr.close()
+    export_seg_cache(cache, num_parts=4, resolution=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_ood_seg(ck, parts=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["eval-ood", "--checkpoint-dir", ck, "--seg-parts", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        diagnose(ck, cache)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rows = evaluate_ood_seg(ck, parts=1, levels=[("clean", None)],
+                                device="cpu")
+        assert [r["n"] for r in rows] == [1]
+        assert diagnose(ck, cache, batch=2, device="cpu")["voxels"] > 0
+    finally:
+        torch.set_num_threads(threads)

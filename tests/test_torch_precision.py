@@ -158,13 +158,17 @@ def test_config_accepts_the_rungs_and_refuses_the_unported():
     assert robust.validate_training() is robust
     seg = get_config("seg64")  # the segmenter: ported
     assert seg.validate_training() is seg and seg.task == "segment"
-    for sp in ("fp32", "bf16"):
+    for sp in precision.SERVE_PRECISIONS:  # int8 included
         assert get_config("seg64", serve_precision=sp).serve_precision == sp
-    # What a segment run does not do yet is refused, naming its queue.
-    for bad in (dict(serve_precision="int8"),
-                dict(augment_affine=True, data_cache="c", hbm_cache=True)):
-        with pytest.raises(ValueError, match="Queue A.3"):
-            get_config("seg64", **bad)
+    # A resident segment run warps in the step; a streamed one has no
+    # in-step augmentation, so the warp is refused, as the reference
+    # refuses it.
+    warped = get_config("seg64", augment_affine=True, data_cache="c",
+                        hbm_cache=True)
+    assert warped.device_augment and warped.validate_training() is warped
+    for streamed in (dict(data_cache="c"), {}):
+        with pytest.raises(ValueError, match="needs device augmentation active"):
+            get_config("seg64", augment_affine=True, **streamed)
 
 
 # --- serving casts and the quantizer --------------------------------------------

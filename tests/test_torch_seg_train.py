@@ -394,8 +394,13 @@ def test_segment_predictor_service_and_http(seg_checkpoint, tmp_path):
     assert pred.predict_voxels_seg(grids[:0]).shape == (0, R, R, R)
     with pytest.raises(ValueError, match="predict_voxels_seg"):
         pred.predict_voxels(grids)
-    with pytest.raises(ValueError, match="Queue A.3"):
-        Predictor.from_checkpoint(seg_checkpoint, device="cpu", precision="int8")
+    # int8: quantized kernels, labels of the same shape, close to fp32's.
+    q = Predictor.from_checkpoint(seg_checkpoint, batch=4, device="cpu",
+                                  precision="int8")
+    qlabels = q.predict_voxels_seg(grids)
+    assert qlabels.dtype == np.int8 and qlabels.shape == labels.shape
+    assert float((qlabels == labels).mean()) > 0.9
+    assert q.resident_weight_bytes < pred.resident_weight_bytes / 3
     paths = _stl_paths(tmp_path)
     out = pred.predict_stl(paths)
     assert all(isinstance(p, SegPrediction) for p in out)

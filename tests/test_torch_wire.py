@@ -263,9 +263,13 @@ def test_packed_programs_refuse_a_segmenter():
     pred = Predictor.from_seed(seg, 0, batch=1, device="cpu")
     with pytest.raises(ValueError, match="classify"):
         pred.packed_program_for(1)
-    assert registry.warmup(seg, device="cpu", names=["serve_int8"]) == {
-        "serve_int8": {"skipped": "int8 segment serving is not ported "
-                                  "(ROADMAP Queue A.3)"}}
+    # The packed programs do not apply to a segmenter; its int8 serving
+    # program does, and warmup builds it.
+    built = registry.warmup(seg, device="cpu",
+                            names=["serve_int8", "serve_packed_int8"])
+    assert list(built) == ["serve_int8"]
+    assert (built["serve_int8"]["source"], built["serve_int8"]["precision"]) == \
+        ("eager", "int8")
 
 
 def test_cli_programs_lists_the_reference_rows_and_warms(capsys):
