@@ -112,12 +112,13 @@ Phases, in order; any failure exits non-zero before the last line:
    SIGTERM; the train run's `checkpoint` record (host ms per save, writer
    ms per save, bytes) is printed.
 10. Cache path: the port's export_synthetic_cache writes the reference's
-   24 x 1000 benchmark at R=64 into a temporary directory under .data/
+   benchmark at R=64, cut from 24 x 1000 to 24 x 500 parts (the time
+   limit), into a temporary directory under .data/
    (export wall time and parts/s printed). sprint64 at batch 256 then
    trains from it for 50 steps under pallas and xla, once resident on the
    card (hbm_cache: the train split uploaded once, rows drawn there) and
    once streamed by the Prefetcher's threads, rotating 8 cube-group poses
-   per batch in the step; then one exact eval pass over the 4,800 held-out
+   per batch in the step; then one exact eval pass over the 2,400 held-out
    rows. Per run (`cache_run` line): samples/s with the data wait, the
    data-wait share, device ms per step (CUDA events), the resident MB, and
    launches exact over the run and for one more step. Then the resident
@@ -285,6 +286,28 @@ Phases, in order; any failure exits non-zero before the last line:
    - `incident_overhead`: `measure_incident_overhead`, three turns.
    The services' warmups, the probe's and the serve child's launches are
    the `incident` path.
+13d. The serving fleet (`fleet` phase), after `incident`, on the `report`
+   run's checkpoint: `cli fleet --replicas 2 --buckets 1,4,16,64 --capture
+   --capture-sample 1.0 --inject-faults replica_loss@request=160` (two
+   sprint64 replicas, each its own CUDA context, behind one router):
+   - both ready (launch to ready s); the fleet process holds no CUDA
+     context (not in nvidia-smi's compute apps, no /dev/nvidia node open;
+     each replica holds one), the card's memory per replica;
+   - 480 open-loop requests at 120/s through the router, a replica
+     SIGKILLed at the 160th: 0 dropped, every label the in-process
+     Predictor's (near-ties under 1e-6 exempt), the slot respawned and
+     back in membership.json (`replica_rejoin`), loss to ready s;
+   - 240 requests at 120/s to one replica directly, then through the
+     router (p50, p99, rate);
+   - `cli fleet rollout CK2` (the same weights one step later) under
+     background load: both replicas swapped, the versions converged, 0
+     dropped; `cli fleet rollout` of a checkpoint of another seed: the
+     canary fails, exit 2, both replicas still on CK2's version;
+   - SIGTERM: `fleet_stats` with 0 dropped and a rejoin; `cli report
+     --json` (no torch): the fleet timeline's `fleet_replica_loss` and
+     `fleet_replica_ready`, a tsdb series per target.
+   The draining replicas' and the rollout processes' own counts are the
+   `fleet` path (the SIGKILLed replica's count is lost with it).
 14. Robustness evaluation (`ood` phase), after the supervised runs:
    - `native`: the port's native voxelizer, built by g++ after the
      kernels (its build seconds; a build that fails fails the script), on
@@ -362,7 +385,7 @@ Phases, in order; any failure exits non-zero before the last line:
    (`cli train`, `cli eval`, `cli infer`, seg_diagnose, each on the card).
 16. The wall time of every phase, one JSON line of per-kernel numbers
    (launches by path, the wire, cache, robust, supervise, report,
-   quality, incident, precision, ood, tta and seg runs' included), the
+   quality, incident, fleet, precision, ood, tta and seg runs' included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
@@ -484,9 +507,11 @@ TRAIN_STEPS = 5
 EVAL_BATCHES = 1
 # Producer threads: one per host core, at most 8 (the chip machine has 8).
 TRAIN_WORKERS = min(8, len(os.sched_getaffinity(0)))
-# The cache phase: the reference's 24 x 1000 benchmark scale at R=64, and
-# 50 steps per run; the rotation check takes the first 64 drawn rows.
-CACHE_PER_CLASS = 1000
+# The cache phase: the reference's 24 x 1000 benchmark at R=64 cut to 24 x
+# 500 (the export is host-bound at ~430 parts/s, and the script must end
+# inside its time limit), and 50 steps per run; the rotation check takes
+# the first 64 drawn rows.
+CACHE_PER_CLASS = 500
 CACHE_STEPS = 50
 ROTATION_CHECK_ROWS = 64
 
@@ -1867,7 +1892,7 @@ def cache_cli(seed: int, cache: str, eval_samples: int) -> dict:
 
 
 def cache_phase(torch, seed: int, smi_line: str, cache: str) -> dict:
-    """Export the synthetic parts at the reference's 24 x 1000 scale into a
+    """Export the synthetic parts at 24 x CACHE_PER_CLASS into a
     packed cache at ``cache``, then train sprint64 from it under pallas and
     xla, resident and streamed, and hold the resident path against
     itself."""
@@ -1889,7 +1914,7 @@ def cache_phase(torch, seed: int, smi_line: str, cache: str) -> dict:
             torch.cuda.empty_cache()
     cli = cache_cli(seed, cache, runs["train_hbm_pallas"]["eval_samples"])
     out = {"per_class": CACHE_PER_CLASS, "parts": parts, "resolution": 64,
-           "cut": None, "export_s": export_s, "export_parts_per_sec": parts / export_s,
+           "cut": "24 x 1000 -> 24 x 500", "export_s": export_s, "export_parts_per_sec": parts / export_s,
            "cache_mb": parts * 64 ** 3 / 8 / 1e6,
            "hbm_resident_mb": runs["train_hbm_pallas"]["hbm_resident_mb"],
            "hbm_resident_rows": runs["train_hbm_pallas"]["hbm_resident_rows"],
@@ -5607,6 +5632,342 @@ def incident_phase(torch, seed: int, smi_line: str) -> dict:
     return {"launches": launches}
 
 
+# The fleet phase: `cli fleet` of FLEET_REPLICAS sprint64 replicas on the
+# card from the `report` run's checkpoint, FLEET_REQUESTS open-loop
+# requests at FLEET_QPS through the router with the replica_loss site at
+# FLEET_KILL_AT (the reference bench's 1/3 kill point at twice its rate),
+# the direct-against-routed bursts of FLEET_COMPARE requests, a passing and
+# a failing `cli fleet rollout` under background load of FLEET_BG_QPS.
+FLEET_REPLICAS = 2
+FLEET_REQUESTS = 480
+FLEET_QPS = 120.0
+FLEET_KILL_AT = 160
+FLEET_COMPARE = 240
+FLEET_BG_QPS = 40.0
+FLEET_GRIDS = 64
+FLEET_READY_S = 240.0  # launch to all ready, and a loss to its rejoin
+# A served top probability against the same bucket's eager one: equal but
+# for float rounding (sprint64's bf16 activations make buckets differ by
+# up to ~3e-3 from each other, so each bucket is compared on its own).
+FLEET_PROB_ULP = 1e-6
+
+
+def _next_step_checkpoint(ck: str, out: str) -> str:
+    """The newest step of ``ck`` saved again, one step later, into ``out``:
+    the same weights under a new step and version."""
+    from featurenet_tpu_torch.runtime import build_model
+    from featurenet_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        load_run_config,
+    )
+    from featurenet_tpu_torch.train.state import create_state
+
+    cfg = load_run_config(ck)
+    state = create_state(build_model(cfg, seed=0), cfg)
+    src = CheckpointManager(ck)
+    src.restore(state)
+    src.close()
+    state.step = int(state.step) + 1
+    mgr = CheckpointManager(out, config=cfg)
+    mgr.save(state)
+    mgr.close()
+    return out
+
+
+def _run_events(run: str) -> list[dict]:
+    """Every event line of every stream of a run directory, by time."""
+    out = []
+    for name in sorted(os.listdir(run)):
+        if name.startswith("events") and name.endswith(".jsonl"):
+            with open(os.path.join(run, name)) as fh:
+                for line in fh:
+                    try:
+                        out.append(json.loads(line))
+                    except ValueError:
+                        pass  # a torn tail line
+    return sorted(out, key=lambda e: e.get("t", 0.0))
+
+
+def _fleet_health(port: int) -> dict:
+    try:
+        return _get(port, "/healthz")[1]
+    except (OSError, http.client.HTTPException, ValueError):
+        return {}
+
+
+def _fleet_probs(torch, pred, grids) -> dict:
+    """The Predictor's eager probabilities of every grid at each serving
+    bucket (the grids in chunks of the bucket's size): what a replica's
+    graph for that bucket answers, bitwise, whatever shares the batch."""
+    out = {}
+    with torch.inference_mode():
+        for b in SERVE_BUCKETS:
+            out[b] = torch.cat([
+                pred.forward_eager(torch.from_numpy(
+                    grids[i:i + b, ..., None]).cuda()).float().cpu()
+                for i in range(0, len(grids), b)]).numpy()
+    return out
+
+
+def _fleet_labels(outcomes, probs: dict, what: str) -> dict:
+    """Every answered request (request i sent grid i % FLEET_GRIDS) must
+    carry the label and top probability the Predictor gives its grid at
+    one of the serving buckets (within FLEET_PROB_ULP); how many answers
+    each bucket's forward matched first."""
+    answered = 0
+    by_bucket = {b: 0 for b in probs}
+    for i, o in enumerate(outcomes):
+        if o is None or o.get("status") != 200:
+            continue
+        answered += 1
+        j = i % FLEET_GRIDS
+        hit = next((b for b, p in probs.items()
+                    if o["label"] == int(p[j].argmax())
+                    and abs(o["body"]["prob"] - float(p[j].max()))
+                    <= FLEET_PROB_ULP), None)
+        if hit is None:
+            fail(f"fleet {what}: request {i} answered {o['label']} at "
+                 f"{o['body']['prob']}, the Predictor by bucket "
+                 f"{ {b: (int(p[j].argmax()), float(p[j].max())) for b, p in probs.items()} }")
+        by_bucket[hit] += 1
+    return {"answered": answered, "matched_bucket": by_bucket}
+
+
+class _BackgroundLoad:
+    """Open-loop bursts through the router until stopped: the load a
+    rollout runs under."""
+
+    def __init__(self, port: int, grids):
+        self.port, self.grids = port, grids
+        self.stats: list[dict] = []
+        self.outcomes: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        from featurenet_tpu_torch.fleet.loadgen import http_load
+
+        while not self._stop.is_set():
+            st, outs = http_load("127.0.0.1", self.port, FLEET_BG_QPS,
+                                 int(FLEET_BG_QPS), self.grids)
+            self.stats.append(st)
+            self.outcomes += outs
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=120)
+        return {k: sum(s[k] for s in self.stats)
+                for k in ("answered", "rejected", "dropped", "retried")}
+
+
+def _fleet_rollout(ck: str, run: str, what: str, ok_rc: int,
+                   port: int, grids) -> tuple[dict, float, dict]:
+    """`cli fleet rollout ck --run-dir run` under background load; its
+    exit code must be ``ok_rc`` and the load must drop nothing."""
+    load = _BackgroundLoad(port, grids)
+    t0 = time.perf_counter()
+    try:
+        rc, recs, _ = _cli_records(f"fleet {what}", "fleet", "rollout", ck,
+                                   "--run-dir", run, ok=(ok_rc,))
+    finally:
+        bg = load.stop()
+    wall = time.perf_counter() - t0
+    out = next((r["fleet_rollout"] for r in recs if "fleet_rollout" in r), None)
+    if out is None or not str(out.get("device", "")).startswith("cuda"):
+        fail(f"fleet {what}: no rollout verdict on the card: {recs}")
+    if bg["dropped"]:
+        fail(f"fleet {what}: the background load dropped {bg['dropped']}: {bg}")
+    return out, wall, bg
+
+
+def fleet_phase(torch, seed: int, ck: str, smi_line: str) -> dict:
+    """The serving fleet on the card (`fleet` line): `cli fleet` with the
+    replica_loss site, the loss absorbed and the slot rejoined, labels held
+    to an in-process Predictor, no CUDA context in the fleet process, a
+    passing and a failing rollout, the report's fleet timeline. The
+    launches are those the draining replicas and the rollout processes
+    report of themselves (the SIGKILLed replica's are lost with it), the
+    `fleet` path."""
+    import dataclasses
+
+    import numpy as np
+
+    from featurenet_tpu_torch.data.synthetic import generate_batch
+    from featurenet_tpu_torch.elastic.membership import read_membership
+    from featurenet_tpu_torch.fleet.loadgen import http_load
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.train.checkpoint import load_run_config
+
+    grids = np.ascontiguousarray(generate_batch(
+        np.random.default_rng(seed + 21), FLEET_GRIDS, 64)["voxels"][..., 0],
+        dtype="<f4")
+    pred = Predictor.from_checkpoint(ck, batch=64, device="cuda")
+    probs = _fleet_probs(torch, pred, grids)
+    del pred
+    torch.cuda.empty_cache()
+    launches: dict[str, int] = {}
+    line: dict = {"replicas": FLEET_REPLICAS, "nvidia_smi": smi_line}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(ck)) as tmp:
+        run = os.path.join(tmp, "run")
+        ck2 = _next_step_checkpoint(ck, os.path.join(tmp, "ck_next"))
+        bad = _seeded_checkpoint(os.path.join(tmp, "ck_other"),
+                                 load_run_config(ck), seed + 101)
+        used_before = _smi_used_mib()
+        t0 = time.perf_counter()
+        err = open(os.path.join(tmp, "fleet.err"), "w")
+        proc = subprocess.Popen(
+            _cli("fleet", "--checkpoint-dir", ck, "--replicas",
+                 str(FLEET_REPLICAS), "--buckets", "1,4,16,64", "--capture",
+                 "--capture-sample", "1.0", "--run-dir", run, "--port", "0",
+                 "--inject-faults", f"replica_loss@request={FLEET_KILL_AT}"),
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            banner = json.loads(proc.stdout.readline())["fleet"]
+            port = banner["port"]
+            while _fleet_health(port).get("healthy", 0) < FLEET_REPLICAS:
+                if proc.poll() is not None or \
+                        time.perf_counter() - t0 > FLEET_READY_S:
+                    fail(f"fleet: {FLEET_REPLICAS} replicas not ready in "
+                         f"{FLEET_READY_S} s: {_fleet_health(port)}")
+                time.sleep(0.1)
+            line["ready_s"] = time.perf_counter() - t0
+            used_ready = _smi_used_mib()
+            apps = _smi_apps()
+            fleet_pid = banner["pid"]
+            spawns = {e["host"]: e["pid"] for e in _run_events(run)
+                      if e.get("ev") == "supervisor" and e.get("phase") == "spawn"}
+            held = {slot: _gpu_fds(pid) for slot, pid in spawns.items()}
+            if (fleet_pid in {p for p, _ in apps} or _gpu_fds(fleet_pid)
+                    or not all(held.values())):
+                fail(f"fleet: the fleet process (pid {fleet_pid}) holds a CUDA "
+                     f"context, or a replica holds none: nvidia-smi {apps}, "
+                     f"its device nodes {_gpu_fds(fleet_pid)}, the replicas' "
+                     f"{held}")
+            line["no_cuda_context"] = {
+                "fleet_pid": fleet_pid, "fleet_gpu_fds": [],
+                "replica_pids": spawns, "smi_apps": apps,
+                # nvidia-smi may not see a container's pids: the card's
+                # used memory with the replicas up, over the count.
+                "used_mib_before": used_before, "used_mib_ready": used_ready,
+                "mib_per_replica": (None if None in (used_before, used_ready)
+                                    else (used_ready - used_before)
+                                    / FLEET_REPLICAS),
+                "smi_mib_by_replica": {slot: dict(apps).get(pid, "not listed")
+                                       for slot, pid in spawns.items()},
+            }
+
+            st, outs = http_load("127.0.0.1", port, FLEET_QPS, FLEET_REQUESTS,
+                                 grids)
+            if st["dropped"] or st["answered"] + st["rejected"] != FLEET_REQUESTS:
+                fail(f"fleet: the load through the loss dropped requests: {st}")
+            line["load"] = {**st, **_fleet_labels(outs, probs, "load")}
+            t_kill = time.perf_counter()
+            while True:
+                m = read_membership(run)
+                if m is not None and m.reason == "replica_rejoin" \
+                        and len(m.members) == FLEET_REPLICAS:
+                    break
+                if time.perf_counter() - t_kill > FLEET_READY_S:
+                    fail(f"fleet: no rejoin in {FLEET_READY_S} s: {m}")
+                time.sleep(0.1)
+            events = _run_events(run)
+            loss = next((e for e in events if e["ev"] == "fleet_replica_loss"),
+                        None)
+            if loss is None:
+                fail("fleet: the replica_loss site fired no fleet_replica_loss")
+            back = next(e for e in events if e["ev"] == "fleet_replica_ready"
+                        and e["t"] > loss["t"] and e["replica"] == loss["replica"])
+            line["loss"] = {"replica": loss["replica"], "reason": loss["reason"],
+                            "respawn_to_ready_s": back["t"] - loss["t"],
+                            "membership": dataclasses.asdict(m)}
+
+            # Through the router against one replica alone, same load.
+            health = _fleet_health(port)
+            direct_port = int(sorted(health["ports"].items())[0][1])
+            cmp_ = {}
+            for what, p in (("direct", direct_port), ("routed", port)):
+                s, o = http_load("127.0.0.1", p, FLEET_QPS, FLEET_COMPARE, grids)
+                if s["dropped"] or s["answered"] != FLEET_COMPARE:
+                    fail(f"fleet {what}: {s}")
+                cmp_[what] = {**{k: s[k] for k in ("sustained_qps", "p50_ms",
+                                                   "p99_ms", "offered_qps")},
+                              **_fleet_labels(o, probs, what)}
+            line["direct_vs_routed"] = cmp_
+
+            old = set(health["versions"].values())
+            out, wall, bg = _fleet_rollout(ck2, run, "rollout", 0, port, grids)
+            new = out["version"]
+            if (not out["ok"] or sorted(out["swapped"]) != list(range(FLEET_REPLICAS))
+                    or not out["converged"]
+                    or set(_fleet_health(port)["versions"].values()) != {new}
+                    or new in old):
+                fail(f"fleet rollout: {out}")
+            _add_counts(launches, out.get("launches") or {})
+            line["rollout"] = {"wall_s": wall, "per_replica_s": wall / FLEET_REPLICAS,
+                               "version": new, "from": sorted(old),
+                               "steps": out["steps"], "background": bg}
+
+            out, wall, bg = _fleet_rollout(bad, run, "rollout_bad", 2, port, grids)
+            if (out["ok"] or not out["reason"].startswith("canary_failed")
+                    or set(_fleet_health(port)["versions"].values()) != {new}):
+                fail(f"fleet failing rollout: {out}")
+            _add_counts(launches, out.get("launches") or {})
+            line["rollout_bad"] = {"wall_s": wall, "reason": out["reason"],
+                                   "rolled_back": out["rolled_back"],
+                                   "converged": out["converged"],
+                                   "background": bg}
+            proc.send_signal(signal.SIGTERM)
+            stdout, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+            err.close()
+        if proc.returncode != 0:
+            with open(os.path.join(tmp, "fleet.err")) as fh:
+                fail(f"fleet: cli fleet exited {proc.returncode}: "
+                     f"{fh.read()[-2000:]}")
+        stats = json.loads(stdout.strip().splitlines()[-1])["fleet_stats"]
+        if stats["dropped"] or stats["replicas"]["rejoins"] < 1:
+            fail(f"fleet: fleet_stats {stats}")
+        line["fleet_stats"] = {k: stats[k] for k in (
+            "routed", "answered", "rejected", "spillovers", "resubmits",
+            "dropped", "pool", "scrape")}
+        line["fleet_stats"]["replicas"] = stats["replicas"]
+        # Each draining replica's own count (the SIGKILLed one's went with
+        # it; its respawn's stdout file took the slot's name).
+        children = {}
+        for slot in range(FLEET_REPLICAS):
+            with open(os.path.join(run, f"replica.{slot}.out")) as fh:
+                serve = [json.loads(ln)["serve_stats"] for ln in fh
+                         if ln.startswith('{"serve_stats"')]
+            if not serve:
+                fail(f"fleet: replica {slot} printed no serve_stats")
+            children[slot] = serve[-1].get("launches") or {}
+            _add_counts(launches, children[slot])
+        line["replica_launches"] = children
+
+        got = _report_cli("report", run, "--json")
+        if got.returncode != 0:
+            fail(f"fleet: report --json exited {got.returncode}: {got.stderr[-2000:]}")
+        rep = json.loads(got.stdout)
+        timeline = [e["event"] for e in (rep.get("fleet") or {}).get("timeline", [])]
+        series = (rep.get("fleet_timeline") or {}).get("targets") or {}
+        if ("fleet_replica_loss" not in timeline
+                or "fleet_replica_ready" not in timeline or not series):
+            fail(f"fleet: the report's fleet timeline {timeline}, series {series}")
+        line["report"] = {"timeline": {e: timeline.count(e) for e in sorted(set(timeline))},
+                          "tsdb_targets": {t: s["samples"] for t, s in series.items()},
+                          "rollout": rep["fleet"].get("rollout")}
+    line["launches"] = launches
+    print("fleet", json.dumps(line), flush=True)
+    if not launches.get("conv3d_fwd"):
+        fail(f"fleet: no conv3d_fwd launch on the fleet path: {launches}")
+    return {"launches": launches}
+
+
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
     main = [r for r in rows if r["main_path"]]
     return {
@@ -5702,8 +6063,10 @@ def main() -> int:
         reported = report_out["launches"]
         quality = phase("quality", quality_phase, torch, args.seed,
                         report_out["checkpoint"], smi_line)["launches"]
-    incident = phase("incident", incident_phase, torch, args.seed,
-                     smi_line)["launches"]
+        incident = phase("incident", incident_phase, torch, args.seed,
+                         smi_line)["launches"]
+        fleet = phase("fleet", fleet_phase, torch, args.seed,
+                      report_out["checkpoint"], smi_line)["launches"]
     robustness = phase("ood", ood_phase, torch, args.seed, native_info,
                        smi_line)["launches"]
     seg = phase("seg", seg_phase, torch, args.seed, smi_line)["launches"]
@@ -5734,6 +6097,7 @@ def main() -> int:
                        "report": reported["conv3d_fwd"],
                        "quality": quality["conv3d_fwd"],
                        "incident": incident["conv3d_fwd"],
+                       "fleet": fleet["conv3d_fwd"],
                        **{k: v["conv3d_fwd"] for k, v in rungs.items()},
                        **{k: v["conv3d_fwd"] for k, v in robustness.items()},
                        "seg": seg["conv3d_fwd"]}),

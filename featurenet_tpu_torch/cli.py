@@ -44,6 +44,12 @@
          --run-dir D2]
     python -m featurenet_tpu_torch.cli serve --config sprint64 --seed 0 \
         --buckets 1,4,16,64 --port 0 --device cuda
+    python -m featurenet_tpu_torch.cli fleet --checkpoint-dir CK --run-dir R \
+        [--replicas 2 --device cuda --buckets 1,4,16,64 --port 8000 \
+         --capture [--capture-sample F] --inject-faults SPEC --drain \
+         --slos SPEC --autoscale [--min-replicas 1 --max-replicas N]]
+    python -m featurenet_tpu_torch.cli fleet rollout CK2 --run-dir R \
+        [--min-agreement 0.967 --batch 32 --device cuda --precision P]
     python -m featurenet_tpu_torch.cli serve --weights w.npz --port 0
     python -m featurenet_tpu_torch.cli eval --checkpoint-dir CK \
         [--serve-precision fp32|bf16|int8]
@@ -232,6 +238,24 @@ heartbeat into ``device_memory`` events (the report's perf section).
 ``serving_ms`` window) and the part's ``voxelize`` spans; with
 ``--alert-rules`` a serving alert still active at the end exits 2.
 
+``fleet`` runs ``--replicas`` supervised ``serve --port 0`` children on
+``--device`` behind one router (``fleet/``), in a process that never
+opens the card: each child gets ``--replica-id <slot>`` (in its banner,
+``/healthz`` and refusal bodies), ``--heartbeat-file R/heartbeat.<slot>``
+(touched once a second while it is ready or swapping) and its own event
+stream ``R/events.<slot+1>.jsonl``; a dead or silent child is respawned
+and routed to again once its ``/healthz`` is ready, the roster kept in
+``R/membership.json``. It prints ``{"fleet": {...}}`` with the router's
+port, serves until SIGTERM/SIGINT (or ``--duration-s``), then prints
+``{"fleet_stats": {...}}``; ``--drain`` exits 2 on an unresolved serving
+alert or a dropped admitted request. ``--inject-faults`` fires
+``replica_loss`` and ``spawn_fail`` here and hands the whole spec to
+every child. ``fleet rollout CK2 --run-dir R`` swaps a live fleet onto a
+candidate one replica at a time, each canaried on its own capture ring
+(``fleet --capture``) first, and prints ``{"fleet_rollout": {...}}``; a
+failed canary, a refused swap or a replica lost mid-swap rolls the
+swapped replicas back and exits 2.
+
 ``serve``, ``eval`` and ``infer`` read a checkpoint directory read-only and
 configure themselves from its ``config.json``; ``--conv-backend`` picks
 another lowering of the same model, ``--precision`` (``serve``, ``infer``)
@@ -362,6 +386,144 @@ def _parser() -> argparse.ArgumentParser:
     p_srv.add_argument("--capture-dir", dest="capture_dir",
                        help="capture ring directory (default "
                             "<run-dir>/capture; implies --capture)")
+    p_srv.add_argument("--replica-id", dest="replica_id",
+                       help="this replica's name in a fleet: in the banner, "
+                            "/healthz and every refusal body (`fleet` sets "
+                            "it on each child)")
+    p_srv.add_argument("--heartbeat-file", dest="heartbeat_file",
+                       help="touch this file once a second while the service "
+                            "is ready or swapping weights (the fleet "
+                            "manager's liveness protocol)")
+    # The event stream this process owns (a fleet's router keeps 0, replica
+    # slot its slot+1).
+    p_srv.add_argument("--process-index", type=int, dest="process_index",
+                       help=argparse.SUPPRESS)
+
+    p_flt = sub.add_parser("fleet", help="N supervised `serve` replicas behind "
+                                         "one router (featurenet_tpu_torch."
+                                         "fleet); `fleet rollout` rolls new "
+                                         "weights across a live fleet")
+    p_flt.add_argument("--checkpoint-dir", dest="checkpoint_dir",
+                       help="the checkpoint every replica serves (required "
+                            "to launch a fleet)")
+    p_flt.add_argument("--replicas", type=int, default=2,
+                       help="serving replicas (default 2); each a supervised "
+                            "`serve --port 0` child, routed to once its "
+                            "/healthz is ready")
+    p_flt.add_argument("--device", default="cuda",
+                       help="each replica's device: cuda (default) or cpu; "
+                            "the fleet process itself uses none")
+    p_flt.add_argument("--buckets", default="1,4,16,64",
+                       help="per-replica bucket ladder (see `serve`)")
+    p_flt.add_argument("--max-wait-ms", type=float, default=5.0,
+                       dest="max_wait_ms")
+    p_flt.add_argument("--queue-limit", type=int, default=64,
+                       dest="queue_limit",
+                       help="per-replica admission bound (see `serve`)")
+    p_flt.add_argument("--batch-shed-depth", type=int, default=8,
+                       dest="batch_shed_depth",
+                       help="a batch-lane request goes only to a replica "
+                            "whose load is under this; above it everywhere, "
+                            "batch sheds at once with Retry-After (default 8)")
+    p_flt.add_argument("--host", default="127.0.0.1")
+    p_flt.add_argument("--port", type=int, default=8000,
+                       help="router HTTP port (0 = ephemeral; in the banner)")
+    p_flt.add_argument("--slo-p99-ms", type=float, default=250.0,
+                       dest="slo_p99_ms",
+                       help="end-to-end p99 SLO of the router's alert rules, "
+                            "its scale verdicts and each replica (default "
+                            "250)")
+    p_flt.add_argument("--slos",
+                       help="burn-rate objectives "
+                            "'metric<threshold@objective%%[:severity]',... "
+                            "(default: one p99 objective from --slo-p99-ms)")
+    p_flt.add_argument("--precision", choices=SERVE_PRECISIONS,
+                       help="replica serving precision (see `serve`)")
+    p_flt.add_argument("--duration-s", type=float, default=None,
+                       dest="duration_s",
+                       help="stop after this many seconds (default: until "
+                            "signalled)")
+    p_flt.add_argument("--drain", action="store_true",
+                       help="exit 2 on an unresolved fleet serving alert or "
+                            "any dropped admitted request")
+    p_flt.add_argument("--run-dir", dest="run_dir",
+                       help="required: the router's stream 0 (fleet_* "
+                            "events), membership.json, heartbeats, replica "
+                            "stdout files, the store (tsdb/); replica slot "
+                            "writes events.<slot+1>.jsonl")
+    p_flt.add_argument("--trace-sample", type=float, dest="trace_sample",
+                       help="replica request-tracing sample rate (see `serve`)")
+    p_flt.add_argument("--inject-faults", dest="inject_faults",
+                       help="fault spec: replica_loss@request=N SIGKILLs a "
+                            "live replica at the router's Nth request, "
+                            "spawn_fail@spawn=N fails the Nth spawn; the "
+                            "replicas get the whole spec (replica_slow, "
+                            "swap_corrupt, replica_loss_rollout)")
+    p_flt.add_argument("--quality", action="store_true",
+                       help="per-replica model-quality telemetry (see `serve`)")
+    p_flt.add_argument("--quality-baseline", dest="quality_baseline",
+                       help="pinned class-mix baseline for every replica")
+    p_flt.add_argument("--capture", action="store_true",
+                       help="per-replica flight recorder under "
+                            "<run-dir>/capture/replica<slot> (what `fleet "
+                            "rollout` canaries on)")
+    p_flt.add_argument("--capture-sample", type=float, default=None,
+                       dest="capture_sample",
+                       help="per-replica capture rate (see `serve`)")
+    p_flt.add_argument("--autoscale", action="store_true",
+                       help="act on the scale verdicts: add a replica on a "
+                            "sustained add, drain and park one on a "
+                            "sustained shed (hysteresis, cooldown)")
+    p_flt.add_argument("--min-replicas", type=int, default=1,
+                       dest="min_replicas",
+                       help="autoscale floor (default 1)")
+    p_flt.add_argument("--max-replicas", type=int, default=None,
+                       dest="max_replicas",
+                       help="autoscale ceiling (default --replicas + 2)")
+    p_flt.add_argument("--scale-hysteresis", type=int, default=3,
+                       dest="scale_hysteresis",
+                       help="identical actionable verdicts in a row before "
+                            "the autoscaler acts (default 3)")
+    p_flt.add_argument("--scale-cooldown-s", type=float, default=30.0,
+                       dest="scale_cooldown_s",
+                       help="seconds since the last action before the next "
+                            "(default 30)")
+    flt_sub = p_flt.add_subparsers(dest="fleet_cmd", metavar="{rollout}")
+    p_rol = flt_sub.add_parser(
+        "rollout", help="roll a candidate checkpoint across a live fleet one "
+                        "replica at a time (canary on its capture ring, "
+                        "drain, POST /admin/reload, verify); a failure rolls "
+                        "the swapped replicas back and exits 2")
+    p_rol.add_argument("rollout_checkpoint_dir", metavar="checkpoint_dir",
+                       help="the candidate checkpoint directory")
+    # SUPPRESS: a value given before the subcommand survives.
+    p_rol.add_argument("--run-dir", dest="run_dir", default=argparse.SUPPRESS,
+                       help="the live fleet's run directory (its router's "
+                            "address, the capture rings, the rollout events)")
+    p_rol.add_argument("--device", default=argparse.SUPPRESS,
+                       help="the canary's device: cuda (default) or cpu")
+    p_rol.add_argument("--config", choices=sorted(PRESETS),
+                       help="must be the candidate's (it self-configures)")
+    p_rol.add_argument("--conv-backend", choices=sorted(CONV_BACKENDS),
+                       dest="conv_backend",
+                       help="the canary's lowering of the candidate")
+    p_rol.add_argument("--precision", choices=SERVE_PRECISIONS,
+                       help="the canary's precision (default: the "
+                            "candidate config's)")
+    p_rol.add_argument("--min-agreement", type=float, default=0.967,
+                       dest="min_agreement",
+                       help="per-replica canary gate: the candidate must "
+                            "agree with this share of the replica's captured "
+                            "labels (default 0.967)")
+    p_rol.add_argument("--batch", type=int, default=32,
+                       help="canary scoring batch (default 32)")
+    p_rol.add_argument("--swap-timeout-s", type=float, default=120.0,
+                       dest="swap_timeout_s",
+                       help="per-replica /admin/reload deadline (default 120)")
+    p_rol.add_argument("--converge-timeout-s", type=float, default=120.0,
+                       dest="converge_timeout_s",
+                       help="bounded wait for the roster's version tags to "
+                            "converge (default 120)")
 
     p_pin = sub.add_parser("pin-quality", help="pin a predicted-class-mix "
                                                "baseline from a classify "
@@ -1184,7 +1346,9 @@ def _serve(args) -> int:
 
         try:
             faults.check_wired(args.inject_faults)
-            faults.install(args.inject_faults)
+            # Markers in the run directory: a respawned fleet replica does
+            # not fire a site a previous incarnation fired.
+            faults.install(args.inject_faults, state_dir=args.run_dir)
         except ValueError as e:
             raise SystemExit(f"--inject-faults: {e}")
     if args.trace_sample is not None and not 0.0 <= args.trace_sample <= 1.0:
@@ -1214,14 +1378,28 @@ def _serve(args) -> int:
         from featurenet_tpu_torch.config import config_to_dict
 
         obs.init_run(args.run_dir, config=config_to_dict(pred.cfg),
-                     extra={"cmd": "serve"})
+                     extra={"cmd": "serve"}, process_index=args.process_index)
     service = InferenceService(pred, buckets=buckets,
                                max_wait_ms=args.max_wait_ms,
                                queue_limit=args.queue_limit, rules=rules,
                                slo_p99_ms=args.slo_p99_ms,
                                batch_queue_limit=args.batch_queue_limit,
                                quality=quality, recorder=recorder,
-                               run_dir=args.run_dir)
+                               run_dir=args.run_dir, replica=args.replica_id)
+    beat_stop = threading.Event()
+    if args.heartbeat_file:
+        from featurenet_tpu_torch.train.heartbeat import touch_heartbeat
+
+        def beat():
+            # While ready, and while a swap has the replica cordoned: it is
+            # alive and working then, and must not be killed as stalled.
+            while not beat_stop.is_set():
+                if service.ready() or service.reloading():
+                    touch_heartbeat(args.heartbeat_file)
+                beat_stop.wait(1.0)
+
+        threading.Thread(target=beat, name="serve-heartbeat",
+                         daemon=True).start()
     srv = make_server(service, host=args.host, port=args.port)
     server_thread = threading.Thread(target=srv.serve_forever,
                                      name="serve-http", daemon=True)
@@ -1234,7 +1412,8 @@ def _serve(args) -> int:
         "conv_backend": pred.cfg.arch.conv_backend,
         "device": str(pred.device), "model_version": pred.model_version,
         "slo_p99_ms": args.slo_p99_ms, "trace_sample": pred.cfg.trace_sample,
-        "run_dir": args.run_dir, "endpoints": ENDPOINTS,
+        "run_dir": args.run_dir, "replica": args.replica_id,
+        "endpoints": ENDPOINTS,
         "quality": quality is not None,
         "capture_dir": recorder.root if recorder is not None else None,
     }}), flush=True)
@@ -1242,6 +1421,7 @@ def _serve(args) -> int:
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
     stop.wait(timeout=args.duration_s)
+    beat_stop.set()
     srv.shutdown()
     srv.server_close()
     server_thread.join(timeout=10.0)
@@ -1469,6 +1649,381 @@ def _replay(args) -> int:
     return 0 if ok else 2
 
 
+def _fleet(args) -> int:
+    """``fleet``: the router, the replica manager and the scraper in this
+    process, which never touches a device; each replica is a ``serve``
+    child on ``--device``."""
+    if getattr(args, "fleet_cmd", None) == "rollout":
+        return _fleet_rollout(args)
+    import os
+
+    from featurenet_tpu_torch import faults, obs
+    from featurenet_tpu_torch.fleet.loadgen import replica_argv
+    from featurenet_tpu_torch.fleet.replica import Autoscaler, ReplicaManager
+    from featurenet_tpu_torch.fleet.router import FleetRouter
+    from featurenet_tpu_torch.fleet.scraper import ROUTER_TARGET, MetricsScraper
+    from featurenet_tpu_torch.obs import alerts as _alerts
+    from featurenet_tpu_torch.obs import tsdb as _tsdb
+
+    if not args.checkpoint_dir:
+        raise SystemExit("fleet: --checkpoint-dir is required to launch a fleet")
+    if args.replicas < 1:
+        raise SystemExit(f"fleet: --replicas must be >= 1, got {args.replicas}")
+    max_replicas = (args.max_replicas if args.max_replicas is not None
+                    else args.replicas + 2)
+    if args.autoscale:
+        if args.min_replicas < 1:
+            raise SystemExit(f"fleet: --min-replicas must be >= 1, got "
+                             f"{args.min_replicas}")
+        if not args.min_replicas <= args.replicas <= max_replicas:
+            raise SystemExit(
+                f"fleet: --replicas {args.replicas} must sit inside "
+                f"[--min-replicas {args.min_replicas}, --max-replicas "
+                f"{max_replicas}]")
+    if not args.run_dir:
+        raise SystemExit(
+            "fleet: --run-dir is required — the roster (membership.json), "
+            "per-replica heartbeats, stdout banners, and the fleet event "
+            "stream all live there")
+    if args.inject_faults:
+        # This process fires replica_loss and spawn_fail; the replicas get
+        # the whole spec on their argv and fire their own sites.
+        try:
+            faults.check_wired(args.inject_faults)
+            faults.install(args.inject_faults, state_dir=args.run_dir,
+                           only={"replica_loss", "spawn_fail"})
+        except ValueError as e:
+            raise SystemExit(f"--inject-faults: {e}")
+    if args.quality_baseline:
+        from featurenet_tpu_torch.obs.quality import load_baseline
+
+        try:
+            load_baseline(args.quality_baseline)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"--quality-baseline: {e}")
+    slos = None
+    if args.slos:
+        try:
+            slos = _alerts.parse_slos(args.slos)
+        except ValueError as e:
+            raise SystemExit(f"--slos: {e}")
+    if args.device != "cpu":
+        # The replicas' kernel, built once here (nvcc only, no CUDA
+        # context), so no child compiles it on its cold start.
+        from featurenet_tpu_torch.ops import build
+
+        build.build_all(["conv3d_fwd"])
+    run_dir = os.path.abspath(args.run_dir)
+    # The manifest lists no card: this process must not open the card.
+    obs.init_run(run_dir, extra={"cmd": "fleet"}, process_index=0,
+                 devices=False)
+
+    def spawn(slot, hb):
+        return replica_argv(
+            args.checkpoint_dir, slot, hb, run_dir=run_dir, device=args.device,
+            buckets=args.buckets, max_wait_ms=args.max_wait_ms,
+            queue_limit=args.queue_limit, slo_p99_ms=args.slo_p99_ms,
+            precision=args.precision, inject_faults=args.inject_faults,
+            trace_sample=args.trace_sample, quality=args.quality,
+            quality_baseline=args.quality_baseline, capture=args.capture,
+            capture_sample=args.capture_sample)
+
+    manager = ReplicaManager(args.replicas, spawn, run_dir, host="127.0.0.1")
+    # The scraper's samples land in <run_dir>/tsdb: the router's burn
+    # verdicts, `dash` and the report's fleet timeline read them, and the
+    # alert mirror writes alerts_active beside them.
+    store = _tsdb.TimeSeriesStore.open(run_dir)
+    _alerts.set_store(store)
+    router = FleetRouter(manager, slo_p99_ms=args.slo_p99_ms,
+                         batch_shed_depth=args.batch_shed_depth, store=store,
+                         slos=slos, run_dir=run_dir)
+    manager.start()
+    autoscaler = None
+    if args.autoscale:
+        autoscaler = Autoscaler(manager, router.scale_state,
+                                min_replicas=args.min_replicas,
+                                max_replicas=max_replicas,
+                                hysteresis=args.scale_hysteresis,
+                                cooldown_s=args.scale_cooldown_s)
+    srv = router.make_server(host=args.host, port=args.port)
+    port = srv.server_address[1]
+    scraper = MetricsScraper(store, manager.pool, lambda: {
+        **{str(s): p for s, p in manager.stats()["ports"].items()},
+        ROUTER_TARGET: port})
+    scraper.start()
+    if autoscaler is not None:
+        autoscaler.start()
+    obs.emit("fleet_start", replicas=args.replicas, host=srv.server_address[0],
+             port=port)
+    threading.Thread(target=srv.serve_forever, name="fleet-http",
+                     daemon=True).start()
+    print(json.dumps({"fleet": {
+        "host": srv.server_address[0], "port": port, "pid": os.getpid(),
+        "replicas": args.replicas, "device": args.device,
+        "buckets": args.buckets, "batch_shed_depth": args.batch_shed_depth,
+        "autoscale": None if autoscaler is None else autoscaler.stats(),
+        "run_dir": run_dir,
+    }}), flush=True)
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    stop.wait(timeout=args.duration_s)
+    # Stop acting first, take a last scrape while the replicas live, then
+    # drain the router and stop the children.
+    if autoscaler is not None:
+        autoscaler.stop()
+    scraper.stop()
+    srv.shutdown()
+    srv.server_close()
+    st = router.drain()
+    manager.stop()
+    st["scrape"] = scraper.stats()
+    if autoscaler is not None:
+        st["autoscale"] = autoscaler.stats()
+    _alerts.set_store(None)
+    store.close()
+    obs.close_run()
+    print(json.dumps({"fleet_stats": st}), flush=True)
+    return st["exit_code"] if args.drain else 0
+
+
+# The rollout's event stream: far above any replica's slot+1, so `fleet
+# rollout` appends to a live fleet's run directory without a collision.
+_ROLLOUT_STREAM = 1000
+
+
+def _fleet_router_address(run_dir: str):
+    """The live fleet's router ``(host, port)`` from the last
+    ``fleet_start`` event of the run's stream 0 (the router's), or None
+    when the directory holds no fleet."""
+    import os
+
+    from featurenet_tpu_torch.obs.events import events_filename
+
+    addr = None
+    try:
+        with open(os.path.join(run_dir, events_filename(0)),
+                  encoding="utf-8") as fh:
+            for line in fh:
+                try:
+                    e = json.loads(line)
+                except ValueError:
+                    continue  # the torn tail of a live stream
+                if e.get("ev") == "fleet_start":
+                    addr = (e.get("host"), e.get("port"))
+    except OSError:
+        return None
+    if not addr or not addr[0] or not addr[1]:
+        return None
+    return addr[0], int(addr[1])
+
+
+def _wait_one_version(pool, host: str, router_port: int, timeout_s: float,
+                      expect=None) -> bool:
+    """Poll the router's roster until every replica with a version tag
+    reports the same one (``expect`` when given); False on timeout."""
+    import http.client
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            _, raw = pool.get(host, router_port, "/healthz", 10.0)
+            doc = json.loads(raw.decode("utf-8"))
+        except (OSError, http.client.HTTPException, ValueError):
+            time.sleep(0.5)
+            continue
+        vals = set((doc.get("versions") or {}).values())
+        if (len(vals) == 1 and doc.get("healthy")
+                and (expect is None or vals == {expect})):
+            return True
+        time.sleep(0.5)
+    return False
+
+
+def _fleet_rollout(args) -> int:
+    """``fleet rollout CK``: one replica at a time, canary the candidate on
+    the replica's own capture ring (``_score_capture_ring``, as `replay`),
+    swap it with ``POST /admin/reload`` (the replica cordons itself and the
+    router spills its traffic to the others), note its new version; then
+    wait for the roster to converge. A failed canary, a refused swap or a
+    replica's death rolls every swapped replica back to its old checkpoint
+    and exits 2."""
+    import http.client
+    import os
+
+    from featurenet_tpu_torch import obs
+    from featurenet_tpu_torch.fleet.pool import ConnectionPool
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.serve.recorder import read_captures
+
+    candidate = args.rollout_checkpoint_dir
+    if not 0.0 <= args.min_agreement <= 1.0:
+        raise SystemExit(f"fleet rollout: --min-agreement must be in [0, 1], "
+                         f"got {args.min_agreement}")
+    run_dir = getattr(args, "run_dir", None)
+    if not run_dir:
+        raise SystemExit(
+            "fleet rollout: --run-dir is required — it names the LIVE fleet "
+            "(router address from its event stream, capture rings under "
+            "<run-dir>/capture, rollout events into the same run)")
+    addr = _fleet_router_address(run_dir)
+    if addr is None:
+        raise SystemExit(
+            f"fleet rollout: no fleet_start event under {run_dir!r} — point "
+            "--run-dir at the run directory of a live `cli fleet`")
+    host, router_port = addr
+    pool = ConnectionPool(timeout_s=args.swap_timeout_s)
+
+    def get_json(port: int, path: str) -> tuple:
+        status, raw = pool.get(host, port, path, 10.0)
+        try:
+            return status, json.loads(raw.decode("utf-8"))
+        except ValueError:
+            return status, {}
+
+    def reload(port: int, ckpt: str) -> tuple:
+        status, raw, _ = pool.post(
+            host, port, "/admin/reload",
+            json.dumps({"checkpoint_dir": ckpt}).encode(),
+            {"Content-Type": "application/json"}, args.swap_timeout_s)
+        try:
+            return status, json.loads(raw.decode("utf-8"))
+        except ValueError:
+            return status, {}
+
+    try:
+        status, health = get_json(router_port, "/healthz")
+    except (OSError, http.client.HTTPException) as e:
+        raise SystemExit(f"fleet rollout: router at {host}:{router_port} is "
+                         f"unreachable ({e}) — the fleet must be live to roll")
+    ports = {int(s): int(p) for s, p in (health.get("ports") or {}).items()}
+    if status != 200 or not ports:
+        raise SystemExit(f"fleet rollout: fleet at {host}:{router_port} is not "
+                         f"ready (status {status}, ports {ports}) — nothing "
+                         "to roll")
+    # Each replica's old identity off its own /healthz: its version, and
+    # the checkpoint a rollback swaps back to.
+    roster: dict = {}
+    for slot, port in sorted(ports.items()):
+        try:
+            st, h = get_json(port, "/healthz")
+        except (OSError, http.client.HTTPException):
+            continue
+        if st == 200 and h.get("ready"):
+            roster[slot] = {"port": port,
+                            "old_version": h.get("model_version", "unversioned"),
+                            "old_checkpoint_dir": h.get("checkpoint_dir")}
+    if not roster:
+        raise SystemExit("fleet rollout: no ready replicas answered /healthz — "
+                         "refusing to roll a degraded fleet")
+    cfg = _cfg_from_checkpoint(_saved_config(candidate), args)
+    obs.init_run(run_dir, extra={"cmd": "fleet-rollout"},
+                 process_index=_ROLLOUT_STREAM)
+    out: dict = {}
+    try:
+        # The canary's one program, built before any scoring; the
+        # replicas' own graphs are untouched.
+        pred = Predictor.from_checkpoint(candidate, config=cfg,
+                                         batch=args.batch,
+                                         device=getattr(args, "device", "cuda"),
+                                         precision=args.precision)
+        if pred.cfg.task != "classify":
+            raise SystemExit("fleet rollout: capture rings hold classify "
+                             f"traffic — the candidate is task={pred.cfg.task!r}")
+        pred.program_for(pred.batch)
+        target = pred.model_version
+        obs.emit("rollout_start", checkpoint_dir=str(candidate),
+                 replicas=sorted(roster), to_version=target)
+        swapped: list = []
+        steps: list = []
+        failure = None
+        for slot in sorted(roster):
+            info = roster[slot]
+            recs = [r for r in read_captures(
+                        os.path.join(run_dir, "capture", f"replica{slot}"))
+                    if r.get("label") is not None]
+            agreement = None
+            if recs:
+                labels, _, _, compiles = _score_capture_ring(pred, recs)
+                agree = sum(int(r["label"]) == int(labels[i])
+                            for i, r in enumerate(recs))
+                agreement = agree / len(recs)
+                obs.emit("replay_verdict", agreement=round(agreement, 6),
+                         n=len(recs), ok=agreement >= args.min_agreement,
+                         min_agreement=args.min_agreement,
+                         flips=len(recs) - agree,
+                         post_warmup_compiles=compiles, replica=slot)
+                if agreement < args.min_agreement:
+                    obs.emit("rollout_step", replica=slot, ok=False,
+                             agreement=round(agreement, 6),
+                             reason="canary_failed")
+                    failure = (f"canary_failed(replica={slot},"
+                               f"agreement={agreement:.4f})")
+                    break
+            try:
+                st, doc = reload(info["port"], candidate)
+            except (OSError, http.client.HTTPException) as e:
+                # Died mid-swap: the manager respawns it on its old
+                # checkpoint; the swapped peers roll back to match.
+                obs.emit("rollout_step", replica=slot, ok=False,
+                         reason=f"replica_lost: {e}")
+                failure = f"replica_lost(replica={slot})"
+                break
+            if st != 200:
+                kind = doc.get("kind") or st
+                obs.emit("rollout_step", replica=slot, ok=False,
+                         reason=f"swap_refused:{kind}")
+                failure = f"swap_refused(replica={slot},kind={kind})"
+                break
+            swapped.append(slot)
+            step = {"replica": slot, "canary_n": len(recs),
+                    "agreement": (None if agreement is None
+                                  else round(agreement, 6)),
+                    "swap_ms": doc.get("swap_ms"),
+                    "model_version": doc.get("model_version")}
+            steps.append(step)
+            obs.emit("rollout_step", replica=slot, ok=True,
+                     **{k: v for k, v in step.items() if k != "replica"})
+        if failure is not None:
+            rolled, failed = [], []
+            for slot in reversed(swapped):
+                old = roster[slot]["old_checkpoint_dir"]
+                try:
+                    ok = bool(old) and reload(roster[slot]["port"], old)[0] == 200
+                except (OSError, http.client.HTTPException):
+                    ok = False
+                (rolled if ok else failed).append(slot)
+            obs.emit("rollout_rollback", reason=failure, rolled_back=rolled,
+                     failed=failed)
+            converged = _wait_one_version(pool, host, router_port,
+                                          args.converge_timeout_s)
+            obs.emit("rollout_done", ok=False, swapped=[], reason=failure,
+                     rolled_back=rolled)
+            out = {"ok": False, "reason": failure, "rolled_back": rolled,
+                   "rollback_failed": failed, "converged": converged,
+                   "steps": steps}
+        else:
+            converged = _wait_one_version(pool, host, router_port,
+                                          args.converge_timeout_s,
+                                          expect=target)
+            obs.emit("rollout_done", ok=True, swapped=swapped, version=target,
+                     converged=converged)
+            out = {"ok": True, "version": target, "swapped": swapped,
+                   "converged": converged, "steps": steps}
+        if pred.device.type == "cuda":
+            from featurenet_tpu_torch.ops import launch_counts
+
+            out["launches"] = launch_counts()
+        print(json.dumps({"fleet_rollout": {
+            "checkpoint_dir": candidate, "run_dir": run_dir,
+            "min_agreement": args.min_agreement, "device": str(pred.device),
+            **out}}), flush=True)
+    finally:
+        pool.close()
+        obs.close_run()
+    return 0 if out.get("ok") else 2
+
+
 def _programs(args) -> int:
     from featurenet_tpu_torch.config import config_to_dict, get_config
     from featurenet_tpu_torch.runtime.registry import list_programs, warmup
@@ -1653,7 +2208,7 @@ def main(argv=None) -> int:
             "export-stl-data": _export_stl_data, "build-cache": _build_cache,
             "eval-ood": _eval_ood, "recalibrate": _recalibrate,
             "programs": _programs, "pin-quality": _pin_quality,
-            "replay": _replay}[args.cmd](args)
+            "replay": _replay, "fleet": _fleet}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -34,11 +34,10 @@ Off costs nothing: ``maybe_fail`` with no plan installed is one module
 attribute load and a ``None`` check.
 
 ``SITES`` names every site of the reference with its counter, so any spec
-the JAX package parses parses the same here. ``WIRED`` is the subset the
-port has wired; ``Config.validate`` refuses a spec naming another site
-(``check_wired``), since a fault that can never fire would let a chaos run
-pass by testing nothing. ``replica_loss`` waits for the port's fleet
-router (ROADMAP Queue A.4).
+the JAX package parses parses the same here. ``WIRED`` is the set of sites
+the port has wired, every site of ``SITES``; ``Config.validate`` refuses a
+spec naming a site outside it (``check_wired``), since a fault that can
+never fire would let a chaos run pass by testing nothing.
 """
 
 from __future__ import annotations
@@ -85,8 +84,9 @@ SITES = {
     "replica_loss_rollout": "swap",      # Nth replica reload attempt
 }
 
-# The sites the port wires; the rest of SITES are refused at validation.
-WIRED = frozenset(SITES) - {"replica_loss"}
+# The sites the port wires: all of them (replica_loss in the fleet router,
+# fleet/router.py; spawn_fail in the supervisor and the replica manager).
+WIRED = frozenset(SITES)
 
 # How long the latency sites (producer_slow, save_slow, replica_slow)
 # sleep per firing.
@@ -166,8 +166,7 @@ def check_wired(spec: str) -> dict[str, Optional[tuple]]:
     if unwired:
         raise ValueError(
             f"fault site(s) {', '.join(unwired)} in {spec!r} are not wired "
-            "in the port yet (replica_loss waits for its fleet router); the "
-            "fault could never fire"
+            "in the port; the fault could never fire"
         )
     return sites
 

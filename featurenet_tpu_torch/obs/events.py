@@ -54,16 +54,19 @@ def events_filename(process_index: Optional[int] = 0) -> str:
     return f"events.{int(process_index)}.jsonl"
 
 
-def _device_topology() -> dict:
+def _device_topology(devices: bool = True) -> dict:
     """The device and process topology for the manifest, from
     ``torch.cuda`` and ``torch.distributed``. Guarded: a process without
-    torch's CUDA runtime still writes a valid manifest."""
+    torch's CUDA runtime still writes a valid manifest. ``devices=False``
+    lists no card and leaves CUDA uninitialized (a process that must
+    own no device, as the fleet's router)."""
     try:
         import torch
 
         dist = torch.distributed
         ready = dist.is_available() and dist.is_initialized()
-        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        count = torch.cuda.device_count() \
+            if devices and torch.cuda.is_available() else 0
         return {
             "version": torch.__version__,
             "cuda": torch.version.cuda,
@@ -79,7 +82,7 @@ def _device_topology() -> dict:
 
 
 def run_manifest(run_dir: str, config: Optional[dict] = None,
-                 extra: Optional[dict] = None) -> dict:
+                 extra: Optional[dict] = None, devices: bool = True) -> dict:
     import datetime
     import socket
 
@@ -93,7 +96,7 @@ def run_manifest(run_dir: str, config: Optional[dict] = None,
         "argv": list(sys.argv),
         "python": sys.version.split()[0],
         "config": config,
-        "torch": _device_topology(),
+        "torch": _device_topology(devices),
     }
     if extra:
         m.update(extra)
@@ -186,13 +189,15 @@ def set_tap(fn) -> None:
 
 def init_run(run_dir: str, config: Optional[dict] = None,
              extra: Optional[dict] = None,
-             process_index: Optional[int] = None) -> EventSink:
+             process_index: Optional[int] = None,
+             devices: bool = True) -> EventSink:
     """Install the process-wide sink for ``run_dir`` and write ``run.json``
     if it is absent (process 0 only). Re-initializing the same directory
     keeps appending; another directory first flushes the old run's window
     cycle into the old stream, drops the aggregator and the tracing
     counters, and closes the old sink. Every call appends a
-    ``run_start`` event. ``process_index`` None reads the topology."""
+    ``run_start`` event. ``process_index`` None reads the topology;
+    ``devices=False`` keeps the manifest off CUDA."""
     global _sink
     if process_index is None:
         process_index = _device_topology().get("process_index", 0) or 0
@@ -217,7 +222,7 @@ def init_run(run_dir: str, config: Optional[dict] = None,
             if not os.path.exists(manifest_path):
                 tmp = manifest_path + ".tmp"  # never half a manifest
                 with open(tmp, "w", encoding="utf-8") as fh:
-                    json.dump(run_manifest(run_dir, config, extra), fh,
+                    json.dump(run_manifest(run_dir, config, extra, devices), fh,
                               indent=1, default=str)
                 os.replace(tmp, manifest_path)
         _sink.emit("run_start", process_index=process_index)

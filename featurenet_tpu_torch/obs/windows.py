@@ -178,6 +178,16 @@ class WindowAggregator:
                     out[metric] = s
             return out
 
+    def samples(self, metric: str) -> list[tuple[float, float]]:
+        """The raw ``(perf_counter, value)`` samples of one window, pruned by
+        age: the fleet router's burn-rate fallback without a store."""
+        with self._lock:
+            win = self._win.get(metric)
+            if win is None:
+                return []
+            win.values(time.perf_counter())  # prune by age in place
+            return list(win._samples)
+
     @property
     def seq(self) -> int:
         """The latest emission sequence number (0: none yet)."""
@@ -289,6 +299,15 @@ def snapshot() -> dict:
     if agg is None:
         return {}
     return agg.snapshot()
+
+
+def samples(metric: str) -> list[tuple[float, float]]:
+    """One window's raw ``(perf_counter, value)`` samples from the installed
+    aggregator (empty when none)."""
+    agg = _agg
+    if agg is None:
+        return []
+    return agg.samples(metric)
 
 
 def last_seq() -> Optional[int]:

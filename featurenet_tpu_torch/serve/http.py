@@ -14,7 +14,8 @@
   prefix, a wrong length, a short payload) or an empty body is a
   structured 400 ``bad_stream``, and a torn stream closes the connection.
 - ``GET /healthz``: readiness (503 while not ready, a reload's cordon
-  included), ``window_seq``, ``model_version`` and ``checkpoint_dir``;
+  included), ``window_seq``, ``model_version``, ``checkpoint_dir`` and,
+  for a fleet replica, ``replica``;
   ``GET /stats``: batcher counters; ``GET /metrics``: the Prometheus text
   exporter (``serve/metrics.py``).
 - ``POST /admin/reload`` with ``{"checkpoint_dir": "<path>"}``: the
@@ -28,7 +29,8 @@ Status codes carry the admission contract: ``200`` answered (body:
 ``InferenceService.format_row``); ``400`` unparseable STL or voxels;
 ``503`` overload (``OverloadError.response`` with a ``Retry-After``
 header) or draining; ``504`` admitted but not answered within the
-handler timeout; ``500`` the forward failed. The POST endpoints read
+handler timeout; ``500`` the forward failed. A fleet replica's refusals
+(503, 409) and its reload answer name it (``replica``). The POST endpoints read
 ``X-Featurenet-Priority`` (``interactive`` default, ``batch``). A
 well-formed ``X-Featurenet-Trace`` request header is adopted as the trace
 id (``obs/tracing.py``); every predict response echoes the id it ran
@@ -118,6 +120,13 @@ def make_server(service, host: str = "127.0.0.1", port: int = 0,
             self.end_headers()
             self.wfile.write(body)
 
+        def _reject_body(self, payload: dict) -> dict:
+            """A refusal's body, naming the replica when the service has a
+            fleet identity (which backend refused, not just one did)."""
+            if getattr(service, "replica", None) is not None:
+                return {**payload, "replica": service.replica}
+            return payload
+
         def do_GET(self):  # noqa: N802 (stdlib name)
             if self.path == "/stats":
                 self._json(200, {"ok": True, **service.stats()})
@@ -159,8 +168,8 @@ def make_server(service, host: str = "127.0.0.1", port: int = 0,
                     fut = service.submit_stl_bytes(data, trace_id=trace_id,
                                                    lane=lane)
             except OverloadError as e:
-                self._json(503, e.response, trace_id=e.trace_id,
-                           retry_after_s=e.retry_after_s)
+                self._json(503, self._reject_body(e.response),
+                           trace_id=e.trace_id, retry_after_s=e.retry_after_s)
                 return
             except ValueError as e:
                 self._json(400, {
@@ -172,7 +181,8 @@ def make_server(service, host: str = "127.0.0.1", port: int = 0,
                 # The batcher's "draining" refusal (OverloadError, also a
                 # RuntimeError, is handled above): the server is going
                 # away, so the channel closes.
-                self._json(503, {"error": "draining", "detail": str(e)},
+                self._json(503, self._reject_body(
+                               {"error": "draining", "detail": str(e)}),
                            trace_id=trace_id,
                            retry_after_s=service.batcher.retry_after_s,
                            close=True)
@@ -205,15 +215,15 @@ def make_server(service, host: str = "127.0.0.1", port: int = 0,
             try:
                 out = service.reload(ckpt)
             except Exception as e:  # every refusal is a 409; the old weights serve
-                self._json(409, {
+                self._json(409, self._reject_body({
                     "error": "swap_refused",
                     "kind": type(e).__name__,
                     "detail": str(e),
                     "model_version": getattr(service.predictor, "model_version",
                                              "unversioned"),
-                })
+                }))
                 return
-            self._json(200, out)
+            self._json(200, self._reject_body(out))
 
         # -- the streamed multi-part protocol ------------------------------
         def _read_exact(self, n: int) -> bytes:
@@ -287,7 +297,7 @@ def make_server(service, host: str = "127.0.0.1", port: int = 0,
                     frames.append((i, fut, None))
                 except OverloadError as e:
                     frames.append((i, None, {"trace": e.trace_id or trace_id,
-                                             **e.response}))
+                                             **self._reject_body(e.response)}))
                 except RuntimeError as e:
                     frames.append((i, None, {"trace": trace_id,
                                              "error": "draining",

@@ -13,8 +13,11 @@ of the ``window_summary`` events.
 emit; the window gauges derive from ``alerts.WINDOW_METRICS``.
 ``build_info`` carries the torch version where the reference carries
 JAX's. ``incidents_open`` is the incident manager's count of open
-incidents (``obs/incidents.py``; 0 when none is armed). The fleet
-router's exporter waits for the fleet (ROADMAP Queue A.4).
+incidents (``obs/incidents.py``; 0 when none is armed).
+``render_router_metrics`` is the fleet router's exporter (``fleet/``):
+routing outcomes, the connection pool's counters and the router's own
+windows. The registry also holds the series the fleet scraper appends to
+the store itself (``scrape_failures_total``, ``scrape_duration_ms``).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ _PREFIX = "featurenet_"
 
 # Event kinds exported as counters, with their metric names: those the
 # port emits (a graph built ahead is a program_compile). The reference's
-# executable-cache and connection-pool counters come with those layers.
+# executable-cache counters have no counterpart; its connection-pool ones
+# are the router exporter's rows here, read off the pool.
 _EVENT_COUNTERS = {
     "program_compile": "program_compiles_total",
     "overload": "overloads_total",
@@ -53,6 +57,12 @@ METRIC_NAMES = frozenset(
         "trace_sampled_total",
         "trace_forced_total",
         "build_info",
+        "fleet_requests_total",    # the router's, by outcome
+        "connections_opened_total",   # the router's pool
+        "connections_reused_total",
+        "connections_retired_total",  # by reason
+        "scrape_failures_total",   # appended by fleet/scraper.py
+        "scrape_duration_ms",
         "alerts_active",
         "incidents_open",
     }
@@ -73,6 +83,10 @@ _HELP = {
     "trace_sampled_total": "requests sampled into traces",
     "trace_forced_total": "SLO-breach forced trace samples",
     "build_info": "constant 1; labels carry build identity",
+    "fleet_requests_total": "router requests by outcome",
+    "connections_opened_total": "fresh pooled channels opened",
+    "connections_reused_total": "pooled channel reuses",
+    "connections_retired_total": "pooled channels retired by reason",
     "program_compiles_total": "serving programs built ahead",
     "overloads_total": "admission-bound rejections",
     "serve_batches_total": "dispatched serving batches",
@@ -202,3 +216,45 @@ def _window_lines(lines: list[str]) -> None:
         lines.append(f"# HELP {_PREFIX}{count} {_help_for(count)}")
         lines.append(f"# TYPE {_PREFIX}{count} gauge")
         lines.append(f"{_PREFIX}{count} {summary['n']}")
+
+
+def render_router_metrics(router) -> str:
+    """The /metrics body of one ``fleet.router.FleetRouter``: routing
+    outcomes, the connection pool's own counters (so the export works with
+    no event sink), and the router's windows (``serving_ms`` end to end,
+    ``connect_ms`` per fresh channel)."""
+    lines: list[str] = []
+
+    def row(name: str, value, labels: str = "",
+            kind: str | None = None) -> None:
+        _row(lines, name, value, labels, kind)
+
+    st = router.stats()
+    # The router serves no checkpoint: its precision, lowering and version
+    # are "n/a" (the scraper stamps no version label from them).
+    row("build_info", 1, _build_info_labels("n/a", "n/a"), kind="gauge")
+    row("ready", router.fleet.ready_count() > 0, kind="gauge")
+    row("fleet_requests_total", st["routed"], '{outcome="routed"}',
+        kind="counter")
+    row("fleet_requests_total", st["answered"], '{outcome="answered"}')
+    row("fleet_requests_total", st["rejected"], '{outcome="rejected"}')
+    row("fleet_requests_total", st["shed"], '{outcome="shed"}')
+    row("fleet_requests_total", st["dropped"], '{outcome="dropped"}')
+
+    pool = st.get("pool") or {}
+    row("connections_opened_total", pool.get("opened", 0), kind="counter")
+    row("connections_reused_total", pool.get("reused", 0), kind="counter")
+    retired = pool.get("retired") or {}
+    full = f"{_PREFIX}connections_retired_total"
+    lines.append(f"# HELP {full} {_help_for('connections_retired_total')}")
+    lines.append(f"# TYPE {full} counter")
+    if retired:
+        for reason, n in sorted(retired.items()):
+            lines.append(f'{full}{{reason="{_escape_label(reason)}"}} {_fmt(n)}')
+    else:
+        lines.append(f"{full} 0")
+
+    row("incidents_open", _incidents_open(), kind="gauge")
+
+    _window_lines(lines)
+    return "\n".join(lines) + "\n"

@@ -106,6 +106,7 @@ class InferenceService:
     (default: half the admission bound), so bulk traffic sheds before
     interactive traffic. ``run_dir`` arms the incident manager over that
     run directory (the caller installs its event sink, ``obs.init_run``).
+    ``replica`` names this service in a fleet (``cli serve --replica-id``).
     """
 
     def __init__(self, predictor, buckets: Sequence[int] = DEFAULT_BUCKETS,
@@ -115,8 +116,12 @@ class InferenceService:
                  slo_p99_ms: float = DEFAULT_SLO_P99_MS,
                  batch_queue_limit: Optional[int] = None,
                  quality=None, recorder=None,
-                 run_dir: Optional[str] = None):
+                 run_dir: Optional[str] = None,
+                 replica: Optional[str] = None):
         self.predictor = predictor
+        # The replica's name in a fleet (None standalone): /healthz and
+        # every refusal body carry it.
+        self.replica = replica
         self.cfg = predictor.cfg
         if (quality is not None or recorder is not None) \
                 and self.cfg.task != "classify":
@@ -261,16 +266,18 @@ class InferenceService:
 
     def health(self) -> dict:
         """The /healthz payload: readiness, uptime, the last rolling-window
-        emission seq, queue depth, and which weights this replica serves and
-        where they came from."""
+        emission seq, queue depth, the replica's name in a fleet, and which
+        weights it serves and where they came from."""
         out = {
             "ready": self.ready(),
             "uptime_s": round(time.perf_counter() - self._t_start, 3),
             "window_seq": _windows.last_seq(),
             "queue_depth": self.batcher.stats()["queue_depth"],
-            "model_version": getattr(self.predictor, "model_version",
-                                     "unversioned"),
         }
+        if self.replica is not None:
+            out["replica"] = self.replica
+        out["model_version"] = getattr(self.predictor, "model_version",
+                                       "unversioned")
         ckpt = getattr(self.predictor, "checkpoint_dir", None)
         if ckpt is not None:
             out["checkpoint_dir"] = ckpt

@@ -3,8 +3,8 @@ CPU: ``parse_spec`` on a table of valid and invalid specs gives the same
 dict or the same ``ValueError``; ``FaultPlan.check`` fires at the same
 calls for the same counter sequences (thresholds crossed by strides,
 ``:every=`` ladders, counters running backwards, and two plans sharing a
-marker directory, as a respawned child does); the port refuses the sites
-it does not wire yet, and its config keeps the supervision fields of a JAX
+marker directory, as a respawned child does); the port wires every site
+and refuses an unknown one, and its config keeps the supervision fields of a JAX
 ``config.json`` while a resume strips the ephemeral ones. Exact equality
 throughout: the registry is integer bookkeeping."""
 
@@ -75,13 +75,12 @@ def test_parse_spec_matches_jax(spec):
 
 
 def test_port_refuses_the_sites_it_does_not_wire():
-    assert set(faults.SITES) - faults.WIRED == {"replica_loss"}
+    # Every site is wired since the fleet router wired replica_loss.
+    assert faults.WIRED == set(faults.SITES)
     for spec in ("replica_loss@request=1", "sigterm@step=2,replica_loss@request=1"):
-        faults.parse_spec(spec)  # parses as in the reference
-        with pytest.raises(ValueError, match="not wired"):
-            faults.check_wired(spec)
-        with pytest.raises(ValueError, match="not wired"):
-            get_config("smoke16", inject_faults=spec)
+        assert faults.check_wired(spec) == faults.parse_spec(spec) \
+            == jax_faults.parse_spec(spec)
+        assert get_config("smoke16", inject_faults=spec).inject_faults == spec
     with pytest.raises(ValueError, match="unknown fault site"):
         get_config("smoke16", inject_faults="tyop@x=1")
     spec = ",".join(f"{s}@{c}=1" for s, c in sorted(faults.SITES.items())

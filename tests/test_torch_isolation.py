@@ -6,6 +6,7 @@ the card that is not there, and the card scripts exit non-zero without
 one."""
 
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -323,3 +324,40 @@ def test_segmentation_entry_points_refuse_cpu_without_being_asked(monkeypatch,
         assert diagnose(ck, cache, batch=2, device="cpu")["voxels"] > 0
     finally:
         torch.set_num_threads(threads)
+
+
+def test_fleet_process_never_touches_cuda(tmp_path):
+    """The `fleet` process owns no device: importing the fleet, building
+    `cli fleet`'s parser, its run manifest (``devices=False``) and a router
+    over a fake roster call nothing of ``torch.cuda`` that would open the
+    card's device nodes, and leave CUDA uninitialized."""
+    code = (
+        "import sys, torch\n"
+        "def boom(*a, **k):\n"
+        "    raise AssertionError('torch.cuda touched')\n"
+        "for name in ('is_available', 'device_count', 'get_device_name',\n"
+        "             'init', '_lazy_init', 'current_device'):\n"
+        "    setattr(torch.cuda, name, boom)\n"
+        "import featurenet_tpu_torch.fleet as fleet\n"
+        "from featurenet_tpu_torch import cli, obs\n"
+        "from featurenet_tpu_torch.serve.metrics import render_router_metrics\n"
+        "cli._parser().parse_args(['fleet', '--checkpoint-dir', 'CK'])\n"
+        f"obs.init_run({str(tmp_path)!r}, process_index=0, devices=False)\n"
+        "class Fake:\n"
+        "    def candidates(self): return []\n"
+        "    def ready_count(self): return 0\n"
+        "    def stats(self): return {'replicas': 0}\n"
+        "r = fleet.FleetRouter(Fake(), rules=(), scale_every_s=3600.0)\n"
+        "assert r.route('/predict_voxels', b'g')[0] == 503\n"
+        "render_router_metrics(r)\n"
+        "r.drain()\n"
+        "obs.close_run()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    with open(tmp_path / "run.json") as fh:
+        assert json.load(fh)["torch"]["device_count"] == 0

@@ -191,6 +191,6 @@ def test_cli_supervisor_creates_no_cuda_context(monkeypatch, tmp_path):
             (["train", "--restart-every", "4", "--checkpoint-dir", "c"],
              "requires --supervise"),
             (["train", "--supervise", "--checkpoint-dir", "c",
-              "--inject-faults", "replica_loss@request=1"], "not wired")):
+              "--inject-faults", "tyop@x=1"], "unknown fault site")):
         with pytest.raises(SystemExit, match=match):
             cli.main(bad)
