@@ -16,12 +16,17 @@ Phases, in order; any failure exits non-zero before the last line:
      (a serving bucket) and 256 (a train step), at the three dx shapes of a
      train step (channels swapped: 32←32, 64→32, 64→64), at batch 1
      (serving's smallest bucket, where the kernel takes its small tiles;
-     off the summed figures), and at pod64's 5³ conv2 (batch 8, off the
-     main path); yardstick F.conv3d;
+     off the summed figures), at pod64's 5³ conv2 (batch 8, off the
+     main path), and at the three forward and three dx shapes of one
+     pod64 rank's step in the dp phase (128 rows: conv2 5³ 32→32 at 32³,
+     3³ 32→64 and 64→64 at 16³; 5 timed calls each, the dp_ figures);
+     yardstick F.conv3d;
    - conv3d_dw (fp32) and conv_dw_folded (bf16 on the tensor cores, and
      fp32 in SIMT off the main path) at the three batch-256
-     weight-gradient shapes and at pod64's conv2; yardstick cuDNN's weight
-     gradient (aten.convolution_backward) in the kernel's input type.
+     weight-gradient shapes and at pod64's conv2, and conv3d_dw at the
+     three weight-gradient shapes of a pod64 rank's step; yardstick
+     cuDNN's weight gradient (aten.convolution_backward) in the kernel's
+     input type.
 4. Serve path: the sprint64 Predictor at full width (R=64, features
    32/32/64/64, hidden 128, 24 classes) from seeded weights, behind the
    InferenceService (buckets 1,4,16,64) and its HTTP server. The service's
@@ -112,14 +117,14 @@ Phases, in order; any failure exits non-zero before the last line:
    SIGTERM; the train run's `checkpoint` record (host ms per save, writer
    ms per save, bytes) is printed.
 10. Cache path: the port's export_synthetic_cache writes the reference's
-   benchmark at R=64, cut from 24 x 1000 to 24 x 500 parts (the time
+   benchmark at R=64, cut from 24 x 1000 to 24 x 250 parts (the time
    limit), into a temporary directory under .data/
    (export wall time and parts/s printed). sprint64 at batch 256 then
    trains from it for 50 steps under pallas and xla, once resident on the
    card (hbm_cache: the train split uploaded once, rows drawn there) and
    once streamed by the Prefetcher's threads, rotating 8 cube-group poses
-   per batch in the step; then one exact eval pass over the 2,400 held-out
-   rows. Per run (`cache_run` line): samples/s with the data wait, the
+   per batch in the step; then one exact eval pass over the ~1,200
+   held-out rows. Per run (`cache_run` line): samples/s with the data wait, the
    data-wait share, device ms per step (CUDA events), the resident MB, and
    launches exact over the run and for one more step. Then the resident
    path is held against itself: the card's draw of a fixed index vector
@@ -146,8 +151,8 @@ Phases, in order; any failure exits non-zero before the last line:
    cube codes bitwise the CPU's rotations. Device ms (CUDA events) of a
    robust64 step and a sprint64 resident step at k = 1 and per inner step
    at k = 8, of the warp (and its plain version) and of the noise;
-   samples/s and the data-wait share over 50 steps at k = 1 and 8,
-   resident and streamed; a `pacing` line: samples/s over 50 steps at k =
+   samples/s and the data-wait share over 25 steps at k = 1 and 8,
+   resident and streamed; a `pacing` line: samples/s over 25 steps at k =
    8, resident and streamed, in turns with the loop paced
    (max_inflight_steps 8: it waits for the event of the dispatch one group
    back) and unpaced (above the run's length), beside the rates measured
@@ -308,6 +313,31 @@ Phases, in order; any failure exits non-zero before the last line:
      `fleet_replica_ready`, a tsdb series per target.
    The draining replicas' and the rollout processes' own counts are the
    `fleet` path (the SIGKILLed replica's count is lost with it).
+13e. Data-parallel training (`dp` phase), after `fleet`, on the cache
+   phase's cache: pod64 at full width (R=64, features 32/32/64/64, kernels
+   7/5/3/3, 24 classes) under pallas, global batch 256:
+   - two ranks of `cli --distributed train --hbm-cache --total-steps 4
+     --checkpoint-every 2 --run-dir D` sharing the card over gloo (128
+     rows each from its own block of the resident split), each rank
+     through `cli.main` with its dispatches timed (CUDA events, then a
+     synchronise) and its gradient all-reduce timed on the host clock: the
+     mesh from each rank's loop_start (backend gloo, 2 processes), device
+     ms per step and all-reduce ms per step by rank (gloo through the
+     host, not NCCL's time), the final metrics and the exact eval bitwise
+     equal on both ranks, n_evaluated equal to the held-out count, and
+     each rank's launches: 6 conv3d_fwd and 3 conv3d_dw a step and 3
+     conv3d_fwd an eval batch;
+   - beside each other: the plain CLI resuming a copy of its step-2
+     checkpoint in a new 2-rank world (step 4 and the eval bitwise the
+     unbroken run's), a 1-rank nccl world of 2 steps at batch 128, and
+     the same run without a process group (its checkpoint bitwise the
+     nccl world's);
+   - the 1-process run at batch 256 in this process on the same global
+     batches (rank r's draws at rows [128r, 128r+128)): after 4 steps the
+     batch-norm statistics within rtol 1e-3, atol 1e-4, the parameters
+     within Adam's bound 2·Σlr (the share inside rtol 3e-4, atol 3e-6
+     printed), the final loss within 1e-3 (bf16 activations).
+   The timed world's launches are the `dp` path.
 14. Robustness evaluation (`ood` phase), after the supervised runs:
    - `native`: the port's native voxelizer, built by g++ after the
      kernels (its build seconds; a build that fails fails the script), on
@@ -385,7 +415,8 @@ Phases, in order; any failure exits non-zero before the last line:
    (`cli train`, `cli eval`, `cli infer`, seg_diagnose, each on the card).
 16. The wall time of every phase, one JSON line of per-kernel numbers
    (launches by path, the wire, cache, robust, supervise, report,
-   quality, incident, fleet, precision, ood, tta and seg runs' included), the
+   quality, incident, fleet, dp, precision, ood, tta and seg runs'
+   included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
@@ -508,10 +539,10 @@ EVAL_BATCHES = 1
 # Producer threads: one per host core, at most 8 (the chip machine has 8).
 TRAIN_WORKERS = min(8, len(os.sched_getaffinity(0)))
 # The cache phase: the reference's 24 x 1000 benchmark at R=64 cut to 24 x
-# 500 (the export is host-bound at ~430 parts/s, and the script must end
+# 250 (the export is host-bound at ~400 parts/s, and the script must end
 # inside its time limit), and 50 steps per run; the rotation check takes
 # the first 64 drawn rows.
-CACHE_PER_CLASS = 500
+CACHE_PER_CLASS = 250
 CACHE_STEPS = 50
 ROTATION_CHECK_ROWS = 64
 
@@ -520,7 +551,7 @@ ROTATION_CHECK_ROWS = 64
 # command line's steps and recalibration batches.
 ROBUST_K = 8
 ROBUST_CHECK_STEPS = 16
-ROBUST_RATE_STEPS = 50
+ROBUST_RATE_STEPS = 25
 ROBUST_CLI_STEPS = 16
 RECAL_BATCHES = 8
 # The pacing check: turns of ROBUST_RATE_STEPS steps at k = 8 at each
@@ -569,17 +600,32 @@ REPLAY_EVENTS = {
                   "dw_folded_partial": 3, "sum_unfold": 3},
 }
 
-# (name, batch, grid, cin, cout, k, on the main path)
+# pod64's stride-1 blocks as the dp phase's ranks run them, 128 rows each:
+# (grid, cin, cout, k): conv2 5³ at 32³, conv3 and conv4 3³ at 16³ (after
+# the pool).
+POD64_BLOCKS = [(32, 32, 32, 5), (16, 32, 64, 3), (16, 64, 64, 3)]
+POD64_RANK_BATCH = 128
+POD64_REPS = 5  # timed calls of a pod64 row (a conv2 call is ~1 TFLOP)
+
+# (name, batch, grid, cin, cout, k, main path: "serve", "train", "dp" or
+# None). "train" rows sum into a kernel's figures (sprint64's batch-256
+# step), "dp" rows into its dp_ figures (one pod64 rank's step).
 FWD_SHAPES = (
-    [("serve", 64, 16, ci, co, 3, True) for ci, co in SPRINT_BLOCKS]
-    + [("train fwd", TRAIN_BATCH, 16, ci, co, 3, True) for ci, co in SPRINT_BLOCKS]
-    + [("train dx", TRAIN_BATCH, 16, co, ci, 3, True) for ci, co in SPRINT_BLOCKS]
-    + [("serve b1", 1, 16, ci, co, 3, True) for ci, co in SPRINT_BLOCKS]
-    + [("pod64 conv2", 8, 32, 32, 32, 5, False)]
+    [("serve", 64, 16, ci, co, 3, "serve") for ci, co in SPRINT_BLOCKS]
+    + [("train fwd", TRAIN_BATCH, 16, ci, co, 3, "train") for ci, co in SPRINT_BLOCKS]
+    + [("train dx", TRAIN_BATCH, 16, co, ci, 3, "train") for ci, co in SPRINT_BLOCKS]
+    + [("serve b1", 1, 16, ci, co, 3, "serve") for ci, co in SPRINT_BLOCKS]
+    + [("pod64 conv2", 8, 32, 32, 32, 5, None)]
+    + [("pod64 fwd", POD64_RANK_BATCH, r, ci, co, k, "dp")
+       for r, ci, co, k in POD64_BLOCKS]
+    + [("pod64 dx", POD64_RANK_BATCH, r, co, ci, k, "dp")
+       for r, ci, co, k in POD64_BLOCKS]
 )
 DW_SHAPES = (
-    [("train dW", TRAIN_BATCH, 16, ci, co, 3, True) for ci, co in SPRINT_BLOCKS]
-    + [("pod64 conv2", 8, 32, 32, 32, 5, False)]
+    [("train dW", TRAIN_BATCH, 16, ci, co, 3, "train") for ci, co in SPRINT_BLOCKS]
+    + [("pod64 conv2", 8, 32, 32, 32, 5, None)]
+    + [("pod64 dW", POD64_RANK_BATCH, r, ci, co, k, "dp")
+       for r, ci, co, k in POD64_BLOCKS]
 )
 
 
@@ -613,7 +659,7 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
 
 
 def _row(torch, kernel, what, shape, kernel_fn, plain_fn, lib_fn, flops,
-         nbytes, peak, tol, main) -> dict:
+         nbytes, peak, tol, path) -> dict:
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -621,11 +667,14 @@ def _row(torch, kernel, what, shape, kernel_fn, plain_fn, lib_fn, flops,
     scale = float(want.abs().max())
     if not (err <= tol * scale):
         fail(f"{kernel} {what} {shape}: max abs err {err} > {tol} x {scale}")
-    ms = time_ms(torch, kernel_fn)
-    plain_ms = time_ms(torch, plain_fn, reps=10)
-    lib_ms = time_ms(torch, lib_fn)
+    del got, want
+    reps = POD64_REPS if path == "dp" else 20
+    ms = time_ms(torch, kernel_fn, reps=reps)
+    plain_ms = time_ms(torch, plain_fn, reps=min(reps, 10))
+    lib_ms = time_ms(torch, lib_fn, reps=reps)
     bound, bound_by = bound_ms(flops, nbytes, peak)
-    row = {"what": what, "shape": shape, "main_path": main,
+    row = {"what": what, "shape": shape, "main_path": path is not None,
+           "path": path,
            "max_abs_err": err, "max_rel_err": err / scale,
            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bound, "bound_by": bound_by,
@@ -641,7 +690,7 @@ def check_kernels(torch, seed: int) -> dict[str, list[dict]]:
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = {"conv3d_fwd": [], "conv3d_dw": [], "conv_dw_folded": []}
-    for what, b, r, cin, cout, k, main in FWD_SHAPES:
+    for what, b, r, cin, cout, k, path in FWD_SHAPES:
         x = torch.randn((b, r, r, r, cin), device="cuda", generator=g)
         w = torch.randn((k, k, k, cin, cout), device="cuda", generator=g)
         w /= (k ** 3 * cin) ** 0.5
@@ -655,12 +704,15 @@ def check_kernels(torch, seed: int) -> dict[str, list[dict]]:
             lambda: F.conv3d(x_ncdhw, w_oidhw, padding=(k - 1) // 2),
             2.0 * n * cout * k ** 3 * cin,
             4.0 * (n * cin + k ** 3 * cin * cout + n * cout),
-            PEAK_FP32_FLOPS, KERNEL_REL_TOL, main))
+            PEAK_FP32_FLOPS, KERNEL_REL_TOL, path))
         del x, w, x_ncdhw, w_oidhw
-    for what, b, r, cin, cout, k, main in DW_SHAPES:
-        for name, dtype in (("conv3d_dw", torch.float32),
-                            ("conv_dw_folded", torch.bfloat16),
-                            ("conv_dw_folded", torch.float32)):
+    for what, b, r, cin, cout, k, path in DW_SHAPES:
+        # The dp path runs pallas: conv3d_dw alone.
+        kernels = ((("conv3d_dw", torch.float32),) if path == "dp" else
+                   (("conv3d_dw", torch.float32),
+                    ("conv_dw_folded", torch.bfloat16),
+                    ("conv_dw_folded", torch.float32)))
+        for name, dtype in kernels:
             x = torch.randn((b, r, r, r, cin), device="cuda", generator=g).to(dtype)
             gy = torch.randn((b, r, r, r, cout), device="cuda", generator=g).to(dtype)
             w = torch.empty((cout, cin, k, k, k), device="cuda", dtype=dtype,
@@ -685,7 +737,7 @@ def check_kernels(torch, seed: int) -> dict[str, list[dict]]:
                 size * n * (cin + cout) + 4.0 * k ** 3 * cin * cout,
                 _h100_peaks()[0] if bf16 else PEAK_FP32_FLOPS, DW_REL_TOL,
                 # The main path runs conv_dw_folded in bf16 (hybrid_dw).
-                main and (name == "conv3d_dw" or bf16)))
+                path if name == "conv3d_dw" or bf16 else None))
             rows[name][-1]["dtype"] = "bf16" if bf16 else "fp32"
             del x, gy, w
     torch.cuda.empty_cache()
@@ -1335,8 +1387,8 @@ def step_vs_plain(torch, trainer, snapshot, voxels, labels, backend,
 def host_generation(torch, seed: int, workers: int) -> dict:
     """Synthetic 64³ parts per second (generate_batch + to_wire) that one
     host thread makes, and that the trainer's Prefetcher with ``workers``
-    threads delivers to the card from its start through 2·workers batches
-    of TRAIN_BATCH: the input rate a train step cannot outrun."""
+    threads delivers to the card from its start through ``workers``
+    batches of TRAIN_BATCH: the input rate a train step cannot outrun."""
     import numpy as np
 
     from featurenet_tpu_torch.data.dataset import Prefetcher, SyntheticVoxelDataset
@@ -1346,7 +1398,7 @@ def host_generation(torch, seed: int, workers: int) -> dict:
     t0 = time.perf_counter()
     to_wire(generate_batch(rng, 64, 64))
     one = 64 / (time.perf_counter() - t0)
-    n = 2 * workers
+    n = workers
     t0 = time.perf_counter()
     feed = Prefetcher(SyntheticVoxelDataset(64, TRAIN_BATCH, seed=seed), "cuda",
                       num_workers=workers)
@@ -1914,7 +1966,7 @@ def cache_phase(torch, seed: int, smi_line: str, cache: str) -> dict:
             torch.cuda.empty_cache()
     cli = cache_cli(seed, cache, runs["train_hbm_pallas"]["eval_samples"])
     out = {"per_class": CACHE_PER_CLASS, "parts": parts, "resolution": 64,
-           "cut": "24 x 1000 -> 24 x 500", "export_s": export_s, "export_parts_per_sec": parts / export_s,
+           "cut": "24 x 1000 -> 24 x 250", "export_s": export_s, "export_parts_per_sec": parts / export_s,
            "cache_mb": parts * 64 ** 3 / 8 / 1e6,
            "hbm_resident_mb": runs["train_hbm_pallas"]["hbm_resident_mb"],
            "hbm_resident_rows": runs["train_hbm_pallas"]["hbm_resident_rows"],
@@ -5968,24 +6020,388 @@ def fleet_phase(torch, seed: int, ck: str, smi_line: str) -> dict:
     return {"launches": launches}
 
 
+# --- dp: data-parallel training across processes --------------------------
+
+DP_RANKS = 2
+DP_BATCH = 256  # the global batch: 128 rows per rank
+DP_STEPS = 4
+DP_CKPT_EVERY = 2
+DP_NCCL_BATCH = 128
+DP_NCCL_STEPS = 2
+DP_TIMEOUT_S = 300  # each world's process-group timeout and wall bound
+# 2-rank against 1-process at one global batch: the batch-norm statistics
+# to the reference's data-mesh parity (tests/test_parallel.py), the
+# parameters to Adam's bound (bf16 activations: a gradient that is rounding
+# noise may take the other sign, and an early Adam update is close to
+# lr x sign(g)), with the share inside the reference's rtol/atol printed.
+DP_STATS_RTOL, DP_STATS_ATOL = 1e-3, 1e-4
+DP_PARAM_RTOL, DP_PARAM_ATOL = 3e-4, 3e-6
+DP_LOSS_RTOL = 1e-3
+# Launches per step of a pod64 pallas step: 3 forward + 3 dx conv3d_fwd,
+# 3 conv3d_dw; an eval batch runs 3 conv3d_fwd.
+DP_STEP_LAUNCHES = {"conv3d_fwd": 6, "conv3d_dw": 3, "conv_dw_folded": 0}
+
+
+def _dp_rank_main(argv: list[str]) -> int:
+    """One rank of the dp phase's timed world: ``cli.main(argv)`` (the
+    entry point ``python -m featurenet_tpu_torch.cli`` runs) with each
+    dispatch timed by CUDA events on its stream, synchronised after it,
+    and the gradient all-reduce timed on the host clock between two
+    synchronisations; prints ``{"dp_timing": ...}`` after the CLI's lines."""
+    import torch
+
+    from featurenet_tpu_torch import cli
+    from featurenet_tpu_torch.train import loop, steps
+
+    step_ms, reduce_ms = [], []
+    dispatch, sync = loop.Trainer.dispatch, steps.sync_gradients
+
+    def timed_dispatch(self, batches, take):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = dispatch(self, batches, take)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b) / take)
+        return out
+
+    def timed_sync(grads, metrics):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sync(grads, metrics)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    loop.Trainer.dispatch, steps.sync_gradients = timed_dispatch, timed_sync
+    rc = cli.main(argv)
+    print(json.dumps({"dp_timing": {"step_ms": step_ms,
+                                    "allreduce_ms": reduce_ms}}), flush=True)
+    return rc
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_start(args: list[str], ranks: int, timed: bool = False,
+              distributed: bool = True) -> list[subprocess.Popen]:
+    """``ranks`` processes of one world on the card (torchrun's
+    environment, one free port), each ``cli [--distributed] args``; the
+    timed world runs each rank through ``_dp_rank_main``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = str(_free_port())
+    flags = (["--distributed", "--distributed-timeout", str(DP_TIMEOUT_S)]
+             if distributed else [])
+    procs = []
+    for r in range(ranks):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(ranks),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(ranks),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        cmd = ([sys.executable, os.path.abspath(__file__), "--dp-rank"] if timed
+               else _cli())
+        procs.append(subprocess.Popen(cmd + flags + args, cwd=here, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def _dp_wait(procs, what: str) -> list[list[dict]]:
+    """Each process's JSON lines; all must exit 0 within DP_TIMEOUT_S, and
+    none is left running."""
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                fail(f"dp {what}: a rank outlived {DP_TIMEOUT_S} s")
+            if p.returncode != 0:
+                fail(f"dp {what}: a rank exited {p.returncode}: {out[-1500:]} "
+                     f"{err[-3000:]}")
+            outs.append([json.loads(ln) for ln in out.splitlines()
+                         if ln.startswith("{")])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _dp_kind(records: list[dict], kind: str) -> dict:
+    found = [r for r in records if r.get("kind") == kind]
+    if not found:
+        fail(f"dp: no {kind} record in {records[-3:]}")
+    return found[-1]
+
+
+def _dp_key(records: list[dict], key: str) -> dict:
+    found = [r[key] for r in records if key in r]
+    if not found:
+        fail(f"dp: no {key} line")
+    return found[-1]
+
+
+def _dp_same_files(a: str, b: str, step: int) -> bool:
+    import torch
+
+    x = torch.load(os.path.join(a, f"step_{step}.pt"), weights_only=True)
+    y = torch.load(os.path.join(b, f"step_{step}.pt"), weights_only=True)
+    if x["step"] != y["step"] or int(x["count"]) != int(y["count"]):
+        return False
+    return all(torch.equal(x[g][k], y[g][k])
+               for g in ("model", "mu", "nu") for k in x[g])
+
+
+def _dp_reference(torch, cfg, ck: str, device: str = "cuda") -> dict:
+    """The 1-process run of ``cfg`` (streamed: its ``hbm_cache`` off) at its
+    global batch on a DP_RANKS-rank resident world's global batches (rank
+    r's rows as its own draws gave them, at rows ``[r·B/W, (r+1)·B/W)``),
+    held against the world's step-``cfg.total_steps`` checkpoint in
+    ``ck``."""
+    from featurenet_tpu_torch.data.offline import VoxelCacheDataset
+    from featurenet_tpu_torch.train.loop import Trainer
+    from featurenet_tpu_torch.train.steps import StepDraws, gather_rows
+
+    blocks = []
+    for r in range(DP_RANKS):
+        ds = VoxelCacheDataset(cfg.data_cache, cfg.global_batch, "train",
+                               cfg.test_fraction, seed=cfg.seed,
+                               num_hosts=DP_RANKS, host_id=r)
+        vox, lab, _ = ds.materialize_split(multiple_of=DP_RANKS,
+                                           num_shards=DP_RANKS, shard_id=r)
+        blocks.append((torch.from_numpy(vox).to(device),
+                       torch.from_numpy(lab).to(device),
+                       StepDraws(cfg, 1, device, rows=len(lab),
+                                 num_shards=DP_RANKS, shard=r)))
+    trainer = Trainer(cfg, device=device)
+    _reset_counts()
+    metrics = None
+    for s in range(cfg.total_steps):
+        parts = []
+        for data, labels, draws in blocks:
+            draws.seed(s, 1)
+            parts.append(gather_rows(data, labels, draws.draw_rows(0)))
+        metrics = trainer.step({k: torch.cat([p[k] for p in parts])
+                                for k in parts[0]})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = _read_counts()
+    world = torch.load(os.path.join(ck, f"step_{cfg.total_steps}.pt"),
+                       weights_only=True)
+    mine = trainer.state.model.state_dict()
+    lr = sum(float(trainer.state.optimizer.schedule(s))
+             for s in range(cfg.total_steps))
+    bound = 2.0 * lr + 1e-6
+    stats = {"max_rel_of_scale": 0.0, "max_abs": 0.0}
+    params = {"max_rel_of_scale": 0.0, "max_abs": 0.0, "outside_ref_tol": 0,
+              "entries": 0}
+    ok = True
+    for k, want in mine.items():
+        got = world["model"][k].to(want.device)
+        diff = (got - want).abs()
+        # Relative to the tensor's scale: an entry near 0 has no scale of
+        # its own.
+        rel = float(diff.max() / want.abs().max().clamp_min(1e-30))
+        is_stat = k.endswith((".mean", ".var"))
+        row = stats if is_stat else params
+        row["max_abs"] = max(row["max_abs"], float(diff.max()))
+        row["max_rel_of_scale"] = max(row["max_rel_of_scale"], rel)
+        if is_stat:
+            ok &= bool((diff <= DP_STATS_ATOL + DP_STATS_RTOL * want.abs()).all())
+        else:
+            ok &= float(diff.max()) <= bound
+            params["outside_ref_tol"] += int(
+                (diff > DP_PARAM_ATOL + DP_PARAM_RTOL * want.abs()).sum())
+            params["entries"] += diff.numel()
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "params": params, "param_bound": bound, "stats": stats,
+           "launches": launches, "ok": ok}
+    del trainer, blocks
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_phase(torch, seed: int, cache: str, tmp: str, smi_line: str) -> dict:
+    """pod64 at full width under pallas, data-parallel over two ranks of
+    ``cli --distributed train`` sharing the card over gloo: the timed
+    world's steps, its lockstep checkpoints and exact eval; a resume of its
+    step-2 checkpoint against its step 4; a 1-rank nccl world against the
+    run without a process group; the 1-process run at the global batch."""
+    import shutil
+
+    from featurenet_tpu_torch.data.offline import VoxelCacheDataset
+
+    t0 = time.perf_counter()
+    ck, run = os.path.join(tmp, "dp_ck"), os.path.join(tmp, "dp_run")
+    common = ["train", "--config", "pod64", "--conv-backend", "pallas",
+              "--data-cache", cache, "--hbm-cache", "--seed", str(seed)]
+    world = _dp_wait(_dp_start(
+        common + ["--global-batch", str(DP_BATCH), "--total-steps",
+                  str(DP_STEPS), "--checkpoint-every", str(DP_CKPT_EVERY),
+                  "--checkpoint-dir", ck, "--run-dir", run],
+        DP_RANKS, timed=True), "world")
+    world_s = time.perf_counter() - t0
+
+    # The resume of step 2 (a 2-rank world of the plain CLI) beside a 1-rank
+    # nccl world and the same run without a process group.
+    resumed = os.path.join(tmp, "dp_resumed")
+    os.makedirs(resumed)
+    for name in (f"step_{DP_CKPT_EVERY}.pt", f"checksum.{DP_CKPT_EVERY}.json",
+                 "config.json"):
+        shutil.copy(os.path.join(ck, name), os.path.join(resumed, name))
+    one = common + ["--global-batch", str(DP_NCCL_BATCH), "--total-steps",
+                    str(DP_NCCL_STEPS), "--checkpoint-every", str(DP_NCCL_STEPS)]
+    nccl_ck, plain_ck = os.path.join(tmp, "dp_nccl"), os.path.join(tmp, "dp_plain")
+    t1 = time.perf_counter()
+    procs = (_dp_start(["train", "--checkpoint-dir", resumed, "--run-dir",
+                        os.path.join(tmp, "dp_resumed_run")], DP_RANKS)
+             + _dp_start(one + ["--checkpoint-dir", nccl_ck, "--run-dir",
+                                os.path.join(tmp, "dp_nccl_run")], 1)
+             + _dp_start(one + ["--checkpoint-dir", plain_ck], 1,
+                         distributed=False))
+    outs = _dp_wait(procs, "resume and nccl")
+    side_s = time.perf_counter() - t1
+    resume, nccl, plain = outs[:DP_RANKS], outs[DP_RANKS], outs[DP_RANKS + 1]
+
+    from featurenet_tpu_torch.config import get_config
+
+    t2 = time.perf_counter()
+    ref = _dp_reference(torch, get_config(
+        "pod64", global_batch=DP_BATCH, data_cache=cache, seed=seed,
+        total_steps=DP_STEPS), ck)
+    ref_s = time.perf_counter() - t2
+
+    train = [_dp_kind(r, "train") for r in world]
+    evals = [_dp_kind(r, "eval") for r in world]
+    keys = ("loss", "accuracy", "grad_norm")
+    metrics_equal = all({k: t[k] for k in keys} == {k: train[0][k] for k in keys}
+                        for t in train)
+    evals_equal = all({k: v for k, v in e.items() if k != "batches"}
+                      == {k: v for k, v in evals[0].items() if k != "batches"}
+                      for e in evals)
+    held_out = len(VoxelCacheDataset(cache, DP_BATCH, "test"))
+    launches = [{k: _dp_key(r, "launches")[k] for k in DP_STEP_LAUNCHES}
+                for r in world]
+    want = [{k: DP_STEPS * n + (3 * e["batches"] if k == "conv3d_fwd" else 0)
+             for k, n in DP_STEP_LAUNCHES.items()} for e in evals]
+    timing = [_dp_key(r, "dp_timing") for r in world]
+    printed = [_dp_key(r, "distributed")["backend"] for r in world]
+    starts = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(run, "events.jsonl" if r == 0
+                               else f"events.{r}.jsonl")) as fh:
+            starts += [json.loads(ln) for ln in fh if '"loop_start"' in ln]
+    nccl_mesh = None
+    with open(os.path.join(tmp, "dp_nccl_run", "events.jsonl")) as fh:
+        nccl_mesh = [json.loads(ln) for ln in fh if '"loop_start"' in ln][-1]["mesh"]
+    resume_bitwise = _dp_same_files(resumed, ck, DP_STEPS) and all(
+        {k: v for k, v in _dp_kind(r, "eval").items() if k != "batches"}
+        == {k: v for k, v in evals[0].items() if k != "batches"} for r in resume)
+    nccl_bitwise = (_dp_same_files(nccl_ck, plain_ck, DP_NCCL_STEPS)
+                    and {k: _dp_kind(nccl, "train")[k] for k in keys}
+                    == {k: _dp_kind(plain, "train")[k] for k in keys})
+    loss_rel = abs(train[0]["loss"] - ref["metrics"]["loss"]) / abs(
+        ref["metrics"]["loss"])
+    out = {
+        "world": DP_RANKS, "backend": starts[0]["mesh"].get("backend"),
+        "backend_printed_by_rank": printed,
+        "mesh": starts[0]["mesh"], "loop_starts": len(starts),
+        "config": "pod64 R=64 features 32/32/64/64 kernels 7/5/3/3 pallas, "
+                  f"global batch {DP_BATCH} ({DP_BATCH // DP_RANKS} per rank), "
+                  f"{DP_STEPS} resident steps, checkpoints every {DP_CKPT_EVERY}",
+        "device_ms_per_step_by_rank": [
+            statistics.median(t["step_ms"][1:]) for t in timing],
+        "step_ms_by_rank": [t["step_ms"] for t in timing],
+        "allreduce_ms_per_step_by_rank": [
+            statistics.median(t["allreduce_ms"][1:]) for t in timing],
+        "allreduce_note": "gloo between two ranks sharing one card goes "
+                          "through the host: not NCCL's time; host clock "
+                          "between two synchronisations, the gradients and "
+                          "metrics in one flat buffer",
+        "metrics_bitwise_across_ranks": metrics_equal,
+        "metrics": {k: train[0][k] for k in keys},
+        "eval_bitwise_across_ranks": evals_equal,
+        "n_evaluated": evals[0]["samples"], "held_out": held_out,
+        "eval_accuracy": evals[0]["accuracy"],
+        "eval_batches_by_rank": [e["batches"] for e in evals],
+        "resume_bitwise": resume_bitwise,
+        "nccl_1rank_backend": nccl_mesh.get("backend"),
+        "nccl_1rank_bitwise_no_group": nccl_bitwise,
+        "vs_1process": {"loss_rel": loss_rel, "loss_rtol": DP_LOSS_RTOL,
+                        "params": ref["params"], "param_bound": ref["param_bound"],
+                        "param_ref_tol": [DP_PARAM_RTOL, DP_PARAM_ATOL],
+                        "stats": ref["stats"],
+                        "stats_tol": [DP_STATS_RTOL, DP_STATS_ATOL]},
+        "launches_by_rank": launches, "launches_want": want,
+        "launches_resume_by_rank": [_dp_key(r, "launches") for r in resume],
+        "launches_nccl": _dp_key(nccl, "launches"),
+        "launches_plain": _dp_key(plain, "launches"),
+        "launches_1process": ref["launches"],
+        "walls_s": {"world": world_s, "resume_nccl_plain": side_s,
+                    "reference": ref_s},
+        "nvidia_smi": smi_line,
+    }
+    print("dp", json.dumps(out), flush=True)
+    if (out["backend"] != "gloo" or printed != ["gloo"] * DP_RANKS
+            or out["mesh"]["processes"] != DP_RANKS):
+        fail(f"dp: mesh {out['mesh']}")
+    if (out["nccl_1rank_backend"] != "nccl"
+            or _dp_key(nccl, "distributed")["backend"] != "nccl"):
+        fail(f"dp: the 1-rank world ran {nccl_mesh}")
+    if not (metrics_equal and evals_equal):
+        fail("dp: the ranks' metrics or evals differ")
+    if out["n_evaluated"] != held_out:
+        fail(f"dp: evaluated {out['n_evaluated']} of {held_out} held-out rows")
+    if not resume_bitwise:
+        fail("dp: the resumed run is not bitwise the unbroken one")
+    if not nccl_bitwise:
+        fail("dp: the 1-rank nccl world is not bitwise the run without one")
+    if launches != want:
+        fail(f"dp: launches {launches}, want {want}")
+    if not ref["ok"] or loss_rel > DP_LOSS_RTOL:
+        fail(f"dp: 2 ranks against 1 process: {out['vs_1process']}")
+    return {"launches": {k: sum(c.get(k, 0) for c in launches) for k in
+                         DP_STEP_LAUNCHES}, **out}
+
+
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
-    main = [r for r in rows if r["main_path"]]
+    """A kernel's figures: ``ms``, ``plain_ms``, ``bound_ms`` and
+    ``library_ms`` sum its "train" rows (sprint64's step), the ``dp_``
+    ones its "dp" rows (one pod64 rank's step); the error is the largest
+    of both."""
+    main = [r for r in rows if r["path"] == "train"]
+    dp = [r for r in rows if r["path"] == "dp"]
+
+    def sums(rs, prefix=""):
+        return {f"{prefix}ms": sum(r["kernel_ms"] for r in rs),
+                f"{prefix}plain_ms": sum(r["plain_ms"] for r in rs),
+                f"{prefix}bound_ms": sum(r["bound_ms"] for r in rs),
+                f"{prefix}bound_by": "operations" if all(
+                    r["bound_by"] == "operations" for r in rs) else "bytes",
+                f"{prefix}library_ms": sum(r["library_ms"] for r in rs)}
+
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(launches_by_path.values()),
         "launches_by_path": launches_by_path,
-        "max_abs_err": max(r["max_abs_err"] for r in main),
-        "ms": sum(r["kernel_ms"] for r in main),
-        "plain_ms": sum(r["plain_ms"] for r in main),
-        "bound_ms": sum(r["bound_ms"] for r in main),
-        "bound_by": "operations" if all(r["bound_by"] == "operations"
-                                        for r in main) else "bytes",
-        "library_ms": sum(r["library_ms"] for r in main),
+        "max_abs_err": max(r["max_abs_err"] for r in main + dp),
+        **sums(main), **(sums(dp, "dp_") if dp else {}),
         "shapes": rows,
     }
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of the dp phase's world
+        return _dp_rank_main(sys.argv[2:])
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -6067,6 +6483,8 @@ def main() -> int:
                          smi_line)["launches"]
         fleet = phase("fleet", fleet_phase, torch, args.seed,
                       report_out["checkpoint"], smi_line)["launches"]
+        dp = phase("dp", dp_phase, torch, args.seed, cache_dir, tmp,
+                   smi_line)["launches"]
     robustness = phase("ood", ood_phase, torch, args.seed, native_info,
                        smi_line)["launches"]
     seg = phase("seg", seg_phase, torch, args.seed, smi_line)["launches"]
@@ -6074,16 +6492,15 @@ def main() -> int:
 
     # ms, plain_ms, library_ms and bound_ms sum one train step's shapes
     # (batch 256): conv3d_fwd its 3 forward + 3 dx convs (not the serving
-    # rows), conv3d_dw and conv_dw_folded (bf16) their 3 weight gradients.
-    # Launches are the counts of each main-path run.
-    fwd_train = [dict(r, main_path=r["main_path"] and not r["what"].startswith("serve"))
-                 for r in rows["conv3d_fwd"]]
+    # rows), conv3d_dw and conv_dw_folded (bf16) their 3 weight gradients;
+    # the dp_ figures one pod64 rank's step (128 rows). Launches are the
+    # counts of each main-path run.
     tp, th = train["pallas"]["launches"], train["hybrid_dw"]["launches"]
     tx, tc = train["xla"]["launches"], ckpt["launches"]
     cached = {k: cache[k]["launches"] for k in cache}
     kernels = [
         _kernel_entry("conv3d_fwd", "featurenet_tpu_torch/ops/csrc/conv3d_fwd.cu",
-                      "featurenet_tpu/ops/conv3d.py:160", fwd_train,
+                      "featurenet_tpu/ops/conv3d.py:160", rows["conv3d_fwd"],
                       {"serve": serve["conv3d_fwd_launches"],
                        "reload": reload["launches"]["conv3d_fwd"],
                        "wire": wire["conv3d_fwd"],
@@ -6098,6 +6515,7 @@ def main() -> int:
                        "quality": quality["conv3d_fwd"],
                        "incident": incident["conv3d_fwd"],
                        "fleet": fleet["conv3d_fwd"],
+                       "dp": dp["conv3d_fwd"],
                        **{k: v["conv3d_fwd"] for k, v in rungs.items()},
                        **{k: v["conv3d_fwd"] for k, v in robustness.items()},
                        "seg": seg["conv3d_fwd"]}),
@@ -6110,6 +6528,7 @@ def main() -> int:
                        "robust": robust["conv3d_dw"],
                        "supervise": supervised["conv3d_dw"],
                        "report": reported["conv3d_dw"],
+                       "dp": dp["conv3d_dw"],
                        **{k: v["conv3d_dw"] for k, v in rungs.items()
                           if k.startswith("train")},
                        "seg": seg["conv3d_dw"]}),
@@ -6123,6 +6542,7 @@ def main() -> int:
                        "robust": robust["conv_dw_folded"],
                        "supervise": supervised.get("conv_dw_folded", 0),
                        "report": reported.get("conv_dw_folded", 0),
+                       "dp": dp["conv_dw_folded"],
                        **{k: v["conv_dw_folded"] for k, v in rungs.items()
                           if k.startswith("train")},
                        "seg": seg["conv_dw_folded"]}),

@@ -15,6 +15,8 @@
     python -m featurenet_tpu_torch.cli eval-ood --checkpoint-dir CK \
         [--per-class 50 --seg-parts 60 --seed 777 --families rotation,noise \
          --canonicalize --tta --out rows.json]
+    torchrun --nproc-per-node N -m featurenet_tpu_torch.cli --distributed \
+        [--distributed-timeout S] train --config pod64 ...
     python -m featurenet_tpu_torch.cli train --config sprint64 --device cuda \
         [--data-cache .data/c [--hbm-cache]] [--steps-per-dispatch K] \
         [--augment-affine [--augment-affine-prob P --augment-ramp-steps N \
@@ -146,6 +148,21 @@ injects the faults of ``faults.py``; a supervisor installs only
 the run directory (else the checkpoint directory) fire each fault once
 per run. On the card, ``train`` ends with a ``{"launches": {...}}`` line:
 the kernel launches of its process.
+
+``--distributed train`` (under ``torchrun``, or any launcher that sets its
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``) trains data-parallel across the processes of that world
+(``parallel/mesh.py``, ``train/loop.py``): each joins the process group
+(timeout ``--distributed-timeout`` seconds, default 1800) on
+``cuda:LOCAL_RANK % device_count``, over ``nccl`` when every rank of the
+host has a card of its own and over ``gloo`` on the CPU or when ranks share
+a card (NCCL refuses two ranks on one device), and prints ``{"distributed":
+{"rank", "world", "device", "backend"}}`` first (a run directory's
+``loop_start`` events carry the mesh with the backend). ``--global-batch``
+is the global batch; each rank prints its own records, whose metrics are
+the world's. ``--supervise`` is refused with it, and so is a k-step CUDA
+graph (``--steps-per-dispatch`` above 1 on the card) at its capture;
+``--distributed`` applies to ``train`` alone.
 
 ``train --run-dir D`` writes the run directory (``obs/``; ``train/loop.py``
 lists the events): spans, heartbeats, metrics, the loop's events, window
@@ -313,6 +330,13 @@ def _parser() -> argparse.ArgumentParser:
         epilog="report RUN_DIR, incident list|show RUN_DIR, dash RUN_DIR: "
                "read a run directory (no torch needed; see `report --help`, "
                "`incident --help`, `dash --help`)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="train: join the torch.distributed world of "
+                         "torchrun's environment and train data-parallel")
+    ap.add_argument("--distributed-timeout", type=float,
+                    dest="distributed_timeout", default=1800.0,
+                    help="seconds a collective may wait for the other ranks "
+                         "(default 1800)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p_srv = sub.add_parser("serve", help="HTTP/1.1 inference service over a "
@@ -1001,7 +1025,12 @@ def _train(args) -> int:
             "respawns it -- without one, training silently stops at step N"
         )
     if args.supervise:
+        if args.distributed:
+            raise SystemExit("--distributed with --supervise is not ported: "
+                             "a supervisor respawns one process, not a world")
         return _supervised(args)
+    if args.distributed:
+        return _distributed_train(args)
     from featurenet_tpu_torch.config import get_config
     from featurenet_tpu_torch.ops import launch_counts
     from featurenet_tpu_torch.train.checkpoint import load_run_config
@@ -1043,6 +1072,25 @@ def _train(args) -> int:
 
             obs.close_run()
     return 0
+
+
+def _distributed_train(args) -> int:
+    """``_train`` in the world of torchrun's environment on this rank's
+    device, the process group destroyed on the way out."""
+    import torch.distributed as dist
+
+    from featurenet_tpu_torch.parallel.mesh import init_from_env
+
+    args.device, backend = init_from_env(args.device, args.distributed_timeout)
+    print(json.dumps({"distributed": {"rank": dist.get_rank(),
+                                      "world": dist.get_world_size(),
+                                      "device": args.device,
+                                      "backend": backend}}), flush=True)
+    args.distributed = False
+    try:
+        return _train(args)
+    finally:
+        dist.destroy_process_group()
 
 
 def _recalibrate(args) -> int:
@@ -2202,6 +2250,8 @@ def main(argv=None) -> int:
         return _dash(_dash_parser().parse_args(raw[1:]))
     args = _parser().parse_args(argv)
     args.raw_argv = raw
+    if args.distributed and args.cmd != "train":
+        raise SystemExit(f"--distributed applies to train, not {args.cmd}")
     return {"train": _train, "serve": _serve, "eval": _eval,
             "infer": _infer, "export-data": _export_data,
             "export-seg-data": _export_seg_data,

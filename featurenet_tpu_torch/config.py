@@ -33,7 +33,12 @@ the affine warp (``augment_affine_prob``, ``augment_ramp_steps``,
 ``augment_translate_vox``); ``augment_noise`` flips occupancy after either
 (``ops/augment.py``). ``steps_per_dispatch`` runs k train steps per
 dispatch, one CUDA graph on the card (``train/loop.py``). The reference's
-validation of these fields is kept.
+validation of these fields is kept. ``mesh_data``, ``mesh_model`` and
+``spatial`` are the reference's mesh fields (``parallel/mesh.py``): a
+data-parallel run spans the processes of a ``torch.distributed`` world;
+a model axis above 1 is refused once clamped to the world (abc128's 2
+clamps to 1 on one process). A ``config.json`` written without them
+loads with their defaults.
 
 ``task="segment"`` (the ``seg64`` preset) trains and serves the per-voxel
 segmenter from synthetic multi-feature parts or a segmentation cache
@@ -119,6 +124,16 @@ class Config:
     augment_translate_vox: float = 0.0
     # Train steps per dispatch: one CUDA graph of k steps on the card.
     steps_per_dispatch: int = 1
+
+    # Parallelism (parallel/mesh.py): the mesh's axis sizes over the
+    # processes of a torch.distributed world (None: every process on
+    # data), and depth partitioning over the model axis. Only the data
+    # axis is ported: a model axis that stays above 1 once clamped to the
+    # world, and spatial with one, are refused where a run is set up.
+    # Run policy, not identity: a checkpoint restores on any mesh.
+    mesh_data: Optional[int] = None
+    mesh_model: int = 1
+    spatial: bool = False
 
     # Optimization (train/steps.py).
     optimizer: str = "adamw"
@@ -273,7 +288,17 @@ class Config:
                     "restart_every_steps requires checkpoint_dir: a "
                     "segmented run resumes from its checkpoint"
                 )
+        if self.mesh_model < 1 or (self.mesh_data is not None
+                                   and self.mesh_data < 1):
+            raise ValueError(f"mesh axes must be >= 1, got mesh_data="
+                             f"{self.mesh_data} mesh_model={self.mesh_model}")
         if self.hbm_cache:
+            if self.spatial:
+                raise ValueError(
+                    "hbm_cache is incompatible with spatial sharding: the "
+                    "resident dataset shards batch rows over 'data', not "
+                    "depth over 'model'"
+                )
             if not self.data_cache:
                 raise ValueError(
                     "hbm_cache requires data_cache (the split that gets "
@@ -428,8 +453,11 @@ PRESETS = {
         num_features=3, total_steps=10000, peak_lr=5e-4, seg_loss="ce_dice",
         seg_input_context="proj_coords", seg_decoder_blocks=2,
     ),
+    # The reference's pod-scale mesh: depth over a model axis of 2, which
+    # clamps to 1 on one process.
     "abc128": lambda: Config(name="abc128", resolution=128, arch=deep_arch(),
-                             global_batch=32, total_steps=8000, peak_lr=3e-4),
+                             global_batch=32, total_steps=8000, peak_lr=3e-4,
+                             spatial=True, mesh_model=2),
 }
 
 

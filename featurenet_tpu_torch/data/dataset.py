@@ -1,12 +1,14 @@
 """Host-side input pipeline: seeded synthetic batches, produced in threads
 and copied to the device (port of ``featurenet_tpu/data/dataset.py``'s
 ``SyntheticVoxelDataset``, with ``Prefetcher`` in place of
-``prefetch_to_device``/``put_batch``; one device, no meshes).
+``prefetch_to_device``/``put_batch``: each process feeds its own device).
 
-Each producer worker owns an independent stream
+A data-parallel world shards the global batch by host: with ``num_hosts``
+and ``host_id`` (``parallel/mesh.py`` ``feed_shards``) a dataset emits
+``global_batch // num_hosts`` rows per batch, and refuses a global batch
+that does not divide. Each producer worker owns an independent stream
 (``SyntheticVoxelDataset.worker_iter``, seeded
-``SeedSequence([seed, 0, worker_id])``, the JAX package's fold for host
-0: the port runs one host) and a
+``SeedSequence([seed, host_id, worker_id])``, the JAX package's fold) and a
 fixed residue class of the ticket space (worker w fills tickets w, w+W,
 w+2W, ...), so the merged stream depends only on (seed, workers), not on
 thread scheduling. The workers are threads, as in the JAX package; numpy
@@ -66,20 +68,25 @@ class SyntheticVoxelDataset:
 
     def __init__(self, resolution: int = 64, global_batch: int = 96,
                  num_features: int = 1, seed: int = 0,
-                 task: str = "classify"):
+                 task: str = "classify", num_hosts: int = 1, host_id: int = 0):
+        if global_batch % num_hosts:
+            raise ValueError("global_batch must divide evenly across hosts")
         self.resolution = resolution
         self.global_batch = global_batch
+        self.local_batch = global_batch // num_hosts
         self.num_features = num_features
         self.seed = seed
         self.task = task
+        self.host_id = host_id
 
     def worker_iter(self, worker_id: int = 0) -> Iterator[dict[str, np.ndarray]]:
-        """An independent infinite stream for one producer worker."""
+        """An independent infinite stream of this host's rows for one
+        producer worker."""
         rng = np.random.default_rng(
-            np.random.SeedSequence([self.seed, 0, worker_id])
+            np.random.SeedSequence([self.seed, self.host_id, worker_id])
         )
         while True:
-            yield to_wire(generate_batch(rng, self.global_batch, self.resolution,
+            yield to_wire(generate_batch(rng, self.local_batch, self.resolution,
                                          num_features=self.num_features),
                           self.task)
 

@@ -53,8 +53,15 @@ the readers (port of ``featurenet_tpu/data/offline.py``).
   exported tree it gives ``export_seg_cache``'s bytes of the same
   arguments.
 
-The port runs one host, so the reference's host sharding (``num_hosts``,
-``host_id``, ``num_shards``) is fixed at one host, id 0.
+Both datasets shard by host as the reference's do: with ``num_hosts`` and
+``host_id`` a worker's stream (``SeedSequence([seed, host_id,
+worker_id])``) draws ``global_batch // num_hosts`` rows a batch;
+``epoch_batches(batch, num_shards, shard_id)`` walks the ``shard_id``-th
+decimation of the split (samples ``shard_id, shard_id + num_shards,
+...``), every shard as many batches, so the sums of all shards count each
+sample once; ``materialize_split(multiple_of, num_shards, shard_id)`` is
+feed group ``shard_id``'s contiguous block of the seed-shuffled split,
+trimmed to a multiple of ``multiple_of`` rows.
 
 This module and what it imports are numpy and the standard library only
 (no torch): ``build_cache``'s and ``build_seg_cache``'s spawned workers
@@ -557,6 +564,20 @@ def _resident_order(seed: int, n: int) -> np.ndarray:
     return rng.permutation(n)
 
 
+def _resident_block(seed: int, n: int, multiple_of: int, num_shards: int,
+                    shard_id: int) -> tuple[np.ndarray, int]:
+    """Feed group ``shard_id``'s contiguous block of the resident order,
+    trimmed to a multiple of ``multiple_of`` rows, and the trimmed count."""
+    keep = n - (n % max(multiple_of, 1))
+    if keep < num_shards:
+        raise ValueError(
+            f"split has {n} rows; {keep} after trimming to a multiple of "
+            f"{multiple_of} -- too few for {num_shards} feed groups")
+    order = _resident_order(seed, n)[:keep]
+    return (order[keep * shard_id // num_shards:
+                  keep * (shard_id + 1) // num_shards], keep)
+
+
 def _hash_split_rows(n: int, split: str, test_fraction: float) -> np.ndarray:
     """The rows of ``n`` that fall in ``split`` under a fixed per-index
     hash: the same rows are held out whatever the epoch."""
@@ -565,14 +586,19 @@ def _hash_split_rows(n: int, split: str, test_fraction: float) -> np.ndarray:
     return np.nonzero(keep)[0].astype(np.int64)
 
 
-def _epoch_index_batches(n: int, batch: int):
-    """``(indices, mask)`` batches of one exact pass over ``n`` rows; the
-    last partial batch wraps to the front with ``mask = 0`` rows, so masked
-    sums count every row once while every batch has ``batch`` rows."""
+def _epoch_index_batches(n: int, batch: int, num_shards: int = 1,
+                         shard_id: int = 0):
+    """``(indices, mask)`` batches of shard ``shard_id``'s part of one exact
+    pass over ``n`` rows (rows ``shard_id, shard_id + num_shards, ...``);
+    the last partial batch wraps to the front with ``mask = 0`` rows, so
+    masked sums count every row once while every batch has ``batch`` rows.
+    Every shard yields as many batches (the largest shard's count): the
+    hosts of a world evaluate in lockstep."""
     if n <= 0:
         raise ValueError("epoch over an empty split")
-    rows = np.arange(n, dtype=np.int64)
-    for b in range(max((n + batch - 1) // batch, 1)):
+    rows = np.arange(shard_id, n, num_shards, dtype=np.int64)
+    largest = (n + num_shards - 1) // num_shards
+    for b in range(max((largest + batch - 1) // batch, 1)):
         idx = rows[b * batch:(b + 1) * batch]
         mask = np.ones(batch, dtype=np.float32)
         if len(idx) < batch:
@@ -591,14 +617,21 @@ class VoxelCacheDataset:
     ``test_fraction`` of each class). ``augment=True`` rotates every drawn
     sample by a random cube rotation on the host; exact passes never
     augment. A class's label is its ``label_ids`` entry in the index.
+    ``num_hosts``/``host_id`` shard the stream by host (see the module
+    docstring).
     """
 
     def __init__(self, cache_root: str, global_batch: int = 96,
                  split: str = "train", test_fraction: float = 0.2,
-                 seed: int = 0, augment: bool = False):
+                 seed: int = 0, augment: bool = False, num_hosts: int = 1,
+                 host_id: int = 0):
+        if global_batch % num_hosts:
+            raise ValueError("global_batch must divide evenly across hosts")
         self.index, packed = _load_cache(cache_root)
         self.resolution = int(self.index["resolution"])
         self.global_batch = global_batch
+        self.local_batch = global_batch // num_hosts
+        self.host_id = host_id
         self.seed = seed
         self.augment = augment
         self._reads = 0  # gathers so far (the cache_read_error counter)
@@ -662,32 +695,40 @@ class VoxelCacheDataset:
         ``resident_order()[i]``."""
         return _resident_order(self.seed, len(self.labels))
 
-    def materialize_split(self) -> tuple[np.ndarray, np.ndarray, int]:
-        """The whole split for a device-resident upload: ``(packed voxels,
-        labels, rows)`` in ``resident_order()``. The train step rotates on
-        the device, so the rows are as stored."""
-        order = self.resident_order()
-        return self._gather(order), self.labels[order], len(order)
+    def materialize_split(self, multiple_of: int = 1, num_shards: int = 1,
+                          shard_id: int = 0) -> tuple[np.ndarray, np.ndarray, int]:
+        """Feed group ``shard_id``'s block of the split for a
+        device-resident upload: ``(packed voxels, labels, rows)``, rows the
+        split's count trimmed to a multiple of ``multiple_of``; with the
+        defaults the whole split in ``resident_order()``. The train step
+        rotates on the device, so the rows are as stored."""
+        rows, keep = _resident_block(self.seed, len(self.labels), multiple_of,
+                                     num_shards, shard_id)
+        return self._gather(rows), self.labels[rows], keep
 
     def worker_iter(self, worker_id: int = 0) -> Iterator[dict[str, np.ndarray]]:
-        """An independent infinite stream of uniformly drawn batches for
-        one producer worker (``SeedSequence([seed, 0, worker_id])``, the
-        reference's fold for host 0)."""
-        rng = np.random.default_rng(np.random.SeedSequence([self.seed, 0, worker_id]))
+        """An independent infinite stream of uniformly drawn batches of
+        this host's rows for one producer worker (``SeedSequence([seed,
+        host_id, worker_id])``, the reference's fold)."""
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, self.host_id, worker_id]))
         n = len(self.labels)
         while True:
-            idx = rng.integers(0, n, size=self.global_batch)
+            idx = rng.integers(0, n, size=self.local_batch)
             voxels = self._gather(idx, rng if self.augment else None)
             yield {"voxels": voxels, "label": self.labels[idx],
-                   "mask": np.ones(self.global_batch, dtype=np.float32)}
+                   "mask": np.ones(self.local_batch, dtype=np.float32)}
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         return self.worker_iter(0)
 
-    def epoch_batches(self, batch: int) -> Iterator[dict[str, np.ndarray]]:
-        """One exact pass over the split, every sample once; the last
-        batch is padded with ``mask = 0`` rows."""
-        for idx, mask in _epoch_index_batches(len(self.labels), batch):
+    def epoch_batches(self, batch: int, num_shards: int = 1,
+                      shard_id: int = 0) -> Iterator[dict[str, np.ndarray]]:
+        """Shard ``shard_id``'s part of one exact pass over the split, every
+        sample in one shard once; the last batch is padded with ``mask =
+        0`` rows."""
+        for idx, mask in _epoch_index_batches(len(self.labels), batch,
+                                              num_shards, shard_id):
             yield {"voxels": self._gather(idx), "label": self.labels[idx],
                    "mask": mask}
 
@@ -704,10 +745,15 @@ class SegCacheDataset:
 
     def __init__(self, cache_root: str, global_batch: int = 32,
                  split: str = "train", test_fraction: float = 0.2,
-                 seed: int = 0, augment: bool = False):
+                 seed: int = 0, augment: bool = False, num_hosts: int = 1,
+                 host_id: int = 0):
+        if global_batch % num_hosts:
+            raise ValueError("global_batch must divide evenly across hosts")
         self.index, self._voxels, self._seg = _load_seg_cache(cache_root)
         self.resolution = int(self.index["resolution"])
         self.global_batch = global_batch
+        self.local_batch = global_batch // num_hosts
+        self.host_id = host_id
         self.seed = seed
         self.augment = augment
         self._reads = 0
@@ -756,31 +802,39 @@ class SegCacheDataset:
         """The seed-shuffled order ``materialize_split`` lays out."""
         return _resident_order(self.seed, len(self.rows))
 
-    def materialize_split(self) -> tuple[np.ndarray, np.ndarray, int]:
-        """The whole split for a device-resident upload: ``(packed voxels,
-        seg int8, rows)`` in ``resident_order()``, as stored (the train
-        step rotates voxels and ``seg`` together on the device)."""
-        order = self.resident_order()
-        vox, seg = self._gather(order)
-        return vox, seg, len(order)
+    def materialize_split(self, multiple_of: int = 1, num_shards: int = 1,
+                          shard_id: int = 0) -> tuple[np.ndarray, np.ndarray, int]:
+        """Feed group ``shard_id``'s block of the split for a
+        device-resident upload: ``(packed voxels, seg int8, rows)``, as
+        ``VoxelCacheDataset.materialize_split``; as stored (the train step
+        rotates voxels and ``seg`` together on the device)."""
+        rows, keep = _resident_block(self.seed, len(self.rows), multiple_of,
+                                     num_shards, shard_id)
+        vox, seg = self._gather(rows)
+        return vox, seg, keep
 
     def worker_iter(self, worker_id: int = 0) -> Iterator[dict[str, np.ndarray]]:
-        """An independent infinite stream of uniformly drawn batches for
-        one producer worker (``SeedSequence([seed, 0, worker_id])``)."""
-        rng = np.random.default_rng(np.random.SeedSequence([self.seed, 0, worker_id]))
+        """An independent infinite stream of uniformly drawn batches of
+        this host's rows for one producer worker (``SeedSequence([seed,
+        host_id, worker_id])``)."""
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, self.host_id, worker_id]))
         n = len(self.rows)
         while True:
-            idx = rng.integers(0, n, size=self.global_batch)
+            idx = rng.integers(0, n, size=self.local_batch)
             v, t = self._gather(idx, rng if self.augment else None)
             yield {"voxels": v, "seg": t,
-                   "mask": np.ones(self.global_batch, dtype=np.float32)}
+                   "mask": np.ones(self.local_batch, dtype=np.float32)}
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         return self.worker_iter(0)
 
-    def epoch_batches(self, batch: int) -> Iterator[dict[str, np.ndarray]]:
-        """One exact pass over the split, every sample once; the last
-        batch is padded with ``mask = 0`` rows."""
-        for idx, mask in _epoch_index_batches(len(self.rows), batch):
+    def epoch_batches(self, batch: int, num_shards: int = 1,
+                      shard_id: int = 0) -> Iterator[dict[str, np.ndarray]]:
+        """Shard ``shard_id``'s part of one exact pass over the split, every
+        sample in one shard once; the last batch is padded with ``mask =
+        0`` rows."""
+        for idx, mask in _epoch_index_batches(len(self.rows), batch,
+                                              num_shards, shard_id):
             v, t = self._gather(idx)
             yield {"voxels": v, "seg": t, "mask": mask}

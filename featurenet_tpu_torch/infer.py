@@ -15,6 +15,12 @@ Usage:
     labels = seg.predict_voxels_seg(grids)           # a segment checkpoint:
     results = seg.predict_stl(["part.stl", ...])     # int8 [N,R,R,R], SegPrediction
 
+A Predictor serves on one device whatever mesh its checkpoint was trained
+on: ``mesh_data``, ``mesh_model`` and ``spatial`` are run policy
+(``parallel/mesh.py``), so a data-parallel run's checkpoint, or a JAX
+pod-scale one, restores and serves here as the reference's one-device
+Predictor does.
+
 Inputs are padded to the compile batch as in the JAX package, so every
 dispatch has one of a few shapes, and each shape has its serving program
 (``runtime/registry.py``): on the card a CUDA graph captured at first use

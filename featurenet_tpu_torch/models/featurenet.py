@@ -36,6 +36,16 @@ same logits:
   counts and is not used. Dropout applies after FC-128 with the
   caller's ``torch.Generator`` (Flax's mask: keep with probability
   ``1-rate``, scale kept values by ``1/(1-rate)``).
+- In a ``torch.distributed`` world of more than one process (data
+  parallelism, ``parallel/mesh.py``), each process holding an equal block
+  of the global batch, the train mode computes what the reference's GSPMD
+  step computes over the global batch: batch norm all-reduces each
+  channel's sum and sum of squares (``all_reduce_sum``, whose backward
+  all-reduces their gradients) and normalises with the global batch's
+  statistics, so the running statistics stay equal on every rank; dropout
+  draws the global batch's mask from the generator, which every rank
+  seeds alike, and keeps its own rows. With one process (or none) no
+  collective runs and nothing changes.
 - The 2³ max pool is ``F.max_pool3d`` on a channels-first view: its
   gradient goes to the first maximum of each window, as XLA's
   select-and-scatter does, where ``amax`` would split it among ties.
@@ -68,6 +78,7 @@ from featurenet_tpu_torch.ops.conv3d import (
 )
 from featurenet_tpu_torch.ops.conv33 import Fused33Conv, fused33_conv
 from featurenet_tpu_torch.ops.stem import SpaceToDepthConv
+from featurenet_tpu_torch.parallel.mesh import all_reduce_sum, rank_world
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
@@ -142,11 +153,19 @@ def max_pool2(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None):
-    """Flax's dropout: keep with probability ``1-rate``, scale by its inverse."""
+    """Flax's dropout: keep with probability ``1-rate``, scale by its inverse.
+    In a world of W > 1 processes ``x`` is rank r's block of a global batch
+    of ``W·B`` rows: the mask of the global batch is drawn and rows ``[r·B,
+    (r+1)·B)`` kept."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    rank, world = rank_world()
+    b = x.shape[0]
+    mask = torch.rand((b * world, *x.shape[1:]), generator=generator,
+                      device=x.device) < keep
+    if world > 1:
+        mask = mask[rank * b:(rank + 1) * b]
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -181,8 +200,19 @@ class ConvBNRelu(nn.Module):
         with record_function("bn_relu"):
             if train:
                 axes = (0, 1, 2, 3)
-                mean = y.mean(dim=axes)
-                var = torch.clamp((y * y).mean(dim=axes) - mean * mean, min=0.0)
+                world = rank_world()[1]
+                if world > 1:
+                    # The global batch's statistics: one all-reduce of both
+                    # sums over the world's equal blocks.
+                    n = y.numel() // y.shape[-1] * world
+                    sums = all_reduce_sum(torch.stack(
+                        [y.sum(dim=axes), (y * y).sum(dim=axes)]))
+                    mean = sums[0] / n
+                    var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+                else:
+                    mean = y.mean(dim=axes)
+                    var = torch.clamp((y * y).mean(dim=axes) - mean * mean,
+                                      min=0.0)
                 with torch.no_grad():
                     self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
                     self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)

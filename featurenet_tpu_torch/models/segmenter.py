@@ -35,7 +35,9 @@ Parameter names map Flax's scopes one to one (``convert.from_flax``):
 ``ConvBNRelu_i`` → ``blocks.i`` (in creation order: the encoder's pairs,
 the bottleneck, the decoder's refine blocks), ``ConvTranspose_j`` →
 ``ups.j`` and ``Conv_0`` → ``head``. ``forward(voxels, train=...)`` takes
-the mode explicitly, as the classifier does; batch norm runs as there.
+the mode explicitly, as the classifier does; batch norm runs as there,
+with the global batch's statistics in a data-parallel world of more than
+one process (``ConvBNRelu``).
 """
 
 from __future__ import annotations

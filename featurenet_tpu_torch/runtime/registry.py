@@ -321,15 +321,31 @@ class TrainProgram:
     ``peak_bytes``, the process's peak allocated bytes after the capture)
     is emitted as a ``program_cost`` event after the ``program_compile``
     event of the capture.
+
+    ``identity`` is what makes two programs the same: the name, the
+    precision and the mesh's summary (``parallel/mesh.py``; a one-process
+    mesh without one). A mesh of more than one process is refused: its
+    steps hold collectives, which gloo cannot record into a graph and NCCL
+    can only with a card per rank.
     """
 
     def __init__(self, name: str, body: Callable[[], dict], state,
                  generators, device: torch.device,
                  precision: Optional[str] = None,
-                 flops: Optional[float] = None):
+                 flops: Optional[float] = None, mesh=None):
+        from featurenet_tpu_torch.parallel.mesh import make_mesh, mesh_summary
+
+        summary = mesh_summary(mesh if mesh is not None else make_mesh(1, 1))
+        if summary["processes"] > 1:
+            raise ValueError(
+                f"{name}: a CUDA graph of a data-parallel step over "
+                f"{summary['processes']} processes is not ported; dispatch "
+                "single steps")
         if device.type != "cuda":
             raise ValueError(f"{name}: a train program is a CUDA graph; on "
                              f"{device} run the steps eagerly")
+        self.identity = {"program": name, "precision": precision,
+                         "mesh": summary}
         self.name = name
         self.device = device
         t0 = time.perf_counter()

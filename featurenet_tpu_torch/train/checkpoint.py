@@ -1,5 +1,5 @@
-"""Checkpoints and resume for one process (port of
-``featurenet_tpu/train/checkpoint.py``; the port's own file format).
+"""Checkpoints and resume (port of ``featurenet_tpu/train/checkpoint.py``;
+the port's own file format).
 
 A step is everything a run needs to resume: the model's ``state_dict``
 (fp32 master parameters and the batch-norm ``mean``/``var`` buffers), the
@@ -62,7 +62,19 @@ file write), ``checkpoint_restore`` (one candidate step's load) and
 ``checkpoint_wait``; a walk-back past a failed step is also a
 ``checkpoint_fallback`` event.
 
-Not ported: the multi-process lockstep save.
+A data-parallel world of more than one process (``parallel/mesh.py``;
+every rank holds the same state) saves in lockstep, as the reference does:
+the save stays on the caller's thread, where the step's collectives run.
+A collective issued from a writer thread would run beside the training
+step's collectives on the main thread with no order between the ranks,
+and two such collectives in flight wedge the world. Rank 0 snapshots the
+state to the host, writes the step and its checksummed sidecar (and
+``config.json``, once), prunes, and every rank then passes one barrier, so
+all of them see the same newest step; ``save_slow`` sleeps on rank 0's
+save path there and ``checkpoint_corrupt`` truncates rank 0's file. A
+resume is chosen by rank 0 alone (its walk-back, its cleanup and its
+fault sites) and broadcast; every other rank restores that step, so the
+world resumes from one step.
 """
 
 from __future__ import annotations
@@ -81,6 +93,7 @@ import torch
 
 from featurenet_tpu_torch import faults, obs
 from featurenet_tpu_torch.config import Config, config_from_dict, config_to_dict
+from featurenet_tpu_torch.parallel.mesh import barrier, broadcast_int, rank_world
 
 CONFIG_FILENAME = "config.json"
 
@@ -303,8 +316,13 @@ class CheckpointManager:
         self._config = None
 
     def save(self, state) -> None:
-        """Snapshot ``state`` on its device and hand it to the writer."""
+        """Snapshot ``state`` on its device and hand it to the writer; in a
+        world of more than one process, save in lockstep."""
         self._check_writer()
+        rank, world = rank_world()
+        if world > 1:
+            self._save_lockstep(state, rank)
+            return
         os.makedirs(self._dir, exist_ok=True)
         self._write_config()
         with obs.span("checkpoint_save", step=int(state.step)):
@@ -322,6 +340,49 @@ class CheckpointManager:
             # Decided here, in save order; applied once the step is written.
             corrupt = faults.maybe_fail("checkpoint_corrupt", save=self._saves)
             self._queue.put((snap, event, self._saves, corrupt))
+
+    def _save_lockstep(self, state, rank: int) -> None:
+        """The multi-process save, on the caller's thread: rank 0 writes
+        the step, every rank then passes one barrier."""
+        step = int(state.step)
+        t0 = time.perf_counter()
+        self._saves += 1
+        with obs.span("checkpoint_save", step=step):
+            if rank == 0:
+                os.makedirs(self._dir, exist_ok=True)
+                self._write_config()
+                corrupt = faults.maybe_fail("checkpoint_corrupt",
+                                            save=self._saves)
+                if faults.maybe_fail("save_slow", save=self._saves):
+                    time.sleep(faults.SLOW_SLEEP_S)  # on the save path here
+                snap = _snapshot(state)
+                for key in _GROUPS:
+                    snap[key] = {k: v.cpu() for k, v in snap[key].items()}
+                for key in _SCALE_KEYS:
+                    snap[key] = snap[key].cpu()
+                snap["count"] = int(snap["count"])
+                self._write_step(snap, step, corrupt)
+            barrier()
+        self.timing["writes"] += 1
+        self.timing["write_s"] += time.perf_counter() - t0
+        self.timing["bytes"] = os.path.getsize(self._path(step))
+        if self._on_written is not None:
+            self._on_written(step)
+
+    def _write_step(self, host: dict, step: int, corrupt: bool) -> None:
+        """Write a step on the host, then truncate it (``corrupt``) or
+        write its sidecar; prune to the newest ``keep`` steps."""
+        path = self._path(step)
+        _write_file(host, path)
+        if corrupt:
+            _truncate(path)
+        else:
+            sidecar = checksum_path(self._dir, step)
+            with open(sidecar + ".tmp", "w") as fh:
+                json.dump({step_filename(step): _sha256(path)}, fh)
+            os.replace(sidecar + ".tmp", sidecar)
+        for old in self.all_steps()[:-self._keep]:
+            self._delete(old)
 
     def _to_host(self, snap: dict, event) -> dict:
         """The snapshot on the host. On the card: wait for the clone's
@@ -364,20 +425,10 @@ class CheckpointManager:
                     host = self._to_host(snap, event)
                     del snap, item  # free the device copy before the write
                     host["count"] = int(host["count"])  # the file keeps an int
-                    path = self._path(step)
-                    _write_file(host, path)
-                    if corrupt:
-                        _truncate(path)
-                    else:
-                        sidecar = checksum_path(self._dir, step)
-                        with open(sidecar + ".tmp", "w") as fh:
-                            json.dump({step_filename(step): _sha256(path)}, fh)
-                        os.replace(sidecar + ".tmp", sidecar)
-                    for old in self.all_steps()[:-self._keep]:
-                        self._delete(old)
+                    self._write_step(host, step, corrupt)
                 self.timing["writes"] += 1
                 self.timing["write_s"] += time.perf_counter() - t0
-                self.timing["bytes"] = os.path.getsize(path)
+                self.timing["bytes"] = os.path.getsize(self._path(step))
                 if self._on_written is not None:
                     self._on_written(step)
             except Exception as e:  # re-raised by _check_writer
@@ -406,6 +457,30 @@ class CheckpointManager:
 
     def _load(self, step: Optional[int], cleanup: bool,
               apply: Callable[[dict], None]) -> int:
+        """Restore ``step`` or the newest good one; in a world of more than
+        one process, rank 0 chooses and broadcasts the step (-1: none
+        restored) and the others restore that step."""
+        rank, world = rank_world()
+        if world == 1:
+            return self._load_here(step, cleanup, apply)
+        chosen, error = None, None
+        if rank == 0:
+            try:
+                chosen = self._load_here(step, cleanup, apply)
+            except Exception as e:  # every rank must hear of it
+                error = e
+        chosen = broadcast_int(chosen)
+        if error is not None:
+            raise error
+        if chosen < 0:
+            raise RuntimeError(f"rank 0 restored no checkpoint from {self._dir}")
+        if rank != 0:
+            self._load_here(chosen, False, apply, fault_sites=False)
+        return chosen
+
+    def _load_here(self, step: Optional[int], cleanup: bool,
+                   apply: Callable[[dict], None],
+                   fault_sites: bool = True) -> int:
         if self._writer is not None:
             self._queue.join()
         self._check_writer()
@@ -419,8 +494,8 @@ class CheckpointManager:
         for s in candidates:
             self._restores += 1
             try:
-                if faults.maybe_fail("checkpoint_restore_error",
-                                     restore=self._restores):
+                if fault_sites and faults.maybe_fail("checkpoint_restore_error",
+                                                     restore=self._restores):
                     raise faults.InjectedFault(
                         f"checkpoint_restore_error at step {s}")
                 self._verify(s)

@@ -1,5 +1,6 @@
 """The Trainer: config → model → train state → data → run loop (port of
-``featurenet_tpu/train/loop.py``, one device).
+``featurenet_tpu/train/loop.py``: one device per process, and data
+parallelism across the processes of a ``torch.distributed`` world).
 
 ``Trainer(cfg, device="cuda")`` builds the model of ``cfg.task``
 (``runtime.build_model``: the classifier, or the segmenter) from
@@ -105,6 +106,23 @@ written to ``profile_dir`` as a Chrome trace
 step this process runs (a resumed run traces its own steps), and an
 exception or a segment's end closes it with its trace kept.
 
+Data parallelism (``parallel/mesh.py``): in a process group the Trainer
+lays its mesh over the world (``train_mesh``: ``cfg.mesh_model`` clamped
+to the world, a model axis above 1 refused) and feeds this rank's row
+group of every global batch (``feed_shards``): the streamed datasets take
+``num_hosts``/``host_id``, a resident split is the feed group's block
+(``materialize_split(multiple_of, num_shards, shard_id)``), and the step
+keeps global semantics (``train/steps.py``). Eval is one exact pass
+sharded by feed group, its sums all-reduced, so every rank returns the
+same result and each held-out sample counts once. Each rank writes its own
+event stream (``obs.init_run(process_index=rank)``: ``events.<rank>.jsonl``
+beside rank 0's ``events.jsonl``), rank 0 alone ``config.json`` and the
+TensorBoard scalars; checkpoints save in lockstep and resume from the step
+rank 0 chooses (``train/checkpoint.py``); ``loop_start`` carries the
+mesh's summary (backend included); ``host_loss`` fires on the last rank
+only. A k-step CUDA graph under a world of more than one process is
+refused (``runtime/registry.py`` ``TrainProgram``).
+
 Not ported: the reference's HBM clamp of k (a graph's private pool reuses
 each inner step's activations).
 
@@ -133,8 +151,15 @@ from featurenet_tpu_torch.data.dataset import Prefetcher, SyntheticVoxelDataset
 from featurenet_tpu_torch.data.offline import SegCacheDataset, VoxelCacheDataset
 from featurenet_tpu_torch.data.synthetic import WIRE_KEYS
 from featurenet_tpu_torch.obs import perf as obs_perf
-from featurenet_tpu_torch.ops.augment import cube_index_maps
+from featurenet_tpu_torch.ops.augment import cube_index_maps, group_count
 from featurenet_tpu_torch.ops.flops import train_step_flops_per_sample
+from featurenet_tpu_torch.parallel.mesh import (
+    all_reduce_flat,
+    feed_shards,
+    mesh_summary,
+    rank_world,
+    train_mesh,
+)
 from featurenet_tpu_torch.runtime import build_model, resolve_device
 from featurenet_tpu_torch.runtime.registry import TrainProgram
 from featurenet_tpu_torch.train.checkpoint import CheckpointManager, load_run_config
@@ -155,25 +180,34 @@ from featurenet_tpu_torch.utils.logging import MetricLogger
 EVAL_SEED_OFFSET = 10_000
 
 
-def eval_dataset(cfg: Config):
+def eval_dataset(cfg: Config, num_hosts: int = 1, host_id: int = 0):
     """The held-out data a run of ``cfg`` evaluates on: the cache's test
-    split, or the held-out synthetic stream."""
+    split, or the held-out synthetic stream (``host_id``'s rows of it)."""
     if cfg.data_cache:
         cache = SegCacheDataset if cfg.task == "segment" else VoxelCacheDataset
         return cache(cfg.data_cache, cfg.global_batch, "test",
-                     cfg.test_fraction, seed=cfg.seed + EVAL_SEED_OFFSET)
+                     cfg.test_fraction, seed=cfg.seed + EVAL_SEED_OFFSET,
+                     num_hosts=num_hosts, host_id=host_id)
     return SyntheticVoxelDataset(cfg.resolution, cfg.global_batch,
                                  cfg.num_features,
-                                 seed=cfg.seed + EVAL_SEED_OFFSET, task=cfg.task)
+                                 seed=cfg.seed + EVAL_SEED_OFFSET, task=cfg.task,
+                                 num_hosts=num_hosts, host_id=host_id)
 
 
 def evaluate(model, data, batches: int, device,
-             serve_precision: str = "fp32", on_batch=None) -> dict:
+             serve_precision: str = "fp32", on_batch=None,
+             shards: tuple[int, int] = (1, 0)) -> dict:
     """Eval metrics of ``model`` at ``serve_precision``: over one exact
     pass of a cache split (``batches`` is not read), or over the first
     ``batches`` batches of a synthetic stream. ``batches`` and ``samples``
     (parts, not voxels) in the result count what was evaluated.
-    ``on_batch`` is called with each batch's sums as they are made."""
+    ``on_batch`` is called with each batch's sums as they are made.
+
+    ``shards = (num_shards, shard_id)`` of a data-parallel world: this
+    rank walks its shard of the pass (``epoch_batches``), and in a process
+    group of more than one the sums and the sample count are all-reduced,
+    so every rank returns the global result (``batches`` counts this
+    rank's)."""
     rows = []
 
     def step(batch):
@@ -186,17 +220,30 @@ def evaluate(model, data, batches: int, device,
     if isinstance(data, (VoxelCacheDataset, SegCacheDataset)):
         sums = [step({k: torch.from_numpy(v).to(device)
                       for k, v in batch.items()})
-                for batch in data.epoch_batches(data.global_batch)]
+                for batch in data.epoch_batches(data.local_batch, *shards)]
     else:
         stream = Prefetcher(data, device, num_workers=1)
         try:
             sums = [step(next(stream)) for _ in range(batches)]
         finally:
             stream.close()
+    n_batches = len(sums)
+    if rank_world()[1] > 1:
+        sums, rows = _global_sums(sums, rows)
     out = aggregate_eval(sums)
-    out["batches"] = len(sums)
+    out["batches"] = n_batches
     out["samples"] = int(sum(float(r) for r in rows))
     return out
+
+
+def _global_sums(sums: list[dict], rows: list) -> tuple[list[dict], list]:
+    """The world's totals of per-batch eval sums and mask rows, in float64
+    from one all-reduce."""
+    keys = sorted(sums[0])
+    *totals, n = all_reduce_flat(
+        [torch.stack([s[k].double() for s in sums]).sum(0) for k in keys]
+        + [torch.stack([r.double() for r in rows]).sum()])
+    return [dict(zip(keys, totals))], [n]
 
 
 class DispatchPacer:
@@ -233,13 +280,14 @@ class Trainer:
                  state: dict[str, torch.Tensor] | None = None, stream=None):
         self.cfg = cfg.validate_training()
         self.device = resolve_device(device)
+        self.rank, self.world = rank_world()
         if cfg.run_dir:
             # First, so every later event of this construction lands in
             # the run; the windows judge the run's own alert rules.
             from featurenet_tpu_torch.obs import alerts, windows
 
             obs.init_run(cfg.run_dir, config=config_to_dict(cfg),
-                         process_index=0)
+                         process_index=self.rank)
             windows.install(windows.WindowAggregator(
                 rules=alerts.parse_rules(cfg.alert_rules)))
         if cfg.inject_faults:
@@ -247,6 +295,15 @@ class Trainer:
             # once per run, not once per respawned process.
             faults.install(cfg.inject_faults,
                            state_dir=cfg.run_dir or cfg.checkpoint_dir)
+        # The mesh over the world and this rank's row group of each global
+        # batch; one process is a 1 x 1 mesh feeding every row.
+        self.mesh = train_mesh(cfg, str(self.device))
+        data_axis = self.mesh.shape["data"]
+        if cfg.global_batch % data_axis:
+            raise ValueError(f"global_batch {cfg.global_batch} must be a "
+                             f"multiple of the data mesh axis size {data_axis}")
+        self._feed = feed_shards(self.mesh)
+        n_hosts, host_id = self._feed
         model = build_model(cfg, seed=cfg.seed if state is None else None)
         if state is not None:
             model.load_state_dict(state)
@@ -263,16 +320,21 @@ class Trainer:
                                        config=cfg,
                                        on_written=lambda step: self._heartbeat())
                      if cfg.checkpoint_dir else None)
-        self.logger = MetricLogger(stream, tb_dir=cfg.tb_dir)
-        self.eval_data = eval_dataset(cfg)
+        # The TensorBoard scalars from rank 0 only: the ranks log the same.
+        self.logger = MetricLogger(stream,
+                                   tb_dir=cfg.tb_dir if self.rank == 0 else None)
+        self.eval_data = eval_dataset(cfg, n_hosts, host_id)
+        shard = dict(num_hosts=n_hosts, host_id=host_id)
         if cfg.data_cache and cfg.task == "segment":
             self.train_data = SegCacheDataset(
                 cfg.data_cache, cfg.global_batch, "train", cfg.test_fraction,
-                seed=cfg.seed, augment=cfg.augment and not cfg.device_augment)
+                seed=cfg.seed, augment=cfg.augment and not cfg.device_augment,
+                **shard)
         elif cfg.data_cache:
             self.train_data = VoxelCacheDataset(
                 cfg.data_cache, cfg.global_batch, "train", cfg.test_fraction,
-                seed=cfg.seed, augment=cfg.augment and not cfg.device_augment)
+                seed=cfg.seed, augment=cfg.augment and not cfg.device_augment,
+                **shard)
             # A label the head cannot express would train silently wrong.
             top = int(max(self.train_data.labels.max(), self.eval_data.labels.max()))
             if top >= cfg.arch.num_classes:
@@ -283,13 +345,17 @@ class Trainer:
         else:
             self.train_data = SyntheticVoxelDataset(
                 cfg.resolution, cfg.global_batch, cfg.num_features, seed=cfg.seed,
-                task=cfg.task,
+                task=cfg.task, **shard,
             )
         if self.train_data.resolution != cfg.resolution:
             raise ValueError(
                 f"cache {cfg.data_cache!r} holds {self.train_data.resolution}³ "
                 f"parts; the config trains at {cfg.resolution}³")
         self._groups = cfg.augment_groups if cfg.device_augment else 0
+        if self._groups and n_hosts > 1:
+            # This rank's share of the global batch's groups (StepDraws
+            # refuses a count that does not divide).
+            self._groups = group_count(cfg.global_batch, self._groups) // n_hosts
         # The wire batch's keys a step reads: voxels and the target.
         self._keys = WIRE_KEYS[cfg.task][:2]
         step_opts = (cfg.label_smoothing, self._groups, cfg.augment_affine,
@@ -300,7 +366,10 @@ class Trainer:
         rows = 0
         if cfg.hbm_cache:
             # The targets: int32 labels, or the int8 per-voxel seg.
-            voxels, labels, rows = self.train_data.materialize_split()
+            # This feed group's block of the split (all of it on one rank).
+            voxels, labels, _ = self.train_data.materialize_split(
+                multiple_of=data_axis, num_shards=n_hosts, shard_id=host_id)
+            rows = len(labels)
             self._data = torch.from_numpy(voxels).to(self.device)
             self._labels = torch.from_numpy(labels).to(self.device)
             self.resident = {"hbm_resident_rows": rows,
@@ -308,7 +377,8 @@ class Trainer:
             if cfg.task == "segment":
                 self.resident["hbm_resident_seg_mb"] = round(labels.nbytes / 1e6, 1)
         self._k = cfg.steps_per_dispatch
-        self._draws = StepDraws(cfg, self._k, self.device, rows)
+        self._draws = StepDraws(cfg, self._k, self.device, rows,
+                                num_shards=n_hosts, shard=host_id)
         if "codes" in self._draws.streams:
             cube_index_maps(cfg.resolution, self.device)  # made before any step
         # k-step programs by (path, k, precision); on the card only.
@@ -339,7 +409,7 @@ class Trainer:
         if not self.resident:
             raise ValueError("no batch given and no resident split (hbm_cache)")
         idx = self._draws.draw_rows(slot)
-        args = self._draws.step_args(slot, cfg.global_batch, cfg.resolution)
+        args = self._draws.step_args(slot, self._draws.batch, cfg.resolution)
         return self._resident_step(self.state, self._data, self._labels, idx,
                                    **args)
 
@@ -429,7 +499,8 @@ class Trainer:
         self.programs[key] = TrainProgram(
             "multi_train_step" if static else "hbm_train_step", body,
             self.state, self._draws.generators(), self.device,
-            precision=key[2], flops=self._flops(key[1]).get("flops"))
+            precision=key[2], flops=self._flops(key[1]).get("flops"),
+            mesh=self.mesh)
 
     @torch.no_grad()
     def recalibrate_bn(self, batches: int = 64) -> None:
@@ -492,7 +563,8 @@ class Trainer:
             return evaluate(self.state.model, self.eval_data,
                             self.cfg.eval_batches, self.device,
                             self.cfg.serve_precision,
-                            on_batch=beat if self.cfg.heartbeat_file else None)
+                            on_batch=beat if self.cfg.heartbeat_file else None,
+                            shards=self._feed)
 
     def run(self, num_steps: int | None = None) -> dict:
         cfg = self.cfg
@@ -502,7 +574,8 @@ class Trainer:
         stop = total
         if cfg.restart_every_steps and self.ckpt is not None:
             stop = min(total, start + cfg.restart_every_steps)
-        self.logger.log(start, {"params": self.params_n, "devices": 1,
+        self.logger.log(start, {"params": self.params_n,
+                                "devices": int(self.mesh.devices.size),
                                 **self.resident}, prefix="setup")
         stream = None if self.resident else Prefetcher(
             self.train_data, self.device, num_workers=cfg.data_workers)
@@ -524,7 +597,7 @@ class Trainer:
         # The report attributes span time to the step-time breakdown only
         # between loop_start and loop_end.
         obs.emit("loop_start", step=start, stop=stop, total=total,
-                 global_batch=cfg.global_batch)
+                 mesh=mesh_summary(self.mesh), global_batch=cfg.global_batch)
         loop_t0 = time.perf_counter()
         # The trace window, anchored at the first step this process runs.
         trace_start = max(cfg.profile_start, start) if cfg.profile_dir else -1
@@ -603,8 +676,9 @@ class Trainer:
                     # A real signal through the real handler, at the first
                     # boundary at or past N.
                     os.kill(os.getpid(), signal.SIGTERM)
-                if faults.active() and faults.maybe_fail("host_loss", step=step):
-                    # The last host (this one) vanishes: no drain, no exit.
+                if (faults.active() and self.rank == self.world - 1
+                        and faults.maybe_fail("host_loss", step=step)):
+                    # The last host vanishes: no drain, no exit.
                     os.kill(os.getpid(), signal.SIGKILL)
                 if self._preempted and step < total:
                     preempted = True

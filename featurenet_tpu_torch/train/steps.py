@@ -71,6 +71,23 @@ true voxels of the rows its mask keeps, and ``aggregate_eval`` turns them
 into ``mean_iou`` (over the classes present in either) and
 ``per_class_iou``.
 
+Data parallelism (``parallel/mesh.py``): in a ``torch.distributed``
+world each process runs the step on its block of the global batch, and
+the step computes what the reference's GSPMD step computes over the
+global batch. The model normalises with the global batch's statistics and
+draws the global dropout mask (``models/featurenet.py``); the segmentation
+loss takes its foreground share and its Dice sums over the world. After
+the backward the gradients (upcast and, under ``fp16_scaled``, unscaled)
+and the metric scalars go through one all-reduce of a flat buffer and a
+division by the world size: before the global norm, the clip, the
+finiteness verdict and the update, so every rank applies (or skips) the
+same update and logs the same metrics. Every draw of a step is made at the
+global batch from generators every rank seeds alike, and each rank keeps
+its rows (``StepDraws``), except the resident rows: each rank draws its
+local batch from its own block of the split, its ``rows`` stream seeded
+with its rank folded in, as the reference's resident draw folds the data
+axis index. Without a process group none of this runs.
+
 The update runs inside the profiler range ``optimizer``
 (``record_function``), beside the model's ``casts`` and ``bn_relu``.
 
@@ -103,6 +120,12 @@ from featurenet_tpu_torch.ops.augment import (
     rotate_pair_by_codes,
 )
 from featurenet_tpu_torch.config import SEG_LOSSES
+from featurenet_tpu_torch.parallel.mesh import (
+    all_reduce_flat,
+    all_reduce_sum,
+    in_world,
+    rank_world,
+)
 from featurenet_tpu_torch.runtime import forward_with
 from featurenet_tpu_torch.train.precision import (
     LOSS_SCALE_GROWTH_INTERVAL,
@@ -194,7 +217,10 @@ def _soft_dice(logits: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     p_true = probs.gather(-1, seg[..., None])[..., 0]
     inter = class_sums(seg, p_true, n_cls)
     count = class_sums(seg, torch.ones_like(p_true), n_cls)
-    denom = probs.sum(dim=tuple(range(probs.dim() - 1))) + count
+    total = probs.sum(dim=tuple(range(probs.dim() - 1)))
+    if rank_world()[1] > 1:  # the global batch's sums
+        inter, count, total = all_reduce_sum(torch.stack([inter, count, total]))
+    denom = total + count
     present = (count > 0).float()
     dice = 1.0 - (2.0 * inter + 1.0) / (denom + 1.0)
     return (dice * present).sum() / torch.clamp(present.sum(), min=1.0)
@@ -219,7 +245,18 @@ def segmentation_loss(logits: torch.Tensor, seg: torch.Tensor,
         per_voxel = lse - logits.gather(-1, seg[..., None])[..., 0]
         fg = seg > 0
         is_fg = fg.float()
-        fg_frac = is_fg.mean()
+        with torch.no_grad():
+            hit = (logits.argmax(dim=-1) == seg).float()
+        world = rank_world()[1]
+        if world > 1:
+            # The global batch's foreground count and foreground hits.
+            with torch.no_grad():
+                n_fg, fg_hits = all_reduce_sum(
+                    torch.stack([is_fg.sum(), (hit * is_fg).sum()]))
+            fg_frac = n_fg / (is_fg.numel() * world)
+        else:
+            n_fg, fg_hits = is_fg.sum(), None
+            fg_frac = is_fg.mean()
         w = torch.where(fg, 0.5 / torch.clamp(fg_frac, min=1e-4),
                         0.5 / torch.clamp(1.0 - fg_frac, min=1e-4))
         ce = (per_voxel * w).mean()
@@ -230,11 +267,11 @@ def segmentation_loss(logits: torch.Tensor, seg: torch.Tensor,
         else:
             loss = _soft_dice(logits, seg)
         with torch.no_grad():
-            hit = (logits.argmax(dim=-1) == seg).float()
             acc = hit.mean()
-            n_fg = is_fg.sum()
+            if fg_hits is None:
+                fg_hits = (hit * is_fg).sum()
             fg_acc = torch.where(n_fg > 0,
-                                 (hit * is_fg).sum() / torch.clamp(n_fg, min=1.0),
+                                 fg_hits / torch.clamp(n_fg, min=1.0),
                                  torch.zeros_like(n_fg))
     return loss, {"loss": loss, "accuracy": acc, "fg_accuracy": fg_acc}
 
@@ -389,6 +426,19 @@ def loss_and_grads(model, voxels: torch.Tensor, labels: torch.Tensor,
     return grads, metrics
 
 
+def sync_gradients(grads, metrics: dict):
+    """In a process group: the world's mean of ``grads`` and of the metric
+    scalars, from one all-reduce of a flat buffer (a one-process world's
+    is the identity). Without one, both as they are."""
+    if not in_world():
+        return list(grads), metrics
+    keys = list(metrics)
+    out = all_reduce_flat([*grads, *(metrics[k].reshape(1) for k in keys)],
+                          mean=True)
+    n = len(out) - len(keys)
+    return out[:n], {k: v.reshape(()) for k, v in zip(keys, out[n:])}
+
+
 def _scaled_update(state, voxels, labels, label_smoothing, generator,
                    loss_fn=None) -> dict:
     """The ``fp16_scaled`` step (the reference's ``_scaled_update``): scale
@@ -404,11 +454,13 @@ def _scaled_update(state, voxels, labels, label_smoothing, generator,
     # Upcast first, then unscale: dividing in fp16 would overflow again.
     inv = 1.0 / scale
     grads = [g * inv for g in policy.master_grads(grads)]
+    # One verdict for the world: a rank's overflow is in the sum.
+    grads, metrics = sync_gradients(
+        grads, {k: v.detach() for k, v in metrics.items()})
     finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
     with torch.no_grad():
         for b, old in zip(model.buffers(), stats):
             b.copy_(torch.where(finite, b, old))
-    metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = global_norm(grads)
     # Applied where finite, as it was elsewhere; the step advances either way.
     state.apply_gradients(grads, finite)
@@ -484,8 +536,9 @@ def make_train_step(label_smoothing: float = 0.0, augment_groups: int = 0,
         grads, metrics = loss_and_grads(state.model, voxels, target,
                                         label_smoothing, generator, policy,
                                         loss_fn=loss_fn)
-        grads = policy.master_grads(grads)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        grads, metrics = sync_gradients(
+            policy.master_grads(grads),
+            {k: v.detach() for k, v in metrics.items()})
         metrics["grad_norm"] = global_norm(grads)
         state.apply_gradients(grads)
         return metrics
@@ -540,10 +593,12 @@ DRAW_STREAMS = {"dropout": 0xD20, "rows": 0x5A11, "codes": 0xA06,
                 "affine": 0xAFF1, "noise": 0xF11B}
 
 
-def stream_seed(seed: int, step: int, stream: str) -> int:
-    """The 64-bit generator seed of one draw stream at one step."""
-    return int(np.random.SeedSequence([seed, step, DRAW_STREAMS[stream]])
-               .generate_state(1, np.uint64)[0])
+def stream_seed(seed: int, step: int, stream: str,
+                fold: Optional[int] = None) -> int:
+    """The 64-bit generator seed of one draw stream at one step, with
+    ``fold`` (a rank) folded in when given."""
+    key = [seed, step, DRAW_STREAMS[stream]] + ([] if fold is None else [fold])
+    return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
 
 
 class StepDraws:
@@ -561,13 +616,30 @@ class StepDraws:
     0``); with ``cfg.device_augment`` the cube ``codes``, or under
     ``cfg.augment_affine`` the ``affine`` draw; ``noise`` when
     ``cfg.augment_noise > 0``.
+
+    In a data-parallel world (``shard`` of ``num_shards`` feed groups, the
+    ``parallel/mesh.py`` ``feed_shards`` of this rank) every stream but
+    ``rows`` is seeded alike on every rank and ``step_args`` draws at the
+    global batch and hands over this shard's part: its groups' codes or
+    affine draws (the global group count must divide over the shards), its
+    rows' flips. ``rows`` draws this shard's ``global_batch / num_shards``
+    rows from its own block of ``rows``, its seed folded with the shard.
     """
 
-    def __init__(self, cfg, slots: int, device, rows: int = 0):
+    def __init__(self, cfg, slots: int, device, rows: int = 0,
+                 num_shards: int = 1, shard: int = 0):
         self.seed_value = cfg.seed
-        self.batch = cfg.global_batch
+        self.num_shards, self.shard = num_shards, shard
+        self.batch = cfg.global_batch // num_shards
         self.rows = rows
         self.groups = cfg.augment_groups if cfg.device_augment else 0
+        global_groups = (group_count(cfg.global_batch, self.groups)
+                         if self.groups else 0)
+        if global_groups % num_shards:
+            raise ValueError(
+                f"{global_groups} augmentation groups of a global batch "
+                f"of {cfg.global_batch} do not divide over {num_shards} feed "
+                "groups; set augment_groups to a multiple of the data axis")
         self.affine = bool(cfg.augment_affine and self.groups)
         self.noise = cfg.augment_noise
         self.affine_opts = dict(scale_range=cfg.augment_scale_range,
@@ -595,9 +667,11 @@ class StepDraws:
     def seed(self, step: int, take: int) -> None:
         if not 1 <= take <= self.slots:
             raise ValueError(f"{take} steps for {self.slots} draw slots")
+        fold = self.shard if self.num_shards > 1 else None
         for j in range(take):
             for stream, g in self._gens[j].items():
-                g.manual_seed(stream_seed(self.seed_value, step + j, stream))
+                g.manual_seed(stream_seed(self.seed_value, step + j, stream,
+                                          fold if stream == "rows" else None))
         torch.add(self._offsets, step, out=self.steps)
 
     def draw_rows(self, slot: int) -> torch.Tensor:
@@ -605,18 +679,28 @@ class StepDraws:
 
     def step_args(self, slot: int, batch: int, resolution: int) -> dict:
         """The keyword draws of ``make_train_step``'s step for inner step
-        ``slot`` of a batch of ``batch`` at ``resolution``."""
+        ``slot`` of this shard's batch of ``batch`` rows at
+        ``resolution``."""
         gens = self._gens[slot]
         args = {"generator": gens["dropout"]}
+        n, at = self.num_shards, self.shard
+        full = batch * n
+
+        def mine(t: torch.Tensor) -> torch.Tensor:  # this shard's part
+            return t if n == 1 else t[at * (t.shape[0] // n):
+                                      (at + 1) * (t.shape[0] // n)]
+
         if "codes" in gens:
-            args["codes"] = draw_code_tensor(gens["codes"], batch, self.groups)
+            args["codes"] = mine(draw_code_tensor(gens["codes"], full,
+                                                  self.groups))
         if "affine" in gens:
             prob = affine_prob(self.prob, self.ramp_steps, self.steps[slot])
-            args["affine"] = draw_affine(gens["affine"], batch, self.groups,
-                                         prob, **self.affine_opts)
+            draw = draw_affine(gens["affine"], full, self.groups,
+                               prob, **self.affine_opts)
+            args["affine"] = draw if n == 1 else type(draw)(*map(mine, draw))
         if "noise" in gens:
-            shape = (batch, resolution, resolution, resolution, 1)
-            args["flips"] = draw_flips(gens["noise"], shape, self.noise)
+            shape = (full, resolution, resolution, resolution, 1)
+            args["flips"] = mine(draw_flips(gens["noise"], shape, self.noise))
         return args
 
 

@@ -40,7 +40,10 @@ plane on the card (the peak row keyed by the card's name, a graph's
 ``program_cost``, a Trainer's MFU window and memory watermark; ``-k perf``);
 a served sprint64 burst opening and a recovery closing one incident with
 a complete bundle, and an armed service's answers bitwise a dark one's
-(``-k incident``).
+(``-k incident``); the forward, dx and weight-gradient kernels at one
+pod64 data-parallel rank's shapes (batch 128) against the plain versions,
+and two steps in a one-rank nccl world bitwise the same steps without a
+process group (``-k "pod64_rank or nccl"``).
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -1498,3 +1501,72 @@ def test_incident_armed_service_answers_bitwise_the_dark_one_on_card(
         done = [ln for ln in fh if '"request_done"' in ln]
     assert len(done) == len(grids)  # force-all kept every request
     assert all('"forced": true' in ln for ln in done)
+
+
+# pod64's stride-1 blocks as one rank of the data-parallel step runs them
+# (128 rows): (grid, cin, cout, k).
+POD64_RANK_BLOCKS = [(32, 32, 32, 5), (16, 32, 64, 3), (16, 64, 64, 3)]
+
+
+@pytest.mark.parametrize("r,cin,cout,k", POD64_RANK_BLOCKS)
+def test_pod64_rank_shapes_match_plain(cuda, r, cin, cout, k):
+    """conv3d_p's forward and dx and conv3d_dw at one pod64 rank's shapes
+    (batch 128: 4.2 M positions at conv2's 32³ grid, 537 M floats in its
+    activation) against the plain versions."""
+    from featurenet_tpu_torch.ops import conv3d, conv_dw
+
+    g = torch.Generator(device=cuda).manual_seed(r + cin + cout + k)
+    x = torch.randn((128, r, r, r, cin), device=cuda, generator=g)
+    w = torch.randn((k, k, k, cin, cout), device=cuda, generator=g)
+    w /= (k ** 3 * cin) ** 0.5
+    gy = torch.randn((128, r, r, r, cout), device=cuda, generator=g)
+    wd = w.flip(0, 1, 2).transpose(3, 4).contiguous()  # dx's kernel
+    for got, want in (
+            (lambda: conv3d.conv3d_p(x, w), lambda: conv3d.conv3d_plain(x, w)),
+            (lambda: conv3d.conv3d_fwd(gy, wd), lambda: conv3d.conv3d_plain(gy, wd)),
+            (lambda: conv3d.conv3d_dw(x, gy, k),
+             lambda: conv_dw.conv_dw_plain(x, gy, k))):
+        a, b = got(), want()
+        torch.cuda.synchronize()
+        assert float((a - b).abs().max()) <= 2e-5 * float(b.abs().max())
+        del a, b
+
+
+def test_one_rank_nccl_world_is_bitwise_no_process_group(cuda):
+    """Two smoke16 steps in a one-rank nccl world (the gradients and metrics
+    all-reduced, an identity) bitwise the same steps without a process
+    group."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.data.synthetic import generate_batch, to_wire
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(5)
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in
+                to_wire(generate_batch(rng, 8, 16)).items()} for _ in range(2)]
+    cfg = get_config("smoke16", global_batch=8)
+
+    def run():
+        tr = Trainer(cfg, device=cuda)
+        ms = [{k: v.clone() for k, v in tr.step(b).items()} for b in batches]
+        return ms, {k: v.clone() for k, v in tr.state.model.state_dict().items()}
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        assert dist.get_backend() == "nccl"
+        in_world = run()
+    finally:
+        dist.destroy_process_group()
+    alone = run()
+    for a, b in zip(in_world[0], alone[0]):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    assert all(torch.equal(in_world[1][k], v) for k, v in alone[1].items())

@@ -560,9 +560,8 @@ def test_trainer_events_match_the_reference_trainer(port_run, jax_run):
                        ("gauge", "prefetch_queue_depth"),
                        ("gauge", "producer_batch_s")):
         assert fields(ev, kind, name) >= fields(jev, kind, name), (kind, name)
-    # The loop_start of the port has no mesh (one device).
-    assert fields(ev, "loop_start") == {frozenset(
-        k for k in f if k != "mesh") for f in fields(jev, "loop_start")}
+    # The loop_start of the port carries the mesh, as the reference's.
+    assert fields(ev, "loop_start") == fields(jev, "loop_start")
     rep = report.build_report_dir(str(port_run / "run"))
     jrep = jax_report.build_report_dir(str(jax_run / "run"))
     assert set(jrep) - set(rep) <= {"perf", "runtime"}
