@@ -198,7 +198,7 @@ Phases, in order; any failure exits non-zero before the last line:
      next child's first beat; the killed child releasing the card before
      the next child's setup record.
    - `supervise_stall`: sprint64 streamed from the cache for 24 steps,
-     `--stall-timeout 20`, input worker 0 hung at ticket 16 (past the first
+     `--stall-timeout 10`, input worker 0 hung at ticket 16 (past the first
      beat): exactly one stall verdict, detected within the timeout plus one
      poll of the last beat, the killed process group gone, and the respawn
      finishing with a finite loss and its last checkpoint.
@@ -338,6 +338,30 @@ Phases, in order; any failure exits non-zero before the last line:
      within Adam's bound 2·Σlr (the share inside rtol 3e-4, atol 3e-6
      printed), the final loss within 1e-3 (bf16 activations).
    The timed world's launches are the `dp` path.
+13f. Elastic training (`elastic` phase), after `dp`, on the same cache:
+   `cli train --elastic --world-size 2 --config pod64 --conv-backend
+   pallas --hbm-cache`, global batch 256, 5 steps, a checkpoint every
+   step, `--restart-every 3`, `--inject-faults host_loss@step=1`: the
+   2-rank world (gloo on the one card) loses rank 1 after step 1, re-forms
+   at one rank from the step-1 checkpoint, exits 75 at step 4, where slot
+   1 rejoins, and the 2-rank world finishes step 5. /proc is sampled every
+   20 ms beside it: no two generations' processes alive at once, none of
+   a killed generation left when the next is spawned, the coordinator
+   holding no GPU device node. Checked: the `{"elastic": ...}` verdict
+   (exit 0, 1 loss, 1 rejoin, a planned boundary), the `mesh_reform`
+   reasons start/host_loss/host_rejoin, membership.json at world 2, every
+   loop_start at batch 256, run_end at step 5, each process of the 1- and
+   2-rank generations at 6 conv3d_fwd and 3 conv3d_dw a step and 3
+   conv3d_fwd an eval batch (by the pid on its `launches` line). The first
+   step of each re-formed generation against a run restored from the same
+   checkpoint: at one rank `cli.main(["train", ...])` in this process for
+   a segment of one step (cuDNN's TF32 at PyTorch's default, as in a
+   `cli train` process), bitwise; at two ranks the 1-process run in this process on the
+   world's global batch, to the dp phase's tolerances. The `elastic` line
+   prints the recovery from the kill to generation 1's first step, split
+   (detection, kill, backoff, cold start, restore, first step), and the
+   grow boundary's cost, split likewise; its launches are the `elastic`
+   path.
 14. Robustness evaluation (`ood` phase), after the supervised runs:
    - `native`: the port's native voxelizer, built by g++ after the
      kernels (its build seconds; a build that fails fails the script), on
@@ -415,7 +439,7 @@ Phases, in order; any failure exits non-zero before the last line:
    (`cli train`, `cli eval`, `cli infer`, seg_diagnose, each on the card).
 16. The wall time of every phase, one JSON line of per-kernel numbers
    (launches by path, the wire, cache, robust, supervise, report,
-   quality, incident, fleet, dp, precision, ood, tta and seg runs'
+   quality, incident, fleet, dp, elastic, precision, ood, tta and seg runs'
    included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
@@ -574,7 +598,7 @@ SUPERVISE_RESTART_EVERY = 24
 SUPERVISE_FAULTS = "sigterm@step=20,checkpoint_corrupt@save=2,host_loss@step=50"
 STALL_STEPS = 24
 STALL_CKPT_EVERY = 8
-STALL_TIMEOUT_S = 20
+STALL_TIMEOUT_S = 10
 STALL_FAULTS = "producer_hang@batch=16"
 # k steps replayed on one CUDA graph against k eager steps from one state:
 # the reference's k-step tolerance (tests/test_train.py). The graph runs the
@@ -6161,12 +6185,13 @@ def _dp_same_files(a: str, b: str, step: int) -> bool:
                for g in ("model", "mu", "nu") for k in x[g])
 
 
-def _dp_reference(torch, cfg, ck: str, device: str = "cuda") -> dict:
+def _dp_reference(torch, cfg, ck: str, device: str = "cuda",
+                  start: int = 0) -> dict:
     """The 1-process run of ``cfg`` (streamed: its ``hbm_cache`` off) at its
     global batch on a DP_RANKS-rank resident world's global batches (rank
     r's rows as its own draws gave them, at rows ``[r·B/W, (r+1)·B/W)``),
-    held against the world's step-``cfg.total_steps`` checkpoint in
-    ``ck``."""
+    from step ``start`` (restored from ``cfg.checkpoint_dir``) on, held
+    against the world's step-``cfg.total_steps`` checkpoint in ``ck``."""
     from featurenet_tpu_torch.data.offline import VoxelCacheDataset
     from featurenet_tpu_torch.train.loop import Trainer
     from featurenet_tpu_torch.train.steps import StepDraws, gather_rows
@@ -6183,9 +6208,11 @@ def _dp_reference(torch, cfg, ck: str, device: str = "cuda") -> dict:
                        StepDraws(cfg, 1, device, rows=len(lab),
                                  num_shards=DP_RANKS, shard=r)))
     trainer = Trainer(cfg, device=device)
+    if start and trainer.resume_if_available() != start:
+        fail(f"dp reference: {cfg.checkpoint_dir} does not restore step {start}")
     _reset_counts()
     metrics = None
-    for s in range(cfg.total_steps):
+    for s in range(start, cfg.total_steps):
         parts = []
         for data, labels, draws in blocks:
             draws.seed(s, 1)
@@ -6199,7 +6226,7 @@ def _dp_reference(torch, cfg, ck: str, device: str = "cuda") -> dict:
                        weights_only=True)
     mine = trainer.state.model.state_dict()
     lr = sum(float(trainer.state.optimizer.schedule(s))
-             for s in range(cfg.total_steps))
+             for s in range(start, cfg.total_steps))
     bound = 2.0 * lr + 1e-6
     stats = {"max_rel_of_scale": 0.0, "max_abs": 0.0}
     params = {"max_rel_of_scale": 0.0, "max_abs": 0.0, "outside_ref_tol": 0,
@@ -6373,6 +6400,383 @@ def dp_phase(torch, seed: int, cache: str, tmp: str, smi_line: str) -> dict:
                          DP_STEP_LAUNCHES}, **out}
 
 
+# --- elastic: the world shrinks on a host's loss and grows back ------------
+
+ELASTIC_STEPS = 5  # generation 0: step 1; 1: steps 2-4; 2: step 5
+ELASTIC_FAULTS = "host_loss@step=1"  # the last rank dies after step 1's save
+ELASTIC_RESTART_EVERY = 3  # the 1-rank generation's planned exit at step 4
+ELASTIC_TIMEOUT_S = 300
+ELASTIC_SAMPLE_S = 0.02
+
+
+def _json_objects(text: str) -> list[dict]:
+    """The JSON objects in ``text``, in order: processes that share one
+    stdout and write unbuffered may interleave their lines."""
+    dec, out, i = json.JSONDecoder(), [], 0
+    while (i := text.find("{", i)) >= 0:
+        try:
+            obj, i = dec.raw_decode(text, i)
+            out.append(obj)
+        except ValueError:
+            i += 1
+    return out
+
+
+class _ChildWatch:
+    """The children of process ``pid`` sampled from /proc every
+    ELASTIC_SAMPLE_S on a thread: per child its generation and rank (from
+    its command line), when it was first seen, when it exited (first seen a
+    zombie, or gone), when it was reaped (gone from /proc) and when it was
+    first seen holding a GPU device node; the samples in which children of
+    two generations were alive, or held the card, at once; and the GPU
+    device nodes ``pid`` itself ever held."""
+
+    def __init__(self, pid: int):
+        self.pid = pid
+        self.kids: dict[int, dict] = {}
+        self.own_fds: set[str] = set()
+        self.overlap: list[tuple[float, list]] = []
+        self.card_overlap: list[tuple[float, list]] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _children(self) -> dict[int, str]:
+        out = {}
+        for name in os.listdir("/proc"):
+            if not name.isdigit():
+                continue
+            try:
+                with open(f"/proc/{name}/stat") as fh:
+                    fields = fh.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            if int(fields[1]) == self.pid:
+                out[int(name)] = fields[0]
+        return out
+
+    @staticmethod
+    def _place(pid: int) -> tuple[int | None, int | None]:
+        """(generation, rank) from the child's command line; (None, None)
+        between its fork and its exec."""
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                argv = fh.read().decode(errors="replace").split("\0")
+        except OSError:
+            return None, None
+
+        def flag(name):
+            return int(argv[argv.index(name) + 1]) if name in argv else None
+
+        return flag("--elastic-generation"), flag("--elastic-rank")
+
+    def _run(self):
+        while not self._stop.is_set():
+            t = time.time()
+            self.own_fds.update(_gpu_fds(self.pid))
+            now = self._children()
+            alive, holding = set(), set()
+            for pid, state in now.items():
+                k = self.kids.setdefault(pid, {
+                    "generation": None, "rank": None, "seen_t": t,
+                    "exit_t": None, "gone_t": None, "card_t": None})
+                if k["generation"] is None:
+                    k["generation"], k["rank"] = self._place(pid)
+                if state == "Z":
+                    k["exit_t"] = k["exit_t"] or t
+                    continue
+                if k["generation"] is None:
+                    continue
+                alive.add(k["generation"])
+                if _gpu_fds(pid):
+                    k["card_t"] = k["card_t"] or t
+                    holding.add(k["generation"])
+            for pid, k in self.kids.items():
+                if pid not in now and k["gone_t"] is None:
+                    k["gone_t"] = t
+                    k["exit_t"] = k["exit_t"] or t
+            if len(alive) > 1:
+                self.overlap.append((t, sorted(alive)))
+            if len(holding) > 1:
+                self.card_overlap.append((t, sorted(holding)))
+            self._stop.wait(ELASTIC_SAMPLE_S)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def kill_all(self) -> None:
+        for pid, k in self.kids.items():
+            if k["gone_t"] is None:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+
+
+def _written_t(ck: str, step: int) -> float:
+    """When checkpoint step ``step`` was written whole (its last file)."""
+    return max(os.stat(os.path.join(ck, f)).st_mtime
+               for f in (f"step_{step}.pt", f"checksum.{step}.json"))
+
+
+def _restored_cli_step(torch, ck: str) -> int:
+    """``cli train`` in this process on checkpoint directory ``ck`` for a
+    segment of one step (then its planned exit, 75), with cuDNN's TF32 at
+    PyTorch's default, as a ``cli train`` process runs; returns the exit
+    code. Its output lines are dropped."""
+    import contextlib
+    import io
+
+    from featurenet_tpu_torch import cli
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            code = cli.main(["train", "--checkpoint-dir", ck, "--restart-every",
+                             "1", "--supervised-child"])
+    except SystemExit as e:
+        code = e.code
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    return code
+
+
+def elastic_phase(torch, seed: int, cache: str, tmp: str, smi_line: str) -> dict:
+    """pod64 at full width under pallas, as an elastic world of two ranks
+    sharing the card over gloo that loses rank 1 after step 1, re-forms at
+    one rank, grows back to two at the planned boundary of step 4 and
+    finishes its 5 steps; the first step of each re-formed generation
+    against a run restored from the same checkpoint; the recovery's and
+    the grow boundary's seconds, split."""
+    import dataclasses
+    import shutil
+
+    from featurenet_tpu_torch.config import config_from_dict
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ck, run = os.path.join(tmp, "elastic_ck"), os.path.join(tmp, "elastic_run")
+    argv = _cli("--distributed-timeout", str(DP_TIMEOUT_S), "train", "--elastic",
+                "--world-size", str(DP_RANKS), "--config", "pod64",
+                "--conv-backend", "pallas", "--data-cache", cache, "--hbm-cache",
+                "--seed", str(seed), "--global-batch", str(DP_BATCH),
+                "--total-steps", str(ELASTIC_STEPS), "--checkpoint-every", "1",
+                "--keep-checkpoints", str(ELASTIC_STEPS + 1),
+                "--restart-every", str(ELASTIC_RESTART_EVERY),
+                "--inject-faults", ELASTIC_FAULTS,
+                "--checkpoint-dir", ck, "--run-dir", run)
+    out_path, err_path = (os.path.join(tmp, f"elastic.{s}") for s in ("out", "err"))
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(argv, cwd=here, stdout=out, stderr=err)
+        watch = _ChildWatch(proc.pid)
+        try:
+            rc = proc.wait(timeout=ELASTIC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            watch.kill_all()
+            watch.stop()
+    run_s = time.perf_counter() - t0
+    with open(out_path) as fh:
+        text = fh.read()
+    with open(err_path) as fh:
+        err_text = fh.read()
+    if rc != 0:
+        fail(f"elastic: cli train --elastic exited {rc}: {text[-2000:]} "
+             f"{err_text[-3000:]}")
+    recs = _json_objects(text)
+    result = recs[-1].get("elastic") if recs else None
+    events = _run_events(run)
+    spawns = [e for e in events
+              if e["ev"] == "supervisor" and e.get("phase") == "spawn"]
+    place = {e["pid"]: (e["generation"], e["rank"]) for e in spawns}
+    gens = sorted({g for g, _ in place.values()})
+    pids = {g: sorted((r, p) for p, (gg, r) in place.items() if gg == g)
+            for g in gens}
+
+    def of(pid, ev, **match):
+        return [e for e in events if e.get("pid") == pid and e["ev"] == ev
+                and all(e.get(k) == v for k, v in match.items())]
+
+    starts = {p: of(p, "loop_start") for p in place}
+    world = {g: [starts[p][0]["mesh"]["processes"] if starts[p] else None
+                 for _, p in pids[g]] for g in gens}
+    first = {g: [starts[p][0]["step"] if starts[p] else None
+                 for _, p in pids[g]] for g in gens}
+    reasons = [e["reason"] for e in events if e["ev"] == "mesh_reform"]
+    batches = sorted({e["global_batch"] for e in events if e["ev"] == "loop_start"})
+    with open(os.path.join(run, "membership.json")) as fh:
+        membership = json.load(fh)
+    run_end = [e["step"] for e in events if e["ev"] == "run_end"]
+
+    # Launches: each process's line, by its pid; the killed generation 0's
+    # ranks may print none (SIGKILL) or one over a step cut short.
+    lines = {r["pid"]: r["launches"] for r in recs if "launches" in r and "pid" in r}
+    launches, want, killed = {}, {}, {}
+    for p, (g, r) in sorted(place.items(), key=lambda kv: kv[1]):
+        name = f"gen{g}_rank{r}"
+        if g == 0:
+            if p in lines:
+                killed[name] = {k: lines[p][k] for k in DP_STEP_LAUNCHES}
+            continue
+        end = of(p, "loop_end")
+        steps = end[-1]["step"] - starts[p][0]["step"] if end and starts[p] else None
+        evals = sum(int(e.get("batches", 0)) for e in of(p, "metrics", kind="eval"))
+        launches[name] = ({k: lines[p][k] for k in DP_STEP_LAUNCHES}
+                          if p in lines else None)
+        want[name] = {k: (steps or 0) * n + (3 * evals if k == "conv3d_fwd" else 0)
+                      for k, n in DP_STEP_LAUNCHES.items()}
+
+    # The first step of each re-formed generation against a run restored
+    # from the checkpoint it restored.
+    if (gens != [0, 1, 2] or None in first[1] + first[2]
+            or first[2][0] + 1 != ELASTIC_STEPS
+            or set(place) - set(watch.kids)):
+        fail(f"elastic: generations {gens}, worlds {world}, first steps "
+             f"{first}, pids {sorted(place)} sampled {sorted(watch.kids)}")
+    s1, s2 = first[1][0], first[2][0]
+
+    def restored_copy(step: int, name: str) -> str:
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        for f in (f"step_{step}.pt", f"checksum.{step}.json", "config.json"):
+            shutil.copy(os.path.join(ck, f), os.path.join(d, f))
+        return d
+
+    t1 = time.perf_counter()
+    one_ck = restored_copy(s1, "elastic_ref1")
+    one_rc = _restored_cli_step(torch, one_ck)
+    one_s = time.perf_counter() - t1
+    if one_rc != 75:  # the planned exit after its one-step segment
+        fail(f"elastic: the restored 1-process cli train exited {one_rc}")
+    one_bitwise = _dp_same_files(one_ck, ck, s1 + 1)
+    with open(os.path.join(ck, "config.json")) as fh:
+        saved = config_from_dict(json.load(fh))
+    # Generation 2's one step is the run's last: the reference runs the
+    # same schedule to the same end.
+    cfg = dataclasses.replace(
+        saved, checkpoint_dir=restored_copy(s2, "elastic_ref2"),
+        hbm_cache=False, elastic=False, min_world_size=1,
+        restart_every_steps=None, inject_faults=None, heartbeat_file=None,
+        run_dir=None).validate()
+    if cfg.total_steps != ELASTIC_STEPS:
+        fail(f"elastic: the run's config holds {cfg.total_steps} steps")
+    t2 = time.perf_counter()
+    two = _dp_reference(torch, cfg, ck, start=s2)
+    two_s = time.perf_counter() - t2
+    world_loss = [e["loss"] for _, p in pids[2]
+                  for e in of(p, "metrics", kind="train", step=s2 + 1)]
+    loss_rel = (abs(world_loss[0] - two["metrics"]["loss"])
+                / abs(two["metrics"]["loss"])) if world_loss else None
+
+    # The recovery from the kill to generation 1's first step, and the grow
+    # boundary from generation 1's last step to generation 2's first.
+    kid = watch.kids
+    lost_pid = pids[0][1][1]
+    t_fault = os.stat(os.path.join(run, "fault_host_loss.fired")).st_mtime
+    gen0_gone = max(kid[p]["gone_t"] for _, p in pids[0])
+    spawn_t = {g: min(e["t"] for e in spawns if e["generation"] == g) for g in gens}
+    backoff = [e for e in events if e["ev"] == "supervisor"
+               and e.get("phase") == "backoff"]
+
+    def restore(pid):
+        spans = of(pid, "span", name="checkpoint_restore")
+        return spans[0]["t"], spans[-1]["t"] + spans[-1]["dur_s"]
+
+    p1 = pids[1][0][1]
+    r1_start, r1_end = restore(p1)
+    step1_t = _written_t(ck, s1 + 1)
+    recovery = {
+        "detection_s": kid[lost_pid]["gone_t"] - t_fault,
+        "kill_s": gen0_gone - kid[lost_pid]["gone_t"],
+        "backoff_s": spawn_t[1] - gen0_gone,
+        "backoff_sleep_s": backoff[0]["delay_s"] if backoff else None,
+        "cold_start_s": r1_start - spawn_t[1],
+        "restore_s": r1_end - r1_start,
+        "first_step_s": step1_t - r1_end,
+        "total_s": step1_t - t_fault,
+    }
+    p2 = [p for _, p in pids[2]]
+    r2 = [restore(p) for p in p2]
+    step2_t = min(e["t"] for p in p2
+                  for e in of(p, "metrics", kind="train", step=s2 + 1))
+    last1_t = _written_t(ck, s2)
+    grow = {
+        "exit_s": kid[p1]["exit_t"] - last1_t,
+        "detection_s": spawn_t[2] - kid[p1]["exit_t"],
+        "cold_start_s": max(a for a, _ in r2) - spawn_t[2],
+        "restore_s": max(b for _, b in r2) - max(a for a, _ in r2),
+        "first_step_s": step2_t - max(b for _, b in r2),
+        "total_s": step2_t - last1_t,
+    }
+    spawn_after_exit = {
+        f"gen{g}": min(kid[p]["seen_t"] for _, p in pids[g])
+        - max(kid[p]["exit_t"] for _, p in pids[g - 1]) for g in gens[1:]}
+    out = {
+        "config": "pod64 R=64 features 32/32/64/64 kernels 7/5/3/3 pallas, "
+                  f"global batch {DP_BATCH}, {ELASTIC_STEPS} resident steps, "
+                  f"a checkpoint every step, --restart-every "
+                  f"{ELASTIC_RESTART_EVERY}, {ELASTIC_FAULTS}, ranks on one "
+                  "card over gloo",
+        "result": result, "mesh_reform_reasons": reasons,
+        "worlds": world, "first_steps": first, "global_batches": batches,
+        "run_end": run_end, "membership": membership,
+        "recovery_s": recovery, "grow_boundary_s": grow,
+        "next_spawn_after_last_exit_s": spawn_after_exit,
+        "overlap_samples": watch.overlap[:5],
+        "card_overlap_samples": watch.card_overlap[:5],
+        "children_seen_holding_the_card": sum(
+            k["card_t"] is not None for k in kid.values()),
+        "coordinator_gpu_fds": sorted(watch.own_fds),
+        "launches_by_process": launches, "launches_want": want,
+        "launches_killed_generation": killed,
+        "one_rank_vs_restored_cli_bitwise": one_bitwise,
+        "two_ranks_vs_1process": {
+            "step": s2 + 1, "loss_rel": loss_rel, "loss_rtol": DP_LOSS_RTOL,
+            "params": two["params"], "param_bound": two["param_bound"],
+            "param_ref_tol": [DP_PARAM_RTOL, DP_PARAM_ATOL],
+            "stats": two["stats"], "stats_tol": [DP_STATS_RTOL, DP_STATS_ATOL]},
+        "walls_s": {"elastic_run": run_s, "restored_cli": one_s,
+                    "reference_1process": two_s},
+        "nvidia_smi": smi_line,
+    }
+    print("elastic", json.dumps(out), flush=True)
+    print("elastic_recovery", json.dumps({
+        "recovery_s": recovery, "grow_boundary_s": grow,
+        "nvidia_smi": smi_line}), flush=True)
+    if (not result or result["exit_code"] != 0 or result["losses"] != 1
+            or result["rejoins"] != 1 or result["planned"] < 1):
+        fail(f"elastic: the verdict {result}")
+    if reasons != ["start", "host_loss", "host_rejoin"]:
+        fail(f"elastic: mesh_reform reasons {reasons}")
+    if world != {0: [2, 2], 1: [1], 2: [2, 2]} or batches != [DP_BATCH]:
+        fail(f"elastic: worlds {world}, global batches {batches}")
+    if (membership["world_size"] != DP_RANKS
+            or run_end != [ELASTIC_STEPS] * DP_RANKS):
+        fail(f"elastic: membership {membership}, run_end at {run_end}")
+    if launches != want:
+        fail(f"elastic: launches {launches}, want {want}")
+    if (watch.overlap or watch.card_overlap or watch.own_fds
+            or min(spawn_after_exit.values()) <= 0
+            or not out["children_seen_holding_the_card"]):
+        fail(f"elastic: generations overlapped or the coordinator held the "
+             f"card: {out}")
+    if not one_bitwise:
+        fail("elastic: the 1-rank generation's first step is not bitwise the "
+             "restored one-process run's")
+    if not two["ok"] or loss_rel is None or loss_rel > DP_LOSS_RTOL:
+        fail(f"elastic: 2 ranks against 1 process: {out['two_ranks_vs_1process']}")
+    total = {k: sum(c[k] for c in list(launches.values()) + list(killed.values())
+                    if c) for k in DP_STEP_LAUNCHES}
+    return {"launches": total, **out}
+
+
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
     """A kernel's figures: ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` sum its "train" rows (sprint64's step), the ``dp_``
@@ -6485,6 +6889,8 @@ def main() -> int:
                       report_out["checkpoint"], smi_line)["launches"]
         dp = phase("dp", dp_phase, torch, args.seed, cache_dir, tmp,
                    smi_line)["launches"]
+        elastic = phase("elastic", elastic_phase, torch, args.seed, cache_dir,
+                        tmp, smi_line)["launches"]
     robustness = phase("ood", ood_phase, torch, args.seed, native_info,
                        smi_line)["launches"]
     seg = phase("seg", seg_phase, torch, args.seed, smi_line)["launches"]
@@ -6516,6 +6922,7 @@ def main() -> int:
                        "incident": incident["conv3d_fwd"],
                        "fleet": fleet["conv3d_fwd"],
                        "dp": dp["conv3d_fwd"],
+                       "elastic": elastic["conv3d_fwd"],
                        **{k: v["conv3d_fwd"] for k, v in rungs.items()},
                        **{k: v["conv3d_fwd"] for k, v in robustness.items()},
                        "seg": seg["conv3d_fwd"]}),
@@ -6529,6 +6936,7 @@ def main() -> int:
                        "supervise": supervised["conv3d_dw"],
                        "report": reported["conv3d_dw"],
                        "dp": dp["conv3d_dw"],
+                       "elastic": elastic["conv3d_dw"],
                        **{k: v["conv3d_dw"] for k, v in rungs.items()
                           if k.startswith("train")},
                        "seg": seg["conv3d_dw"]}),
@@ -6543,6 +6951,7 @@ def main() -> int:
                        "supervise": supervised.get("conv_dw_folded", 0),
                        "report": reported.get("conv_dw_folded", 0),
                        "dp": dp["conv_dw_folded"],
+                       "elastic": elastic["conv_dw_folded"],
                        **{k: v["conv_dw_folded"] for k, v in rungs.items()
                           if k.startswith("train")},
                        "seg": seg["conv_dw_folded"]}),

@@ -31,6 +31,8 @@
          --seg-input-context none|proj|proj_coords] \
         [--supervise --checkpoint-dir CK [--stall-timeout S --max-restarts N \
          --heartbeat-file F --restart-every N]] [--inject-faults SPEC] \
+        [--elastic --checkpoint-dir CK --run-dir D [--world-size N \
+         --min-world-size M --local-devices L --readmit auto|agent]] \
         [--run-dir D [--alert-rules SPEC] [--poll-device-memory]] \
         [--tb-dir T] [--profile-dir P [--profile-start 10 --profile-steps 5]]
     python -m featurenet_tpu_torch.cli serve --checkpoint-dir CK --port 0 \
@@ -146,8 +148,32 @@ respawn the child. ``--inject-faults SPEC`` (``train`` and ``serve``)
 injects the faults of ``faults.py``; a supervisor installs only
 ``spawn_fail`` itself and hands the spec to every child, whose markers in
 the run directory (else the checkpoint directory) fire each fault once
-per run. On the card, ``train`` ends with a ``{"launches": {...}}`` line:
-the kernel launches of its process.
+per run. On the card, ``train`` ends with a ``{"launches": {...}, "pid":
+P}`` line: the kernel launches of its process.
+
+``train --elastic`` (``--checkpoint-dir`` and ``--run-dir`` required) runs
+the elastic coordinator (``elastic/``) in a process that never opens the
+card. It spawns ``--world-size`` children, each the command a supervisor
+would spawn (``--heartbeat-file D/heartbeat.<slot>``) with the hidden
+``--elastic-rank``, ``--elastic-world``, ``--elastic-port`` and
+``--elastic-generation``: a child of a world of more than one process
+joins that generation's process group over ``127.0.0.1:<port>`` (a fresh
+port per generation, ``--distributed-timeout``, the device and backend of
+``--distributed``); a world of one opens none. When a child dies or its
+heartbeat is older than ``--stall-timeout``, the whole generation is
+killed and the survivors respawn as the largest world over the lowest
+slots that the global batch divides (``--local-devices`` per host, default
+1), each resuming from the newest good checkpoint; below
+``--min-world-size`` the world restarts at full strength. A lost slot
+rejoins at the next boundary where every child exits 75 (``--restart-every
+N`` is legal here): each one under ``--readmit auto``, under ``agent`` only
+one that signalled into ``D/membership.json``. ``--max-restarts`` bounds
+the unplanned re-forms. The default config is ``pod64``. The coordinator
+ends with ``{"elastic": {"exit_code", "generations", "reforms", "losses",
+"rejoins", "planned"}}`` and exits with that code. Refused: with
+``--supervise`` or ``--distributed``, and a global batch that
+``--world-size`` x ``--local-devices`` does not divide. ``--inject-faults``
+fires ``spawn_fail`` in the coordinator and hands the spec to every child.
 
 ``--distributed train`` (under ``torchrun``, or any launcher that sets its
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
@@ -719,6 +745,36 @@ def _parser() -> argparse.ArgumentParser:
     # Set by the supervisor on its child, which may take --restart-every.
     p_tr.add_argument("--supervised-child", action="store_true",
                       dest="supervised_child", help=argparse.SUPPRESS)
+    p_tr.add_argument("--elastic", action="store_true", default=None,
+                      help="run under the elastic coordinator: --world-size "
+                           "training processes, the world re-formed at the "
+                           "surviving count on a host's loss (resumed from "
+                           "the newest checkpoint, the global batch kept) "
+                           "and recovered hosts re-admitted at the next "
+                           "generation boundary; requires --checkpoint-dir "
+                           "and --run-dir")
+    p_tr.add_argument("--world-size", type=int, default=1, dest="world_size",
+                      help="(--elastic) host slots at full strength, one "
+                           "training process each (default 1)")
+    p_tr.add_argument("--min-world-size", type=int, dest="min_world_size",
+                      help="(--elastic) the smallest admissible world; fewer "
+                           "survivors force a full-strength restart "
+                           "(default 1)")
+    p_tr.add_argument("--local-devices", type=int, default=1,
+                      dest="local_devices",
+                      help="(--elastic) devices per host, the planner's "
+                           "feasibility input: every admitted world's device "
+                           "count must divide the global batch (default 1)")
+    p_tr.add_argument("--readmit", choices=["auto", "agent"], default="auto",
+                      help="(--elastic) re-admission at a generation "
+                           "boundary: 'auto' re-offers every lost slot, "
+                           "'agent' only slots whose host agent signalled "
+                           "recovery into membership.json")
+    # Set by the elastic coordinator on each child: its place in the
+    # generation's world.
+    for flag in ("--elastic-rank", "--elastic-world", "--elastic-port",
+                 "--elastic-generation"):
+        p_tr.add_argument(flag, type=int, help=argparse.SUPPRESS)
 
     p_exp = sub.add_parser("export-data", help="write the synthetic parts "
                                                "into a packed voxel cache")
@@ -955,6 +1011,8 @@ def _cfg_from_checkpoint(saved, args, **policy):
               "run_dir", "profile_dir", "tb_dir"):
         policy.setdefault(k, None)
     policy.setdefault("poll_device_memory", False)
+    policy.setdefault("elastic", False)
+    policy.setdefault("min_world_size", 1)
     cfg = _with_backend(dataclasses.replace(saved, **policy),
                         args.conv_backend).validate()
     try:
@@ -1017,24 +1075,120 @@ def _supervised(args) -> int:
     return result.exit_code
 
 
+def _elastic(args) -> int:
+    """The coordinator process of ``train --elastic``: it spawns and
+    re-forms the world of children and never touches the card itself."""
+    from featurenet_tpu_torch import faults
+    from featurenet_tpu_torch.elastic import ElasticCoordinator
+
+    if args.supervise:
+        raise SystemExit("--elastic already supervises its world (it is the "
+                         "N-host generalization of --supervise) -- drop "
+                         "--supervise")
+    if args.distributed:
+        raise SystemExit("--elastic forms each generation's process group "
+                         "itself -- drop --distributed")
+    if not args.checkpoint_dir:
+        raise SystemExit("--elastic requires --checkpoint-dir: a re-formed "
+                         "world resumes from the latest checkpoint, not from "
+                         "scratch")
+    if not args.run_dir:
+        raise SystemExit("--elastic requires --run-dir: the membership file, "
+                         "per-slot heartbeats, and the coordinator's event "
+                         "stream live there")
+    # Refused here, not in N children: the planner would otherwise form
+    # generation 0 below the requested strength without a word.
+    cfg = _train_config(args, "pod64")
+    devices = args.world_size * args.local_devices
+    if cfg.global_batch % devices:
+        raise SystemExit(
+            f"--elastic: global batch {cfg.global_batch} is not divisible by "
+            f"world-size {args.world_size} x local-devices "
+            f"{args.local_devices} = {devices} device(s) -- the coordinator "
+            "preserves the global batch across re-forms, so the "
+            "full-strength world could never form; adjust --global-batch or "
+            "the world shape")
+    if args.inject_faults:
+        # The spec reaches every child unchanged; here only the
+        # coordinator's own site may fire.
+        try:
+            faults.check_wired(args.inject_faults)
+            faults.install(args.inject_faults, state_dir=args.run_dir,
+                           only={"spawn_fail"})
+        except ValueError as e:
+            raise SystemExit(f"--inject-faults: {e}")
+    raw, run_dir = args.raw_argv, args.run_dir
+    result = ElasticCoordinator(
+        args.world_size,
+        lambda members, rank, generation, port: elastic_child_argv(
+            raw, run_dir, members, rank, generation, port),
+        run_dir,
+        min_world_size=args.min_world_size or 1,
+        global_batch=cfg.global_batch,
+        local_devices=args.local_devices,
+        stall_timeout_s=args.stall_timeout,
+        max_reforms=args.max_restarts,
+        readmit=args.readmit,
+        log=lambda line: print(line, flush=True),
+    ).run()
+    print(json.dumps({"elastic": dataclasses.asdict(result)}), flush=True)
+    return result.exit_code
+
+
+def elastic_child_argv(raw, run_dir: str, members, rank: int,
+                       generation: int, port: int) -> list[str]:
+    """The command of ``members[rank]``'s child in an elastic generation:
+    the supervised child's (``--heartbeat-file`` the slot's) with its place
+    in the world."""
+    from featurenet_tpu_torch.elastic import heartbeat_path
+    from featurenet_tpu_torch.train.supervisor import child_argv_from_cli
+
+    return child_argv_from_cli(raw, heartbeat_path(run_dir, members[rank])) + [
+        "--elastic-rank", str(rank),
+        "--elastic-world", str(len(members)),
+        "--elastic-port", str(port),
+        "--elastic-generation", str(generation),
+    ]
+
+
 def _train(args) -> int:
-    if args.restart_every_steps and not (args.supervise or args.supervised_child):
+    if args.restart_every_steps and not (args.supervise or args.supervised_child
+                                         or args.elastic):
         raise SystemExit(
             "--restart-every requires --supervise: a segmented run exits "
             "(code 75) at every segment boundary and only the supervisor "
             "respawns it -- without one, training silently stops at step N"
         )
+    if args.elastic and not args.supervised_child:
+        return _elastic(args)
     if args.supervise:
         if args.distributed:
             raise SystemExit("--distributed with --supervise is not ported: "
                              "a supervisor respawns one process, not a world")
         return _supervised(args)
     if args.distributed:
-        return _distributed_train(args)
+        from featurenet_tpu_torch.parallel.mesh import init_from_env
+
+        return _in_world(args, init_from_env(args.device,
+                                             args.distributed_timeout))
+    if args.elastic_rank is not None and (args.elastic_world or 0) > 1:
+        # An elastic child joins its generation's world; a world of one
+        # opens no process group.
+        from featurenet_tpu_torch.parallel.mesh import init_world
+
+        world = args.elastic_world
+        return _in_world(args, init_world(
+            args.device, args.elastic_rank, world, args.elastic_rank, world,
+            f"127.0.0.1:{args.elastic_port}", args.distributed_timeout))
+    return _train_here(args)
+
+
+def _train_config(args, default: str):
+    """The config ``train`` runs: the one persisted in ``--checkpoint-dir``
+    with the flags' run policy, else the preset (``default`` without
+    ``--config``) with the flags."""
     from featurenet_tpu_torch.config import get_config
-    from featurenet_tpu_torch.ops import launch_counts
     from featurenet_tpu_torch.train.checkpoint import load_run_config
-    from featurenet_tpu_torch.train.loop import Trainer
 
     policy = _policy(args, ("resolution", "total_steps", "global_batch",
                             "eval_batches",
@@ -1050,15 +1204,25 @@ def _train(args) -> int:
                             "inject_faults", "heartbeat_file",
                             "restart_every_steps", "run_dir", "alert_rules",
                             "poll_device_memory", "profile_dir",
-                            "profile_start", "profile_steps", "tb_dir"))
+                            "profile_start", "profile_steps", "tb_dir",
+                            "elastic", "min_world_size"))
     if "augment_scale_range" in policy:
         policy["augment_scale_range"] = tuple(policy["augment_scale_range"])
     saved = load_run_config(args.checkpoint_dir) if args.checkpoint_dir else None
     if saved is not None:
-        cfg = _cfg_from_checkpoint(saved, args, **policy)
-    else:
-        cfg = _with_backend(get_config(args.config or DEFAULT_PRESET, **policy),
-                            args.conv_backend)
+        return _cfg_from_checkpoint(saved, args, **policy)
+    return _with_backend(get_config(args.config or default, **policy),
+                         args.conv_backend)
+
+
+def _train_here(args) -> int:
+    """``train`` in this process, on ``args.device``."""
+    import os
+
+    from featurenet_tpu_torch.ops import launch_counts
+    from featurenet_tpu_torch.train.loop import Trainer
+
+    cfg = _train_config(args, DEFAULT_PRESET)
     print(json.dumps({"config": dataclasses.asdict(cfg)}, default=str),
           flush=True)
     trainer = Trainer(cfg, device=args.device)
@@ -1066,7 +1230,9 @@ def _train(args) -> int:
         trainer.run()
     finally:
         if trainer.device.type == "cuda":
-            print(json.dumps({"launches": launch_counts()}), flush=True)
+            # The pid tells the lines of a world's processes apart.
+            print(json.dumps({"launches": launch_counts(),
+                              "pid": os.getpid()}), flush=True)
         if cfg.run_dir:
             from featurenet_tpu_torch import obs
 
@@ -1074,21 +1240,18 @@ def _train(args) -> int:
     return 0
 
 
-def _distributed_train(args) -> int:
-    """``_train`` in the world of torchrun's environment on this rank's
-    device, the process group destroyed on the way out."""
+def _in_world(args, joined: tuple[str, str]) -> int:
+    """``_train_here`` in the process group just joined (``joined`` is its
+    ``(device, backend)``), the group destroyed on the way out."""
     import torch.distributed as dist
 
-    from featurenet_tpu_torch.parallel.mesh import init_from_env
-
-    args.device, backend = init_from_env(args.device, args.distributed_timeout)
+    args.device, backend = joined
     print(json.dumps({"distributed": {"rank": dist.get_rank(),
                                       "world": dist.get_world_size(),
                                       "device": args.device,
                                       "backend": backend}}), flush=True)
-    args.distributed = False
     try:
-        return _train(args)
+        return _train_here(args)
     finally:
         dist.destroy_process_group()
 

@@ -37,8 +37,10 @@ validation of these fields is kept. ``mesh_data``, ``mesh_model`` and
 ``spatial`` are the reference's mesh fields (``parallel/mesh.py``): a
 data-parallel run spans the processes of a ``torch.distributed`` world;
 a model axis above 1 is refused once clamped to the world (abc128's 2
-clamps to 1 on one process). A ``config.json`` written without them
-loads with their defaults.
+clamps to 1 on one process). ``elastic`` and ``min_world_size`` are the
+reference's elastic fields (``elastic/``, ``cli train --elastic``), with
+its refusal of a floor without ``elastic``. A ``config.json`` written
+without them loads with their defaults.
 
 ``task="segment"`` (the ``seg64`` preset) trains and serves the per-voxel
 segmenter from synthetic multi-feature parts or a segmentation cache
@@ -134,6 +136,15 @@ class Config:
     mesh_data: Optional[int] = None
     mesh_model: int = 1
     spatial: bool = False
+    # Elastic training (elastic/, `cli train --elastic`): the run is owned
+    # by a coordinator that re-forms the world at the surviving process
+    # count on a host's loss (each process resumes from the newest good
+    # checkpoint, the global batch kept) and re-admits recovered hosts at
+    # the next generation boundary. Inert inside a training child.
+    # min_world_size: the smallest world the planner may form; fewer
+    # survivors force a full-strength restart instead of a shrink.
+    elastic: bool = False
+    min_world_size: int = 1
 
     # Optimization (train/steps.py).
     optimizer: str = "adamw"
@@ -288,6 +299,17 @@ class Config:
                     "restart_every_steps requires checkpoint_dir: a "
                     "segmented run resumes from its checkpoint"
                 )
+        if self.min_world_size < 1:
+            raise ValueError(
+                f"min_world_size must be >= 1, got {self.min_world_size}"
+            )
+        if self.min_world_size != 1 and not self.elastic:
+            # A world-size floor means something only to the elastic
+            # coordinator; refused rather than silently ignored.
+            raise ValueError(
+                "min_world_size configured but elastic is off -- the floor "
+                "would be silently ignored; pass elastic=True (--elastic)"
+            )
         if self.mesh_model < 1 or (self.mesh_data is not None
                                    and self.mesh_data < 1):
             raise ValueError(f"mesh axes must be >= 1, got mesh_data="

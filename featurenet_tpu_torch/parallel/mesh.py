@@ -28,7 +28,9 @@ none of them runs without a process group:
 
 ``init_from_env`` joins the world that ``torchrun`` describes (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
-``MASTER_PORT``). The backend is ``nccl`` when every rank on the host has
+``MASTER_PORT``); ``init_world`` joins one given explicitly, as each
+generation of an elastic run does (``elastic/``, ``cli train --elastic``:
+a fresh port per generation). The backend is ``nccl`` when every rank on the host has
 a card of its own, and ``gloo`` on the CPU or when ranks share a card:
 NCCL refuses two ranks on one device. Under ``gloo`` a collective on CUDA
 tensors goes through the host.
@@ -262,20 +264,14 @@ def choose_backend(device: torch.device, local_world: int) -> str:
     return "gloo"
 
 
-def init_from_env(device: str = "cuda",
-                  timeout_s: float = DEFAULT_TIMEOUT_S) -> tuple[str, str]:
-    """Join the process group that ``torchrun``'s environment describes;
-    returns ``(device, backend)``: on the card ``cuda:LOCAL_RANK %
-    device_count``, made current. The backend is ``choose_backend``'s."""
-    env = os.environ
-    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
-               if k not in env]
-    if missing:
-        raise RuntimeError(f"--distributed needs torchrun's environment; "
-                           f"{', '.join(missing)} not set")
-    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
-    local_rank = int(env.get("LOCAL_RANK", rank))
-    local_world = int(env.get("LOCAL_WORLD_SIZE", world))
+def init_world(device: str, rank: int, world: int, local_rank: int,
+               local_world: int, address: str,
+               timeout_s: float = DEFAULT_TIMEOUT_S) -> tuple[str, str]:
+    """Join the process group of ``world`` ranks whose rank 0 serves its
+    TCP store at ``address`` (``host:port``) as ``rank``; returns
+    ``(device, backend)``: on the card ``cuda:local_rank % device_count``,
+    made current. The backend is ``choose_backend``'s over the host's
+    ``local_world`` ranks."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -285,7 +281,23 @@ def init_from_env(device: str = "cuda",
         torch.cuda.set_device(dev)
     backend = choose_backend(dev, local_world)
     dist.init_process_group(
-        backend, init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
-        rank=rank, world_size=world,
+        backend, init_method=f"tcp://{address}", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout_s))
     return str(dev), backend
+
+
+def init_from_env(device: str = "cuda",
+                  timeout_s: float = DEFAULT_TIMEOUT_S) -> tuple[str, str]:
+    """Join the process group that ``torchrun``'s environment describes
+    (``init_world`` with its ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``)."""
+    env = os.environ
+    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+               if k not in env]
+    if missing:
+        raise RuntimeError(f"--distributed needs torchrun's environment; "
+                           f"{', '.join(missing)} not set")
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    return init_world(device, rank, world, int(env.get("LOCAL_RANK", rank)),
+                      int(env.get("LOCAL_WORLD_SIZE", world)),
+                      f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}", timeout_s)

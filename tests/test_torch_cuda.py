@@ -43,7 +43,8 @@ a complete bundle, and an armed service's answers bitwise a dark one's
 (``-k incident``); the forward, dx and weight-gradient kernels at one
 pod64 data-parallel rank's shapes (batch 128) against the plain versions,
 and two steps in a one-rank nccl world bitwise the same steps without a
-process group (``-k "pod64_rank or nccl"``).
+process group (``-k "pod64_rank or nccl"``); a one-slot ``cli train
+--elastic`` whose child trains on the card (``-k elastic``).
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -1570,3 +1571,44 @@ def test_one_rank_nccl_world_is_bitwise_no_process_group(cuda):
     for a, b in zip(in_world[0], alone[0]):
         assert all(torch.equal(a[k], b[k]) for k in b)
     assert all(torch.equal(in_world[1][k], v) for k, v in alone[1].items())
+
+
+def test_one_slot_elastic_run_trains_on_the_card(cuda, tmp_path):
+    """``cli train --elastic --world-size 1`` on the card: the coordinator's
+    one child (a world of one, no process group) trains smoke16 under
+    pallas on cuda, its kernels launched (smoke16's two 3³ blocks: 2
+    forward and 1 dx conv3d_fwd and 2 conv3d_dw a step, the first block's
+    input needing no gradient; 2 conv3d_fwd an eval batch), and the
+    coordinator exits 0."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = tmp_path / "run"
+    out = subprocess.run(
+        [sys.executable, "-m", "featurenet_tpu_torch.cli", "train", "--elastic",
+         "--world-size", "1", "--config", "smoke16", "--conv-backend", "pallas",
+         "--global-batch", "8", "--total-steps", "2", "--eval-batches", "1",
+         "--checkpoint-dir", str(tmp_path / "ck"), "--run-dir", str(run)],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    recs = [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")]
+    assert recs[-1]["elastic"]["exit_code"] == 0
+    assert recs[-1]["elastic"]["generations"] == 1
+    launches = [r for r in recs if "launches" in r]
+    assert len(launches) == 1
+    assert launches[0]["launches"]["conv3d_fwd"] == 2 * 3 + 2
+    assert launches[0]["launches"]["conv3d_dw"] == 2 * 2
+    spawn = [r for r in recs if r.get("coordinator") == "spawn"]
+    assert [r["pid"] for r in spawn] == [launches[0]["pid"]]
+    assert not any("distributed" in r for r in recs)
+    with open(run / "events.jsonl") as fh:
+        events = [json.loads(ln) for ln in fh]
+    start = [e for e in events if e["ev"] == "loop_start"]
+    assert start[0]["mesh"]["processes"] == 1
+    with open(run / "run.json") as fh:
+        manifest = json.load(fh)
+    assert manifest["pid"] == spawn[0]["pid"]
+    assert manifest["torch"]["device_count"] >= 1
