@@ -336,7 +336,9 @@ Phases, in order; any failure exits non-zero before the last line:
      batches (rank r's draws at rows [128r, 128r+128)): after 4 steps the
      batch-norm statistics within rtol 1e-3, atol 1e-4, the parameters
      within Adam's bound 2·Σlr (the share inside rtol 3e-4, atol 3e-6
-     printed), the final loss within 1e-3 (bf16 activations).
+     printed), the final loss within 1e-3 (bf16 activations); it runs
+     with cuDNN's TF32 at PyTorch's default, as the ranks' `cli train`
+     processes do (the port never sets it).
    The timed world's launches are the `dp` path.
 13f. Elastic training (`elastic` phase), after `dp`, on the same cache:
    `cli train --elastic --world-size 2 --config pod64 --conv-backend
@@ -357,7 +359,8 @@ Phases, in order; any failure exits non-zero before the last line:
    checkpoint: at one rank `cli.main(["train", ...])` in this process for
    a segment of one step (cuDNN's TF32 at PyTorch's default, as in a
    `cli train` process), bitwise; at two ranks the 1-process run in this process on the
-   world's global batch, to the dp phase's tolerances. The `elastic` line
+   world's global batch (cuDNN's TF32 at the default likewise), to the
+   dp phase's tolerances. The `elastic` line
    prints the recovery from the kill to generation 1's first step, split
    (detection, kill, backoff, cold start, restore, first step), and the
    grow boundary's cost, split likewise; its launches are the `elastic`
@@ -444,12 +447,15 @@ Phases, in order; any failure exits non-zero before the last line:
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
-yardstick here is full fp32.
+yardstick here is full fp32, except where this script stands in for a `cli
+train` process (the dp and elastic references): there cuDNN's TF32 is at
+PyTorch's default, on, as in that process.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import http.client
 import json
@@ -3284,7 +3290,6 @@ def ood_line(torch, seed: int, ck: str, tmp: str, smi_line: str) -> dict:
     and the clone; the first also the capture) and the launches of the
     run; then the clean and so3 rows' grids through the kernels against
     the plain conv."""
-    import contextlib
     import io
 
     import numpy as np
@@ -4000,7 +4005,6 @@ def seg_cli_line(seed: int, tmp: str, export: _Cli, smi_line: str) -> dict:
 def _cli_here(*args) -> tuple[list[dict], float]:
     """``cli.main(args)`` in this process (no interpreter or torch start):
     its JSON lines and its wall; a non-zero exit fails the script."""
-    import contextlib
     import io
 
     from featurenet_tpu_torch import cli
@@ -6185,13 +6189,31 @@ def _dp_same_files(a: str, b: str, step: int) -> bool:
                for g in ("model", "mu", "nu") for k in x[g])
 
 
+@contextlib.contextmanager
+def _cli_precision(torch):
+    """cuDNN's TF32 at PyTorch's default (on), as in a ``cli train``
+    process, which never sets it; this script turns it off elsewhere."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+# What a 1-process reference in this script runs under, printed beside
+# each comparison with a world of `cli train` processes.
+CLI_PRECISION = "cuDNN TF32 at PyTorch's default (on) on both sides"
+
+
 def _dp_reference(torch, cfg, ck: str, device: str = "cuda",
                   start: int = 0) -> dict:
     """The 1-process run of ``cfg`` (streamed: its ``hbm_cache`` off) at its
     global batch on a DP_RANKS-rank resident world's global batches (rank
     r's rows as its own draws gave them, at rows ``[r·B/W, (r+1)·B/W)``),
     from step ``start`` (restored from ``cfg.checkpoint_dir``) on, held
-    against the world's step-``cfg.total_steps`` checkpoint in ``ck``."""
+    against the world's step-``cfg.total_steps`` checkpoint in ``ck``;
+    under ``_cli_precision``, as the world's processes run."""
     from featurenet_tpu_torch.data.offline import VoxelCacheDataset
     from featurenet_tpu_torch.train.loop import Trainer
     from featurenet_tpu_torch.train.steps import StepDraws, gather_rows
@@ -6212,15 +6234,16 @@ def _dp_reference(torch, cfg, ck: str, device: str = "cuda",
         fail(f"dp reference: {cfg.checkpoint_dir} does not restore step {start}")
     _reset_counts()
     metrics = None
-    for s in range(start, cfg.total_steps):
-        parts = []
-        for data, labels, draws in blocks:
-            draws.seed(s, 1)
-            parts.append(gather_rows(data, labels, draws.draw_rows(0)))
-        metrics = trainer.step({k: torch.cat([p[k] for p in parts])
-                                for k in parts[0]})
-    if device == "cuda":
-        torch.cuda.synchronize()
+    with _cli_precision(torch):
+        for s in range(start, cfg.total_steps):
+            parts = []
+            for data, labels, draws in blocks:
+                draws.seed(s, 1)
+                parts.append(gather_rows(data, labels, draws.draw_rows(0)))
+            metrics = trainer.step({k: torch.cat([p[k] for p in parts])
+                                    for k in parts[0]})
+        if device == "cuda":
+            torch.cuda.synchronize()
     launches = _read_counts()
     world = torch.load(os.path.join(ck, f"step_{cfg.total_steps}.pt"),
                        weights_only=True)
@@ -6363,7 +6386,8 @@ def dp_phase(torch, seed: int, cache: str, tmp: str, smi_line: str) -> dict:
         "resume_bitwise": resume_bitwise,
         "nccl_1rank_backend": nccl_mesh.get("backend"),
         "nccl_1rank_bitwise_no_group": nccl_bitwise,
-        "vs_1process": {"loss_rel": loss_rel, "loss_rtol": DP_LOSS_RTOL,
+        "vs_1process": {"precision": CLI_PRECISION,
+                        "loss_rel": loss_rel, "loss_rtol": DP_LOSS_RTOL,
                         "params": ref["params"], "param_bound": ref["param_bound"],
                         "param_ref_tol": [DP_PARAM_RTOL, DP_PARAM_ATOL],
                         "stats": ref["stats"],
@@ -6522,24 +6546,19 @@ def _written_t(ck: str, step: int) -> float:
 
 def _restored_cli_step(torch, ck: str) -> int:
     """``cli train`` in this process on checkpoint directory ``ck`` for a
-    segment of one step (then its planned exit, 75), with cuDNN's TF32 at
-    PyTorch's default, as a ``cli train`` process runs; returns the exit
+    segment of one step (then its planned exit, 75), under
+    ``_cli_precision``, as a ``cli train`` process runs; returns the exit
     code. Its output lines are dropped."""
-    import contextlib
     import io
 
     from featurenet_tpu_torch import cli
 
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
     try:
-        with contextlib.redirect_stdout(io.StringIO()):
+        with _cli_precision(torch), contextlib.redirect_stdout(io.StringIO()):
             code = cli.main(["train", "--checkpoint-dir", ck, "--restart-every",
                              "1", "--supervised-child"])
     except SystemExit as e:
         code = e.code
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()
     return code
 
@@ -6738,7 +6757,7 @@ def elastic_phase(torch, seed: int, cache: str, tmp: str, smi_line: str) -> dict
         "launches_killed_generation": killed,
         "one_rank_vs_restored_cli_bitwise": one_bitwise,
         "two_ranks_vs_1process": {
-            "step": s2 + 1, "loss_rel": loss_rel, "loss_rtol": DP_LOSS_RTOL,
+            "precision": CLI_PRECISION, "step": s2 + 1, "loss_rel": loss_rel, "loss_rtol": DP_LOSS_RTOL,
             "params": two["params"], "param_bound": two["param_bound"],
             "param_ref_tol": [DP_PARAM_RTOL, DP_PARAM_ATOL],
             "stats": two["stats"], "stats_tol": [DP_STATS_RTOL, DP_STATS_ATOL]},

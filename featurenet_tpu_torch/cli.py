@@ -162,18 +162,21 @@ port per generation, ``--distributed-timeout``, the device and backend of
 ``--distributed``); a world of one opens none. When a child dies or its
 heartbeat is older than ``--stall-timeout``, the whole generation is
 killed and the survivors respawn as the largest world over the lowest
-slots that the global batch divides (``--local-devices`` per host, default
-1), each resuming from the newest good checkpoint; below
-``--min-world-size`` the world restarts at full strength. A lost slot
+slots that the global batch divides, each resuming from the newest good
+checkpoint; below ``--min-world-size`` the world restarts at full
+strength. A lost slot
 rejoins at the next boundary where every child exits 75 (``--restart-every
 N`` is legal here): each one under ``--readmit auto``, under ``agent`` only
 one that signalled into ``D/membership.json``. ``--max-restarts`` bounds
-the unplanned re-forms. The default config is ``pod64``. The coordinator
-ends with ``{"elastic": {"exit_code", "generations", "reforms", "losses",
-"rejoins", "planned"}}`` and exits with that code. Refused: with
-``--supervise`` or ``--distributed``, and a global batch that
-``--world-size`` x ``--local-devices`` does not divide. ``--inject-faults``
-fires ``spawn_fail`` in the coordinator and hands the spec to every child.
+the unplanned re-forms. The default config is ``pod64``; the coordinator
+hands the config it planned with to every child. It ends with
+``{"elastic": {"exit_code", "generations", "reforms", "losses", "rejoins",
+"planned"}}`` and exits with that code. Refused: with ``--supervise`` or
+``--distributed``, a global batch that ``--world-size`` x
+``--local-devices`` does not divide, and ``--local-devices`` other than 1
+(a slot is one process on one device; the flag is the reference's
+planner input). ``--inject-faults`` fires ``spawn_fail`` in the
+coordinator and hands the spec to every child.
 
 ``--distributed train`` (under ``torchrun``, or any launcher that sets its
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
@@ -762,9 +765,9 @@ def _parser() -> argparse.ArgumentParser:
                            "(default 1)")
     p_tr.add_argument("--local-devices", type=int, default=1,
                       dest="local_devices",
-                      help="(--elastic) devices per host, the planner's "
-                           "feasibility input: every admitted world's device "
-                           "count must divide the global batch (default 1)")
+                      help="(--elastic) devices per host slot, the planner's "
+                           "feasibility input; a slot is one process on one "
+                           "device, so only 1 (the default) is accepted")
     p_tr.add_argument("--readmit", choices=["auto", "agent"], default="auto",
                       help="(--elastic) re-admission at a generation "
                            "boundary: 'auto' re-offers every lost slot, "
@@ -1108,6 +1111,11 @@ def _elastic(args) -> int:
             "preserves the global batch across re-forms, so the "
             "full-strength world could never form; adjust --global-batch or "
             "the world shape")
+    if args.local_devices != 1:
+        raise SystemExit(
+            f"--elastic: --local-devices {args.local_devices}: each host slot "
+            "here is one process on one device, so the world's devices are "
+            "its world size -- drop the flag or pass 1")
     if args.inject_faults:
         # The spec reaches every child unchanged; here only the
         # coordinator's own site may fire.
@@ -1117,7 +1125,11 @@ def _elastic(args) -> int:
                            only={"spawn_fail"})
         except ValueError as e:
             raise SystemExit(f"--inject-faults: {e}")
-    raw, run_dir = args.raw_argv, args.run_dir
+    # Every child runs the config planned here: without --config a fresh
+    # run's children would fall back to train's own default preset.
+    raw = args.raw_argv if args.config else [*args.raw_argv, "--config",
+                                             cfg.name]
+    run_dir = args.run_dir
     result = ElasticCoordinator(
         args.world_size,
         lambda members, rank, generation, port: elastic_child_argv(

@@ -17,7 +17,9 @@ train --elastic``) against the JAX package's (``featurenet_tpu/elastic/``).
    ``spawn_fail``.
 3. The CLI: the refusals against the reference's on the same command
    lines, an elastic child's command line against the reference's
-   ``child_argv_from_cli``, a child asked for the card that is not there.
+   ``child_argv_from_cli``, the config the coordinator plans with reaching
+   every child (``pod64`` without ``--config``), a child asked for the
+   card that is not there.
 4. The Config fields, and a JAX ``config.json`` carrying them.
 5. One real ``cli train --elastic`` of two CPU processes (gloo, smoke16):
    ``host_loss`` after step 1 shrinks the world to one rank, the planned
@@ -407,6 +409,55 @@ def test_elastic_child_argv_matches_the_reference():
     assert "--stall-timeout" not in got and "--heartbeat-file=old" not in got
 
 
+def test_cli_refuses_more_than_one_local_device(tmp_path):
+    from featurenet_tpu_torch import cli
+
+    with pytest.raises(SystemExit, match="one process on one device"):
+        cli.main(["train", "--config", "smoke16", "--device", "cpu",
+                  "--elastic", "--world-size", "2", "--local-devices", "2",
+                  "--global-batch", "8", "--checkpoint-dir",
+                  str(tmp_path / "ck"), "--run-dir", str(tmp_path / "run")])
+    assert not os.path.exists(tmp_path / "run" / "events.jsonl")
+
+
+@pytest.mark.parametrize("saved", [None, "smoke16"])
+def test_elastic_children_run_the_coordinators_config(monkeypatch, tmp_path,
+                                                      saved):
+    """Without --config the coordinator plans with pod64, as the reference's
+    does, and every child runs what it planned with; a checkpoint's own
+    config wins over both."""
+    from featurenet_tpu.config import get_config as ref_get
+    from featurenet_tpu_torch import cli, elastic
+    from featurenet_tpu_torch.config import config_to_dict, get_config
+
+    ck, run = tmp_path / "ck", tmp_path / "run"
+    if saved:
+        ck.mkdir()
+        (ck / "config.json").write_text(json.dumps(config_to_dict(
+            get_config(saved))))
+    planned = {}
+
+    class Recorder:
+        def __init__(self, world_size, spawn, run_dir, **kw):
+            planned.update(kw, spawn=spawn)
+
+        def run(self):
+            return elastic.ElasticResult(0, 1, 0, 0, 0, 0)
+
+    monkeypatch.setattr(elastic, "ElasticCoordinator", Recorder)
+    assert cli.main(["train", "--elastic", "--world-size", "2",
+                     "--checkpoint-dir", str(ck), "--run-dir", str(run)]) == 0
+    want = saved or "pod64"
+    assert planned["global_batch"] == get_config(want).global_batch
+    assert ref_get(want).global_batch == get_config(want).global_batch
+    for rank in (0, 1):
+        child = cli._parser().parse_args(
+            planned["spawn"]([0, 1], rank, 0, 4567)[3:])
+        cfg = cli._train_config(child, cli.DEFAULT_PRESET)
+        assert (cfg.name, cfg.global_batch) == (want, planned["global_batch"])
+        assert cfg.elastic
+
+
 def test_elastic_child_argv_parses_as_a_child():
     from featurenet_tpu_torch import cli
 
@@ -486,19 +537,6 @@ def test_a_plain_resume_does_not_inherit_the_elastic_floor():
 
 # --- 5. one real elastic run on the CPU --------------------------------------
 
-def _records(text: str) -> list[dict]:
-    """The JSON objects in ``text``: the children share the coordinator's
-    stdout and write unbuffered, so two processes' lines may interleave."""
-    dec, out, i = json.JSONDecoder(), [], 0
-    while (i := text.find("{", i)) >= 0:
-        try:
-            obj, i = dec.raw_decode(text, i)
-            out.append(obj)
-        except ValueError:
-            i += 1
-    return out
-
-
 def test_cli_elastic_shrinks_on_host_loss_and_grows_back(tmp_path):
     ck, run = tmp_path / "ck", tmp_path / "run"
     env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
@@ -512,7 +550,11 @@ def test_cli_elastic_shrinks_on_host_loss_and_grows_back(tmp_path):
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=240)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
-    lines = _records(out.stdout)
+    # The children share the coordinator's stdout and write unbuffered, so
+    # two processes' lines may interleave.
+    from chip_smoke import _json_objects
+
+    lines = _json_objects(out.stdout)
     assert lines[-1] == {"elastic": {"exit_code": 0, "generations": 3,
                                      "reforms": 2, "losses": 1, "rejoins": 1,
                                      "planned": 1}}
