@@ -26,7 +26,13 @@ Phases, in order; any failure exits non-zero before the last line:
      weight-gradient shapes and at pod64's conv2, and conv3d_dw at the
      three weight-gradient shapes of a pod64 rank's step; yardstick
      cuDNN's weight gradient (aten.convolution_backward) in the kernel's
-     input type.
+     input type;
+   - conv3d_fwd (forward and dx) and conv3d_dw at the five 3³ blocks of
+     one abc128 rank's step in the model_axis phase (32 rows, its depth
+     slab of 64³, 32³ and 16³ with a halo plane each side: 34×64×64,
+     18×32×32, 10×16×16; the ma_ figures), and at abc128's largest
+     one-process shape (32 × 64³, 32→64: 537 M outputs, 2.1 GB a tensor),
+     which checks the kernels' index range; 5 timed calls each.
 4. Serve path: the sprint64 Predictor at full width (R=64, features
    32/32/64/64, hidden 128, 24 classes) from seeded weights, behind the
    InferenceService (buckets 1,4,16,64) and its HTTP server. The service's
@@ -81,8 +87,8 @@ Phases, in order; any failure exits non-zero before the last line:
    The phase's own launches (captures and eager warmups) are the `wire`
    path of conv3d_fwd.
 7. Train path, once per conv backend (pallas, hybrid_dw, xla): the sprint64
-   Trainer at full width and batch 256 from a seed, dropout 0.5, a few
-   steps on synthetic parts, then one eval batch. Every loss must be
+   Trainer at full width and batch 256 from a seed, dropout 0.5, 3 steps
+   on synthetic parts, then one eval batch. Every loss must be
    finite; parameters and batch-norm statistics must move; every kernel
    of the backend must launch exactly its count per step (pallas: 6
    conv3d_fwd, 3 conv3d_dw + 3 slab sums; hybrid_dw: 3 conv_dw_folded + 3
@@ -253,11 +259,13 @@ Phases, in order; any failure exits non-zero before the last line:
      (the `serve` program's flops and peak_bytes, the serving mfu p50 in
      (0, 1), the confidence, margin, entropy and drift windows, captures
      by reason).
-   - `quality_replay`: `cli replay D/capture --checkpoint-dir C` four
-     times: the identity candidate, `--precision bf16`, `--precision
-     int8`, `--conv-backend xla`; each one's agreement, flips, score_ms,
-     per_request_ms and post_warmup_compiles (the graph captures made
-     while scoring: 0, or the phase fails). The identity candidate must
+   - `quality_replay`: `cli replay D/capture --checkpoint-dir C` for the
+     identity candidate alone, then for `--precision bf16`, `--precision
+     int8` and `--conv-backend xla` side by side; each one's agreement,
+     flips and post_warmup_compiles (the graph captures made while
+     scoring: 0, or the phase fails); the identity replay's wall_s,
+     score_ms and per_request_ms (one replay's cost;
+     the others', sharing the card and the host, are not reported). The identity candidate must
      reach 0.967; a flip of it is printed with its two top probabilities.
      The other candidates may exit 2: their verdicts are printed.
    - `quality_overhead`: `measure_quality_overhead` at sprint64, buckets
@@ -336,9 +344,9 @@ Phases, in order; any failure exits non-zero before the last line:
      batches (rank r's draws at rows [128r, 128r+128)): after 4 steps the
      batch-norm statistics within rtol 1e-3, atol 1e-4, the parameters
      within Adam's bound 2·Σlr (the share inside rtol 3e-4, atol 3e-6
-     printed), the final loss within 1e-3 (bf16 activations); it runs
-     with cuDNN's TF32 at PyTorch's default, as the ranks' `cli train`
-     processes do (the port never sets it).
+     printed), the final loss within 1e-3 (bf16 activations), Adam's first
+     moments printed; TF32 off on both sides (the Trainer sets it off in
+     every `cli train` process, as this script does).
    The timed world's launches are the `dp` path.
 13f. Elastic training (`elastic` phase), after `dp`, on the same cache:
    `cli train --elastic --world-size 2 --config pod64 --conv-backend
@@ -357,14 +365,49 @@ Phases, in order; any failure exits non-zero before the last line:
    conv3d_fwd an eval batch (by the pid on its `launches` line). The first
    step of each re-formed generation against a run restored from the same
    checkpoint: at one rank `cli.main(["train", ...])` in this process for
-   a segment of one step (cuDNN's TF32 at PyTorch's default, as in a
-   `cli train` process), bitwise; at two ranks the 1-process run in this process on the
-   world's global batch (cuDNN's TF32 at the default likewise), to the
-   dp phase's tolerances. The `elastic` line
+   a segment of one step, bitwise; at two ranks the 1-process run in this
+   process on the world's global batch, to the dp phase's tolerances. The
+   `elastic` line
    prints the recovery from the kill to generation 1's first step, split
    (detection, kill, backoff, cold start, restore, first step), and the
    grow boundary's cost, split likewise; its launches are the `elastic`
    path.
+13g. The mesh's model axis (`model_axis` phase), after `elastic`, two
+   ranks of `cli --distributed train` sharing the card over gloo, each a
+   timed rank (as the dp phase's, with every all-gather and halo exchange
+   timed on the host clock between two synchronisations):
+   - pod64 `--mesh-model 2 --hbm-cache` under pallas from the cache
+     phase's cache, global batch 256 (one data row: both ranks hold every
+     row), 4 steps, a checkpoint each: conv3, conv4 and FC-128
+     column-parallel. Checked: the mesh (data 1, model 2, gloo), the
+     metrics bitwise on both ranks, each rank's launches (6 conv3d_fwd, 3
+     conv3d_dw a step, 3 conv3d_fwd an eval batch), and step 1 against the
+     1-process run of the same rows (the dp reference): loss within 1e-3,
+     batch statistics within rtol 1e-3/atol 1e-4, parameters within
+     Adam's bound, Adam's first moments (0.1 x the gradients) within
+     MA_MU_REL of each leaf's scale. Printed: each rank's parameter-and-moment MB beside the
+     1-process run's, step ms, all-gather and all-reduce ms a step.
+   - abc128 as shipped (R=128, deep_arch, spatial, mesh_model 2) under
+     pallas on synthetic parts, global batch 32, 3 steps, a checkpoint
+     each, one eval batch: each rank computes on its 64-plane depth slab.
+     Checked: the mesh, losses finite and bitwise on both ranks, each
+     rank's launches (10 conv3d_fwd, 5 conv3d_dw a step, 5 conv3d_fwd an
+     eval batch), step 1 against the 1-process step on the world's first
+     global batch (in this process, after the world has exited): loss
+     within 1e-3, parameters within rtol 3e-4/atol 3e-6 of every entry,
+     batch statistics within rtol 1e-3/atol 1e-4, Adam's first moments
+     within MA_MU_REL of each leaf's scale; the world's step-3
+     checkpoint restored by `Predictor.from_checkpoint` in this process,
+     its labels on 4 parts equal to a one-process forward's on the
+     checkpoint's weights. Printed: each rank's peak allocated MB beside
+     the 1-process step's, step ms, halo-exchange and all-gather ms a
+     step.
+   The learning rate is 0 at step 0, so the parameters after step 1 show
+   only that both sides start alike: the loss and the statistics check
+   the forward, the moments the backward (the halo exchanges', the weight
+   gathers' reduce-scatter, the gradients' sums by kind); steps 2-3 are
+   checked finite and bitwise across ranks.
+   The ranks' launches are the `model_axis` path.
 14. Robustness evaluation (`ood` phase), after the supervised runs:
    - `native`: the port's native voxelizer, built by g++ after the
      kernels (its build seconds; a build that fails fails the script), on
@@ -423,7 +466,7 @@ Phases, in order; any failure exits non-zero before the last line:
      mean_iou the run's) and `cli infer --seg-out` on two STL parts, as
      subprocesses; `cli programs --config seg64 --warm` (serve_int8
      captured).
-   - `seg_ood`: `cli eval-ood --seg-parts 16` on seg_cli's checkpoint:
+   - `seg_ood`: `cli eval-ood --seg-parts 8` on seg_cli's checkpoint:
      every row, the scale-0.7 control and each rotation row's
      delta_vs_scale_control; host s in _perturb_seg against
      predict_voxels_seg.
@@ -442,19 +485,20 @@ Phases, in order; any failure exits non-zero before the last line:
    (`cli train`, `cli eval`, `cli infer`, seg_diagnose, each on the card).
 16. The wall time of every phase, one JSON line of per-kernel numbers
    (launches by path, the wire, cache, robust, supervise, report,
-   quality, incident, fleet, dp, elastic, precision, ood, tta and seg runs'
-   included), the
+   quality, incident, fleet, dp, elastic, model_axis, precision, ood, tta
+   and seg runs' included), the
    nvidia-smi line, and the last line: {"ok": true, "device": {...}}.
 
 TF32 is switched off for cuDNN and cuBLAS, so every fp32 comparison and
-yardstick here is full fp32, except where this script stands in for a `cli
-train` process (the dp and elastic references): there cuDNN's TF32 is at
-PyTorch's default, on, as in that process.
+yardstick here is full fp32; every `cli train` process turns it off too
+(the Trainer does), so the dp, elastic and model_axis references run as
+the ranks do.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import functools
 import http.client
@@ -564,7 +608,7 @@ PROFILE_RANGES = ("optimizer", "bn_relu", "casts")
 
 SPRINT_BLOCKS = [(32, 32), (32, 64), (64, 64)]  # cin, cout of the 3³ blocks
 TRAIN_BATCH = 256
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3  # cut from 5 to fit the script's 1,200 s limit
 EVAL_BATCHES = 1
 # Producer threads: one per host core, at most 8 (the chip machine has 8).
 TRAIN_WORKERS = min(8, len(os.sched_getaffinity(0)))
@@ -637,9 +681,26 @@ POD64_BLOCKS = [(32, 32, 32, 5), (16, 32, 64, 3), (16, 64, 64, 3)]
 POD64_RANK_BATCH = 128
 POD64_REPS = 5  # timed calls of a pod64 row (a conv2 call is ~1 TFLOP)
 
-# (name, batch, grid, cin, cout, k, main path: "serve", "train", "dp" or
-# None). "train" rows sum into a kernel's figures (sprint64's batch-256
-# step), "dp" rows into its dp_ figures (one pod64 rank's step).
+# abc128's five stride-1 3³ blocks as a model_axis rank runs them: all 32
+# rows of the batch, on its depth slab (half the grid) with a halo plane
+# each side, every kernel gathered whole: (grid, cin, cout).
+ABC128_BLOCKS = [(64, 32, 64), (32, 64, 64), (32, 64, 128), (16, 128, 128),
+                 (16, 128, 256)]
+ABC128_RANK_BATCH = 32
+
+
+def _slab(grid: int) -> tuple[int, int]:
+    """(depth, grid) of a rank's halo'd slab of a ``grid``³ grid."""
+    return grid // 2 + 2, grid
+
+
+# (name, batch, grid, cin, cout, k, main path: "serve", "train", "dp",
+# "model_axis" or None); grid is R (R³) or (D, R) (D×R×R). "train" rows
+# sum into a kernel's figures (sprint64's batch-256 step), "dp" rows into
+# its dp_ figures (one pod64 rank's step), "model_axis" rows into its ma_
+# figures (one abc128 rank's step). The abc128 full-grid rows (the
+# one-process step's largest, 537 M outputs) check the kernels' index
+# range, off the summed figures.
 FWD_SHAPES = (
     [("serve", 64, 16, ci, co, 3, "serve") for ci, co in SPRINT_BLOCKS]
     + [("train fwd", TRAIN_BATCH, 16, ci, co, 3, "train") for ci, co in SPRINT_BLOCKS]
@@ -650,13 +711,27 @@ FWD_SHAPES = (
        for r, ci, co, k in POD64_BLOCKS]
     + [("pod64 dx", POD64_RANK_BATCH, r, co, ci, k, "dp")
        for r, ci, co, k in POD64_BLOCKS]
+    + [("abc128 slab fwd", ABC128_RANK_BATCH, _slab(r), ci, co, 3, "model_axis")
+       for r, ci, co in ABC128_BLOCKS]
+    + [("abc128 slab dx", ABC128_RANK_BATCH, _slab(r), co, ci, 3, "model_axis")
+       for r, ci, co in ABC128_BLOCKS]
+    + [("abc128 full fwd", ABC128_RANK_BATCH, 64, 32, 64, 3, None),
+       ("abc128 full dx", ABC128_RANK_BATCH, 64, 64, 32, 3, None)]
 )
 DW_SHAPES = (
     [("train dW", TRAIN_BATCH, 16, ci, co, 3, "train") for ci, co in SPRINT_BLOCKS]
     + [("pod64 conv2", 8, 32, 32, 32, 5, None)]
     + [("pod64 dW", POD64_RANK_BATCH, r, ci, co, k, "dp")
        for r, ci, co, k in POD64_BLOCKS]
+    + [("abc128 slab dW", ABC128_RANK_BATCH, _slab(r), ci, co, 3, "model_axis")
+       for r, ci, co in ABC128_BLOCKS]
+    + [("abc128 full dW", ABC128_RANK_BATCH, 64, 32, 64, 3, None)]
 )
+
+
+def _grid(grid) -> tuple[int, int, int]:
+    d, r = grid if isinstance(grid, tuple) else (grid, grid)
+    return d, r, r
 
 
 def fail(msg: str):
@@ -698,7 +773,8 @@ def _row(torch, kernel, what, shape, kernel_fn, plain_fn, lib_fn, flops,
     if not (err <= tol * scale):
         fail(f"{kernel} {what} {shape}: max abs err {err} > {tol} x {scale}")
     del got, want
-    reps = POD64_REPS if path == "dp" else 20
+    reps = POD64_REPS if path in ("dp", "model_axis") or \
+        what.startswith("abc128") else 20
     ms = time_ms(torch, kernel_fn, reps=reps)
     plain_ms = time_ms(torch, plain_fn, reps=min(reps, 10))
     lib_ms = time_ms(torch, lib_fn, reps=reps)
@@ -720,31 +796,35 @@ def check_kernels(torch, seed: int) -> dict[str, list[dict]]:
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = {"conv3d_fwd": [], "conv3d_dw": [], "conv_dw_folded": []}
-    for what, b, r, cin, cout, k, path in FWD_SHAPES:
-        x = torch.randn((b, r, r, r, cin), device="cuda", generator=g)
+    for what, b, grid, cin, cout, k, path in FWD_SHAPES:
+        d, r, _ = _grid(grid)
+        x = torch.randn((b, d, r, r, cin), device="cuda", generator=g)
         w = torch.randn((k, k, k, cin, cout), device="cuda", generator=g)
         w /= (k ** 3 * cin) ** 0.5
         x_ncdhw = x.permute(0, 4, 1, 2, 3)  # channels-last view, no copy
         w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous(
             memory_format=torch.channels_last_3d)
-        n = b * r ** 3
+        n = b * d * r * r
         rows["conv3d_fwd"].append(_row(
-            torch, "conv3d_fwd", what, [b, r, r, r, cin, cout, k],
+            torch, "conv3d_fwd", what, [b, d, r, r, cin, cout, k],
             lambda: conv3d.conv3d_fwd(x, w), lambda: conv3d.conv3d_plain(x, w),
             lambda: F.conv3d(x_ncdhw, w_oidhw, padding=(k - 1) // 2),
             2.0 * n * cout * k ** 3 * cin,
             4.0 * (n * cin + k ** 3 * cin * cout + n * cout),
             PEAK_FP32_FLOPS, KERNEL_REL_TOL, path))
         del x, w, x_ncdhw, w_oidhw
-    for what, b, r, cin, cout, k, path in DW_SHAPES:
-        # The dp path runs pallas: conv3d_dw alone.
-        kernels = ((("conv3d_dw", torch.float32),) if path == "dp" else
+    for what, b, grid, cin, cout, k, path in DW_SHAPES:
+        d, r, _ = _grid(grid)
+        # The dp and model_axis paths run pallas: conv3d_dw alone.
+        kernels = ((("conv3d_dw", torch.float32),)
+                   if path in ("dp", "model_axis") or what.startswith("abc128")
+                   else
                    (("conv3d_dw", torch.float32),
                     ("conv_dw_folded", torch.bfloat16),
                     ("conv_dw_folded", torch.float32)))
         for name, dtype in kernels:
-            x = torch.randn((b, r, r, r, cin), device="cuda", generator=g).to(dtype)
-            gy = torch.randn((b, r, r, r, cout), device="cuda", generator=g).to(dtype)
+            x = torch.randn((b, d, r, r, cin), device="cuda", generator=g).to(dtype)
+            gy = torch.randn((b, d, r, r, cout), device="cuda", generator=g).to(dtype)
             w = torch.empty((cout, cin, k, k, k), device="cuda", dtype=dtype,
                             memory_format=torch.channels_last_3d)
             p = (k - 1) // 2
@@ -756,12 +836,12 @@ def check_kernels(torch, seed: int) -> dict[str, list[dict]]:
                     None, [1, 1, 1], [p, p, p], [1, 1, 1], False, [0, 0, 0], 1,
                     [False, True, False])[1]
 
-            n = b * r ** 3
+            n = b * d * r * r
             size = x.element_size()
             bf16 = dtype == torch.bfloat16
             rows[name].append(_row(
                 torch, name, f"{what} {'bf16' if bf16 else 'fp32'}",
-                [b, r, r, r, cin, cout, k],
+                [b, d, r, r, cin, cout, k],
                 lambda: fn(x, gy, k), lambda: conv_dw.conv_dw_plain(x, gy, k),
                 library, 2.0 * n * cout * k ** 3 * cin,
                 size * n * (cin + cout) + 4.0 * k ** 3 * cin * cout,
@@ -1569,7 +1649,9 @@ def train_phase(torch, seed: int, backend: str) -> dict:
               if backend != "xla" else None)
     t = trainer.timing
     out = {
-        "backend": backend, "steps": steps, "global_batch": cfg.global_batch,
+        "backend": backend, "steps": steps,
+        "cut": f"{steps} of sprint64's 8,000 steps",
+        "global_batch": cfg.global_batch,
         "data_workers": cfg.data_workers, "losses": losses,
         "eval_accuracy": evals[0]["accuracy"], "launches": counts,
         "launches_per_step": {k: v / steps for k, v in counts.items()},
@@ -3501,7 +3583,7 @@ SEG_AFFINE_STEPS = 10
 SEG_AFFINE_PROB = 0.5
 SEG_WARP_VOXEL_ATOL = WARP_ATOL
 # seg_ood: fresh parts a row, cut from the reference's 60.
-SEG_OOD_PARTS = 16
+SEG_OOD_PARTS = 8  # cut from 16 to fit the script's 1,200 s limit
 # seg_stl: parts in the STL tree, and the ingest's worker counts.
 SEG_STL_PARTS = 48
 SEG_STL_WORKERS = (1, 4)
@@ -4168,7 +4250,8 @@ def seg_ood_line(seed: int, ck: str, tmp: str, smi_line: str) -> dict:
                for r in rows) or not all(
             "delta_vs_scale_control" in r for r in rows if r["family"] == "rotation"):
         fail(f"seg eval-ood: no scale-{ood.ROTATION_PRESCALE} control: {rows}")
-    out = {"rows": rows, "parts_per_row": SEG_OOD_PARTS, "wall_s": wall,
+    out = {"rows": rows, "parts_per_row": SEG_OOD_PARTS,
+           "cut": f"{SEG_OOD_PARTS} parts a row of the reference's 60", "wall_s": wall,
            "perturb_seg_host_s": host["perturb_s"],
            "predict_voxels_seg_wall_s": host["predict_s"],
            "nvidia_smi": smi_line}
@@ -4977,8 +5060,6 @@ def _serve_waves(port: int, grids) -> tuple[list[dict], float]:
     QUALITY_WAVES' sizes in turn (each wave answered before the next),
     one keep-alive connection per client thread; every answer a 200 with
     a label."""
-    import concurrent.futures
-
     local = threading.local()
     conns = []
 
@@ -5114,25 +5195,42 @@ def _flip_top2(torch, ck: str, capture: str) -> list[dict]:
 
 def quality_replay_line(torch, ck: str, capture: str, tmp: str,
                         smi_line: str) -> tuple[dict, dict]:
-    """``cli replay`` of the ring for each QUALITY_CANDIDATES candidate:
-    no graph captured while scoring; the identity candidate at or above
-    QUALITY_MIN_AGREEMENT (its run directory validated); the others'
-    verdicts printed."""
+    """``cli replay`` of the ring for each QUALITY_CANDIDATES candidate,
+    the identity alone (its timings one replay's cost), then the others
+    side by side (their timings not kept, as they share the card and the
+    host): no graph captured while scoring; the identity candidate at or
+    above QUALITY_MIN_AGREEMENT (its run directory validated); the
+    others' verdicts printed."""
     launches: dict[str, int] = {}
     out: dict = {}
-    for name, extra in QUALITY_CANDIDATES.items():
+
+    def replay(item):
+        name, extra = item
         run = os.path.join(tmp, f"replay_{name}")
-        rc, recs, wall = _cli_records(
+        return name, _cli_records(
             f"quality replay {name}", "replay", capture, "--checkpoint-dir", ck,
             "--run-dir", run, *extra, ok=(0,) if name == "identity" else (0, 2))
+
+    done = [replay(("identity", QUALITY_CANDIDATES["identity"]))]
+    # The other candidates side by side: independent processes sharing
+    # the card and the host, so their walls and scoring times are not one
+    # replay's cost.
+    others = [(k, v) for k, v in QUALITY_CANDIDATES.items() if k != "identity"]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(others)) as pool:
+        done += list(pool.map(replay, others))
+    out["others_side_by_side_wall_s"] = time.perf_counter() - t0
+    for name, (rc, recs, wall) in done:
         r = next((x["replay"] for x in recs if "replay" in x), None)
         if r is None or r["post_warmup_compiles"] != 0:
             fail(f"quality: replay {name} captured while scoring: {recs}")
         _add_counts(launches, r.get("launches") or {})
-        out[name] = {"exit": rc, "wall_s": wall, **{k: r[k] for k in (
-            "n", "agreement", "ok", "flips", "confidence_delta", "score_ms",
-            "per_request_ms", "post_warmup_compiles")},
-            "candidate": r["candidate"]}
+        timed = (("score_ms", "per_request_ms") if name == "identity" else ())
+        out[name] = {"exit": rc, **{k: r[k] for k in (
+            "n", "agreement", "ok", "flips", "confidence_delta",
+            "post_warmup_compiles", *timed)}, "candidate": r["candidate"]}
+        if name == "identity":
+            out[name]["wall_s"] = wall
     ident = out["identity"]
     if ident["agreement"] < QUALITY_MIN_AGREEMENT:
         fail(f"quality: identity replay agreement {ident['agreement']} < "
@@ -5143,6 +5241,9 @@ def quality_replay_line(torch, ck: str, capture: str, tmp: str,
                            "--validate")
     if validate.returncode != 0:
         fail(f"quality: report --validate of the replay run: {validate.stdout[-2000:]}")
+    out["side_by_side"] = ("bf16, int8 and xla replay at once, after "
+                           "identity's replay alone; only identity's "
+                           "wall_s, score_ms and per_request_ms are kept")
     out["nvidia_smi"] = smi_line
     return out, launches
 
@@ -6068,23 +6169,44 @@ DP_LOSS_RTOL = 1e-3
 # Launches per step of a pod64 pallas step: 3 forward + 3 dx conv3d_fwd,
 # 3 conv3d_dw; an eval batch runs 3 conv3d_fwd.
 DP_STEP_LAUNCHES = {"conv3d_fwd": 6, "conv3d_dw": 3, "conv_dw_folded": 0}
+# What a 1-process reference and a world's `cli train` ranks run under,
+# printed beside each comparison of the two.
+TF32_OFF = ("cuDNN's and cuBLAS's TF32 off on both sides (this script's "
+            "setting; the Trainer sets it in every cli train process)")
 
 
 def _dp_rank_main(argv: list[str]) -> int:
-    """One rank of the dp phase's timed world: ``cli.main(argv)`` (the
-    entry point ``python -m featurenet_tpu_torch.cli`` runs) with each
-    dispatch timed by CUDA events on its stream, synchronised after it,
-    and the gradient all-reduce timed on the host clock between two
-    synchronisations; prints ``{"dp_timing": ...}`` after the CLI's lines."""
+    """One rank of a timed world (the dp and model_axis phases):
+    ``cli.main(argv)`` (the entry point ``python -m featurenet_tpu_torch.cli``
+    runs) with each dispatch timed by CUDA events on its stream,
+    synchronised after it, its loss kept, the gradient all-reduce timed on
+    the host clock between two synchronisations, and on a model axis each
+    all-gather (``mesh._gather``: a column-parallel layer's channels, a
+    gathered kernel, a checkpoint's shards) and each halo exchange (its
+    gathers, forward and backward) timed likewise; prints ``{"dp_timing":
+    ...}`` after the CLI's lines, with the rank's parameter and moment
+    bytes and its process's peak allocated MB."""
     import torch
 
     from featurenet_tpu_torch import cli
+    from featurenet_tpu_torch.parallel import mesh
     from featurenet_tpu_torch.train import loop, steps
 
-    step_ms, reduce_ms = [], []
-    dispatch, sync = loop.Trainer.dispatch, steps.sync_gradients
+    step_ms, reduce_ms, losses = [], [], []
+    comm = {"gather": [], "halo": []}  # ms per step
+    now = {"kind": "gather", "gather": 0.0, "halo": 0.0}
+    held = {}
+    dispatch, sync, gather = (loop.Trainer.dispatch, steps.sync_gradients,
+                              mesh._gather)
+    halo_fwd, halo_bwd = mesh._Halo.forward, mesh._Halo.backward
 
     def timed_dispatch(self, batches, take):
+        if not held:
+            st = self.state
+            held["state_mb"] = sum(
+                t.numel() * t.element_size() for t in
+                [*st.model.parameters(), *st.optimizer.mu, *st.optimizer.nu]) / 1e6
+        now["gather"] = now["halo"] = 0.0
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -6092,20 +6214,47 @@ def _dp_rank_main(argv: list[str]) -> int:
         b.record()
         b.synchronize()
         step_ms.append(a.elapsed_time(b) / take)
+        losses.append(float(out["loss"]))
+        comm["gather"].append(now["gather"] / take)
+        comm["halo"].append(now["halo"] / take)
         return out
 
-    def timed_sync(grads, metrics):
+    def timed_sync(*args, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = sync(grads, metrics)
+        out = sync(*args, **kw)
         torch.cuda.synchronize()
         reduce_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
+    def timed_gather(t, axis):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(t, axis)
+        torch.cuda.synchronize()
+        now[now["kind"]] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def as_halo(fn):
+        def run(*args):
+            now["kind"] = "halo"
+            try:
+                return fn(*args)
+            finally:
+                now["kind"] = "gather"
+        return run
+
     loop.Trainer.dispatch, steps.sync_gradients = timed_dispatch, timed_sync
+    mesh._gather = timed_gather
+    mesh._Halo.forward = staticmethod(as_halo(halo_fwd))
+    mesh._Halo.backward = staticmethod(as_halo(halo_bwd))
     rc = cli.main(argv)
-    print(json.dumps({"dp_timing": {"step_ms": step_ms,
-                                    "allreduce_ms": reduce_ms}}), flush=True)
+    print(json.dumps({"dp_timing": {
+        "step_ms": step_ms, "allreduce_ms": reduce_ms, "losses": losses,
+        "gather_ms": comm["gather"], "halo_ms": comm["halo"],
+        "state_mb": held.get("state_mb"),
+        "peak_allocated_mb": torch.cuda.max_memory_allocated() / 1e6}}),
+        flush=True)
     return rc
 
 
@@ -6178,6 +6327,16 @@ def _dp_key(records: list[dict], key: str) -> dict:
     return found[-1]
 
 
+def _loop_starts(run: str) -> list[dict]:
+    """The ``loop_start`` events of a DP_RANKS-rank world's run directory."""
+    starts = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(run, "events.jsonl" if r == 0
+                               else f"events.{r}.jsonl")) as fh:
+            starts += [json.loads(ln) for ln in fh if '"loop_start"' in ln]
+    return starts
+
+
 def _dp_same_files(a: str, b: str, step: int) -> bool:
     import torch
 
@@ -6189,61 +6348,59 @@ def _dp_same_files(a: str, b: str, step: int) -> bool:
                for g in ("model", "mu", "nu") for k in x[g])
 
 
-@contextlib.contextmanager
-def _cli_precision(torch):
-    """cuDNN's TF32 at PyTorch's default (on), as in a ``cli train``
-    process, which never sets it; this script turns it off elsewhere."""
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-
-
-# What a 1-process reference in this script runs under, printed beside
-# each comparison with a world of `cli train` processes.
-CLI_PRECISION = "cuDNN TF32 at PyTorch's default (on) on both sides"
+def _moments_vs(world_mu: dict, state) -> dict:
+    """Adam's first moments of a world's checkpoint (its shards gathered)
+    against ``state``'s, each leaf's largest difference relative to the
+    leaf's scale: the largest of these and its leaf."""
+    names = [n for n, _ in state.model.named_parameters()]
+    rel = {n: float((world_mu[n].to(m.device) - m).abs().max()
+                    / m.abs().max().clamp_min(1e-30))
+           for n, m in zip(names, state.optimizer.mu)}
+    worst = max(rel, key=rel.get)
+    return {"max_rel_of_scale": rel[worst], "leaf": worst}
 
 
 def _dp_reference(torch, cfg, ck: str, device: str = "cuda",
-                  start: int = 0) -> dict:
+                  start: int = 0, shards: int = DP_RANKS) -> dict:
     """The 1-process run of ``cfg`` (streamed: its ``hbm_cache`` off) at its
-    global batch on a DP_RANKS-rank resident world's global batches (rank
-    r's rows as its own draws gave them, at rows ``[r·B/W, (r+1)·B/W)``),
+    global batch on a resident world's global batches of ``shards`` feed
+    groups (group r's rows as its own draws gave them, at rows ``[r·B/S,
+    (r+1)·B/S)``; a model axis's ranks of one group feed the same rows),
     from step ``start`` (restored from ``cfg.checkpoint_dir``) on, held
-    against the world's step-``cfg.total_steps`` checkpoint in ``ck``;
-    under ``_cli_precision``, as the world's processes run."""
+    against the world's step-``cfg.total_steps`` checkpoint in ``ck``
+    (its sharded tensors gathered whole: the one-process layout). TF32 is
+    off on both sides (this script's setting; the Trainer sets it in every
+    ``cli train`` process). Adam's first moments are compared too, and
+    printed."""
     from featurenet_tpu_torch.data.offline import VoxelCacheDataset
     from featurenet_tpu_torch.train.loop import Trainer
     from featurenet_tpu_torch.train.steps import StepDraws, gather_rows
 
     blocks = []
-    for r in range(DP_RANKS):
+    for r in range(shards):
         ds = VoxelCacheDataset(cfg.data_cache, cfg.global_batch, "train",
                                cfg.test_fraction, seed=cfg.seed,
-                               num_hosts=DP_RANKS, host_id=r)
-        vox, lab, _ = ds.materialize_split(multiple_of=DP_RANKS,
-                                           num_shards=DP_RANKS, shard_id=r)
+                               num_hosts=shards, host_id=r)
+        vox, lab, _ = ds.materialize_split(multiple_of=shards,
+                                           num_shards=shards, shard_id=r)
         blocks.append((torch.from_numpy(vox).to(device),
                        torch.from_numpy(lab).to(device),
                        StepDraws(cfg, 1, device, rows=len(lab),
-                                 num_shards=DP_RANKS, shard=r)))
+                                 num_shards=shards, shard=r)))
     trainer = Trainer(cfg, device=device)
     if start and trainer.resume_if_available() != start:
         fail(f"dp reference: {cfg.checkpoint_dir} does not restore step {start}")
     _reset_counts()
     metrics = None
-    with _cli_precision(torch):
-        for s in range(start, cfg.total_steps):
-            parts = []
-            for data, labels, draws in blocks:
-                draws.seed(s, 1)
-                parts.append(gather_rows(data, labels, draws.draw_rows(0)))
-            metrics = trainer.step({k: torch.cat([p[k] for p in parts])
-                                    for k in parts[0]})
-        if device == "cuda":
-            torch.cuda.synchronize()
+    for s in range(start, cfg.total_steps):
+        parts = []
+        for data, labels, draws in blocks:
+            draws.seed(s, 1)
+            parts.append(gather_rows(data, labels, draws.draw_rows(0)))
+        metrics = trainer.step({k: torch.cat([p[k] for p in parts])
+                                for k in parts[0]})
+    if device == "cuda":
+        torch.cuda.synchronize()
     launches = _read_counts()
     world = torch.load(os.path.join(ck, f"step_{cfg.total_steps}.pt"),
                        weights_only=True)
@@ -6272,9 +6429,10 @@ def _dp_reference(torch, cfg, ck: str, device: str = "cuda",
             params["outside_ref_tol"] += int(
                 (diff > DP_PARAM_ATOL + DP_PARAM_RTOL * want.abs()).sum())
             params["entries"] += diff.numel()
+    moments = _moments_vs(world["mu"], trainer.state)
     out = {"metrics": {k: float(v) for k, v in metrics.items()},
            "params": params, "param_bound": bound, "stats": stats,
-           "launches": launches, "ok": ok}
+           "moments_mu": moments, "launches": launches, "ok": ok}
     del trainer, blocks
     torch.cuda.empty_cache()
     return out
@@ -6345,11 +6503,7 @@ def dp_phase(torch, seed: int, cache: str, tmp: str, smi_line: str) -> dict:
              for k, n in DP_STEP_LAUNCHES.items()} for e in evals]
     timing = [_dp_key(r, "dp_timing") for r in world]
     printed = [_dp_key(r, "distributed")["backend"] for r in world]
-    starts = []
-    for r in range(DP_RANKS):
-        with open(os.path.join(run, "events.jsonl" if r == 0
-                               else f"events.{r}.jsonl")) as fh:
-            starts += [json.loads(ln) for ln in fh if '"loop_start"' in ln]
+    starts = _loop_starts(run)
     nccl_mesh = None
     with open(os.path.join(tmp, "dp_nccl_run", "events.jsonl")) as fh:
         nccl_mesh = [json.loads(ln) for ln in fh if '"loop_start"' in ln][-1]["mesh"]
@@ -6386,7 +6540,7 @@ def dp_phase(torch, seed: int, cache: str, tmp: str, smi_line: str) -> dict:
         "resume_bitwise": resume_bitwise,
         "nccl_1rank_backend": nccl_mesh.get("backend"),
         "nccl_1rank_bitwise_no_group": nccl_bitwise,
-        "vs_1process": {"precision": CLI_PRECISION,
+        "vs_1process": {"precision": TF32_OFF,
                         "loss_rel": loss_rel, "loss_rtol": DP_LOSS_RTOL,
                         "params": ref["params"], "param_bound": ref["param_bound"],
                         "param_ref_tol": [DP_PARAM_RTOL, DP_PARAM_ATOL],
@@ -6546,15 +6700,14 @@ def _written_t(ck: str, step: int) -> float:
 
 def _restored_cli_step(torch, ck: str) -> int:
     """``cli train`` in this process on checkpoint directory ``ck`` for a
-    segment of one step (then its planned exit, 75), under
-    ``_cli_precision``, as a ``cli train`` process runs; returns the exit
-    code. Its output lines are dropped."""
+    segment of one step (then its planned exit, 75), as a ``cli train``
+    process runs; returns the exit code. Its output lines are dropped."""
     import io
 
     from featurenet_tpu_torch import cli
 
     try:
-        with _cli_precision(torch), contextlib.redirect_stdout(io.StringIO()):
+        with contextlib.redirect_stdout(io.StringIO()):
             code = cli.main(["train", "--checkpoint-dir", ck, "--restart-every",
                              "1", "--supervised-child"])
     except SystemExit as e:
@@ -6757,7 +6910,7 @@ def elastic_phase(torch, seed: int, cache: str, tmp: str, smi_line: str) -> dict
         "launches_killed_generation": killed,
         "one_rank_vs_restored_cli_bitwise": one_bitwise,
         "two_ranks_vs_1process": {
-            "precision": CLI_PRECISION, "step": s2 + 1, "loss_rel": loss_rel, "loss_rtol": DP_LOSS_RTOL,
+            "precision": TF32_OFF, "step": s2 + 1, "loss_rel": loss_rel, "loss_rtol": DP_LOSS_RTOL,
             "params": two["params"], "param_bound": two["param_bound"],
             "param_ref_tol": [DP_PARAM_RTOL, DP_PARAM_ATOL],
             "stats": two["stats"], "stats_tol": [DP_STATS_RTOL, DP_STATS_ATOL]},
@@ -6796,13 +6949,319 @@ def elastic_phase(torch, seed: int, cache: str, tmp: str, smi_line: str) -> dict
     return {"launches": total, **out}
 
 
+# --- model_axis: the mesh's model axis over two ranks -----------------------
+
+MA_POD_BATCH = 256  # pod64's global batch; one data row: each rank all 256
+MA_POD_STEPS = 4
+MA_ABC_BATCH = 32  # abc128's preset batch
+MA_ABC_STEPS = 3
+MA_ABC_WORKERS = 4  # each rank's producer threads for 128³ synthetic parts
+MA_SERVE_PARTS = 4
+# Launches per step on one rank: pod64 under column parallelism runs the
+# dp step's 3 stride-1 blocks (its sharded ones on its output channels);
+# abc128's 5 stride-1 3³ blocks each run forward, dx and dW on the slab; an
+# eval batch runs each block's forward.
+MA_POD_LAUNCHES = {"conv3d_fwd": 6, "conv3d_dw": 3, "conv_dw_folded": 0}
+MA_POD_EVAL = 3
+MA_ABC_LAUNCHES = {"conv3d_fwd": 10, "conv3d_dw": 5, "conv_dw_folded": 0}
+MA_ABC_EVAL = 5
+# Adam's first moments after step 1 (0.1 x the step's gradient) against
+# the 1-process step's, each leaf within this share of its scale. The
+# parameters after step 1 cannot show the gradients: the learning rate is
+# 0 at step 0, and Adam's update is blind to a gradient's scale. About 3x
+# the largest leaf's reading (bf16 activations on binary voxels: the max
+# pools' near-ties break apart with the summation order): pod64 6.3e-3
+# (blocks.0.conv.kernel), abc128 5.6e-2 (blocks.2.scale). A gradient off
+# by the model axis's factor of 2 reads 0.5 or more.
+MA_MU_REL = {"pod64": 0.02, "abc128": 0.15}
+
+
+def _ma_launches(records: list[list[dict]], per_step: dict, per_eval: int,
+                 steps: int) -> tuple[list, list]:
+    """Each rank's launches (from its own ``launches`` line) and what a
+    rank of ``steps`` steps and its eval batches must have launched."""
+    got = [{k: _dp_key(r, "launches")[k] for k in per_step} for r in records]
+    want = []
+    for r in records:
+        batches = int(_dp_kind(r, "eval")["batches"])
+        want.append({k: steps * n + (per_eval * batches if k == "conv3d_fwd"
+                                     else 0) for k, n in per_step.items()})
+    return got, want
+
+
+def _ma_world(torch, args: list[str], what: str) -> tuple[list, list, float]:
+    t0 = time.perf_counter()
+    world = _dp_wait(_dp_start(args, DP_RANKS, timed=True), what)
+    return world, [_dp_key(r, "dp_timing") for r in world], \
+        time.perf_counter() - t0
+
+
+def _median(xs: list) -> float | None:
+    xs = xs[1:] if len(xs) > 1 else xs  # the first step builds and warms
+    return statistics.median(xs) if xs else None
+
+
+def model_axis_pod64(torch, seed: int, cache: str, tmp: str) -> dict:
+    """pod64 with ``--mesh-model 2`` (column parallelism) over two ranks of
+    ``cli --distributed train`` sharing the card over gloo, resident from
+    the cache phase's cache; its first step against the 1-process run of
+    the same rows."""
+    from featurenet_tpu_torch.config import get_config
+    from featurenet_tpu_torch.models.featurenet import FeatureNet
+
+    ck, run = os.path.join(tmp, "ma_pod_ck"), os.path.join(tmp, "ma_pod_run")
+    world, timing, wall = _ma_world(torch, [
+        "train", "--config", "pod64", "--conv-backend", "pallas",
+        "--data-cache", cache, "--hbm-cache", "--seed", str(seed),
+        "--mesh-model", str(DP_RANKS), "--global-batch", str(MA_POD_BATCH),
+        "--total-steps", str(MA_POD_STEPS), "--checkpoint-every", "1",
+        "--keep-checkpoints", str(MA_POD_STEPS), "--checkpoint-dir", ck,
+        "--run-dir", run], "model_axis pod64")
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ref = _dp_reference(torch, get_config(
+        "pod64", global_batch=MA_POD_BATCH, data_cache=cache, seed=seed,
+        total_steps=1), ck, shards=1)
+    ref_s = time.perf_counter() - t1
+    # Parameters, mu and nu of the whole model, fp32.
+    one_mb = 3 * sum(p.numel() * 4 for p in FeatureNet(
+        get_config("pod64").arch, 64).parameters()) / 1e6
+    launches, want = _ma_launches(world, MA_POD_LAUNCHES, MA_POD_EVAL,
+                                  MA_POD_STEPS)
+    starts = _loop_starts(run)
+    train = [_dp_kind(r, "train") for r in world]
+    loss_rel = abs(timing[0]["losses"][0] - ref["metrics"]["loss"]) / abs(
+        ref["metrics"]["loss"])
+    return {
+        "config": "pod64 R=64 features 32/32/64/64 kernels 7/5/3/3 hidden "
+                  f"128 pallas, --mesh-model {DP_RANKS}: conv3, conv4 and "
+                  f"FC-128 column-parallel; global batch {MA_POD_BATCH} (one "
+                  f"data row: both ranks feed it), {MA_POD_STEPS} resident "
+                  "steps, a checkpoint every step",
+        "mesh": starts[0]["mesh"], "loop_starts": len(starts),
+        "state_mb_by_rank": [t["state_mb"] for t in timing],
+        "state_mb_1process": one_mb,
+        "peak_allocated_mb_by_rank": [t["peak_allocated_mb"] for t in timing],
+        "step_ms_by_rank": [t["step_ms"] for t in timing],
+        "device_ms_per_step_by_rank": [_median(t["step_ms"]) for t in timing],
+        "allgather_ms_per_step_by_rank": [_median(t["gather_ms"])
+                                          for t in timing],
+        "allreduce_ms_per_step_by_rank": [_median(t["allreduce_ms"])
+                                          for t in timing],
+        "losses_by_rank": [t["losses"] for t in timing],
+        "metrics_bitwise_across_ranks": all(
+            t["losses"] == timing[0]["losses"] for t in timing) and all(
+            {k: v for k, v in t.items() if k != "samples_per_sec"}
+            == {k: v for k, v in train[0].items() if k != "samples_per_sec"}
+            for t in train),
+        "vs_1process_step1": {
+            "precision": TF32_OFF, "loss_rel": loss_rel,
+            "loss_rtol": DP_LOSS_RTOL, "params": ref["params"],
+            "param_bound": ref["param_bound"],
+            "param_ref_tol": [DP_PARAM_RTOL, DP_PARAM_ATOL],
+            "stats": ref["stats"], "stats_tol": [DP_STATS_RTOL, DP_STATS_ATOL],
+            "moments_mu": ref["moments_mu"],
+            "moments_limit": MA_MU_REL["pod64"],
+            "ok": ref["ok"]},
+        "launches_by_rank": launches, "launches_want": want,
+        "launches_1process": ref["launches"],
+        "walls_s": {"world": wall, "reference": ref_s},
+    }
+
+
+def _abc128_cfg(seed: int, **kw):
+    from featurenet_tpu_torch.config import get_config
+
+    return get_config("abc128", seed=seed, global_batch=MA_ABC_BATCH,
+                      eval_batches=1, data_workers=MA_ABC_WORKERS, **kw)
+
+
+def model_axis_abc128(torch, seed: int, tmp: str) -> dict:
+    """abc128 as shipped (R=128, deep_arch, spatial, mesh_model 2) under
+    pallas over two ranks of ``cli --distributed train`` on synthetic
+    parts, 3 steps and a checkpoint each; its first step against the
+    1-process step on the same rows; the world's checkpoint restored and
+    served in this process."""
+    import numpy as np
+
+    from featurenet_tpu_torch.data.dataset import SyntheticVoxelDataset
+    from featurenet_tpu_torch.infer import Predictor
+    from featurenet_tpu_torch.runtime import build_model
+    from featurenet_tpu_torch.train.loop import Trainer
+    from featurenet_tpu_torch.train.steps import unpack_voxels
+
+    ck, run = os.path.join(tmp, "ma_abc_ck"), os.path.join(tmp, "ma_abc_run")
+    world, timing, wall = _ma_world(torch, [
+        "train", "--config", "abc128", "--conv-backend", "pallas",
+        "--seed", str(seed), "--global-batch", str(MA_ABC_BATCH),
+        "--total-steps", str(MA_ABC_STEPS), "--eval-batches", "1",
+        "--data-workers", str(MA_ABC_WORKERS), "--checkpoint-every", "1",
+        "--keep-checkpoints", str(MA_ABC_STEPS), "--checkpoint-dir", ck,
+        "--run-dir", run], "model_axis abc128")
+
+    # The 1-process step on the world's first global batch (the stream's
+    # first batch, worker 0's), after the world has freed the card.
+    t1 = time.perf_counter()
+    cfg = _abc128_cfg(seed)
+    batch = next(SyntheticVoxelDataset(
+        cfg.resolution, cfg.global_batch, cfg.num_features,
+        seed=cfg.seed).worker_iter(0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_counts()
+    trainer = Trainer(cfg, device="cuda")
+    metrics = trainer.step({k: torch.from_numpy(v).cuda()
+                            for k, v in batch.items()})
+    torch.cuda.synchronize()
+    one_launches = _read_counts()
+    one_peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+    saved = torch.load(os.path.join(ck, "step_1.pt"), weights_only=True)
+    params = {"max_abs": 0.0, "max_rel_of_scale": 0.0, "outside_ref_tol": 0,
+              "entries": 0}
+    stats = {"max_abs": 0.0, "max_rel_of_scale": 0.0}
+    stats_ok = True
+    for k, want in trainer.state.model.state_dict().items():
+        got = saved["model"][k].to(want.device)
+        diff = (got - want).abs()
+        rel = float(diff.max() / want.abs().max().clamp_min(1e-30))
+        row = stats if k.endswith((".mean", ".var")) else params
+        row["max_abs"] = max(row["max_abs"], float(diff.max()))
+        row["max_rel_of_scale"] = max(row["max_rel_of_scale"], rel)
+        if row is stats:
+            stats_ok &= bool((diff <= DP_STATS_ATOL
+                              + DP_STATS_RTOL * want.abs()).all())
+        else:
+            params["outside_ref_tol"] += int(
+                (diff > DP_PARAM_ATOL + DP_PARAM_RTOL * want.abs()).sum())
+            params["entries"] += diff.numel()
+    one_loss = float(metrics["loss"])
+    moments = _moments_vs(saved["mu"], trainer.state)
+    state_mb_one = sum(t.numel() * t.element_size() for t in [
+        *trainer.state.model.parameters(), *trainer.state.optimizer.mu,
+        *trainer.state.optimizer.nu]) / 1e6
+    del trainer, metrics
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t1
+
+    # The world's last checkpoint restored in one process and served.
+    t2 = time.perf_counter()
+    pred = Predictor.from_checkpoint(ck, device="cuda", batch=MA_SERVE_PARTS)
+    grids = unpack_voxels(torch.from_numpy(batch["voxels"][:MA_SERVE_PARTS])
+                          )[..., 0].cpu().numpy()
+    labels, _ = pred.predict_voxels(grids)
+    last = torch.load(os.path.join(ck, f"step_{MA_ABC_STEPS}.pt"),
+                      weights_only=True)
+    model = build_model(cfg)
+    model.load_state_dict(last["model"])
+    model = model.cuda()
+    with torch.no_grad():
+        want = model(torch.from_numpy(grids[..., None]).cuda()).argmax(-1)
+    serve = {"model_version": pred.model_version, "labels": labels.tolist(),
+             "forward_labels": want.cpu().tolist(),
+             "labels_equal": bool(np.array_equal(labels, want.cpu().numpy())),
+             "seconds": time.perf_counter() - t2}
+    del pred, model
+    torch.cuda.empty_cache()
+
+    launches, want_l = _ma_launches(world, MA_ABC_LAUNCHES, MA_ABC_EVAL,
+                                    MA_ABC_STEPS)
+    starts = _loop_starts(run)
+    loss_rel = abs(timing[0]["losses"][0] - one_loss) / abs(one_loss)
+    return {
+        "config": "abc128 R=128 deep_arch (features 32/64/64/128/128/256, "
+                  "7³/s2 stem, five 3³ blocks, residual, GAP, hidden 256) "
+                  f"pallas, spatial, mesh_model {DP_RANKS}: depth slabs of "
+                  "64 planes; the 64-256-wide kernels and FC-256 sharded; "
+                  f"global batch {MA_ABC_BATCH} on synthetic parts, "
+                  f"{MA_ABC_STEPS} steps, a checkpoint every step",
+        "mesh": starts[0]["mesh"], "loop_starts": len(starts),
+        "state_mb_by_rank": [t["state_mb"] for t in timing],
+        "state_mb_1process": state_mb_one,
+        "peak_allocated_mb_by_rank": [t["peak_allocated_mb"] for t in timing],
+        "peak_allocated_mb_1process_step": one_peak,
+        "step_ms_by_rank": [t["step_ms"] for t in timing],
+        "device_ms_per_step_by_rank": [_median(t["step_ms"]) for t in timing],
+        "halo_ms_per_step_by_rank": [_median(t["halo_ms"]) for t in timing],
+        "allgather_ms_per_step_by_rank": [_median(t["gather_ms"])
+                                          for t in timing],
+        "allreduce_ms_per_step_by_rank": [_median(t["allreduce_ms"])
+                                          for t in timing],
+        "losses_by_rank": [t["losses"] for t in timing],
+        "vs_1process_step1": {
+            "precision": TF32_OFF, "loss_rel": loss_rel,
+            "loss_rtol": DP_LOSS_RTOL, "params": params,
+            "param_ref_tol": [DP_PARAM_RTOL, DP_PARAM_ATOL],
+            "stats": stats, "stats_tol": [DP_STATS_RTOL, DP_STATS_ATOL],
+            "moments_mu": moments, "moments_limit": MA_MU_REL["abc128"]},
+        "launches_by_rank": launches, "launches_want": want_l,
+        "launches_1process": one_launches,
+        "serve": serve,
+        "walls_s": {"world": wall, "reference": ref_s},
+        "_ok": {"stats": stats_ok},
+    }
+
+
+def model_axis_phase(torch, seed: int, cache: str, tmp: str,
+                     smi_line: str) -> dict:
+    """The mesh's model axis at full width (see the module docstring,
+    13g): pod64 column-parallel, then abc128's depth slabs, each a world
+    of two ``cli --distributed train`` ranks sharing the card over gloo,
+    against its 1-process run."""
+    pod = model_axis_pod64(torch, seed, cache, tmp)
+    abc = model_axis_abc128(torch, seed, tmp)
+    ok = abc.pop("_ok")
+    out = {"pod64": pod, "abc128": abc,
+           "cut": {"pod64": f"{MA_POD_STEPS} of 5,000 steps",
+                   "abc128": f"{MA_ABC_STEPS} of 8,000 steps, 1 eval batch",
+                   "world": "two ranks on one card over gloo (the script "
+                            "needs one card; NCCL needs a card per rank)"},
+           "nvidia_smi": smi_line}
+    print("model_axis", json.dumps(out), flush=True)
+    if not pod["metrics_bitwise_across_ranks"]:
+        fail("model_axis pod64: the ranks' metrics differ")
+    for name, line, steps in (("pod64", pod, MA_POD_STEPS),
+                              ("abc128", abc, MA_ABC_STEPS)):
+        mesh = line["mesh"]
+        if (mesh.get("model") != DP_RANKS or mesh.get("data") != 1
+                or mesh.get("backend") != "gloo"
+                or mesh.get("processes") != DP_RANKS):
+            fail(f"model_axis {name}: mesh {mesh}")
+        if line["launches_by_rank"] != line["launches_want"]:
+            fail(f"model_axis {name}: launches {line['launches_by_rank']}, "
+                 f"want {line['launches_want']}")
+        losses = line["losses_by_rank"]
+        if (any(len(x) != steps for x in losses)
+                or any(x != losses[0] for x in losses)
+                or not all(math.isfinite(v) for v in losses[0])):
+            fail(f"model_axis {name}: losses {losses}")
+        vs = line["vs_1process_step1"]
+        if (vs["loss_rel"] > DP_LOSS_RTOL
+                or vs["moments_mu"]["max_rel_of_scale"] > MA_MU_REL[name]):
+            fail(f"model_axis {name}: step 1 against 1 process: {vs}")
+    if not pod["vs_1process_step1"]["ok"]:
+        fail(f"model_axis pod64: step 1 against 1 process: "
+             f"{pod['vs_1process_step1']}")
+    if abc["vs_1process_step1"]["params"]["outside_ref_tol"] or not ok["stats"]:
+        fail(f"model_axis abc128: step 1 against 1 process: "
+             f"{abc['vs_1process_step1']}")
+    if not abc["serve"]["labels_equal"]:
+        fail(f"model_axis abc128: served labels {abc['serve']}")
+    launches = {k: sum(c[k] for line in (pod, abc)
+                       for c in line["launches_by_rank"])
+                for k in MA_POD_LAUNCHES}
+    return {"launches": launches, **out}
+
+
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
     """A kernel's figures: ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` sum its "train" rows (sprint64's step), the ``dp_``
-    ones its "dp" rows (one pod64 rank's step); the error is the largest
-    of both."""
+    ones its "dp" rows (one pod64 rank's step), the ``ma_`` ones its
+    "model_axis" rows (one abc128 rank's step on its slab); the error is
+    the largest of these rows'."""
     main = [r for r in rows if r["path"] == "train"]
     dp = [r for r in rows if r["path"] == "dp"]
+    ma = [r for r in rows if r["path"] == "model_axis"]
 
     def sums(rs, prefix=""):
         return {f"{prefix}ms": sum(r["kernel_ms"] for r in rs),
@@ -6816,8 +7275,9 @@ def _kernel_entry(name, source, replaces, rows, launches_by_path):
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(launches_by_path.values()),
         "launches_by_path": launches_by_path,
-        "max_abs_err": max(r["max_abs_err"] for r in main + dp),
+        "max_abs_err": max(r["max_abs_err"] for r in main + dp + ma),
         **sums(main), **(sums(dp, "dp_") if dp else {}),
+        **(sums(ma, "ma_") if ma else {}),
         "shapes": rows,
     }
 
@@ -6910,6 +7370,8 @@ def main() -> int:
                    smi_line)["launches"]
         elastic = phase("elastic", elastic_phase, torch, args.seed, cache_dir,
                         tmp, smi_line)["launches"]
+        model_axis = phase("model_axis", model_axis_phase, torch, args.seed,
+                           cache_dir, tmp, smi_line)["launches"]
     robustness = phase("ood", ood_phase, torch, args.seed, native_info,
                        smi_line)["launches"]
     seg = phase("seg", seg_phase, torch, args.seed, smi_line)["launches"]
@@ -6942,6 +7404,7 @@ def main() -> int:
                        "fleet": fleet["conv3d_fwd"],
                        "dp": dp["conv3d_fwd"],
                        "elastic": elastic["conv3d_fwd"],
+                       "model_axis": model_axis["conv3d_fwd"],
                        **{k: v["conv3d_fwd"] for k, v in rungs.items()},
                        **{k: v["conv3d_fwd"] for k, v in robustness.items()},
                        "seg": seg["conv3d_fwd"]}),
@@ -6956,6 +7419,7 @@ def main() -> int:
                        "report": reported["conv3d_dw"],
                        "dp": dp["conv3d_dw"],
                        "elastic": elastic["conv3d_dw"],
+                       "model_axis": model_axis["conv3d_dw"],
                        **{k: v["conv3d_dw"] for k, v in rungs.items()
                           if k.startswith("train")},
                        "seg": seg["conv3d_dw"]}),
@@ -6971,6 +7435,7 @@ def main() -> int:
                        "report": reported.get("conv_dw_folded", 0),
                        "dp": dp["conv_dw_folded"],
                        "elastic": elastic["conv_dw_folded"],
+                       "model_axis": model_axis["conv_dw_folded"],
                        **{k: v["conv_dw_folded"] for k, v in rungs.items()
                           if k.startswith("train")},
                        "seg": seg["conv_dw_folded"]}),

@@ -191,7 +191,15 @@ a card (NCCL refuses two ranks on one device), and prints ``{"distributed":
 is the global batch; each rank prints its own records, whose metrics are
 the world's. ``--supervise`` is refused with it, and so is a k-step CUDA
 graph (``--steps-per-dispatch`` above 1 on the card) at its capture;
-``--distributed`` applies to ``train`` alone.
+``--distributed`` applies to ``train`` alone. ``--mesh-model N`` lays a
+model axis of N ranks inside the world (the reference's ``_overrides``;
+clamped to a divisor of the world with a ``mesh_warning``): the large
+kernels column-parallel, and under the config's ``spatial`` (abc128's)
+each model rank on its depth slab of the grids; ``--no-spatial`` turns
+``spatial`` off. A depth the model axis cannot split evenly at every pool,
+and ``task="segment"`` with a model axis, are refused
+(``parallel/mesh.py``). Every ``train`` turns cuDNN's and cuBLAS's TF32
+off (``precision.set_tf32``).
 
 ``train --run-dir D`` writes the run directory (``obs/``; ``train/loop.py``
 lists the events): spans, heartbeats, metrics, the loop's events, window
@@ -649,6 +657,15 @@ def _parser() -> argparse.ArgumentParser:
     p_tr.add_argument("--global-batch", type=int, dest="global_batch")
     p_tr.add_argument("--eval-batches", type=int, dest="eval_batches")
     p_tr.add_argument("--data-workers", type=int, dest="data_workers")
+    p_tr.add_argument("--mesh-model", type=int, dest="mesh_model",
+                      help="model axis of the mesh (default: the config's; "
+                           "clamped to a divisor of the world with a "
+                           "mesh_warning): column-parallel kernels, and "
+                           "depth slabs under the config's spatial")
+    p_tr.add_argument("--no-spatial", action="store_true", dest="no_spatial",
+                      help="disable spatial (depth-over-'model') sharding "
+                           "(e.g. single-chip runs of presets that ship "
+                           "pod-scale spatial meshes, or --hbm-cache)")
     p_tr.add_argument("--seed", type=int)
     p_tr.add_argument("--checkpoint-dir", dest="checkpoint_dir",
                       help="save checkpoints here; resume from the newest "
@@ -1217,7 +1234,9 @@ def _train_config(args, default: str):
                             "restart_every_steps", "run_dir", "alert_rules",
                             "poll_device_memory", "profile_dir",
                             "profile_start", "profile_steps", "tb_dir",
-                            "elastic", "min_world_size"))
+                            "elastic", "min_world_size", "mesh_model"))
+    if getattr(args, "no_spatial", False):
+        policy["spatial"] = False
     if "augment_scale_range" in policy:
         policy["augment_scale_range"] = tuple(policy["augment_scale_range"])
     saved = load_run_config(args.checkpoint_dir) if args.checkpoint_dir else None

@@ -32,6 +32,12 @@ resumes with its adapted scale.
 
 The port never imports JAX; only the tests build the Flax side.
 
+Every tree here is whole, in the layout of a one-process run, as the JAX
+arrays come in: a run on a model axis loads it whole and then shards it by
+the port's rule (``parallel/mesh.py`` ``param_shardings``; the Trainer's
+``FeatureNet.shard``), and its checkpoints gather the shards back into
+this layout (``train/checkpoint.py``).
+
 ``save_npz``/``load_npz`` store a port ``state_dict`` with its ``Config``
 (as JSON) in one ``.npz`` file, which ``cli serve --weights`` reads.
 """

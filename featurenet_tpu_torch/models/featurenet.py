@@ -46,6 +46,28 @@ same logits:
   draws the global batch's mask from the generator, which every rank
   seeds alike, and keeps its own rows. With one process (or none) no
   collective runs and nothing changes.
+- On a model axis (``shard(axis)``, ``parallel/mesh.py`` ``ModelAxis``)
+  the parameters that ``param_shardings`` shards are replaced by this
+  rank's columns (``shard_dims`` says along which dim), and the forward
+  computes what the one-process forward computes:
+
+  - without ``spatial``, column parallelism: a block whose kernel is
+    sharded computes its own output channels on the whole input
+    (``model_enter`` before), batch norm on them with statistics over the
+    data axis, then ``model_gather`` of the channels; the dense head's
+    sharded ``dense0`` likewise, dropout applying the global mask's
+    columns of this rank, so each model rank of a data row applies the
+    same draw; everything else is repeated alike on every model rank,
+    its batch norm's statistics over the data axis;
+  - under ``spatial``, each model rank computes on its depth slab (convs
+    through halo exchanges, a sharded kernel gathered whole), batch norm
+    sums over every voxel of the global batch (data and model), ``max_pool2``
+    and the residual add stay local, and the GAP head's slab partial sums
+    go through ``model_sum``; the dense head is then column-parallel as
+    above (a head without GAP first gathers the slabs' depth).
+
+  ``grad_kinds`` says for each parameter how its gradient is reduced
+  (``train/steps.py`` ``sync_gradients``).
 - The 2³ max pool is ``F.max_pool3d`` on a channels-first view: its
   gradient goes to the first maximum of each window, as XLA's
   select-and-scatter does, where ``amax`` would split it among ties.
@@ -78,7 +100,17 @@ from featurenet_tpu_torch.ops.conv3d import (
 )
 from featurenet_tpu_torch.ops.conv33 import Fused33Conv, fused33_conv
 from featurenet_tpu_torch.ops.stem import SpaceToDepthConv
-from featurenet_tpu_torch.parallel.mesh import all_reduce_sum, rank_world
+from featurenet_tpu_torch.parallel.mesh import (
+    ModelAxis,
+    all_reduce_sum,
+    axis_of,
+    halo_exchange,
+    model_enter,
+    model_gather,
+    model_sum,
+    shard_dim,
+    weight_gather,
+)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
@@ -152,20 +184,24 @@ def max_pool2(x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None):
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            rows: tuple[int, int] = (1, 0), cols: tuple[int, int] = (1, 0)):
     """Flax's dropout: keep with probability ``1-rate``, scale by its inverse.
-    In a world of W > 1 processes ``x`` is rank r's block of a global batch
-    of ``W·B`` rows: the mask of the global batch is drawn and rows ``[r·B,
-    (r+1)·B)`` kept."""
+    ``x [B, N]`` is block ``r`` of ``rows = (R, r)`` row blocks of a global
+    batch of ``R·B`` rows, and of its columns block ``c`` of ``cols = (C,
+    c)``: the mask of the global ``[R·B, C·N]`` batch is drawn and this
+    block of it kept."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    rank, world = rank_world()
-    b = x.shape[0]
-    mask = torch.rand((b * world, *x.shape[1:]), generator=generator,
-                      device=x.device) < keep
+    world, rank = rows
+    b, n = x.shape[0], x.shape[-1]
+    mask = torch.rand((b * world, *x.shape[1:-1], n * cols[0]),
+                      generator=generator, device=x.device) < keep
     if world > 1:
         mask = mask[rank * b:(rank + 1) * b]
+    if cols[0] > 1:
+        mask = mask[..., cols[1] * n:(cols[1] + 1) * n]
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -187,26 +223,68 @@ class ConvBNRelu(nn.Module):
             block, conv, plain_conv = CONV_BACKENDS[backend]
             self.conv = block(cin, features, kernel, dtype,
                               conv=plain_conv if plain else conv)
+        self.stride = stride
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
         self.dtype = dtype
+        # Set by FeatureNet.shard: the model axis and whether the conv's
+        # kernel is column-sharded on it.
+        self.axis: ModelAxis | None = None
+        self.sharded = False
+
+    def _stats_group(self):
+        """``(group, ranks)``: where the batch statistics sum, ``ranks``
+        equal blocks of the global batch's voxels (1: no collective)."""
+        axis = axis_of(self)
+        if axis.spatial:
+            return None, axis.size * axis.data_size  # every voxel: the world
+        return axis.data_group, axis.data_size
+
+    def convolve(self, x: torch.Tensor) -> torch.Tensor:
+        """The block's conv of ``x`` as it runs on its model axis: under
+        ``spatial`` on this rank's depth slab with the neighbours' halo
+        planes around it (``halo_exchange``: ``(K-1)/2`` each way for a
+        stride-1 conv, cropped after; the stem's transformed padding,
+        ``ops/stem.py``), a column-sharded kernel gathered whole first
+        (``weight_gather``); otherwise the conv of ``x`` as it is (a
+        column-parallel block's own output channels)."""
+        axis = axis_of(self)
+        if not axis.spatial:
+            return self.conv(x)
+        w = self.conv.kernel
+        if self.sharded:
+            w = weight_gather(w, axis, -1)
+        if self.stride > 1:
+            return self.conv(x, w, halo=lambda t, lo, hi: halo_exchange(
+                t, lo, hi, axis))
+        p, d = (w.shape[0] - 1) // 2, x.shape[1]
+        return self.conv(halo_exchange(x, p, p, axis), w)[:, p:p + d]
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = self.conv(x)
+        axis = axis_of(self)
+        cols = self.sharded and not axis.spatial  # column-parallel
+        if cols:
+            x = model_enter(x, axis)
+        y = self.convolve(x)
         with record_function("casts"):
             y = y.float()
         with record_function("bn_relu"):
+            scale, bias = self.scale, self.bias
+            if cols:  # this rank's output channels
+                part = slice(axis.index * y.shape[-1],
+                             (axis.index + 1) * y.shape[-1])
+                scale, bias = scale[part], bias[part]
             if train:
                 axes = (0, 1, 2, 3)
-                world = rank_world()[1]
-                if world > 1:
+                group, ranks = self._stats_group()
+                if ranks > 1:
                     # The global batch's statistics: one all-reduce of both
-                    # sums over the world's equal blocks.
-                    n = y.numel() // y.shape[-1] * world
+                    # sums over the equal blocks.
+                    n = y.numel() // y.shape[-1] * ranks
                     sums = all_reduce_sum(torch.stack(
-                        [y.sum(dim=axes), (y * y).sum(dim=axes)]))
+                        [y.sum(dim=axes), (y * y).sum(dim=axes)]), group)
                     mean = sums[0] / n
                     var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
                 else:
@@ -214,14 +292,20 @@ class ConvBNRelu(nn.Module):
                     var = torch.clamp((y * y).mean(dim=axes) - mean * mean,
                                       min=0.0)
                 with torch.no_grad():
-                    self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
-                    self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+                    stats = torch.stack([mean, var])
+                    if cols:  # every channel's, so the buffers stay equal
+                        stats = model_gather(stats, axis, -1)
+                    self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * stats[0])
+                    self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * stats[1])
             else:
                 mean, var = self.mean, self.var
-            y = (y - mean) * (torch.rsqrt(var + BN_EPS) * self.scale) + self.bias
+                if cols:
+                    mean, var = mean[part], var[part]
+            y = (y - mean) * (torch.rsqrt(var + BN_EPS) * scale) + bias
             y = F.relu(y)
         with record_function("casts"):
-            return y.to(self.dtype)
+            y = y.to(self.dtype)
+        return model_gather(y, axis, -1) if cols else y
 
 
 class FeatureNet(nn.Module):
@@ -254,12 +338,63 @@ class FeatureNet(nn.Module):
             raise ValueError(f"resolution {resolution} pools away to nothing")
         self.dense0 = nn.Linear(flat, arch.hidden)
         self.dense1 = nn.Linear(arch.hidden, arch.num_classes)
+        self.axis: ModelAxis | None = None
+        # name -> the dim a parameter is column-sharded along (shard()).
+        self.shard_dims: dict[str, int] = {}
+
+    @torch.no_grad()
+    def shard(self, axis: ModelAxis) -> "FeatureNet":
+        """Lay the model on ``axis`` (see the module docstring): every
+        parameter ``param_shardings`` shards becomes this rank's columns of
+        it, in place of the whole. Call before an optimizer takes the
+        parameters; a model axis of 1 changes nothing."""
+        if self.axis is not None:
+            raise ValueError("the model is already laid on a model axis")
+        if axis.size == 1:
+            return self
+        self.axis = axis
+        for name, p in list(self.named_parameters()):
+            dim = shard_dim(name, p.shape, axis.size)
+            if dim is None:
+                continue
+            owner, leaf = name.rsplit(".", 1)
+            setattr(self.get_submodule(owner), leaf, nn.Parameter(
+                p.chunk(axis.size, dim)[axis.index].clone()))
+            self.shard_dims[name] = dim
+        for i, block in enumerate(self.blocks):
+            block.axis = axis
+            block.sharded = f"blocks.{i}.conv.kernel" in self.shard_dims
+        return self
+
+    def grad_kinds(self) -> list[str]:
+        """How each parameter's gradient (``parameters()`` order) is reduced
+        on the model axis: ``"shard"`` a column shard, on its owner alone
+        (a spatial slab's partials were summed by ``weight_gather``);
+        ``"partial"`` a sum over the model ranks' parts (a spatial slab's
+        partial, or a replicated vector of which a column-parallel layer
+        used this rank's part); ``"replicated"`` the same on every model
+        rank (compute every model rank repeats alike)."""
+        axis = axis_of(self)
+        out = []
+        for name, _ in self.named_parameters():
+            if name in self.shard_dims:
+                out.append("shard")
+            elif name.startswith("blocks."):
+                i = int(name.split(".")[1])
+                out.append("partial" if axis.spatial or self.blocks[i].sharded
+                           else "replicated")
+            elif name == "dense0.bias" and "dense0.weight" in self.shard_dims:
+                out.append("partial")
+            else:
+                out.append("replicated")
+        return out
 
     def forward(self, voxels: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """Logits; ``train=True`` uses and updates batch statistics and
-        applies dropout with ``generator``."""
-        a = self.arch
+        applies dropout with ``generator``. On a spatial model axis
+        ``voxels`` is this rank's depth slab (``ModelAxis.slab``)."""
+        a, axis = self.arch, axis_of(self)
         with record_function("casts"):
             x = voxels.to(self.dtype)
         for block, f, s, p in zip(self.blocks, a.features, a.strides,
@@ -268,17 +403,33 @@ class FeatureNet(nn.Module):
             if a.residual and s == 1 and x.shape[-1] == f:
                 y = y + x  # identity skip; pooling stays outside the branch
             x = max_pool2(y) if p else y
-        if a.head_gap:
+        if a.head_gap and axis.spatial:
+            # The slabs' partial sums, summed over the model axis.
+            n = x.shape[1] * axis.size * x.shape[2] * x.shape[3]
+            x = (model_sum(x.float().sum(dim=(1, 2, 3)), axis) / n
+                 ).to(self.dtype)
+        elif a.head_gap:
             x = x.float().mean(dim=(1, 2, 3)).to(self.dtype)
         else:
+            if axis.spatial:
+                x = model_gather(x, axis, 1)
             x = x.reshape(x.shape[0], -1)
         with record_function("casts"):
             w0, b0, w1, b1 = (t.to(self.dtype) for t in (
                 self.dense0.weight, self.dense0.bias, self.dense1.weight,
                 self.dense1.bias))
+        cols = "dense0.weight" in self.shard_dims
+        if cols:  # column-parallel: this rank's hidden units
+            h = w0.shape[0]
+            x = model_enter(x, axis)
+            b0 = b0[axis.index * h:(axis.index + 1) * h]
         x = F.relu(F.linear(x, w0, b0))
         if train:
-            x = dropout(x, a.dropout, generator)
+            x = dropout(x, a.dropout, generator,
+                        (axis.data_size, axis.data_index),
+                        (axis.size, axis.index) if cols else (1, 0))
+        if cols:
+            x = model_gather(x, axis, -1)
         x = F.linear(x, w1, b1)
         with record_function("casts"):
             return x.float()

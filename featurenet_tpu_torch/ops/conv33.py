@@ -66,5 +66,7 @@ class Fused33Conv(nn.Module):
         self.dtype = dtype
         self.conv = conv
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x.to(self.dtype), self.kernel)
+    def forward(self, x: torch.Tensor, w: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        """``w``, when given, stands in for ``kernel`` (``PallasConv``'s)."""
+        return self.conv(x.to(self.dtype), self.kernel if w is None else w)

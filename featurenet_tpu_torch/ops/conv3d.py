@@ -343,7 +343,9 @@ class PallasConv(nn.Module):
     differentiable cast, so the fp32 kernels see its values and its weight
     gradient comes back at its dtype, as the JAX ``_vjp_bwd`` returns
     ``dw.astype(w.dtype)``. ``conv`` is the function applied, the kernel's
-    wrapper unless a caller passes ``conv3d_plain``.
+    wrapper unless a caller passes ``conv3d_plain``. ``forward``'s ``w``,
+    when given, stands in for ``kernel`` (a model axis's kernel gathered
+    whole, ``models/featurenet.py``).
     """
 
     def __init__(self, cin: int, features: int, kernel_size: int,
@@ -356,9 +358,11 @@ class PallasConv(nn.Module):
         self.dtype = dtype
         self.conv = conv
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, w: torch.Tensor | None = None
+                ) -> torch.Tensor:
         with record_function("casts"):
-            x, w = x.float().contiguous(), self.kernel.float()
+            w = self.kernel if w is None else w
+            x, w = x.float().contiguous(), w.float()
         y = self.conv(x, w)
         with record_function("casts"):
             return y.to(self.dtype)
@@ -372,7 +376,8 @@ class HybridConv(nn.Module):
     module's ``_xla_conv`` and ``nn.Conv`` do; the weight gradient comes
     back at the kernel's dtype (fp32 for the masters, the working dtype for
     a reduced working copy). ``conv`` is ``conv3d_hybrid`` unless a caller passes
-    ``conv3d_hybrid_plain`` or ``conv3d_xla``.
+    ``conv3d_hybrid_plain`` or ``conv3d_xla``; ``forward``'s ``w`` as
+    ``PallasConv``'s.
     """
 
     def __init__(self, cin: int, features: int, kernel_size: int,
@@ -385,7 +390,8 @@ class HybridConv(nn.Module):
         self.dtype = dtype
         self.conv = conv
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, w: torch.Tensor | None = None
+                ) -> torch.Tensor:
         with record_function("casts"):
             x = x.to(self.dtype)
-        return self.conv(x, self.kernel)
+        return self.conv(x, self.kernel if w is None else w)

@@ -12,6 +12,14 @@ The JAX package computes the stride-1 conv outside any Pallas kernel
 (``_conv_s1`` hands it to XLA), so here it is ``F.conv3d``. ``F.conv3d``
 pads symmetrically, and the 5³/s4 stem's transformed kernel is 2 wide with
 padding (lo 0, hi 1), so the padding is applied with ``F.pad`` first.
+
+On a spatial model axis ``x`` is a rank's depth slab of the grid. The slab
+is transformed alone (its depth a multiple of the stride), and the caller's
+``halo`` gives the transformed slab its depth padding ``(lo, hi)`` as
+planes of the neighbours' transformed slabs (``parallel/mesh.py``
+``halo_exchange``; zeros at the grid's ends are the SAME padding): for
+abc128's 7³/s2 stem at R=128 over two ranks, rank r's output planes
+``32r … 32r+31`` read input planes ``64r-2 … 64r+67``.
 """
 
 from __future__ import annotations
@@ -80,19 +88,26 @@ def transform_weights(w: torch.Tensor, resolution: int, stride: int):
     return w2.reshape(k2, k2, k2, s ** 3 * cin, cout), pads
 
 
-def _conv_s1(x2: torch.Tensor, w2: torch.Tensor, pads) -> torch.Tensor:
+def _conv_s1(x2: torch.Tensor, w2: torch.Tensor, pads,
+             depth_pads=None) -> torch.Tensor:
     lo, hi = pads
-    xn = F.pad(x2.permute(0, 4, 1, 2, 3), (lo, hi) * 3)
+    dlo, dhi = pads if depth_pads is None else depth_pads
+    xn = F.pad(x2.permute(0, 4, 1, 2, 3), (lo, hi, lo, hi, dlo, dhi))
     y = F.conv3d(xn, w2.permute(4, 3, 0, 1, 2))
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def space_to_depth_conv(x: torch.Tensor, w: torch.Tensor,
-                        stride: int) -> torch.Tensor:
+def space_to_depth_conv(x: torch.Tensor, w: torch.Tensor, stride: int,
+                        halo=None) -> torch.Tensor:
     """Stride-``s`` SAME conv of ``x [B,R,R,R,Cin]`` with ``w
-    [K,K,K,Cin,Cout]``, computed as a stride-1 conv on s2d(x)."""
-    w2, pads = transform_weights(w, x.shape[1], stride)
-    return _conv_s1(space_to_depth(x, stride), w2, pads)
+    [K,K,K,Cin,Cout]``, computed as a stride-1 conv on s2d(x); with
+    ``halo(x2, lo, hi)``, of a depth slab ``x [B,R/M,R,R,Cin]`` (see the
+    module docstring)."""
+    w2, pads = transform_weights(w, x.shape[2], stride)
+    x2 = space_to_depth(x, stride)
+    if halo is None:
+        return _conv_s1(x2, w2, pads)
+    return _conv_s1(halo(x2, *pads), w2, pads, (0, 0))
 
 
 class SpaceToDepthConv(nn.Module):
@@ -107,7 +122,11 @@ class SpaceToDepthConv(nn.Module):
         self.stride = stride
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, w: torch.Tensor | None = None,
+                halo=None) -> torch.Tensor:
+        """``w``, when given, stands in for ``kernel``; ``halo`` as
+        ``space_to_depth_conv``'s."""
         with record_function("casts"):
-            x, w = x.to(self.dtype), self.kernel.to(self.dtype)
-        return space_to_depth_conv(x, w, self.stride)
+            w = self.kernel if w is None else w
+            x, w = x.to(self.dtype), w.to(self.dtype)
+        return space_to_depth_conv(x, w, self.stride, halo)

@@ -75,6 +75,14 @@ save path there and ``checkpoint_corrupt`` truncates rank 0's file. A
 resume is chosen by rank 0 alone (its walk-back, its cleanup and its
 fault sites) and broadcast; every other rank restores that step, so the
 world resumes from one step.
+
+On a model axis (``parallel/mesh.py``; a model laid on it by
+``FeatureNet.shard``) the sharded parameters and their moments are
+gathered whole on every rank of the save (the gathers are collectives of
+each data row), so the file has the layout of a one-process run, and a
+restore takes this rank's columns of each. A model-axis run resumes
+bitwise at the same axis, and a one-process ``cli train``, ``cli eval``
+or ``Predictor`` restores the same file.
 """
 
 from __future__ import annotations
@@ -93,7 +101,13 @@ import torch
 
 from featurenet_tpu_torch import faults, obs
 from featurenet_tpu_torch.config import Config, config_from_dict, config_to_dict
-from featurenet_tpu_torch.parallel.mesh import barrier, broadcast_int, rank_world
+from featurenet_tpu_torch.parallel.mesh import (
+    barrier,
+    broadcast_int,
+    gather_shards,
+    rank_world,
+    take_shard,
+)
 
 CONFIG_FILENAME = "config.json"
 
@@ -156,24 +170,41 @@ def _truncate(path: str) -> None:
 def _snapshot(state) -> dict:
     """A copy of ``state`` in the checkpoint's layout, cloned on the
     tensors' device (on the caller's stream, so it is ordered before the
-    next step's in-place updates)."""
+    next step's in-place updates); a model axis's shards gathered whole
+    (a collective: every rank of the model axis calls it)."""
     model = state.model
     opt = state.optimizer
     names = [n for n, _ in model.named_parameters()]
     if [id(p) for _, p in model.named_parameters()] != [id(p) for p in opt.params]:
         raise ValueError("the optimizer's parameters are not the model's, "
                          "in order; cannot key its moments by name")
+    dims = getattr(model, "shard_dims", {})
+
+    def whole(name: str, t: torch.Tensor) -> torch.Tensor:
+        t = t.detach()
+        if name in dims:
+            return gather_shards(t, model.axis, dims[name])
+        return t.clone()
+
     return {
         "step": int(state.step),
         "optimizer": opt.kind,
         # A device tensor until the writer has it on the host: reading it
         # here would wait for the step.
         "count": opt.count.detach().clone(),
-        "model": {k: v.detach().clone() for k, v in model.state_dict().items()},
-        "mu": {n: t.detach().clone() for n, t in zip(names, opt.mu)},
-        "nu": {n: t.detach().clone() for n, t in zip(names, opt.nu)},
+        "model": {k: whole(k, v) for k, v in model.state_dict().items()},
+        "mu": {n: whole(n, t) for n, t in zip(names, opt.mu)},
+        "nu": {n: whole(n, t) for n, t in zip(names, opt.nu)},
         **{k: getattr(state, k).detach().clone() for k in _SCALE_KEYS},
     }
+
+
+def _local(model, group: dict) -> dict:
+    """A checkpoint group's tensors as ``model`` holds them: this rank's
+    columns of each tensor its model axis shards."""
+    dims = getattr(model, "shard_dims", {})
+    return {k: take_shard(v, model.axis, dims[k]) if k in dims else v
+            for k, v in group.items()}
 
 
 def _check_tensors(what: str, got: dict, live: dict) -> None:
@@ -192,6 +223,8 @@ def _apply(state, payload: dict, optimizer: bool) -> None:
     ``optimizer`` the moments, count and step). Everything is checked
     before the first copy, so a refused payload leaves ``state`` as it
     was."""
+    payload = {**payload, **{g: _local(state.model, payload[g])
+                             for g in _GROUPS if g in payload}}
     live = state.model.state_dict()
     _check_tensors("model", payload["model"], live)
     if optimizer:
@@ -348,6 +381,9 @@ class CheckpointManager:
         t0 = time.perf_counter()
         self._saves += 1
         with obs.span("checkpoint_save", step=step):
+            # A model axis's shards are gathered by every rank.
+            snap = (_snapshot(state) if getattr(state.model, "shard_dims", None)
+                    else None)
             if rank == 0:
                 os.makedirs(self._dir, exist_ok=True)
                 self._write_config()
@@ -355,7 +391,7 @@ class CheckpointManager:
                                             save=self._saves)
                 if faults.maybe_fail("save_slow", save=self._saves):
                     time.sleep(faults.SLOW_SLEEP_S)  # on the save path here
-                snap = _snapshot(state)
+                snap = snap or _snapshot(state)
                 for key in _GROUPS:
                     snap[key] = {k: v.cpu() for k, v in snap[key].items()}
                 for key in _SCALE_KEYS:

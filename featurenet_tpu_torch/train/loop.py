@@ -108,7 +108,7 @@ exception or a segment's end closes it with its trace kept.
 
 Data parallelism (``parallel/mesh.py``): in a process group the Trainer
 lays its mesh over the world (``train_mesh``: ``cfg.mesh_model`` clamped
-to the world, a model axis above 1 refused) and feeds this rank's row
+to the world) and feeds this rank's row
 group of every global batch (``feed_shards``): the streamed datasets take
 ``num_hosts``/``host_id``, a resident split is the feed group's block
 (``materialize_split(multiple_of, num_shards, shard_id)``), and the step
@@ -119,9 +119,24 @@ event stream (``obs.init_run(process_index=rank)``: ``events.<rank>.jsonl``
 beside rank 0's ``events.jsonl``), rank 0 alone ``config.json`` and the
 TensorBoard scalars; checkpoints save in lockstep and resume from the step
 rank 0 chooses (``train/checkpoint.py``); ``loop_start`` carries the
-mesh's summary (backend included); ``host_loss`` fires on the last rank
-only. A k-step CUDA graph under a world of more than one process is
-refused (``runtime/registry.py`` ``TrainProgram``).
+mesh's summary (both axes, backend included); ``host_loss`` fires on the
+last rank only. A k-step CUDA graph under a world of more than one process
+is refused (``runtime/registry.py`` ``TrainProgram``).
+
+The model axis (``cfg.mesh_model`` above 1 once clamped): the model,
+built whole from the seed (or the ``state`` given), is laid on this
+rank's ``ModelAxis`` (``FeatureNet.shard``: its sharded parameters, and
+the optimizer's moments with them, become this rank's columns), so every
+model rank of a data row feeds the same rows (``feed_shards``) and, under
+``cfg.spatial``, computes on its depth slab of them; the exact eval's sums
+are all-reduced over the data axis alone, each model rank of a row having
+evaluated the same rows. ``hbm_cache`` with ``spatial`` stays refused
+(``Config.validate``), as the reference refuses it.
+
+TF32: the Trainer sets cuDNN's and cuBLAS's TF32 off
+(``precision.set_tf32``), so the fp32 convolutions and matmuls of every
+process that trains, ``cli train`` included, run in fp32 as its config
+states.
 
 Not ported: the reference's HBM clamp of k (a graph's private pool reuses
 each inner step's activations).
@@ -155,8 +170,10 @@ from featurenet_tpu_torch.ops.augment import cube_index_maps, group_count
 from featurenet_tpu_torch.ops.flops import train_step_flops_per_sample
 from featurenet_tpu_torch.parallel.mesh import (
     all_reduce_flat,
+    axis_of,
     feed_shards,
     mesh_summary,
+    model_axis,
     rank_world,
     train_mesh,
 )
@@ -164,6 +181,7 @@ from featurenet_tpu_torch.runtime import build_model, resolve_device
 from featurenet_tpu_torch.runtime.registry import TrainProgram
 from featurenet_tpu_torch.train.checkpoint import CheckpointManager, load_run_config
 from featurenet_tpu_torch.train.heartbeat import touch_heartbeat
+from featurenet_tpu_torch.train.precision import set_tf32
 from featurenet_tpu_torch.train.state import TrainState, create_state, param_count
 from featurenet_tpu_torch.train.supervisor import RESTART_EXIT_CODE
 from featurenet_tpu_torch.train.steps import (
@@ -172,6 +190,7 @@ from featurenet_tpu_torch.train.steps import (
     eval_step,
     make_resident_train_step,
     make_train_step,
+    model_slab,
     stream_seed,
     unpack_voxels,
 )
@@ -207,7 +226,8 @@ def evaluate(model, data, batches: int, device,
     rank walks its shard of the pass (``epoch_batches``), and in a process
     group of more than one the sums and the sample count are all-reduced,
     so every rank returns the global result (``batches`` counts this
-    rank's)."""
+    rank's); on a model axis over the data axis alone, the model ranks of
+    a data row having evaluated the same rows."""
     rows = []
 
     def step(batch):
@@ -228,21 +248,23 @@ def evaluate(model, data, batches: int, device,
         finally:
             stream.close()
     n_batches = len(sums)
-    if rank_world()[1] > 1:
-        sums, rows = _global_sums(sums, rows)
+    axis = axis_of(model)
+    if axis.data_size > 1:
+        sums, rows = _global_sums(sums, rows, axis.data_group)
     out = aggregate_eval(sums)
     out["batches"] = n_batches
     out["samples"] = int(sum(float(r) for r in rows))
     return out
 
 
-def _global_sums(sums: list[dict], rows: list) -> tuple[list[dict], list]:
-    """The world's totals of per-batch eval sums and mask rows, in float64
-    from one all-reduce."""
+def _global_sums(sums: list[dict], rows: list,
+                 group=None) -> tuple[list[dict], list]:
+    """The world's (or ``group``'s) totals of per-batch eval sums and mask
+    rows, in float64 from one all-reduce."""
     keys = sorted(sums[0])
     *totals, n = all_reduce_flat(
         [torch.stack([s[k].double() for s in sums]).sum(0) for k in keys]
-        + [torch.stack([r.double() for r in rows]).sum()])
+        + [torch.stack([r.double() for r in rows]).sum()], group=group)
     return [dict(zip(keys, totals))], [n]
 
 
@@ -279,6 +301,7 @@ class Trainer:
     def __init__(self, cfg: Config, device="cuda",
                  state: dict[str, torch.Tensor] | None = None, stream=None):
         self.cfg = cfg.validate_training()
+        set_tf32(cfg.train_precision)
         self.device = resolve_device(device)
         self.rank, self.world = rank_world()
         if cfg.run_dir:
@@ -307,8 +330,11 @@ class Trainer:
         model = build_model(cfg, seed=cfg.seed if state is None else None)
         if state is not None:
             model.load_state_dict(state)
-        self.state: TrainState = create_state(model.to(self.device), cfg)
         self.params_n = param_count(model)
+        if self.mesh.shape["model"] > 1:
+            # This rank's columns of the whole model, and its groups.
+            model.shard(model_axis(self.mesh, cfg.spatial))
+        self.state: TrainState = create_state(model.to(self.device), cfg)
         if cfg.init_from:
             saved = load_run_config(cfg.init_from)
             if saved is not None:
@@ -521,7 +547,8 @@ class Trainer:
             batch = next(it)
             gen.manual_seed(stream_seed(self.cfg.seed, i, "dropout"))
             voxels = unpack_voxels(torch.from_numpy(batch["voxels"]).to(self.device))
-            self.state.model(voxels, train=True, generator=gen)
+            self.state.model(model_slab(self.state.model, voxels), train=True,
+                             generator=gen)
 
     def resume_if_available(self) -> int:
         """Restore the newest good checkpoint of ``cfg.checkpoint_dir``, if

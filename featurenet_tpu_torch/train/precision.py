@@ -102,6 +102,18 @@ def get_policy(name: str) -> PrecisionPolicy:
     return POLICIES[name]
 
 
+def set_tf32(train_precision: str) -> None:
+    """The matmul precision of a process that trains under
+    ``train_precision``: cuDNN's and cuBLAS's TF32 off under every policy.
+    ``fp32`` states fp32, and PyTorch's default leaves cuDNN's convolutions
+    in TF32; the reduced policies compute their working copies in their own
+    dtype and the rest (batch norm, the loss, the update) in fp32, as the
+    reference does."""
+    get_policy(train_precision)  # refuse an unknown policy
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def initial_loss_scale(precision: str) -> float:
     """The loss scale a fresh state starts from: ``LOSS_SCALE_INIT`` under
     a loss-scaling policy, the inert 1.0 otherwise."""

@@ -18,6 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from featurenet_tpu_torch.parallel.mesh import axis_of
 from featurenet_tpu_torch.train.precision import (
     PrecisionPolicy,
     get_policy,
@@ -68,9 +69,15 @@ class TrainState:
 
 def create_state(model: torch.nn.Module, cfg) -> TrainState:
     """A step-0 state over ``model`` with ``cfg``'s optimizer and
-    ``cfg.train_precision``."""
-    return TrainState(model, make_optimizer(cfg, model.parameters()),
-                      precision=cfg.train_precision)
+    ``cfg.train_precision``. On a model axis (``FeatureNet.shard``) the
+    optimizer's moments take the parameters' shards, as the reference's
+    ``state_shardings`` lays them, and its norm counts each shard once."""
+    opt = make_optimizer(cfg, model.parameters())
+    axis = axis_of(model)
+    if axis.size > 1:
+        opt.shards = [k == "shard" for k in model.grad_kinds()]
+        opt.model_group = axis.group
+    return TrainState(model, opt, precision=cfg.train_precision)
 
 
 def param_count(model: torch.nn.Module) -> int:

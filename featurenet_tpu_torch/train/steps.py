@@ -88,6 +88,19 @@ local batch from its own block of the split, its ``rows`` stream seeded
 with its rank folded in, as the reference's resident draw folds the data
 axis index. Without a process group none of this runs.
 
+On a model axis (a model laid on it by ``FeatureNet.shard``) the ranks of
+one data row hold the same rows: the step augments them whole and, under
+``spatial``, hands the model this rank's depth slab (``model_slab``).
+``sync_gradients`` reduces each gradient by where it lives (the model's
+``grad_kinds``): a replicated parameter's slab or column partials are
+summed over the model axis and averaged over the data axis, a gradient
+already the same on every model rank is averaged over the data axis (one
+flat all-reduce over the world carries both, and the metrics), and a
+column shard is averaged over the data axis on its owner. The global norm
+(``grad_norm``, and ``grad_clip``'s) counts each shard once, the
+``fp16_scaled`` verdict is one for the model ranks, and the metrics, the
+same on every model rank, are counted once each.
+
 The update runs inside the profiler range ``optimizer``
 (``record_function``), beside the model's ``casts`` and ``bn_relu``.
 
@@ -123,6 +136,7 @@ from featurenet_tpu_torch.config import SEG_LOSSES
 from featurenet_tpu_torch.parallel.mesh import (
     all_reduce_flat,
     all_reduce_sum,
+    axis_of,
     in_world,
     rank_world,
 )
@@ -276,9 +290,20 @@ def segmentation_loss(logits: torch.Tensor, seg: torch.Tensor,
     return loss, {"loss": loss, "accuracy": acc, "fg_accuracy": fg_acc}
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``sqrt(Σ x²)`` over every element of every tensor (optax's)."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+def global_norm(tensors: Sequence[torch.Tensor],
+                shards: Optional[Sequence[bool]] = None,
+                group=None) -> torch.Tensor:
+    """``sqrt(Σ x²)`` over every element of every tensor (optax's). With
+    ``shards`` (one flag per tensor: a column shard of a model axis), the
+    shards' squares are summed over ``group``, the model axis, so each
+    shard counts once and every model rank gets the same norm."""
+    if shards is None or not any(shards):
+        return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    sq = [(t.float() * t.float()).sum() for t in tensors]
+    part = torch.stack([q for q, sh in zip(sq, shards) if sh]).sum()
+    whole = all_reduce_flat([part.reshape(1)], group=group)[0].reshape(())
+    rest = [q for q, sh in zip(sq, shards) if not sh]
+    return torch.sqrt(sum(rest) + whole)
 
 
 def make_lr_schedule(peak_lr: float, warmup_steps: int,
@@ -334,6 +359,10 @@ class Optimizer:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = ([torch.zeros_like(p) for p in self.params]
                    if kind != "sgd" else [])
+        # On a model axis: which parameters are column shards, and the
+        # model axis's group, so grad_clip's norm counts each shard once.
+        self.shards: Optional[list[bool]] = None
+        self.model_group = None
 
     @property
     def count(self) -> torch.Tensor:
@@ -360,7 +389,7 @@ class Optimizer:
         device."""
         grads = list(grads)
         if self.grad_clip > 0.0:
-            norm = global_norm(grads)
+            norm = global_norm(grads, self.shards, self.model_group)
             keep = norm < self.grad_clip
             grads = [torch.where(keep, g, g / norm * self.grad_clip)
                      for g in grads]
@@ -426,17 +455,49 @@ def loss_and_grads(model, voxels: torch.Tensor, labels: torch.Tensor,
     return grads, metrics
 
 
-def sync_gradients(grads, metrics: dict):
-    """In a process group: the world's mean of ``grads`` and of the metric
-    scalars, from one all-reduce of a flat buffer (a one-process world's
-    is the identity). Without one, both as they are."""
+def sync_gradients(grads, metrics: dict, model):
+    """In a process group: ``grads`` of ``model``'s parameters reduced by
+    where each lives on its mesh (``axis_of``; see the module docstring),
+    and the world's mean of the metric scalars; a data axis alone (no model
+    axis) takes the world's mean of every gradient, all from one all-reduce
+    of a flat buffer (a one-process world's is the identity). Without a
+    process group, both as they are."""
     if not in_world():
         return list(grads), metrics
-    keys = list(metrics)
-    out = all_reduce_flat([*grads, *(metrics[k].reshape(1) for k in keys)],
-                          mean=True)
-    n = len(out) - len(keys)
-    return out[:n], {k: v.reshape(()) for k, v in zip(keys, out[n:])}
+    keys, axis, grads = list(metrics), axis_of(model), list(grads)
+    # Without a model axis every gradient is the same kind.
+    kinds = (model.grad_kinds() if axis.size > 1
+             else ["replicated"] * len(grads))
+    world = [i for i, k in enumerate(kinds) if k != "shard"]
+    shards = [i for i, k in enumerate(kinds) if k == "shard"]
+    out = all_reduce_flat([*(grads[i] for i in world),
+                           *(metrics[k].reshape(1) for k in keys)])
+    synced = list(grads)
+    for i, g in zip(world, out):
+        # The world's sum: M equal copies of a replicated gradient, or the
+        # M parts of a partial one, on each of D data rows.
+        synced[i] = g / (axis.data_size * (axis.size if kinds[i] ==
+                                           "replicated" else 1))
+    if shards and axis.data_size > 1:
+        for i, g in zip(shards, all_reduce_flat(
+                [grads[i] for i in shards], mean=True, group=axis.data_group)):
+            synced[i] = g
+    ranks = axis.data_size * axis.size
+    return synced, {k: (v / ranks).reshape(())
+                    for k, v in zip(keys, out[len(world):])}
+
+
+def grad_norm(state, grads) -> torch.Tensor:
+    """The global norm of synced ``grads`` of ``state``'s parameters,
+    each column shard of a model axis counted once."""
+    opt = state.optimizer
+    return global_norm(grads, opt.shards, opt.model_group)
+
+
+def model_slab(model, voxels: torch.Tensor) -> torch.Tensor:
+    """This rank's depth slab of ``voxels`` on ``model``'s spatial model
+    axis, else ``voxels``."""
+    return axis_of(model).slab(voxels)
 
 
 def _scaled_update(state, voxels, labels, label_smoothing, generator,
@@ -454,14 +515,19 @@ def _scaled_update(state, voxels, labels, label_smoothing, generator,
     # Upcast first, then unscale: dividing in fp16 would overflow again.
     inv = 1.0 / scale
     grads = [g * inv for g in policy.master_grads(grads)]
-    # One verdict for the world: a rank's overflow is in the sum.
+    # One verdict for the world: a rank's overflow is in the sum (and a
+    # column shard's, on a model axis, in the model ranks' count).
     grads, metrics = sync_gradients(
-        grads, {k: v.detach() for k, v in metrics.items()})
+        grads, {k: v.detach() for k, v in metrics.items()}, model)
     finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    if state.optimizer.shards is not None:
+        bad = all_reduce_flat([(~finite).float().reshape(1)],
+                              group=state.optimizer.model_group)[0]
+        finite = (bad == 0).reshape(())
     with torch.no_grad():
         for b, old in zip(model.buffers(), stats):
             b.copy_(torch.where(finite, b, old))
-    metrics["grad_norm"] = global_norm(grads)
+    metrics["grad_norm"] = grad_norm(state, grads)
     # Applied where finite, as it was elsewhere; the step advances either way.
     state.apply_gradients(grads, finite)
     good = torch.where(finite, state.good_steps + 1,
@@ -529,6 +595,7 @@ def make_train_step(label_smoothing: float = 0.0, augment_groups: int = 0,
         else:
             voxels, target = step_voxels(batch["voxels"], codes, affine, flips,
                                          seg=batch["seg"])
+        voxels = model_slab(state.model, voxels)
         policy = state.policy
         if policy.loss_scaling:
             return _scaled_update(state, voxels, target, label_smoothing,
@@ -538,8 +605,8 @@ def make_train_step(label_smoothing: float = 0.0, augment_groups: int = 0,
                                         loss_fn=loss_fn)
         grads, metrics = sync_gradients(
             policy.master_grads(grads),
-            {k: v.detach() for k, v in metrics.items()})
-        metrics["grad_norm"] = global_norm(grads)
+            {k: v.detach() for k, v in metrics.items()}, state.model)
+        metrics["grad_norm"] = grad_norm(state, grads)
         state.apply_gradients(grads)
         return metrics
 
@@ -715,7 +782,8 @@ def eval_step(model, batch: dict, serve_precision: str = "fp32") -> dict:
     model's parameters (the masters as they are under ``fp32``)."""
     params = (None if serve_precision == "fp32" else
               serve_params_cast(dict(model.named_parameters()), serve_precision))
-    logits = forward_with(model, params, unpack_voxels(batch["voxels"]),
+    logits = forward_with(model, params,
+                          model_slab(model, unpack_voxels(batch["voxels"])),
                           train=False)
     mask = batch["mask"].float()
     pred = logits.argmax(dim=-1)

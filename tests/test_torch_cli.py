@@ -122,6 +122,21 @@ def test_cli_train_smoke16_on_cpu():
     assert 0.0 <= records[3]["accuracy"] <= 1.0
 
 
+def test_cli_train_under_fp32_turns_tf32_off(capsys, monkeypatch):
+    """``cli train`` of an fp32 config runs its fp32 convolutions and
+    matmuls in fp32: cuDNN's TF32 (on by PyTorch's default) and cuBLAS's
+    are off once the Trainer is built, whatever they were before."""
+    import torch
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    records = _main(capsys, "train", *TRAIN, "--total-steps", "1")
+    assert records[0]["config"]["train_precision"] == "fp32"
+    assert records[-1]["kind"] == "eval"
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
 def test_cli_train_refuses_missing_card():
     proc = _cli("train", "--config", "smoke16", "--total-steps", "1",
                 env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})

@@ -44,7 +44,14 @@ a complete bundle, and an armed service's answers bitwise a dark one's
 pod64 data-parallel rank's shapes (batch 128) against the plain versions,
 and two steps in a one-rank nccl world bitwise the same steps without a
 process group (``-k "pod64_rank or nccl"``); a one-slot ``cli train
---elastic`` whose child trains on the card (``-k elastic``).
+--elastic`` whose child trains on the card (``-k elastic``); the forward,
+dx and weight-gradient kernels at one abc128 model-axis rank's slab shapes
+(batch 32, a 64-plane half of the 64³ grid and its 32³ and 16³ halves,
+each with a halo plane each side) against the plain versions, and a
+two-rank ``cli --distributed train`` of abc128 at R=32 (spatial, model
+axis 2, over gloo on the one card) whose halo exchanges move CUDA tensors,
+its checkpoint evaluated by a one-process ``cli eval`` to the world's loss
+(``-k "abc128 or model_axis"``).
 
 These tests need an NVIDIA GPU and skip elsewhere. The repository's
 conftest imports JAX, which the GPU machine does not have, so run them
@@ -1612,3 +1619,92 @@ def test_one_slot_elastic_run_trains_on_the_card(cuda, tmp_path):
         manifest = json.load(fh)
     assert manifest["pid"] == spawn[0]["pid"]
     assert manifest["torch"]["device_count"] >= 1
+
+
+# abc128's 3³ blocks as one rank of its spatial model axis runs them (all
+# 32 rows, a halo'd half of each grid's depth): (grid, cin, cout).
+ABC128_SLAB_BLOCKS = [(64, 32, 64), (32, 64, 64), (32, 64, 128),
+                      (16, 128, 128), (16, 128, 256)]
+
+
+@pytest.mark.parametrize("r,cin,cout", ABC128_SLAB_BLOCKS)
+def test_abc128_slab_shapes_match_plain(cuda, r, cin, cout):
+    """conv3d_p's forward and dx and conv3d_dw at one abc128 model-axis
+    rank's slab shapes (batch 32, depth r/2 + 2 of an r³ grid) against the
+    plain versions."""
+    from featurenet_tpu_torch.ops import conv3d, conv_dw
+
+    g = torch.Generator(device=cuda).manual_seed(r + cin + cout)
+    d = r // 2 + 2
+    x = torch.randn((32, d, r, r, cin), device=cuda, generator=g)
+    w = torch.randn((3, 3, 3, cin, cout), device=cuda, generator=g)
+    w /= (27 * cin) ** 0.5
+    gy = torch.randn((32, d, r, r, cout), device=cuda, generator=g)
+    wd = w.flip(0, 1, 2).transpose(3, 4).contiguous()  # dx's kernel
+    for got, want in (
+            (lambda: conv3d.conv3d_p(x, w), lambda: conv3d.conv3d_plain(x, w)),
+            (lambda: conv3d.conv3d_fwd(gy, wd), lambda: conv3d.conv3d_plain(gy, wd)),
+            (lambda: conv3d.conv3d_dw(x, gy, 3),
+             lambda: conv_dw.conv_dw_plain(x, gy, 3))):
+        a, b = got(), want()
+        torch.cuda.synchronize()
+        assert float((a - b).abs().max()) <= 2e-5 * float(b.abs().max())
+        del a, b
+
+
+def test_model_axis_world_trains_abc128_slabs_on_the_card(cuda, tmp_path):
+    """Two ranks of ``cli --distributed train --config abc128`` at R=32
+    (spatial, model axis 2; gloo, both on the one card): the mesh's model
+    axis, each rank's 5 stride-1 blocks launching forward, dx and dW on its
+    slab every step and a forward an eval batch, the metrics equal on both
+    ranks, and a one-process ``cli eval`` of the world's checkpoint giving
+    the world's eval loss."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    ck, run = str(tmp_path / "ck"), str(tmp_path / "run")
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=port)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "featurenet_tpu_torch.cli", "--distributed",
+             "--distributed-timeout", "120", "train", "--config", "abc128",
+             "--resolution", "32", "--global-batch", "4", "--total-steps", "2",
+             "--eval-batches", "1", "--data-workers", "1",
+             "--checkpoint-dir", ck, "--run-dir", run],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, out[-2000:] + err[-3000:]
+        outs.append([json.loads(ln) for ln in out.splitlines()
+                     if ln.startswith("{")])
+    for recs in outs:
+        assert recs[0]["distributed"]["backend"] == "gloo"
+        launches = [r for r in recs if "launches" in r][-1]["launches"]
+        assert launches["conv3d_fwd"] == 2 * 10 + 5
+        assert launches["conv3d_dw"] == 2 * 5
+    evals = [[r for r in recs if r.get("kind") == "eval"][-1] for recs in outs]
+    assert evals[0] == evals[1]
+    with open(os.path.join(run, "events.jsonl")) as fh:
+        start = [json.loads(ln) for ln in fh if '"loop_start"' in ln][0]
+    assert start["mesh"]["model"] == 2 and start["mesh"]["data"] == 1
+    out = subprocess.run(
+        [sys.executable, "-m", "featurenet_tpu_torch.cli", "eval",
+         "--checkpoint-dir", ck], cwd=root, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = [json.loads(ln) for ln in out.stdout.splitlines()
+           if ln.startswith("{")][-1]["eval"]
+    assert got["samples"] == evals[0]["samples"]
+    np.testing.assert_allclose(got["loss"], evals[0]["loss"], rtol=1e-5)

@@ -17,6 +17,7 @@ host-sharded feeds against the JAX package's, in one process on the CPU.
 The two-process world itself is ``tests/test_torch_multiproc.py``.
 """
 
+import dataclasses
 import json
 import types
 
@@ -143,17 +144,26 @@ def test_abc128_model_axis_clamps_to_one_process(capsys):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(mesh_model=2), "tensor parallelism"),
-    (dict(mesh_model=2, spatial=True), "spatial"),
+    (dict(mesh_model=2, task="segment"), "task='segment'"),
+    (dict(mesh_model=2, spatial=True, resolution=48, arch=dataclasses.replace(
+        get_config("abc128").arch, conv_backend="pallas")), "split evenly"),
 ])
 def test_a_model_axis_above_one_is_refused(monkeypatch, over, match):
-    """In a world of two processes a model axis of 2 survives the clamp, and
-    only the data axis is ported."""
+    """In a world of two processes a model axis of 2 survives the clamp;
+    what is still refused on it is a segmenter, and a depth that the model
+    axis cannot split evenly at every pool (abc128's arch at 48³: 24 planes
+    a slab, 6 at its third pool), while the same depth at model 1 and the
+    model axis without spatial pass."""
     monkeypatch.setattr(mesh, "rank_world", lambda: (0, 2))
     with pytest.raises(ValueError, match=match):
         mesh.train_mesh(get_config("smoke16", **over))
     m = mesh.train_mesh(get_config("smoke16"))
     assert m.shape == {"data": 2, "model": 1}
+    m = mesh.train_mesh(get_config("smoke16", **{**over, "mesh_model": 1}))
+    assert m.shape == {"data": 2, "model": 1}
+    if over.get("spatial"):
+        m = mesh.train_mesh(get_config("smoke16", **{**over, "spatial": False}))
+        assert m.shape == {"data": 1, "model": 2}
 
 
 def test_train_program_refuses_a_multi_process_mesh():
